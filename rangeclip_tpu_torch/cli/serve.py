@@ -1,0 +1,310 @@
+"""Segmentation inference server (port of ``rangeclip_tpu/cli/serve.py``).
+
+Same HTTP API as the JAX server:
+
+  POST /segment     body: 16-bit depth PNG (or float32 .npy)
+                    -> JSON {shape, top1: [[ids]], classes_present: {...}}
+  POST /segment?raw=1  -> raw int32 top-1 label map bytes
+  GET  /healthz     -> {"status": "ok", "device": ..., "resolution": ...}
+  GET  /stats       -> request count + latency percentiles
+
+One worker thread owns the model and drains a bounded queue, batching up
+to --batch_size requests per device call (the batch is padded to a fixed
+shape); HTTP threads only decode and encode.  Weights come from a reference
+``.pth`` checkpoint (``--checkpoint_path``), the format that
+``python -m rangeclip_tpu.cli.convert --to_pth`` writes.  The device is
+``--device`` (default cuda); the CPU is used only when asked for.
+
+Not ported yet: ``--predict_path default`` and the unfolded path that
+``auto`` takes for large label tables (ROADMAP slice 2), multi-device
+serving (``--data_parallel``) and real CLIP text towers (labels are
+embedded with the deterministic hash stub).
+"""
+
+from __future__ import annotations
+
+import argparse
+import io
+import json
+import queue
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import numpy as np
+import torch
+
+from rangeclip_tpu_torch.data.labels import load_candidate_labels
+from rangeclip_tpu_torch.data.transforms import depth_transform
+from rangeclip_tpu_torch.models.clip.provider import HashTextEmbedder
+from rangeclip_tpu_torch.models.depth_unet import (
+    DepthUNet,
+    DepthUNetConfig,
+    folded_is_profitable,
+    fused_head_ok,
+    predict_folded,
+)
+from rangeclip_tpu_torch.models.interop import load_reference_pth
+from rangeclip_tpu_torch.utils.device import describe_device, resolve_device
+
+UNFOLDED_MESSAGE = (
+    "the unfolded predict path (DepthUNet.predict with pixel_text_topk) is "
+    "not ported yet: ROADMAP slice 2")
+
+
+def build_engine(args, config_overrides=None):
+    """-> (predict, model, labels, device): ``predict(batch)`` maps a
+    [B, H, W, 1] float32 numpy batch to [B, H, W, k] int32 ids on the
+    device.  ``config_overrides`` adjusts DepthUNetConfig fields beyond
+    the flags (a test's narrow widths)."""
+    device = resolve_device(args.device)
+    labels = load_candidate_labels(args.labels_path)
+    num_classes = len(labels)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    if args.predict_path == "default" or (
+            args.predict_path == "auto" and not folded_is_profitable(
+                num_classes, args.embedding_dim,
+                fused_ok=fused_head_ok(args.batch_size, num_classes, dtype,
+                                       device))):
+        raise NotImplementedError(UNFOLDED_MESSAGE)
+
+    cfg = DepthUNetConfig(
+        unet_type=args.unet_architecture, embedding_dim=args.embedding_dim,
+        use_batch_norm=True, dtype=torch.bfloat16 if args.bf16 else None,
+        **(config_overrides or {}))
+    model = DepthUNet(cfg, device=device)
+    model.load_state_dict(load_reference_pth(args.checkpoint_path),
+                          strict=True)
+    model.eval()
+    text_table = torch.from_numpy(
+        HashTextEmbedder(dim=args.embedding_dim)(labels)).to(device)
+
+    def predict(batch: np.ndarray) -> torch.Tensor:
+        # grad mode is per thread: the worker thread sets its own
+        with torch.inference_mode():
+            depth = torch.from_numpy(batch).to(device)
+            return predict_folded(model, depth, text_table, top_k=args.top_k)
+
+    # warm up once so the first request pays no one-time cost
+    # (kernel build, cuDNN algorithm choice)
+    predict(np.zeros((args.batch_size, args.height, args.width, 1),
+                     np.float32))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return predict, model, labels, device
+
+
+class Engine:
+    """Device worker: drains the queue, micro-batches up to batch_size."""
+
+    def __init__(self, predict, batch_size, size):
+        self.predict = predict
+        self.batch_size = batch_size
+        self.size = size
+        self.queue: "queue.Queue" = queue.Queue(maxsize=64)
+        self.latencies = []
+        self.count = 0
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def submit(self, depth_hw: np.ndarray) -> np.ndarray:
+        done = threading.Event()
+        slot = {}
+        self.queue.put((depth_hw, slot, done))
+        done.wait()
+        if "error" in slot:
+            raise RuntimeError(slot["error"])
+        return slot["topk"]
+
+    def close(self, timeout: float = 10.0) -> None:
+        """Stop the worker after the requests already queued."""
+        self.queue.put(None)
+        self._thread.join(timeout)
+
+    def _complete(self, dev_topk, items, t0):
+        try:
+            topk = dev_topk.cpu().numpy()  # waits for the device
+            for i, (_, slot, done) in enumerate(items):
+                slot["topk"] = topk[i]
+                done.set()
+        except Exception as e:  # surface device errors to the client
+            for _, slot, done in items:
+                slot["error"] = str(e)
+                done.set()
+        self.count += len(items)
+        self.latencies.append(time.perf_counter() - t0)
+        if len(self.latencies) > 1000:
+            del self.latencies[:500]
+
+    def _worker(self):
+        # One batch in flight: batch N's device-to-host copy happens after
+        # batch N+1 is queued on the device, so under load the copy
+        # overlaps the next batch's compute.  When the queue is idle (2 ms
+        # poll) the pending batch completes at once.
+        pending = None  # (device topk, items, t0)
+        while True:
+            first = None
+            if pending is None:
+                first = self.queue.get()
+            else:
+                try:
+                    first = self.queue.get(timeout=0.002)
+                except queue.Empty:
+                    self._complete(*pending)
+                    pending = None
+                    continue
+            if first is None:  # close()
+                if pending is not None:
+                    self._complete(*pending)
+                return
+            items = [first]
+            while len(items) < self.batch_size:
+                try:
+                    item = self.queue.get_nowait()
+                except queue.Empty:
+                    break
+                if item is None:
+                    self.queue.put(None)  # stop after this batch
+                    break
+                items.append(item)
+            t0 = time.perf_counter()
+            try:
+                batch = np.zeros((self.batch_size, *self.size, 1), np.float32)
+                for i, (d, _, _) in enumerate(items):
+                    batch[i, :, :, 0] = d
+                dev_topk = self.predict(batch)  # asynchronous on CUDA
+            except Exception as e:
+                for _, slot, done in items:
+                    slot["error"] = str(e)
+                    done.set()
+                continue  # the pending batch is unaffected
+            if pending is not None:
+                self._complete(*pending)
+            pending = (dev_topk, items, t0)
+
+
+def make_handler(engine: Engine, labels, size, device: torch.device):
+    device_name = describe_device(device)
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):  # quiet
+            pass
+
+        def _send(self, code, body, ctype="application/json"):
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path.startswith("/healthz"):
+                self._send(200, json.dumps({
+                    "status": "ok",
+                    "device": device_name,
+                    "resolution": list(size),
+                    "num_classes": len(labels),
+                }).encode())
+            elif self.path.startswith("/stats"):
+                lat = sorted(engine.latencies) or [0.0]
+                self._send(200, json.dumps({
+                    "requests": engine.count,
+                    "p50_ms": round(1e3 * lat[len(lat) // 2], 2),
+                    "p95_ms": round(1e3 * lat[int(len(lat) * 0.95)], 2),
+                }).encode())
+            else:
+                self._send(404, b'{"error": "not found"}')
+
+        def do_POST(self):
+            if not self.path.startswith("/segment"):
+                self._send(404, b'{"error": "not found"}')
+                return
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                raw = self.rfile.read(n)
+                if raw[:6] == b"\x93NUMPY":
+                    depth = np.load(io.BytesIO(raw)).astype(np.float32)
+                else:
+                    from PIL import Image  # only PNG bodies need it
+
+                    depth = np.asarray(
+                        Image.open(io.BytesIO(raw)).convert("I"), np.float32)
+                depth = depth_transform(depth, size)
+                topk = engine.submit(depth)
+                top1 = topk[:, :, 0].astype(np.int32)
+                if "raw=1" in (self.path.split("?", 1) + [""])[1]:
+                    self._send(200, top1.tobytes(),
+                               "application/octet-stream")
+                    return
+                present = [int(c) for c in np.unique(top1)]
+                self._send(200, json.dumps({
+                    "shape": list(top1.shape),
+                    "top1": top1.tolist(),
+                    "classes_present": {
+                        str(c): labels[c] for c in present
+                        if 0 <= c < len(labels)
+                    },
+                }).encode())
+            except Exception as e:
+                self._send(400, json.dumps({"error": str(e)}).encode())
+
+    return Handler
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--checkpoint_path", required=True,
+                        help="reference-format .pth weights")
+    parser.add_argument("--labels_path", required=True)
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=8477)
+    parser.add_argument("--batch_size", type=int, default=8)
+    parser.add_argument("--height", type=int, default=256)
+    parser.add_argument("--width", type=int, default=256)
+    # /segment exposes only the top-1 map, and top-1 of a top-k is the
+    # argmax, so k=1 by default.
+    parser.add_argument("--top_k", type=int, default=1)
+    parser.add_argument("--predict_path", choices=("auto", "folded",
+                                                    "default"),
+                        default="auto",
+                        help="'folded' contracts the output conv with the "
+                        "text table; 'auto' folds while the class count "
+                        "allows it; 'default' (the unfolded path) is not "
+                        "ported yet")
+    parser.add_argument("--embedding_dim", type=int, default=512)
+    parser.add_argument("--unet_architecture", default="resnet")
+    parser.add_argument("--bf16", action="store_true")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu; nothing falls back")
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    if not args.bf16:
+        # fp32 is the parity mode: keep cuDNN off TF32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    predict, _, labels, device = build_engine(args)
+    size = (args.height, args.width)
+    engine = Engine(predict, args.batch_size, size)
+
+    class Server(ThreadingHTTPServer):
+        # The default backlog (5) drops bursty clients; the bounded engine
+        # queue is the real admission control.
+        request_queue_size = 128
+
+    server = Server((args.host, args.port),
+                    make_handler(engine, labels, size, device))
+    print(f"Serving on http://{args.host}:{args.port} "
+          f"(batch {args.batch_size} @ {args.height}x{args.width}, "
+          f"{describe_device(device)})")
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+        engine.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,294 @@
+"""DepthUNet and the folded labels-only predict
+(``rangeclip_tpu/models/depth_unet.py``).
+
+Public functions keep the JAX package's layouts: depth [B, H, W] or
+[B, H, W, 1], fields NHWC, top-k ids [B, H, W, k] int32.  Inside, the
+network runs NCHW in ``channels_last``, so an NHWC view of any activation
+is free.
+
+Kernel dispatch follows the JAX package, with "kernels available" meaning
+"the tensors are on a CUDA device": the hand-written kernels for CUDA
+tensors, their plain PyTorch versions for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from rangeclip_tpu_torch.models.decoder import DepthDecoder
+from rangeclip_tpu_torch.models.encoder import DepthEncoder
+from rangeclip_tpu_torch.ops.kernels.class_presence import class_presence
+from rangeclip_tpu_torch.ops.kernels.conv_score_topk import (
+    conv_score_topk,
+    fold_to_rows,
+    fused_conv_topk_applicable,
+)
+from rangeclip_tpu_torch.ops.kernels.score_topk import score_topk
+from rangeclip_tpu_torch.ops.resize import resize_nearest
+from rangeclip_tpu_torch.utils.math import l2_normalize
+
+SLOT_MULTIPLE = 128  # slot padding of the kernel paths (the JAX lane width)
+
+
+@dataclasses.dataclass(frozen=True)
+class DepthUNetConfig:
+    """The JAX config's model fields.  ``dtype`` is the compute dtype
+    (None: float32); parameters stay float32 either way."""
+
+    unet_type: str = "resnet"
+    n_layer: int = 18
+    input_channels: int = 1
+    encoder_filters: Tuple[int, ...] = (32, 64, 128, 256, 512)
+    embedding_dim: int = 512
+    weight_initializer: str = "kaiming_uniform"
+    activation: str = "relu"
+    use_batch_norm: bool = True
+    temperature_text: float = 0.07
+    temperature_image: float = 0.1
+    dtype: Optional[torch.dtype] = None
+
+
+class DepthUNet(nn.Module):
+    """Depth map -> per-pixel CLIP-space embedding field."""
+
+    def __init__(self, config: DepthUNetConfig = DepthUNetConfig(),
+                 device: Optional[torch.device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if config.unet_type != "resnet":
+            raise NotImplementedError(
+                f"unet_type {config.unet_type!r} is not ported yet (the MiT "
+                "encoder is ROADMAP slice 4)")
+        self.config = config
+        common = dict(weight_initializer=config.weight_initializer,
+                      activation=config.activation,
+                      use_batch_norm=config.use_batch_norm, device=device,
+                      generator=generator)
+        filters = tuple(config.encoder_filters)
+        self.encoder = DepthEncoder(config.n_layer, filters,
+                                    config.embedding_dim,
+                                    config.input_channels, **common)
+        self.decoder = DepthDecoder(tuple(reversed(filters)),
+                                    tuple(reversed(filters[:-1])),
+                                    config.embedding_dim,
+                                    config.embedding_dim, **common)
+        self.log_temperature_text = nn.Parameter(torch.log(torch.tensor(
+            config.temperature_text, dtype=torch.float32, device=device)))
+        self.log_temperature_image = nn.Parameter(torch.log(torch.tensor(
+            config.temperature_image, dtype=torch.float32, device=device)))
+        self.to(memory_format=torch.channels_last)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return self.config.dtype or torch.float32
+
+    def _encode(self, depth: torch.Tensor):
+        if depth.dim() == 3:
+            depth = depth[..., None]
+        x = depth.permute(0, 3, 1, 2).to(dtype=self.compute_dtype,
+                                         memory_format=torch.channels_last)
+        _, features, aspp = self.encoder(x)
+        return aspp, features
+
+    def forward(self, depth: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """depth [B, H, W(, 1)] -> (L2-normalised pixel embeddings
+        [B, H, W, D], temperature_text, temperature_image).  BatchNorm runs
+        in the module's mode: call ``eval()`` for inference."""
+        target_shape = tuple(depth.shape[1:3])
+        field = self.decoder(*self._encode(depth))
+        # normalize and nearest-upsample are per-pixel, so their order is
+        # free; normalizing at H/2 touches 4x fewer pixels
+        field = l2_normalize(field.permute(0, 2, 3, 1), dim=-1)
+        return (resize_nearest(field, target_shape),
+                self.log_temperature_text.exp(),
+                self.log_temperature_image.exp())
+
+    def decode_features(self, depth: torch.Tensor) -> torch.Tensor:
+        """Pre-head decoder features [B, H/2, W/2, n_filters[-1]] (NHWC
+        view of a channels_last tensor): the input of the output conv."""
+        return self.decoder(*self._encode(depth),
+                            apply_head=False).permute(0, 2, 3, 1)
+
+
+@torch.no_grad()
+def predict_folded(
+    model: DepthUNet,
+    depth: torch.Tensor,
+    candidate_text_embeddings: torch.Tensor,
+    candidate_mask: Optional[torch.Tensor] = None,
+    top_k: int = 5,
+    candidate_indices: Optional[torch.Tensor] = None,
+    candidate_ids: Optional[torch.Tensor] = None,
+    want_values: bool = False,
+    upsample: bool = True,
+    max_candidate_id: Optional[int] = None,
+):
+    """Labels-only predict with the output conv folded into the scoring.
+
+    The head is top-k_c(normalize(conv3x3(x, W)) . t_c).  The conv is
+    bias-free and linear, so conv(x, W) . t_c == conv(x, W . t_c): one
+    contraction of W with the normalised candidate table gives a conv
+    straight to the S candidate scores, and the per-pixel normalisation,
+    which scales every score of a pixel alike, is skipped.
+
+    Candidate forms, as in the JAX function: ``candidate_indices`` ([S]
+    ascending class ids, -1 padded) gathers the table rows;
+    ``candidate_ids`` says the table rows already are the candidates, with
+    ``max_candidate_id`` their static bound; otherwise the full table, with
+    ``candidate_mask`` marking dead classes.  ``want_values`` also returns
+    the winning (un-normalised) scores; ``upsample=False`` keeps the native
+    H/2 resolution.
+
+    Dispatch: on CUDA the slot count is padded to a multiple of 128 with
+    dead (-1) slots; bf16 features that pass ``fused_conv_topk_applicable``
+    take the fused conv+select kernel, everything else a plain conv to
+    scores and the ``score_topk`` kernel.  On the CPU the same steps run
+    with the kernels' plain versions.
+
+    Returns ids [B, H, W, k] int32 in the global label space (or
+    [B, h, w, k] without upsample), with ``want_values`` an (ids, values)
+    tuple.
+    """
+    if model.training:
+        raise ValueError("predict_folded needs the model in eval mode "
+                         "(BatchNorm running statistics): call model.eval()")
+    if depth.dim() == 3:
+        depth = depth[..., None]
+    target_shape = tuple(depth.shape[1:3])
+    features = model.decode_features(depth)
+    B, h, w, _ = features.shape
+    device = features.device
+    W = model.decoder.output_conv.conv.weight  # [D, C_in, 3, 3]
+
+    table = candidate_text_embeddings.to(device)
+    if candidate_ids is not None:
+        ids = candidate_ids.to(device, torch.int32)
+        id_bound = max_candidate_id
+    elif candidate_indices is not None:
+        ids = candidate_indices.to(device, torch.int32)
+        table = table[ids.clamp_min(0).long()]
+        id_bound = candidate_text_embeddings.shape[0] - 1
+    else:
+        C = table.shape[0]
+        ids = torch.arange(C, dtype=torch.int32, device=device)
+        if candidate_mask is not None:
+            ids = torch.where(candidate_mask.to(device), ids, -1)
+        id_bound = C - 1
+    kernels = device.type == "cuda"
+    if kernels and table.shape[0] % SLOT_MULTIPLE:
+        pad = SLOT_MULTIPLE - table.shape[0] % SLOT_MULTIPLE
+        table = F.pad(table, (0, 0, 0, pad))
+        ids = F.pad(ids, (0, pad), value=-1)
+    text = l2_normalize(table.float(), dim=-1)
+    folded = torch.einsum("diyx,sd->siyx", W.float(), text).to(features.dtype)
+    S = folded.shape[0]
+
+    if (kernels and features.dtype == torch.bfloat16
+            and fused_conv_topk_applicable(features.shape, S, id_bound)):
+        idx, val = conv_score_topk(features.contiguous(), fold_to_rows(folded),
+                                   ids, top_k=top_k, want_values=want_values)
+    else:
+        scores = F.conv2d(features.permute(0, 3, 1, 2),
+                          folded.contiguous(memory_format=torch.channels_last),
+                          padding=1)
+        idx, val = score_topk(scores.permute(0, 2, 3, 1).contiguous(), ids,
+                              top_k=top_k, want_values=want_values,
+                              max_id=id_bound)
+    topk = idx.reshape(B, h, w, top_k)
+    values = val.reshape(B, h, w, top_k) if want_values else None
+    if upsample and (h, w) != target_shape:
+        topk = resize_nearest(topk, target_shape)
+        if want_values:
+            values = resize_nearest(values, target_shape)
+    return (topk, values) if want_values else topk
+
+
+def folded_is_profitable(num_slots: int, embedding_dim: int = 512,
+                         fused_ok: bool = False) -> bool:
+    """The JAX package's rule for ``--predict_path auto``: fold while the
+    padded slot count stays within 1.5x the embedding dim, or always when
+    the fused conv+select kernel applies.  The crossover was measured on a
+    TPU and is kept only so that dispatch matches; it is to be re-derived
+    on the H100."""
+    if fused_ok:
+        return True
+    padded = -(-num_slots // SLOT_MULTIPLE) * SLOT_MULTIPLE
+    return padded <= (3 * embedding_dim) // 2
+
+
+def fused_head_ok(batch: int, num_classes: int, dtype: torch.dtype,
+                  device: torch.device) -> bool:
+    """Will ``predict_folded`` over a full table of ``num_classes`` rows take
+    the fused kernel?  Unlike the JAX helper, this checks the compute dtype
+    and the global id bound (ids 0..C-1 < 2**16), not only the batch."""
+    return (device.type == "cuda" and dtype == torch.bfloat16
+            and batch % 128 == 0 and num_classes - 1 < 2 ** 16)
+
+
+def sample_gumbel(num_classes: int,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """[C] standard Gumbel noise, drawn on the CPU from ``generator``."""
+    u = torch.rand(num_classes, generator=generator).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def build_candidate_mask(segmentation: torch.Tensor, num_classes: int,
+                         num_negatives: int,
+                         gumbel: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
+    """[C] bool mask: the classes present in ``segmentation`` plus
+    ``num_negatives`` others drawn without replacement (Gumbel top-k over
+    the complement).  ``gumbel`` ([C]) is the noise; without it, noise is
+    drawn from ``generator``.  JAX draws its noise inside the function from
+    a key; passing the same draw here gives the same mask."""
+    device = segmentation.device
+    labels = segmentation.reshape(-1).to(torch.int32).contiguous()
+    gt_mask = class_presence(
+        labels, torch.ones(labels.shape, dtype=torch.float32, device=device),
+        num_classes)
+    if gumbel is None:
+        gumbel = sample_gumbel(num_classes, generator)
+    scores = torch.where(gt_mask, -math.inf,
+                         gumbel.to(device, torch.float32))
+    picked, neg_idx = torch.topk(scores, min(num_negatives, num_classes))
+    neg_mask = torch.zeros(num_classes, dtype=torch.bool, device=device)
+    neg_mask.scatter_(0, neg_idx, torch.isfinite(picked))
+    return gt_mask | neg_mask
+
+
+def candidate_indices_from_mask(candidate_mask: torch.Tensor,
+                                capacity: int) -> torch.Tensor:
+    """[C] bool mask -> [capacity] int32 class ids, ascending, -1 padded
+    (classes beyond the capacity are dropped, largest ids first)."""
+    C = candidate_mask.shape[0]
+    device = candidate_mask.device
+    score = torch.where(
+        candidate_mask,
+        C - torch.arange(C, dtype=torch.int32, device=device), 0)
+    val, idx = torch.topk(score, min(capacity, C))
+    idx = torch.where(val > 0, idx.to(torch.int32), -1)
+    if capacity > C:
+        idx = F.pad(idx, (0, capacity - C), value=-1)
+    return idx
+
+
+def build_candidate_indices(segmentation: torch.Tensor, num_classes: int,
+                            num_negatives: int, capacity: int,
+                            gumbel: Optional[torch.Tensor] = None,
+                            generator: Optional[torch.Generator] = None
+                            ) -> torch.Tensor:
+    """:func:`build_candidate_mask` as a fixed-capacity ascending index
+    list, the form ``predict_folded(candidate_indices=...)`` takes."""
+    mask = build_candidate_mask(segmentation, num_classes, num_negatives,
+                                gumbel, generator)
+    return candidate_indices_from_mask(mask, capacity)

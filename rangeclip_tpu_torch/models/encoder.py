@@ -1,0 +1,79 @@
+"""ResNet depth encoder (``rangeclip_tpu/models/encoder.py``).
+
+7x7 stride-2 conv, 3x3 stride-2 max-pool (pad 1), four groups of basic
+ResNet blocks (groups 2-4 stride 2 on their first block), a global-pool MLP
+projection head giving an L2-normalised embedding, and ASPP on the last
+feature map.  State-dict keys follow the reference: ``conv1``,
+``blocks.{g}.{b}``, ``projection_head.{0,2}``, ``aspp``.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from rangeclip_tpu_torch.ops.aspp import ASPP
+from rangeclip_tpu_torch.ops.blocks import Conv2d, ResNetBlock
+from rangeclip_tpu_torch.ops.initializers import init_bias_, init_weight_
+from rangeclip_tpu_torch.utils.math import l2_normalize
+
+_BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
+
+
+class DepthEncoder(nn.Module):
+    def __init__(self, n_layer: int = 18,
+                 n_filters: Sequence[int] = (32, 64, 128, 256, 512),
+                 embedding_dim: int = 512, input_channels: int = 1,
+                 weight_initializer: str = "kaiming_uniform",
+                 activation: str = "relu", use_batch_norm: bool = False,
+                 device: Optional[torch.device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if n_layer not in _BLOCKS:
+            raise NotImplementedError(
+                f"ResNet-{n_layer} is not ported (18 and 34 are; the "
+                "bottleneck blocks of ResNet-50 are not)")
+        common = dict(weight_initializer=weight_initializer,
+                      activation=activation, use_batch_norm=use_batch_norm,
+                      device=device, generator=generator)
+        self.conv1 = Conv2d(input_channels, n_filters[0], 7, 2, **common)
+        self.blocks = nn.ModuleList()
+        in_ch = n_filters[0]
+        for g, (n_filter, n_block) in enumerate(
+                zip(n_filters[1:], _BLOCKS[n_layer])):
+            group = nn.ModuleList()
+            for b in range(n_block):
+                stride = 2 if (b == 0 and g > 0) else 1
+                group.append(ResNetBlock(in_ch, n_filter, stride, **common))
+                in_ch = n_filter
+            self.blocks.append(group)
+        final = n_filters[-1]
+        self.projection_head = nn.Sequential(
+            nn.Linear(final, final, device=device), nn.ReLU(),
+            nn.Linear(final, embedding_dim, device=device))
+        for linear in (self.projection_head[0], self.projection_head[2]):
+            init_weight_(linear.weight, "kaiming_uniform", generator)
+            init_bias_(linear.bias, final, generator)
+        self.aspp = ASPP(final, embedding_dim, device=device,
+                         generator=generator)
+
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor]:
+        """x: [B, C_in, H, W].  Returns (embedding [B, D], the skip list
+        [conv1@H/2, g1@H/4, g2@H/8, g3@H/16, g4@H/32], ASPP map @H/32)."""
+        features = []
+        x = self.conv1(x)
+        features.append(x)
+        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        for group in self.blocks:
+            for block in group:
+                x = block(x)
+            features.append(x)
+        fc1, fc2 = self.projection_head[0], self.projection_head[2]
+        h = x.mean(dim=(2, 3))
+        h = F.relu(F.linear(h, fc1.weight.to(h.dtype), fc1.bias.to(h.dtype)))
+        h = F.linear(h, fc2.weight.to(h.dtype), fc2.bias.to(h.dtype))
+        return l2_normalize(h, dim=-1), features, self.aspp(x)

@@ -1,0 +1,71 @@
+"""ASPP with GroupNorm, as used inside the depth encoder
+(``rangeclip_tpu/ops/aspp.py``).
+
+Branches with dilation 1 (a 1x1 conv) and 6/12/18 (3x3, padding = dilation),
+each conv(bias=False) -> GroupNorm(32, eps 1e-5) -> ReLU; a global-average-
+pool branch broadcast back to the map (a bilinear align_corners upsample of
+a 1x1 map is a broadcast); concat -> 1x1 projection -> GN -> ReLU -> L2
+normalisation over channels.  The ``nn.Sequential`` indices reproduce the
+reference's state-dict keys: ``branches.{k}.{0,1}``, ``global_pool.{1,2}``
+(index 0 is the pooling) and ``project.{0,1}``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from rangeclip_tpu_torch.ops.blocks import conv2d
+from rangeclip_tpu_torch.ops.initializers import init_weight_
+from rangeclip_tpu_torch.utils.math import l2_normalize
+
+
+def _conv_gn_relu(in_channels: int, features: int, kernel_size: int,
+                  dilation: int, num_groups: int, device, generator):
+    padding = dilation if kernel_size > 1 else 0
+    conv = nn.Conv2d(in_channels, features, kernel_size, padding=padding,
+                     dilation=dilation, bias=False, device=device)
+    init_weight_(conv.weight, "kaiming_uniform", generator)
+    return [conv, nn.GroupNorm(num_groups, features, eps=1e-5, device=device),
+            nn.ReLU()]
+
+
+def _apply(conv: nn.Conv2d, gn: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
+    """conv in ``x``'s dtype, GroupNorm in float32, ReLU.  (``torch.
+    group_norm``: F.group_norm refuses groups of one value, which the
+    reference computes, e.g. a 1x1 map with one channel per group.)"""
+    y = conv2d(conv, x)
+    y = torch.group_norm(y.float(), gn.num_groups, gn.weight, gn.bias, gn.eps)
+    return F.relu(y.to(x.dtype))
+
+
+class ASPP(nn.Module):
+    def __init__(self, in_channels: int, features: int,
+                 dilation_rates: Sequence[int] = (1, 6, 12, 18),
+                 num_groups: int = 32,
+                 device: Optional[torch.device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.branches = nn.ModuleList(
+            nn.Sequential(*_conv_gn_relu(
+                in_channels, features, 3 if rate > 1 else 1, rate,
+                num_groups, device, generator))
+            for rate in dilation_rates)
+        self.global_pool = nn.Sequential(
+            nn.AdaptiveAvgPool2d(1),
+            *_conv_gn_relu(in_channels, features, 1, 1, num_groups, device,
+                           generator))
+        self.project = nn.Sequential(*_conv_gn_relu(
+            (len(dilation_rates) + 1) * features, features, 1, 1, num_groups,
+            device, generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        outs = [_apply(branch[0], branch[1], x) for branch in self.branches]
+        pooled = x.mean(dim=(2, 3), keepdim=True)
+        pooled = _apply(self.global_pool[1], self.global_pool[2], pooled)
+        outs.append(pooled.expand(-1, -1, *x.shape[2:]))
+        out = _apply(self.project[0], self.project[1], torch.cat(outs, dim=1))
+        return l2_normalize(out, dim=1)

@@ -1,0 +1,53 @@
+"""Spatial resizes with ``F.interpolate`` semantics (``rangeclip_tpu/ops/resize.py``).
+
+NHWC in and out, like the JAX functions: nearest uses torch's floor index
+rule idx = floor(dst * in / out); bilinear uses align_corners=True.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def nearest_indices(out_size: int, in_size: int,
+                    device: torch.device) -> torch.Tensor:
+    scale = in_size / out_size
+    idx = torch.floor(torch.arange(out_size, dtype=torch.float32,
+                                   device=device) * scale).long()
+    return idx.clamp_(0, in_size - 1)
+
+
+def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Nearest-neighbour resize of NHWC ``x`` [B, H, W, C] to ``size``;
+    integer upscales are k-fold repetition, any dtype (label ids too)."""
+    H_out, W_out = size
+    _, H_in, W_in, _ = x.shape
+    if (H_in, W_in) == (H_out, W_out):
+        return x
+    if H_out % H_in == 0 and W_out % W_in == 0:
+        return x.repeat_interleave(H_out // H_in, dim=1).repeat_interleave(
+            W_out // W_in, dim=2)
+    rows = nearest_indices(H_out, H_in, x.device)
+    cols = nearest_indices(W_out, W_in, x.device)
+    return x[:, rows][:, :, cols]
+
+
+def resize_bilinear_align_corners_nchw(x: torch.Tensor,
+                                       size: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear align_corners=True resize of NCHW ``x``, computed in f32 and
+    returned in ``x``'s dtype (the JAX function's precision)."""
+    if tuple(x.shape[2:]) == tuple(size):
+        return x
+    out = F.interpolate(x.float(), size=tuple(size), mode="bilinear",
+                        align_corners=True)
+    return out.to(x.dtype)
+
+
+def resize_bilinear_align_corners(x: torch.Tensor,
+                                  size: Tuple[int, int]) -> torch.Tensor:
+    """NHWC form of :func:`resize_bilinear_align_corners_nchw`."""
+    out = resize_bilinear_align_corners_nchw(x.permute(0, 3, 1, 2), size)
+    return out.permute(0, 2, 3, 1)

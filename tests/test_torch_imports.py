@@ -1,0 +1,74 @@
+"""The port stands alone: importing it and running its CPU predict loads
+no JAX, flax, pandas or PIL, and asking for a CUDA device that is absent
+raises instead of running on the CPU."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROGRAM = r"""
+import importlib, pkgutil, sys
+import torch
+import rangeclip_tpu_torch
+
+for info in pkgutil.walk_packages(rangeclip_tpu_torch.__path__,
+                                  "rangeclip_tpu_torch."):
+    importlib.import_module(info.name)
+
+from rangeclip_tpu_torch.models.depth_unet import (
+    DepthUNet, DepthUNetConfig, build_candidate_indices, predict_folded)
+
+model = DepthUNet(DepthUNetConfig(encoder_filters=(8, 16, 16, 16, 32),
+                                  embedding_dim=32),
+                  generator=torch.Generator().manual_seed(0)).eval()
+gen = torch.Generator().manual_seed(1)
+depth = torch.randn(1, 32, 32, generator=gen)
+text = torch.randn(20, 32, generator=gen)
+seg = torch.randint(0, 5, (1, 32, 32), generator=gen)
+cand = build_candidate_indices(seg, 20, 6, 128, generator=gen)
+ids = predict_folded(model, depth, text, top_k=2, candidate_indices=cand)
+assert ids.shape == (1, 32, 32, 2) and ids.dtype == torch.int32
+loaded = sorted(m for m in ("jax", "flax", "pandas", "PIL", "rangeclip_tpu")
+                if m in sys.modules)
+assert not loaded, loaded
+print("OK")
+"""
+
+_NO_CUDA = r"""
+import sys
+import torch
+from rangeclip_tpu_torch.cli import serve
+from rangeclip_tpu_torch.utils.device import resolve_device
+
+assert not torch.cuda.is_available()
+for call in (lambda: resolve_device("cuda"),
+             lambda: serve.main(["--checkpoint_path", "absent.pth",
+                                 "--labels_path", "absent.csv"])):
+    try:
+        call()
+    except RuntimeError as e:
+        assert "CUDA is not available" in str(e), e
+    else:
+        sys.exit("a CUDA request ran without CUDA")
+assert resolve_device("cpu").type == "cpu"
+print("OK")
+"""
+
+
+def _run(program, **env):
+    out = subprocess.run(
+        [sys.executable, "-c", program], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": REPO, **env})
+    assert out.returncode == 0 and out.stdout.strip().endswith("OK"), (
+        out.stdout + out.stderr)
+
+
+def test_port_imports_and_predicts_without_jax_pandas_pil():
+    _run(_PROGRAM)
+
+
+def test_cuda_request_without_cuda_raises():
+    _run(_NO_CUDA, CUDA_VISIBLE_DEVICES="")
