@@ -15,10 +15,13 @@ shape); HTTP threads only decode and encode.  Weights come from a reference
 ``python -m rangeclip_tpu.cli.convert --to_pth`` writes.  The device is
 ``--device`` (default cuda); the CPU is used only when asked for.
 
-Not ported yet: ``--predict_path default`` and the unfolded path that
-``auto`` takes for large label tables (ROADMAP slice 2), multi-device
-serving (``--data_parallel``) and real CLIP text towers (labels are
-embedded with the deterministic hash stub).
+``--predict_path``: 'folded' runs ``predict_folded``; 'default' runs the
+unfolded ``DepthUNet.predict`` (the ``pixel_text_topk`` kernel on CUDA);
+'auto' folds while ``folded_is_profitable`` allows it and otherwise takes
+the unfolded path, as the JAX server does.
+
+Not ported yet: multi-device serving (``--data_parallel``) and real CLIP
+text towers (labels are embedded with the deterministic hash stub).
 """
 
 from __future__ import annotations
@@ -34,22 +37,11 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from rangeclip_tpu_torch.cli import common
 from rangeclip_tpu_torch.data.labels import load_candidate_labels
 from rangeclip_tpu_torch.data.transforms import depth_transform
 from rangeclip_tpu_torch.models.clip.provider import HashTextEmbedder
-from rangeclip_tpu_torch.models.depth_unet import (
-    DepthUNet,
-    DepthUNetConfig,
-    folded_is_profitable,
-    fused_head_ok,
-    predict_folded,
-)
-from rangeclip_tpu_torch.models.interop import load_reference_pth
 from rangeclip_tpu_torch.utils.device import describe_device, resolve_device
-
-UNFOLDED_MESSAGE = (
-    "the unfolded predict path (DepthUNet.predict with pixel_text_topk) is "
-    "not ported yet: ROADMAP slice 2")
 
 
 def build_engine(args, config_overrides=None):
@@ -59,31 +51,19 @@ def build_engine(args, config_overrides=None):
     the flags (a test's narrow widths)."""
     device = resolve_device(args.device)
     labels = load_candidate_labels(args.labels_path)
-    num_classes = len(labels)
-    dtype = torch.bfloat16 if args.bf16 else torch.float32
-    if args.predict_path == "default" or (
-            args.predict_path == "auto" and not folded_is_profitable(
-                num_classes, args.embedding_dim,
-                fused_ok=fused_head_ok(args.batch_size, num_classes, dtype,
-                                       device))):
-        raise NotImplementedError(UNFOLDED_MESSAGE)
-
-    cfg = DepthUNetConfig(
-        unet_type=args.unet_architecture, embedding_dim=args.embedding_dim,
-        use_batch_norm=True, dtype=torch.bfloat16 if args.bf16 else None,
-        **(config_overrides or {}))
-    model = DepthUNet(cfg, device=device)
-    model.load_state_dict(load_reference_pth(args.checkpoint_path),
-                          strict=True)
-    model.eval()
+    model = common.load_model(args, device, config_overrides)
     text_table = torch.from_numpy(
         HashTextEmbedder(dim=args.embedding_dim)(labels)).to(device)
+    folded = common.use_folded(args.predict_path, len(labels),
+                               args.embedding_dim, args.batch_size,
+                               model.compute_dtype, device)
+    predict_ids = common.make_predict(model, args.top_k, folded)
 
     def predict(batch: np.ndarray) -> torch.Tensor:
         # grad mode is per thread: the worker thread sets its own
         with torch.inference_mode():
             depth = torch.from_numpy(batch).to(device)
-            return predict_folded(model, depth, text_table, top_k=args.top_k)
+            return predict_ids(depth, text_table)
 
     # warm up once so the first request pays no one-time cost
     # (kernel build, cuDNN algorithm choice)
@@ -264,13 +244,8 @@ def parse_args(argv=None):
     # /segment exposes only the top-1 map, and top-1 of a top-k is the
     # argmax, so k=1 by default.
     parser.add_argument("--top_k", type=int, default=1)
-    parser.add_argument("--predict_path", choices=("auto", "folded",
-                                                    "default"),
-                        default="auto",
-                        help="'folded' contracts the output conv with the "
-                        "text table; 'auto' folds while the class count "
-                        "allows it; 'default' (the unfolded path) is not "
-                        "ported yet")
+    parser.add_argument("--predict_path", choices=common.PREDICT_PATHS,
+                        default="auto", help=common.PREDICT_PATH_HELP)
     parser.add_argument("--embedding_dim", type=int, default=512)
     parser.add_argument("--unet_architecture", default="resnet")
     parser.add_argument("--bf16", action="store_true")
@@ -281,10 +256,7 @@ def parse_args(argv=None):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if not args.bf16:
-        # fp32 is the parity mode: keep cuDNN off TF32
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    common.set_precision(args.bf16)
     predict, _, labels, device = build_engine(args)
     size = (args.height, args.width)
     engine = Engine(predict, args.batch_size, size)

@@ -55,4 +55,67 @@ __device__ __forceinline__ void insert_key(int (&keys)[K], int key) {
   }
 }
 
+// (a_v, a_id) ranks above (b_v, b_id): larger value, ties to the smaller id
+// (the knockout selectors' order, score_topk.py:91-120).
+__device__ __forceinline__ bool better(float a_v, int a_id, float b_v,
+                                       int b_id) {
+  return a_v > b_v || (a_v == b_v && a_id < b_id);
+}
+
+// Insert (cv, cid) into the register list (v, id)[0..K), kept in `better`
+// order.  Empty entries are (-inf, INT_MAX).
+template <int K>
+__device__ __forceinline__ void insert_pair(float (&v)[K], int (&id)[K],
+                                            float cv, int cid) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    if (better(cv, cid, v[i], id[i])) {
+      const float tv = v[i];
+      const int ti = id[i];
+      v[i] = cv;
+      id[i] = cid;
+      cv = tv;
+      cid = ti;
+    }
+  }
+}
+
+__device__ __forceinline__ float round_to(float x, float) { return x; }
+__device__ __forceinline__ __nv_bfloat16 round_to(float x, __nv_bfloat16) {
+  return __float2bfloat16_rn(x);
+}
+
+// Eight consecutive values through 16-byte accesses (p 16-byte aligned).
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, T (&v)[8]) {
+  constexpr int kPer = 16 / sizeof(T);
+#pragma unroll
+  for (int q = 0; q < 8 / kPer; ++q) {
+    const uint4 u = reinterpret_cast<const uint4*>(p)[q];
+    const T* t = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) v[q * kPer + i] = t[i];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store8(T* p, const T (&v)[8]) {
+  constexpr int kPer = 16 / sizeof(T);
+#pragma unroll
+  for (int q = 0; q < 8 / kPer; ++q) {
+    uint4 u;
+    T* t = reinterpret_cast<T*>(&u);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) t[i] = v[q * kPer + i];
+    reinterpret_cast<uint4*>(p)[q] = u;
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
 }  // namespace rc

@@ -69,11 +69,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   }
 }
 
-// (a_v, a_id) ranks above (b_v, b_id): larger value, ties to the smaller id.
-__device__ __forceinline__ bool better(float a_v, int a_id, float b_v,
-                                       int b_id) {
-  return a_v > b_v || (a_v == b_v && a_id < b_id);
-}
+using rc::better;
 
 template <int K, typename T>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -96,19 +92,8 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     id[i] = INT_MAX;
   }
   for (int j = lane; j < s; j += 32) {
-    int cid = __ldg(ids + j);
-    float cv = cid >= 0 ? rc::to_float(r[j]) : rc::kNegInf;
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      if (better(cv, cid, v[i], id[i])) {
-        const float tv = v[i];
-        const int ti = id[i];
-        v[i] = cv;
-        id[i] = cid;
-        cv = tv;
-        cid = ti;
-      }
-    }
+    const int cid = __ldg(ids + j);
+    rc::insert_pair(v, id, cid >= 0 ? rc::to_float(r[j]) : rc::kNegInf, cid);
   }
   bool dead_won = false;
 #pragma unroll

@@ -1,5 +1,5 @@
-"""DepthUNet and the folded labels-only predict
-(``rangeclip_tpu/models/depth_unet.py``).
+"""DepthUNet with its unfolded ``predict``, and the folded labels-only
+predict (``rangeclip_tpu/models/depth_unet.py``).
 
 Public functions keep the JAX package's layouts: depth [B, H, W] or
 [B, H, W, 1], fields NHWC, top-k ids [B, H, W, k] int32.  Inside, the
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +28,14 @@ from rangeclip_tpu_torch.ops.kernels.conv_score_topk import (
     conv_score_topk,
     fold_to_rows,
     fused_conv_topk_applicable,
+)
+from rangeclip_tpu_torch.ops.kernels.l2_normalize import (
+    field_kernel_applicable,
+    l2_normalize_rows,
+)
+from rangeclip_tpu_torch.ops.kernels.pixel_text_topk import (
+    pixel_text_topk,
+    select_topk,
 )
 from rangeclip_tpu_torch.ops.kernels.score_topk import score_topk
 from rangeclip_tpu_torch.ops.resize import resize_nearest
@@ -116,6 +124,145 @@ class DepthUNet(nn.Module):
         return self.decoder(*self._encode(depth),
                             apply_head=False).permute(0, 2, 3, 1)
 
+    def _raw_native_field(self, depth: torch.Tensor) -> torch.Tensor:
+        """The output conv's field [B, H/2, W/2, D], un-normalised: the NHWC
+        view of a channels_last tensor, so its pixel rows are contiguous."""
+        return self.decoder(*self._encode(depth)).permute(0, 2, 3, 1)
+
+    def embed(self, depth: torch.Tensor) -> torch.Tensor:
+        """Pixel embeddings only (inference helper)."""
+        return self(depth)[0]
+
+    def forward_native(self, depth: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``forward`` without the final nearest upsample: (the normalised
+        field at native resolution [B, H/2, W/2, D], temperature_text,
+        temperature_image).  The full-resolution field is exactly its
+        nearest x2 upsample.  BatchNorm runs in the module's mode."""
+        field = normalize_native_field(self._raw_native_field(depth))
+        return (field, self.log_temperature_text.exp(),
+                self.log_temperature_image.exp())
+
+    def native_field(self, depth: torch.Tensor,
+                     normalize: bool = True) -> torch.Tensor:
+        """Native-resolution field [B, H/2, W/2, D], normalised or, with
+        ``normalize=False``, as the output conv left it (for consumers that
+        fuse the normalisation, as the ``pixel_text_topk`` kernel does)."""
+        _require_eval(self, "native_field")
+        field = self._raw_native_field(depth)
+        return normalize_native_field(field) if normalize else field
+
+    @torch.no_grad()
+    def predict(
+        self,
+        depth: torch.Tensor,
+        candidate_text_embeddings: torch.Tensor,
+        candidate_mask: Optional[torch.Tensor],
+        top_k: int = 5,
+        scoring: str = "auto",
+        score_native: bool = True,
+        return_embeddings: Union[bool, str] = True,
+        candidate_indices: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Reduced-candidate top-k prediction (the JAX ``DepthUNet.predict``).
+
+        Args, as in JAX:
+          depth: [B, H, W(, 1)] depth maps.
+          candidate_text_embeddings: the full text table [C, D]
+            (un-normalised).
+          candidate_mask: [C] bool, True for classes in the candidate set
+            (None: every class); ignored when ``candidate_indices`` is
+            given.
+          top_k: labels per pixel.
+          scoring: JAX's value names, so that calls translate one to one:
+            'pallas' is the hand-written ``pixel_text_topk`` kernel (CUDA
+            tensors only; normalisation fused into it), 'xla' the plain
+            formulation (the decoder normalises, then an f32 product and a
+            knockout top-k), 'auto' the kernel on CUDA and plain on the CPU.
+          score_native: score at the decoder's native resolution (H/2) and
+            nearest-upsample the ids: the same prediction as scoring at
+            full resolution (``False``), with 4x fewer pixels scored.
+          return_embeddings: ``True`` returns the full-resolution normalised
+            field; ``False`` the field at the scoring resolution as the
+            scoring used it (un-normalised on the kernel branch);
+            ``"native"`` the normalised field at the scoring resolution.
+          candidate_indices: [S] int32 ascending class ids, -1 padded: the
+            table rows are gathered first and the ids come out global.
+
+        Returns (top-k ids [B, H, W, k] int32 in the global label space, -1
+        where the candidate set is exhausted; the pixel embeddings; the text
+        temperature).
+        """
+        _require_eval(self, "predict")
+        if depth.dim() == 3:
+            depth = depth[..., None]
+        target_shape = tuple(depth.shape[1:3])
+        kernels = depth.device.type == "cuda"
+        if scoring == "auto":
+            scoring = "pallas" if kernels else "xla"
+        if scoring not in ("pallas", "xla"):
+            raise ValueError(f"unknown scoring {scoring!r}")
+        if scoring == "pallas" and not kernels:
+            raise ValueError("scoring='pallas' is the hand-written CUDA "
+                             "kernel: it needs CUDA tensors")
+        field = self._raw_native_field(depth)
+        if not score_native:
+            field = resize_nearest(field, target_shape).contiguous()
+        if scoring == "xla":
+            # the decoder's normalisation (decoder.py:100-133): the field
+            # kernel applies at native resolution only
+            field = (normalize_native_field(field) if score_native
+                     else l2_normalize(field, dim=-1))
+        temp_text = self.log_temperature_text.exp()
+
+        table = candidate_text_embeddings.to(field.device)
+        if candidate_indices is not None:
+            ids = candidate_indices.to(field.device, torch.int32)
+            table = table[ids.clamp_min(0).long()]
+            candidate_mask = ids >= 0
+        else:
+            ids = torch.arange(table.shape[0], dtype=torch.int32,
+                               device=field.device)
+            candidate_mask = (torch.ones_like(ids, dtype=torch.bool)
+                              if candidate_mask is None
+                              else candidate_mask.to(field.device))
+        text = l2_normalize(table.float(), dim=-1)
+
+        B, H, W, D = field.shape
+        if scoring == "pallas":
+            idx, _ = pixel_text_topk(field, text, candidate_mask,
+                                     top_k=top_k, want_values=False,
+                                     candidate_ids=ids)
+            if return_embeddings:  # True or "native"
+                field = l2_normalize(field, dim=-1)
+        else:
+            logits = field.reshape(-1, D).float() @ text.T
+            idx, _ = select_topk(logits, torch.where(candidate_mask, ids, -1),
+                                 top_k)
+        topk = idx.reshape(B, H, W, top_k)
+        if (H, W) != target_shape:
+            topk = resize_nearest(topk, target_shape)
+            if return_embeddings is True:
+                field = resize_nearest(field, target_shape)
+        return topk, field, temp_text
+
+
+def normalize_native_field(field: torch.Tensor) -> torch.Tensor:
+    """The decoder's native-resolution normalisation (the JAX
+    ``decoder.py:113-133``): a bf16 field on CUDA that passes
+    ``field_kernel_applicable`` runs the ``l2_normalize`` kernels (forward
+    and backward); everything else the plain ``l2_normalize``."""
+    if (field.device.type == "cuda" and field.dtype == torch.bfloat16
+            and field_kernel_applicable(tuple(field.shape))):
+        return l2_normalize_rows(field)
+    return l2_normalize(field, dim=-1)
+
+
+def _require_eval(model: nn.Module, name: str) -> None:
+    if model.training:
+        raise ValueError(f"{name} needs the model in eval mode (BatchNorm "
+                         "running statistics): call model.eval()")
+
 
 @torch.no_grad()
 def predict_folded(
@@ -156,9 +303,7 @@ def predict_folded(
     [B, h, w, k] without upsample), with ``want_values`` an (ids, values)
     tuple.
     """
-    if model.training:
-        raise ValueError("predict_folded needs the model in eval mode "
-                         "(BatchNorm running statistics): call model.eval()")
+    _require_eval(model, "predict_folded")
     if depth.dim() == 3:
         depth = depth[..., None]
     target_shape = tuple(depth.shape[1:3])

@@ -1,15 +1,24 @@
-"""Build, load and launch bookkeeping for the hand-written CUDA kernels.
+"""Build, load, launch bookkeeping and op registration for the hand-written
+CUDA kernels.
 
-All sources under ``rangeclip_tpu_torch/csrc/`` compile with ``nvcc`` into
-one shared library with a plain C interface, loaded with ``ctypes``: a few
-seconds of build, against minutes for an extension that includes PyTorch's
-headers.  The build runs at first use, into ``rangeclip_tpu_torch/_build/``
-(listed in ``.gitignore``), under a name keyed by the sources' hash, so an
-edited source is rebuilt and a stale library is never loaded.
+Each source under ``rangeclip_tpu_torch/csrc/`` compiles with its own
+``nvcc`` process, all started together, and the objects link into one shared
+library with a plain C interface, loaded with ``ctypes``: seconds of build,
+against minutes for an extension that includes PyTorch's headers.  The
+build runs at first use, into ``rangeclip_tpu_torch/_build/`` (listed in
+``.gitignore``), under a name keyed by the sources' hash, so an edited
+source is rebuilt and a stale library is never loaded.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into an exception.  Kernels run on the
 current PyTorch stream and do not synchronise.
+
+Every kernel is also a ``torch.library`` operator ``rangeclip::<name>``
+(:func:`define_op`): its CUDA implementation launches the kernel, its CPU
+implementation is the plain version, and a fake implementation gives
+``torch.export`` and ``torch.compile`` the output shapes.  The public
+wrappers call the operator for CUDA tensors only and the plain version
+directly for CPU tensors, so a program traced on the CPU holds no custom op.
 """
 
 from __future__ import annotations
@@ -22,7 +31,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -31,7 +40,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 # Launches per kernel (and selector), counted by each wrapper right after a
@@ -42,6 +51,9 @@ launch_counts = {
     "score_topk[knockout]": 0,
     "score_topk[packed]": 0,
     "conv_score_topk": 0,
+    "pixel_text_topk": 0,
+    "l2_normalize[fwd]": 0,
+    "l2_normalize[bwd]": 0,
 }
 
 _P = ctypes.c_void_p
@@ -51,7 +63,24 @@ _SIGNATURES = {
     "rc_class_presence": (_P, _P, _L, _I, _P, _P),
     "rc_score_topk": (_P, _I, _I, _P, _L, _I, _I, _P, _P, _P),
     "rc_conv_score_topk": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "rc_pixel_text_topk": (_P, _I, _P, _P, _L, _I, _I, _I, _P, _P, _P),
+    "rc_l2_normalize_fwd": (_P, _I, _P, _L, _I, _P),
+    "rc_l2_normalize_bwd": (_P, _P, _I, _P, _L, _I, _P),
 }
+
+OPS = torch.library.Library("rangeclip", "DEF")
+
+
+def define_op(schema: str, cuda_impl: Callable, cpu_impl: Callable,
+              fake_impl: Callable):
+    """Define ``rangeclip::<schema>`` with its CUDA, CPU and fake
+    implementations; returns the operator overload."""
+    name = schema.split("(", 1)[0]
+    OPS.define(schema)
+    OPS.impl(name, cuda_impl, "CUDA")
+    OPS.impl(name, cpu_impl, "CPU")
+    torch.library.register_fake(f"rangeclip::{name}", fake_impl, lib=OPS)
+    return getattr(torch.ops.rangeclip, name).default
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,8 +109,24 @@ def _nvcc() -> str:
         "rangeclip_tpu_torch cannot be built")
 
 
+def _run_all(cmds) -> None:
+    """Run the commands concurrently; raise with the compiler's output if
+    any fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        output = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n({proc.returncode}):\n{output}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def build() -> BuildResult:
-    """Compile ``csrc/*.cu`` into the shared library unless it exists."""
+    """Compile ``csrc/*.cu`` into the shared library unless it exists: one
+    ``nvcc -c`` per source, all at once, then one link."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(CSRC_DIR.glob("*.cu*")):
@@ -91,15 +136,23 @@ def build() -> BuildResult:
     if out.exists():
         return BuildResult(out, 0.0)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                  for src, obj in zip(sources, objects)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objects)]])
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+        raise
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    seconds = time.perf_counter() - t0
     os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
     return BuildResult(out, seconds)
 
@@ -126,6 +179,15 @@ def check(code: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {code} "
                            f"({message})")
     launch_counts[kernel] += 1
+
+
+def topk_outputs(like: torch.Tensor, n: int, top_k: int, want_values: bool):
+    """Empty (idx [n, k] int32, values [n, k] f32) on ``like``'s device; the
+    values are [0] when not wanted, since an operator cannot return None."""
+    idx = like.new_empty((n, top_k), dtype=torch.int32)
+    val = like.new_empty((n, top_k) if want_values else (0,),
+                         dtype=torch.float32)
+    return idx, val
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -40,7 +40,10 @@ def class_presence(labels: torch.Tensor, valid: torch.Tensor,
     _lib.require(num_classes >= 1, "class_presence: num_classes must be >= 1")
     if kind == "cpu":
         return class_presence_plain(labels, valid, num_classes)
+    return class_presence_op(labels, valid, num_classes)
 
+
+def _class_presence_cuda(labels, valid, num_classes):
     out = torch.zeros(num_classes, dtype=torch.int32, device=labels.device)
     if labels.numel() == 0:
         return out.bool()
@@ -49,3 +52,10 @@ def class_presence(labels: torch.Tensor, valid: torch.Tensor,
         out.data_ptr(), _lib.stream_of(labels))
     _lib.check(code, "class_presence")
     return out.bool()
+
+
+class_presence_op = _lib.define_op(
+    "class_presence(Tensor labels, Tensor valid, int num_classes) -> Tensor",
+    _class_presence_cuda, class_presence_plain,
+    lambda labels, valid, num_classes: labels.new_empty(
+        (num_classes,), dtype=torch.bool))

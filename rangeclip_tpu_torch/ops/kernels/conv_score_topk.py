@@ -101,20 +101,40 @@ def conv_score_topk(
         idx, val = conv_score_topk_plain(features, weight_rows,
                                          candidate_ids, top_k)
         return idx, (val if want_values else None)
+    idx, val = conv_score_topk_op(features, weight_rows, candidate_ids,
+                                  top_k, want_values)
+    return idx, (val if want_values else None)
 
+
+def _outputs(features: torch.Tensor, top_k: int, want_values: bool):
+    B, h, w, _ = features.shape
+    return _lib.topk_outputs(features, B * h * w, top_k, want_values)
+
+
+def _conv_score_topk_cuda(features, weight_rows, ids, top_k, want_values):
     _lib.require(features.data_ptr() % 16 == 0
                  and weight_rows.data_ptr() % 16 == 0,
                  "conv_score_topk: inputs must be 16-byte aligned")
-    N = B * h * w
-    idx = torch.empty((N, top_k), dtype=torch.int32, device=features.device)
-    val = (torch.empty((N, top_k), dtype=torch.float32,
-                       device=features.device) if want_values else None)
-    if N == 0:
+    idx, val = _outputs(features, top_k, want_values)
+    if idx.shape[0] == 0:
         return idx, val
+    B, h, w, C_in = features.shape
     code = _lib.library().rc_conv_score_topk(
-        features.data_ptr(), weight_rows.data_ptr(),
-        candidate_ids.data_ptr(), B, h, w, C_in, S, top_k, idx.data_ptr(),
-        val.data_ptr() if val is not None else None,
-        _lib.stream_of(features))
+        features.data_ptr(), weight_rows.data_ptr(), ids.data_ptr(), B, h, w,
+        C_in, weight_rows.shape[0], top_k, idx.data_ptr(),
+        val.data_ptr() if want_values else None, _lib.stream_of(features))
     _lib.check(code, "conv_score_topk")
     return idx, val
+
+
+def _conv_score_topk_cpu(features, weight_rows, ids, top_k, want_values):
+    idx, val = conv_score_topk_plain(features, weight_rows, ids, top_k)
+    return idx, (val if want_values else val.new_empty(0))
+
+
+conv_score_topk_op = _lib.define_op(
+    "conv_score_topk(Tensor features, Tensor weight_rows, Tensor ids, "
+    "int top_k, bool want_values) -> (Tensor, Tensor)",
+    _conv_score_topk_cuda, _conv_score_topk_cpu,
+    lambda features, weight_rows, ids, top_k, want_values: _outputs(
+        features, top_k, want_values))

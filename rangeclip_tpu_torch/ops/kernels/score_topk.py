@@ -124,19 +124,35 @@ def score_topk(
         raise ValueError(f"unknown selector {selector!r}")
 
     flat = scores.reshape(-1, S)
-    N = flat.shape[0]
     if kind == "cpu":
         idx, val = score_topk_plain(flat, candidate_ids, top_k, packed)
         return idx, (val if want_values else None)
+    idx, val = score_topk_op(flat, candidate_ids, top_k, packed, want_values)
+    return idx, (val if want_values else None)
 
-    idx = torch.empty((N, top_k), dtype=torch.int32, device=scores.device)
-    val = (torch.empty((N, top_k), dtype=torch.float32, device=scores.device)
-           if want_values else None)
-    if N == 0:
+
+def _score_topk_cuda(scores, ids, top_k, packed, want_values):
+    idx, val = _lib.topk_outputs(scores, scores.shape[0], top_k,
+                                 want_values)
+    if scores.shape[0] == 0:
         return idx, val
     code = _lib.library().rc_score_topk(
-        flat.data_ptr(), int(scores.dtype == torch.bfloat16), int(packed),
-        candidate_ids.data_ptr(), N, S, top_k, idx.data_ptr(),
-        val.data_ptr() if val is not None else None, _lib.stream_of(scores))
+        scores.data_ptr(), int(scores.dtype == torch.bfloat16), int(packed),
+        ids.data_ptr(), scores.shape[0], scores.shape[1], top_k,
+        idx.data_ptr(), val.data_ptr() if want_values else None,
+        _lib.stream_of(scores))
     _lib.check(code, "score_topk[packed]" if packed else "score_topk[knockout]")
     return idx, val
+
+
+def _score_topk_cpu(scores, ids, top_k, packed, want_values):
+    idx, val = score_topk_plain(scores, ids, top_k, packed)
+    return idx, (val if want_values else val.new_empty(0))
+
+
+score_topk_op = _lib.define_op(
+    "score_topk(Tensor scores, Tensor ids, int top_k, bool packed, "
+    "bool want_values) -> (Tensor, Tensor)",
+    _score_topk_cuda, _score_topk_cpu,
+    lambda scores, ids, top_k, packed, want_values: _lib.topk_outputs(
+        scores, scores.shape[0], top_k, want_values))

@@ -6,6 +6,8 @@ cannot load (it imports JAX), run them with
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -23,7 +25,16 @@ from rangeclip_tpu_torch.ops.kernels.conv_score_topk import (
     conv_score_topk,
     conv_score_topk_plain,
 )
+from rangeclip_tpu_torch.ops.kernels.l2_normalize import (
+    l2_normalize_plain,
+    l2_normalize_rows,
+)
+from rangeclip_tpu_torch.ops.kernels.pixel_text_topk import (
+    normalize_rows_rsqrt,
+    pixel_text_topk,
+)
 from rangeclip_tpu_torch.ops.kernels.score_topk import score_topk
+from rangeclip_tpu_torch.utils.math import l2_normalize
 
 
 @pytest.fixture
@@ -142,3 +153,141 @@ def test_predict_folded_on_cuda_matches_cpu(cuda_device):
     assert _lib.launch_counts["conv_score_topk"] == before + 1
     assert ids.shape == (128, 32, 32, 5)
     assert bool(((ids >= 0) & (ids < 100)).all())
+
+
+def _sparse_signs(gen, rows, dim, nonzero):
+    """Rows of +-1 in ``nonzero`` places: power-of-two norms, exact sums."""
+    x = torch.zeros(rows, dim)
+    at = torch.rand(rows, dim, generator=gen).argsort(dim=1)[:, :nonzero]
+    signs = torch.randint(0, 2, (rows, nonzero), generator=gen) * 2 - 1
+    return x.scatter_(1, at, signs.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,c", [(5000, 512, 512), (77, 32, 1000),
+                                   (300, 1024, 40), (129, 40, 130)])
+def test_pixel_text_topk_matches_plain(cuda_device, dtype, n, d, c):
+    """Quantised-exact inputs: ids and values bit-equal to the plain version
+    for the mask form, sparse global ids, and an exhausted set; ragged row
+    and class counts (past one 128-row block and one 128-class tile), D of
+    1024 and D = 40 (a last dim chunk of 8)."""
+    gen = torch.Generator().manual_seed(4)
+    field = (_sparse_signs(gen, n, d, 16)
+             * 2.0 ** torch.randint(-3, 4, (n, 1), generator=gen)).to(dtype)
+    table = (_sparse_signs(gen, c, d, 4) / 2).to(dtype)
+    mask = torch.rand(c, generator=gen) > 0.3
+    ids = torch.full((c,), -1, dtype=torch.int32)
+    ids[:c // 2] = torch.randperm(5000, generator=gen)[:c // 2].sort().values
+    two = torch.zeros(c, dtype=torch.bool)
+    two[[1, 3]] = True
+    for kw in ({"candidate_mask": mask}, {"candidate_mask": ids >= 0,
+                                          "candidate_ids": ids},
+               {"candidate_mask": two}):
+        for k in (1, 5, 8):
+            want = pixel_text_topk(field, table, top_k=k, **kw)
+            before = _lib.launch_counts["pixel_text_topk"]
+            got = pixel_text_topk(field.to(cuda_device),
+                                  table.to(cuda_device), top_k=k,
+                                  **{a: t.to(cuda_device)
+                                     for a, t in kw.items()})
+            torch.cuda.synchronize()
+            assert _lib.launch_counts["pixel_text_topk"] == before + 1
+            assert torch.equal(got[0].cpu(), want[0]), (kw.keys(), k)
+            assert torch.equal(got[1].cpu(), want[1]), (kw.keys(), k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pixel_text_topk_random_near_ties(cuda_device, dtype):
+    gen = torch.Generator().manual_seed(5)
+    field = torch.randn(20000, 512, generator=gen).to(dtype)
+    table = l2_normalize(torch.randn(300, 512, generator=gen)).to(dtype)
+    got = pixel_text_topk(field.to(cuda_device), table.to(cuda_device),
+                          top_k=5)
+    want = pixel_text_topk(field, table, top_k=5)
+    agree = got[0].cpu() == want[0]
+    assert agree.float().mean() >= 0.999
+    scores = normalize_rows_rsqrt(field).float() @ table.float().T
+    gap = (scores.gather(1, got[0].cpu().long())
+           - scores.gather(1, want[0].long())).abs()
+    assert bool((gap[~agree] <= 1e-5).all())
+
+
+def _vjp_scale(x, g):
+    """Per row, the largest |g| / max(||x||, eps): the size of the VJP's
+    first term, which its second term can cancel."""
+    n = torch.linalg.vector_norm(x.double(), dim=-1, keepdim=True)
+    return g.double().abs().amax(dim=-1, keepdim=True) / n.clamp_min(1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 16, 16, 512), (1000, 136), (3, 8)])
+def test_l2_normalize_matches_plain(cuda_device, dtype, shape):
+    """Forward and backward kernels against autograd of the plain version
+    on the card: f32 rtol 1e-6 (values) and 1e-5 (gradients); bf16 values
+    within one bf16 ulp, bf16 gradients within one bf16 ulp plus 2^-16 of
+    the row's VJP scale (the two terms of dx cancel, so f32 rounding of
+    each can exceed an ulp of the small difference); zero rows finite."""
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn(shape, generator=gen).to(dtype).to(cuda_device)
+    x.view(-1, shape[-1])[0] = 0
+    g = torch.randn(shape, generator=gen).to(dtype).to(cuda_device)
+    xk = x.clone().requires_grad_()
+    before = dict(_lib.launch_counts)
+    y = l2_normalize_rows(xk)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert _lib.launch_counts["l2_normalize[fwd]"] == \
+        before["l2_normalize[fwd]"] + 1
+    assert _lib.launch_counts["l2_normalize[bwd]"] == \
+        before["l2_normalize[bwd]"] + 1
+    xp = x.clone().requires_grad_()
+    y_plain = l2_normalize_plain(xp)
+    y_plain.backward(g)
+    assert y.dtype == dtype and xk.grad.dtype == dtype
+    assert torch.isfinite(xk.grad).all()
+    for got, want, rtol, scale in ((y, y_plain, 1e-6, 0.0),
+                                   (xk.grad, xp.grad, 1e-5,
+                                    _vjp_scale(x, g) * 2.0 ** -16)):
+        got, want = got.detach().double(), want.detach().double()
+        if dtype == torch.bfloat16:
+            ulp = torch.exp2(torch.floor(torch.log2(
+                want.abs().clamp_min(1e-30))) - 7)
+            assert bool(((got - want).abs() <= ulp + scale).all())
+        else:
+            torch.testing.assert_close(got, want, rtol=rtol, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_predict_unfolded_on_cuda_matches_cpu(cuda_device):
+    """DepthUNet.predict on the card (the pixel_text_topk kernel) against
+    the same model on the CPU (plain scoring): fp32 labels >= 99.9%; the
+    bf16 native field runs the l2_normalize kernels forward and backward."""
+    cfg = DepthUNetConfig(encoder_filters=(8, 16, 16, 16, 32),
+                          embedding_dim=128)
+    gen = torch.Generator().manual_seed(7)
+    model = DepthUNet(cfg, generator=gen).eval()
+    depth = torch.randn(8, 32, 32, generator=gen)
+    text = torch.randn(1000, 128, generator=gen)
+    mask = torch.rand(1000, generator=gen) > 0.5
+    want = model.predict(depth, text, mask, 5)[0]
+    before = _lib.launch_counts["pixel_text_topk"]
+    got = model.to(cuda_device).predict(depth.to(cuda_device),
+                                        text.to(cuda_device),
+                                        mask.to(cuda_device), 5)[0]
+    torch.cuda.synchronize()
+    assert _lib.launch_counts["pixel_text_topk"] == before + 1
+    assert (got.cpu() == want).float().mean() >= 0.999
+
+    bf16 = DepthUNet(dataclasses.replace(cfg, dtype=torch.bfloat16),
+                     device=cuda_device)
+    bf16.load_state_dict(model.state_dict())
+    before = dict(_lib.launch_counts)
+    field, _, _ = bf16.forward_native(depth.to(cuda_device))
+    field.float().sum().backward()
+    torch.cuda.synchronize()
+    for name in ("l2_normalize[fwd]", "l2_normalize[bwd]"):
+        assert _lib.launch_counts[name] == before[name] + 1
+    assert torch.isfinite(bf16.decoder.output_conv.conv.weight.grad).all()

@@ -1,5 +1,5 @@
-"""The port stands alone: importing it and running its CPU predict loads
-no JAX, flax, pandas or PIL, and asking for a CUDA device that is absent
+"""The port stands alone: importing it (CLIs included) and running its CPU
+predict paths loads no JAX, flax, pandas or PIL, and asking for a CUDA device that is absent
 raises instead of running on the CPU."""
 
 import os
@@ -30,6 +30,9 @@ seg = torch.randint(0, 5, (1, 32, 32), generator=gen)
 cand = build_candidate_indices(seg, 20, 6, 128, generator=gen)
 ids = predict_folded(model, depth, text, top_k=2, candidate_indices=cand)
 assert ids.shape == (1, 32, 32, 2) and ids.dtype == torch.int32
+ids, field, _ = model.predict(depth, text, None, 2, candidate_indices=cand,
+                              return_embeddings=False)
+assert ids.shape == (1, 32, 32, 2) and field.shape == (1, 16, 16, 32)
 loaded = sorted(m for m in ("jax", "flax", "pandas", "PIL", "rangeclip_tpu")
                 if m in sys.modules)
 assert not loaded, loaded

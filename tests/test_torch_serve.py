@@ -1,5 +1,6 @@
-"""The port's inference server on the CPU, against JAX ``predict_folded``,
-and its host helpers against the JAX package's."""
+"""The port's inference server on the CPU, against JAX ``predict_folded``
+and ``DepthUNet.predict``, and its host helpers against the JAX
+package's."""
 
 import argparse
 import csv
@@ -22,8 +23,9 @@ from rangeclip_tpu.data.transforms import depth_transform as jax_depth_transform
 from rangeclip_tpu.models.clip.provider import (
     HashTextEmbedder as JaxHashTextEmbedder,
 )
+from rangeclip_tpu.models.depth_unet import DepthUNet as JaxDepthUNet
 from rangeclip_tpu.models.depth_unet import predict_folded as jax_predict_folded
-from rangeclip_tpu_torch.cli import serve
+from rangeclip_tpu_torch.cli import common, serve
 from rangeclip_tpu_torch.data.labels import load_candidate_labels
 from rangeclip_tpu_torch.data.transforms import depth_transform
 from rangeclip_tpu_torch.models.clip.provider import HashTextEmbedder
@@ -125,17 +127,48 @@ def test_serve_end_to_end_matches_jax(tmp_path, monkeypatch):
         np.testing.assert_allclose(g[~agree], w[~agree], atol=1e-5)
 
 
-def test_unported_paths_raise(tmp_path):
-    _, _, port = jax_and_port()
+@pytest.mark.parametrize("predict_path", ["default", "auto"])
+def test_serve_unfolded_paths_match_jax(tmp_path, monkeypatch,
+                                        predict_path):
+    """'default', and 'auto' where the class count exceeds the folding
+    crossover (13 classes pad to 128 slots > 1.5 * 32), answer through the
+    engine with the unfolded DepthUNet.predict; labels against JAX predict
+    on the same weights: >= 99.9% agreement, mismatches near-ties."""
+    monkeypatch.setenv("RANGECLIP_NATIVE", "off")  # the numpy transform
+    model, v, port = jax_and_port()
     save_reference_pth(port, str(tmp_path / "m.pth"))
     _write_labels(tmp_path / "labels.csv", 12)
-    overrides = {"encoder_filters": FILTERS}
-    for kw in ({"predict_path": "default"},
-               # at embedding_dim 32, 13 classes (128 padded slots) exceed
-               # the folding crossover, so 'auto' wants the unfolded path
-               {"predict_path": "auto"}):
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            serve.build_engine(_args(tmp_path, **kw), overrides)
+    args = _args(tmp_path, predict_path=predict_path)
+    assert not common.use_folded(predict_path, 13, DIM, args.batch_size,
+                                 torch.float32, torch.device("cpu"))
+    predict, _, labels, _ = serve.build_engine(
+        args, config_overrides={"encoder_filters": FILTERS})
+    engine = serve.Engine(predict, 2, SIZE)
+    rng = np.random.default_rng(5)
+    depths = [rng.random((48, 64)).astype(np.float32) * 5 for _ in range(3)]
+    try:
+        got = np.stack([engine.submit(depth_transform(d, SIZE))
+                        for d in depths])
+    finally:
+        engine.close()
+    assert got.shape == (3, *SIZE, K) and got.dtype == np.int32
+
+    batch = np.stack([jax_depth_transform(d, SIZE) for d in depths])
+    table = JaxHashTextEmbedder(dim=DIM)(jax_load_candidate_labels(
+        str(tmp_path / "labels.csv")))
+    want = np.asarray(jax.jit(lambda v, x, t: model.apply(
+        v, x, t, jnp.ones(len(t), bool), K, method=JaxDepthUNet.predict,
+        return_embeddings=False)[0])(v, jnp.asarray(batch[..., None]),
+                                      jnp.asarray(table)))
+    agree = got == want
+    assert agree.mean() >= 0.999, agree.mean()
+    if not agree.all():  # near-ties only
+        field = port(torch.from_numpy(batch))[0].detach()
+        text = torch.nn.functional.normalize(torch.from_numpy(table), dim=-1)
+        logits = torch.einsum("bhwd,cd->bhwc", field, text).numpy()
+        g = np.take_along_axis(logits, got, -1)
+        w = np.take_along_axis(logits, want, -1)
+        np.testing.assert_allclose(g[~agree], w[~agree], atol=1e-5)
 
 
 def test_host_helpers_match_jax(tmp_path, monkeypatch):
