@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's inference paths once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's inference and training paths once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -9,7 +10,10 @@ Phases (any failure raises; nothing is caught):
 
 1. Build the CUDA kernels from ``rangeclip_tpu_torch/csrc/``.
 2. Hold each kernel against its plain PyTorch version at the shapes the
-   main paths give it, and time both.
+   main paths give it, and time both and, where one PyTorch call computes
+   the same function, that call; each row's bound is the larger of its
+   bytes over 3.35 TB/s and its operations over the peak rate of its input
+   type (989 TFLOP/s bf16, 67 TFLOP/s f32), from the H100 SXM data sheet.
 3. Serve: the port's ``cli/serve`` engine and HTTP server in this process,
    four POSTed depth maps per configuration: default flags (fp32, batch 8,
    top-1, --predict_path auto: folded), --bf16, --predict_path default in
@@ -23,8 +27,16 @@ Phases (any failure raises; nothing is caught):
    --predict_path default), and cli/export --predict_path default
    --text_as_input --verify, then the .pt2 loaded and run once.
 6. Gradient: forward_native in bf16 at batch 8, then backward.
+7. Train: the flagship train step (bf16, accumulation 1 x batch 32 at
+   256^2, C=512 with 40 labels present so the packed CE runs, the full
+   hybrid loss with hash-stub image embeddings), 3 steps: finite losses,
+   changed parameters, ms/step and maps/s.  Then the kernel step against
+   the same step through the plain versions with the same draws, in fp32
+   at batch 8 and in bf16 at batch 32.
+8. cli/train --bf16 on a synthetic 256^2 dataset: 2 optimizer steps of
+   accumulation 8 x batch 4; its checkpoint loads strictly and predicts.
 
-Each path of phases 3-6 runs with the launch counts set to 0 just before
+Each path of phases 3-8 runs with the launch counts set to 0 just before
 it and read just after; each must launch the kernels it is built on, and
 every kernel must be launched by some path.
 
@@ -78,7 +90,25 @@ KERNEL_ROWS = {
                           "rangeclip_tpu/ops/pallas/l2_normalize.py:154"),
     "l2_normalize[bwd]": ("rangeclip_tpu_torch/csrc/l2_normalize.cu",
                           "rangeclip_tpu/ops/pallas/l2_normalize.py:164"),
+    "histogram": ("rangeclip_tpu_torch/csrc/histogram.cu",
+                  "rangeclip_tpu/ops/pallas/histogram.py:44"),
+    "pixel_text_ce[fwd]": ("rangeclip_tpu_torch/csrc/pixel_text_ce.cu",
+                           "rangeclip_tpu/ops/pallas/pixel_text_ce.py:96"),
+    "pixel_text_ce[bwd]": ("rangeclip_tpu_torch/csrc/pixel_text_ce.cu",
+                           "rangeclip_tpu/ops/pallas/pixel_text_ce.py:124"),
+    "tv_rowtile[fwd]": ("rangeclip_tpu_torch/csrc/tv_rowtile.cu",
+                        "rangeclip_tpu/ops/pallas/tv_rowtile.py:100"),
+    "tv_rowtile[bwd]": ("rangeclip_tpu_torch/csrc/tv_rowtile.cu",
+                        "rangeclip_tpu/ops/pallas/tv_rowtile.py:131"),
 }
+TRAIN_KERNELS = ["histogram", "class_presence", "pixel_text_ce[fwd]",
+                 "pixel_text_ce[bwd]", "tv_rowtile[fwd]", "tv_rowtile[bwd]",
+                 "l2_normalize[fwd]", "l2_normalize[bwd]"]
+TRAIN_BATCH = 32
+TRAIN_PRESENT = 40  # labels in the segmentation: the packed CE branch
+CAPACITY = 128
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 
 
 def log(msg: str) -> None:
@@ -114,6 +144,15 @@ def time_pair(kernel, plain, iters: int, plain_iters: int):
     k2 = cuda_ms(kernel, iters)
     p2 = cuda_ms(plain, plain_iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound(nbytes: float, ops: float, kind: str) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate of ``kind``."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def require(cond: bool, what: str) -> None:
@@ -171,7 +210,14 @@ def phase_kernels(device, bench_model, bench_depth, text, cand, stats):
             log(f"  {name} N={N} S={S} k={k} {dtype}: bit-equal; kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
             if k == 1:  # the serve path's k
-                stats[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                library_ms = cuda_ms(lambda: torch.topk(scores, 1, dim=1),
+                                     20)
+                stats[name] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    library_ms=library_ms,
+                    **bound(scores.numel() * scores.element_size() + N * 4,
+                            0, "f32"))
+                log(f"  {name}: torch.topk k=1 {library_ms:.4f} ms")
         stats[name]["max_abs_err"] = err
     del field
 
@@ -195,7 +241,8 @@ def phase_kernels(device, bench_model, bench_depth, text, cand, stats):
         f"{plain_ms:.4f} ms")
     stats["class_presence"] = dict(
         max_abs_err=max_abs_err(got.int(), want.int()), ms=ms,
-        plain_ms=plain_ms)
+        plain_ms=plain_ms, library_ms=None,
+        **bound(labels.numel() * 8 + NUM_CLASSES * 4, 0, "f32"))
     del labels, valid
 
     # conv_score_topk at the bench shape: B=128, h=w=128, C_in=32, S=384
@@ -235,8 +282,11 @@ def phase_kernels(device, bench_model, bench_depth, text, cand, stats):
         lambda: conv_score_topk_plain(feats, rows, slot_ids, BENCH_TOP_K),
         5, 2)
     log(f"  conv_score_topk: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    stats["conv_score_topk"] = dict(max_abs_err=err, ms=ms,
-                                    plain_ms=plain_ms)
+    n_pix = B * h * w
+    stats["conv_score_topk"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **bound(feats.numel() * 2 + rows.numel() * 2 + n_pix * BENCH_TOP_K * 4,
+                2.0 * n_pix * 9 * c_in * BENCH_SLOTS, "bf16"))
 
 
 def sparse_signs(rows: int, dim: int, nonzero: int, gen, device):
@@ -400,8 +450,10 @@ def phase_unfolded_kernels(device, bench_model, serve_model, depths, text,
         3, 1)
     log(f"  pixel_text_topk bench shape: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms")
-    stats["pixel_text_topk"] = dict(max_abs_err=err, ms=ms,
-                                    plain_ms=plain_ms)
+    stats["pixel_text_topk"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **bound(field.numel() * 2 + q_table.numel() * 2
+                + N * BENCH_TOP_K * 4, 2.0 * N * D * BENCH_SLOTS, "bf16"))
     del field
     torch.cuda.empty_cache()
 
@@ -428,8 +480,12 @@ def phase_unfolded_kernels(device, bench_model, serve_model, depths, text,
                              lambda: l2_normalize_plain(flat), 20, 5)
     log(f"  l2_normalize[fwd] [{N}, {D}] bf16: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms")
-    stats["l2_normalize[fwd]"] = dict(max_abs_err=l2_errs[0], ms=ms,
-                                      plain_ms=plain_ms)
+    library_ms = cuda_ms(
+        lambda: torch.nn.functional.normalize(flat, dim=-1), 20)
+    log(f"  l2_normalize[fwd]: F.normalize {library_ms:.4f} ms")
+    stats["l2_normalize[fwd]"] = dict(
+        max_abs_err=l2_errs[0], ms=ms, plain_ms=plain_ms,
+        library_ms=library_ms, **bound(2 * flat.numel() * 2, 0, "bf16"))
     xp = flat.detach().clone().requires_grad_()
     yp = l2_normalize_plain(xp)
     ms, plain_ms = time_pair(
@@ -437,8 +493,9 @@ def phase_unfolded_kernels(device, bench_model, serve_model, depths, text,
         lambda: torch.autograd.grad(yp, xp, g, retain_graph=True), 20, 5)
     log(f"  l2_normalize[bwd] [{N}, {D}] bf16: kernel {ms:.4f} ms, plain "
         f"(autograd backward) {plain_ms:.4f} ms")
-    stats["l2_normalize[bwd]"] = dict(max_abs_err=l2_errs[1], ms=ms,
-                                      plain_ms=plain_ms)
+    stats["l2_normalize[bwd]"] = dict(
+        max_abs_err=l2_errs[1], ms=ms, plain_ms=plain_ms, library_ms=None,
+        **bound(3 * flat.numel() * 2, 0, "bf16"))
     del field, flat, g, xp, yp
     torch.cuda.empty_cache()
 
@@ -769,6 +826,369 @@ def phase_gradient(device) -> None:
         f"{len(grads)} finite parameter gradients")
 
 
+def contrast_set(gen, device, members: int):
+    """A [C] contrast mask of ``members`` random classes and their ids."""
+    perm = torch.randperm(NUM_CLASSES, device=device, generator=gen)
+    mask = torch.zeros(NUM_CLASSES, dtype=torch.bool, device=device)
+    mask[perm[:members]] = True
+    return mask, perm[:members].sort().values.int()
+
+
+def phase_train_kernels(device, stats):
+    """histogram, pixel_text_ce and tv_rowtile at the flagship train shapes
+    (bf16 [32, 128, 128, 512] native field, 32 x 45,875 draws into 65,536
+    bins, C = 512, S = 4 label slots, capacity 128)."""
+    from rangeclip_tpu_torch.losses.infonce import n_draws, pack_contrast_set
+    from rangeclip_tpu_torch.ops.kernels.histogram import (
+        histogram,
+        histogram_plain,
+    )
+    from rangeclip_tpu_torch.ops.kernels.pixel_text_ce import (
+        ce_operands,
+        pixel_text_ce_backward_op,
+        pixel_text_ce_backward_plain,
+        pixel_text_ce_op,
+        pixel_text_ce_plain,
+    )
+    from rangeclip_tpu_torch.ops.kernels.tv_rowtile import (
+        tv_grad,
+        tv_rowtile,
+        tv_rowtile_backward_op,
+        tv_rowtile_op,
+        tv_rowtile_plain,
+    )
+    from rangeclip_tpu_torch.utils.math import l2_normalize
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    B, h, D = TRAIN_BATCH, RES // 2, 512
+
+    # histogram: bit-equal
+    n, bins = n_draws(RES, RES), RES * RES
+    idx = torch.randint(0, bins, (B, n), device=device, generator=gen,
+                        dtype=torch.int32)
+    got, want = histogram(idx, bins), histogram_plain(idx, bins)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "histogram differs from its plain version")
+    ms, plain_ms = time_pair(lambda: histogram(idx, bins),
+                             lambda: histogram_plain(idx, bins), 50, 10)
+    offsets = (idx.long() + bins * torch.arange(B, device=device)[:, None]
+               ).reshape(-1)
+    library_ms = cuda_ms(lambda: torch.bincount(offsets, minlength=B * bins),
+                         50)
+    log(f"  histogram [{B}, {n}] -> [{B}, {bins}]: bit-equal; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bincount over "
+        f"row-offset draws {library_ms:.4f} ms")
+    stats["histogram"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                              library_ms=library_ms,
+                              **bound(idx.numel() * 4 + B * bins * 4, 0,
+                                      "f32"))
+    del idx, offsets, got, want
+
+    # pixel_text_ce: bf16 packed, bf16 overflowing K (full C), fp32 full C
+    text = l2_normalize(torch.randn(NUM_CLASSES, D, device=device,
+                                    generator=gen), dim=-1)
+    rows = {}
+    for case, dtype, batch, members in (
+            ("bf16 packed", torch.bfloat16, B, 90),
+            ("bf16 overflow (full C)", torch.bfloat16, B, 200),
+            ("fp32 full C", torch.float32, 8, 90)):
+        N = batch * h * h
+        samples = torch.randn(N, D, device=device, generator=gen).to(dtype)
+        mask, members_ids = contrast_set(gen, device, members)
+        pick = torch.randint(0, members, (4, N), device=device, generator=gen)
+        labels = members_ids[pick]
+        valid = torch.randint(0, 3, (4, N), device=device,
+                              generator=gen).float()
+        temp = torch.tensor(0.07, device=device)
+        table = text.to(dtype)
+        packed = None
+        if dtype == torch.bfloat16:
+            ids, ptable, pmask = pack_contrast_set(mask, text, CAPACITY)
+            packed = (ptable.to(dtype), pmask, ids,
+                      mask.sum() <= CAPACITY)
+        args = ce_operands(samples, temp, labels, valid, table, mask,
+                               packed)
+        flat, lab, val, msk, pt, pm, pi, flag = args
+        op_args = (flat, temp, lab, val, table, msk, pt, pm, pi, flag)
+        plain_args = (flat, temp, lab, val, table, msk)
+        plain_packed = None if pt is None else (pt, pm, pi, flag)
+        g = torch.tensor(1.0 / N, device=device)
+        got = pixel_text_ce_op(*op_args)
+        want = pixel_text_ce_plain(*plain_args, packed=plain_packed)
+        dx, dt = pixel_text_ce_backward_op(g, *op_args)
+        dx_p, dt_p = pixel_text_ce_backward_plain(g, *plain_args,
+                                                  packed=plain_packed)
+        torch.cuda.synchronize()
+        # tolerances: f32 summation order and the online max over class
+        # tiles (rtol 2e-5 on the summed CE and d tau); d samples within one
+        # bf16 ulp plus 2^-10 of the row's largest entry (bf16), or 1e-4 of
+        # it (f32)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=0.0)
+        torch.testing.assert_close(dt, dt_p, rtol=2e-5, atol=1e-6)
+        scale = dx_p.double().abs().amax(dim=-1, keepdim=True)
+        err = (dx.double() - dx_p.double()).abs()
+        if dtype == torch.bfloat16:
+            require(within_bf16_ulp(dx, dx_p, scale * 2.0 ** -10),
+                    f"pixel_text_ce[bwd] {case} beyond one bf16 ulp")
+        else:
+            require(bool((err <= 1e-4 * scale + 1e-12).all()),
+                    f"pixel_text_ce[bwd] {case}: {float(err.max())}")
+        fwd = time_pair(lambda: pixel_text_ce_op(*op_args),
+                        lambda: pixel_text_ce_plain(
+                            *plain_args, packed=plain_packed), 5, 2)
+        bwd = time_pair(lambda: pixel_text_ce_backward_op(g, *op_args),
+                        lambda: pixel_text_ce_backward_plain(
+                            g, *plain_args, packed=plain_packed), 5, 2)
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        classes = CAPACITY if case == "bf16 packed" else NUM_CLASSES
+        esize = flat.element_size()
+        io = flat.numel() * esize + lab.numel() * 8 + classes * D * esize
+        flops = 2.0 * N * classes * D
+        rows[case] = dict(
+            fwd=dict(max_abs_err=max_abs_err(got, want), ms=fwd[0],
+                     plain_ms=fwd[1], library_ms=None,
+                     **bound(io, flops, kind)),
+            bwd=dict(max_abs_err=float(err.max()), ms=bwd[0],
+                     plain_ms=bwd[1], library_ms=None,
+                     **bound(io + flat.numel() * esize, 2 * flops, kind)))
+        log(f"  pixel_text_ce {case}, N={N} D={D} S=4 "
+            f"({int(mask.sum())} members): CE {float(got):.6g} vs plain "
+            f"{float(want):.6g}, d tau {float(dt):.6g} vs {float(dt_p):.6g}, "
+            f"max |d samples diff| {float(err.max()):.3g}; fwd kernel "
+            f"{fwd[0]:.4f} ms (plain {fwd[1]:.4f}), bwd kernel {bwd[0]:.4f} "
+            f"ms (plain {bwd[1]:.4f}); bound fwd "
+            f"{rows[case]['fwd']['bound_ms']:.4f} ms, bwd "
+            f"{rows[case]['bwd']['bound_ms']:.4f} ms")
+        del samples, flat, dx, dx_p, err, op_args, plain_args
+        torch.cuda.empty_cache()
+    stats["pixel_text_ce[fwd]"] = rows["bf16 packed"]["fwd"]
+    stats["pixel_text_ce[bwd]"] = rows["bf16 packed"]["bwd"]
+    for name in ("pixel_text_ce[fwd]", "pixel_text_ce[bwd]"):
+        key = name[-4:-1]
+        stats[name]["max_abs_err"] = max(r[key]["max_abs_err"]
+                                         for r in rows.values())
+
+    # tv_rowtile: bf16, upsample 2, one sample weight 0
+    x = (torch.randint(-6, 7, (B, h, h, D), device=device, generator=gen) / 4
+         + torch.randn(B, h, h, D, device=device, generator=gen)
+         ).to(torch.bfloat16)
+    w = torch.ones(B, device=device)
+    w[-1] = 0.0
+    xk = x.clone().requires_grad_()
+    value = tv_rowtile(xk, w, 2)
+    value.backward()
+    xp = x.clone().requires_grad_()
+    want = tv_rowtile_plain(xp, w, 2)
+    want.backward()
+    torch.cuda.synchronize()
+    # the forward differs by f32 summation order; the backward is bit-equal
+    torch.testing.assert_close(value.detach(), want.detach(), rtol=1e-5,
+                               atol=0.0)
+    require(torch.equal(xk.grad, xp.grad),
+            "tv_rowtile[bwd] is not bit-equal to the plain VJP")
+    g = torch.tensor(1.0, device=device)
+    xw = x * w.to(x.dtype)[:, None, None, None]
+    fwd = time_pair(lambda: tv_rowtile_op(x, w, 2),
+                    lambda: tv_rowtile_plain(x, w, 2), 20, 5)
+    bwd = time_pair(lambda: tv_rowtile_backward_op(x, w, g, 2),
+                    lambda: tv_grad(xw, g, 2), 20, 5)
+    log(f"  tv_rowtile [{B}, {h}, {h}, {D}] bf16, upsample 2, one weight 0: "
+        f"value {float(value.detach()):.6g} vs plain "
+        f"{float(want.detach()):.6g}, backward "
+        f"bit-equal; fwd kernel {fwd[0]:.4f} ms (plain {fwd[1]:.4f}), bwd "
+        f"kernel {bwd[0]:.4f} ms (plain {bwd[1]:.4f})")
+    stats["tv_rowtile[fwd]"] = dict(
+        max_abs_err=max_abs_err(value.detach(), want.detach()), ms=fwd[0],
+        plain_ms=fwd[1], library_ms=None, **bound(x.numel() * 2, 0, "bf16"))
+    stats["tv_rowtile[bwd]"] = dict(
+        max_abs_err=max_abs_err(xk.grad, xp.grad), ms=bwd[0],
+        plain_ms=bwd[1], library_ms=None,
+        **bound(2 * x.numel() * 2, 0, "bf16"))
+    del x, xk, xp, xw
+    torch.cuda.empty_cache()
+
+
+class plain_versions:
+    """Within the block, the losses and the decoder's normalisation call
+    the kernels' plain versions on CUDA tensors (the reference a kernel
+    step is held against)."""
+
+    def __enter__(self):
+        from rangeclip_tpu_torch.losses import infonce, smoothness
+        from rangeclip_tpu_torch.models import depth_unet
+        from rangeclip_tpu_torch.ops.kernels import class_presence as cp
+        from rangeclip_tpu_torch.ops.kernels import histogram as hist
+        from rangeclip_tpu_torch.ops.kernels import pixel_text_ce as ce
+
+        never = lambda *args: False  # noqa: E731
+        self.saved = [
+            (infonce, "histogram", hist.histogram_plain),
+            (infonce, "class_presence", cp.class_presence_plain),
+            (infonce, "fused_pixel_text_ce", ce.pixel_text_ce_reference),
+            (smoothness, "kernel_applicable", never),
+            (depth_unet, "field_kernel_applicable", never),
+        ]
+        self.saved = [(m, a, getattr(m, a), v) for m, a, v in self.saved]
+        for module, attr, _, value in self.saved:
+            setattr(module, attr, value)
+
+    def __exit__(self, *exc):
+        for module, attr, old, _ in self.saved:
+            setattr(module, attr, old)
+
+
+def compare_train_step(device, batch: int, bf16: bool):
+    """One kernel step and one plain step from the same weights, data and
+    draws; returns the (kernel, plain) infos."""
+    from rangeclip_tpu_torch.losses.hybrid import Draws
+    from rangeclip_tpu_torch.losses.infonce import draw_pixels, sample_gumbel
+    from rangeclip_tpu_torch.ops.kernels import _lib
+    from rangeclip_tpu_torch.training.optim import make_optimizer
+    from rangeclip_tpu_torch.utils.profiling import train_setup
+
+    state, data, text, medium, hard, step = train_setup(
+        device, batch=batch, bf16=bf16, seed=SEED + 10)
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    draws = [Draws(draw_pixels(batch, RES, RES, 0.7, gen, device),
+                   (sample_gumbel(NUM_CLASSES, gen, device),
+                    sample_gumbel(NUM_CLASSES, gen, device)))]
+    plain_state = copy.deepcopy(state)
+    plain_state.optimizer = make_optimizer(plain_state.model.parameters(),
+                                           1e-4)
+    args = (data, (0, 0), 1e-4, 0.0, 0.75, text, medium, hard, draws)
+    _lib.reset_launch_counts()
+    _, info = step(state, *args)
+    launched = sum(_lib.launch_counts.values())
+    _lib.reset_launch_counts()
+    with plain_versions():
+        _, plain_info = step(plain_state, *args)
+    torch.cuda.synchronize()
+    require(launched > 0 and sum(_lib.launch_counts.values()) == 0,
+            "the plain step launched a kernel, or the kernel step none")
+    return info, plain_info
+
+
+def phase_train(device, card: str, totals):
+    """The flagship train step, 3 steps; then kernel vs plain steps."""
+    from rangeclip_tpu_torch.utils.profiling import train_setup
+
+    state, data, text, medium, hard, step = train_setup(
+        device, batch=TRAIN_BATCH, bf16=True, present=TRAIN_PRESENT,
+        seed=SEED + 12)
+    before = {k: v.detach().clone() for k, v in
+              state.model.state_dict().items() if v.is_floating_point()}
+    times, losses = [], []
+
+    def drive():
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, info = step(state, data, (SEED, i), 1e-4, 0.0, 0.75, text,
+                           medium, hard)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append({k: float(v) for k, v in info.items()})
+
+    run_path("train step (bf16, 1 x 32 at 256^2)", TRAIN_KERNELS, drive,
+             totals)
+    after = state.model.state_dict()
+    changed = sum(not torch.equal(before[k], after[k]) for k in before)
+    require(all(np.isfinite(list(l.values())).all() for l in losses),
+            f"non-finite train info: {losses}")
+    require(changed > 0, "no parameter changed")
+    step_s = sum(times[1:]) / len(times[1:])
+    log(f"  train: losses {[round(l['total_loss'], 4) for l in losses]}, "
+        f"grad_norm {[round(l['grad_norm'], 4) for l in losses]}; "
+        f"{changed} of {len(before)} float tensors changed; "
+        f"{1e3 * step_s:.2f} ms/step (steps 2-3, host clock, synchronised; "
+        f"first step {1e3 * times[0]:.1f} ms), {TRAIN_BATCH / step_s:.1f} "
+        f"maps/s on {card}")
+    del state, data
+    torch.cuda.empty_cache()
+
+    # kernel step vs the same step through the plain versions: fp32 at
+    # batch 8 (TF32 off; f32 summation orders: loss rtol 1e-4, grad_norm
+    # 1e-3) and bf16 at batch 32 (the kernels round the bf16 pixel and the
+    # CE delta where the plain versions do, but sum in other orders: loss
+    # rtol 2e-3, grad_norm 2e-2)
+    for batch, bf16, rtol_loss, rtol_norm in ((8, False, 1e-4, 1e-3),
+                                              (TRAIN_BATCH, True, 2e-3,
+                                               2e-2)):
+        info, plain = compare_train_step(device, batch, bf16)
+        for key, rtol in (("total_loss", rtol_loss),
+                          ("text_contrastive_loss", rtol_loss),
+                          ("smoothness_loss", rtol_loss),
+                          ("grad_norm", rtol_norm)):
+            got, want = float(info[key]), float(plain[key])
+            require(abs(got - want) <= rtol * abs(want),
+                    f"train step {'bf16' if bf16 else 'fp32'} {key}: kernel "
+                    f"{got} vs plain {want} (rtol {rtol})")
+        log(f"  train step {'bf16' if bf16 else 'fp32'} batch {batch}, "
+            f"kernels vs plain versions, same draws: loss "
+            f"{float(info['total_loss']):.6f} vs "
+            f"{float(plain['total_loss']):.6f}, grad_norm "
+            f"{float(info['grad_norm']):.6f} vs {float(plain['grad_norm']):.6f}")
+        torch.cuda.empty_cache()
+
+
+def phase_cli_train(tmp: str, device, totals) -> None:
+    """cli/train --bf16 on a synthetic 256^2 dataset, then its checkpoint
+    loaded strictly and run through predict."""
+    from rangeclip_tpu_torch.cli import train
+    from rangeclip_tpu_torch.data.labels import load_candidate_labels
+    from rangeclip_tpu_torch.data.synthetic import write_synthetic_dataset
+    from rangeclip_tpu_torch.models.clip.provider import HashTextEmbedder
+    from rangeclip_tpu_torch.models.depth_unet import (
+        DepthUNet,
+        DepthUNetConfig,
+    )
+    from rangeclip_tpu_torch.models.interop import load_reference_pth
+
+    t0 = time.perf_counter()
+    data = write_synthetic_dataset(os.path.join(tmp, "synthetic"),
+                                   n_samples=107, shape=(RES, RES),
+                                   num_classes=NUM_CLASSES)
+    log(f"  wrote 107 synthetic {RES}^2 samples in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ckpt = os.path.join(tmp, "train")
+    argv = ["--labeled_metadata_path", data["metadata"],
+            "--labels_path", data["labels"],
+            "--equivalence_dict_path", data["similarity"],
+            "--checkpoint_path", ckpt, "--unet_architecture", "resnet",
+            "--batch_size", "4", "--accumulation_steps", "8",
+            "--n_height", str(RES), "--n_width", str(RES),
+            "--learning_rates", "1e-4", "--learning_schedule", "1",
+            "--max_steps", "2", "--n_step_per_summary", "1",
+            "--n_step_per_checkpoint", "2",
+            "--validation_start_step", "1000000", "--bf16"]
+    require(train.build_parser().parse_args(argv).device == "cuda",
+            "cli/train does not default to cuda")
+    t0 = time.perf_counter()
+    run_path("cli/train", [k for k in TRAIN_KERNELS
+                           if not k.startswith("l2_normalize")],
+             lambda: train.main(argv), totals)
+    seconds = time.perf_counter() - t0
+    path = os.path.join(ckpt, "checkpoints",
+                        "depth_segmentation_model-2.pth")
+    require(os.path.exists(path), "cli/train wrote no step-2 checkpoint")
+    model = DepthUNet(DepthUNetConfig(), device=device)
+    model.load_state_dict(load_reference_pth(path), strict=True)
+    labels = load_candidate_labels(data["labels"])
+    table = torch.from_numpy(HashTextEmbedder(512)(labels)).to(device)
+    depth = torch.randn(2, RES, RES, 1, device=device,
+                        generator=torch.Generator(device=device).manual_seed(
+                            SEED + 13))
+    with torch.inference_mode():
+        ids, _, _ = model.eval().predict(depth, table, None, 5)
+    torch.cuda.synchronize()
+    require(tuple(ids.shape) == (2, RES, RES, 5)
+            and bool(((ids >= 0) & (ids < len(labels))).all()),
+            f"predict with the trained checkpoint: {tuple(ids.shape)}")
+    log(f"  cli/train --bf16, 2 steps of 8 x 4 at {RES}^2: {seconds:.1f} s "
+        f"with start-up; step-2 .pth loads strictly and predicts "
+        f"[2, {RES}, {RES}, 5] ids in range")
+
+
 def run_path(name: str, expect, fn, totals):
     """Run one path with the launch counts set to 0 just before it; require
     the kernels it is built on; add its counts to ``totals``."""
@@ -839,6 +1259,7 @@ def main(argv=None) -> int:
     phase_kernels(device, bench_model, depths[0], text, cand, stats)
     phase_unfolded_kernels(device, bench_model, serve_model, depths, text,
                            cand, stats)
+    phase_train_kernels(device, stats)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"  phase 2 done at {time.perf_counter() - t_start:.1f} s")
@@ -885,7 +1306,15 @@ def main(argv=None) -> int:
              ["l2_normalize[fwd]", "l2_normalize[bwd]"],
              lambda: phase_gradient(device), totals)
 
-    log(f"launches over phases 3-6: {totals} "
+    log("phase 7: train")
+    phase_train(device, card, totals)
+    log(f"  phase 7 done at {time.perf_counter() - t_start:.1f} s")
+
+    log("phase 8: cli/train")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_cli_train(tmp, device, totals)
+
+    log(f"launches over phases 3-8: {totals} "
         f"({time.perf_counter() - t_start:.1f} s since the start)")
     for name in KERNEL_ROWS:
         require(totals[name] > 0, f"{name} was not launched by a main path")

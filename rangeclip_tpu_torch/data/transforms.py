@@ -1,7 +1,9 @@
-"""Depth transform (``rangeclip_tpu/data/transforms.py``): nearest resize
-with torch's index rule idx = floor(i * in / out), then division by the
-lower median (torch.median's choice for even counts), or zeros when the
-median is below 1e-6 in magnitude."""
+"""Sample transforms (``rangeclip_tpu/data/transforms.py``, the numpy and
+PIL paths).  Depth: nearest resize with torch's index rule idx = floor(i *
+in / out), then division by the lower median (torch.median's choice for
+even counts), or zeros when the median is below 1e-6 in magnitude.  Image:
+PIL bilinear resize to [0, 1] f32.  Segmentation: nearest resize.  PIL is
+imported inside the function that uses it."""
 
 from __future__ import annotations
 
@@ -36,3 +38,24 @@ def depth_transform(depth: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     if abs(median) < 1e-6:
         return np.zeros_like(resized)
     return resized / median
+
+
+def image_transform(image, size: Tuple[int, int]) -> np.ndarray:
+    """PIL image (or an [H, W, 3] array) -> bilinear resize to (H, W),
+    float32 [H, W, 3] in [0, 1]."""
+    from PIL import Image
+
+    if isinstance(image, np.ndarray):
+        arr = image
+        if arr.dtype != np.uint8:
+            arr = (np.clip(arr, 0.0, 1.0) * 255).astype(np.uint8)
+        image = Image.fromarray(arr)
+    H, W = size
+    resized = image.convert("RGB").resize((W, H), Image.BILINEAR)
+    return np.asarray(resized, dtype=np.float32) / 255.0
+
+
+def segmentation_transform(seg: np.ndarray, size: Tuple[int, int]
+                           ) -> np.ndarray:
+    """Nearest resize of an integer label map, int32."""
+    return resize_nearest_np(np.asarray(seg), size).astype(np.int32)

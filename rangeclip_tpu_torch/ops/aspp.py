@@ -33,13 +33,30 @@ def _conv_gn_relu(in_channels: int, features: int, kernel_size: int,
             nn.ReLU()]
 
 
+def group_norm(y: torch.Tensor, gn: nn.GroupNorm) -> torch.Tensor:
+    """flax's GroupNorm on NCHW f32: per group mean and E[x^2] - mean^2
+    (clamped at 0), then (x - mean) * (rsqrt(var + eps) * scale) + bias.
+    The order matters for groups of one value (a 1x1 map with one channel
+    per group): x - mean is exactly 0 there and the output exactly the
+    bias, where ``torch.group_norm``'s x * a + b leaves rounding noise
+    that a later L2 normalisation blows up."""
+    N, C, H, W = y.shape
+    g = y.reshape(N, gn.num_groups, C // gn.num_groups, H, W)
+    mean = g.mean(dim=(2, 3, 4), keepdim=True)
+    var = ((g * g).mean(dim=(2, 3, 4), keepdim=True)
+           - mean * mean).clamp_min(0.0)
+    mul = torch.rsqrt(var + gn.eps) * gn.weight.reshape(
+        1, gn.num_groups, C // gn.num_groups, 1, 1)
+    out = (g - mean) * mul + gn.bias.reshape(1, gn.num_groups,
+                                             C // gn.num_groups, 1, 1)
+    return out.reshape(N, C, H, W)
+
+
 def _apply(conv: nn.Conv2d, gn: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
-    """conv in ``x``'s dtype, GroupNorm in float32, ReLU.  (``torch.
-    group_norm``: F.group_norm refuses groups of one value, which the
-    reference computes, e.g. a 1x1 map with one channel per group.)"""
+    """conv in ``x``'s dtype, GroupNorm in float32 (:func:`group_norm`),
+    ReLU."""
     y = conv2d(conv, x)
-    y = torch.group_norm(y.float(), gn.num_groups, gn.weight, gn.bias, gn.eps)
-    return F.relu(y.to(x.dtype))
+    return F.relu(group_norm(y.float(), gn).to(x.dtype))
 
 
 class ASPP(nn.Module):

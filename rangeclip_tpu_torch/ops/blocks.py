@@ -6,7 +6,8 @@ the reference's state-dict keys (``conv``, ``batch_norm``, ``projection``,
 
 Parameters stay float32.  A block computes in the dtype of its input: conv
 weights are cast to it, and BatchNorm normalises in float32 and casts back,
-as the JAX blocks do with a bf16 compute dtype.
+as the JAX blocks do with a bf16 compute dtype.  In train mode BatchNorm
+updates its running statistics as flax does (:class:`BatchNorm2d`).
 """
 
 from __future__ import annotations
@@ -31,6 +32,46 @@ def conv2d(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
                     conv.padding, conv.dilation)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode running statistics follow flax's
+    ``BatchNorm(momentum=0.9)`` (blocks.py:89-96): 0.9 * old + 0.1 * batch,
+    with the BIASED batch variance in f32, where torch's module takes the
+    unbiased one.  Normalisation (batch statistics in train mode, running
+    ones in eval mode) is torch's own; ``num_batches_tracked`` counts as
+    before."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        C = x.shape[1]
+        n = x.numel() // C
+        if n == 1:
+            # one value per channel, which F.batch_norm refuses and flax
+            # normalises to exactly the bias: x - mean is 0
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       unbiased=False)
+            shape = (1, -1, 1, 1)
+            y = ((x - mean.reshape(shape))
+                 * torch.rsqrt(var.reshape(shape) + self.eps)
+                 * self.weight.reshape(shape) + self.bias.reshape(shape))
+            var, mean = var.detach(), mean.detach()
+        else:
+            # momentum 1 into fresh buffers: the kernel hands back the
+            # batch mean and the unbiased variance it normalised with, so
+            # no second pass over x is needed for the statistics
+            mean = torch.zeros(C, dtype=torch.float32, device=x.device)
+            var = torch.zeros(C, dtype=torch.float32, device=x.device)
+            y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
+                             1.0, self.eps)
+            var = var * ((n - 1) / n)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(keep).add_(var, alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 class Conv2d(nn.Module):
     """conv(pad=k//2, no bias) -> optional BatchNorm -> activation
     (blocks.py:108-147)."""
@@ -46,8 +87,8 @@ class Conv2d(nn.Module):
                               device=device)
         init_weight_(self.conv.weight, weight_initializer, generator)
         # torch momentum 0.1 == flax momentum 0.9
-        self.batch_norm = (nn.BatchNorm2d(features, eps=1e-5, momentum=0.1,
-                                          device=device)
+        self.batch_norm = (BatchNorm2d(features, eps=1e-5, momentum=0.1,
+                                       device=device)
                            if use_batch_norm else None)
         self.act = resolve_activation(activation)
 

@@ -15,7 +15,8 @@ current PyTorch stream and do not synchronise.
 
 Every kernel is also a ``torch.library`` operator ``rangeclip::<name>``
 (:func:`define_op`): its CUDA implementation launches the kernel, its CPU
-implementation is the plain version, and a fake implementation gives
+implementation (the predict kernels only; the training kernels register
+none) is the plain version, and a fake implementation gives
 ``torch.export`` and ``torch.compile`` the output shapes.  The public
 wrappers call the operator for CUDA tensors only and the plain version
 directly for CPU tensors, so a program traced on the CPU holds no custom op.
@@ -54,6 +55,11 @@ launch_counts = {
     "pixel_text_topk": 0,
     "l2_normalize[fwd]": 0,
     "l2_normalize[bwd]": 0,
+    "histogram": 0,
+    "pixel_text_ce[fwd]": 0,
+    "pixel_text_ce[bwd]": 0,
+    "tv_rowtile[fwd]": 0,
+    "tv_rowtile[bwd]": 0,
 }
 
 _P = ctypes.c_void_p
@@ -66,19 +72,28 @@ _SIGNATURES = {
     "rc_pixel_text_topk": (_P, _I, _P, _P, _L, _I, _I, _I, _P, _P, _P),
     "rc_l2_normalize_fwd": (_P, _I, _P, _L, _I, _P),
     "rc_l2_normalize_bwd": (_P, _P, _I, _P, _L, _I, _P),
+    "rc_histogram": (_P, _I, _L, _I, _P, _P),
+    "rc_pixel_text_ce_fwd": (_P, _I, _P, _P, _P, _I, _L, _I, _P, _P, _I,
+                             _P, _P, _P, _I, _P, _P, _P),
+    "rc_pixel_text_ce_bwd": (_P, _I, _P, _P, _P, _P, _I, _L, _I, _P, _P, _I,
+                             _P, _P, _P, _I, _P, _P, _P, _P),
+    "rc_tv_rowtile_fwd": (_P, _I, _I, _I, _I, _P, _P, _P),
+    "rc_tv_rowtile_bwd": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
 }
 
 OPS = torch.library.Library("rangeclip", "DEF")
 
 
-def define_op(schema: str, cuda_impl: Callable, cpu_impl: Callable,
-              fake_impl: Callable):
-    """Define ``rangeclip::<schema>`` with its CUDA, CPU and fake
-    implementations; returns the operator overload."""
+def define_op(schema: str, cuda_impl: Callable,
+              cpu_impl: Optional[Callable], fake_impl: Callable):
+    """Define ``rangeclip::<schema>`` with its CUDA and fake
+    implementations, and a CPU one where given; returns the operator
+    overload."""
     name = schema.split("(", 1)[0]
     OPS.define(schema)
     OPS.impl(name, cuda_impl, "CUDA")
-    OPS.impl(name, cpu_impl, "CPU")
+    if cpu_impl is not None:
+        OPS.impl(name, cpu_impl, "CPU")
     torch.library.register_fake(f"rangeclip::{name}", fake_impl, lib=OPS)
     return getattr(torch.ops.rangeclip, name).default
 

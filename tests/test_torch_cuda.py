@@ -25,15 +25,28 @@ from rangeclip_tpu_torch.ops.kernels.conv_score_topk import (
     conv_score_topk,
     conv_score_topk_plain,
 )
+from rangeclip_tpu_torch.ops.kernels.histogram import (
+    histogram,
+    histogram_plain,
+)
 from rangeclip_tpu_torch.ops.kernels.l2_normalize import (
     l2_normalize_plain,
     l2_normalize_rows,
+)
+from rangeclip_tpu_torch.ops.kernels.pixel_text_ce import (
+    fused_pixel_text_ce,
+    pixel_text_ce_backward_plain,
+    pixel_text_ce_plain,
 )
 from rangeclip_tpu_torch.ops.kernels.pixel_text_topk import (
     normalize_rows_rsqrt,
     pixel_text_topk,
 )
 from rangeclip_tpu_torch.ops.kernels.score_topk import score_topk
+from rangeclip_tpu_torch.ops.kernels.tv_rowtile import (
+    tv_rowtile,
+    tv_rowtile_plain,
+)
 from rangeclip_tpu_torch.utils.math import l2_normalize
 
 
@@ -291,3 +304,155 @@ def test_predict_unfolded_on_cuda_matches_cpu(cuda_device):
     for name in ("l2_normalize[fwd]", "l2_normalize[bwd]"):
         assert _lib.launch_counts[name] == before[name] + 1
     assert torch.isfinite(bf16.decoder.output_conv.conv.weight.grad).all()
+
+
+def _counted(name, fn):
+    """fn() with the launches of ``name`` it made."""
+    before = _lib.launch_counts[name]
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _lib.launch_counts[name] - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,n_bins", [(32, 45875, 65536), (3, 1000, 70000),
+                                           (2, 5, 7), (1, 0, 3)])
+def test_histogram_matches_plain(cuda_device, rows, n, n_bins):
+    """Bit-equal, with -1 padding and indices past the last bin ignored."""
+    gen = torch.Generator().manual_seed(8)
+    idx = torch.randint(-1, n_bins + 2, (rows, n), generator=gen,
+                        dtype=torch.int32)
+    got, launches = _counted("histogram",
+                             lambda: histogram(idx.to(cuda_device), n_bins))
+    assert launches == 1
+    assert torch.equal(got.cpu(), histogram_plain(idx, n_bins))
+
+
+def _ce_inputs(gen, dtype, n, d, c, slots, members, capacity=None):
+    """(samples, temperature, labels, valid, table, mask, packed) with the
+    valid labels members of the contrast set (packed-path precondition)."""
+    samples = torch.randn(n, d, generator=gen).to(dtype)
+    table = torch.nn.functional.normalize(torch.randn(c, d, generator=gen),
+                                          dim=-1).to(dtype)
+    member_ids = torch.randperm(c, generator=gen)[:members].sort().values
+    mask = torch.zeros(c, dtype=torch.int32)
+    mask[member_ids] = 1
+    labels = member_ids[torch.randint(0, members, (slots, n),
+                                      generator=gen)].int()
+    labels[:, ::17] = c + 3  # out of range: picks nothing
+    valid = torch.randint(0, 3, (slots, n), generator=gen).float()
+    temperature = torch.tensor(0.07)
+    packed = None
+    if capacity is not None:
+        ids = torch.full((capacity,), c, dtype=torch.int32)
+        ids[:min(members, capacity)] = member_ids[:capacity].int()
+        ptable = table[ids.clamp_max(c - 1).long()]
+        packed = (ptable, (ids < c).int(), ids,
+                  torch.tensor(int(members <= capacity)))
+    return samples, temperature, labels, valid, table, mask, packed
+
+
+def _within_bf16(got, want, slack):
+    got, want = got.double(), want.double()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+    return bool(((got - want).abs() <= ulp + slack).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("slots", [1, 4])
+@pytest.mark.parametrize("form", ["full", "packed", "overflow"])
+def test_pixel_text_ce_matches_plain(cuda_device, dtype, slots, form):
+    """Forward (the summed CE), d samples and d temperature against the
+    plain versions on the card.  Values and d temperature within rtol 2e-5
+    (f32 sums in another order, and an online max over class tiles); d
+    samples f32 within 1e-4 of the row's largest entry, bf16 within one
+    bf16 ulp plus 2^-10 of the row's largest entry (an order change in f32
+    can flip a bf16 rounding, and d samples subtracts its projection)."""
+    gen = torch.Generator().manual_seed(9)
+    n, d, c = 1111, 136, 300
+    capacity = None if form == "full" else 128
+    members = 140 if form == "overflow" else 60
+    samples, temperature, labels, valid, table, mask, packed = _ce_inputs(
+        gen, dtype, n, d, c, slots, members, capacity)
+    dev = lambda t: t.to(cuda_device)
+    packed_d = None if packed is None else tuple(map(dev, packed))
+    xs = dev(samples).requires_grad_()
+    ts = dev(temperature).requires_grad_()
+    before = dict(_lib.launch_counts)
+    loss = fused_pixel_text_ce(xs, ts, dev(labels), dev(valid), dev(table),
+                               dev(mask), packed_d)
+    loss.backward()
+    torch.cuda.synchronize()
+    for name in ("pixel_text_ce[fwd]", "pixel_text_ce[bwd]"):
+        assert _lib.launch_counts[name] == before[name] + 1
+    args = (dev(samples), dev(temperature), dev(labels), dev(valid),
+            dev(table), dev(mask))
+    want = pixel_text_ce_plain(*args, packed=packed_d)
+    dx, dt = pixel_text_ce_backward_plain(torch.tensor(1.0, device=cuda_device),
+                                          *args, packed=packed_d)
+    torch.testing.assert_close(loss.detach(), want, rtol=2e-5, atol=1e-4)
+    torch.testing.assert_close(ts.grad, dt, rtol=2e-5, atol=1e-4)
+    scale = dx.double().abs().amax(dim=-1, keepdim=True)
+    err = (xs.grad.double() - dx.double()).abs()
+    if dtype == torch.bfloat16:
+        assert _within_bf16(xs.grad, dx, scale * 2.0 ** -10)
+    else:
+        assert bool((err <= 1e-4 * scale + 1e-9).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,weights,upsample", [
+    ((3, 10, 16, 128), (1.0, 0.0, 1.0), 2),
+    ((2, 128, 128, 512), None, 2),
+    ((1, 2, 8, 8), (1.0,), 1)])
+def test_tv_rowtile_matches_plain(cuda_device, shape, weights, upsample):
+    """bf16 with ties (quantised values), several row tiles and a ragged
+    last one, a zero sample weight: the backward bit-equal to the plain VJP,
+    the forward within rtol 1e-5 (f32 summation order)."""
+    gen = torch.Generator().manual_seed(10)
+    x = (torch.randint(-6, 7, shape, generator=gen) / 4
+         + torch.randn(shape, generator=gen) * (torch.rand(shape, generator=gen) > 0.5)
+         ).to(torch.bfloat16).to(cuda_device)
+    w = None if weights is None else torch.tensor(weights, device=cuda_device)
+    xk = x.clone().requires_grad_()
+    before = dict(_lib.launch_counts)
+    value = tv_rowtile(xk, w, upsample)
+    value.backward(torch.tensor(1.7, device=cuda_device))
+    torch.cuda.synchronize()
+    for name in ("tv_rowtile[fwd]", "tv_rowtile[bwd]"):
+        assert _lib.launch_counts[name] == before[name] + 1
+    xp = x.clone().requires_grad_()
+    want = tv_rowtile_plain(xp, w, upsample)
+    want.backward(torch.tensor(1.7, device=cuda_device))
+    torch.testing.assert_close(value.detach(), want.detach(), rtol=1e-5,
+                               atol=0.0)
+    assert torch.equal(xk.grad, xp.grad)
+
+
+@pytest.mark.cuda
+def test_training_ops_pass_opcheck(cuda_device):
+    """The training operators' fake implementations, schemas and autograd
+    registrations against their CUDA implementations."""
+    from rangeclip_tpu_torch.ops.kernels.histogram import histogram_op
+    from rangeclip_tpu_torch.ops.kernels.pixel_text_ce import (
+        ce_operands,
+        pixel_text_ce_op,
+    )
+    from rangeclip_tpu_torch.ops.kernels.tv_rowtile import tv_rowtile_op
+
+    gen = torch.Generator().manual_seed(11)
+    dev = lambda t: t.to(cuda_device)
+    torch.library.opcheck(histogram_op, (dev(torch.randint(
+        -1, 70, (3, 50), generator=gen, dtype=torch.int32)), 64))
+    x = dev(torch.randn(2, 4, 8, 16, generator=gen).bfloat16())
+    torch.library.opcheck(tv_rowtile_op, (x.requires_grad_(),
+                                          dev(torch.tensor([1.0, 0.0])), 2))
+    samples, temperature, labels, valid, table, mask, packed = _ce_inputs(
+        gen, torch.bfloat16, 200, 32, 300, 4, 60, 128)
+    flat, lab, val, msk, pt, pm, pi, flag = ce_operands(
+        dev(samples), dev(temperature), dev(labels), dev(valid), dev(table),
+        dev(mask), tuple(map(dev, packed)))
+    torch.library.opcheck(pixel_text_ce_op, (
+        flat.requires_grad_(), dev(temperature).requires_grad_(), lab, val,
+        dev(table), msk, pt, pm, pi, flag))

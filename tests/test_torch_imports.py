@@ -1,6 +1,7 @@
 """The port stands alone: importing it (CLIs included) and running its CPU
-predict paths loads no JAX, flax, pandas or PIL, and asking for a CUDA device that is absent
-raises instead of running on the CPU."""
+predict paths and a CPU train step loads no JAX, flax, pandas or PIL, and
+asking for a CUDA device that is absent raises instead of running on the
+CPU."""
 
 import os
 import subprocess
@@ -33,6 +34,23 @@ assert ids.shape == (1, 32, 32, 2) and ids.dtype == torch.int32
 ids, field, _ = model.predict(depth, text, None, 2, candidate_indices=cand,
                               return_embeddings=False)
 assert ids.shape == (1, 32, 32, 2) and field.shape == (1, 16, 16, 32)
+
+from rangeclip_tpu_torch.losses.hybrid import HybridLossConfig
+from rangeclip_tpu_torch.training.state import create_train_state
+from rangeclip_tpu_torch.training.train_step import make_train_step
+
+state = create_train_state(model.config, torch.device("cpu"), 1e-4,
+                           model=model)
+seg = torch.randint(0, 5, (2, 1, 32, 32), generator=gen, dtype=torch.int32)
+batch = {"depth": torch.randn(2, 1, 32, 32, 1, generator=gen),
+         "segmentation": seg, "object_label": seg[:, :, 3, 3],
+         "image_embeddings": torch.randn(2, 1, 32, generator=gen),
+         "sample_valid": torch.ones(2, 1)}
+state, info = make_train_step(HybridLossConfig(), 2)(
+    state, batch, (0, 0), 1e-3, 0.0, 0.75, text,
+    torch.rand(20, 20, generator=gen) < 0.2,
+    torch.rand(20, 20, generator=gen) < 0.2)
+assert state.step == 1 and torch.isfinite(info["total_loss"])
 loaded = sorted(m for m in ("jax", "flax", "pandas", "PIL", "rangeclip_tpu")
                 if m in sys.modules)
 assert not loaded, loaded
@@ -42,13 +60,18 @@ print("OK")
 _NO_CUDA = r"""
 import sys
 import torch
-from rangeclip_tpu_torch.cli import serve
+from rangeclip_tpu_torch.cli import serve, train
 from rangeclip_tpu_torch.utils.device import resolve_device
 
 assert not torch.cuda.is_available()
 for call in (lambda: resolve_device("cuda"),
              lambda: serve.main(["--checkpoint_path", "absent.pth",
-                                 "--labels_path", "absent.csv"])):
+                                 "--labels_path", "absent.csv"]),
+             lambda: train.main(["--labeled_metadata_path", "absent.csv",
+                                 "--labels_path", "absent.csv",
+                                 "--equivalence_dict_path", "absent.csv",
+                                 "--unet_architecture", "resnet",
+                                 "--checkpoint_path", "absent"])):
     try:
         call()
     except RuntimeError as e:
