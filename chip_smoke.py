@@ -14,6 +14,8 @@ Phases (any failure raises; nothing is caught):
    the same function, that call; each row's bound is the larger of its
    bytes over 3.35 TB/s and its operations over the peak rate of its input
    type (989 TFLOP/s bf16, 67 TFLOP/s f32), from the H100 SXM data sheet.
+   masked_pooling and tv_loss run on a bf16 field of the flagship train
+   native shape [32, 128, 128, 512], head_topk at the bench configuration.
 3. Serve: the port's ``cli/serve`` engine and HTTP server in this process,
    four POSTed depth maps per configuration: default flags (fp32, batch 8,
    top-1, --predict_path auto: folded), --bf16, --predict_path default in
@@ -22,11 +24,16 @@ Phases (any failure raises; nothing is caught):
 4. The bench configuration: bf16 batch 128 over 384 candidate slots drawn
    by build_candidate_indices, through predict_folded and through the
    unfolded DepthUNet.predict, each run twice with identical checksums;
-   maps/s of both and their top-1 agreement.
+   maps/s of both and their top-1 agreement.  Then predict_topk_fused (the
+   head_topk kernel) over the full table under the bench candidate mask,
+   its labels against DepthUNet.predict up to near-ties, and its maps/s.
 5. cli/infer over 20 16-bit depth PNGs (batch 8, a padded tail,
    --predict_path default), and cli/export --predict_path default
    --text_as_input --verify, then the .pt2 loaded and run once.
-6. Gradient: forward_native in bf16 at batch 8, then backward.
+6. Gradient: forward_native in bf16 at batch 8, then backward.  Then, on
+   the flagship train batch (bf16, batch 32): masked_average_pooling over
+   forward_native's field against its use_pallas='never' path, and
+   forward_native + fused_tv_loss + backward.
 7. Train: the flagship train step (bf16, accumulation 1 x batch 32 at
    256^2, C=512 with 40 labels present so the packed CE runs, the full
    hybrid loss with hash-stub image embeddings), 3 steps: finite losses,
@@ -34,11 +41,18 @@ Phases (any failure raises; nothing is caught):
    the same step through the plain versions with the same draws, in fp32
    at batch 8 and in bf16 at batch 32.
 8. cli/train --bf16 on a synthetic 256^2 dataset: 2 optimizer steps of
-   accumulation 8 x batch 4; its checkpoint loads strictly and predicts.
+   accumulation 8 x batch 4, validating at step 2 ([Val] lines and best
+   results in its log); its checkpoint loads strictly and predicts.  Then
+   cli/validate --baselines from that checkpoint (fp32, full width), and
+   validation maps/s over 16 passes of its split after a warm one.
+9. One val step of the flagship batch (bf16, batch 32) through the kernels,
+   twice (identical metrics), and through the plain versions with the same
+   draws: ids up to near-ties, metrics, loss parts within 2e-3 relative.
 
 Each path of phases 3-8 runs with the launch counts set to 0 just before
-it and read just after; each must launch the kernels it is built on, and
-every kernel must be launched by some path.
+it and read just after (phase 9 compares, and counts nothing); each must
+launch the kernels it is built on, and every kernel must be launched by
+some path.
 
 The second-to-last line is a JSON object with each kernel's launches, error
 against its plain version and times; the last line names the device.  The
@@ -48,6 +62,7 @@ script exits non-zero without printing them when CUDA is unavailable.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import csv
 import http.client
@@ -74,6 +89,7 @@ BENCH_TOP_K = 5
 SERVE_BATCH = 8
 LARGE_TABLE = 1000  # a label file that --predict_path auto does not fold
 INFER_MAPS = 20
+VAL_PASSES = 16  # timed passes over the 21-map synthetic val split
 
 KERNEL_ROWS = {
     "score_topk[knockout]": ("rangeclip_tpu_torch/csrc/score_topk.cu",
@@ -100,12 +116,23 @@ KERNEL_ROWS = {
                         "rangeclip_tpu/ops/pallas/tv_rowtile.py:100"),
     "tv_rowtile[bwd]": ("rangeclip_tpu_torch/csrc/tv_rowtile.cu",
                         "rangeclip_tpu/ops/pallas/tv_rowtile.py:131"),
+    "masked_pooling": ("rangeclip_tpu_torch/csrc/masked_pooling.cu",
+                       "rangeclip_tpu/ops/pallas/masked_pooling.py:26"),
+    "head_topk": ("rangeclip_tpu_torch/csrc/head_topk.cu",
+                  "rangeclip_tpu/ops/pallas/head_topk.py:72"),
+    "tv_loss[fwd]": ("rangeclip_tpu_torch/csrc/tv_loss.cu",
+                     "rangeclip_tpu/ops/pallas/tv_loss.py:35"),
+    "tv_loss[bwd]": ("rangeclip_tpu_torch/csrc/tv_loss.cu",
+                     "rangeclip_tpu/ops/pallas/tv_loss.py:55"),
 }
 TRAIN_KERNELS = ["histogram", "class_presence", "pixel_text_ce[fwd]",
                  "pixel_text_ce[bwd]", "tv_rowtile[fwd]", "tv_rowtile[bwd]",
                  "l2_normalize[fwd]", "l2_normalize[bwd]"]
 TRAIN_BATCH = 32
 TRAIN_PRESENT = 40  # labels in the segmentation: the packed CE branch
+POOL_OBJECTS = 256  # object ids of masked_average_pooling (masked_pooling.py:8)
+VAL_KERNELS = ["pixel_text_topk", "class_presence", "histogram",
+               "pixel_text_ce[fwd]"]
 CAPACITY = 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
@@ -301,11 +328,13 @@ def sparse_signs(rows: int, dim: int, nonzero: int, gen, device):
     return torch.zeros(rows, dim, device=device).scatter_(1, at, signs)
 
 
-def near_tie_check(name, got, want, field, table, slot_ids=None) -> float:
+def near_tie_check(name, got, want, field, table, slot_ids=None,
+                   tol: float = 1e-5, min_rate: float = 0.999) -> float:
     """Id agreement of two top-k results on a real field; every mismatch
-    must be a near-tie: f32 score gap <= 1e-5 under the plain scoring.
-    ``slot_ids`` maps the table's rows to the global ids in the results
-    (the gathered form); default: row i is id i."""
+    must be a near-tie: f32 score gap <= ``tol`` under the plain scoring,
+    and the agreement at least ``min_rate``.  ``slot_ids`` maps the table's
+    rows to the global ids in the results (the gathered form); default: row
+    i is id i."""
     from rangeclip_tpu_torch.ops.kernels.pixel_text_topk import (
         normalize_rows_rsqrt,
     )
@@ -328,8 +357,8 @@ def near_tie_check(name, got, want, field, table, slot_ids=None) -> float:
         gap = float((pick(got[0]) - pick(want[0]))[~agree[rows]].abs().max())
     log(f"  {name}: id agreement {rate:.6f}, {int((~agree).sum())} "
         f"mismatches, largest f32 score gap {gap:.3g}")
-    require(rate >= 0.999, f"{name}: id agreement {rate} < 0.999")
-    require(gap <= 1e-5, f"{name}: a mismatch beyond a near-tie ({gap})")
+    require(rate >= min_rate, f"{name}: id agreement {rate} < {min_rate}")
+    require(gap <= tol, f"{name}: a mismatch beyond a near-tie ({gap})")
     return rate
 
 
@@ -1008,10 +1037,296 @@ def phase_train_kernels(device, stats):
     torch.cuda.empty_cache()
 
 
+def bench_mask(seg: torch.Tensor) -> torch.Tensor:
+    """The bench configuration's candidate mask over the full table: the 40
+    labels present plus 300 drawn negatives (340 of C = 512)."""
+    from rangeclip_tpu_torch.models.depth_unet import build_candidate_mask
+
+    return build_candidate_mask(
+        seg, NUM_CLASSES, BENCH_NEGATIVES,
+        generator=torch.Generator().manual_seed(SEED + 14))
+
+
+def pool_objects(device) -> torch.Tensor:
+    """256 object ids: 0..254 (the labels present among them, the rest
+    absent) and a duplicate of 3."""
+    return torch.cat([torch.arange(POOL_OBJECTS - 1, device=device),
+                      torch.tensor([3], device=device)]).to(torch.int32)
+
+
+def phase_eval_kernels(device, bench_model, depths, text, seg, stats):
+    """masked_pooling and tv_loss on a bf16 field of the flagship train
+    native shape [32, 128, 128, 512], head_topk at the bench
+    configuration."""
+    from rangeclip_tpu_torch.ops.kernels.head_topk import (
+        fused_head_score_topk,
+        head_field,
+        head_topk_plain,
+        weight_rows,
+    )
+    from rangeclip_tpu_torch.ops.kernels.masked_pooling import (
+        fused_masked_pooling,
+        masked_pooling_plain,
+    )
+    from rangeclip_tpu_torch.ops.kernels.tv_loss import (
+        fused_tv_loss,
+        tv_loss_backward_op,
+        tv_loss_grad,
+        tv_loss_op,
+        tv_loss_value,
+    )
+    from rangeclip_tpu_torch.utils.math import l2_normalize
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    B, h, D = TRAIN_BATCH, RES // 2, 512
+    x = (torch.randint(-6, 7, (B, h, h, D), device=device, generator=gen) / 4
+         + torch.randn(B, h, h, D, device=device, generator=gen)
+         ).to(torch.bfloat16)
+
+    # masked_pooling: labels 0..39 with -1 padding, 256 ids (the 40
+    # present, a duplicate, absent ones); sums within 1e-5 of the sum of
+    # |x| over each object's pixels (f32 sums in another order), counts
+    # and a second run bit-equal
+    emb = x.reshape(-1, D)
+    labels = torch.randint(0, TRAIN_PRESENT, (emb.shape[0],), device=device,
+                           generator=gen, dtype=torch.int32)
+    labels[::101] = -1
+    obj = pool_objects(device)
+    sums, counts = fused_masked_pooling(emb, labels, obj)
+    again = fused_masked_pooling(emb, labels, obj)[0]
+    want, want_counts = masked_pooling_plain(emb, labels, obj)
+    scale = masked_pooling_plain(emb.abs(), labels, obj)[0]
+    torch.cuda.synchronize()
+    require(torch.equal(counts, want_counts), "masked_pooling counts differ")
+    require(bool(((sums - want).abs() <= 1e-5 * scale + 1e-6).all()),
+            "masked_pooling sums beyond 1e-5 of the summed magnitudes")
+    require(torch.equal(sums, again), "masked_pooling is not deterministic")
+    ms, plain_ms = time_pair(lambda: fused_masked_pooling(emb, labels, obj),
+                             lambda: masked_pooling_plain(emb, labels, obj),
+                             20, 3)
+    # the library yardstick: index_add_ of an f32 copy of the field over a
+    # precomputed pixel-to-row map (the ids unique: the duplicate dropped,
+    # unmatched pixels sent to a spare row)
+    rowmap = torch.where(labels >= 0, labels, POOL_OBJECTS - 1).long()
+    emb32 = emb.float()
+    library_ms = cuda_ms(lambda: torch.zeros(
+        POOL_OBJECTS, D, device=device).index_add_(0, rowmap, emb32), 20)
+    log(f"  masked_pooling [{emb.shape[0]}, {D}] bf16, {POOL_OBJECTS} ids "
+        f"({int((counts[:-1] > 0).sum())} present, a duplicate): counts "
+        f"exact, "
+        f"sums within 1e-5 of the summed magnitudes (max |diff| "
+        f"{max_abs_err(sums, want):.3g}), deterministic; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, index_add_ (f32 copy, unique ids) "
+        f"{library_ms:.4f} ms")
+    stats["masked_pooling"] = dict(
+        max_abs_err=max_abs_err(sums, want), ms=ms, plain_ms=plain_ms,
+        library_ms=library_ms,
+        **bound(emb.numel() * 2 + labels.numel() * 4 + obj.numel() * 4
+                + POOL_OBJECTS * (D + 1) * 4, emb.numel(), "f32"))
+    del emb32, rowmap, scale
+
+    # tv_loss: ties from the quarter grid (sign(0) = 0); the forward within
+    # rtol 1e-5 (f32 summation order), the backward bit-equal
+    xk = x.clone().requires_grad_()
+    value = fused_tv_loss(xk)
+    value.backward()
+    g = torch.tensor(1.0, device=device)
+    want = tv_loss_value(x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(value.detach(), want, rtol=1e-5, atol=0.0)
+    require(torch.equal(xk.grad, tv_loss_grad(x, g)),
+            "tv_loss[bwd] is not bit-equal to the plain VJP")
+    fwd = time_pair(lambda: tv_loss_op(x), lambda: tv_loss_value(x), 20, 5)
+    bwd = time_pair(lambda: tv_loss_backward_op(x, g),
+                    lambda: tv_loss_grad(x, g), 20, 5)
+    log(f"  tv_loss [{B}, {h}, {h}, {D}] bf16: value "
+        f"{float(value.detach()):.7g} vs plain {float(want):.7g}, backward "
+        f"bit-equal; fwd kernel {fwd[0]:.4f} ms (plain {fwd[1]:.4f}), bwd "
+        f"kernel {bwd[0]:.4f} ms (plain {bwd[1]:.4f})")
+    stats["tv_loss[fwd]"] = dict(
+        max_abs_err=max_abs_err(value.detach(), want), ms=fwd[0],
+        plain_ms=fwd[1], library_ms=None, **bound(x.numel() * 2, 0, "bf16"))
+    stats["tv_loss[bwd]"] = dict(
+        max_abs_err=max_abs_err(xk.grad, tv_loss_grad(x, g)), ms=bwd[0],
+        plain_ms=bwd[1], library_ms=None,
+        **bound(2 * x.numel() * 2, 0, "bf16"))
+    del x, xk, emb, labels
+    torch.cuda.empty_cache()
+
+    # head_topk at the bench configuration: the bench model's pre-head
+    # features, its output conv and the full table under the bench mask;
+    # ids against the plain version up to near-ties: the bf16 embedding
+    # rounds after an f32 conv summed in another order, and one component
+    # rounded the other way by one bf16 ulp (2^-8 of up to ~0.2) moves a
+    # score by up to a few 1e-4 against table entries of ~0.1
+    with torch.inference_mode():
+        feats = bench_model.decode_features(depths[0]).contiguous()
+    rows = weight_rows(bench_model.decoder.output_conv.conv.weight.detach())
+    table = l2_normalize(text.float(), dim=-1)
+    mask = bench_mask(seg)
+    rows_b, table_b, mask_i = (rows.to(torch.bfloat16),
+                               table.to(torch.bfloat16), mask.int())
+    got = fused_head_score_topk(feats, rows, table, mask, BENCH_TOP_K)
+    want = head_topk_plain(feats, rows_b, table_b, mask_i, BENCH_TOP_K)
+    field = head_field(feats, rows_b)
+    near_tie_check("head_topk bf16 bench vs plain", got, want, field, table_b,
+                   tol=1e-3, min_rate=0.9999)
+    # where the ids agree, the values are the same score up to that
+    # rounding of the embedding
+    same = got[0] == want[0]
+    err = max_abs_err(got[1][same], want[1][same])
+    require(err <= 1e-3, f"head_topk values beyond 1e-3 of the plain "
+                         f"version where the ids agree ({err})")
+    del field, got, want, same
+    torch.cuda.empty_cache()
+    ms, plain_ms = time_pair(
+        lambda: fused_head_score_topk(feats, rows, table, mask, BENCH_TOP_K),
+        lambda: head_topk_plain(feats, rows_b, table_b, mask_i, BENCH_TOP_K),
+        3, 1)
+    n_pix, c_in = feats.shape[0] * h * h, feats.shape[-1]
+    live = int(mask.sum())  # masked classes cannot change the answer
+    log(f"  head_topk B={feats.shape[0]} h=w={h} C_in={c_in} D={D} "
+        f"C={NUM_CLASSES} ({live} live) k={BENCH_TOP_K} bf16: values within "
+        f"{err:.3g} of plain where the ids agree; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms")
+    stats["head_topk"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **bound(feats.numel() * 2 + rows.numel() * 2 + table.numel() * 2
+                + n_pix * BENCH_TOP_K * 8,
+                2.0 * n_pix * (9 * c_in * D + D * live), "bf16"))
+    del feats
+    torch.cuda.empty_cache()
+
+
+def phase_fused_head(device, model, depths, text, seg, card, totals):
+    """predict_topk_fused at the bench configuration (the path whose
+    launches count), then its labels against DepthUNet.predict with the
+    pixel_text_topk kernel, up to near-ties under f32 scoring of the f32
+    conv: the fused head rounds the normalised embedding to bf16 once,
+    predict rounds the conv output and then the normalised field."""
+    from rangeclip_tpu_torch.models.depth_unet import predict_topk_fused
+    from rangeclip_tpu_torch.ops.kernels.head_topk import (
+        head_field,
+        weight_rows,
+    )
+    from rangeclip_tpu_torch.utils.math import l2_normalize
+
+    mask = bench_mask(seg)
+    iters = 3
+
+    def drive():
+        with torch.inference_mode():
+            ids = predict_topk_fused(model, depths[0], text, mask,
+                                     BENCH_TOP_K)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(iters):
+                predict_topk_fused(model, depths[i % len(depths)], text, mask,
+                                   BENCH_TOP_K)
+            torch.cuda.synchronize()
+        return ids, time.perf_counter() - t0
+
+    (fused, seconds), _ = run_path("predict_topk_fused (bench)", ["head_topk"],
+                                   drive, totals)
+    require(tuple(fused.shape) == (BENCH_BATCH, RES, RES, BENCH_TOP_K)
+            and bool(((fused >= 0) & (fused < NUM_CLASSES)).all()),
+            f"predict_topk_fused output {tuple(fused.shape)}")
+    with torch.inference_mode():
+        ref = model.predict(depths[0], text, mask, BENCH_TOP_K,
+                            scoring="pallas", return_embeddings=False)[0]
+        feats = model.decode_features(depths[0]).contiguous()
+    rows_b = weight_rows(model.decoder.output_conv.conv.weight.detach()).to(
+        torch.bfloat16)
+    table_b = l2_normalize(text.float(), dim=-1).to(torch.bfloat16)
+    field = head_field(feats, rows_b)
+    native = lambda ids: (ids[:, ::2, ::2].reshape(-1, BENCH_TOP_K),)  # noqa
+    rate = near_tie_check("predict_topk_fused vs DepthUNet.predict (bench)",
+                          native(fused), native(ref), field, table_b,
+                          tol=1e-3, min_rate=0.95)
+    top1 = float((fused[..., 0] == ref[..., 0]).float().mean())
+    log(f"  predict_topk_fused bf16 batch {BENCH_BATCH} @ {RES}^2, "
+        f"{int(mask.sum())} candidates, top-{BENCH_TOP_K}: "
+        f"{BENCH_BATCH * iters / seconds:.1f} maps/s "
+        f"({1e3 * seconds / iters:.2f} ms/batch, host clock) on {card}; "
+        f"ids vs predict {rate:.6f} (top-1 {top1:.6f})")
+    del field, feats, fused, ref
+    torch.cuda.empty_cache()
+
+
+def phase_pool_tv(device, totals):
+    """masked_average_pooling over forward_native's field of the flagship
+    train batch (bf16, batch 32), its segmentation taken nearest at the
+    field's 128^2; then forward_native + fused_tv_loss + backward."""
+    from rangeclip_tpu_torch.losses.pooling import masked_average_pooling
+    from rangeclip_tpu_torch.ops.kernels.tv_loss import fused_tv_loss
+    from rangeclip_tpu_torch.ops.resize import resize_nearest
+    from rangeclip_tpu_torch.utils.profiling import train_setup
+
+    state, data, _, _, _, _ = train_setup(
+        device, batch=TRAIN_BATCH, bf16=True, present=TRAIN_PRESENT,
+        seed=SEED + 15)
+    model = state.model.eval()
+    depth, seg = data["depth"][0], data["segmentation"][0]
+    with torch.inference_mode():
+        field, _, _ = model.forward_native(depth)
+    seg_native = resize_nearest(seg[..., None], tuple(field.shape[1:3]))[..., 0]
+    obj = pool_objects(device)
+    pooled, _ = run_path(
+        f"masked_average_pooling (forward_native field, bf16 batch "
+        f"{TRAIN_BATCH})",
+        ["masked_pooling"],
+        lambda: masked_average_pooling(field, seg_native, obj), totals)
+    want = masked_average_pooling(field, seg_native, obj, use_pallas="never")
+    torch.cuda.synchronize()
+    present = int((pooled[:-1].abs().sum(dim=1) > 0).sum())
+    torch.testing.assert_close(pooled, want, rtol=1e-5, atol=1e-6)
+    require(torch.equal(pooled[3], pooled[-1]) and present == TRAIN_PRESENT,
+            f"masked_average_pooling: {present} non-zero rows")
+    log(f"  masked_average_pooling {list(field.shape)} bf16, "
+        f"{POOL_OBJECTS} ids: {present} present rows, within rtol 1e-5 of "
+        f"use_pallas='never' (max |diff| {max_abs_err(pooled, want):.3g})")
+
+    model.train()
+
+    def drive():
+        field, _, _ = model.forward_native(depth)
+        loss = fused_tv_loss(field)
+        loss.backward()
+        return float(loss.detach())
+
+    value, _ = run_path("forward_native + fused_tv_loss + backward (bf16)",
+                        ["tv_loss[fwd]", "tv_loss[bwd]"], drive, totals)
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    require(len(grads) > 0 and np.isfinite(value)
+            and all(bool(torch.isfinite(g).all()) for g in grads),
+            "fused_tv_loss backward not finite")
+    log(f"  forward_native + fused_tv_loss + backward, bf16 batch "
+        f"{TRAIN_BATCH}: TV {value:.6g}, {len(grads)} finite gradients")
+    del state, data, field, model
+    torch.cuda.empty_cache()
+
+
+def plain_pixel_text_topk(field, text, candidate_mask=None, top_k=5,
+                          want_values=True, candidate_ids=None):
+    """``pixel_text_topk`` through its plain version, on any device."""
+    from rangeclip_tpu_torch.ops.kernels.pixel_text_topk import (
+        pixel_text_topk_plain,
+    )
+
+    C = text.shape[0]
+    ids = (torch.arange(C, dtype=torch.int32, device=field.device)
+           if candidate_ids is None else candidate_ids)
+    if candidate_mask is not None:
+        ids = torch.where(candidate_mask != 0, ids, -1)
+    idx, val = pixel_text_topk_plain(field.reshape(-1, field.shape[-1]),
+                                     text.to(field.dtype), ids, top_k)
+    return idx, (val if want_values else None)
+
+
 class plain_versions:
-    """Within the block, the losses and the decoder's normalisation call
-    the kernels' plain versions on CUDA tensors (the reference a kernel
-    step is held against)."""
+    """Within the block, the losses, the decoder's normalisation and
+    predict's candidate mask and scoring call the kernels' plain versions
+    on CUDA tensors (the reference a kernel step is held against)."""
 
     def __enter__(self):
         from rangeclip_tpu_torch.losses import infonce, smoothness
@@ -1027,6 +1342,8 @@ class plain_versions:
             (infonce, "fused_pixel_text_ce", ce.pixel_text_ce_reference),
             (smoothness, "kernel_applicable", never),
             (depth_unet, "field_kernel_applicable", never),
+            (depth_unet, "class_presence", cp.class_presence_plain),
+            (depth_unet, "pixel_text_topk", plain_pixel_text_topk),
         ]
         self.saved = [(m, a, getattr(m, a), v) for m, a, v in self.saved]
         for module, attr, _, value in self.saved:
@@ -1131,12 +1448,85 @@ def phase_train(device, card: str, totals):
         torch.cuda.empty_cache()
 
 
+def compare_val_step(device) -> None:
+    """One val step of the flagship batch (bf16, batch 32 at 256^2, C = 512)
+    through the kernels, twice, and through the plain versions, with the
+    same candidate-mask noise and loss draws: the two kernel passes give
+    identical metrics; against the plain pass, top-k ids agree up to
+    near-ties, the metrics within 4x the share of differing ids, the loss
+    parts within 2e-3 relative."""
+    from rangeclip_tpu_torch.evals.metrics import (
+        metrics_finalize,
+        metrics_init,
+    )
+    from rangeclip_tpu_torch.evals.validate import make_val_step
+    from rangeclip_tpu_torch.losses.hybrid import Draws
+    from rangeclip_tpu_torch.losses.infonce import draw_pixels, sample_gumbel
+    from rangeclip_tpu_torch.ops.kernels import _lib
+    from rangeclip_tpu_torch.utils.profiling import train_setup
+
+    state, data, text, medium, hard, _ = train_setup(
+        device, batch=TRAIN_BATCH, bf16=True, present=TRAIN_PRESENT,
+        seed=SEED + 16)
+    model = state.model.eval()
+    batch = {k: v[0] for k, v in data.items()}
+    images = batch.pop("image_embeddings")
+    gen = torch.Generator(device=device).manual_seed(SEED + 17)
+    gumbel = sample_gumbel(NUM_CLASSES, gen, device)
+    draws = Draws(draw_pixels(TRAIN_BATCH, RES, RES, 0.7, gen, device),
+                  (sample_gumbel(NUM_CLASSES, gen, device),
+                   sample_gumbel(NUM_CLASSES, gen, device)))
+    # equivalences: class c and c + 1 for odd c < 40, the rest alone
+    eq = torch.eye(NUM_CLASSES, dtype=torch.bool, device=device)
+    for c in range(1, TRAIN_PRESENT, 2):
+        eq[c, c + 1] = eq[c + 1, c] = True
+    ecm = eq.int().argmax(dim=1)
+    step = make_val_step()
+
+    def run():
+        _lib.reset_launch_counts()
+        acc, parts, pred = step(model, batch, (0, 0), 0.0, 0.75, text, medium,
+                                hard, eq, ecm, images,
+                                metrics_init(NUM_CLASSES, device),
+                                candidate_gumbel=gumbel, draws=draws)
+        torch.cuda.synchronize()
+        return (metrics_finalize(acc), parts, pred,
+                sum(_lib.launch_counts.values()))
+
+    first, second = run(), run()
+    require(first[0] == second[0], "two kernel val passes: metrics differ")
+    with plain_versions():
+        plain = run()
+    require(first[3] > 0 and plain[3] == 0,
+            "the plain val step launched a kernel, or the kernel step none")
+    agree = float((first[2] == plain[2]).float().mean())
+    require(agree >= 0.999, f"val step ids: agreement {agree}")
+    diffs = {k: abs(first[0][k] - plain[0][k]) for k in first[0]}
+    require(all(d <= 4 * (1 - agree) + 1e-6 for d in diffs.values()),
+            f"val metrics differ beyond the differing ids: {diffs}")
+    names = ("total", "text", "image", "smoothness")
+    for name, got, want in zip(names, first[1].tolist(), plain[1].tolist()):
+        require(abs(got - want) <= 2e-3 * abs(want),
+                f"val loss part {name}: kernel {got} vs plain {want}")
+    log(f"  val step bf16 batch {TRAIN_BATCH}, kernels (twice: identical "
+        f"metrics, loss parts equal {torch.equal(first[1], second[1])}) vs "
+        f"plain versions, same draws: id agreement {agree:.6f}, largest "
+        f"metric difference {max(diffs.values()):.3g}; mIoU_tk "
+        f"{first[0]['mIoU_tk']:.6f} vs {plain[0]['mIoU_tk']:.6f}; loss parts "
+        f"{[round(v, 6) for v in first[1].tolist()]} vs "
+        f"{[round(v, 6) for v in plain[1].tolist()]}")
+    del state, data, model
+    torch.cuda.empty_cache()
+
+
 def phase_cli_train(tmp: str, device, totals) -> None:
-    """cli/train --bf16 on a synthetic 256^2 dataset, then its checkpoint
-    loaded strictly and run through predict."""
-    from rangeclip_tpu_torch.cli import train
+    """cli/train --bf16 on a synthetic 256^2 dataset, validating at step 2;
+    its checkpoint loaded strictly and run through predict; then
+    cli/validate --baselines from that checkpoint."""
+    from rangeclip_tpu_torch.cli import train, validate
     from rangeclip_tpu_torch.data.labels import load_candidate_labels
     from rangeclip_tpu_torch.data.synthetic import write_synthetic_dataset
+    from rangeclip_tpu_torch.evals.validate import validate_model
     from rangeclip_tpu_torch.models.clip.provider import HashTextEmbedder
     from rangeclip_tpu_torch.models.depth_unet import (
         DepthUNet,
@@ -1160,14 +1550,22 @@ def phase_cli_train(tmp: str, device, totals) -> None:
             "--learning_rates", "1e-4", "--learning_schedule", "1",
             "--max_steps", "2", "--n_step_per_summary", "1",
             "--n_step_per_checkpoint", "2",
-            "--validation_start_step", "1000000", "--bf16"]
+            "--validation_start_step", "2", "--bf16"]
     require(train.build_parser().parse_args(argv).device == "cuda",
             "cli/train does not default to cuda")
     t0 = time.perf_counter()
-    run_path("cli/train", [k for k in TRAIN_KERNELS
-                           if not k.startswith("l2_normalize")],
-             lambda: train.main(argv), totals)
+    best, _ = run_path("cli/train (validating at step 2)",
+                       [k for k in TRAIN_KERNELS
+                        if not k.startswith("l2_normalize")]
+                       + ["pixel_text_topk"], lambda: train.main(argv), totals)
     seconds = time.perf_counter() - t0
+    results = open(os.path.join(ckpt, "results.txt")).read()
+    val_lines = [line for line in results.splitlines()
+                 if line.startswith("[Val]") or line.startswith("Best")]
+    require(best.get("step") == 2 and len(val_lines) >= 6,
+            f"cli/train validation: best {best}, log {val_lines}")
+    for line in val_lines:
+        log(f"    {line}")
     path = os.path.join(ckpt, "checkpoints",
                         "depth_segmentation_model-2.pth")
     require(os.path.exists(path), "cli/train wrote no step-2 checkpoint")
@@ -1184,9 +1582,50 @@ def phase_cli_train(tmp: str, device, totals) -> None:
     require(tuple(ids.shape) == (2, RES, RES, 5)
             and bool(((ids >= 0) & (ids < len(labels))).all()),
             f"predict with the trained checkpoint: {tuple(ids.shape)}")
-    log(f"  cli/train --bf16, 2 steps of 8 x 4 at {RES}^2: {seconds:.1f} s "
-        f"with start-up; step-2 .pth loads strictly and predicts "
-        f"[2, {RES}, {RES}, 5] ids in range")
+    log(f"  cli/train --bf16, 2 steps of 8 x 4 at {RES}^2 and a validation: "
+        f"{seconds:.1f} s with start-up; best results {best}; step-2 .pth "
+        f"loads strictly and predicts [2, {RES}, {RES}, 5] ids in range")
+
+    vargv = ["--labeled_metadata_path", data["metadata"],
+             "--labels_path", data["labels"],
+             "--equivalence_dict_path", data["similarity"],
+             "--checkpoint_dir", os.path.join(ckpt, "checkpoints"),
+             "--n_height", str(RES), "--n_width", str(RES), "--baselines"]
+    require(validate.build_parser().parse_args(vargv).device == "cuda",
+            "cli/validate does not default to cuda")
+    out, _ = run_path("cli/validate --baselines", VAL_KERNELS,
+                      lambda: validate.main(vargv), totals)
+    require(out["step"] == 2 and np.isfinite(out["best"]["mIoU_tk"])
+            and "majority" in out and "random" in out,
+            f"cli/validate: {out}")
+    log(f"  cli/validate --baselines (fp32, ResNet-18 UNet, D=512, "
+        f"C={NUM_CLASSES}, step-2 checkpoint): mIoU_tk "
+        f"{out['best']['mIoU_tk']:.4f}, majority pixel accuracy "
+        f"{out['majority']['pixel_accuracy_t1']:.4f}, random "
+        f"{out['random']['pixel_accuracy_t1']:.4f}")
+
+    # validation throughput: cli/validate's model, loader and inputs; one
+    # warm pass, then VAL_PASSES timed passes over the split (the loader
+    # reads and decodes the PNGs anew each pass)
+    _, step, model, loader, inputs = validate.load_validation(
+        validate.build_parser().parse_args(vargv))
+
+    def one_pass():
+        with contextlib.redirect_stdout(io.StringIO()):
+            validate_model(model, loader, step=step, best_results={},
+                           **inputs)
+
+    one_pass()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(VAL_PASSES):
+        one_pass()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    n_maps = VAL_PASSES * len(loader.indices)
+    log(f"  validation throughput (fp32, batch 8, {RES}^2, C={NUM_CLASSES}, "
+        f"after a warm pass): {n_maps} maps in {seconds:.3f} s, "
+        f"{n_maps / seconds:.1f} maps/s (host clock, loading included)")
 
 
 def run_path(name: str, expect, fn, totals):
@@ -1260,6 +1699,7 @@ def main(argv=None) -> int:
     phase_unfolded_kernels(device, bench_model, serve_model, depths, text,
                            cand, stats)
     phase_train_kernels(device, stats)
+    phase_eval_kernels(device, bench_model, depths, text, seg, stats)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"  phase 2 done at {time.perf_counter() - t_start:.1f} s")
@@ -1293,6 +1733,8 @@ def main(argv=None) -> int:
                  ["class_presence", "conv_score_topk", "pixel_text_topk"],
                  lambda: phase_bench(device, bench_model, depths, text, seg,
                                      card), totals)
+        phase_fused_head(device, bench_model, depths, text, seg, card,
+                         totals)
         del bench_model, depths
         torch.cuda.empty_cache()
 
@@ -1305,14 +1747,18 @@ def main(argv=None) -> int:
     run_path("forward_native + backward",
              ["l2_normalize[fwd]", "l2_normalize[bwd]"],
              lambda: phase_gradient(device), totals)
+    phase_pool_tv(device, totals)
 
     log("phase 7: train")
     phase_train(device, card, totals)
     log(f"  phase 7 done at {time.perf_counter() - t_start:.1f} s")
 
-    log("phase 8: cli/train")
+    log("phase 8: cli/train (validating) and cli/validate")
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli_train(tmp, device, totals)
+
+    log("phase 9: val step, kernels against plain versions")
+    compare_val_step(device)
 
     log(f"launches over phases 3-8: {totals} "
         f"({time.perf_counter() - t_start:.1f} s since the start)")

@@ -40,7 +40,8 @@ def refuse_clip(args) -> None:
     if any((args.clip_checkpoint_path, args.clip_vocab_path,
             args.clip_merges_path)):
         raise NotImplementedError(
-            "real CLIP text towers are not ported yet (ROADMAP slice 4); "
+            "real CLIP text towers are not ported yet (ROADMAP slice 4, "
+            "item 9); "
             "omit the --clip_* flags to embed labels with the hash stub")
 
 

@@ -10,8 +10,9 @@ Usage:
 
 Checkpoints are reference ``.pth`` files (``checkpoints/checkpoints/
 depth_segmentation_model-{step}.pth``) that ``cli/serve`` and ``cli/infer``
-load as they are.  Options of later slices (validation, multi-GPU, encoder
-restore, real CLIP towers, ``--profile_dir``) raise NotImplementedError.
+load as they are; validation runs from ``--validation_start_step`` on.
+Options of later slices (multi-GPU, encoder restore, real CLIP towers,
+``--profile_dir``) raise NotImplementedError.
 """
 
 from __future__ import annotations

@@ -24,6 +24,10 @@ import numpy as np
 _SEED = 0  # with the epoch, keys the order and the per-sample draws
 _SHARD = 0  # the one shard: its id keys the per-sample draws, as in JAX
 _PREFETCH = 2  # batches built ahead of the consumer
+# the dtypes the train and val steps take each batch key in
+BATCH_DTYPES = {"depth": np.float32, "segmentation": np.int32,
+                "object_label": np.int32, "sample_valid": np.float32,
+                "image": np.float32, "object_bbox": np.int32}
 
 
 def deterministic_split(n: int) -> Tuple[List[int], List[int], List[int]]:

@@ -1,5 +1,5 @@
-"""DepthUNet with its unfolded ``predict``, and the folded labels-only
-predict (``rangeclip_tpu/models/depth_unet.py``).
+"""DepthUNet with its unfolded ``predict``, the folded labels-only predict
+and the opt-in fused-head predict (``rangeclip_tpu/models/depth_unet.py``).
 
 Public functions keep the JAX package's layouts: depth [B, H, W] or
 [B, H, W, 1], fields NHWC, top-k ids [B, H, W, k] int32.  Inside, the
@@ -28,6 +28,10 @@ from rangeclip_tpu_torch.ops.kernels.conv_score_topk import (
     conv_score_topk,
     fold_to_rows,
     fused_conv_topk_applicable,
+)
+from rangeclip_tpu_torch.ops.kernels.head_topk import (
+    fused_head_score_topk,
+    weight_rows,
 )
 from rangeclip_tpu_torch.ops.kernels.l2_normalize import (
     field_kernel_applicable,
@@ -72,7 +76,7 @@ class DepthUNet(nn.Module):
         if config.unet_type != "resnet":
             raise NotImplementedError(
                 f"unet_type {config.unet_type!r} is not ported yet (the MiT "
-                "encoder is ROADMAP slice 4)")
+                "encoder is ROADMAP slice 4, item 9)")
         self.config = config
         common = dict(weight_initializer=config.weight_initializer,
                       activation=config.activation,
@@ -262,6 +266,40 @@ def _require_eval(model: nn.Module, name: str) -> None:
     if model.training:
         raise ValueError(f"{name} needs the model in eval mode (BatchNorm "
                          "running statistics): call model.eval()")
+
+
+@torch.no_grad()
+def predict_topk_fused(model: DepthUNet, depth: torch.Tensor,
+                       candidate_text_embeddings: torch.Tensor,
+                       candidate_mask: torch.Tensor,
+                       top_k: int = 5) -> torch.Tensor:
+    """Labels-only predict with the whole segmentation head (output conv,
+    L2 normalisation, scoring, masked top-k) in the ``head_topk`` kernel:
+    the [B, h, w, D] field never reaches device memory.  Opt-in, as in the
+    JAX package; CPU tensors run the kernel's plain version.
+
+    The output conv's OIHW weight is reordered into the kernel's
+    [9 * C_in, D] rows.  Unlike ``predict``, an exhausted candidate set
+    gives id 0 (at -1e30) past the live classes, not -1: the TPU kernel's
+    knockout answer, kept.
+
+    Returns top-k ids [B, H, W, k] int32, nearest-upsampled to the input
+    size."""
+    _require_eval(model, "predict_topk_fused")
+    if depth.dim() == 3:
+        depth = depth[..., None]
+    target_shape = tuple(depth.shape[1:3])
+    features = model.decode_features(depth)
+    B, h, w, _ = features.shape
+    rows = weight_rows(model.decoder.output_conv.conv.weight)
+    text = l2_normalize(candidate_text_embeddings.to(features.device).float(),
+                        dim=-1)
+    idx, _ = fused_head_score_topk(features, rows, text,
+                                   candidate_mask.to(features.device), top_k)
+    topk = idx.reshape(B, h, w, top_k)
+    if (h, w) != target_shape:
+        topk = resize_nearest(topk, target_shape)
+    return topk
 
 
 @torch.no_grad()

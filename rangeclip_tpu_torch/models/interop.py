@@ -138,6 +138,20 @@ def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def widths_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict:
+    """The ResNet UNet's ``encoder_filters`` and ``embedding_dim``, read
+    from the output channels of its stem, its stages' first convs and its
+    output conv."""
+    stages = sorted({int(k.split(".")[2]) for k in sd
+                     if k.startswith("encoder.blocks.")})
+    filters = [sd["encoder.conv1.conv.weight"].shape[0]] + [
+        sd[f"encoder.blocks.{i}.0.conv1.conv.weight"].shape[0]
+        for i in stages]
+    return {"encoder_filters": tuple(int(f) for f in filters),
+            "embedding_dim": int(sd["decoder.output_conv.conv.weight"]
+                                 .shape[0])}
+
+
 def save_reference_pth(model: Union[nn.Module, Mapping[str, torch.Tensor]],
                        path: str, train_step: int = 0) -> str:
     """Write the port's weights (a DepthUNet or its state dict) as a

@@ -15,8 +15,8 @@ current PyTorch stream and do not synchronise.
 
 Every kernel is also a ``torch.library`` operator ``rangeclip::<name>``
 (:func:`define_op`): its CUDA implementation launches the kernel, its CPU
-implementation (the predict kernels only; the training kernels register
-none) is the plain version, and a fake implementation gives
+implementation (the serving and predict kernels only; the training,
+evaluation and opt-in kernels register none) is the plain version, and a fake implementation gives
 ``torch.export`` and ``torch.compile`` the output shapes.  The public
 wrappers call the operator for CUDA tensors only and the plain version
 directly for CPU tensors, so a program traced on the CPU holds no custom op.
@@ -60,6 +60,10 @@ launch_counts = {
     "pixel_text_ce[bwd]": 0,
     "tv_rowtile[fwd]": 0,
     "tv_rowtile[bwd]": 0,
+    "masked_pooling": 0,
+    "head_topk": 0,
+    "tv_loss[fwd]": 0,
+    "tv_loss[bwd]": 0,
 }
 
 _P = ctypes.c_void_p
@@ -79,6 +83,11 @@ _SIGNATURES = {
                              _P, _P, _P, _I, _P, _P, _P, _P),
     "rc_tv_rowtile_fwd": (_P, _I, _I, _I, _I, _P, _P, _P),
     "rc_tv_rowtile_bwd": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "rc_masked_pooling": (_P, _I, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P),
+    "rc_head_topk": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                     _P),
+    "rc_tv_loss_fwd": (_P, _I, _I, _I, _I, _I, _P, _P),
+    "rc_tv_loss_bwd": (_P, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 OPS = torch.library.Library("rangeclip", "DEF")

@@ -5,15 +5,22 @@ Data and label structures, the frozen hash-stub text table (computed once),
 the model and Adam, restore (``--auto_resume``, ``--restore_path_model``),
 then the epoch loop: the curriculum and the learning rate per epoch, one
 accumulation window per optimizer step, one image-tower call per window
-(skipped when the image loss is off), summaries and checkpoints on the JAX
-cadence, a final save.  Step s always trains under the positional key
+(skipped when the image loss is off), summaries, validation and checkpoints
+on the JAX cadence, a final save.  Step s always trains under the positional key
 (seed + 1, s), so a run killed and resumed takes the same steps as a
 straight one; a resume inside an epoch skips the windows the epoch already
 consumed (trainer.py:380-421).
 
+Validation (trainer.py:488-510) runs when ``step >= validation_start_step``
+and ``step % (n_step_per_validation or n_step_per_summary) == 0``, in eval
+mode on its own generators (``evals/validate``), so the training steps,
+their draws, the BatchNorm statistics and the loader order are those of a
+run without it; the best results are logged and returned, and the latest
+val loss is the plateau schedule's metric.
+
 Options that need later slices raise ``NotImplementedError`` at start-up:
-validation (slice 4, item 8), multi-GPU (item 10), encoder restore and
-freezing (item 7), real CLIP towers (item 9), profiling traces (item 11).
+multi-GPU (item 10), encoder restore and freezing (item 7), real CLIP
+towers (item 9), profiling traces (item 11).
 """
 
 from __future__ import annotations
@@ -28,10 +35,14 @@ import torch
 
 from rangeclip_tpu_torch.cli.common import set_precision
 from rangeclip_tpu_torch.data.labels import (
+    build_equivalence_class_map,
+    build_equivalence_tensor,
     build_similarity_matrices,
+    load_equivalence_dict,
     load_label_similarity_sets,
 )
-from rangeclip_tpu_torch.data.loader import setup_dataloaders
+from rangeclip_tpu_torch.data.loader import BATCH_DTYPES, setup_dataloaders
+from rangeclip_tpu_torch.evals.validate import VAL_SEED, validate_model
 from rangeclip_tpu_torch.losses.hybrid import HybridLossConfig
 from rangeclip_tpu_torch.models.clip.crops import prepare_image_crops
 from rangeclip_tpu_torch.models.clip.provider import (
@@ -99,18 +110,9 @@ class TrainerConfig:
     device: str = "cuda"
 
 
-def check_supported(cfg: TrainerConfig, opt_steps_per_epoch: int) -> None:
+def check_supported(cfg: TrainerConfig) -> None:
     """Refuse the options of later slices, naming their ROADMAP item."""
-    n_epoch = cfg.learning_schedule[-1]
-    last_step = opt_steps_per_epoch * n_epoch
-    if cfg.max_steps is not None:
-        last_step = min(last_step, cfg.max_steps)
     refusals = [
-        (last_step >= cfg.validation_start_step,
-         f"validation (the run reaches step {last_step} >= "
-         f"--validation_start_step {cfg.validation_start_step}) is not "
-         "ported yet (ROADMAP slice 4, item 8): raise "
-         "--validation_start_step or lower --max_steps"),
         (cfg.ddp_parity or cfg.distributed,
          "--ddp_parity and --distributed (multi-GPU) are not ported yet "
          "(ROADMAP slice 4, item 10)"),
@@ -132,15 +134,15 @@ def check_supported(cfg: TrainerConfig, opt_steps_per_epoch: int) -> None:
             raise NotImplementedError(why)
 
 
-def _window(microbatches, keys, dtype_of, device):
+def _window(microbatches, keys, device):
     return {k: torch.from_numpy(np.stack([mb[k] for mb in microbatches])
-                                .astype(dtype_of[k])).to(device)
+                                .astype(BATCH_DTYPES[k])).to(device)
             for k in keys}
 
 
 def train_depth_clip_model(cfg: TrainerConfig) -> Dict:
-    """Run the training job; returns the best results (no validation yet:
-    {"step": -1, "loss": inf})."""
+    """Run the training job; returns the best validation results
+    ({"step": -1, "loss": inf} while no validation has run)."""
     device = resolve_device(cfg.device)
     set_precision(cfg.bf16)  # fp32 keeps cuDNN and matmuls off TF32
     time_start = time.time()
@@ -148,12 +150,12 @@ def train_depth_clip_model(cfg: TrainerConfig) -> Dict:
     log_path = os.path.join(ckpt_root, "results.txt")
     n_epoch = cfg.learning_schedule[-1]
 
-    (train_loader, _val_loader, _test_loader, n_train_steps,
+    check_supported(cfg)
+    (train_loader, val_loader, _test_loader, n_train_steps,
      candidate_labels) = setup_dataloaders(
         cfg.labeled_metadata_path, cfg.labels_path,
         (cfg.n_height, cfg.n_width), cfg.batch_size, n_epoch)
     opt_steps_per_epoch = max(1, len(train_loader) // cfg.accumulation_steps)
-    check_supported(cfg, opt_steps_per_epoch)
     num_classes = len(candidate_labels)
 
     similarity_sets = load_label_similarity_sets(cfg.equivalence_dict_path,
@@ -162,6 +164,11 @@ def train_depth_clip_model(cfg: TrainerConfig) -> Dict:
                                                    num_classes)
     medium_matrix = torch.from_numpy(medium_np).to(device)
     hard_matrix = torch.from_numpy(hard_np).to(device)
+    equivalence_tensor = build_equivalence_tensor(
+        load_equivalence_dict(cfg.equivalence_dict_path), num_classes)
+    equiv_class_map = torch.from_numpy(
+        build_equivalence_class_map(equivalence_tensor)).to(device)
+    equivalence_tensor = torch.from_numpy(equivalence_tensor).to(device)
 
     text_provider = get_text_provider(cfg.clip_checkpoint_path,
                                       cfg.clip_vocab_path,
@@ -220,6 +227,7 @@ def train_depth_clip_model(cfg: TrainerConfig) -> Dict:
     })
     event_path = os.path.join(ckpt_root, "tensorboard")
     train_writer = ScalarWriter(event_path + "-train")
+    val_writer = ScalarWriter(event_path + "-val")
 
     best_results: Dict = {"step": -1, "loss": float("inf")}
     epoch_start = min(start_step // opt_steps_per_epoch, n_epoch - 1) + 1
@@ -231,9 +239,6 @@ def train_depth_clip_model(cfg: TrainerConfig) -> Dict:
     log("Begin training...", log_path)
 
     keys = ("depth", "segmentation", "object_label", "sample_valid")
-    dtypes = {"depth": np.float32, "segmentation": np.int32,
-              "object_label": np.int32, "sample_valid": np.float32,
-              "image": np.float32, "object_bbox": np.int32}
     step_count = start_step
     done = False
     for epoch in range(epoch_start, n_epoch + 1):
@@ -252,11 +257,11 @@ def train_depth_clip_model(cfg: TrainerConfig) -> Dict:
                 skip_windows -= 1
                 microbatches = []
                 continue
-            step_batch = _window(microbatches, keys, dtypes, device)
+            step_batch = _window(microbatches, keys, device)
             A, B = step_batch["object_label"].shape
             if cfg.w_image > 0:
                 # one tower call per accumulation window
-                win = _window(microbatches, ("image", "object_bbox"), dtypes,
+                win = _window(microbatches, ("image", "object_bbox"),
                               device)
                 crops = prepare_image_crops(
                     win["image"].reshape((A * B,) + win["image"].shape[2:]),
@@ -292,6 +297,17 @@ def train_depth_clip_model(cfg: TrainerConfig) -> Dict:
                                         step_count)
                 train_writer.add_scalars("train/curriculum", curriculum,
                                          step_count)
+            if (step_count >= cfg.validation_start_step
+                    and step_count % (cfg.n_step_per_validation
+                                      or cfg.n_step_per_summary) == 0):
+                best_results = validate_model(
+                    state.model, val_loader, text_table, medium_matrix,
+                    hard_matrix, equivalence_tensor, equiv_class_map,
+                    curriculum, image_provider, step_count, best_results,
+                    seed=VAL_SEED, loss_config=loss_cfg, log_path=log_path,
+                    summary_writer=val_writer,
+                    candidate_labels=candidate_labels,
+                    n_sample_per_summary=cfg.n_sample_per_summary)
             if step_count % cfg.n_step_per_checkpoint == 0:
                 avg = float(loss_sum) / loss_count if loss_count else 0.0
                 log_training_summary(log_path, step_count, n_opt_steps_total,
@@ -304,9 +320,12 @@ def train_depth_clip_model(cfg: TrainerConfig) -> Dict:
         log(f"Epoch {epoch} END | Step {step_count} | Avg Loss: "
             f"{avg_epoch:.7f} | LR: {lr}", log_path)
         train_writer.add_scalar("Loss/train_epoch", avg_epoch, epoch)
+        # plateau scheduling keys on the latest validation loss once one
+        # has run, on the epoch's train loss before
         schedule.step_metric(best_results.get("latest_val_loss", avg_epoch))
 
     ckpt.save(state)
     log("Training finished.", log_path)
     train_writer.close()
+    val_writer.close()
     return best_results

@@ -456,3 +456,148 @@ def test_training_ops_pass_opcheck(cuda_device):
     torch.library.opcheck(pixel_text_ce_op, (
         flat.requires_grad_(), dev(temperature).requires_grad_(), lab, val,
         dev(table), msk, pt, pm, pi, flag))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,D,dtype", [(70_000, 512, torch.bfloat16),
+                                       (5000, 40, torch.float32),
+                                       (17, 8, torch.float32)])
+def test_masked_pooling_matches_plain(cuda_device, P, D, dtype):
+    """Counts exact, sums within rtol 1e-5 of the dense match product (f32
+    sums in another order), the same bits on a second run (no atomics);
+    duplicate, absent and -1 labels as the plain version has them."""
+    from rangeclip_tpu_torch.ops.kernels.masked_pooling import (
+        fused_masked_pooling,
+        masked_pooling_plain,
+    )
+
+    gen = torch.Generator().manual_seed(12)
+    emb = torch.randn(P, D, generator=gen).to(dtype).to(cuda_device)
+    seg = torch.randint(-1, 40, (P,), generator=gen,
+                        dtype=torch.int32).to(cuda_device)
+    obj = torch.tensor([0, 5, 5, 39, 77, 12, 1000],
+                       dtype=torch.int32).to(cuda_device)
+    (sums, counts), launches = _counted(
+        "masked_pooling", lambda: fused_masked_pooling(emb, seg, obj))
+    assert launches == 1
+    want_sums, want_counts = masked_pooling_plain(emb, seg, obj)
+    assert torch.equal(counts, want_counts)
+    torch.testing.assert_close(sums, want_sums, rtol=1e-5, atol=1e-5)
+    assert torch.equal(sums, fused_masked_pooling(emb, seg, obj)[0])
+    assert (sums[4] == 0).all() and (sums[6] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [((3, 9, 16, 8), torch.float32),
+                                         ((2, 17, 33, 24), torch.bfloat16),
+                                         ((2, 64, 64, 512), torch.bfloat16),
+                                         ((1, 2, 5, 8), torch.float32)])
+def test_tv_loss_matches_plain(cuda_device, shape, dtype):
+    """Quantised values with exact ties (sign(0) = 0): the backward
+    bit-equal to the plain VJP, the forward within rtol 1e-5 (f32
+    summation order)."""
+    from rangeclip_tpu_torch.ops.kernels.tv_loss import (
+        fused_tv_loss,
+        tv_loss_grad,
+        tv_loss_value,
+    )
+
+    gen = torch.Generator().manual_seed(13)
+    x = (torch.randint(-6, 7, shape, generator=gen) / 4
+         + torch.randn(shape, generator=gen)
+         * (torch.rand(shape, generator=gen) > 0.5)).to(dtype).to(cuda_device)
+    g = torch.tensor(1.7, device=cuda_device)
+    xk = x.clone().requires_grad_()
+    before = dict(_lib.launch_counts)
+    value = fused_tv_loss(xk)
+    value.backward(g)
+    torch.cuda.synchronize()
+    for name in ("tv_loss[fwd]", "tv_loss[bwd]"):
+        assert _lib.launch_counts[name] == before[name] + 1
+    torch.testing.assert_close(value.detach(), tv_loss_value(x), rtol=1e-5,
+                               atol=0.0)
+    assert torch.equal(xk.grad, tv_loss_grad(x, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,h,dtype,C", [(2, 16, torch.float32, 512),
+                                         (3, 7, torch.float32, 130),
+                                         (2, 12, torch.bfloat16, 40)])
+def test_head_topk_matches_plain(cuda_device, B, h, dtype, C):
+    """Ids against the plain version: every mismatch a near-tie (the
+    winning values within 1e-5 in f32, and within 1e-3, two bf16 ulps of the
+    top scores, in bf16, where an embedding component's rounding may flip
+    with the conv's summation order); an exhausted mask of 3 live classes
+    gives id 0 at -1e30 past them."""
+    from rangeclip_tpu_torch.ops.kernels.head_topk import (
+        fused_head_score_topk,
+        head_topk_plain,
+    )
+
+    gen = torch.Generator().manual_seed(14)
+    C_in, D, k = 32, 512, 5
+    feats = torch.randn(B, h, h, C_in, generator=gen).to(dtype)
+    rows = torch.randn(9 * C_in, D, generator=gen) / 17
+    text = l2_normalize(torch.randn(C, D, generator=gen), dim=-1)
+    mask = torch.rand(C, generator=gen) < 0.7
+    dev = lambda t: t.to(cuda_device)
+    for m in (mask, torch.isin(torch.arange(C), torch.tensor([4, 9, 33]))):
+        (idx, val), launches = _counted("head_topk", lambda: (
+            fused_head_score_topk(dev(feats), dev(rows), dev(text), dev(m),
+                                  k)))
+        assert launches == 1
+        want_idx, want_val = head_topk_plain(
+            dev(feats), dev(rows).to(dtype), dev(text).to(dtype),
+            dev(m).int(), k)
+        tol = 1e-5 if dtype == torch.float32 else 1e-3
+        torch.testing.assert_close(val, want_val, rtol=0, atol=tol)
+        agree = float((idx == want_idx).float().mean())
+        assert agree >= (0.999 if dtype == torch.float32 else 0.99), agree
+    assert bool((idx[:, 3:] == 0).all() and (val[:, 3:] == -1e30).all())
+
+
+@pytest.mark.cuda
+def test_predict_topk_fused_on_cuda_matches_cpu(cuda_device):
+    """The narrow fp32 model on the card (the head_topk kernel) against the
+    same model on the CPU (the plain version): ids >= 99.9% equal."""
+    from rangeclip_tpu_torch.models.depth_unet import predict_topk_fused
+
+    model = DepthUNet(DepthUNetConfig(encoder_filters=(8, 16, 16, 16, 32),
+                                      embedding_dim=32),
+                      generator=torch.Generator().manual_seed(15)).eval()
+    gen = torch.Generator().manual_seed(16)
+    depth = torch.randn(2, 64, 64, 1, generator=gen)
+    text = torch.randn(30, 32, generator=gen)
+    mask = torch.rand(30, generator=gen) < 0.5
+    want = predict_topk_fused(model, depth, text, mask)
+    got, launches = _counted("head_topk", lambda: predict_topk_fused(
+        model.to(cuda_device), depth.to(cuda_device), text.to(cuda_device),
+        mask.to(cuda_device)))
+    assert launches == 1 and got.shape == (2, 64, 64, 5)
+    assert float((got.cpu() == want).float().mean()) >= 0.999
+
+
+@pytest.mark.cuda
+def test_eval_ops_pass_opcheck(cuda_device):
+    """The masked_pooling, head_topk and tv_loss operators' fake
+    implementations, schemas and (tv_loss) autograd registration against
+    their CUDA implementations."""
+    from rangeclip_tpu_torch.ops.kernels.head_topk import head_topk_op
+    from rangeclip_tpu_torch.ops.kernels.masked_pooling import (
+        masked_pooling_op,
+    )
+    from rangeclip_tpu_torch.ops.kernels.tv_loss import tv_loss_op
+
+    gen = torch.Generator().manual_seed(17)
+    dev = lambda t: t.to(cuda_device)
+    torch.library.opcheck(masked_pooling_op, (
+        dev(torch.randn(300, 16, generator=gen)),
+        dev(torch.randint(-1, 6, (300,), generator=gen, dtype=torch.int32)),
+        dev(torch.tensor([0, 2, 2, 9], dtype=torch.int32))))
+    torch.library.opcheck(head_topk_op, (
+        dev(torch.randn(2, 5, 6, 8, generator=gen)),
+        dev(torch.randn(72, 16, generator=gen)),
+        dev(l2_normalize(torch.randn(20, 16, generator=gen), dim=-1)),
+        dev(torch.ones(20, dtype=torch.int32)), 3))
+    x = dev(torch.randn(2, 4, 8, 16, generator=gen).bfloat16())
+    torch.library.opcheck(tv_loss_op, (x.requires_grad_(),))

@@ -1,7 +1,7 @@
 """The port stands alone: importing it (CLIs included) and running its CPU
-predict paths and a CPU train step loads no JAX, flax, pandas or PIL, and
-asking for a CUDA device that is absent raises instead of running on the
-CPU."""
+predict paths, a CPU train step, the opt-in kernel functions and a
+validation step loads no JAX, flax, pandas or PIL, and asking for a CUDA
+device that is absent raises instead of running on the CPU."""
 
 import os
 import subprocess
@@ -51,6 +51,33 @@ state, info = make_train_step(HybridLossConfig(), 2)(
     torch.rand(20, 20, generator=gen) < 0.2,
     torch.rand(20, 20, generator=gen) < 0.2)
 assert state.step == 1 and torch.isfinite(info["total_loss"])
+
+from rangeclip_tpu_torch.evals.metrics import metrics_finalize, metrics_init
+from rangeclip_tpu_torch.evals.validate import make_val_step
+from rangeclip_tpu_torch.losses.pooling import masked_average_pooling
+from rangeclip_tpu_torch.models.depth_unet import predict_topk_fused
+from rangeclip_tpu_torch.ops.kernels.tv_loss import fused_tv_loss
+
+model.eval()
+mask = torch.zeros(20, dtype=torch.bool)
+mask[:7] = True
+ids = predict_topk_fused(model, depth, text, mask, top_k=3)
+assert ids.shape == (1, 32, 32, 3) and ids.dtype == torch.int32
+field, _, _ = model.forward_native(depth)
+pooled = masked_average_pooling(field, seg[0, :, ::2, ::2],
+                                torch.arange(6))
+assert pooled.shape == (6, 32)
+x = field.detach().clone().requires_grad_()
+fused_tv_loss(x).backward()
+assert torch.isfinite(x.grad).all()
+mb = {k: v[0] for k, v in batch.items()}
+acc, parts, pred = make_val_step()(
+    model, mb, (999, 0), 0.0, 0.75, text,
+    torch.rand(20, 20, generator=gen) < 0.2,
+    torch.rand(20, 20, generator=gen) < 0.2, torch.eye(20, dtype=torch.bool),
+    torch.arange(20), mb["image_embeddings"], metrics_init(20))
+assert torch.isfinite(parts).all() and pred.shape == (1, 32, 32, 5)
+assert 0.0 <= metrics_finalize(acc)["mIoU_tk"] <= 1.0
 loaded = sorted(m for m in ("jax", "flax", "pandas", "PIL", "rangeclip_tpu")
                 if m in sys.modules)
 assert not loaded, loaded
@@ -60,7 +87,7 @@ print("OK")
 _NO_CUDA = r"""
 import sys
 import torch
-from rangeclip_tpu_torch.cli import serve, train
+from rangeclip_tpu_torch.cli import serve, train, validate
 from rangeclip_tpu_torch.utils.device import resolve_device
 
 assert not torch.cuda.is_available()
@@ -71,7 +98,11 @@ for call in (lambda: resolve_device("cuda"),
                                  "--labels_path", "absent.csv",
                                  "--equivalence_dict_path", "absent.csv",
                                  "--unet_architecture", "resnet",
-                                 "--checkpoint_path", "absent"])):
+                                 "--checkpoint_path", "absent"]),
+             lambda: validate.main(["--labeled_metadata_path", "absent.csv",
+                                    "--labels_path", "absent.csv",
+                                    "--equivalence_dict_path", "absent.csv",
+                                    "--checkpoint_dir", "absent"])):
     try:
         call()
     except RuntimeError as e:

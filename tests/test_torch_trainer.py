@@ -1,9 +1,10 @@
 """The port's training entry points on the CPU: its loader yields the JAX
-loader's batches on the same files, ``cli/train --device cpu`` takes two
-steps and writes a reference ``.pth`` that both packages read, a run killed
-after step 1 and resumed is bitwise equal to a straight two-step run, the
-train CLI refuses the options of later slices, and the host modules copied
-from the JAX package are pinned to their originals."""
+loader's batches on the same files, ``cli/train --device cpu`` takes four
+steps and writes reference ``.pth`` files that both packages read, a run
+killed after step 1 and resumed is bitwise equal to the straight run, a run
+that validates at steps 2 and 4 trains bitwise as the straight run does,
+the train CLI refuses the options of later slices, and the host modules
+copied from the JAX package are pinned to their originals."""
 
 import os
 
@@ -77,7 +78,7 @@ def _weights(ckpt_dir, step):
 def straight_run(dataset_dir, tmp_path_factory):
     _, paths = dataset_dir
     ckpt = tmp_path_factory.mktemp("straight")
-    train.main(_train_argv(paths, ckpt, "--max_steps", "2"))
+    train.main(_train_argv(paths, ckpt, "--max_steps", "4"))
     return ckpt
 
 
@@ -110,7 +111,7 @@ def test_loader_batches_equal_jax(dataset_dir, monkeypatch):
 
 
 def test_cli_train_writes_a_reference_checkpoint(straight_run):
-    """Two steps on the CPU; the .pth loads strictly into the port's model
+    """Four steps on the CPU; the step-2 .pth loads strictly into the port's model
     and through the JAX package's reference-checkpoint loader; the
     optimizer state sits beside it; the summary CSV has every scalar."""
     sd = _weights(straight_run, 2)
@@ -150,8 +151,39 @@ def test_kill_and_resume_is_bitwise_equal(dataset_dir, straight_run,
     assert any(not torch.equal(first[k], want[k]) for k in want)
 
 
+def test_cli_train_validation_leaves_training_unchanged(dataset_dir,
+                                                        straight_run,
+                                                        tmp_path):
+    """Validation at steps 2 and 4 (--validation_start_step 2
+    --n_step_per_validation 2): the [Val] lines and the best results in
+    results.txt and in the returned dict, the val scalars and grids under
+    tensorboard-val, and the weights, BatchNorm statistics and temperatures
+    at steps 2 and 4 bit-equal to the straight run's, whose validation
+    never fires (eval mode and its own generators: no training draw, BN
+    statistic or loader order moves)."""
+    _, paths = dataset_dir
+    best = train.main(_train_argv(paths, tmp_path, "--max_steps", "4",
+                                  "--validation_start_step", "2",
+                                  "--n_step_per_validation", "2"))
+    log = open(os.path.join(tmp_path, "results.txt")).read()
+    for step in (2, 4):
+        assert f"[Val] [Step {step}] Top-k mIoU (equiv)" in log
+    assert "Best validation loss" in log
+    assert best["step"] in (2, 4) and "latest_val_loss" in best
+    assert np.isfinite(best["mIoU_tk"]) and np.isfinite(best["loss"])
+    events = open(os.path.join(tmp_path, "tensorboard-val",
+                               "events.csv")).read()
+    assert "val/mIoU_tk" in events and "val/avg_loss" in events
+    assert os.listdir(os.path.join(tmp_path, "tensorboard-val", "images"))
+    for step in (2, 4):
+        got, want = _weights(tmp_path, step), _weights(straight_run, step)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (step, k)
+
+
 @pytest.mark.parametrize("extra,item", [
-    (["--validation_start_step", "1"], "item 8"),
+    (["--restore_path_encoder", "encoder_ckpt"], "item 7"),
     (["--ddp_parity"], "item 10"),
     (["--freeze_encoder"], "item 7"),
     (["--clip_checkpoint_path", "clip.safetensors"], "item 9"),
