@@ -8,12 +8,17 @@ at 256x256, a label table of C=512 (hash-stub text embeddings) and random
 weights made from a seed, saved to and reloaded from a reference ``.pth``.
 Phases (any failure raises; nothing is caught):
 
-1. Build the CUDA kernels from ``rangeclip_tpu_torch/csrc/``.
+1. Build the CUDA kernels from ``rangeclip_tpu_torch/csrc/``; print the
+   registers, shared memory and spills of the two tensor-core kernels
+   (pixel_text_topk's bf16 path and conv_score_topk, from ``ptxas -v``).
 2. Hold each kernel against its plain PyTorch version at the shapes the
    main paths give it, and time both and, where one PyTorch call computes
    the same function, that call; each row's bound is the larger of its
    bytes over 3.35 TB/s and its operations over the peak rate of its input
    type (989 TFLOP/s bf16, 67 TFLOP/s f32), from the H100 SXM data sheet.
+   Beside the two tensor-core kernels, their product stage alone through
+   cuBLAS (torch.matmul) and cuDNN (F.conv2d) at the bench shape, printed
+   on a line of its own: a yardstick, not the same function.
    masked_pooling and tv_loss run on a bf16 field of the flagship train
    native shape [32, 128, 128, 512], head_topk at the bench configuration.
 3. Serve: the port's ``cli/serve`` engine and HTTP server in this process,
@@ -100,8 +105,10 @@ KERNEL_ROWS = {
                         "rangeclip_tpu/ops/pallas/conv_score_topk.py:60"),
     "class_presence": ("rangeclip_tpu_torch/csrc/class_presence.cu",
                        "rangeclip_tpu/ops/pallas/class_presence.py:21"),
-    "pixel_text_topk": ("rangeclip_tpu_torch/csrc/pixel_text_topk.cu",
-                        "rangeclip_tpu/ops/pallas/pixel_text_topk.py:79"),
+    "pixel_text_topk[bf16]": ("rangeclip_tpu_torch/csrc/pixel_text_topk.cu",
+                              "rangeclip_tpu/ops/pallas/pixel_text_topk.py:79"),
+    "pixel_text_topk[fp32]": ("rangeclip_tpu_torch/csrc/pixel_text_topk.cu",
+                              "rangeclip_tpu/ops/pallas/pixel_text_topk.py:79"),
     "l2_normalize[fwd]": ("rangeclip_tpu_torch/csrc/l2_normalize.cu",
                           "rangeclip_tpu/ops/pallas/l2_normalize.py:154"),
     "l2_normalize[bwd]": ("rangeclip_tpu_torch/csrc/l2_normalize.cu",
@@ -131,11 +138,14 @@ TRAIN_KERNELS = ["histogram", "class_presence", "pixel_text_ce[fwd]",
 TRAIN_BATCH = 32
 TRAIN_PRESENT = 40  # labels in the segmentation: the packed CE branch
 POOL_OBJECTS = 256  # object ids of masked_average_pooling (masked_pooling.py:8)
-VAL_KERNELS = ["pixel_text_topk", "class_presence", "histogram",
+VAL_KERNELS = ["pixel_text_topk[fp32]", "class_presence", "histogram",
                "pixel_text_ce[fwd]"]
 CAPACITY = 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+# Beside the two tensor-core kernels: their product stage alone through
+# cuBLAS / cuDNN at the bench shape (ms), printed before the kernels line.
+PRODUCT_ONLY_MS = {}
 
 
 def log(msg: str) -> None:
@@ -196,6 +206,37 @@ def check_exact(name, got, want) -> float:
     require(torch.equal(got[0], want[0]), f"{name}: ids differ")
     require(torch.equal(got[1], want[1]), f"{name}: values differ")
     return max_abs_err(got[1], want[1])
+
+
+def ptxas_summary(text: str):
+    """One line per kernel entry of ``nvcc -Xptxas -v`` output: its
+    registers, static shared memory and spills."""
+    import re
+
+    lines, name = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            k = re.search(r"([a-z_]+_kernel)I(?:Li(\d+)E)?"
+                          r"(f|13__nv_bfloat16)?", name)
+            if k:
+                name = (k.group(1).lstrip("_") + f"<K={k.group(2)}"
+                        + {"f": ", f32", "13__nv_bfloat16": ", bf16",
+                           None: ""}[k.group(3)] + ">")
+            spill = ""
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            spill = (f"stack {m.group(1)} B, spill stores {m.group(2)} B, "
+                     f"spill loads {m.group(3)} B")
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            lines.append(f"{name}: {m.group(1)} registers, static smem "
+                         f"{smem.group(1) if smem else 0} B, {spill}")
+            name = None
+    return lines
 
 
 def phase_kernels(device, bench_model, bench_depth, text, cand, stats):
@@ -309,6 +350,16 @@ def phase_kernels(device, bench_model, bench_depth, text, cand, stats):
         lambda: conv_score_topk_plain(feats, rows, slot_ids, BENCH_TOP_K),
         5, 2)
     log(f"  conv_score_topk: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    # the product stage alone through cuDNN: the bf16 SAME conv of the
+    # features (channels_last) with the folded weights (a yardstick)
+    x_nchw = feats.permute(0, 3, 1, 2)
+    w_conv = rows.reshape(BENCH_SLOTS, 3, 3, c_in).permute(0, 3, 1, 2).to(
+        memory_format=torch.channels_last)
+    product_ms = cuda_ms(
+        lambda: torch.nn.functional.conv2d(x_nchw, w_conv, padding=1), 5)
+    PRODUCT_ONLY_MS["conv_score_topk"] = product_ms
+    log(f"  conv_score_topk, product only (cuDNN F.conv2d bf16 [{B}, {c_in}, "
+        f"{h}, {w}] * [{BENCH_SLOTS}, {c_in}, 3, 3]): {product_ms:.4f} ms")
     n_pix = B * h * w
     stats["conv_score_topk"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
@@ -385,6 +436,7 @@ def phase_unfolded_kernels(device, bench_model, serve_model, depths, text,
         l2_normalize_rows,
     )
     from rangeclip_tpu_torch.ops.kernels.pixel_text_topk import (
+        normalize_rows_rsqrt,
         pixel_text_topk,
         pixel_text_topk_plain,
     )
@@ -414,9 +466,10 @@ def phase_unfolded_kernels(device, bench_model, serve_model, depths, text,
     mask = torch.rand(C, device=device, generator=gen) > 0.1
     two = torch.zeros(C, dtype=torch.bool, device=device)
     two[[5, 77]] = True
-    err = 0.0
+    errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         field, table = q_field.to(dtype), q_table.to(dtype)
+        err = 0.0
         for k in (1, 5):
             err = max(err, check_topk(f"pixel_text_topk {dtype} k={k}",
                                       field, table, mask, k)[1])
@@ -427,6 +480,11 @@ def phase_unfolded_kernels(device, bench_model, serve_model, depths, text,
             log(f"  pixel_text_topk N={N} D={D} C={C} k={k} {dtype}, "
                 f"quantised-exact: bit-equal; kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms")
+            if k == 1 and dtype == torch.float32:  # the fp32 serve shape
+                stats["pixel_text_topk[fp32]"] = dict(
+                    ms=ms, plain_ms=plain_ms, library_ms=None,
+                    **bound(field.numel() * 4 + table.numel() * 4 + N * 4,
+                            2.0 * N * D * C, "f32"))
         # an exhausted candidate set: 2 candidates, top-5
         got, e = check_topk(f"pixel_text_topk exhausted {dtype}", field,
                             table, two, 5)
@@ -434,7 +492,9 @@ def phase_unfolded_kernels(device, bench_model, serve_model, depths, text,
                      and (got[1][:, 2:] == -1e30).all()
                      and ((got[0][:, :2] == 5) | (got[0][:, :2] == 77)).all()),
                 "pixel_text_topk: exhausted set not (-1, -1e30)")
-        err = max(err, e)
+        errs[dtype] = max(err, e)
+    stats["pixel_text_topk[fp32]"]["max_abs_err"] = errs[torch.float32]
+    err = errs[torch.bfloat16]
     log("  pixel_text_topk exhausted set (2 candidates, k=5): bit-equal, "
         "(-1, -1e30) past the candidates")
     del q_field, field
@@ -479,11 +539,18 @@ def phase_unfolded_kernels(device, bench_model, serve_model, depths, text,
         3, 1)
     log(f"  pixel_text_topk bench shape: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms")
-    stats["pixel_text_topk"] = dict(
+    stats["pixel_text_topk[bf16]"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
         **bound(field.numel() * 2 + q_table.numel() * 2
                 + N * BENCH_TOP_K * 4, 2.0 * N * D * BENCH_SLOTS, "bf16"))
-    del field
+    # the product stage alone through cuBLAS: the normalised bf16 field by
+    # the table's transpose (a yardstick, not the same function)
+    normed = normalize_rows_rsqrt(field)
+    product_ms = cuda_ms(lambda: torch.matmul(normed, q_table.T), 5)
+    PRODUCT_ONLY_MS["pixel_text_topk[bf16]"] = product_ms
+    log(f"  pixel_text_topk bench shape, product only (cuBLAS torch.matmul "
+        f"[{N}, {D}] x [{D}, {BENCH_SLOTS}] bf16): {product_ms:.4f} ms")
+    del field, normed
     torch.cuda.empty_cache()
 
     # the bench model's real bf16 decoder field, gathered table
@@ -761,7 +828,7 @@ def phase_infer(tmp: str, device, totals) -> None:
             "--output_dir", out_dir, "--batch_size", str(SERVE_BATCH),
             "--height", str(RES), "--width", str(RES),
             "--predict_path", "default", "--save_preview"]
-    written, _ = run_path("infer", ["pixel_text_topk"],
+    written, _ = run_path("infer", ["pixel_text_topk[fp32]"],
                           lambda: infer.main(argv), totals)
     require(written == INFER_MAPS, "infer did not write every map")
     got = []
@@ -1557,7 +1624,8 @@ def phase_cli_train(tmp: str, device, totals) -> None:
     best, _ = run_path("cli/train (validating at step 2)",
                        [k for k in TRAIN_KERNELS
                         if not k.startswith("l2_normalize")]
-                       + ["pixel_text_topk"], lambda: train.main(argv), totals)
+                       + ["pixel_text_topk[bf16]"], lambda: train.main(argv),
+                       totals)
     seconds = time.perf_counter() - t0
     results = open(os.path.join(ckpt, "results.txt")).read()
     val_lines = [line for line in results.splitlines()
@@ -1673,7 +1741,13 @@ def main(argv=None) -> int:
     log("phase 1: build")
     built = _lib.build()
     log(f"  built {built.path.name} in {built.seconds:.1f} s")
-    _lib.library()
+    lib = _lib.library()
+    for line in (ptxas_summary(built.ptxas)
+                 or built.ptxas.splitlines()[:60]):
+        log(f"  ptxas: {line}")
+    log(f"  dynamic shared memory per block: pixel_text_topk[bf16] at D=512 "
+        f"{lib.rc_pixel_text_topk_tc_smem(512)} B, conv_score_topk at "
+        f"C_in=32 {lib.rc_conv_score_topk_smem(32)} B")
 
     # the bench configuration's model and inputs (phases 2 and 4), and the
     # serve model (fp32, full width) saved as a reference .pth (phases 2-6)
@@ -1715,14 +1789,14 @@ def main(argv=None) -> int:
         for bf16, path, expect in (
                 (False, "auto", ["score_topk[knockout]"]),
                 (True, "auto", ["score_topk[packed]"]),
-                (False, "default", ["pixel_text_topk"]),
-                (True, "default", ["pixel_text_topk"])):
+                (False, "default", ["pixel_text_topk[fp32]"]),
+                (True, "default", ["pixel_text_topk[bf16]"])):
             folded, _ = run_path(
                 f"serve {'bf16' if bf16 else 'fp32'} {path}", expect,
                 lambda: phase_serve(tmp, bf16, device, path), totals)
             require(folded == (path == "auto"), f"serve {path} path choice")
         folded, counts = run_path(
-            f"serve fp32 auto C={LARGE_TABLE}", ["pixel_text_topk"],
+            f"serve fp32 auto C={LARGE_TABLE}", ["pixel_text_topk[fp32]"],
             lambda: phase_serve(tmp, False, device, "auto",
                                 "labels_large.csv", LARGE_TABLE), totals)
         require(not folded and not counts["score_topk[knockout]"],
@@ -1730,7 +1804,8 @@ def main(argv=None) -> int:
 
         log("phase 4: bench configuration")
         run_path("bench predict_folded + DepthUNet.predict",
-                 ["class_presence", "conv_score_topk", "pixel_text_topk"],
+                 ["class_presence", "conv_score_topk",
+                  "pixel_text_topk[bf16]"],
                  lambda: phase_bench(device, bench_model, depths, text, seg,
                                      card), totals)
         phase_fused_head(device, bench_model, depths, text, seg, card,
@@ -1740,7 +1815,7 @@ def main(argv=None) -> int:
 
         log("phase 5: infer and export")
         phase_infer(tmp, device, totals)
-        run_path("export", ["pixel_text_topk"],
+        run_path("export", ["pixel_text_topk[fp32]"],
                  lambda: phase_export(tmp, device), totals)
 
     log("phase 6: gradient")
@@ -1770,6 +1845,7 @@ def main(argv=None) -> int:
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": totals[name],
                      **stats[name]})
+    log("product only (cuBLAS/cuDNN), ms: " + json.dumps(PRODUCT_ONLY_MS))
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

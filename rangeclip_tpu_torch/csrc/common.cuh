@@ -8,6 +8,8 @@
 #pragma once
 
 #include <climits>
+#include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -117,5 +119,479 @@ __device__ __forceinline__ float warp_sum(float x) {
     x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
 }
+
+// ---------------------------------------------------------------------------
+// Tensor-core scoring with a register top-k epilogue (pixel_text_topk.cu's
+// bf16 path and conv_score_topk.cu).
+//
+// Both kernels score a tile of rows A [rows, K] against a table B [R, K],
+// both bf16 and K-major, with f32 sums, and keep a top-k of each row.  A
+// block has one or two consumer warpgroups (128 threads each), which own 64
+// rows of A each, resident in shared memory, and one producer warp.  The
+// producer streams B through a ring of kStages shared-memory stages, one
+// [kTileN rows, 64 dims] chunk at a time, with TMA (cp.async.bulk.tensor,
+// zero-filled past the table's rows and dims): a `full` mbarrier per stage
+// says its bytes have landed, an `empty` one that every consumer warpgroup
+// is done with it.  Each chunk is at most four wgmma m64n128k16 products
+// into 64 f32 accumulators per thread, left in flight while the next chunk
+// is waited for; after the last dim chunk of a class tile the accumulators
+// go straight into per-row register lists (the [rows, R] scores never
+// touch memory).
+//
+// Shared-memory layout of both operands: blocks of 64 dims (128 bytes a row)
+// with the 128-byte swizzle that wgmma's SW128 K-major descriptor reads and
+// TMA's SWIZZLE_128B writes: the 16-byte chunk j of row r sits at r * 128 +
+// ((j ^ (r % 8)) * 16), and each block starts on a 1024-byte boundary.  The
+// k-th 16-dim step of a block is the same descriptor with its start address
+// advanced by 32 * k bytes.
+//
+// Accumulator fragment of m64nNk16 (f32): register i of lane `lane` in warp
+// w of the warpgroup holds row 16 * w + lane / 4 + 8 * ((i / 2) % 2) and
+// column 8 * (i / 4) + 2 * (lane % 4) + i % 2.  So a thread holds two rows
+// (the two halves below), and the 4 threads of a quad hold the same rows.
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kTileN = 128;                 // table rows per class tile
+constexpr int kBlockDims = 64;              // dims per swizzled block
+constexpr int kRowBytes = 128;              // one row of a block
+constexpr int kChunkBytes = kTileN * kRowBytes;  // one B stage
+constexpr int kStages = 4;                  // B ring depth
+constexpr int kWarpRows = 64;               // A rows per warpgroup
+constexpr int kAlign = 1024;                // swizzle-atom alignment
+constexpr int kBarrierBytes = 2 * kStages * 8;  // full and empty mbarriers
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk j (0..7) of row r inside a swizzled block.
+__device__ __forceinline__ int swizzle(int r, int j) {
+  return r * kRowBytes + ((j ^ (r & 7)) << 4);
+}
+
+// SW128 K-major shared-memory descriptor: start address >> 4 in bits 0-13,
+// leading byte offset 1 (unused for swizzled K-major), stride byte offset
+// 1024 >> 4 (the next group of 8 rows) in bits 32-45, layout 1 (128-byte
+// swizzle) in bits 62-63.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// 16-byte global -> shared copy; zero-fills when !valid (src is not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// The same through L1, for data that the block reads again (im2col taps).
+__device__ __forceinline__ void cp_async16_l1(uint32_t dst, const void* src,
+                                              bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// Shared-memory writes of the generic proxy (st.shared, cp.async) made
+// visible to wgmma, which reads through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A barrier of the consumer warpgroups only (the producer warp is busy).
+__device__ __forceinline__ void consumer_sync(int nthreads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(nthreads) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait for the phase of `parity` to complete.  A wait that outlasts about
+// ten seconds traps, so a broken protocol fails the launch instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  long long t0 = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) {
+      t0 = clock64();
+    } else if (clock64() - t0 > (1ll << 34)) {
+      __trap();
+    }
+  }
+}
+
+// TMA: the [kTileN rows, 64 dims] box at (dim k0, row r0) of the tensor
+// map's 2-D bf16 matrix into shared memory at dst, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int k0, int r0, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k0), "r"(r0)
+      : "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma.
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A[64 x 16] * B[128 x 16]^T, both from shared memory; scale_d == 0
+// overwrites d.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ int frag_col(int i, int lane) {
+  return ((i >> 2) << 3) + ((lane & 3) << 1) + (i & 1);
+}
+
+// Row of this thread's accumulator half (0 or 1) within its warpgroup.
+__device__ __forceinline__ int frag_row(int half, int wg_tid) {
+  return ((wg_tid >> 5) << 4) + ((wg_tid & 31) >> 2) + (half << 3);
+}
+
+// The dead-slot mask of one class tile for this thread: bit 2 * nb + e
+// stands for column c0 + 8 * nb + 2 * (lane % 4) + e (registers i with
+// i / 4 == nb and i % 2 == e), set where ids[col] < 0 or col >= rows.  The
+// 32 loads are issued together.
+__device__ __forceinline__ unsigned dead_mask(const int* __restrict__ ids,
+                                              int c0, int rows, int lane) {
+  int v[32];
+#pragma unroll
+  for (int b = 0; b < 32; ++b) {
+    const int col = c0 + (b >> 1) * 8 + ((lane & 3) << 1) + (b & 1);
+    v[b] = __ldg(ids + min(col, rows - 1));
+  }
+  unsigned m = 0;
+#pragma unroll
+  for (int b = 0; b < 32; ++b) {
+    const int col = c0 + (b >> 1) * 8 + ((lane & 3) << 1) + (b & 1);
+    m |= (unsigned)(col >= rows || v[b] < 0) << b;
+  }
+  return m;
+}
+
+__device__ __forceinline__ int mask_bit(int i) {
+  return ((i >> 2) << 1) + (i & 1);
+}
+
+// The shared-memory ring of B and its barriers.
+struct Ring {
+  uint32_t stages;  // kStages * kChunkBytes, 1024-aligned
+  uint32_t bars;    // full[kStages], then empty[kStages]
+
+  __device__ __forceinline__ uint32_t stage(int s) const {
+    return stages + s * kChunkBytes;
+  }
+  __device__ __forceinline__ uint32_t full(int s) const { return bars + 8 * s; }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return bars + 8 * (kStages + s);
+  }
+
+  // One thread, before the block's first barrier.
+  __device__ __forceinline__ void init(int consumer_warpgroups) const {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), consumer_warpgroups);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  // The producer: every chunk of every class tile of the [rows, dims]
+  // matrix behind `map`, in the consumers' order (tile-major, dims inner).
+  __device__ __forceinline__ void produce(const CUtensorMap* map, int rows,
+                                          int k16) const {
+    const int blocks_k = (k16 + 3) / 4;
+    const int total = blocks_k * ((rows + kTileN - 1) / kTileN);
+    for (int i = 0; i < total; ++i) {
+      const int s = i % kStages;
+      if (i >= kStages) mbar_wait(empty(s), ((i / kStages) - 1) & 1);
+      mbar_expect_tx(full(s), kChunkBytes);
+      tma_load(stage(s), map, (i % blocks_k) * kBlockDims,
+               (i / blocks_k) * kTileN, full(s));
+    }
+  }
+};
+
+// The consumers' main loop, shared by both kernels: every class tile of B
+// against this warpgroup's 64 rows of A.  `a` is the shared address of
+// this warpgroup's rows in dim block 0, `a_block_bytes` the distance
+// between dim blocks; k16 is the number of 16-dim steps (dims rounded up to
+// 16, zero-filled past the end in both operands).  A is in shared memory
+// and fenced for the async proxy.  prep(t) runs as tile t starts (its loads
+// have the tile's products to land in); epi(acc, t) takes tile t's
+// accumulators after its last dim block.  Chunk i's products stay in flight
+// while chunk i + 1 is waited for; a warpgroup releases a stage once the
+// products that read it are done.
+template <class Prep, class Epi>
+__device__ __forceinline__ void score_tiles(const Ring& ring, uint32_t a,
+                                            int a_block_bytes, int rows,
+                                            int k16, int wg_tid, Prep&& prep,
+                                            Epi&& epi) {
+  const int blocks_k = (k16 + 3) / 4;
+  const int total = blocks_k * ((rows + kTileN - 1) / kTileN);
+  float acc[64];
+  int released = 0;  // chunks whose stage this warpgroup gave back
+  for (int i = 0; i < total; ++i) {
+    const int kb = i % blocks_k;
+    if (kb == 0) prep(i / blocks_k);
+    const int s = i % kStages;
+    mbar_wait(ring.full(s), (i / kStages) & 1);
+    const int steps = min(4, k16 - kb * 4);
+    const uint32_t a_kb = a + kb * a_block_bytes;
+    fence_regs(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (k < steps)
+        wgmma_m64n128k16(acc, sw128_desc(a_kb + k * 32),
+                         sw128_desc(ring.stage(s) + k * 32), kb > 0 || k > 0);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    const bool last = kb == blocks_k - 1;
+    if (last) {
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    } else {
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    }
+    for (const int done = last ? i + 1 : i; released < done; ++released)
+      if (wg_tid == 0) mbar_arrive(ring.empty(released % kStages));
+    if (last) {
+      fence_regs(acc);
+      epi(acc, i / blocks_k);
+    }
+  }
+}
+
+// The dynamic shared memory of `a_rows` rows of A over k16 steps, the B
+// ring and its barriers, and `row_extra` bytes per row, plus slack to align
+// the base to kAlign.
+inline size_t smem_bytes(int a_rows, int k16, int row_extra = 0) {
+  const int blocks_k = (k16 + 3) / 4;
+  return (size_t)blocks_k * a_rows * kRowBytes + kStages * kChunkBytes +
+         kBarrierBytes + (size_t)a_rows * row_extra + kAlign;
+}
+
+constexpr int kMaxWarpgroups = 2;
+constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block may use
+
+// Consumer warpgroups of a block whose A tile spans k16 16-dim steps: two
+// while their rows fit in shared memory beside the ring, else one; 0 when
+// not even 64 rows fit.
+inline int warpgroups_for(int k16, int row_extra = 0) {
+  for (int wgs = kMaxWarpgroups; wgs > 0; --wgs)
+    if (smem_bytes(wgs * kWarpRows, k16, row_extra) <= kMaxSmem) return wgs;
+  return 0;
+}
+
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  const uint32_t off =
+      (kAlign - (smem_addr(raw) & (kAlign - 1))) & (kAlign - 1);
+  return raw + off;
+}
+
+// The tensor map of a [rows, dims] row-major bf16 matrix (dims % 8 == 0,
+// 16-byte aligned) in [kTileN, 64] boxes with the 128-byte swizzle; the
+// encoder, cuTensorMapEncodeTiled, is looked up once through the runtime.
+inline cudaError_t make_tensor_map(CUtensorMap* map, const void* base,
+                                   int rows, int dims) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dim[2] = {(cuuint64_t)dims, (cuuint64_t)rows};
+  const cuuint64_t stride[1] = {(cuuint64_t)dims * 2};
+  const cuuint32_t box[2] = {kBlockDims, kTileN};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dim,
+      stride, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+}  // namespace tc
+
+// Per-row register top-k lists of the tensor-core epilogue, for the two
+// rows a thread holds.  push() is branchless: every list entry is computed
+// from the old entries at depth two or three, with no insertion chain and
+// no divergence between the lanes of a warp (the epilogue's cost is its
+// instruction count).  After the last class tile, merge_quad() merges the
+// lists of the 4 threads of a quad (the same rows, disjoint columns) with
+// two butterfly shuffles; the orders are total, so the merge is exact.
+
+// (value, id) lists in `better` order; empty entries are (-inf, INT_MAX).
+// push() compares values only and ranks a tie below the entries already
+// held: exact in `better` order when a thread pushes its ids in ascending
+// order, as the tensor-core epilogue does (ids ascend with the column).
+template <int K>
+struct PairTopK {
+  float v[2][K];
+  int id[2][K];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int t = 0; t < K; ++t) {
+        v[h][t] = -CUDART_INF_F;
+        id[h][t] = INT_MAX;
+      }
+  }
+
+  __device__ __forceinline__ void push(int h, float cv, int cid) {
+    bool gt[K];  // cv ranks above entry t (monotone in t)
+#pragma unroll
+    for (int t = 0; t < K; ++t) gt[t] = cv > v[h][t];
+#pragma unroll
+    for (int t = K - 1; t > 0; --t) {
+      const float sv = gt[t - 1] ? v[h][t - 1] : cv;
+      const int sid = gt[t - 1] ? id[h][t - 1] : cid;
+      v[h][t] = gt[t] ? sv : v[h][t];
+      id[h][t] = gt[t] ? sid : id[h][t];
+    }
+    v[h][0] = gt[0] ? cv : v[h][0];
+    id[h][0] = gt[0] ? cid : id[h][0];
+  }
+
+  // Insertion in full `better` order, for lists from other threads.
+  __device__ __forceinline__ void insert(int h, float cv, int cid) {
+    if (better(cv, cid, v[h][K - 1], id[h][K - 1]))
+      insert_pair(v[h], id[h], cv, cid);
+  }
+
+  __device__ __forceinline__ void merge_quad() {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float ov[K];
+        int oid[K];
+#pragma unroll
+        for (int t = 0; t < K; ++t) {
+          ov[t] = __shfl_xor_sync(0xffffffffu, v[h][t], off);
+          oid[t] = __shfl_xor_sync(0xffffffffu, id[h][t], off);
+        }
+#pragma unroll
+        for (int t = 0; t < K; ++t) insert(h, ov[t], oid[t]);
+      }
+  }
+};
+
+// Packed-key lists (descending); empty entries are INT_MIN.
+template <int K>
+struct KeyTopK {
+  int key[2][K];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int t = 0; t < K; ++t) key[h][t] = INT_MIN;
+  }
+
+  // Entry t becomes max(entry t, min(entry t - 1, k)); INT_MIN is a no-op.
+  __device__ __forceinline__ void push(int h, int k) {
+#pragma unroll
+    for (int t = K - 1; t > 0; --t)
+      key[h][t] = max(key[h][t], min(key[h][t - 1], k));
+    key[h][0] = max(key[h][0], k);
+  }
+
+  __device__ __forceinline__ void merge_quad() {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int other[K];
+#pragma unroll
+        for (int t = 0; t < K; ++t)
+          other[t] = __shfl_xor_sync(0xffffffffu, key[h][t], off);
+#pragma unroll
+        for (int t = 0; t < K; ++t) push(h, other[t]);
+      }
+  }
+};
 
 }  // namespace rc

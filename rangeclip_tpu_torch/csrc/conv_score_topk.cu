@@ -12,17 +12,34 @@
 // k*4 (or 8) bytes written, so the [N, S] score field that the two-program
 // path writes and reads back never touches device memory.
 //
-// Design (simple first; no tensor cores yet): a block owns a strip of
-// kTileW pixels of one image row, one pixel per thread.  It stages the
-// 3-row halo of features in shared memory once, with out-of-image taps as
-// zeros, laid out channel-major so that neighbouring threads read
-// neighbouring pixels.  It then streams the folded weights through shared
-// memory in chunks of kSlotChunk slots (widened to f32, slot-minor so a
-// thread reads four slots' weights with one broadcast 16-byte load).  Each
-// thread accumulates kSlotChunk scores in f32 registers, rounds each to
-// bf16 and inserts its packed key into a sorted register top-k.  Nothing
-// of the TPU version's [h, C_in, w*B] relayout or B % 128 lane trick is
-// needed.
+// Design: an implicit GEMM on the tensor cores, [pixels, 9*C_in] x
+// [9*C_in, S], with the selection in registers (common.cuh: tc::score_tiles
+// and KeyTopK, shared with pixel_text_topk.cu's bf16 kernel).  A block of
+// two consumer warpgroups (one beyond C_in 64, where 128 im2col rows no
+// longer fit in shared memory beside the ring) owns 64 consecutive pixels
+// each of the flattened (B, h, w) order, so ragged rows and images need no
+// special case.
+//   1. im2col: the block copies each pixel's 9 taps x C_in channels straight
+//      from device memory (cp.async through L1, which serves the taps that
+//      neighbouring pixels share) into shared memory in wgmma's 128-byte-
+//      swizzled A layout, K ordered (dy, dx, c) as the weight rows are and
+//      zero-filled up to a multiple of 16.  Taps outside the image are
+//      zero-filled by the copy itself (the SAME border).  80 KB at C_in=32
+//      (K = 288 in five 64-dim blocks).
+//   2. A producer warp streams the folded rows as [128 slots, 64 dims]
+//      chunks through a four-stage ring with TMA (216 KB in all at S=384,
+//      resident in L2); each chunk is up to four wgmma m64n128k16 into f32
+//      registers, left in flight while the next chunk is waited for.
+//   3. After a slot tile's last chunk each thread rounds its 64
+//      accumulators (two pixels, 32 slots) to bf16, packs each live slot's
+//      key and feeds it to the pixel's register list with a branchless
+//      insertion (common.cuh: KeyTopK); dead slots (a bit mask per tile,
+//      loaded as the tile starts) never enter.  The key carries the slot,
+//      which ranks as its id (live ids ascend with the slot, the wrapper's
+//      contract), mapped to the id at the end.  The 4 threads of a quad
+//      merge their lists by shuffles.
+// Nothing of the TPU version's [h, C_in, w*B] relayout or B % 128 lane trick
+// is needed.
 
 #include "common.cuh"
 
@@ -30,148 +47,143 @@
 
 namespace {
 
-constexpr int kTileW = 128;     // pixels (threads) per block
-constexpr int kSlotChunk = 32;  // slots per weight chunk in shared memory
-constexpr int kCols = kTileW + 2;
-
-size_t smem_bytes(int c_in) {
-  return (size_t)9 * c_in * kSlotChunk * sizeof(float) +
-         kSlotChunk * sizeof(int) +
-         (size_t)3 * c_in * kCols * sizeof(__nv_bfloat16);
-}
-
+// Threads: 128 per consumer warpgroup, then the producer warp.
 template <int K>
-__global__ void __launch_bounds__(kTileW)
-    conv_score_topk_kernel(const __nv_bfloat16* __restrict__ feats,
-                           const __nv_bfloat16* __restrict__ wt,
-                           const int* __restrict__ ids, int h, int w, int c_in,
-                           int s, int* __restrict__ idx,
+__global__ void __launch_bounds__(rc::tc::kMaxWarpgroups * 128 + 32, 1)
+    conv_score_topk_kernel(const __grid_constant__ CUtensorMap wt_map,
+                           const __nv_bfloat16* __restrict__ feats,
+                           const int* __restrict__ ids, int npix, int h,
+                           int w, int c_in, int s, int* __restrict__ idx,
                            float* __restrict__ vals) {
-  extern __shared__ __align__(16) unsigned char smem[];
+  using namespace rc::tc;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int nthreads = blockDim.x - 32;  // consumer threads
+  const int pixels = nthreads / 128 * kWarpRows;  // of the block
   const int taps = 9 * c_in;  // weight row length, ordered (dy, dx, c)
-  float* s_w = reinterpret_cast<float*>(smem);  // [taps][kSlotChunk]
-  int* s_ids = reinterpret_cast<int*>(s_w + taps * kSlotChunk);
-  // [3][c_in][kCols]: row dy, channel c, column (x0 - 1 + col)
-  __nv_bfloat16* s_x = reinterpret_cast<__nv_bfloat16*>(s_ids + kSlotChunk);
-
-  const int tx = threadIdx.x;
-  const int x0 = blockIdx.x * kTileW;
-  const int y = blockIdx.y;
-  const int b = blockIdx.z;
-
-  // Stage the halo: each thread copies 8 channels (16 bytes) of one pixel.
-  const int groups = c_in / 8;
-  for (int e = tx; e < 3 * kCols * groups; e += kTileW) {
-    const int g = e % groups;
-    const int col = (e / groups) % kCols;
-    const int dy = e / (groups * kCols);
-    const int yy = y + dy - 1;
-    const int xx = x0 + col - 1;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (yy >= 0 && yy < h && xx >= 0 && xx < w) {
-      v = *reinterpret_cast<const uint4*>(
-          feats + (((long long)b * h + yy) * w + xx) * c_in + g * 8);
-    }
-    const __nv_bfloat16* pv = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      s_x[(dy * c_in + g * 8 + i) * kCols + col] = pv[i];
+  const int k16 = (taps + 15) / 16;
+  const int chunks = k16 * 2;  // 16-byte chunks of a padded im2col row
+  const int groups = c_in / 8;  // 16-byte chunks of one tap
+  const int blocks_k = (k16 + 3) / 4;
+  const int a_block_bytes = pixels * kRowBytes;
+  const uint32_t a = smem_addr(smem);
+  const Ring ring{a + blocks_k * a_block_bytes,
+                  a + blocks_k * a_block_bytes + kStages * kChunkBytes};
+  const int p0 = blockIdx.x * pixels;
+  if (tid == 0) ring.init(nthreads / 128);
+  __syncthreads();
+  if (tid >= nthreads) {  // the producer warp: the weight rows' chunks
+    if (tid == nthreads) ring.produce(&wt_map, s, k16);
+    return;
   }
+  // (x, y) of each pixel of the block, y = -h past the last pixel
+  int2* coords = reinterpret_cast<int2*>(
+      smem + blocks_k * a_block_bytes + kStages * kChunkBytes + kBarrierBytes);
+  for (int r = tid; r < pixels; r += nthreads) {
+    const int p = p0 + r;
+    coords[r] = p < npix ? make_int2(p % w, (p / w) % h) : make_int2(0, -h);
+  }
+  consumer_sync(nthreads);
 
-  const int x = x0 + tx;
-  const bool active = x < w;
-  int keys[K];
-#pragma unroll
-  for (int i = 0; i < K; ++i) keys[i] = INT_MIN;
-
-  for (int s0 = 0; s0 < s; s0 += kSlotChunk) {
-    __syncthreads();  // halo staged / previous chunk fully consumed
-    // Stage weights: lane = slot, so the transposing smem stores are
-    // conflict-free; each thread reads 8 consecutive taps of one slot row.
-    for (int e = tx; e < kSlotChunk * (taps / 8); e += kTileW) {
-      const int sl = e % kSlotChunk;
-      const int j = (e / kSlotChunk) * 8;
-      const uint4 v = *reinterpret_cast<const uint4*>(
-          wt + (long long)(s0 + sl) * taps + j);
-      const __nv_bfloat16* pv = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        s_w[(j + i) * kSlotChunk + sl] = __bfloat162float(pv[i]);
+  // 1. im2col into the swizzled A tile, a warp per pixel
+  for (int r = tid >> 5; r < pixels; r += nthreads >> 5) {
+    const int2 xy = coords[r];
+    for (int j = lane; j < chunks; j += 32) {
+      const int tap = j / groups;
+      const int dy = tap / 3 - 1;
+      const int dx = tap - 3 * (tap / 3) - 1;
+      const bool ok = j < 9 * groups && xy.x + dx >= 0 && xy.x + dx < w &&
+                      xy.y + dy >= 0 && xy.y + dy < h;
+      const long long q = (long long)p0 + r + dy * w + dx;  // the tap's pixel
+      cp_async16_l1(a + (j >> 3) * a_block_bytes + swizzle(r, j & 7),
+                    ok ? feats + q * c_in + (j - tap * groups) * 8 : feats,
+                    ok);
     }
-    if (tx < kSlotChunk) s_ids[tx] = ids[s0 + tx];
-    __syncthreads();
-    if (!active) continue;
+  }
+  cp_async_wait_all();
+  fence_proxy_async();
+  consumer_sync(nthreads);
 
-    float acc[kSlotChunk];
+  // 2-3. scores on the tensor cores, bf16-rounded packed keys into the
+  // lists.  The keys carry the slot, which ranks as its id does (live ids
+  // ascend with the slot); dead slots never enter.
+  const int wg = tid >> 7;
+  rc::KeyTopK<K> top;
+  top.init();
+  unsigned dead = 0;  // the tile's dead mask, loaded as the tile starts
+  score_tiles(
+      ring, a + wg * kWarpRows * kRowBytes, a_block_bytes, s, k16, tid & 127,
+      [&](int t) { dead = dead_mask(ids, t * kTileN, s, lane); },
+      [&](const float(&acc)[64], int t) {
 #pragma unroll
-    for (int j = 0; j < kSlotChunk; ++j) acc[j] = 0.f;
-    for (int dy = 0; dy < 3; ++dy) {
-      for (int dx = 0; dx < 3; ++dx) {
-        const __nv_bfloat16* xr = s_x + dy * c_in * kCols + tx + dx;
-        const float* wr = s_w + (dy * 3 + dx) * c_in * kSlotChunk;
-        for (int c = 0; c < c_in; ++c) {
-          const float xv = __bfloat162float(xr[c * kCols]);
-          const float4* w4 =
-              reinterpret_cast<const float4*>(wr + c * kSlotChunk);
-#pragma unroll
-          for (int q = 0; q < kSlotChunk / 4; ++q) {
-            const float4 wv = w4[q];
-            acc[4 * q + 0] = fmaf(xv, wv.x, acc[4 * q + 0]);
-            acc[4 * q + 1] = fmaf(xv, wv.y, acc[4 * q + 1]);
-            acc[4 * q + 2] = fmaf(xv, wv.z, acc[4 * q + 2]);
-            acc[4 * q + 3] = fmaf(xv, wv.w, acc[4 * q + 3]);
-          }
+        for (int i = 0; i < 64; ++i) {
+          const float rounded = __bfloat162float(__float2bfloat16_rn(acc[i]));
+          const int slot = t * kTileN + frag_col(i, lane);
+          top.push((i >> 1) & 1, (dead >> mask_bit(i)) & 1u
+                                     ? INT_MIN
+                                     : rc::packed_key(rounded, slot));
         }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kSlotChunk; ++j) {
-      const int id = s_ids[j];
-      if (id >= 0) {
-        const float rounded = __bfloat162float(__float2bfloat16_rn(acc[j]));
-        rc::insert_key(keys, rc::packed_key(rounded, id));
-      }
-    }
-  }
-  if (!active) return;
-  const long long p = ((long long)b * h + y) * w + x;
+      });
+  top.merge_quad();
+
+  // thread 0 of a quad writes the first pixel, thread 1 the second
+  const int half = lane & 3;
+  if (half > 1) return;
+  const long long p = p0 + wg * kWarpRows + frag_row(half, tid & 127);
+  if (p >= npix) return;
 #pragma unroll
   for (int t = 0; t < K; ++t) {
-    int id;
+    int slot;
     float value;
-    rc::decode_packed(keys[t], &id, &value);
-    idx[p * K + t] = id;
+    rc::decode_packed(half ? top.key[1][t] : top.key[0][t], &slot, &value);
+    idx[p * K + t] = slot >= 0 ? __ldg(ids + slot) : -1;
     if (vals != nullptr) vals[p * K + t] = value;
   }
 }
+
+int k16_of(int c_in) { return (9 * c_in + 15) / 16; }
+
+constexpr int kRowExtra = sizeof(int2);  // a pixel's (x, y) after the ring
 
 template <int K>
 cudaError_t launch(const __nv_bfloat16* feats, const __nv_bfloat16* wt,
                    const int* ids, int batch, int h, int w, int c_in, int s,
                    int* idx, float* vals, cudaStream_t stream) {
-  const size_t smem = smem_bytes(c_in);
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_score_topk_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const int k16 = k16_of(c_in);
+  const int wgs = rc::tc::warpgroups_for(k16, kRowExtra);
+  const int pixels = wgs * rc::tc::kWarpRows;
+  const size_t smem = rc::tc::smem_bytes(pixels, k16, kRowExtra);
+  CUtensorMap map;
+  cudaError_t err = rc::tc::make_tensor_map(&map, wt, s, 9 * c_in);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((w + kTileW - 1) / kTileW), (unsigned)h,
-                  (unsigned)batch);
-  conv_score_topk_kernel<K><<<grid, kTileW, smem, stream>>>(
-      feats, wt, ids, h, w, c_in, s, idx, vals);
+  err = cudaFuncSetAttribute(conv_score_topk_kernel<K>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const int npix = batch * h * w;
+  const dim3 grid((unsigned)((npix + pixels - 1) / pixels));
+  conv_score_topk_kernel<K><<<grid, wgs * 128 + 32, smem, stream>>>(
+      map, feats, ids, npix, h, w, c_in, s, idx, vals);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // feats: [batch, h, w, c_in] bf16 (c_in % 8 == 0, 16-byte aligned);
-// wt: [s, 9 * c_in] bf16, rows ordered (dy, dx, c) (s % 32 == 0);
-// ids: [s] int32 in [-1, 2^16); idx: [batch*h*w, k] int32; vals: same f32
-// or NULL.  1 <= k <= 8.
+// wt: [s, 9 * c_in] bf16, rows ordered (dy, dx, c), 16-byte aligned;
+// ids: [s] int32 in [-1, 2^16), ascending over the live slots; s <= 2^16;
+// idx: [batch*h*w, k] int32; vals: same f32 or NULL.  1 <= k <= 8;
+// c_in <= 136 (64 im2col rows within 227 KB); batch * h * w < 2^31.
 extern "C" int rc_conv_score_topk(const void* feats, const void* wt,
                                   const int* ids, int batch, int h, int w,
                                   int c_in, int s, int k, int* idx,
                                   float* vals, void* stream) {
-  if (c_in % 8 != 0 || s % kSlotChunk != 0) return cudaErrorInvalidValue;
+  if (c_in % 8 != 0 || c_in <= 0 || s <= 0 || s > 65536 ||
+      rc::tc::warpgroups_for(k16_of(c_in), kRowExtra) == 0 ||
+      (long long)batch * h * w >= INT_MAX)
+    return cudaErrorInvalidValue;
   const auto* f = static_cast<const __nv_bfloat16*>(feats);
   const auto* wb = static_cast<const __nv_bfloat16*>(wt);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -186,4 +198,13 @@ extern "C" int rc_conv_score_topk(const void* feats, const void* wt,
     case 8: return launch<8>(f, wb, ids, batch, h, w, c_in, s, idx, vals, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// Dynamic shared memory of the kernel's block at c_in, for reports.
+extern "C" long long rc_conv_score_topk_smem(int c_in) {
+  const int k16 = k16_of(c_in);
+  const int wgs = rc::tc::warpgroups_for(k16, kRowExtra);
+  return wgs ? (long long)rc::tc::smem_bytes(wgs * rc::tc::kWarpRows, k16,
+                                             kRowExtra)
+             : 0;
 }

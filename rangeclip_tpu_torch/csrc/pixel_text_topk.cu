@@ -16,13 +16,38 @@
 // kernel and it round every pixel identically; an f32 sum in another order
 // moves the scale by an ulp and flips bf16 roundings of the pixel.
 //
-// Bound on the card: arithmetic.  Each pixel costs C * D multiply-adds
-// (C=384, D=512: 196,608) against D * sizeof(T) bytes of field read (once
-// for the scale, once per class tile) and k * 4 bytes written; the [N, C]
-// score field never touches device memory.
+// Bound on the card: arithmetic, with the field's bytes close behind.  Each
+// pixel costs C * D multiply-adds (C=384, D=512: 196,608) against D *
+// sizeof(T) bytes of field read and k * 4 bytes written; the [N, C] score
+// field never touches device memory.
 //
-// Design (CUDA-core FMA, no tensor cores yet): a block of 256 threads owns
-// 128 pixel rows and walks the table in tiles of 128 classes.
+// Two kernels, chosen by the field's dtype:
+//
+// bf16 (D <= kMaxTcDims): tensor cores, as the TPU kernel's bf16 MXU
+// product with f32 sums (pixel_text_topk.py:95-100).  A block of one or two
+// consumer warpgroups owns 64 pixel rows each (two while both fit in shared
+// memory beside the ring: D <= 640).
+//   1. The rows are copied once from device memory (cp.async) into shared
+//      memory in wgmma's 128-byte-swizzled A layout, dims zero-filled up to
+//      a multiple of 16.  Each warp then sums x^2 of its rows from that copy
+//      (f64, warp-reduced) and rewrites them in place as bf16(x * rs).
+//   2. A producer warp streams class tiles of 128 table rows through a
+//      four-stage ring of [128, 64-dim] chunks with TMA (zero-filled past C
+//      and D, mbarriers for full and empty stages); each chunk is up to four
+//      wgmma m64n128k16 into f32 registers, left in flight while the next
+//      chunk is waited for (common.cuh: tc::score_tiles).
+//   3. After a tile's last chunk each thread feeds its 64 accumulators (two
+//      rows, 32 classes) into the rows' register lists with a branchless
+//      insertion (common.cuh: PairTopK); dead classes (a bit mask per tile,
+//      loaded as the tile starts) enter at -1e30, classes past C never.  The
+//      lists hold table rows, which rank as their ids (ids ascend with the
+//      row, the wrapper's contract), mapped to ids at the end.  The 4
+//      threads of a quad merge their lists by shuffles.
+//
+// fp32, and bf16 beyond kMaxTcDims: CUDA-core FMA.  The tensor cores take
+// f32 only as TF32, which would break the fp32 contract (labels equal,
+// values within f32 rounding of the f32 product).  A block of 256 threads
+// owns 128 pixel rows and walks the table in tiles of 128 classes.
 //   1. Scale: each warp sums x^2 of 16 rows (f64, warp-reduced) into
 //      rs[row], so the pixel tile never has to sit whole in shared memory.
 //   2. Scores: a 128 x 128 register-tiled product over D in chunks of 16
@@ -42,6 +67,8 @@
 #include "common.cuh"
 
 namespace {
+
+// ---- fp32 (and bf16 beyond kMaxTcDims): CUDA cores -------------------------
 
 constexpr int kThreads = 256;
 constexpr int kPixels = 128;         // pixel rows per block
@@ -255,11 +282,176 @@ cudaError_t dispatch(const void* field, const void* table, const int* ids,
   }
 }
 
+// ---- bf16: tensor cores ---------------------------------------------------
+
+constexpr int kMaxTcDims = 1280;  // A (64 rows) + the B ring within 227 KB
+
+// Threads: 128 per consumer warpgroup, then the producer warp.
+template <int K>
+__global__ void __launch_bounds__(rc::tc::kMaxWarpgroups * 128 + 32, 1)
+    pixel_text_topk_tc_kernel(const __grid_constant__ CUtensorMap table_map,
+                              const __nv_bfloat16* __restrict__ field,
+                              const int* __restrict__ ids, long long n,
+                              int d, int c, int* __restrict__ idx,
+                              float* __restrict__ vals) {
+  using namespace rc::tc;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x - 32;  // consumer threads
+  const int rows = nthreads / 128 * kWarpRows;  // pixel rows of the block
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int k16 = (d + 15) / 16;
+  const int chunks = k16 * 2;  // 16-byte chunks of a padded row
+  const int blocks_k = (k16 + 3) / 4;
+  const int a_block_bytes = rows * kRowBytes;
+  const uint32_t a = smem_addr(smem);
+  const Ring ring{a + blocks_k * a_block_bytes,
+                  a + blocks_k * a_block_bytes + kStages * kChunkBytes};
+  const long long row0 = (long long)blockIdx.x * rows;
+  if (tid == 0) ring.init(nthreads / 128);
+  __syncthreads();
+  if (tid >= nthreads) {  // the producer warp: the table's chunks
+    if (tid == nthreads) ring.produce(&table_map, c, k16);
+    return;
+  }
+
+  // 1. raw rows into the swizzled A tile, a warp per row; rows past n and
+  // dims past d zero
+  for (int r = warp; r < rows; r += nthreads / 32) {
+    for (int j = lane; j < chunks; j += 32) {
+      const bool ok = row0 + r < n && j * 8 < d;
+      cp_async16(a + (j >> 3) * a_block_bytes + swizzle(r, j & 7),
+                 ok ? field + (row0 + r) * d + j * 8 : field, ok);
+    }
+  }
+  cp_async_wait_all();
+  consumer_sync(nthreads);
+  // rs = 1/sqrt(max(sum x^2, 1e-24)) in f64 (pixel_text_topk.py:85-87),
+  // then x <- bf16(x * rs) in place; 8 lanes per row, 4 rows per warp step
+  const int sub = lane & 7;
+  for (int r = warp * 4 + (lane >> 3); r < rows; r += nthreads / 8) {
+    double sq = 0.0, sq2 = 0.0;
+    for (int j = sub; j < d / 8; j += 8) {
+      __nv_bfloat16 v[8];
+      rc::load8(reinterpret_cast<const __nv_bfloat16*>(
+                    smem + (j >> 3) * a_block_bytes + swizzle(r, j & 7)),
+                v);
+#pragma unroll
+      for (int i = 0; i < 8; i += 2) {
+        const double x = __bfloat162float(v[i]);
+        const double y = __bfloat162float(v[i + 1]);
+        sq = fma(x, x, sq);
+        sq2 = fma(y, y, sq2);
+      }
+    }
+    sq += sq2;
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1)
+      sq += __shfl_xor_sync(0xffffffffu, sq, off);
+    const float scale = (float)(1.0 / sqrt(fmax(sq, 1e-24)));
+    for (int j = sub; j < d / 8; j += 8) {
+      __nv_bfloat16* p = reinterpret_cast<__nv_bfloat16*>(
+          smem + (j >> 3) * a_block_bytes + swizzle(r, j & 7));
+      __nv_bfloat16 v[8];
+      rc::load8(p, v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        v[i] = __float2bfloat16_rn(__bfloat162float(v[i]) * scale);
+      rc::store8(p, v);
+    }
+  }
+  fence_proxy_async();
+  consumer_sync(nthreads);
+
+  // 2-3. scores on the tensor cores, selection from the accumulators.  The
+  // lists hold table rows (columns), which rank as their ids do (ids ascend
+  // with the row); dead rows enter at -1e30, rows past c never.
+  const int wg = tid >> 7;
+  const int wg_tid = tid & 127;
+  rc::PairTopK<K> top;
+  top.init();
+  unsigned dead = 0;  // the tile's dead mask, loaded as the tile starts
+  score_tiles(
+      ring, a + wg * kWarpRows * kRowBytes, a_block_bytes, c, k16, wg_tid,
+      [&](int t) { dead = dead_mask(ids, t * kTileN, c, lane); },
+      [&](const float(&acc)[64], int t) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int col = t * kTileN + frag_col(i, lane);
+          const float sv = col >= c                     ? -CUDART_INF_F
+                           : (dead >> mask_bit(i)) & 1u ? rc::kNegInf
+                                                     : acc[i];
+          top.push((i >> 1) & 1, sv, col);
+        }
+      });
+  top.merge_quad();
+
+  // thread 0 of a quad writes the first row, thread 1 the second
+  const int h = lane & 3;
+  if (h > 1) return;
+  const long long row = row0 + wg * kWarpRows + frag_row(h, wg_tid);
+  if (row >= n) return;
+  bool dead_won = false;
+#pragma unroll
+  for (int t = 0; t < K; ++t) {
+    const float v = h ? top.v[1][t] : top.v[0][t];
+    const int col = h ? top.id[1][t] : top.id[0][t];
+    const int id = col < c ? __ldg(ids + col) : -1;
+    dead_won = dead_won || id == -1;
+    idx[row * K + t] = (dead_won || v <= -1e29f) ? -1 : id;
+    if (vals != nullptr) vals[row * K + t] = dead_won ? rc::kNegInf : v;
+  }
+}
+
+template <int K>
+cudaError_t launch_tc(const __nv_bfloat16* field,
+                      const __nv_bfloat16* table, const int* ids,
+                      long long n, int d, int c, int* idx, float* vals,
+                      cudaStream_t stream) {
+  const int k16 = (d + 15) / 16;
+  const int wgs = rc::tc::warpgroups_for(k16);
+  const int rows = wgs * rc::tc::kWarpRows;
+  const size_t smem = rc::tc::smem_bytes(rows, k16);
+  CUtensorMap map;
+  cudaError_t err = rc::tc::make_tensor_map(&map, table, c, d);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(pixel_text_topk_tc_kernel<K>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((n + rows - 1) / rows));
+  pixel_text_topk_tc_kernel<K><<<grid, wgs * 128 + 32, smem, stream>>>(
+      map, field, ids, n, d, c, idx, vals);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_tc(const void* field, const void* table, const int* ids,
+                        long long n, int d, int c, int k, int* idx,
+                        float* vals, cudaStream_t st) {
+  const auto* f = static_cast<const __nv_bfloat16*>(field);
+  const auto* t = static_cast<const __nv_bfloat16*>(table);
+  switch (k) {
+    case 1: return launch_tc<1>(f, t, ids, n, d, c, idx, vals, st);
+    case 2: return launch_tc<2>(f, t, ids, n, d, c, idx, vals, st);
+    case 3: return launch_tc<3>(f, t, ids, n, d, c, idx, vals, st);
+    case 4: return launch_tc<4>(f, t, ids, n, d, c, idx, vals, st);
+    case 5: return launch_tc<5>(f, t, ids, n, d, c, idx, vals, st);
+    case 6: return launch_tc<6>(f, t, ids, n, d, c, idx, vals, st);
+    case 7: return launch_tc<7>(f, t, ids, n, d, c, idx, vals, st);
+    case 8: return launch_tc<8>(f, t, ids, n, d, c, idx, vals, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // field: [n, d] f32 (is_bf16 == 0) or bf16, un-normalised; table: [c, d] of
 // the same dtype, L2-normalised; both 16-byte aligned, d % 8 == 0.  ids: [c]
-// int32 output id per table row, -1 for rows that may not win.  idx: [n, k]
+// int32 output id per table row, ascending over the rows that may win, -1
+// for rows that may not (ties between equal scores go to the smaller row on
+// the tensor-core path, which is the smaller id).  idx: [n, k]
 // int32; vals: [n, k] f32 or NULL.  1 <= k <= 8, k <= c, n >= 1.
 extern "C" int rc_pixel_text_topk(const void* field, int is_bf16,
                                   const void* table, const int* ids,
@@ -267,8 +459,19 @@ extern "C" int rc_pixel_text_topk(const void* field, int is_bf16,
                                   float* vals, void* stream) {
   if (d % 8 != 0 || d <= 0 || c < k) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16 && d <= kMaxTcDims)
+    return dispatch_tc(field, table, ids, n, d, c, k, idx, vals, st);
   return is_bf16 ? dispatch<__nv_bfloat16>(field, table, ids, n, d, c, k,
                                            idx, vals, st)
                  : dispatch<float>(field, table, ids, n, d, c, k, idx, vals,
                                    st);
+}
+
+// Dynamic shared memory of the bf16 tensor-core kernel's block at dim d (0
+// where d takes the CUDA-core kernel), for reports.
+extern "C" long long rc_pixel_text_topk_tc_smem(int d) {
+  if (d <= 0 || d > kMaxTcDims) return 0;
+  const int k16 = (d + 15) / 16;
+  return (long long)rc::tc::smem_bytes(
+      rc::tc::warpgroups_for(k16) * rc::tc::kWarpRows, k16);
 }

@@ -43,6 +43,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
 )
+# Sources whose ptxas resource lines (registers, shared memory, spills) the
+# build keeps: the tensor-core kernels.
+PTXAS_VERBOSE = ("conv_score_topk.cu", "pixel_text_topk.cu")
 
 # Launches per kernel (and selector), counted by each wrapper right after a
 # successful launch, so a run can show which kernels its main path went
@@ -52,7 +55,8 @@ launch_counts = {
     "score_topk[knockout]": 0,
     "score_topk[packed]": 0,
     "conv_score_topk": 0,
-    "pixel_text_topk": 0,
+    "pixel_text_topk[bf16]": 0,  # tensor cores
+    "pixel_text_topk[fp32]": 0,  # CUDA cores (and bf16 beyond 1280 dims)
     "l2_normalize[fwd]": 0,
     "l2_normalize[bwd]": 0,
     "histogram": 0,
@@ -89,6 +93,9 @@ _SIGNATURES = {
     "rc_tv_loss_fwd": (_P, _I, _I, _I, _I, _I, _P, _P),
     "rc_tv_loss_bwd": (_P, _I, _I, _I, _I, _I, _P, _P, _P),
 }
+# Queries that return a long long: the dynamic shared memory of a
+# tensor-core kernel's block at a width (D, C_in).
+_QUERIES = ("rc_pixel_text_topk_tc_smem", "rc_conv_score_topk_smem")
 
 OPS = torch.library.Library("rangeclip", "DEF")
 
@@ -111,6 +118,7 @@ def define_op(schema: str, cuda_impl: Callable,
 class BuildResult:
     path: Path
     seconds: float  # 0.0 when the library for these sources already existed
+    ptxas: str  # ptxas -v lines of PTXAS_VERBOSE's sources, kept beside it
 
 
 _library: Optional[ctypes.CDLL] = None
@@ -133,19 +141,21 @@ def _nvcc() -> str:
         "rangeclip_tpu_torch cannot be built")
 
 
-def _run_all(cmds) -> None:
-    """Run the commands concurrently; raise with the compiler's output if
-    any fails."""
+def _run_all(cmds) -> list:
+    """Run the commands concurrently; return their outputs, or raise with
+    the compiler's output if any fails."""
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for cmd in cmds]
-    failed = []
+    outputs, failed = [], []
     for cmd, proc in zip(cmds, procs):
-        output = proc.communicate()[0]
+        outputs.append(proc.communicate()[0])
         if proc.returncode != 0:
-            failed.append(f"{' '.join(cmd)}\n({proc.returncode}):\n{output}")
+            failed.append(f"{' '.join(cmd)}\n({proc.returncode}):\n"
+                          f"{outputs[-1]}")
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return outputs
 
 
 def build() -> BuildResult:
@@ -157,8 +167,10 @@ def build() -> BuildResult:
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
     out = BUILD_DIR / f"librangeclip_kernels_{digest.hexdigest()[:16]}.so"
+    ptxas_file = out.with_suffix(".ptxas.txt")
     if out.exists():
-        return BuildResult(out, 0.0)
+        return BuildResult(out, 0.0, ptxas_file.read_text()
+                           if ptxas_file.exists() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
@@ -166,8 +178,11 @@ def build() -> BuildResult:
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
     try:
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-                  for src, obj in zip(sources, objects)])
+        outputs = _run_all([
+            [nvcc, *NVCC_FLAGS,
+             *(("-Xptxas", "-v") if src.name in PTXAS_VERBOSE else ()),
+             "-c", str(src), "-o", str(obj)]
+            for src, obj in zip(sources, objects)])
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                    *map(str, objects)]])
     except RuntimeError:
@@ -177,8 +192,11 @@ def build() -> BuildResult:
         for obj in objects:
             obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
+    ptxas = "".join(f"== {src.name}\n{text}" for src, text
+                    in zip(sources, outputs) if src.name in PTXAS_VERBOSE)
+    ptxas_file.write_text(ptxas)
     os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
-    return BuildResult(out, seconds)
+    return BuildResult(out, seconds, ptxas)
 
 
 def library() -> ctypes.CDLL:
@@ -190,6 +208,9 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
+        for name in _QUERIES:
+            getattr(lib, name).argtypes = [ctypes.c_int]
+            getattr(lib, name).restype = ctypes.c_longlong
         lib.rc_error_string.argtypes = [ctypes.c_int]
         lib.rc_error_string.restype = ctypes.c_char_p
         _library = lib

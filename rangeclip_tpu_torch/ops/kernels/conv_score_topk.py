@@ -2,10 +2,11 @@
 
 Port of ``rangeclip_tpu/ops/pallas/conv_score_topk.py``
 (``fused_conv_score_topk`` and its gate ``fused_conv_topk_applicable``).
-The CUDA kernel is ``csrc/conv_score_topk.cu``; :func:`conv_score_topk_plain`
-is the same function in plain PyTorch (f32 conv, bf16 rounding, packed
-selection), used for CPU tensors and as the reference the kernel is held
-against on the card.
+The CUDA kernel is ``csrc/conv_score_topk.cu``, an implicit GEMM on the
+tensor cores with the selection in registers (C_in up to 136);
+:func:`conv_score_topk_plain` is the same function in plain PyTorch (f32
+conv, bf16 rounding, packed selection), used for CPU tensors and as the
+reference the kernel is held against on the card.
 
 Unlike the TPU kernel, outputs come back in (B, h, w) pixel order.
 """

@@ -2,9 +2,12 @@
 
 Port of ``rangeclip_tpu/ops/pallas/pixel_text_topk.py``
 (``fused_pixel_text_topk``), the scoring of the unfolded predict path.  The
-CUDA kernel is ``csrc/pixel_text_topk.cu``; :func:`pixel_text_topk_plain` is
-the same function in plain PyTorch, used for CPU tensors and as the
-reference the kernel is held against on the card.
+CUDA kernels are in ``csrc/pixel_text_topk.cu``: a bf16 field takes the
+tensor-core kernel (up to :data:`TC_MAX_DIMS` dims), an fp32 field the
+CUDA-core one; launches count as ``pixel_text_topk[bf16]`` and
+``pixel_text_topk[fp32]``.  :func:`pixel_text_topk_plain` is the same
+function in plain PyTorch, used for CPU tensors and as the reference the
+kernels are held against on the card.
 
 Rounding points, as in the TPU kernel: the pixel is normalised in f32 with
 ``rsqrt(max(sum x^2, 1e-24))`` (not ``utils.math.l2_normalize``'s
@@ -28,6 +31,16 @@ from rangeclip_tpu_torch.ops.kernels.score_topk import (
     MAX_TOP_K,
     score_topk_plain,
 )
+
+# The widest bf16 field of the tensor-core kernel (csrc/pixel_text_topk.cu:
+# kMaxTcDims); wider bf16 fields take the CUDA-core kernel.
+TC_MAX_DIMS = 1280
+
+
+def kernel_route(dtype: torch.dtype, dims: int) -> str:
+    """The launch-count name of the kernel that a CUDA field takes."""
+    tc = dtype == torch.bfloat16 and dims <= TC_MAX_DIMS
+    return f"pixel_text_topk[{'bf16' if tc else 'fp32'}]"
 
 
 def normalize_rows_rsqrt(field: torch.Tensor) -> torch.Tensor:
@@ -137,7 +150,7 @@ def _pixel_text_topk_cuda(field, table, ids, top_k, want_values):
         table.data_ptr(), ids.data_ptr(), field.shape[0], field.shape[1],
         table.shape[0], top_k, idx.data_ptr(),
         val.data_ptr() if want_values else None, _lib.stream_of(field))
-    _lib.check(code, "pixel_text_topk")
+    _lib.check(code, kernel_route(field.dtype, field.shape[1]))
     return idx, val
 
 

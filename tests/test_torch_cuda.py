@@ -39,6 +39,7 @@ from rangeclip_tpu_torch.ops.kernels.pixel_text_ce import (
     pixel_text_ce_plain,
 )
 from rangeclip_tpu_torch.ops.kernels.pixel_text_topk import (
+    kernel_route,
     normalize_rows_rsqrt,
     pixel_text_topk,
 )
@@ -116,11 +117,15 @@ def test_class_presence_matches_plain(cuda_device, n, num_classes):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,S,k", [((2, 8, 200, 32), 256, 5),
                                        ((1, 1, 5, 8), 128, 1),
-                                       ((3, 4, 130, 64), 128, 8)])
+                                       ((3, 4, 130, 64), 128, 8),
+                                       ((1, 1, 1, 16), 128, 5),
+                                       ((2, 3, 129, 32), 256, 5),
+                                       ((2, 5, 40, 64), 384, 8)])
 def test_conv_score_topk_matches_plain(cuda_device, shape, S, k):
     """Quantised-exact inputs (multiples of 1/4): bit-equal.  Covers ragged
-    strips (w not a multiple of the block width), one-row images, dead
-    slots and C_in 8..64."""
+    strips (w not a multiple of the block width, w = 129), one-row images,
+    a 1x1 image (every tap but the centre is border), dead slots, C_in
+    8..64 (K = 72..576, padded to a multiple of 16) and S = 384 at k = 8."""
     gen = torch.Generator().manual_seed(2)
     q = lambda *s: (torch.randint(-8, 9, s, generator=gen) / 4).to(
         torch.bfloat16)
@@ -178,34 +183,52 @@ def _sparse_signs(gen, rows, dim, nonzero):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,d,c", [(5000, 512, 512), (77, 32, 1000),
-                                   (300, 1024, 40), (129, 40, 130)])
-def test_pixel_text_topk_matches_plain(cuda_device, dtype, n, d, c):
+@pytest.mark.parametrize("n,d,c,tied", [(5000, 512, 512, False),
+                                        (77, 32, 1000, False),
+                                        (300, 1024, 40, False),
+                                        (129, 40, 130, False),
+                                        (100, 64, 1, False),
+                                        (200, 512, 8, False),
+                                        (300, 512, 129, False),
+                                        (1000, 512, 384, False),
+                                        (500, 512, 300, True),
+                                        (200, 1344, 130, False)])
+def test_pixel_text_topk_matches_plain(cuda_device, dtype, n, d, c, tied):
     """Quantised-exact inputs: ids and values bit-equal to the plain version
     for the mask form, sparse global ids, and an exhausted set; ragged row
-    and class counts (past one 128-row block and one 128-class tile), D of
-    1024 and D = 40 (a last dim chunk of 8)."""
+    and class counts (past one 128-row block, one past a 128-class tile),
+    C = 1 and C = k, S = 384 at k = 8, D of 1024 and D = 40 (a last dim
+    chunk of 8), and a table of one repeated row (every class scores the
+    same: the smallest live ids win).  A bf16 field takes the tensor-core
+    kernel up to 1280 dims, an fp32 field (and a bf16 one of 1344 dims) the
+    CUDA-core one."""
     gen = torch.Generator().manual_seed(4)
     field = (_sparse_signs(gen, n, d, 16)
              * 2.0 ** torch.randint(-3, 4, (n, 1), generator=gen)).to(dtype)
-    table = (_sparse_signs(gen, c, d, 4) / 2).to(dtype)
+    table = (_sparse_signs(gen, 1 if tied else c, d, 4) / 2).expand(
+        c, d).contiguous().to(dtype)
     mask = torch.rand(c, generator=gen) > 0.3
     ids = torch.full((c,), -1, dtype=torch.int32)
     ids[:c // 2] = torch.randperm(5000, generator=gen)[:c // 2].sort().values
     two = torch.zeros(c, dtype=torch.bool)
-    two[[1, 3]] = True
+    two[[i for i in (1, 3) if i < c]] = True
+    route = kernel_route(dtype, d)
     for kw in ({"candidate_mask": mask}, {"candidate_mask": ids >= 0,
                                           "candidate_ids": ids},
                {"candidate_mask": two}):
-        for k in (1, 5, 8):
+        for k in (k for k in (1, 5, 8) if k <= c):
             want = pixel_text_topk(field, table, top_k=k, **kw)
-            before = _lib.launch_counts["pixel_text_topk"]
+            before = dict(_lib.launch_counts)
             got = pixel_text_topk(field.to(cuda_device),
                                   table.to(cuda_device), top_k=k,
                                   **{a: t.to(cuda_device)
                                      for a, t in kw.items()})
             torch.cuda.synchronize()
-            assert _lib.launch_counts["pixel_text_topk"] == before + 1
+            assert {name: _lib.launch_counts[name] - before[name]
+                    for name in ("pixel_text_topk[bf16]",
+                                 "pixel_text_topk[fp32]")} == {
+                name: int(name == route) for name in (
+                    "pixel_text_topk[bf16]", "pixel_text_topk[fp32]")}
             assert torch.equal(got[0].cpu(), want[0]), (kw.keys(), k)
             assert torch.equal(got[1].cpu(), want[1]), (kw.keys(), k)
 
@@ -286,12 +309,12 @@ def test_predict_unfolded_on_cuda_matches_cpu(cuda_device):
     text = torch.randn(1000, 128, generator=gen)
     mask = torch.rand(1000, generator=gen) > 0.5
     want = model.predict(depth, text, mask, 5)[0]
-    before = _lib.launch_counts["pixel_text_topk"]
+    before = _lib.launch_counts["pixel_text_topk[fp32]"]
     got = model.to(cuda_device).predict(depth.to(cuda_device),
                                         text.to(cuda_device),
                                         mask.to(cuda_device), 5)[0]
     torch.cuda.synchronize()
-    assert _lib.launch_counts["pixel_text_topk"] == before + 1
+    assert _lib.launch_counts["pixel_text_topk[fp32]"] == before + 1
     assert (got.cpu() == want).float().mean() >= 0.999
 
     bf16 = DepthUNet(dataclasses.replace(cfg, dtype=torch.bfloat16),
