@@ -9,16 +9,20 @@ weights made from a seed, saved to and reloaded from a reference ``.pth``.
 Phases (any failure raises; nothing is caught):
 
 1. Build the CUDA kernels from ``rangeclip_tpu_torch/csrc/``; print the
-   registers, shared memory and spills of the two tensor-core kernels
-   (pixel_text_topk's bf16 path and conv_score_topk, from ``ptxas -v``).
+   registers, shared memory and spills of the three sources with
+   tensor-core kernels (pixel_text_topk's bf16 path, conv_score_topk and
+   pixel_text_ce, from ``ptxas -v``).
 2. Hold each kernel against its plain PyTorch version at the shapes the
    main paths give it, and time both and, where one PyTorch call computes
    the same function, that call; each row's bound is the larger of its
    bytes over 3.35 TB/s and its operations over the peak rate of its input
    type (989 TFLOP/s bf16, 67 TFLOP/s f32), from the H100 SXM data sheet.
-   Beside the two tensor-core kernels, their product stage alone through
-   cuBLAS (torch.matmul) and cuDNN (F.conv2d) at the bench shape, printed
-   on a line of its own: a yardstick, not the same function.
+   Beside the tensor-core kernels, their product stage alone through
+   cuBLAS (torch.matmul) and cuDNN (F.conv2d) at their shapes, printed on
+   a line of its own: a yardstick, not the same function.
+   pixel_text_ce runs bf16 packed (its tensor-core kernels, also timed
+   alone) at D = 512 and 768, bf16 over the full table (overflow) and fp32
+   (its CUDA-core kernels).
    masked_pooling and tv_loss run on a bf16 field of the flagship train
    native shape [32, 128, 128, 512], head_topk at the bench configuration.
 3. Serve: the port's ``cli/serve`` engine and HTTP server in this process,
@@ -119,6 +123,10 @@ KERNEL_ROWS = {
                            "rangeclip_tpu/ops/pallas/pixel_text_ce.py:96"),
     "pixel_text_ce[bwd]": ("rangeclip_tpu_torch/csrc/pixel_text_ce.cu",
                            "rangeclip_tpu/ops/pallas/pixel_text_ce.py:124"),
+    "pixel_text_ce_tc[fwd]": ("rangeclip_tpu_torch/csrc/pixel_text_ce.cu",
+                              "rangeclip_tpu/ops/pallas/pixel_text_ce.py:96"),
+    "pixel_text_ce_tc[bwd]": ("rangeclip_tpu_torch/csrc/pixel_text_ce.cu",
+                              "rangeclip_tpu/ops/pallas/pixel_text_ce.py:124"),
     "tv_rowtile[fwd]": ("rangeclip_tpu_torch/csrc/tv_rowtile.cu",
                         "rangeclip_tpu/ops/pallas/tv_rowtile.py:100"),
     "tv_rowtile[bwd]": ("rangeclip_tpu_torch/csrc/tv_rowtile.cu",
@@ -133,7 +141,8 @@ KERNEL_ROWS = {
                      "rangeclip_tpu/ops/pallas/tv_loss.py:55"),
 }
 TRAIN_KERNELS = ["histogram", "class_presence", "pixel_text_ce[fwd]",
-                 "pixel_text_ce[bwd]", "tv_rowtile[fwd]", "tv_rowtile[bwd]",
+                 "pixel_text_ce[bwd]", "pixel_text_ce_tc[fwd]",
+                 "pixel_text_ce_tc[bwd]", "tv_rowtile[fwd]", "tv_rowtile[bwd]",
                  "l2_normalize[fwd]", "l2_normalize[bwd]"]
 TRAIN_BATCH = 32
 TRAIN_PRESENT = 40  # labels in the segmentation: the packed CE branch
@@ -143,8 +152,8 @@ VAL_KERNELS = ["pixel_text_topk[fp32]", "class_presence", "histogram",
 CAPACITY = 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
-# Beside the two tensor-core kernels: their product stage alone through
-# cuBLAS / cuDNN at the bench shape (ms), printed before the kernels line.
+# Beside the tensor-core kernels: their product stage alone through cuBLAS
+# / cuDNN at their shapes (ms), printed before the kernels line.
 PRODUCT_ONLY_MS = {}
 
 
@@ -218,12 +227,14 @@ def ptxas_summary(text: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            k = re.search(r"([a-z_]+_kernel)I(?:Li(\d+)E)?"
-                          r"(f|13__nv_bfloat16)?", name)
+            k = re.search(r"([a-z_]+_kernel)I((?:Li\d+E|Lb[01]E|f|"
+                          r"13__nv_bfloat16)+)E", name)
             if k:
-                name = (k.group(1).lstrip("_") + f"<K={k.group(2)}"
-                        + {"f": ", f32", "13__nv_bfloat16": ", bf16",
-                           None: ""}[k.group(3)] + ">")
+                args = re.findall(r"Li(\d+)E|Lb([01])E|(f)|(13__nv_bfloat16)",
+                                  k.group(2))
+                name = k.group(1).lstrip("_") + "<" + ", ".join(
+                    n or ("true" if b == "1" else "false") if n or b else
+                    ("f32" if f else "bf16") for n, b, f, _ in args) + ">"
             spill = ""
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -930,6 +941,35 @@ def contrast_set(gen, device, members: int):
     return mask, perm[:members].sort().values.int()
 
 
+def tc_alone(flat, temp, g, labels, valid, ptable, pmask, pids, flag):
+    """(fwd ms, bwd ms) of pixel_text_ce's tensor-core kernels launched
+    directly, without the CUDA-core kernel the operators launch beside
+    them."""
+    from rangeclip_tpu_torch.ops.kernels import _lib
+    from rangeclip_tpu_torch.ops.kernels.pixel_text_ce import (
+        transposed_table,
+    )
+
+    lib, stream = _lib.library(), _lib.stream_of(flat)
+    N, D = flat.shape
+    S, K = labels.shape[0], ptable.shape[0]
+    ce = torch.empty(N, device=flat.device)
+    dx, dtau = torch.empty_like(flat), torch.empty(N, device=flat.device)
+    ptable_t = transposed_table(ptable)
+    coeff = g.float().reshape(())
+    fwd = lambda: lib.rc_pixel_text_ce_tc_fwd(  # noqa: E731
+        flat.data_ptr(), temp.data_ptr(), labels.data_ptr(),
+        valid.data_ptr(), S, N, D, ptable.data_ptr(), pmask.data_ptr(),
+        pids.data_ptr(), K, flag.data_ptr(), ce.data_ptr(), stream)
+    bwd = lambda: lib.rc_pixel_text_ce_tc_bwd(  # noqa: E731
+        flat.data_ptr(), temp.data_ptr(), coeff.data_ptr(),
+        labels.data_ptr(), valid.data_ptr(), S, N, D, ptable.data_ptr(),
+        ptable_t.data_ptr(), pmask.data_ptr(), pids.data_ptr(), K,
+        flag.data_ptr(), dx.data_ptr(), dtau.data_ptr(), stream)
+    require(fwd() == 0 and bwd() == 0, "pixel_text_ce_tc launch failed")
+    return cuda_ms(fwd, 10), cuda_ms(bwd, 10)
+
+
 def phase_train_kernels(device, stats):
     """histogram, pixel_text_ce and tv_rowtile at the flagship train shapes
     (bf16 [32, 128, 128, 512] native field, 32 x 45,875 draws into 65,536
@@ -945,6 +985,7 @@ def phase_train_kernels(device, stats):
         pixel_text_ce_backward_plain,
         pixel_text_ce_op,
         pixel_text_ce_plain,
+        tc_route,
     )
     from rangeclip_tpu_torch.ops.kernels.tv_rowtile import (
         tv_grad,
@@ -980,16 +1021,24 @@ def phase_train_kernels(device, stats):
                                       "f32"))
     del idx, offsets, got, want
 
-    # pixel_text_ce: bf16 packed, bf16 overflowing K (full C), fp32 full C
+    # pixel_text_ce: bf16 packed (the tensor-core kernels), bf16 overflowing
+    # K (full C) and fp32 full C (CUDA cores) at D = 512, then bf16 packed
+    # at D = 768 (its own table, drawn after the others' data)
     text = l2_normalize(torch.randn(NUM_CLASSES, D, device=device,
                                     generator=gen), dim=-1)
     rows = {}
-    for case, dtype, batch, members in (
-            ("bf16 packed", torch.bfloat16, B, 90),
-            ("bf16 overflow (full C)", torch.bfloat16, B, 200),
-            ("fp32 full C", torch.float32, 8, 90)):
+    for case, dtype, batch, members, width in (
+            ("bf16 packed", torch.bfloat16, B, 90, D),
+            ("bf16 overflow (full C)", torch.bfloat16, B, 200, D),
+            ("fp32 full C", torch.float32, 8, 90, D),
+            ("bf16 packed D=768", torch.bfloat16, B, 90, 768)):
         N = batch * h * h
-        samples = torch.randn(N, D, device=device, generator=gen).to(dtype)
+        if width != text.shape[1]:
+            text = l2_normalize(torch.randn(NUM_CLASSES, width,
+                                            device=device, generator=gen),
+                                dim=-1)
+        samples = torch.randn(N, width, device=device,
+                              generator=gen).to(dtype)
         mask, members_ids = contrast_set(gen, device, members)
         pick = torch.randint(0, members, (4, N), device=device, generator=gen)
         labels = members_ids[pick]
@@ -1036,10 +1085,26 @@ def phase_train_kernels(device, stats):
                         lambda: pixel_text_ce_backward_plain(
                             g, *plain_args, packed=plain_packed), 5, 2)
         kind = "bf16" if dtype == torch.bfloat16 else "f32"
-        classes = CAPACITY if case == "bf16 packed" else NUM_CLASSES
+        # the packed cases run on the tensor cores; on overflow (the flag
+        # at 0) the tensor-core kernels return at once and the CUDA-core
+        # kernels score the full table
+        tc = case.startswith("bf16 packed")
+        require(tc_route(flat, pt, backward=True) == (pt is not None),
+                f"pixel_text_ce {case}: route")
+        classes = CAPACITY if tc else NUM_CLASSES
+        if tc:
+            tc_ms = tc_alone(flat, temp, g, lab, val, pt, pm, pi, flag)
+            log(f"  pixel_text_ce {case}: the tensor-core kernels alone "
+                f"(without the CUDA-core launch that returns at once) fwd "
+                f"{tc_ms[0]:.4f} ms, bwd {tc_ms[1]:.4f} ms")
+        if case == "bf16 packed":
+            emb = l2_normalize(flat.float(), dim=-1).to(dtype)
+            PRODUCT_ONLY_MS["pixel_text_ce (bf16 [N, 512] x [512, 128])"] = (
+                cuda_ms(lambda: torch.matmul(emb, pt.T), 20))
+            del emb
         esize = flat.element_size()
-        io = flat.numel() * esize + lab.numel() * 8 + classes * D * esize
-        flops = 2.0 * N * classes * D
+        io = flat.numel() * esize + lab.numel() * 8 + classes * width * esize
+        flops = 2.0 * N * classes * width
         rows[case] = dict(
             fwd=dict(max_abs_err=max_abs_err(got, want), ms=fwd[0],
                      plain_ms=fwd[1], library_ms=None,
@@ -1047,7 +1112,8 @@ def phase_train_kernels(device, stats):
             bwd=dict(max_abs_err=float(err.max()), ms=bwd[0],
                      plain_ms=bwd[1], library_ms=None,
                      **bound(io + flat.numel() * esize, 2 * flops, kind)))
-        log(f"  pixel_text_ce {case}, N={N} D={D} S=4 "
+        log(f"  pixel_text_ce {case} ({'tensor' if tc else 'CUDA'} cores), "
+            f"N={N} D={width} S=4 "
             f"({int(mask.sum())} members): CE {float(got):.6g} vs plain "
             f"{float(want):.6g}, d tau {float(dt):.6g} vs {float(dt_p):.6g}, "
             f"max |d samples diff| {float(err.max()):.3g}; fwd kernel "
@@ -1057,12 +1123,15 @@ def phase_train_kernels(device, stats):
             f"{rows[case]['bwd']['bound_ms']:.4f} ms")
         del samples, flat, dx, dx_p, err, op_args, plain_args
         torch.cuda.empty_cache()
-    stats["pixel_text_ce[fwd]"] = rows["bf16 packed"]["fwd"]
-    stats["pixel_text_ce[bwd]"] = rows["bf16 packed"]["bwd"]
-    for name in ("pixel_text_ce[fwd]", "pixel_text_ce[bwd]"):
-        key = name[-4:-1]
-        stats[name]["max_abs_err"] = max(r[key]["max_abs_err"]
-                                         for r in rows.values())
+    # the rows: the tensor-core kernels at the flagship packed shape, the
+    # CUDA-core kernels at fp32 full C (the route of fp32 validation)
+    for name, case in (("pixel_text_ce_tc", "bf16 packed"),
+                       ("pixel_text_ce", "fp32 full C")):
+        tc = name.endswith("_tc")
+        for key in ("fwd", "bwd"):
+            stats[f"{name}[{key}]"] = dict(rows[case][key], max_abs_err=max(
+                r[key]["max_abs_err"] for c, r in rows.items()
+                if c.startswith("bf16 packed") == tc))
 
     # tv_rowtile: bf16, upsample 2, one sample weight 0
     x = (torch.randint(-6, 7, (B, h, h, D), device=device, generator=gen) / 4

@@ -7,6 +7,7 @@
 // equal scores break ties to the smallest id.  Dead slots (id -1) get INT_MIN.
 #pragma once
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 #include <cuda.h>
@@ -113,6 +114,17 @@ __device__ __forceinline__ void store8(T* p, const T (&v)[8]) {
   }
 }
 
+// Streaming multiprocessors of the current device (0 if unknown): bounds
+// the grids whose blocks each hold a workspace slice.
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return sms;
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -122,7 +134,9 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // ---------------------------------------------------------------------------
 // Tensor-core scoring with a register top-k epilogue (pixel_text_topk.cu's
-// bf16 path and conv_score_topk.cu).
+// bf16 path and conv_score_topk.cu; pixel_text_ce.cu's tensor-core kernels
+// use the ring, the layout and the A-tile build, with a producer warpgroup
+// and their own main loop).
 //
 // Both kernels score a tile of rows A [rows, K] against a table B [R, K],
 // both bf16 and K-major, with f32 sums, and keep a top-k of each row.  A
@@ -308,6 +322,12 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// Two floats as a bf16 pair, the first in the low half (the lower address).
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 __device__ __forceinline__ int frag_col(int i, int lane) {
   return ((i >> 2) << 3) + ((lane & 3) << 1) + (i & 1);
 }
@@ -428,6 +448,68 @@ __device__ __forceinline__ void score_tiles(const Ring& ring, uint32_t a,
       epi(acc, i / blocks_k);
     }
   }
+}
+
+// The A tile of pixel rows row0 .. row0 + rows of the un-normalised bf16
+// matrix x [n, d] (16-byte aligned, d % 8 == 0), built by the `nthreads`
+// consumer threads: the rows are copied once (cp.async) into the swizzled
+// layout at `a` (`smem` is its generic address), rows past n and dims past
+// d zero-filled up to k16 * 16 dims; then 8 lanes per row sum x^2 in f64
+// from that copy and rewrite the row in place as bf16(x * rs), rs =
+// 1/sqrt(max(sum x^2, 1e-24)) rounded once to f32 (rs_out[r] gets it when
+// not NULL).  Ends fenced for the async proxy and synchronised.
+__device__ __forceinline__ void normalized_rows(
+    unsigned char* smem, uint32_t a, int a_block_bytes, int rows,
+    const __nv_bfloat16* __restrict__ x, long long n, int d, long long row0,
+    int nthreads, float* rs_out) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int chunks = (d + 15) / 16 * 2;  // 16-byte chunks of a padded row
+  for (int r = warp; r < rows; r += nthreads / 32) {
+    for (int j = lane; j < chunks; j += 32) {
+      const bool ok = row0 + r < n && j * 8 < d;
+      cp_async16(a + (j >> 3) * a_block_bytes + swizzle(r, j & 7),
+                 ok ? x + (row0 + r) * d + j * 8 : x, ok);
+    }
+  }
+  cp_async_wait_all();
+  consumer_sync(nthreads);
+  const int sub = lane & 7;
+  for (int r = warp * 4 + (lane >> 3); r < rows; r += nthreads / 8) {
+    double sq = 0.0, sq2 = 0.0;
+    for (int j = sub; j < d / 8; j += 8) {
+      __nv_bfloat16 v[8];
+      load8(reinterpret_cast<const __nv_bfloat16*>(
+                smem + (j >> 3) * a_block_bytes + swizzle(r, j & 7)),
+            v);
+#pragma unroll
+      for (int i = 0; i < 8; i += 2) {
+        const double p = __bfloat162float(v[i]);
+        const double q = __bfloat162float(v[i + 1]);
+        sq = fma(p, p, sq);
+        sq2 = fma(q, q, sq2);
+      }
+    }
+    sq += sq2;
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1)
+      sq += __shfl_xor_sync(0xffffffffu, sq, off);
+    const float scale = (float)(1.0 / sqrt(fmax(sq, 1e-24)));
+    if (rs_out != nullptr && sub == 0) rs_out[r] = scale;
+    for (int j = sub; j < d / 8; j += 8) {
+      __nv_bfloat16* p = reinterpret_cast<__nv_bfloat16*>(
+          smem + (j >> 3) * a_block_bytes + swizzle(r, j & 7));
+      __nv_bfloat16 v[8];
+      load8(p, v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        v[i] = __float2bfloat16_rn(__bfloat162float(v[i]) * scale);
+      store8(p, v);
+    }
+  }
+  fence_proxy_async();
+  consumer_sync(nthreads);
 }
 
 // The dynamic shared memory of `a_rows` rows of A over k16 steps, the B

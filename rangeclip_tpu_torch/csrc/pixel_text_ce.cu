@@ -22,15 +22,52 @@
 // the members' global ids); otherwise the full [C, D] table.  The caller
 // computes the flag (n_contrast <= K) on the device, so no host sync.
 //
-// Bound on the card: arithmetic on CUDA cores.  The forward does 2 N K D
-// FLOP (68.7 GFLOP packed at N = 524,288, K = 128, D = 512) against
-// N (D * sizeof(T) + 8 S + 4) bytes; the backward does the product twice
-// (logits, then delta x table) for one class tile and three times for
-// several (pass 1 for the row statistics, pass 2 recomputes each tile).
-// The [N, C] logits never touch device memory.
+// Bound on the card: the forward does 2 N K D FLOP (68.7 GFLOP packed at
+// N = 524,288, K = 128, D = 512) against N (D * sizeof(T) + 8 S + 4) bytes
+// (0.54 GB): bytes at the tensor cores' bf16 rate (0.07 ms of products
+// against 0.16 ms of reads), operations on the CUDA cores.  The backward
+// does the product twice or more (see below) and writes dx too.  The
+// [N, C] logits never touch device memory.
 //
-// Design (CUDA-core FMA, no tensor cores yet): a block of 256 threads owns
-// 64 pixel rows and walks the table in tiles of 128 classes.
+// Two designs, chosen by shape on the host and by the device flag:
+//
+// bf16 with a packed table, d <= 1280 (the backward: k <= 128): tensor
+// cores (ce_tc_fwd_kernel, ce_tc_bwd_kernel).  A block of one or two
+// consumer warpgroups owns 64 pixel rows each, and a producer warpgroup
+// streams the table through a four-stage TMA ring (common.cuh: tc::); it
+// hands its registers to the consumers (setmaxnreg: 232 each), and nothing
+// spills.
+//   1. The rows are copied once into shared memory in wgmma's swizzled A
+//      layout, their f64 scale taken from that copy and the tile rewritten
+//      as bf16(x * rs) in place (common.cuh: tc::normalized_rows).
+//   2. Logits: wgmma m64n128k16 over the packed [k, d] table into 64 f32
+//      registers per thread (two rows x 32 classes), summed step by step
+//      (tile_sims); the epilogue runs on the fragment: masked members at
+//      -1e30, an online max / sum-exp across class tiles reduced over the
+//      quad by shuffles, and the slot picks (the column whose packed id
+//      equals the label).
+//   3. Backward: the row statistics, dtau and delta in registers; delta,
+//      rounded to bf16, goes to the warpgroup's own rows of the A tile,
+//      which the logits are done with, as the A operand of the second
+//      product, d_emb = delta [64, k] x table [k, d], against the
+//      transposed table [d, k8] (a copy the wrapper makes per call) in
+//      128-dim chunks through the same ring.  The normalisation VJP needs
+//      proj = emb . d_emb over all of d, so the chunks run twice: pass 0
+//      sums proj, pass 1 writes dx.  emb = x * rs in f32 re-reads x (L2),
+//      staged with dx through other free rows of the A tile.
+// The kernels return at once unless *use_packed != 0; the CUDA-core kernel,
+// launched beside them with skip_packed, returns at once otherwise.
+//
+// Against the plain version, whose logits are an f32 FMA chain over d in
+// order, no other summation order agrees on every bf16 rounding of delta:
+// even exactly rounded logits flip a label's delta in a few rows of a
+// flagship-sized draw, and such a flip moves the row's dx by about the
+// checks' bound (utils/ce_rounding.py measures it).  The CUDA-core kernel
+// sums in the plain version's order.
+//
+// f32, bf16 over the full table, and shapes beyond the above: CUDA-core
+// FMA.  A block of 256 threads owns 64 pixel rows and walks the table in
+// tiles of 128 classes.
 //   1. Scale: each warp sums x^2 of 8 rows in f64.
 //   2. Logits: a 64 x 128 register-tiled product over D in chunks of 16
 //      dims, double-buffered in shared memory; staging rounds x * rs to T.
@@ -40,11 +77,16 @@
 //      conflict-free), with an online max / sum-exp across tiles (one tile:
 //      the plain formula exactly) and the slot picks.
 //   4. Backward only: per tile, delta into the same shared tile, then
-//      d_emb [64, D] += delta_tile [64, 128] x table_tile [128, D] in
-//      shared memory; last, one warp per row applies the normalisation VJP.
+//      d_emb [64, D] += delta_tile [64, 128] x table_tile [128, D]; last,
+//      one warp per row applies the normalisation VJP.  The backward does
+//      the product twice for one class tile and three times for several
+//      (pass 1 for the row statistics, pass 2 recomputes each tile).  The
+//      d_emb tile [64, D + 4] f32 is in shared memory up to D = 648; beyond,
+//      it lives in a device workspace, one slice per block, and a grid of
+//      at most one block per SM strides over the row tiles.
 // The TPU kernel's class-major [C, TILE_N] layout and row-tile search are
-// TPU work; here rows are the block's axis.  Any N, C, K; D % 8 == 0 and
-// D <= 640 (shared memory); S <= 4.
+// TPU work; here rows are the block's axis.  Any N, C, K; D % 8 == 0;
+// S <= 4.
 
 #include "common.cuh"
 
@@ -84,9 +126,11 @@ struct Params {
   const int* pids;     // [k] global ids
   int k;
   const int* use_packed;  // device flag, or NULL (full table)
+  int skip_packed;        // return at once where the flag selects packed
   float* ce;              // forward: [n] per-row CE
   void* dx;               // backward: [n, d] in x's dtype
   float* dtau;            // backward: [n] per-row d log tau
+  float* workspace;       // backward, where de_in_smem(d) fails: d_emb tiles
 };
 
 template <typename T>
@@ -189,12 +233,11 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// The 64 pixel rows from row0 of the block: the CE (forward) or dx and
+// dtau (backward).  de is the [64, d + 4] f32 d_emb tile (backward).
 template <typename T, int S, bool kBackward>
-__global__ void __launch_bounds__(kThreads, kBackward ? 1 : 2)
-    ce_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  float* de = reinterpret_cast<float*>(smem_raw + sizeof(Smem));
+__device__ __forceinline__ void ce_rows(const Params& p, Smem& sm, float* de,
+                                        long long row0) {
   const int de_pitch = p.d + 4;
 
   const bool packed = p.use_packed != nullptr && *p.use_packed != 0;
@@ -209,7 +252,6 @@ __global__ void __launch_bounds__(kThreads, kBackward ? 1 : 2)
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const long long row0 = (long long)blockIdx.x * kRows;
 
   // 1. rs[r] = 1/sqrt(max(sum x^2, 1e-24)), the sum in f64
   constexpr int kRowsPerWarp = kRows / (kThreads / 32);
@@ -415,29 +457,78 @@ __global__ void __launch_bounds__(kThreads, kBackward ? 1 : 2)
   }
 }
 
-size_t smem_bytes(bool backward, int d) {
-  return sizeof(Smem) +
-         (backward ? (size_t)kRows * (d + 4) * sizeof(float) : 0);
+// kWorkspace: the d_emb tiles live in p.workspace, one per block, and the
+// grid (bounded by the SMs) strides over the row tiles.
+template <typename T, int S, bool kBackward, bool kWorkspace>
+__global__ void __launch_bounds__(kThreads, kBackward ? 1 : 2)
+    ce_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if (p.skip_packed && *p.use_packed != 0) return;
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  float* de = kWorkspace ? p.workspace + (size_t)blockIdx.x * kRows * (p.d + 4)
+                         : reinterpret_cast<float*>(smem_raw + sizeof(Smem));
+  for (long long row0 = (long long)blockIdx.x * kRows; row0 < p.n;
+       row0 += (long long)gridDim.x * kRows) {
+    ce_rows<T, S, kBackward>(p, sm, de, row0);
+    __syncthreads();  // sm and de are free for the next tile
+  }
+}
+
+// The backward keeps its d_emb tile in shared memory while sizeof(Smem) +
+// 64 (d + 4) floats fit in 227 KB (d <= 648); beyond, in a workspace of one
+// tile per block, with one block per SM.
+bool de_in_smem(int d) {
+  return sizeof(Smem) + (size_t)kRows * (d + 4) * sizeof(float) <=
+         (size_t)kMaxSmem;
+}
+
+long long row_tiles(long long n) { return (n + kRows - 1) / kRows; }
+
+// Blocks of the backward's grid at width d: a block per row tile, or at
+// most one per SM when the d_emb tiles live in the workspace.
+long long bwd_blocks(int d, long long n) {
+  if (de_in_smem(d)) return row_tiles(n);
+  return std::min<long long>(row_tiles(n), rc::sm_count());
+}
+
+size_t workspace_bytes(int d, long long n) {
+  return de_in_smem(d) ? 0
+                       : (size_t)bwd_blocks(d, n) * kRows * (d + 4) *
+                             sizeof(float);
+}
+
+template <typename T, int S, bool kBackward, bool kWorkspace>
+cudaError_t launch_grid(const Params& p, long long blocks,
+                        cudaStream_t stream) {
+  const size_t smem =
+      sizeof(Smem) + (kBackward && !kWorkspace
+                          ? (size_t)kRows * (p.d + 4) * sizeof(float)
+                          : 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      ce_kernel<T, S, kBackward, kWorkspace>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  ce_kernel<T, S, kBackward, kWorkspace>
+      <<<(unsigned)blocks, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
 template <typename T, int S, bool kBackward>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes(kBackward, p.d);
-  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      ce_kernel<T, S, kBackward>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((p.n + kRows - 1) / kRows));
-  ce_kernel<T, S, kBackward><<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+  if (!kBackward) return launch_grid<T, S, false, false>(p, row_tiles(p.n),
+                                                         stream);
+  if (de_in_smem(p.d))
+    return launch_grid<T, S, true, false>(p, row_tiles(p.n), stream);
+  if (p.workspace == nullptr) return cudaErrorInvalidValue;
+  return launch_grid<T, S, true, true>(p, bwd_blocks(p.d, p.n), stream);
 }
 
 template <bool kBackward>
 cudaError_t dispatch(const Params& p, int is_bf16, int slots,
                      cudaStream_t st) {
   if (p.d % 8 != 0 || p.d <= 0 || p.c <= 0 || p.n <= 0 ||
-      (p.use_packed != nullptr && p.k <= 0))
+      (p.use_packed != nullptr && p.k <= 0) ||
+      (p.skip_packed && p.use_packed == nullptr))
     return cudaErrorInvalidValue;
   using bf = __nv_bfloat16;
   switch (slots * 2 + (is_bf16 ? 1 : 0)) {
@@ -453,6 +544,553 @@ cudaError_t dispatch(const Params& p, int is_bf16, int slots,
   }
 }
 
+// ---- bf16 packed table: tensor cores ---------------------------------------
+
+constexpr int kMaxTcDims = 1280;  // A (64 rows) + the B ring within 227 KB
+constexpr int kMaxTcBwdClasses = rc::tc::kTileN;  // delta: one class tile
+// The backward's A tile spans at least 6 blocks: after the logits, a
+// warpgroup's own rows of blocks 0-1 hold delta, 2-3 and 4-5 stage x and dx.
+constexpr int kScratchBlocks = 6;
+
+struct TcParams {
+  const __nv_bfloat16* x;
+  const float* temperature;
+  const float* coeff;  // backward: the upstream gradient of the sum
+  const int* labels;   // [S, n]
+  const float* valid;  // [S, n]
+  long long n;
+  int d;
+  const int* pmask;    // [k]
+  const int* pids;     // [k] global ids
+  int k;
+  const int* use_packed;  // run only where it is non-zero (NULL: always)
+  float* ce;              // forward: [n]
+  __nv_bfloat16* dx;      // backward: [n, d]
+  float* dtau;            // backward: [n]
+};
+
+// The label slots of the two rows a thread holds (rows past n: none).
+template <int S>
+struct RowSlots {
+  int lab[2][S];
+  float w[2][S];
+  float wsum[2];
+
+  __device__ __forceinline__ void load(const TcParams& p,
+                                       const long long (&row)[2],
+                                       float coeff, bool scaled) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool live = row[h] < p.n;
+      wsum[h] = 0.f;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        lab[h][s] = live ? p.labels[s * p.n + row[h]] : INT_MIN;
+        const float v = live ? p.valid[s * p.n + row[h]] : 0.f;
+        w[h][s] = scaled ? __fmul_rn(coeff, v) : v;
+        wsum[h] = __fadd_rn(wsum[h], w[h][s]);
+      }
+    }
+  }
+};
+
+// This thread's 32 columns of the class tile from c0 as bit masks, bit b
+// = mask_bit(i) for accumulator register i (as rc::tc::dead_mask):
+// `exists` where the column is < k, `live` where it also is a member (mask
+// != 0), match[h][s] where its packed id is the label of slot s of row h.
+// Bit masks, not the 32 ids, keep the epilogue within its registers.
+template <int S>
+struct TileCols {
+  unsigned exists, live;
+  unsigned match[2][S];
+
+  // kRound columns' ids and masks are loaded at a time.
+  template <int kRound>
+  __device__ __forceinline__ void load(const TcParams& p, int c0, int lane,
+                                       const RowSlots<S>& sl) {
+    exists = live = 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int s = 0; s < S; ++s) match[h][s] = 0;
+#pragma unroll 1
+    for (int b0 = 0; b0 < 32; b0 += kRound) {
+#pragma unroll
+      for (int q = 0; q < kRound; ++q) {
+        const int b = b0 + q;
+        const int col = c0 + (b >> 1) * 8 + ((lane & 3) << 1) + (b & 1);
+        const int at = min(col, p.k - 1);
+        const int id = __ldg(p.pids + at);
+        const bool ok = col < p.k;
+        exists |= (unsigned)ok << b;
+        live |= (unsigned)(ok && __ldg(p.pmask + at) != 0) << b;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int s = 0; s < S; ++s)
+            match[h][s] |= (unsigned)(ok && id == sl.lab[h][s]) << b;
+      }
+    }
+  }
+
+  __device__ __forceinline__ bool has(int i) const {
+    return (exists >> rc::tc::mask_bit(i)) & 1u;
+  }
+  // The logit of accumulator register i: masked members score -1e30.
+  __device__ __forceinline__ float logit(const float (&acc)[64], int i,
+                                         float inv_temp) const {
+    return (live >> rc::tc::mask_bit(i)) & 1u ? acc[i] * inv_temp
+                                              : rc::kNegInf;
+  }
+  // Register i's column carries the label of slot s of its row.
+  __device__ __forceinline__ bool picks(int i, int s) const {
+    return (match[(i >> 1) & 1][s] >> rc::tc::mask_bit(i)) & 1u;
+  }
+};
+
+// Registers a thread after the producer warpgroup gives its own up: 2 x
+// 128 x 232 + 128 x 40 = 64,512 of the SM's 65,536 (the block's share at
+// 384 threads and 168 registers, the compiler's cap).
+constexpr int kConsumerRegs = 232;
+constexpr int kProducerRegs = 40;
+constexpr int kTcThreads = rc::tc::kMaxWarpgroups * 128 + 128;
+
+// Shared set-up of both kernels: the block's layout and its A tile.  The
+// consumer warpgroups come first, then a producer warpgroup, whose first
+// thread drives the ring; setmaxnreg moves the producer's registers to the
+// consumers, which hold the logits, their step sums, delta and the d_emb
+// chunk at once.
+struct TcBlock {
+  unsigned char* smem;
+  uint32_t a;
+  int nthreads, rows, k16, blocks_k, a_blocks, a_block_bytes, wg, wg_tid,
+      lane;
+  long long row0;
+  rc::tc::Ring ring;
+  long long row[2];  // this thread's two rows (consumers)
+
+  // The A tile spans max(min_blocks, blocks_k) 64-dim blocks.
+  __device__ __forceinline__ void init(unsigned char* raw, int d,
+                                       int min_blocks) {
+    using namespace rc::tc;
+    smem = aligned_smem(raw);
+    const int tid = threadIdx.x;
+    nthreads = blockDim.x - 128;  // consumer threads; then the producer
+    rows = nthreads / 128 * kWarpRows;
+    k16 = (d + 15) / 16;
+    blocks_k = (k16 + 3) / 4;
+    a_blocks = max(min_blocks, blocks_k);
+    a_block_bytes = rows * kRowBytes;
+    a = smem_addr(smem);
+    ring = Ring{a + a_blocks * a_block_bytes,
+                a + a_blocks * a_block_bytes + kStages * kChunkBytes};
+    row0 = (long long)blockIdx.x * rows;
+    wg = tid >> 7;
+    wg_tid = tid & 127;
+    lane = tid & 31;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      row[h] = row0 + wg * kWarpRows + frag_row(h, wg_tid);
+    if (tid == 0) ring.init(nthreads / 128);
+    __syncthreads();
+  }
+
+  // The producer warpgroup gives up its registers; true for its threads.
+  // The consumers take theirs.
+  __device__ __forceinline__ bool producer() const {
+    if ((int)threadIdx.x >= nthreads) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+          kProducerRegs));
+      return true;
+    }
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kConsumerRegs));
+    return false;
+  }
+  __device__ __forceinline__ uint32_t a_rows() const {
+    return a + wg * rc::tc::kWarpRows * rc::tc::kRowBytes;
+  }
+  // Past the A tile, the ring and its barriers.
+  __device__ __forceinline__ unsigned char* extra() const {
+    return smem + a_blocks * a_block_bytes +
+           rc::tc::kStages * rc::tc::kChunkBytes + rc::tc::kBarrierBytes;
+  }
+};
+
+// The cosine sums of this warpgroup's 64 rows against one class tile, the
+// table's next blocks_k chunks in the ring from `chunk` on.  Each 16-dim
+// step is a wgmma from zero whose result is added to acc in f32, rounded to
+// nearest: the tensor cores' own accumulation truncates at every step, and
+// over the 32 steps of D = 512 that moves the logits further from an f32
+// sum than exact sums are, which flips more of delta's bf16 roundings.  A
+// step's products are waited for before the next issues; the block's other
+// warpgroup keeps the tensor cores busy.
+__device__ __forceinline__ void tile_sims(const rc::tc::Ring& ring,
+                                          uint32_t a, int a_block_bytes,
+                                          int k16, int wg_tid, int& chunk,
+                                          float (&acc)[64]) {
+  using namespace rc::tc;
+  const int blocks_k = (k16 + 3) / 4;
+  for (int kb = 0; kb < blocks_k; ++kb, ++chunk) {
+    const int s = chunk % kStages;
+    mbar_wait(ring.full(s), (chunk / kStages) & 1);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (kb * 4 + k >= k16) break;
+      float part[64];
+      fence_regs(part);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      wgmma_m64n128k16(part, sw128_desc(a + kb * a_block_bytes + k * 32),
+                       sw128_desc(ring.stage(s) + k * 32), 0);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_regs(part);
+      const bool first = kb == 0 && k == 0;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = first ? part[i] : acc[i] + part[i];
+    }
+    if (wg_tid == 0) mbar_arrive(ring.empty(s));
+  }
+}
+
+// Forward: per class tile, the logits from the sums, an online max /
+// sum-exp per row (quad shuffles) and the slot picks.
+template <int S>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    ce_tc_fwd_kernel(const __grid_constant__ CUtensorMap table_map,
+                     const TcParams p) {
+  using namespace rc::tc;
+  if (p.use_packed != nullptr && *p.use_packed == 0) return;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  TcBlock blk;
+  blk.init(smem_raw, p.d, 0);
+  if (blk.producer()) {
+    if ((int)threadIdx.x == blk.nthreads)
+      blk.ring.produce(&table_map, p.k, blk.k16);
+    return;
+  }
+  normalized_rows(blk.smem, blk.a, blk.a_block_bytes, blk.rows, p.x, p.n,
+                  p.d, blk.row0, blk.nthreads, nullptr);
+
+  RowSlots<S> sl;
+  sl.load(p, blk.row, 1.f, false);
+  const float inv_temp = 1.0f / *p.temperature;
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F}, z[2] = {0.f, 0.f};
+  float pick[2][S];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int s = 0; s < S; ++s) pick[h][s] = 0.f;
+  TileCols<S> cols;
+  int chunk = 0;  // the ring's next chunk
+  for (int c0 = 0; c0 < p.k; c0 += kTileN) {
+    cols.template load<32>(p, c0, blk.lane, sl);
+    float acc[64];
+    tile_sims(blk.ring, blk.a_rows(), blk.a_block_bytes, blk.k16, blk.wg_tid,
+              chunk, acc);
+    float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      if (cols.has(i))
+        mt[(i >> 1) & 1] =
+            fmaxf(mt[(i >> 1) & 1], cols.logit(acc, i, inv_temp));
+    float m_new[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) m_new[h] = fmaxf(m_run[h], quad_max(mt[h]));
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      if (!cols.has(i)) continue;
+      const int h = (i >> 1) & 1;
+      const float l = cols.logit(acc, i, inv_temp);
+      ps[h] += expf(l - m_new[h]);
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        if (cols.picks(i, s)) pick[h][s] += l;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float scale = expf(m_run[h] - m_new[h]);  // 0 on tile 0
+      z[h] = __fadd_rn(__fmul_rn(z[h], scale), quad_sum(ps[h]));
+      m_run[h] = m_new[h];
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float wpick = 0.f;
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      wpick = __fadd_rn(wpick, __fmul_rn(sl.w[h][s], quad_sum(pick[h][s])));
+    const float lse = m_run[h] + logf(z[h]);
+    if ((blk.lane & 3) == 0 && blk.row[h] < p.n)
+      p.ce[blk.row[h]] = __fsub_rn(__fmul_rn(sl.wsum[h], lse), wpick);
+  }
+}
+
+// Backward (k <= 128: one class tile).  The logits as in the forward, then
+// the row statistics, dtau and delta in registers; delta, rounded to bf16,
+// goes to the warpgroup's own rows of the A tile, which the logits no
+// longer need ([64 rows, 128 classes] in the SW128 layout: dim blocks 0-1).
+// Then d_emb = delta x table in 128-dim chunks, B the transposed table
+// [d, k8] through the ring, twice: pass 0 sums proj = emb . d_emb, pass 1
+// writes dx.
+template <int S>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    ce_tc_bwd_kernel(const __grid_constant__ CUtensorMap table_map,
+                     const __grid_constant__ CUtensorMap table_t_map,
+                     const TcParams p) {
+  using namespace rc::tc;
+  if (p.use_packed != nullptr && *p.use_packed == 0) return;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  TcBlock blk;
+  blk.init(smem_raw, p.d, kScratchBlocks);
+  const int d = p.d;
+  const int dchunks = (d + kTileN - 1) / kTileN;  // 128-dim chunks of d_emb
+  const int kc16 = (p.k + 15) / 16;               // 16-class steps
+  const int cblocks = (kc16 + 3) / 4;             // 64-class blocks: 1 or 2
+  if (blk.producer()) {
+    if ((int)threadIdx.x != blk.nthreads) return;
+    const Ring& ring = blk.ring;
+    int i = 0;
+    auto push = [&](const CUtensorMap* map, int k0, int r0) {
+      const int s = i % kStages;
+      if (i >= kStages) mbar_wait(ring.empty(s), ((i / kStages) - 1) & 1);
+      mbar_expect_tx(ring.full(s), kChunkBytes);
+      tma_load(ring.stage(s), map, k0, r0, ring.full(s));
+      ++i;
+    };
+    for (int kb = 0; kb < blk.blocks_k; ++kb)
+      push(&table_map, kb * kBlockDims, 0);
+    for (int pass = 0; pass < 2; ++pass)
+      for (int dc = 0; dc < dchunks; ++dc)
+        for (int cb = 0; cb < cblocks; ++cb)
+          push(&table_t_map, cb * kBlockDims, dc * kTileN);
+    return;
+  }
+  float* rs_tile = reinterpret_cast<float*>(blk.extra());
+  normalized_rows(blk.smem, blk.a, blk.a_block_bytes, blk.rows, p.x, p.n, d,
+                  blk.row0, blk.nthreads, rs_tile);
+
+  int next = 0;  // the ring's next chunk
+  float acc[64];
+  tile_sims(blk.ring, blk.a_rows(), blk.a_block_bytes, blk.k16, blk.wg_tid,
+            next, acc);
+  // loaded after the sums, which hold 128 registers while they run
+  float rs[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    rs[h] = rs_tile[blk.wg * kWarpRows + frag_row(h, blk.wg_tid)];
+  const float inv_temp = 1.0f / *p.temperature;
+  {
+    RowSlots<S> sl;
+    sl.load(p, blk.row, *p.coeff, true);
+    // in rounds of 8: all 32 columns' loads at once, beside the logits,
+    // spilled registers
+    TileCols<S> cols;
+    cols.template load<8>(p, 0, blk.lane, sl);
+    float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      if (cols.has(i))
+        m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], cols.logit(acc, i, inv_temp));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) m[h] = quad_max(m[h]);
+    float ps[2] = {0.f, 0.f}, pt[2] = {0.f, 0.f}, pick[2][S];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int s = 0; s < S; ++s) pick[h][s] = 0.f;
+    // acc[i] becomes e_i = exp(logit_i - m) (0 past k), which delta reads
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int h = (i >> 1) & 1;
+      const float l = cols.logit(acc, i, inv_temp);
+      const float e = cols.has(i) ? expf(l - m[h]) : 0.f;
+      acc[i] = e;
+      if (!cols.has(i)) continue;
+      ps[h] += e;
+      pt[h] = __fadd_rn(pt[h], __fmul_rn(e, l));
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        if (cols.picks(i, s)) pick[h][s] += l;
+    }
+    float f[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float wpick = 0.f;
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        wpick = __fadd_rn(wpick, __fmul_rn(sl.w[h][s], quad_sum(pick[h][s])));
+      const float inv_z = 1.0f / quad_sum(ps[h]);
+      const float t_el = quad_sum(pt[h]);
+      f[h] = __fmul_rn(sl.wsum[h], inv_z);
+      if ((blk.lane & 3) == 0 && blk.row[h] < p.n)
+        p.dtau[blk.row[h]] =
+            __fsub_rn(wpick, __fmul_rn(sl.wsum[h], __fmul_rn(t_el, inv_z)));
+    }
+    // delta_c = e_c (W / Z) - sum_s [id_c == l_s] w_s, 0 past k, rounded
+    // to bf16 in pairs of adjacent classes, into the A tile
+    auto delta = [&](int i) {
+      const int h = (i >> 1) & 1;
+      if (!cols.has(i)) return 0.f;
+      float dl = __fmul_rn(acc[i], f[h]);
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        if (cols.picks(i, s)) dl = __fsub_rn(dl, sl.w[h][s]);
+      return dl;
+    };
+    unsigned char* own = blk.smem + blk.wg * kWarpRows * kRowBytes;
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int c = frag_col(i, blk.lane);
+      *reinterpret_cast<uint32_t*>(
+          own + (c >> 6) * blk.a_block_bytes +
+          swizzle(frag_row((i >> 1) & 1, blk.wg_tid), (c & 63) >> 3) +
+          (c & 7) * 2) = pack_bf16x2(delta(i), delta(i + 1));
+    }
+    fence_proxy_async();
+    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + blk.wg) : "memory");
+  }
+
+  // d_emb chunks: pass 0 sums proj = emb . d_emb, pass 1 writes dx.  The
+  // warpgroup's own rows of A-tile blocks 2-3 stage the chunk's x (copied
+  // in 16-byte pieces while the products run) and blocks 4-5 its dx (copied
+  // out in 16-byte pieces), both in the swizzled layout, where the 8 rows
+  // of a fragment's quad groups fall in distinct banks.
+  const uint32_t own = blk.a_rows();
+  unsigned char* own_ptr = blk.smem + blk.wg * kWarpRows * kRowBytes;
+  const long long wg_row0 = blk.row0 + blk.wg * kWarpRows;
+  // byte offset of dims (2 j', 2 j' + 1) = local dim c of row r in blocks
+  // b0, b0 + 1 (64 dims each)
+  auto staged = [&](int b0, int r, int c) {
+    return (b0 + (c >> 6)) * blk.a_block_bytes + swizzle(r, (c & 63) >> 3) +
+           (c & 7) * 2;
+  };
+  float proj[2] = {0.f, 0.f};
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int dc = 0; dc < dchunks; ++dc) {
+      // the previous chunk's staged x and dx are consumed
+      asm volatile("bar.sync %0, 128;\n" ::"r"(2 + blk.wg) : "memory");
+      for (int q = blk.wg_tid; q < kWarpRows * 16; q += 128) {
+        const int r = q >> 4, c = (q & 15) * 8;
+        const int dim = dc * kTileN + c;
+        const bool ok = wg_row0 + r < p.n && dim < d;
+        cp_async16(own + staged(2, r, c),
+                   ok ? p.x + (wg_row0 + r) * d + dim : p.x, ok);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      float dacc[64];
+      fence_regs(dacc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int cb = 0; cb < 2; ++cb) {
+        if (cb < cblocks) {
+          const int s = (next + cb) % kStages;
+          mbar_wait(blk.ring.full(s), ((next + cb) / kStages) & 1);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (cb * 4 + k < kc16)
+              wgmma_m64n128k16(
+                  dacc, sw128_desc(own + cb * blk.a_block_bytes + k * 32),
+                  sw128_desc(blk.ring.stage(s) + k * 32), cb > 0 || k > 0);
+          }
+        }
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(2 + blk.wg) : "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_regs(dacc);
+      for (int cb = 0; cb < cblocks; ++cb)
+        if (blk.wg_tid == 0)
+          mbar_arrive(blk.ring.empty((next + cb) % kStages));
+      next += cblocks;
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const int h = (i >> 1) & 1;
+        const int r = frag_row(h, blk.wg_tid), c = frag_col(i, blk.lane);
+        const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(
+            own_ptr + staged(2, r, c));
+        const float e0 = __fmul_rn(__low2float(xv), rs[h]);
+        const float e1 = __fmul_rn(__high2float(xv), rs[h]);
+        const float d0 = __fmul_rn(dacc[i], inv_temp);
+        const float d1 = __fmul_rn(dacc[i + 1], inv_temp);
+        if (pass == 0) {
+          proj[h] = __fadd_rn(proj[h], __fmul_rn(e0, d0));
+          proj[h] = __fadd_rn(proj[h], __fmul_rn(e1, d1));
+        } else {
+          *reinterpret_cast<uint32_t*>(own_ptr + staged(4, r, c)) =
+              pack_bf16x2(
+                  __fmul_rn(rs[h], __fsub_rn(d0, __fmul_rn(e0, proj[h]))),
+                  __fmul_rn(rs[h], __fsub_rn(d1, __fmul_rn(e1, proj[h]))));
+        }
+      }
+      if (pass == 1) {
+        asm volatile("bar.sync %0, 128;\n" ::"r"(2 + blk.wg) : "memory");
+        for (int q = blk.wg_tid; q < kWarpRows * 16; q += 128) {
+          const int r = q >> 4, c = (q & 15) * 8;
+          const int dim = dc * kTileN + c;
+          if (wg_row0 + r < p.n && dim < d)
+            *reinterpret_cast<uint4*>(p.dx + (wg_row0 + r) * d + dim) =
+                *reinterpret_cast<const uint4*>(own_ptr + staged(4, r, c));
+        }
+      }
+    }
+    if (pass == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) proj[h] = quad_sum(proj[h]);
+    }
+  }
+}
+
+template <int S>
+cudaError_t launch_tc_fwd(const TcParams& p, const void* ptable,
+                          cudaStream_t stream) {
+  const int k16 = (p.d + 15) / 16;
+  const int wgs = rc::tc::warpgroups_for(k16);
+  const int rows = wgs * rc::tc::kWarpRows;
+  const size_t smem = rc::tc::smem_bytes(rows, k16);
+  CUtensorMap map;
+  cudaError_t err = rc::tc::make_tensor_map(&map, ptable, p.k, p.d);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(ce_tc_fwd_kernel<S>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((p.n + rows - 1) / rows));
+  ce_tc_fwd_kernel<S><<<grid, wgs * 128 + 128, smem, stream>>>(map, p);
+  return cudaGetLastError();
+}
+
+constexpr int kRsBytes = sizeof(float);  // the backward's rs per row
+
+template <int S>
+cudaError_t launch_tc_bwd(const TcParams& p, const void* ptable,
+                          const void* ptable_t, cudaStream_t stream) {
+  // the A tile spans at least the blocks that delta, x and dx take
+  const int k16 = std::max((p.d + 15) / 16, 4 * kScratchBlocks);
+  const int wgs = rc::tc::warpgroups_for(k16, kRsBytes);
+  const int rows = wgs * rc::tc::kWarpRows;
+  const size_t smem = rc::tc::smem_bytes(rows, k16, kRsBytes);
+  CUtensorMap map, map_t;
+  cudaError_t err = rc::tc::make_tensor_map(&map, ptable, p.k, p.d);
+  if (err != cudaSuccess) return err;
+  err = rc::tc::make_tensor_map(&map_t, ptable_t, p.d, (p.k + 7) / 8 * 8);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(ce_tc_bwd_kernel<S>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((p.n + rows - 1) / rows));
+  ce_tc_bwd_kernel<S><<<grid, wgs * 128 + 128, smem, stream>>>(map, map_t,
+                                                                p);
+  return cudaGetLastError();
+}
+
+bool tc_shape_ok(const TcParams& p, int slots) {
+  return p.d % 8 == 0 && p.d > 0 && p.d <= kMaxTcDims && p.k > 0 &&
+         p.n > 0 && slots >= 1 && slots <= 4;
+}
+
 }  // namespace
 
 // x: [n, d] f32 (is_bf16 == 0) or bf16, un-normalised, 16-byte aligned;
@@ -460,25 +1098,87 @@ cudaError_t dispatch(const Params& p, int is_bf16, int slots,
 // table: [c, d] normalised, in x's dtype; mask: [c] int32.  The packed
 // members (ptable [k, d], pmask [k], pids [k]) and the device flag
 // use_packed may be NULL (full table only).  ce: [n] f32.  1 <= slots <= 4.
+// skip_packed: return at once where *use_packed != 0 (the tensor-core
+// kernel takes that branch).
 extern "C" int rc_pixel_text_ce_fwd(
     const void* x, int is_bf16, const float* temperature, const int* labels,
     const float* valid, int slots, long long n, int d, const void* table,
     const int* mask, int c, const void* ptable, const int* pmask,
-    const int* pids, int k, const int* use_packed, float* ce, void* stream) {
-  Params p{x, temperature, nullptr, labels, valid, n, d, table, mask, c,
-           ptable, pmask, pids, k, use_packed, ce, nullptr, nullptr};
+    const int* pids, int k, const int* use_packed, int skip_packed,
+    float* ce, void* stream) {
+  Params p{x,     temperature, nullptr, labels,     valid,       n,
+           d,     table,       mask,    c,          ptable,      pmask,
+           pids,  k,           use_packed, skip_packed, ce,      nullptr,
+           nullptr, nullptr};
   return dispatch<false>(p, is_bf16, slots, static_cast<cudaStream_t>(stream));
 }
 
 // As the forward, plus coeff: [1] f32, the upstream gradient of the summed
-// CE; dx: [n, d] in x's dtype; dtau: [n] f32 per-row d log tau.
+// CE; dx: [n, d] in x's dtype; dtau: [n] f32 per-row d log tau; workspace:
+// rc_pixel_text_ce_workspace(d, n) bytes, 16-byte aligned (NULL when that
+// is 0).
 extern "C" int rc_pixel_text_ce_bwd(
     const void* x, int is_bf16, const float* temperature, const float* coeff,
     const int* labels, const float* valid, int slots, long long n, int d,
     const void* table, const int* mask, int c, const void* ptable,
-    const int* pmask, const int* pids, int k, const int* use_packed, void* dx,
-    float* dtau, void* stream) {
-  Params p{x, temperature, coeff, labels, valid, n, d, table, mask, c,
-           ptable, pmask, pids, k, use_packed, nullptr, dx, dtau};
+    const int* pmask, const int* pids, int k, const int* use_packed,
+    int skip_packed, void* dx, float* dtau, void* workspace, void* stream) {
+  Params p{x,     temperature, coeff, labels,     valid,       n,
+           d,     table,       mask,  c,          ptable,      pmask,
+           pids,  k,           use_packed, skip_packed, nullptr, dx,
+           dtau,  static_cast<float*>(workspace)};
   return dispatch<true>(p, is_bf16, slots, static_cast<cudaStream_t>(stream));
+}
+
+// Bytes of the backward's workspace at (d, n): 0 while the d_emb tile fits
+// in shared memory.
+extern "C" long long rc_pixel_text_ce_workspace(int d, long long n) {
+  return (long long)workspace_bytes(d, n);
+}
+
+// The tensor-core kernels of the bf16 packed branch.  x: [n, d] bf16,
+// un-normalised, 16-byte aligned, d % 8 == 0, d <= 1280; ptable [k, d] bf16
+// normalised, pmask [k] int32, pids [k] int32 global ids; labels, valid,
+// temperature, coeff as above.  They run only where *use_packed != 0
+// (always when it is NULL), so they pair with the CUDA-core kernels called
+// with skip_packed = 1: one of the two writes.
+extern "C" int rc_pixel_text_ce_tc_fwd(
+    const void* x, const float* temperature, const int* labels,
+    const float* valid, int slots, long long n, int d, const void* ptable,
+    const int* pmask, const int* pids, int k, const int* use_packed,
+    float* ce, void* stream) {
+  const TcParams p{static_cast<const __nv_bfloat16*>(x), temperature,
+                   nullptr, labels, valid, n, d, pmask, pids, k, use_packed,
+                   ce, nullptr, nullptr};
+  if (!tc_shape_ok(p, slots)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (slots) {
+    case 1: return launch_tc_fwd<1>(p, ptable, st);
+    case 2: return launch_tc_fwd<2>(p, ptable, st);
+    case 3: return launch_tc_fwd<3>(p, ptable, st);
+    default: return launch_tc_fwd<4>(p, ptable, st);
+  }
+}
+
+// ptable_t: the packed table transposed, [d, k8] bf16 with k8 = k rounded
+// up to a multiple of 8 (zero columns past k), 16-byte aligned; k <= 128.
+// dx: [n, d] bf16; dtau: [n] f32.
+extern "C" int rc_pixel_text_ce_tc_bwd(
+    const void* x, const float* temperature, const float* coeff,
+    const int* labels, const float* valid, int slots, long long n, int d,
+    const void* ptable, const void* ptable_t, const int* pmask,
+    const int* pids, int k, const int* use_packed, void* dx, float* dtau,
+    void* stream) {
+  const TcParams p{static_cast<const __nv_bfloat16*>(x), temperature, coeff,
+                   labels, valid, n, d, pmask, pids, k, use_packed, nullptr,
+                   static_cast<__nv_bfloat16*>(dx), dtau};
+  if (!tc_shape_ok(p, slots) || k > kMaxTcBwdClasses)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (slots) {
+    case 1: return launch_tc_bwd<1>(p, ptable, ptable_t, st);
+    case 2: return launch_tc_bwd<2>(p, ptable, ptable_t, st);
+    case 3: return launch_tc_bwd<3>(p, ptable, ptable_t, st);
+    default: return launch_tc_bwd<4>(p, ptable, ptable_t, st);
+  }
 }

@@ -301,9 +301,7 @@ __global__ void __launch_bounds__(rc::tc::kMaxWarpgroups * 128 + 32, 1)
   const int nthreads = blockDim.x - 32;  // consumer threads
   const int rows = nthreads / 128 * kWarpRows;  // pixel rows of the block
   const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int k16 = (d + 15) / 16;
-  const int chunks = k16 * 2;  // 16-byte chunks of a padded row
   const int blocks_k = (k16 + 3) / 4;
   const int a_block_bytes = rows * kRowBytes;
   const uint32_t a = smem_addr(smem);
@@ -317,53 +315,9 @@ __global__ void __launch_bounds__(rc::tc::kMaxWarpgroups * 128 + 32, 1)
     return;
   }
 
-  // 1. raw rows into the swizzled A tile, a warp per row; rows past n and
-  // dims past d zero
-  for (int r = warp; r < rows; r += nthreads / 32) {
-    for (int j = lane; j < chunks; j += 32) {
-      const bool ok = row0 + r < n && j * 8 < d;
-      cp_async16(a + (j >> 3) * a_block_bytes + swizzle(r, j & 7),
-                 ok ? field + (row0 + r) * d + j * 8 : field, ok);
-    }
-  }
-  cp_async_wait_all();
-  consumer_sync(nthreads);
-  // rs = 1/sqrt(max(sum x^2, 1e-24)) in f64 (pixel_text_topk.py:85-87),
-  // then x <- bf16(x * rs) in place; 8 lanes per row, 4 rows per warp step
-  const int sub = lane & 7;
-  for (int r = warp * 4 + (lane >> 3); r < rows; r += nthreads / 8) {
-    double sq = 0.0, sq2 = 0.0;
-    for (int j = sub; j < d / 8; j += 8) {
-      __nv_bfloat16 v[8];
-      rc::load8(reinterpret_cast<const __nv_bfloat16*>(
-                    smem + (j >> 3) * a_block_bytes + swizzle(r, j & 7)),
-                v);
-#pragma unroll
-      for (int i = 0; i < 8; i += 2) {
-        const double x = __bfloat162float(v[i]);
-        const double y = __bfloat162float(v[i + 1]);
-        sq = fma(x, x, sq);
-        sq2 = fma(y, y, sq2);
-      }
-    }
-    sq += sq2;
-#pragma unroll
-    for (int off = 4; off > 0; off >>= 1)
-      sq += __shfl_xor_sync(0xffffffffu, sq, off);
-    const float scale = (float)(1.0 / sqrt(fmax(sq, 1e-24)));
-    for (int j = sub; j < d / 8; j += 8) {
-      __nv_bfloat16* p = reinterpret_cast<__nv_bfloat16*>(
-          smem + (j >> 3) * a_block_bytes + swizzle(r, j & 7));
-      __nv_bfloat16 v[8];
-      rc::load8(p, v);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        v[i] = __float2bfloat16_rn(__bfloat162float(v[i]) * scale);
-      rc::store8(p, v);
-    }
-  }
-  fence_proxy_async();
-  consumer_sync(nthreads);
+  // 1. the rows, normalised, into the swizzled A tile (common.cuh)
+  normalized_rows(smem, a, a_block_bytes, rows, field, n, d, row0, nthreads,
+                  nullptr);
 
   // 2-3. scores on the tensor cores, selection from the accumulators.  The
   // lists hold table rows (columns), which rank as their ids do (ids ascend

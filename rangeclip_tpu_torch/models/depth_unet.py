@@ -25,6 +25,7 @@ from rangeclip_tpu_torch.models.decoder import DepthDecoder
 from rangeclip_tpu_torch.models.encoder import DepthEncoder
 from rangeclip_tpu_torch.ops.kernels.class_presence import class_presence
 from rangeclip_tpu_torch.ops.kernels.conv_score_topk import (
+    conv_kernel_fits,
     conv_score_topk,
     fold_to_rows,
     fused_conv_topk_applicable,
@@ -333,6 +334,7 @@ def predict_folded(
 
     Dispatch: on CUDA the slot count is padded to a multiple of 128 with
     dead (-1) slots; bf16 features that pass ``fused_conv_topk_applicable``
+    and whose width the kernel takes (``conv_kernel_fits``: C_in <= 136)
     take the fused conv+select kernel, everything else a plain conv to
     scores and the ``score_topk`` kernel.  On the CPU the same steps run
     with the kernels' plain versions.
@@ -374,7 +376,8 @@ def predict_folded(
     S = folded.shape[0]
 
     if (kernels and features.dtype == torch.bfloat16
-            and fused_conv_topk_applicable(features.shape, S, id_bound)):
+            and fused_conv_topk_applicable(features.shape, S, id_bound)
+            and conv_kernel_fits(features.shape[-1])):
         idx, val = conv_score_topk(features.contiguous(), fold_to_rows(folded),
                                    ids, top_k=top_k, want_values=want_values)
     else:

@@ -45,7 +45,8 @@ NVCC_FLAGS = (
 )
 # Sources whose ptxas resource lines (registers, shared memory, spills) the
 # build keeps: the tensor-core kernels.
-PTXAS_VERBOSE = ("conv_score_topk.cu", "pixel_text_topk.cu")
+PTXAS_VERBOSE = ("conv_score_topk.cu", "pixel_text_ce.cu",
+                 "pixel_text_topk.cu")
 
 # Launches per kernel (and selector), counted by each wrapper right after a
 # successful launch, so a run can show which kernels its main path went
@@ -60,8 +61,10 @@ launch_counts = {
     "l2_normalize[fwd]": 0,
     "l2_normalize[bwd]": 0,
     "histogram": 0,
-    "pixel_text_ce[fwd]": 0,
+    "pixel_text_ce[fwd]": 0,  # CUDA cores (fp32, full table, wide D)
     "pixel_text_ce[bwd]": 0,
+    "pixel_text_ce_tc[fwd]": 0,  # tensor cores: the bf16 packed branch
+    "pixel_text_ce_tc[bwd]": 0,
     "tv_rowtile[fwd]": 0,
     "tv_rowtile[bwd]": 0,
     "masked_pooling": 0,
@@ -82,20 +85,26 @@ _SIGNATURES = {
     "rc_l2_normalize_bwd": (_P, _P, _I, _P, _L, _I, _P),
     "rc_histogram": (_P, _I, _L, _I, _P, _P),
     "rc_pixel_text_ce_fwd": (_P, _I, _P, _P, _P, _I, _L, _I, _P, _P, _I,
-                             _P, _P, _P, _I, _P, _P, _P),
+                             _P, _P, _P, _I, _P, _I, _P, _P),
     "rc_pixel_text_ce_bwd": (_P, _I, _P, _P, _P, _P, _I, _L, _I, _P, _P, _I,
-                             _P, _P, _P, _I, _P, _P, _P, _P),
+                             _P, _P, _P, _I, _P, _I, _P, _P, _P, _P),
+    "rc_pixel_text_ce_tc_fwd": (_P, _P, _P, _P, _I, _L, _I, _P, _P, _P, _I,
+                                _P, _P, _P),
+    "rc_pixel_text_ce_tc_bwd": (_P, _P, _P, _P, _P, _I, _L, _I, _P, _P, _P,
+                                _P, _I, _P, _P, _P, _P),
     "rc_tv_rowtile_fwd": (_P, _I, _I, _I, _I, _P, _P, _P),
     "rc_tv_rowtile_bwd": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
     "rc_masked_pooling": (_P, _I, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P),
     "rc_head_topk": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                     _P),
+                     _P, _P),
     "rc_tv_loss_fwd": (_P, _I, _I, _I, _I, _I, _P, _P),
     "rc_tv_loss_bwd": (_P, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 # Queries that return a long long: the dynamic shared memory of a
 # tensor-core kernel's block at a width (D, C_in).
 _QUERIES = ("rc_pixel_text_topk_tc_smem", "rc_conv_score_topk_smem")
+# Queries of a kernel's device workspace in bytes at (D, rows).
+_WORKSPACE_QUERIES = ("rc_pixel_text_ce_workspace", "rc_head_topk_workspace")
 
 OPS = torch.library.Library("rangeclip", "DEF")
 
@@ -211,6 +220,9 @@ def library() -> ctypes.CDLL:
         for name in _QUERIES:
             getattr(lib, name).argtypes = [ctypes.c_int]
             getattr(lib, name).restype = ctypes.c_longlong
+        for name in _WORKSPACE_QUERIES:
+            getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_longlong]
+            getattr(lib, name).restype = ctypes.c_longlong
         lib.rc_error_string.argtypes = [ctypes.c_int]
         lib.rc_error_string.restype = ctypes.c_char_p
         _library = lib
@@ -233,6 +245,15 @@ def topk_outputs(like: torch.Tensor, n: int, top_k: int, want_values: bool):
     val = like.new_empty((n, top_k) if want_values else (0,),
                          dtype=torch.float32)
     return idx, val
+
+
+def workspace(query: str, like: torch.Tensor, d: int, rows: int
+              ) -> Optional[torch.Tensor]:
+    """The device workspace a kernel asks for at (d, rows), allocated on
+    ``like``'s device and current stream, or None when it needs none."""
+    nbytes = getattr(library(), query)(d, rows)
+    return (like.new_empty(nbytes, dtype=torch.uint8) if nbytes > 0
+            else None)
 
 
 def stream_of(t: torch.Tensor) -> int:

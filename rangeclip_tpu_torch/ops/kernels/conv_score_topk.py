@@ -3,7 +3,9 @@
 Port of ``rangeclip_tpu/ops/pallas/conv_score_topk.py``
 (``fused_conv_score_topk`` and its gate ``fused_conv_topk_applicable``).
 The CUDA kernel is ``csrc/conv_score_topk.cu``, an implicit GEMM on the
-tensor cores with the selection in registers (C_in up to 136);
+tensor cores with the selection in registers (C_in up to 136,
+:func:`conv_kernel_fits`; ``predict_folded`` sends wider features to the
+conv + ``score_topk`` path);
 :func:`conv_score_topk_plain` is the same function in plain PyTorch (f32
 conv, bf16 rounding, packed selection), used for CPU tensors and as the
 reference the kernel is held against on the card.
@@ -35,6 +37,17 @@ def fused_conv_topk_applicable(features_shape, S: int,
     B, h, w, C_in = features_shape
     return (B % 128 == 0 and C_in % 8 == 0 and S % 128 == 0
             and w % 2 == 0 and id_bound is not None and id_bound < 2 ** 16)
+
+
+def conv_kernel_fits(C_in: int) -> bool:
+    """Whether the kernel's block fits in shared memory at C_in (64 im2col
+    rows over ceil(9 C_in / 16) 16-dim steps in 64-dim blocks, the 4-stage
+    ring, its barriers and a pixel's coordinates: rc_conv_score_topk_smem's
+    test, C_in <= 136)."""
+    k16 = (9 * C_in + 15) // 16
+    blocks_k = (k16 + 3) // 4
+    smem = blocks_k * 64 * 128 + 4 * 128 * 128 + 64 + 64 * 8 + 1024
+    return smem <= 232448
 
 
 def fold_to_rows(folded: torch.Tensor) -> torch.Tensor:
@@ -98,6 +111,8 @@ def conv_score_topk(
                  "conv_score_topk: inputs must be contiguous")
     _lib.require(1 <= top_k <= MAX_TOP_K,
                  f"conv_score_topk: top_k must be in 1..{MAX_TOP_K}")
+    _lib.require(kind == "cpu" or conv_kernel_fits(C_in),
+                 f"conv_score_topk: the kernel takes C_in <= 136, got {C_in}")
     if kind == "cpu":
         idx, val = conv_score_topk_plain(features, weight_rows,
                                          candidate_ids, top_k)

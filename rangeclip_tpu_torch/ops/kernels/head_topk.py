@@ -20,6 +20,12 @@ kept so.  The conv sums in another order than the TPU's or cuDNN's, so a
 bf16 embedding may round differently and near-tied labels flip; f32 ids
 agree up to near-ties.  ``interpret`` is the TPU kernel's interpret knob
 and has no counterpart here.
+
+The kernel takes C_in and D in multiples of 8; the wrapper zero-pads other
+widths (:func:`pad_head_operands`), which is exact: a zero channel adds
+nothing to the conv, and a zero dim is zero in the field, its norm and
+every score.  Beyond D = 656 the kernel's embedding tile moves from shared
+memory to a device workspace the wrapper allocates.
 """
 
 from __future__ import annotations
@@ -33,7 +39,6 @@ from rangeclip_tpu_torch.ops.kernels import _lib
 from rangeclip_tpu_torch.ops.kernels.score_topk import MAX_TOP_K
 
 NEG_INF = -1e30
-MAX_DIM = 656  # csrc/head_topk.cu: the [D, 64] f32 tile within shared memory
 
 
 def weight_rows(conv_weight: torch.Tensor) -> torch.Tensor:
@@ -61,6 +66,23 @@ def knockout_topk(scores: torch.Tensor, top_k: int
         scores.scatter_(1, pick[:, None], NEG_INF)
     return (torch.stack(idx, dim=1).to(torch.int32),
             torch.stack(val, dim=1))
+
+
+def pad_head_operands(features: torch.Tensor, rows: torch.Tensor,
+                      table: torch.Tensor):
+    """(features [B, h, w, C8], rows [9*C8, D8], table [C, D8]) zero-padded
+    up to C8, D8, the next multiples of 8 of C_in and D; the operands
+    themselves when both already are."""
+    C_in, D = features.shape[-1], rows.shape[1]
+    pad_c, pad_d = -C_in % 8, -D % 8
+    if pad_c:
+        features = F.pad(features, (0, pad_c))
+        rows = F.pad(rows.reshape(9, C_in, D), (0, 0, 0, pad_c)).reshape(
+            9 * (C_in + pad_c), D)
+    if pad_d:
+        rows = F.pad(rows, (0, pad_d))
+        table = F.pad(table, (0, pad_d))
+    return features, rows, table
 
 
 def head_field(features: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -127,10 +149,10 @@ def fused_head_score_topk(
     mask = candidate_mask.to(torch.int32).contiguous()
     if kind == "cpu":
         return head_topk_plain(features, rows, table, mask, top_k)
-    _lib.require(C_in % 8 == 0 and D % 8 == 0 and D <= MAX_DIM,
-                 "head_topk: the kernel needs C_in % 8 == 0, D % 8 == 0 and "
-                 f"D <= {MAX_DIM}, got C_in={C_in} D={D}")
-    return head_topk_op(features.contiguous(), rows, table, mask, top_k)
+    features, rows, table = pad_head_operands(features.contiguous(), rows,
+                                              table)
+    return head_topk_op(features.contiguous(), rows.contiguous(),
+                        table.contiguous(), mask, top_k)
 
 
 def _outputs(features: torch.Tensor, top_k: int):
@@ -146,10 +168,13 @@ def _head_topk_cuda(features, rows, table, mask, top_k):
     if idx.shape[0] == 0:
         return idx, val
     B, h, w, C_in = features.shape
+    D = rows.shape[1]
+    work = _lib.workspace("rc_head_topk_workspace", features, D, B * h * w)
     code = _lib.library().rc_head_topk(
         features.data_ptr(), int(features.dtype == torch.bfloat16),
         rows.data_ptr(), table.data_ptr(), mask.data_ptr(), B, h, w, C_in,
-        rows.shape[1], table.shape[0], top_k, idx.data_ptr(), val.data_ptr(),
+        D, table.shape[0], top_k, idx.data_ptr(), val.data_ptr(),
+        None if work is None else work.data_ptr(),
         _lib.stream_of(features))
     _lib.check(code, "head_topk")
     return idx, val

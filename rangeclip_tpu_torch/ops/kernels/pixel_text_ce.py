@@ -27,6 +27,13 @@ ids (sentinel C in padded slots, mask 0); labels stay global.  ``use_packed``
 is a device flag, n_contrast <= K: the kernels read it and score either the
 packed or the full table, so choosing the branch needs no host sync (the
 plain versions read it on the host).
+
+Routes on the card (:func:`tc_route`, by shape on the host): bf16 with a
+packed table, D <= 1280 (the backward also K <= 128), launches the
+tensor-core kernel and the CUDA-core kernel together; the first runs where
+the flag selects the packed table, the second (told to skip that branch)
+where it selects the full one.  Everything else, fp32 and wider or larger
+packed tables, takes the CUDA-core kernel alone, at any D % 8 == 0.
 """
 
 from __future__ import annotations
@@ -39,7 +46,8 @@ from rangeclip_tpu_torch.ops.kernels import _lib
 
 NEG_INF = -1e30
 MAX_SLOTS = 4  # csrc/pixel_text_ce.cu dispatch
-MAX_DIM = 640  # the backward's d_emb tile in shared memory
+TC_MAX_DIM = 1280  # csrc/pixel_text_ce.cu kMaxTcDims: the A tile in smem
+TC_MAX_BWD_CLASSES = 128  # kMaxTcBwdClasses: delta is one class tile
 
 Packed = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -226,9 +234,9 @@ def fused_pixel_text_ce(samples: torch.Tensor, temperature: torch.Tensor,
     S, D = labels.shape[0], flat.shape[1]
     _lib.require(flat.is_contiguous(),
                  "pixel_text_ce: the samples' rows must be contiguous")
-    _lib.require(1 <= S <= MAX_SLOTS and D % 8 == 0 and D <= MAX_DIM,
-                 f"pixel_text_ce: the kernel takes 1..{MAX_SLOTS} slots and "
-                 f"D % 8 == 0, D <= {MAX_DIM}; got S={S}, D={D}")
+    _lib.require(1 <= S <= MAX_SLOTS and D % 8 == 0,
+                 f"pixel_text_ce: the kernels take 1..{MAX_SLOTS} slots and "
+                 f"D % 8 == 0; got S={S}, D={D}")
     return pixel_text_ce_op(flat, temperature.reshape(()).contiguous(),
                             labels, valid, table.contiguous(), mask, ptable,
                             pmask, pids, flag)
@@ -243,6 +251,25 @@ def _aligned(*tensors):
                  "pixel_text_ce: samples and tables must be 16-byte aligned")
 
 
+def tc_route(samples: torch.Tensor, ptable: Optional[torch.Tensor],
+             backward: bool) -> bool:
+    """Whether the packed branch runs on the tensor-core kernel: bf16
+    samples with a packed table, D <= TC_MAX_DIM, and for the backward K <=
+    TC_MAX_BWD_CLASSES.  The device flag still chooses packed or full."""
+    return (ptable is not None and samples.dtype == torch.bfloat16
+            and samples.shape[1] <= TC_MAX_DIM
+            and (not backward or ptable.shape[0] <= TC_MAX_BWD_CLASSES))
+
+
+def transposed_table(ptable: torch.Tensor) -> torch.Tensor:
+    """The packed table [K, D] as the backward's B operand: [D, K8], K8 = K
+    rounded up to a multiple of 8, zero columns past K."""
+    K, D = ptable.shape
+    out = ptable.new_zeros((D, -(-K // 8) * 8))
+    out[:, :K] = ptable.T
+    return out
+
+
 def _fwd_cuda(samples, temperature, labels, valid, table, mask, ptable,
               pmask, pids, use_packed):
     _aligned(samples, table, ptable)
@@ -250,13 +277,21 @@ def _fwd_cuda(samples, temperature, labels, valid, table, mask, ptable,
     if N == 0:
         return samples.new_zeros((), dtype=torch.float32)
     ce = samples.new_empty(N, dtype=torch.float32)
-    code = _lib.library().rc_pixel_text_ce_fwd(
+    lib, stream = _lib.library(), _lib.stream_of(samples)
+    K = 0 if ptable is None else ptable.shape[0]
+    tc = tc_route(samples, ptable, backward=False)
+    if tc:
+        _lib.check(lib.rc_pixel_text_ce_tc_fwd(
+            samples.data_ptr(), temperature.data_ptr(), labels.data_ptr(),
+            valid.data_ptr(), labels.shape[0], N, D, ptable.data_ptr(),
+            pmask.data_ptr(), pids.data_ptr(), K, use_packed.data_ptr(),
+            ce.data_ptr(), stream), "pixel_text_ce_tc[fwd]")
+    code = lib.rc_pixel_text_ce_fwd(
         samples.data_ptr(), int(samples.dtype == torch.bfloat16),
         temperature.data_ptr(), labels.data_ptr(), valid.data_ptr(),
         labels.shape[0], N, D, table.data_ptr(), mask.data_ptr(),
-        table.shape[0], _ptr(ptable), _ptr(pmask), _ptr(pids),
-        0 if ptable is None else ptable.shape[0], _ptr(use_packed),
-        ce.data_ptr(), _lib.stream_of(samples))
+        table.shape[0], _ptr(ptable), _ptr(pmask), _ptr(pids), K,
+        _ptr(use_packed), int(tc), ce.data_ptr(), stream)
     _lib.check(code, "pixel_text_ce[fwd]")
     return ce.sum()
 
@@ -270,14 +305,25 @@ def _bwd_cuda(grad, samples, temperature, labels, valid, table, mask, ptable,
         return dx, torch.zeros_like(temperature)
     coeff = grad.float().reshape(()).contiguous()
     dtau = samples.new_empty(N, dtype=torch.float32)
-    code = _lib.library().rc_pixel_text_ce_bwd(
+    lib, stream = _lib.library(), _lib.stream_of(samples)
+    K = 0 if ptable is None else ptable.shape[0]
+    tc = tc_route(samples, ptable, backward=True)
+    if tc:
+        ptable_t = transposed_table(ptable)
+        _lib.check(lib.rc_pixel_text_ce_tc_bwd(
+            samples.data_ptr(), temperature.data_ptr(), coeff.data_ptr(),
+            labels.data_ptr(), valid.data_ptr(), labels.shape[0], N, D,
+            ptable.data_ptr(), ptable_t.data_ptr(),
+            pmask.data_ptr(), pids.data_ptr(), K, use_packed.data_ptr(),
+            dx.data_ptr(), dtau.data_ptr(), stream), "pixel_text_ce_tc[bwd]")
+    work = _lib.workspace("rc_pixel_text_ce_workspace", samples, D, N)
+    code = lib.rc_pixel_text_ce_bwd(
         samples.data_ptr(), int(samples.dtype == torch.bfloat16),
         temperature.data_ptr(), coeff.data_ptr(), labels.data_ptr(),
         valid.data_ptr(), labels.shape[0], N, D, table.data_ptr(),
         mask.data_ptr(), table.shape[0], _ptr(ptable), _ptr(pmask),
-        _ptr(pids), 0 if ptable is None else ptable.shape[0],
-        _ptr(use_packed), dx.data_ptr(), dtau.data_ptr(),
-        _lib.stream_of(samples))
+        _ptr(pids), K, _ptr(use_packed), int(tc), dx.data_ptr(),
+        dtau.data_ptr(), _ptr(work), stream)
     _lib.check(code, "pixel_text_ce[bwd]")
     return dx, dtau.sum() / temperature
 

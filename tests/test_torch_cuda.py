@@ -173,6 +173,46 @@ def test_predict_folded_on_cuda_matches_cpu(cuda_device):
     assert bool(((ids >= 0) & (ids < 100)).all())
 
 
+@pytest.mark.cuda
+def test_predict_folded_wide_features_on_cuda_matches_cpu(cuda_device):
+    """bf16 at batch 128 with 144 pre-head channels, wider than the fused
+    kernel's 136: the conv + score_topk path on the card, against the same
+    bf16 model on the CPU.  Top-1 ids agree on >= 99% of pixels (bf16
+    activations round differently in the two convs, so near-ties flip)."""
+    cfg = DepthUNetConfig(encoder_filters=(144, 16, 16, 16, 32),
+                          embedding_dim=32, dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(19)
+    model = DepthUNet(cfg, generator=gen).eval()
+    depth = torch.randn(128, 16, 16, generator=gen)
+    text = torch.randn(100, 32, generator=gen)
+    want = predict_folded(model, depth, text, top_k=5)
+    before = dict(_lib.launch_counts)
+    got = predict_folded(model.to(cuda_device), depth.to(cuda_device),
+                         text.to(cuda_device), top_k=5)
+    torch.cuda.synchronize()
+    assert _lib.launch_counts["conv_score_topk"] == before["conv_score_topk"]
+    selects = ("score_topk[packed]", "score_topk[knockout]")
+    assert (sum(_lib.launch_counts[k] for k in selects)
+            == sum(before[k] for k in selects) + 1)
+    assert got.shape == (128, 16, 16, 5)
+    agree = float((got[..., 0].cpu() == want[..., 0]).float().mean())
+    assert agree >= 0.99, agree
+
+
+@pytest.mark.cuda
+def test_conv_kernel_fits_matches_the_kernel(cuda_device):
+    """The Python gate of the fused conv kernel against the library's own
+    shared-memory query, C_in = 8..256."""
+    from rangeclip_tpu_torch.ops.kernels.conv_score_topk import (
+        conv_kernel_fits,
+    )
+
+    lib = _lib.library()
+    for c_in in range(8, 257, 8):
+        assert conv_kernel_fits(c_in) == (lib.rc_conv_score_topk_smem(c_in)
+                                          > 0), c_in
+
+
 def _sparse_signs(gen, rows, dim, nonzero):
     """Rows of +-1 in ``nonzero`` places: power-of-two norms, exact sums."""
     x = torch.zeros(rows, dim)
@@ -381,19 +421,39 @@ def _within_bf16(got, want, slack):
     return bool(((got - want).abs() <= ulp + slack).all())
 
 
+def _hold_ce(loss, xs_grad, ts_grad, args, packed, dtype, device):
+    """The fused CE's value and gradients against the plain versions at the
+    tolerances of test_pixel_text_ce_matches_plain."""
+    want = pixel_text_ce_plain(*args, packed=packed)
+    dx, dt = pixel_text_ce_backward_plain(torch.tensor(1.0, device=device),
+                                          *args, packed=packed)
+    torch.testing.assert_close(loss, want, rtol=2e-5, atol=1e-4)
+    torch.testing.assert_close(ts_grad, dt, rtol=2e-5, atol=1e-4)
+    scale = dx.double().abs().amax(dim=-1, keepdim=True)
+    err = (xs_grad.double() - dx.double()).abs()
+    if dtype == torch.bfloat16:
+        assert _within_bf16(xs_grad, dx, scale * 2.0 ** -10)
+    else:
+        assert bool((err <= 1e-4 * scale + 1e-9).all()), float(err.max())
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [136, 768])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("slots", [1, 4])
 @pytest.mark.parametrize("form", ["full", "packed", "overflow"])
-def test_pixel_text_ce_matches_plain(cuda_device, dtype, slots, form):
+def test_pixel_text_ce_matches_plain(cuda_device, dtype, slots, form, d):
     """Forward (the summed CE), d samples and d temperature against the
     plain versions on the card.  Values and d temperature within rtol 2e-5
     (f32 sums in another order, and an online max over class tiles); d
     samples f32 within 1e-4 of the row's largest entry, bf16 within one
     bf16 ulp plus 2^-10 of the row's largest entry (an order change in f32
-    can flip a bf16 rounding, and d samples subtracts its projection)."""
+    can flip a bf16 rounding, and d samples subtracts its projection).
+    D = 768 puts the CUDA-core backward's d_emb tiles in its workspace.  A
+    bf16 packed table also launches the tensor-core kernels, which write
+    only where the device flag selects it (not in the overflow form)."""
     gen = torch.Generator().manual_seed(9)
-    n, d, c = 1111, 136, 300
+    n, c = 1111, 300
     capacity = None if form == "full" else 128
     members = 140 if form == "overflow" else 60
     samples, temperature, labels, valid, table, mask, packed = _ce_inputs(
@@ -407,21 +467,82 @@ def test_pixel_text_ce_matches_plain(cuda_device, dtype, slots, form):
                                dev(mask), packed_d)
     loss.backward()
     torch.cuda.synchronize()
-    for name in ("pixel_text_ce[fwd]", "pixel_text_ce[bwd]"):
-        assert _lib.launch_counts[name] == before[name] + 1
+    tc = int(dtype == torch.bfloat16 and packed is not None)
+    for name, launches in (("pixel_text_ce[fwd]", 1),
+                           ("pixel_text_ce[bwd]", 1),
+                           ("pixel_text_ce_tc[fwd]", tc),
+                           ("pixel_text_ce_tc[bwd]", tc)):
+        assert _lib.launch_counts[name] == before[name] + launches, name
     args = (dev(samples), dev(temperature), dev(labels), dev(valid),
             dev(table), dev(mask))
-    want = pixel_text_ce_plain(*args, packed=packed_d)
-    dx, dt = pixel_text_ce_backward_plain(torch.tensor(1.0, device=cuda_device),
-                                          *args, packed=packed_d)
-    torch.testing.assert_close(loss.detach(), want, rtol=2e-5, atol=1e-4)
-    torch.testing.assert_close(ts.grad, dt, rtol=2e-5, atol=1e-4)
-    scale = dx.double().abs().amax(dim=-1, keepdim=True)
-    err = (xs.grad.double() - dx.double()).abs()
-    if dtype == torch.bfloat16:
-        assert _within_bf16(xs.grad, dx, scale * 2.0 ** -10)
+    _hold_ce(loss.detach(), xs.grad, ts.grad, args, packed_d, dtype,
+             cuda_device)
+
+
+def _tc_ce(samples, temperature, labels, valid, packed, flag=None):
+    """The tensor-core kernels launched directly (flag None: always run):
+    (per-row ce [N], dx [N, D], per-row dtau [N]), each filled with NaN
+    before the launch, and whether the backward took the shape."""
+    from rangeclip_tpu_torch.ops.kernels.pixel_text_ce import transposed_table
+
+    lib, stream = _lib.library(), _lib.stream_of(samples)
+    ptable, pmask, pids, _ = packed
+    N, D = samples.shape
+    S, K = labels.shape[0], ptable.shape[0]
+    ce = torch.full((N,), float("nan"), device=samples.device)
+    dx = torch.full_like(samples, float("nan"))
+    dtau = torch.full((N,), float("nan"), device=samples.device)
+    coeff = torch.tensor(1.0, device=samples.device)
+    fp = None if flag is None else flag.data_ptr()
+    ptable_t = transposed_table(ptable)
+    assert lib.rc_pixel_text_ce_tc_fwd(
+        samples.data_ptr(), temperature.data_ptr(), labels.data_ptr(),
+        valid.data_ptr(), S, N, D, ptable.data_ptr(), pmask.data_ptr(),
+        pids.data_ptr(), K, fp, ce.data_ptr(), stream) == 0
+    code = lib.rc_pixel_text_ce_tc_bwd(
+        samples.data_ptr(), temperature.data_ptr(), coeff.data_ptr(),
+        labels.data_ptr(), valid.data_ptr(), S, N, D, ptable.data_ptr(),
+        ptable_t.data_ptr(), pmask.data_ptr(), pids.data_ptr(), K, fp,
+        dx.data_ptr(), dtau.data_ptr(), stream)
+    torch.cuda.synchronize()
+    return ce, dx, dtau, code == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 136, 512])
+@pytest.mark.parametrize("slots", [1, 4])
+@pytest.mark.parametrize("capacity", [128, 256])
+def test_pixel_text_ce_tc_kernels_match_plain(cuda_device, capacity, slots,
+                                              d):
+    """The tensor-core kernels' entry points launched directly on a packed
+    bf16 table, N = 1111, against the plain versions at the tolerances of
+    test_pixel_text_ce_matches_plain.  K = 256 takes two class tiles in the
+    forward (an online max); the backward keeps delta for one tile in
+    registers and refuses K > 128.  With the device flag at 0 neither
+    kernel writes."""
+    gen = torch.Generator().manual_seed(18)
+    n, c = 1111, 300
+    members = 60 if capacity == 128 else 200
+    samples, temperature, labels, valid, table, mask, packed = _ce_inputs(
+        gen, torch.bfloat16, n, d, c, slots, members, capacity)
+    dev = lambda t: t.to(cuda_device)
+    args = tuple(map(dev, (samples, temperature, labels, valid, table,
+                           mask)))
+    packed_d = tuple(map(dev, packed))
+    ce, dx, dtau, bwd_ran = _tc_ce(args[0], args[1], args[2], args[3],
+                                   packed_d)
+    assert bwd_ran == (capacity <= 128)
+    if bwd_ran:
+        _hold_ce(ce.sum(), dx, dtau.sum() / args[1], args, packed_d,
+                 torch.bfloat16, cuda_device)
     else:
-        assert bool((err <= 1e-4 * scale + 1e-9).all()), float(err.max())
+        torch.testing.assert_close(
+            ce.sum(), pixel_text_ce_plain(*args, packed=packed_d),
+            rtol=2e-5, atol=1e-4)
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    ce, dx, dtau, _ = _tc_ce(args[0], args[1], args[2], args[3], packed_d,
+                             flag)
+    assert bool(ce.isnan().all() and dx.isnan().all() and dtau.isnan().all())
 
 
 @pytest.mark.cuda
@@ -543,22 +664,29 @@ def test_tv_loss_matches_plain(cuda_device, shape, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,h,dtype,C", [(2, 16, torch.float32, 512),
-                                         (3, 7, torch.float32, 130),
-                                         (2, 12, torch.bfloat16, 40)])
-def test_head_topk_matches_plain(cuda_device, B, h, dtype, C):
+@pytest.mark.parametrize("B,h,dtype,C,C_in,D", [
+    (2, 16, torch.float32, 512, 32, 512),
+    (3, 7, torch.float32, 130, 32, 512),
+    (2, 12, torch.bfloat16, 40, 32, 512),
+    (2, 70, torch.float32, 130, 32, 768),
+    (2, 12, torch.bfloat16, 40, 32, 768),
+    (3, 9, torch.float32, 40, 12, 20),
+    (2, 12, torch.bfloat16, 40, 12, 20)])
+def test_head_topk_matches_plain(cuda_device, B, h, dtype, C, C_in, D):
     """Ids against the plain version: every mismatch a near-tie (the
     winning values within 1e-5 in f32, and within 1e-3, two bf16 ulps of the
     top scores, in bf16, where an embedding component's rounding may flip
     with the conv's summation order); an exhausted mask of 3 live classes
-    gives id 0 at -1e30 past them."""
+    gives id 0 at -1e30 past them.  D = 768 keeps the embedding tiles in
+    the kernel's workspace (9,800 pixels: blocks take several tiles);
+    C_in = 12, D = 20 runs on operands zero-padded to 16 and 24."""
     from rangeclip_tpu_torch.ops.kernels.head_topk import (
         fused_head_score_topk,
         head_topk_plain,
     )
 
     gen = torch.Generator().manual_seed(14)
-    C_in, D, k = 32, 512, 5
+    k = 5
     feats = torch.randn(B, h, h, C_in, generator=gen).to(dtype)
     rows = torch.randn(9 * C_in, D, generator=gen) / 17
     text = l2_normalize(torch.randn(C, D, generator=gen), dim=-1)

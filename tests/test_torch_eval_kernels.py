@@ -192,6 +192,43 @@ def test_head_topk_plain_matches_jax_kernel(live):
         assert set(np.unique(got_idx.numpy()[:, :3])) <= {2, 11, 17}
 
 
+@pytest.mark.parametrize("live", [None, 3])
+def test_head_topk_padding_matches_jax_kernel(live):
+    """C_in = 12 and D = 20, widths the CUDA kernel does not take: the
+    operands zero-padded to 16 and 24 (what the wrapper hands the kernel on
+    the card) give the plain version the same ids as the TPU kernel in
+    interpret mode on the unpadded operands, values within 1e-5, and the
+    same ids and values as the unpadded plain version (the pad adds only
+    exact zeros)."""
+    from rangeclip_tpu_torch.ops.kernels.head_topk import (
+        head_topk_plain,
+        pad_head_operands,
+    )
+
+    B, h, C_in, D, C, k = 2, 6, 12, 20, 20, 5
+    feats, kernel, text = _head_inputs(6, B, h, C_in, D, C)
+    mask = np.zeros(C, bool)
+    if live is None:
+        mask[np.random.default_rng(7).choice(C, 12, replace=False)] = True
+    else:
+        mask[[2, 11, 17]] = True
+    idx, val = jax_head_topk(jnp.asarray(feats), jnp.asarray(kernel),
+                             jnp.asarray(text), jnp.asarray(mask), top_k=k,
+                             interpret=True)
+    rows = weight_rows(t(kernel).permute(3, 2, 0, 1))
+    f, r, tab = pad_head_operands(t(feats), rows, t(text))
+    assert f.shape[-1] == 16 and r.shape == (9 * 16, 24) and tab.shape == (
+        C, 24)
+    got_idx, got_val = head_topk_plain(f, r, tab, t(mask).int(), k)
+    np.testing.assert_array_equal(got_idx.numpy(), np.asarray(idx))
+    np.testing.assert_allclose(got_val.numpy(), np.asarray(val), rtol=1e-5,
+                               atol=1e-5)
+    want_idx, want_val = head_topk_plain(t(feats), rows, t(text),
+                                         t(mask).int(), k)
+    assert torch.equal(got_idx, want_idx)
+    torch.testing.assert_close(got_val, want_val, rtol=1e-6, atol=1e-6)
+
+
 def test_predict_topk_fused_matches_jax():
     """A narrow model (filters 8 16 16 16 32, D = 32) with the port's
     weights carried to JAX: ``predict_topk_fused`` equals JAX's (interpret

@@ -20,6 +20,7 @@ from rangeclip_tpu.ops.pallas.conv_score_topk import (
 from rangeclip_tpu.ops.pallas.score_topk import fused_score_topk
 from rangeclip_tpu_torch.ops.kernels.class_presence import class_presence
 from rangeclip_tpu_torch.ops.kernels.conv_score_topk import (
+    conv_kernel_fits,
     conv_score_topk,
     fold_to_rows,
     fused_conv_topk_applicable,
@@ -173,9 +174,21 @@ def test_fused_conv_gate_matches_jax():
                             ((128, 128, 128, 32), 384, None),
                             ((128, 128, 128, 32), 384, 2 ** 16),
                             ((128, 64, 63, 32), 384, 10),
-                            ((256, 4, 4, 12), 128, 10)]:
+                            ((256, 4, 4, 12), 128, 10),
+                            ((128, 16, 16, 136), 128, 99),
+                            ((128, 16, 16, 144), 128, 99),
+                            ((128, 16, 16, 512), 384, 99)]:
         assert fused_conv_topk_applicable(shape, S, bound) == jax_applicable(
             shape, S, bound)
+
+
+def test_conv_kernel_fits_up_to_136_channels():
+    """The fused kernel's block (64 im2col rows beside the TMA ring) fits
+    in 227 KB of shared memory up to C_in = 136; wider features take the
+    conv + score_topk path on the card, while the CPU keeps the JAX gate
+    (test_fused_conv_gate_matches_jax)."""
+    assert [c for c in range(8, 521, 8) if conv_kernel_fits(c)] == list(
+        range(8, 137, 8))
 
 
 def test_wrappers_refuse_malformed_input():

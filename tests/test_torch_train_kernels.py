@@ -152,6 +152,30 @@ def test_pixel_text_ce_packed_overflow_reads_the_flag():
         np.testing.assert_allclose(float(got), float(full), rtol=1e-6)
 
 
+@pytest.mark.parametrize("dtype,D,K,fwd,bwd", [
+    (torch.bfloat16, 512, 128, True, True),
+    (torch.bfloat16, 768, 128, True, True),
+    (torch.bfloat16, 1280, 40, True, True),
+    (torch.bfloat16, 1288, 128, False, False),
+    (torch.bfloat16, 512, 256, True, False),
+    (torch.float32, 512, 128, False, False),
+])
+def test_pixel_text_ce_tc_route_by_shape(dtype, D, K, fwd, bwd):
+    """The tensor-core kernels take bf16 packed tables up to D = 1280, the
+    backward up to K = 128; fp32 and a full table take the CUDA-core
+    kernel.  The backward's transposed table is the packed table exactly,
+    zero-padded to a multiple of 8 classes."""
+    samples = torch.zeros(3, D, dtype=dtype)
+    ptable = torch.randn(K, D).to(dtype)
+    assert ce_k.tc_route(samples, ptable, backward=False) == fwd
+    assert ce_k.tc_route(samples, ptable, backward=True) == bwd
+    assert not ce_k.tc_route(samples, None, backward=False)
+    ptable_t = ce_k.transposed_table(ptable[:K - 3])
+    assert ptable_t.shape == (D, -(-(K - 3) // 8) * 8)
+    assert torch.equal(ptable_t[:, :K - 3], ptable[:K - 3].T)
+    assert not ptable_t[:, K - 3:].any()
+
+
 @pytest.mark.parametrize("shape,weights,upsample", [
     ((3, 16, 16, 128), (1.0, 0.0, 1.0), 2),
     ((2, 12, 8, 128), None, 1),
