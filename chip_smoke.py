@@ -9,17 +9,21 @@ weights made from a seed, saved to and reloaded from a reference ``.pth``.
 Phases (any failure raises; nothing is caught):
 
 1. Build the CUDA kernels from ``rangeclip_tpu_torch/csrc/``; print the
-   registers, shared memory and spills of the three sources with
+   registers, shared memory and spills (``ptxas -v``) of the sources with
    tensor-core kernels (pixel_text_topk's bf16 path, conv_score_topk and
-   pixel_text_ce, from ``ptxas -v``).
+   pixel_text_ce) and with the redesigned CUDA-core ones
+   (pixel_text_topk's fp32 path, tv_rowtile); require that the fp32
+   kernel's SASS holds no tensor-core instruction.
 2. Hold each kernel against its plain PyTorch version at the shapes the
    main paths give it, and time both and, where one PyTorch call computes
    the same function, that call; each row's bound is the larger of its
    bytes over 3.35 TB/s and its operations over the peak rate of its input
-   type (989 TFLOP/s bf16, 67 TFLOP/s f32), from the H100 SXM data sheet.
-   Beside the tensor-core kernels, their product stage alone through
-   cuBLAS (torch.matmul) and cuDNN (F.conv2d) at their shapes, printed on
-   a line of its own: a yardstick, not the same function.
+   type (989 TFLOP/s bf16, 67 TFLOP/s f32), from the H100 SXM data sheet;
+   a masked top-k counts only the classes that can win.  Beside the
+   tensor-core kernels and pixel_text_topk's fp32 kernel, their product
+   stage alone through cuBLAS (torch.matmul, TF32 off for f32) and cuDNN
+   (F.conv2d) at their shapes, printed on a line of its own: a yardstick,
+   not the same function.
    pixel_text_ce runs bf16 packed (its tensor-core kernels, also timed
    alone) at D = 512 and 768, bf16 over the full table (overflow) and fp32
    (its CUDA-core kernels).
@@ -53,7 +57,9 @@ Phases (any failure raises; nothing is caught):
    accumulation 8 x batch 4, validating at step 2 ([Val] lines and best
    results in its log); its checkpoint loads strictly and predicts.  Then
    cli/validate --baselines from that checkpoint (fp32, full width), and
-   validation maps/s over 16 passes of its split after a warm one.
+   validation maps/s over 16 passes of its split after a warm one.  Then
+   pixel_text_topk[fp32] at the validation pass's own shape: the candidate
+   masks validate_model draws for the split, the model's field, top-5.
 9. One val step of the flagship batch (bf16, batch 32) through the kernels,
    twice (identical metrics), and through the plain versions with the same
    draws: ids up to near-ties, metrics, loss parts within 2e-3 relative.
@@ -152,8 +158,9 @@ VAL_KERNELS = ["pixel_text_topk[fp32]", "class_presence", "histogram",
 CAPACITY = 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
-# Beside the tensor-core kernels: their product stage alone through cuBLAS
-# / cuDNN at their shapes (ms), printed before the kernels line.
+# Beside the tensor-core kernels and pixel_text_topk[fp32]: their product
+# stage alone through cuBLAS / cuDNN at their shapes (ms), printed before
+# the kernels line.
 PRODUCT_ONLY_MS = {}
 
 
@@ -235,6 +242,9 @@ def ptxas_summary(text: str):
                 name = k.group(1).lstrip("_") + "<" + ", ".join(
                     n or ("true" if b == "1" else "false") if n or b else
                     ("f32" if f else "bf16") for n, b, f, _ in args) + ">"
+            else:  # a kernel that is no template: its bare name
+                k = re.search(r"\d+([a-z_]+_kernel)E", name)
+                name = k.group(1) if k else name
             spill = ""
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -248,6 +258,29 @@ def ptxas_summary(text: str):
                          f"{smem.group(1) if smem else 0} B, {spill}")
             name = None
     return lines
+
+
+def sass_counts(library_path, kernel: str) -> dict:
+    """Per instance of ``kernel`` in the built library's SASS
+    (``cuobjdump -sass``): its tensor-core instructions (HMMA, HGMMA, IMMA)
+    and its FFMA count."""
+    import re
+    from pathlib import Path
+
+    from rangeclip_tpu_torch.ops.kernels import _lib
+
+    tool = Path(_lib._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(library_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts = {}
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, text = body.split("\n", 1)
+        if kernel in name:
+            counts[name.strip()] = (
+                len(re.findall(r"\b(?:HMMA|HGMMA|IMMA)\b", text)),
+                len(re.findall(r"\bFFMA\b", text)))
+    return counts
 
 
 def phase_kernels(device, bench_model, bench_depth, text, cand, stats):
@@ -372,10 +405,12 @@ def phase_kernels(device, bench_model, bench_depth, text, cand, stats):
     log(f"  conv_score_topk, product only (cuDNN F.conv2d bf16 [{B}, {c_in}, "
         f"{h}, {w}] * [{BENCH_SLOTS}, {c_in}, 3, 3]): {product_ms:.4f} ms")
     n_pix = B * h * w
+    n_live = int((slot_ids >= 0).sum())  # the slots that can win
     stats["conv_score_topk"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-        **bound(feats.numel() * 2 + rows.numel() * 2 + n_pix * BENCH_TOP_K * 4,
-                2.0 * n_pix * 9 * c_in * BENCH_SLOTS, "bf16"))
+        **bound(feats.numel() * 2 + n_live * 9 * c_in * 2
+                + n_pix * BENCH_TOP_K * 4,
+                2.0 * n_pix * 9 * c_in * n_live, "bf16"))
 
 
 def sparse_signs(rows: int, dim: int, nonzero: int, gen, device):
@@ -492,10 +527,15 @@ def phase_unfolded_kernels(device, bench_model, serve_model, depths, text,
                 f"quantised-exact: bit-equal; kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms")
             if k == 1 and dtype == torch.float32:  # the fp32 serve shape
+                # masked classes cannot change the answer: the live ones
+                n_live = int(mask.sum())
                 stats["pixel_text_topk[fp32]"] = dict(
                     ms=ms, plain_ms=plain_ms, library_ms=None,
-                    **bound(field.numel() * 4 + table.numel() * 4 + N * 4,
-                            2.0 * N * D * C, "f32"))
+                    **bound(field.numel() * 4 + n_live * D * 4 + N * 4,
+                            2.0 * N * D * n_live, "f32"))
+                log(f"  pixel_text_topk[fp32] serve shape: {n_live} of {C} "
+                    f"classes live, bound "
+                    f"{stats['pixel_text_topk[fp32]']['bound_ms']:.4f} ms")
         # an exhausted candidate set: 2 candidates, top-5
         got, e = check_topk(f"pixel_text_topk exhausted {dtype}", field,
                             table, two, 5)
@@ -508,6 +548,16 @@ def phase_unfolded_kernels(device, bench_model, serve_model, depths, text,
     err = errs[torch.bfloat16]
     log("  pixel_text_topk exhausted set (2 candidates, k=5): bit-equal, "
         "(-1, -1e30) past the candidates")
+    field, table = q_field, q_table  # f32
+    # the product stage alone through cuBLAS, TF32 off: the normalised f32
+    # field by the table's transpose (a yardstick, not the same function)
+    normed = normalize_rows_rsqrt(field)
+    product_ms = cuda_ms(lambda: torch.matmul(normed, table.T), 10)
+    PRODUCT_ONLY_MS["pixel_text_topk[fp32]"] = product_ms
+    log(f"  pixel_text_topk[fp32] serve shape, product only (cuBLAS "
+        f"torch.matmul [{N}, {D}] x [{D}, {C}] f32, TF32 off): "
+        f"{product_ms:.4f} ms")
+    del normed
     del q_field, field
 
     # real fp32 decoder field at the serve shape, the full table
@@ -550,10 +600,11 @@ def phase_unfolded_kernels(device, bench_model, serve_model, depths, text,
         3, 1)
     log(f"  pixel_text_topk bench shape: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms")
+    n_live = int(slot_mask.sum())  # the slots that can win
     stats["pixel_text_topk[bf16]"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-        **bound(field.numel() * 2 + q_table.numel() * 2
-                + N * BENCH_TOP_K * 4, 2.0 * N * D * BENCH_SLOTS, "bf16"))
+        **bound(field.numel() * 2 + n_live * D * 2 + N * BENCH_TOP_K * 4,
+                2.0 * N * D * n_live, "bf16"))
     # the product stage alone through cuBLAS: the normalised bf16 field by
     # the table's transpose (a yardstick, not the same function)
     normed = normalize_rows_rsqrt(field)
@@ -1763,6 +1814,53 @@ def phase_cli_train(tmp: str, device, totals) -> None:
     log(f"  validation throughput (fp32, batch 8, {RES}^2, C={NUM_CLASSES}, "
         f"after a warm pass): {n_maps} maps in {seconds:.3f} s, "
         f"{n_maps / seconds:.1f} maps/s (host clock, loading included)")
+    val_shape_topk(device, model, loader, inputs["text_table"])
+
+
+def val_shape_topk(device, model, loader, text_table) -> None:
+    """pixel_text_topk[fp32] at the validation pass's own shape: the
+    candidate masks that validate_model draws for the split's batches (the
+    present classes and 50 negatives, batch i keyed (VAL_SEED, i)), the
+    model's fp32 field of the first batch, top-5; held to the plain version
+    up to near-ties and timed, its bound from the live classes."""
+    from rangeclip_tpu_torch.evals.validate import VAL_SEED, batch_to_device
+    from rangeclip_tpu_torch.models.depth_unet import build_candidate_mask
+    from rangeclip_tpu_torch.ops.kernels.pixel_text_topk import (
+        pixel_text_topk,
+        pixel_text_topk_plain,
+    )
+    from rangeclip_tpu_torch.training.train_step import microbatch_generator
+    from rangeclip_tpu_torch.utils.math import l2_normalize
+
+    table = l2_normalize(text_table.float(), dim=-1)
+    C, D = table.shape
+    masks, depth = [], None
+    for i, batch in enumerate(loader):
+        t = batch_to_device(batch, device, ("depth", "segmentation"))
+        masks.append(build_candidate_mask(
+            t["segmentation"], C, 50, generator=microbatch_generator(
+                VAL_SEED, i, 0, torch.device("cpu"))))
+        depth = t["depth"] if depth is None else depth
+    lives = [int(m.sum()) for m in masks]
+    mask, live = masks[0], lives[0]
+    with torch.inference_mode():
+        flat = model.native_field(depth, normalize=False).reshape(-1, D)
+    ids = torch.where(mask, torch.arange(C, dtype=torch.int32,
+                                         device=device), -1)
+    got = pixel_text_topk(flat, table, mask, 5, True)
+    want = pixel_text_topk_plain(flat, table, ids, 5)
+    near_tie_check("pixel_text_topk fp32 validation shape", got, want, flat,
+                   table)
+    ms, plain_ms = time_pair(
+        lambda: pixel_text_topk(flat, table, mask, 5, False),
+        lambda: pixel_text_topk_plain(flat, table, ids, 5), 10, 3)
+    N = flat.shape[0]
+    b = bound(flat.numel() * 4 + live * D * 4 + N * 5 * 4,
+              2.0 * N * D * live, "f32")
+    log(f"  pixel_text_topk[fp32] validation shape N={N} D={D} C={C} k=5, "
+        f"the split's candidate masks {min(lives)}-{max(lives)} classes "
+        f"live, timed on batch 0's {live}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms (operations)")
 
 
 def run_path(name: str, expect, fn, totals):
@@ -1814,8 +1912,18 @@ def main(argv=None) -> int:
     for line in (ptxas_summary(built.ptxas)
                  or built.ptxas.splitlines()[:60]):
         log(f"  ptxas: {line}")
+    # the fp32 contract keeps pixel_text_topk's CUDA-core kernel off the
+    # tensor cores: its SASS must hold no matrix instruction
+    sass = sass_counts(built.path, "pixel_text_topk_fma_kernel")
+    require(len(sass) == 16 and all(mma == 0 for mma, _ in sass.values()),
+            f"pixel_text_topk_fma_kernel SASS: {sass}")
+    log(f"  SASS of pixel_text_topk_fma_kernel ({len(sass)} instances): 0 "
+        f"HMMA/HGMMA/IMMA, {min(f for _, f in sass.values())}-"
+        f"{max(f for _, f in sass.values())} FFMA")
     log(f"  dynamic shared memory per block: pixel_text_topk[bf16] at D=512 "
-        f"{lib.rc_pixel_text_topk_tc_smem(512)} B, conv_score_topk at "
+        f"{lib.rc_pixel_text_topk_tc_smem(512)} B, pixel_text_topk[fp32] "
+        f"{lib.rc_pixel_text_topk_fma_smem(0)} B (a bf16 field beyond 1280 "
+        f"dims {lib.rc_pixel_text_topk_fma_smem(1)} B), conv_score_topk at "
         f"C_in=32 {lib.rc_conv_score_topk_smem(32)} B")
 
     # the bench configuration's model and inputs (phases 2 and 4), and the

@@ -214,6 +214,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
                    : "memory");
 }
 
+// Close the thread's open cp.async copies into one group.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of the thread's groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Shared-memory writes of the generic proxy (st.shared, cp.async) made
 // visible to wgmma, which reads through the async proxy.
 __device__ __forceinline__ void fence_proxy_async() {

@@ -44,9 +44,9 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 # Sources whose ptxas resource lines (registers, shared memory, spills) the
-# build keeps: the tensor-core kernels.
+# build keeps: the tensor-core kernels and the redesigned CUDA-core ones.
 PTXAS_VERBOSE = ("conv_score_topk.cu", "pixel_text_ce.cu",
-                 "pixel_text_topk.cu")
+                 "pixel_text_topk.cu", "tv_rowtile.cu")
 
 # Launches per kernel (and selector), counted by each wrapper right after a
 # successful launch, so a run can show which kernels its main path went
@@ -76,11 +76,14 @@ launch_counts = {
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "rc_class_presence": (_P, _P, _L, _I, _P, _P),
     "rc_score_topk": (_P, _I, _I, _P, _L, _I, _I, _P, _P, _P),
     "rc_conv_score_topk": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-    "rc_pixel_text_topk": (_P, _I, _P, _P, _L, _I, _I, _I, _P, _P, _P),
+    "rc_pixel_text_topk": (_P, _P, _P, _L, _I, _I, _I, _P, _P, _P),
+    "rc_pixel_text_topk_fma": (_P, _I, _P, _I, _P, _P, _L, _I, _I, _I, _P,
+                               _P, _P),
     "rc_l2_normalize_fwd": (_P, _I, _P, _L, _I, _P),
     "rc_l2_normalize_bwd": (_P, _P, _I, _P, _L, _I, _P),
     "rc_histogram": (_P, _I, _L, _I, _P, _P),
@@ -93,16 +96,18 @@ _SIGNATURES = {
     "rc_pixel_text_ce_tc_bwd": (_P, _P, _P, _P, _P, _I, _L, _I, _P, _P, _P,
                                 _P, _I, _P, _P, _P, _P),
     "rc_tv_rowtile_fwd": (_P, _I, _I, _I, _I, _P, _P, _P),
-    "rc_tv_rowtile_bwd": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "rc_tv_rowtile_bwd": (_P, _I, _I, _I, _I, _P, _P, _F, _F, _F, _F, _P,
+                          _P),
     "rc_masked_pooling": (_P, _I, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P),
     "rc_head_topk": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                      _P, _P),
     "rc_tv_loss_fwd": (_P, _I, _I, _I, _I, _I, _P, _P),
     "rc_tv_loss_bwd": (_P, _I, _I, _I, _I, _I, _P, _P, _P),
 }
-# Queries that return a long long: the dynamic shared memory of a
-# tensor-core kernel's block at a width (D, C_in).
-_QUERIES = ("rc_pixel_text_topk_tc_smem", "rc_conv_score_topk_smem")
+# Queries that return a long long: the dynamic shared memory of a kernel's
+# block at a width (D, C_in) or for a field dtype (is_bf16).
+_QUERIES = ("rc_pixel_text_topk_tc_smem", "rc_conv_score_topk_smem",
+            "rc_pixel_text_topk_fma_smem")
 # Queries of a kernel's device workspace in bytes at (D, rows).
 _WORKSPACE_QUERIES = ("rc_pixel_text_ce_workspace", "rc_head_topk_workspace")
 

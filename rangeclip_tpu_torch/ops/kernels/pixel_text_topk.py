@@ -4,17 +4,21 @@ Port of ``rangeclip_tpu/ops/pallas/pixel_text_topk.py``
 (``fused_pixel_text_topk``), the scoring of the unfolded predict path.  The
 CUDA kernels are in ``csrc/pixel_text_topk.cu``: a bf16 field takes the
 tensor-core kernel (up to :data:`TC_MAX_DIMS` dims), an fp32 field the
-CUDA-core one; launches count as ``pixel_text_topk[bf16]`` and
-``pixel_text_topk[fp32]``.  :func:`pixel_text_topk_plain` is the same
-function in plain PyTorch, used for CPU tensors and as the reference the
-kernels are held against on the card.
+CUDA-core one, which takes the live table rows only, transposed
+(:func:`live_table`, built inside the operator on each call); launches
+count as ``pixel_text_topk[bf16]`` and ``pixel_text_topk[fp32]``.
+:func:`pixel_text_topk_plain` is the same function in plain PyTorch, used
+for CPU tensors and as the reference the kernels are held against on the
+card.
 
 Rounding points, as in the TPU kernel: the pixel is normalised in f32 with
 ``rsqrt(max(sum x^2, 1e-24))`` (not ``utils.math.l2_normalize``'s
 ``x / max(n, 1e-12)``) and rounded to the field's dtype; the table is cast
 to the field's dtype; their product is summed in f32.  One departure: the
 sum of squares is taken in f64 and the scale rounded once to f32, where the
-TPU kernel sums in f32 (see :func:`normalize_rows_rsqrt`).  The JAX kernel's
+TPU kernel sums in f32 (see :func:`normalize_rows_rsqrt`).  The fp32
+kernel scales the f32 sum instead of each product term (f32 rounding apart,
+the same function; bit-equal on power-of-two norms).  The JAX kernel's
 [H, W, B, D] transpose and class-major score tile are TPU layout work: the
 port's field is the NHWC view of a ``channels_last`` tensor, whose pixel
 rows are already contiguous.
@@ -139,18 +143,48 @@ def pixel_text_topk(
     return idx, (val if want_values else None)
 
 
+def live_table(table: torch.Tensor, ids: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The CUDA-core kernel's table operand.  Masked rows (id -1) cannot
+    change the answer, so the live rows go first, in ascending order, then
+    the others: (that table transposed, [D, Cp] f32 with Cp = C rounded up
+    to a multiple of 4 (16-byte rows; the padding zero); the ids in that
+    order [C]; the live count [1] int32), on the table's device, with no
+    host sync.  A bf16 table widens exactly."""
+    live = ids >= 0
+    order = torch.argsort((~live).to(torch.uint8), stable=True)
+    C, D = table.shape
+    table_t = table.new_zeros((D, -(-C // 4) * 4), dtype=torch.float32)
+    table_t[:, :C] = table.index_select(0, order).T
+    return (table_t, ids.index_select(0, order),
+            live.sum(dtype=torch.int32).reshape(1))
+
+
 def _pixel_text_topk_cuda(field, table, ids, top_k, want_values):
-    _lib.require(field.data_ptr() % 16 == 0 and table.data_ptr() % 16 == 0,
-                 "pixel_text_topk: field and table must be 16-byte aligned")
+    route = kernel_route(field.dtype, field.shape[1])
+    _lib.require(field.data_ptr() % 16 == 0,
+                 "pixel_text_topk: the field must be 16-byte aligned")
     idx, val = _lib.topk_outputs(field, field.shape[0], top_k, want_values)
     if field.shape[0] == 0:
         return idx, val
-    code = _lib.library().rc_pixel_text_topk(
-        field.data_ptr(), int(field.dtype == torch.bfloat16),
-        table.data_ptr(), ids.data_ptr(), field.shape[0], field.shape[1],
-        table.shape[0], top_k, idx.data_ptr(),
-        val.data_ptr() if want_values else None, _lib.stream_of(field))
-    _lib.check(code, kernel_route(field.dtype, field.shape[1]))
+    lib = _lib.library()
+    n, d = field.shape
+    out = (idx.data_ptr(), val.data_ptr() if want_values else None,
+           _lib.stream_of(field))
+    if route == "pixel_text_topk[bf16]":
+        table = table.contiguous()
+        _lib.require(table.data_ptr() % 16 == 0,
+                     "pixel_text_topk: the table must be 16-byte aligned")
+        code = lib.rc_pixel_text_topk(field.data_ptr(), table.data_ptr(),
+                                      ids.data_ptr(), n, d, table.shape[0],
+                                      top_k, *out)
+    else:
+        table_t, live_ids, count = live_table(table, ids)
+        code = lib.rc_pixel_text_topk_fma(
+            field.data_ptr(), int(field.dtype == torch.bfloat16),
+            table_t.data_ptr(), table_t.shape[1], live_ids.data_ptr(),
+            count.data_ptr(), n, d, table.shape[0], top_k, *out)
+    _lib.check(code, route)
     return idx, val
 
 

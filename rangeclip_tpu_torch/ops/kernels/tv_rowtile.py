@@ -3,11 +3,13 @@
 Port of ``rangeclip_tpu/ops/pallas/tv_rowtile.py`` (``tv_rowtile``, a
 ``jax.custom_vjp``): the value is ``TV(x * w)`` of the (0/1-sample-weighted)
 field without the B / sum(w) rescale, which the caller applies.  The CUDA
-kernels are ``csrc/tv_rowtile.cu``; the pair is the operator
+kernels are ``csrc/tv_rowtile.cu`` (the backward a shared-memory halo
+stencil with its own grid and constants); the pair is the operator
 ``rangeclip::tv_rowtile`` with ``rangeclip::tv_rowtile_backward`` registered
-as its gradient, which turns the upstream gradient into the per-direction
-scalars with :func:`pair_grads`, as the plain VJP does.  Like the JAX
-function it saves x (and the weights) as its only residuals.
+as its gradient, whose kernel turns the upstream gradient into the
+per-direction scalars with the f32 arithmetic of :func:`pair_grads`, as the
+plain VJP does (its divisors and factors from :func:`pair_scalars`).  Like
+the JAX function it saves x (and the weights) as its only residuals.
 
 The plain version is :func:`tv_plain` on ``x * w``: the formulation of
 ``losses/smoothness.py`` (``_tv``) with its hand-derived VJP, a
@@ -27,8 +29,8 @@ import torch.nn.functional as F
 
 from rangeclip_tpu_torch.ops.kernels import _lib
 
-_THREADS = 256  # csrc/tv_rowtile.cu kThreads
-_ROWS = 8  # csrc/tv_rowtile.cu kRows
+_THREADS = 256  # csrc/tv_rowtile.cu kThreads (the forward's)
+_ROWS = 8  # csrc/tv_rowtile.cu kRows (the forward's)
 _BWD_TILE_BYTES = 1024 * 1024  # the JAX gate's VMEM budget
 
 
@@ -42,6 +44,18 @@ def kernel_applicable(shape, dtype) -> bool:
     _, H, W, D = shape
     return (dtype == torch.bfloat16 and H >= 2 and W >= 2 and W % 8 == 0
             and D % 128 == 0 and W * D * 2 <= _BWD_TILE_BYTES)
+
+
+def pair_scalars(shape, upsample: int):
+    """(pairs_h, pairs_v, rescale_h, rescale_v): the divisors and factors of
+    :func:`pair_grads` (1.0 at upsample 1) as Python floats, which the
+    backward kernel's f32 arguments round once, as its tensors do."""
+    B, H, W, D = shape
+    if upsample > 1:
+        rescale = ((W - 1) / (upsample * W - 1), (H - 1) / (upsample * H - 1))
+    else:
+        rescale = (1.0, 1.0)
+    return (float(B * H * (W - 1) * D), float(B * (H - 1) * W * D)) + rescale
 
 
 def pair_grads(g: torch.Tensor, shape, upsample: int):
@@ -143,6 +157,11 @@ def tv_rowtile(x: torch.Tensor, sample_weight: Optional[torch.Tensor] = None,
     _lib.require(sample_weight is None
                  or tuple(sample_weight.shape) == (B,),
                  f"tv_rowtile: sample_weight must be [{B}]")
+    # the forward's grid (B * ceil(H / 8) <= 65535 rows of blocks); the
+    # backward's one-dimensional grid has no such limit
+    _lib.require(B * -(-H // _ROWS) <= 65535,
+                 f"tv_rowtile: the forward kernel takes B * ceil(H / 8) <= "
+                 f"65535, got B={B}, H={H}")
     w = (None if sample_weight is None
          else sample_weight.float().contiguous())
     return tv_rowtile_op(x, w, upsample)
@@ -170,12 +189,16 @@ def _fwd_cuda(x, weight, upsample):
 
 def _bwd_cuda(x, weight, grad, upsample):
     B, H, W, D = x.shape
-    g = torch.stack(pair_grads(grad, x.shape, upsample)).contiguous()
+    _lib.require(x.data_ptr() % 16 == 0, "tv_rowtile: x must be 16-byte "
+                 "aligned")
+    # the kernel forms pair_grads' f32 quotients and products itself, from
+    # the upstream gradient on the device: no small launches, no copies
+    grad = grad.float().contiguous()
     dx = torch.empty_like(x)
     code = _lib.library().rc_tv_rowtile_bwd(
         x.data_ptr(), B, H, W, D,
-        weight.data_ptr() if weight is not None else None, g.data_ptr(),
-        dx.data_ptr(), _lib.stream_of(x))
+        weight.data_ptr() if weight is not None else None, grad.data_ptr(),
+        *pair_scalars(x.shape, upsample), dx.data_ptr(), _lib.stream_of(x))
     _lib.check(code, "tv_rowtile[bwd]")
     return dx
 

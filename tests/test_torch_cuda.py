@@ -46,6 +46,7 @@ from rangeclip_tpu_torch.ops.kernels.pixel_text_topk import (
 from rangeclip_tpu_torch.ops.kernels.score_topk import score_topk
 from rangeclip_tpu_torch.ops.kernels.tv_rowtile import (
     tv_rowtile,
+    tv_rowtile_backward_op,
     tv_rowtile_plain,
 )
 from rangeclip_tpu_torch.utils.math import l2_normalize
@@ -242,8 +243,17 @@ def test_pixel_text_topk_matches_plain(cuda_device, dtype, n, d, c, tied):
     same: the smallest live ids win).  A bf16 field takes the tensor-core
     kernel up to 1280 dims, an fp32 field (and a bf16 one of 1344 dims) the
     CUDA-core one."""
-    gen = torch.Generator().manual_seed(4)
-    field = (_sparse_signs(gen, n, d, 16)
+    _hold_pixel_topk(cuda_device, torch.Generator().manual_seed(4), dtype,
+                     n, d, c, tied, "contiguous")
+
+
+def _hold_pixel_topk(cuda_device, gen, dtype, n, d, c, tied, layout):
+    """Quantised-exact field and table drawn from ``gen`` (power-of-two
+    norms: 16 nonzeros a row, 4 where d < 32), the table placed on the card
+    as ``layout`` says: the kernel's ids and values bit-equal to the plain
+    version's for the mask form, sparse global ids and an exhausted set at
+    k = 1, 5, 8, and one launch of the route's kernel per call."""
+    field = (_sparse_signs(gen, n, d, min(16, d // 2))
              * 2.0 ** torch.randint(-3, 4, (n, 1), generator=gen)).to(dtype)
     table = (_sparse_signs(gen, 1 if tied else c, d, 4) / 2).expand(
         c, d).contiguous().to(dtype)
@@ -253,14 +263,14 @@ def test_pixel_text_topk_matches_plain(cuda_device, dtype, n, d, c, tied):
     two = torch.zeros(c, dtype=torch.bool)
     two[[i for i in (1, 3) if i < c]] = True
     route = kernel_route(dtype, d)
+    table_d = _placed(table, layout, cuda_device)
     for kw in ({"candidate_mask": mask}, {"candidate_mask": ids >= 0,
                                           "candidate_ids": ids},
                {"candidate_mask": two}):
         for k in (k for k in (1, 5, 8) if k <= c):
             want = pixel_text_topk(field, table, top_k=k, **kw)
             before = dict(_lib.launch_counts)
-            got = pixel_text_topk(field.to(cuda_device),
-                                  table.to(cuda_device), top_k=k,
+            got = pixel_text_topk(field.to(cuda_device), table_d, top_k=k,
                                   **{a: t.to(cuda_device)
                                      for a, t in kw.items()})
             torch.cuda.synchronize()
@@ -288,6 +298,51 @@ def test_pixel_text_topk_random_near_ties(cuda_device, dtype):
     gap = (scores.gather(1, got[0].cpu().long())
            - scores.gather(1, want[0].long())).abs()
     assert bool((gap[~agree] <= 1e-5).all())
+
+
+def _placed(table, layout, device):
+    """The table on the device as a contiguous tensor, a strided view, or a
+    contiguous view 4 bytes off a 16-byte boundary."""
+    c, d = table.shape
+    if layout == "strided":
+        big = torch.zeros(c, d + 8, dtype=table.dtype, device=device)
+        big[:, 4:4 + d] = table.to(device)
+        return big[:, 4:4 + d]
+    if layout == "misaligned":
+        buf = torch.zeros(c * d + 1, dtype=table.dtype, device=device)
+        buf[1:] = table.flatten().to(device)
+        return buf[1:].view(c, d)
+    return table.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,d,c,tied,layout", [
+    (torch.float32, 300, 8, 40, False, "contiguous"),
+    (torch.float32, 129, 40, 130, False, "contiguous"),
+    (torch.float32, 255, 512, 1, False, "contiguous"),
+    (torch.float32, 1, 512, 8, False, "contiguous"),
+    (torch.float32, 383, 64, 129, False, "contiguous"),
+    (torch.float32, 200, 64, 257, False, "contiguous"),
+    (torch.float32, 200, 64, 258, False, "contiguous"),
+    (torch.float32, 200, 64, 274, False, "contiguous"),
+    (torch.float32, 500, 512, 300, True, "contiguous"),
+    (torch.float32, 300, 136, 200, False, "strided"),
+    (torch.float32, 300, 136, 200, False, "misaligned"),
+    (torch.bfloat16, 300, 1344, 257, False, "contiguous")])
+def test_pixel_text_topk_cuda_core_edges(cuda_device, dtype, n, d, c, tied,
+                                         layout):
+    """The CUDA-core kernel's edges, bit-equal to the plain version on
+    quantised-exact inputs: D = 8 (less than one 32-dim stage) and D = 40
+    (a ragged chunk), N ragged against the 128-row block (and N = 1), C = 1
+    (its two-class set empty: every pick a dead slot), C = k = 8, C one
+    past a 128-class tile and one past two, 129 and 137 live classes (the
+    sparse-id form of C = 258, 274: a ragged last tile of 1 and 9), a
+    table of one repeated row, a strided and a misaligned table (the
+    wrapper gathers its live rows), and a bf16 field beyond 1280 dims; the
+    mask form, sparse global ids and an exhausted set, k = 1, 5, 8."""
+    assert kernel_route(dtype, d) == "pixel_text_topk[fp32]"
+    _hold_pixel_topk(cuda_device, torch.Generator().manual_seed(6), dtype,
+                     n, d, c, tied, layout)
 
 
 def _vjp_scale(x, g):
@@ -549,11 +604,18 @@ def test_pixel_text_ce_tc_kernels_match_plain(cuda_device, capacity, slots,
 @pytest.mark.parametrize("shape,weights,upsample", [
     ((3, 10, 16, 128), (1.0, 0.0, 1.0), 2),
     ((2, 128, 128, 512), None, 2),
-    ((1, 2, 8, 8), (1.0,), 1)])
+    ((1, 2, 8, 8), (1.0,), 1),
+    ((1, 2, 2, 8), (1.0,), 1),
+    ((2, 33, 35, 136), (0.0, 1.0), 2),
+    ((3, 65, 97, 8), (1.0, 0.0, 1.0), 1),
+    ((1, 31, 64, 264), None, 2)])
 def test_tv_rowtile_matches_plain(cuda_device, shape, weights, upsample):
     """bf16 with ties (quantised values), several row tiles and a ragged
     last one, a zero sample weight: the backward bit-equal to the plain VJP,
-    the forward within rtol 1e-5 (f32 summation order)."""
+    the forward within rtol 1e-5 (f32 summation order).  The backward's
+    edges: H = 2 and W = 2, H and W ragged against its 32-row band and
+    32-column tile, D = 8 and channel chunks ragged against 64 (136,
+    264)."""
     gen = torch.Generator().manual_seed(10)
     x = (torch.randint(-6, 7, shape, generator=gen) / 4
          + torch.randn(shape, generator=gen) * (torch.rand(shape, generator=gen) > 0.5)
@@ -572,6 +634,27 @@ def test_tv_rowtile_matches_plain(cuda_device, shape, weights, upsample):
     torch.testing.assert_close(value.detach(), want.detach(), rtol=1e-5,
                                atol=0.0)
     assert torch.equal(xk.grad, xp.grad)
+
+
+@pytest.mark.cuda
+def test_tv_rowtile_backward_past_the_forward_grid(cuda_device):
+    """B * ceil(H / 8) = 65,544 rows of forward blocks: the forward refuses
+    the shape, the backward's one-dimensional grid takes it, bit-equal to
+    the plain VJP."""
+    shape = (8193, 64, 2, 8)
+    gen = torch.Generator().manual_seed(11)
+    x = (torch.randint(-6, 7, shape, generator=gen) / 4).to(
+        torch.bfloat16).to(cuda_device)
+    with pytest.raises(ValueError, match="65535"):
+        tv_rowtile(x)
+    grad = torch.tensor(1.7, device=cuda_device)
+    before = _lib.launch_counts["tv_rowtile[bwd]"]
+    got = tv_rowtile_backward_op(x, None, grad, 1)
+    torch.cuda.synchronize()
+    assert _lib.launch_counts["tv_rowtile[bwd]"] == before + 1
+    xp = x.clone().requires_grad_()
+    tv_rowtile_plain(xp, None, 1).backward(grad)
+    assert torch.equal(got, xp.grad)
 
 
 @pytest.mark.cuda

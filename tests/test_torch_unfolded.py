@@ -46,6 +46,7 @@ from rangeclip_tpu_torch.ops.kernels.l2_normalize import (
     l2_normalize_rows,
 )
 from rangeclip_tpu_torch.ops.kernels.pixel_text_topk import (
+    live_table,
     normalize_rows_rsqrt,
     pixel_text_topk,
 )
@@ -206,6 +207,35 @@ def test_pixel_text_topk_contract():
         pixel_text_topk(f.double(), t)
     idx, val = pixel_text_topk(f.reshape(2, 5, 32), t, want_values=False)
     assert idx.shape == (10, 5) and val is None
+
+
+@pytest.mark.parametrize("c,dtype,live", [(1, torch.float32, "all"),
+                                          (128, torch.float32, "none"),
+                                          (129, torch.bfloat16, "some"),
+                                          (300, torch.float32, "some")])
+def test_pixel_text_topk_live_table(c, dtype, live):
+    """The CUDA-core kernel's table operand: the live rows (id >= 0) first,
+    in ascending order, then the masked ones, transposed to [D, Cp] f32
+    (Cp = C rounded up to a multiple of 4, the padding zero), exact for a
+    bf16 table whatever its strides; their ids and the live count."""
+    g = torch.Generator().manual_seed(3)
+    t = l2_normalize(torch.randn(c, 40, generator=g)).to(dtype)
+    ids = torch.arange(3, 3 + 2 * c, 2, dtype=torch.int32)  # sparse ids
+    if live != "all":
+        ids[torch.rand(c, generator=g) < (0.4 if live == "some" else 2)] = -1
+    keep = (ids >= 0).nonzero()[:, 0]
+    for table in (t, torch.cat([t, t], dim=1)[:, 40:]):  # and a strided view
+        table_t, row_ids, count = live_table(table, ids)
+        n = int(count)
+        assert count.shape == (1,) and count.dtype == torch.int32
+        assert n == keep.numel() and (live != "none" or n == 0)
+        assert table_t.shape == (40, -(-c // 4) * 4)
+        assert table_t.dtype == torch.float32 and table_t.is_contiguous()
+        assert torch.equal(table_t[:, :n], t.float()[keep].T)
+        assert torch.equal(table_t[:, n:c], t.float()[ids < 0].T)
+        assert not table_t[:, c:].any()
+        assert torch.equal(row_ids[:n], ids[keep])
+        assert bool((row_ids[n:] == -1).all())
 
 
 def _op_cases():
