@@ -19,14 +19,19 @@ Phases (any failure raises; nothing is caught):
    the same function, that call; each row's bound is the larger of its
    bytes over 3.35 TB/s and its operations over the peak rate of its input
    type (989 TFLOP/s bf16, 67 TFLOP/s f32), from the H100 SXM data sheet;
-   a masked top-k counts only the classes that can win.  Beside the
-   tensor-core kernels and pixel_text_topk's fp32 kernel, their product
-   stage alone through cuBLAS (torch.matmul, TF32 off for f32) and cuDNN
-   (F.conv2d) at their shapes, printed on a line of its own: a yardstick,
-   not the same function.
+   a masked top-k counts only the classes that can win, a CE over the full
+   table only its contrast members (a non-member's exp term is 0).  Beside
+   the tensor-core kernels and the fp32 CUDA-core kernels of
+   pixel_text_topk and pixel_text_ce, their product stage alone through
+   cuBLAS (torch.matmul, TF32 off for f32; the CE's over its members) and
+   cuDNN (F.conv2d) at their shapes, printed on a line of its own: a
+   yardstick, not the same function.
    pixel_text_ce runs bf16 packed (its tensor-core kernels, also timed
    alone) at D = 512 and 768, bf16 over the full table (overflow) and fp32
-   (its CUDA-core kernels).
+   with 90 and with all 512 classes members (its CUDA-core kernels).
+   tv_rowtile's forward is timed as the operator call and, read with
+   torch.profiler, as its kernels alone, which must be its only device
+   events.
    masked_pooling and tv_loss run on a bf16 field of the flagship train
    native shape [32, 128, 128, 512], head_topk at the bench configuration.
 3. Serve: the port's ``cli/serve`` engine and HTTP server in this process,
@@ -1046,6 +1051,7 @@ def phase_train_kernels(device, stats):
         tv_rowtile_plain,
     )
     from rangeclip_tpu_torch.utils.math import l2_normalize
+    from rangeclip_tpu_torch.utils.profiling import profile
 
     gen = torch.Generator(device=device).manual_seed(SEED + 9)
     B, h, D = TRAIN_BATCH, RES // 2, 512
@@ -1074,7 +1080,8 @@ def phase_train_kernels(device, stats):
 
     # pixel_text_ce: bf16 packed (the tensor-core kernels), bf16 overflowing
     # K (full C) and fp32 full C (CUDA cores) at D = 512, then bf16 packed
-    # at D = 768 (its own table, drawn after the others' data)
+    # at D = 768, then fp32 full C with every class a member (each its own
+    # table, drawn after the others' data)
     text = l2_normalize(torch.randn(NUM_CLASSES, D, device=device,
                                     generator=gen), dim=-1)
     rows = {}
@@ -1082,7 +1089,8 @@ def phase_train_kernels(device, stats):
             ("bf16 packed", torch.bfloat16, B, 90, D),
             ("bf16 overflow (full C)", torch.bfloat16, B, 200, D),
             ("fp32 full C", torch.float32, 8, 90, D),
-            ("bf16 packed D=768", torch.bfloat16, B, 90, 768)):
+            ("bf16 packed D=768", torch.bfloat16, B, 90, 768),
+            ("fp32 full C, all members", torch.float32, 8, NUM_CLASSES, D)):
         N = batch * h * h
         if width != text.shape[1]:
             text = l2_normalize(torch.randn(NUM_CLASSES, width,
@@ -1142,7 +1150,9 @@ def phase_train_kernels(device, stats):
         tc = case.startswith("bf16 packed")
         require(tc_route(flat, pt, backward=True) == (pt is not None),
                 f"pixel_text_ce {case}: route")
-        classes = CAPACITY if tc else NUM_CLASSES
+        # a non-member's logit is -1e30 and its exp term exactly 0: the
+        # function needs the members only (the packed table holds them)
+        classes = CAPACITY if tc else int(mask.sum())
         if tc:
             tc_ms = tc_alone(flat, temp, g, lab, val, pt, pm, pi, flag)
             log(f"  pixel_text_ce {case}: the tensor-core kernels alone "
@@ -1153,6 +1163,14 @@ def phase_train_kernels(device, stats):
             PRODUCT_ONLY_MS["pixel_text_ce (bf16 [N, 512] x [512, 128])"] = (
                 cuda_ms(lambda: torch.matmul(emb, pt.T), 20))
             del emb
+        if case.startswith("fp32 full C"):  # TF32 off (main)
+            emb = l2_normalize(flat, dim=-1)
+            rows_t = table[mask].contiguous()
+            PRODUCT_ONLY_MS[
+                f"pixel_text_ce[fwd] (f32 [N, {width}] x [{width}, "
+                f"{rows_t.shape[0]} members])"] = cuda_ms(
+                    lambda: torch.matmul(emb, rows_t.T), 10)
+            del emb, rows_t
         esize = flat.element_size()
         io = flat.numel() * esize + lab.numel() * 8 + classes * width * esize
         flops = 2.0 * N * classes * width
@@ -1175,7 +1193,8 @@ def phase_train_kernels(device, stats):
         del samples, flat, dx, dx_p, err, op_args, plain_args
         torch.cuda.empty_cache()
     # the rows: the tensor-core kernels at the flagship packed shape, the
-    # CUDA-core kernels at fp32 full C (the route of fp32 validation)
+    # CUDA-core kernels at fp32 full C with 90 members (the route of fp32
+    # validation)
     for name, case in (("pixel_text_ce_tc", "bf16 packed"),
                        ("pixel_text_ce", "fp32 full C")):
         tc = name.endswith("_tc")
@@ -1208,11 +1227,20 @@ def phase_train_kernels(device, stats):
                     lambda: tv_rowtile_plain(x, w, 2), 20, 5)
     bwd = time_pair(lambda: tv_rowtile_backward_op(x, w, g, 2),
                     lambda: tv_grad(xw, g, 2), 20, 5)
+    # the forward's device events per operator call, read with the profiler:
+    # its kernels alone, and nothing else on the device
+    events = profile(lambda: tv_rowtile_op(x, w, 2), calls=20)["events"]
+    alone = sum(ms for _, ms in events)
+    require(all("tv_fwd" in name for name, _ in events),
+            f"tv_rowtile[fwd]: device events other than its kernels: "
+            f"{events}")
     log(f"  tv_rowtile [{B}, {h}, {h}, {D}] bf16, upsample 2, one weight 0: "
         f"value {float(value.detach()):.6g} vs plain "
         f"{float(want.detach()):.6g}, backward "
-        f"bit-equal; fwd kernel {fwd[0]:.4f} ms (plain {fwd[1]:.4f}), bwd "
-        f"kernel {bwd[0]:.4f} ms (plain {bwd[1]:.4f})")
+        f"bit-equal; fwd operator call {fwd[0]:.4f} ms (plain "
+        f"{fwd[1]:.4f}), fwd kernels alone (torch.profiler) {alone:.4f} "
+        f"ms: {', '.join(f'{n} {ms:.4f}' for n, ms in events)}; bwd kernel "
+        f"{bwd[0]:.4f} ms (plain {bwd[1]:.4f})")
     stats["tv_rowtile[fwd]"] = dict(
         max_abs_err=max_abs_err(value.detach(), want.detach()), ms=fwd[0],
         plain_ms=fwd[1], library_ms=None, **bound(x.numel() * 2, 0, "bf16"))

@@ -687,4 +687,326 @@ struct KeyTopK {
   }
 };
 
+// ---------------------------------------------------------------------------
+// CUDA-core f32 scoring of normalised pixel rows against a dim-major table
+// (pixel_text_topk.cu's fp32 kernel and pixel_text_ce.cu's member-only
+// forward; they differ only in their epilogues).
+//
+// A block of 256 threads (two per SM) owns 128 pixel rows of an [n, d]
+// field (f32, or bf16 widened) and walks the first c columns of a [d, ldt]
+// f32 table in class tiles of 128.  (class tile, 32-dim chunk) steps stream
+// through a three-stage shared-memory ring by cp.async with no register
+// staging: the pixel chunk row-major in the field's dtype (f32 rows
+// XOR-swizzled), the table chunk dim-major in f32, zero-filled past n, c
+// and d.  The steps run on across class tiles, so the next tile's first
+// copies are in flight while a tile's epilogue runs; the pixel tile is read
+// again for each class tile (from L2 mostly) and never re-scaled.  The 8
+// warps tile the 128 x 128 sums as 4 (rows) x 2 (class halves of 64), a
+// warp's lanes as 4 x 8; each thread holds 8 rows x 8 classes, and per 4
+// dims 8 float4 reads of pixel rows and 8 of table classes feed 256 FMAs,
+// one shared-memory wavefront each.  One barrier per step.  A class half
+// with no column below c skips its products; each SM sub-partition (warp %
+// 4) holds one warp of each half, so a ragged last tile of at most 64
+// columns halves the work of every sub-partition.
+//
+// Row scales rs = 1/sqrt(max(sum x^2, 1e-24)), the sum in f64 and rounded
+// once.  f32: the scale moves past the sum (rs * sum(x * t)); during the
+// first class tile each thread sums x^2 of half a row's dims from the
+// landed chunks.  bf16 keeps the TPU kernels' rounding point: a first pass
+// over the rows gives rs (warp-reduced, overlapping the first copies), and
+// each landed chunk is rounded to bf16(x * rs) and widened before its
+// product.  After each class tile's last chunk the epilogue gets the sums
+// (f32: unscaled) and the row scales.
+// ---------------------------------------------------------------------------
+namespace simt {
+
+constexpr int kThreads = 256;
+constexpr int kRows = 128;   // pixel rows per block
+constexpr int kCols = 128;   // classes per tile
+constexpr int kChunk = 32;   // dims per ring stage: an f32 row of 128 bytes
+constexpr int kStages = 3;   // ring depth: two steps in flight
+
+// Dynamic shared memory of the loop: the ring (each stage a pixel chunk
+// [kRows, kChunk] in the field's dtype, f32 rows swizzled, then a table
+// chunk [kChunk, kCols] f32), for bf16 the chunk rounded and widened to f32
+// (swizzled), and the row scales.  A kernel's own region starts at kEnd.
+template <typename T>
+struct Layout {
+  static constexpr bool kRoundFirst = sizeof(T) == 2;
+  static constexpr int kRowBytes = kChunk * (int)sizeof(T);
+  static constexpr int kABytes = kRows * kRowBytes;
+  static constexpr int kStageBytes = kABytes + kChunk * kCols * 4;
+  static constexpr int kWideOffset = kStages * kStageBytes;
+  static constexpr int kScaleOffset =
+      kWideOffset + (kRoundFirst ? kRows * kChunk * 4 : 0);
+  static constexpr int kEnd = kScaleOffset + kRows * 4;
+};
+
+// Byte offset of the 16-byte piece q (4 dims) of f32 row r in a chunk: the
+// pieces of a row are XOR-swizzled by r % 8, so that the float4 reads of
+// rows r .. r+3 at one dim fall in distinct banks (and a row's 8 pieces
+// still fill one 128-byte line).
+__device__ __forceinline__ int swz(int r, int q) {
+  return r * kChunk * 4 + ((q ^ (r & 7)) << 4);
+}
+
+// Thread roles.  The 8 warps tile the block's 128 x 128 sums as 4 (rows) x
+// 2 (class halves); a warp's lanes as 4 (wy) x 8 (wx); each thread holds 8
+// rows (row0 + 4 i) and 8 classes (col0 + col_of(j, wx)).  A quarter warp
+// (the 8 lanes of one wy) holds the same 8 rows, and lane wx of it owns
+// row row0 + 4 wx for the epilogues' per-row state.  A quarter warp then
+// reads one 128-byte line of the table chunk, and the four rows a warp
+// reads at one dim fall in distinct banks (swz), so every shared load is
+// one wavefront.
+struct Roles {
+  int row0;  // wm * 32 + wy
+  int col0;  // wn * 64
+  int wx, wn, lane;
+};
+
+__device__ __forceinline__ Roles roles_of(int tid) {
+  Roles r;
+  const int warp = tid >> 5;
+  r.lane = tid & 31;
+  r.wx = r.lane & 7;
+  r.wn = warp >> 2;  // each sub-partition (warp % 4) has both halves
+  r.row0 = (warp & 3) * 32 + (r.lane >> 3);
+  r.col0 = r.wn * 64;
+  return r;
+}
+
+__device__ __forceinline__ int col_of(int j, int wx) {
+  return (j < 4 ? 0 : 32) + wx * 4 + (j & 3);
+}
+
+// acc[i][j] += sum over the chunk's dims of A[row0 + 4 i][k] * B[k][col]:
+// per 4 dims, 8 float4 reads of pixel rows (swz) and 2 float4 reads of
+// table classes per dim feed 256 FMAs.
+__device__ __forceinline__ void product(const float* __restrict__ a,
+                                        const float* __restrict__ b,
+                                        float (&acc)[8][8], const Roles& r) {
+  const char* ar = reinterpret_cast<const char*>(a) + r.row0 * kChunk * 4;
+  // row row0 + 4 i is wy + 4 (i % 2) modulo 8
+  const int wy16 = (r.row0 & 7) << 4;
+  const float* br = b + r.col0 + r.wx * 4;
+#pragma unroll
+  for (int q = 0; q < kChunk / 4; ++q) {
+    float4 av[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      av[i] = *reinterpret_cast<const float4*>(
+          ar + 4 * i * kChunk * 4 + ((((q ^ ((i & 1) << 2))) << 4) ^ wy16));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 b0 =
+          *reinterpret_cast<const float4*>(br + (4 * q + kk) * kCols);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(br + (4 * q + kk) * kCols + 32);
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float x = kk == 0   ? av[i].x
+                        : kk == 1 ? av[i].y
+                        : kk == 2 ? av[i].z
+                                  : av[i].w;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(x, bv[j], acc[i][j]);
+      }
+    }
+  }
+}
+
+// Thread t's share of sum x^2 of row t / 2 in an f32 chunk (half its
+// dims, f64).
+__device__ __forceinline__ double chunk_sumsq(const float* __restrict__ a,
+                                              int tid) {
+  const char* p = reinterpret_cast<const char*>(a);
+  const int r = tid >> 1;
+  double s = 0.0;
+#pragma unroll
+  for (int q = 0; q < kChunk / 8; ++q) {
+    const float4 v = *reinterpret_cast<const float4*>(
+        p + swz(r, (tid & 1) * (kChunk / 8) + q));
+    s = fma((double)v.x, (double)v.x, s);
+    s = fma((double)v.y, (double)v.y, s);
+    s = fma((double)v.z, (double)v.z, s);
+    s = fma((double)v.w, (double)v.w, s);
+  }
+  return s;
+}
+
+// bf16: thread t rounds x * rs of its half of row t / 2 to bf16 (the TPU
+// kernels' rounding point) and writes it widened to the f32 chunk.
+template <typename T>
+__device__ __forceinline__ void round_chunk(const T* __restrict__ raw,
+                                            float* __restrict__ wide,
+                                            const float* __restrict__ rs,
+                                            int tid) {
+  const int r = tid >> 1;
+  const float scale = rs[r];
+  char* w = reinterpret_cast<char*>(wide);
+#pragma unroll
+  for (int q = 0; q < kChunk / 16; ++q) {
+    const int dim = (tid & 1) * (kChunk / 2) + q * 8;
+    T v[8];
+    load8(raw + r * kChunk + dim, v);
+    float o[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      o[e] = to_float(round_to(to_float(v[e]) * scale, T()));
+    *reinterpret_cast<float4*>(w + swz(r, dim / 4)) =
+        make_float4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<float4*>(w + swz(r, dim / 4 + 1)) =
+        make_float4(o[4], o[5], o[6], o[7]);
+  }
+}
+
+// The block's loop: pixel rows blockIdx.x * kRows .. + kRows of `field`
+// [n, d] against columns [0, c) of `table_t` [d, ldt] f32 (ldt % 4 == 0),
+// class tile by class tile.  After a tile's last chunk, epilogue(acc, rs,
+// tile) gets the thread's 8 x 8 sums (rows row0 + 4 i, columns tile *
+// kCols + col0 + col_of(j, wx); columns >= c hold no meaning) and the row
+// scales in shared memory; the sums are zeroed after.  No tile runs when
+// c == 0.
+template <typename T, typename Epilogue>
+__device__ __forceinline__ void score_tiles(unsigned char* smem,
+                                            const T* __restrict__ field,
+                                            const float* __restrict__ table_t,
+                                            int ldt, int c, long long n,
+                                            int d, const Roles& roles,
+                                            Epilogue&& epilogue) {
+  using L = Layout<T>;
+  float* rs = reinterpret_cast<float*>(smem + L::kScaleOffset);
+  float* wide = reinterpret_cast<float*>(smem + L::kWideOffset);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long base = (long long)blockIdx.x * kRows;  // first pixel row
+  const int chunks = (d + kChunk - 1) / kChunk;
+  const int steps = chunks * ((c + kCols - 1) / kCols);
+
+  // Copies: step s (class tile s / chunks, dim chunk s % chunks) into stage
+  // s % kStages, 16-byte pieces zero-filled past n, c and d, one commit
+  // group per step (empty past the last).  Each thread's sources and places
+  // are fixed but for the step's offsets.
+  constexpr int kPer = 16 / (int)sizeof(T);
+  constexpr int kRowPieces = kChunk / kPer;
+  constexpr int kRowStep = kThreads / kRowPieces;  // a thread's rows apart
+  constexpr int kAIters = kRows / kRowStep;
+  const int a_row = tid / kRowPieces;
+  const int a_dim = (tid % kRowPieces) * kPer;
+  const T* a_src = field + (base + a_row) * d + a_dim;
+  unsigned a_ok = 0;
+#pragma unroll
+  for (int i = 0; i < kAIters; ++i)
+    if (base + a_row + i * kRowStep < n) a_ok |= 1u << i;
+  // f32 rows are swizzled (swz); a thread's rows are 32 apart, the same % 8
+  const uint32_t a_dst =
+      tc::smem_addr(smem) +
+      (L::kRoundFirst ? a_row * L::kRowBytes + (tid % kRowPieces) * 16
+                      : swz(a_row, tid % kRowPieces));
+  const int b_dim = tid >> 5;
+  const int b_col = (tid & 31) * 4;
+  const float* b_src = table_t + (long long)b_dim * ldt + b_col;
+  const uint32_t b_dst = tc::smem_addr(smem) + L::kABytes + tid * 16;
+  int next_tile = 0, next_dim0 = 0;
+  auto copy_step = [&](int s) {
+    if (s < steps) {
+      const uint32_t stage = (s % kStages) * L::kStageBytes;
+      const bool dim_ok = next_dim0 + a_dim < d;
+#pragma unroll
+      for (int i = 0; i < kAIters; ++i) {
+        const bool ok = dim_ok && ((a_ok >> i) & 1u);
+        tc::cp_async16(
+            a_dst + stage + i * kRowStep * L::kRowBytes,
+            ok ? a_src + (long long)i * kRowStep * d + next_dim0 : field, ok);
+      }
+      const bool col_ok = next_tile * kCols + b_col < c;
+      const float* b = b_src + (long long)next_dim0 * ldt + next_tile * kCols;
+#pragma unroll
+      for (int i = 0; i < kChunk / 8; ++i) {
+        const bool ok = col_ok && next_dim0 + b_dim + 8 * i < d;
+        tc::cp_async16(b_dst + stage + i * 8 * kCols * 4,
+                       ok ? b + (long long)8 * i * ldt : table_t, ok);
+      }
+      next_dim0 += kChunk;
+      if (next_dim0 >= d) {
+        next_dim0 = 0;
+        ++next_tile;
+      }
+    }
+    tc::cp_async_commit();
+  };
+  for (int s = 0; s < kStages - 1; ++s) copy_step(s);
+
+  if constexpr (L::kRoundFirst) {
+    // bf16 rounds x * rs before the product, so the scales come first: a
+    // pass over the rows (f64 sums, warp-reduced), overlapping the copies.
+    constexpr int kRowsPerWarp = kRows / (kThreads / 32);
+    for (int r = warp * kRowsPerWarp; r < (warp + 1) * kRowsPerWarp; ++r) {
+      double sq = 0.0;
+      if (base + r < n) {
+        for (int g = lane * 8; g < d; g += 256) {
+          T v[8];
+          load8(field + (base + r) * d + g, v);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const double x = to_float(v[e]);
+            sq = fma(x, x, sq);
+          }
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sq += __shfl_xor_sync(0xffffffffu, sq, off);
+      if (lane == 0) rs[r] = (float)(1.0 / sqrt(fmax(sq, 1e-24)));
+    }
+  }
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  double sq = 0.0;  // f32: this thread's share of sum x^2 of row tid / 2
+  int tile = 0, chunk = 0;
+  for (int s = 0; s < steps; ++s) {
+    tc::cp_async_wait<kStages - 2>();
+    __syncthreads();  // step s landed everywhere; stage (s - 1) is free
+    copy_step(s + kStages - 1);
+    const unsigned char* stage = smem + (s % kStages) * L::kStageBytes;
+    const float* a;
+    if constexpr (L::kRoundFirst) {
+      round_chunk(reinterpret_cast<const T*>(stage), wide, rs, tid);
+      __syncthreads();
+      a = wide;
+    } else {
+      a = reinterpret_cast<const float*>(stage);
+      if (tile == 0) sq += chunk_sumsq(a, tid);
+    }
+    const float* b = reinterpret_cast<const float*>(stage + L::kABytes);
+    if (tile * kCols + roles.col0 < c)  // the half holds live classes
+      product(a, b, acc, roles);
+    if (++chunk == chunks) {
+      if constexpr (!L::kRoundFirst) {
+        if (tile == 0) {  // rs[r] = 1/sqrt(max(sum x^2, 1e-24))
+          sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+          if ((tid & 1) == 0)
+            rs[tid >> 1] = (float)(1.0 / sqrt(fmax(sq, 1e-24)));
+          __syncthreads();
+        }
+      }
+      epilogue(acc, rs, tile);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      chunk = 0;
+      ++tile;
+    }
+  }
+}
+
+}  // namespace simt
+
 }  // namespace rc

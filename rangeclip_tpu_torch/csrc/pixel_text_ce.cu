@@ -25,11 +25,13 @@
 // Bound on the card: the forward does 2 N K D FLOP (68.7 GFLOP packed at
 // N = 524,288, K = 128, D = 512) against N (D * sizeof(T) + 8 S + 4) bytes
 // (0.54 GB): bytes at the tensor cores' bf16 rate (0.07 ms of products
-// against 0.16 ms of reads), operations on the CUDA cores.  The backward
+// against 0.16 ms of reads), operations on the CUDA cores, counted over
+// the members (2 N D count FLOP: 0.18 ms at N = 131,072, D = 512 and 90
+// members in f32).  The backward
 // does the product twice or more (see below) and writes dx too.  The
 // [N, C] logits never touch device memory.
 //
-// Two designs, chosen by shape on the host and by the device flag:
+// Three designs, chosen by shape on the host and by the device flag:
 //
 // bf16 with a packed table, d <= 1280 (the backward: k <= 128): tensor
 // cores (ce_tc_fwd_kernel, ce_tc_bwd_kernel).  A block of one or two
@@ -65,9 +67,32 @@
 // checks' bound (utils/ce_rounding.py measures it).  The CUDA-core kernel
 // sums in the plain version's order.
 //
-// f32, bf16 over the full table, and shapes beyond the above: CUDA-core
-// FMA.  A block of 256 threads owns 64 pixel rows and walks the table in
-// tiles of 128 classes.
+// The forward where no tensor-core kernel runs beside it (f32, and bf16
+// without a tensor-core packed table): the members only
+// (member::ce_members_kernel).  A non-member's logit is -1e30 and its exp
+// term is exactly 0 in f32, so only the members' logits are needed: the
+// wrapper gathers the members of the table the device flag selects on the
+// device (no host sync), first and transposed to [D, C] f32 with their
+// global ids and a device count, and the kernel runs ceil(count / 128)
+// class tiles of pixel_text_topk.cu's fp32 loop (common.cuh:
+// rc::simt::score_tiles: 128 rows x 128 classes a block, a three-stage
+// cp.async ring of 32-dim chunks, two blocks per SM; the f32 scale moves
+// past the sum, bf16 rounds bf16(x * rs) on the landed chunk).  The
+// epilogue runs on the accumulators: 1/tau, an online max / sum-exp per
+// row and class half reduced over a quarter warp by shuffles, and the slot
+// picks found by comparing the members' global ids with the labels; the
+// halves merge at the end.  What the full table gave and a member-only
+// product must keep: the C - count non-member terms of the sum-exp seed
+// the online state (m = -1e30, z = C - count), so they vanish at the first
+// member tile's rescale as in f32 and no member gives -1e30 + log C; a
+// label of a non-member in [0, C) picks its -1e30 (mask[label] read per
+// slot), a label outside picks 0.
+//
+// The full-table CUDA-core kernel (ce_kernel): the backward of every route
+// but the tensor-core one, and the forward launched beside the tensor-core
+// kernel (skip_packed), which returns at once unless the flag selects the
+// full table (a contrast set over the capacity).  A block of 256 threads
+// owns 64 pixel rows and walks the table in tiles of 128 classes.
 //   1. Scale: each warp sums x^2 of 8 rows in f64.
 //   2. Logits: a 64 x 128 register-tiled product over D in chunks of 16
 //      dims, double-buffered in shared memory; staging rounds x * rs to T.
@@ -531,17 +556,26 @@ cudaError_t dispatch(const Params& p, int is_bf16, int slots,
       (p.skip_packed && p.use_packed == nullptr))
     return cudaErrorInvalidValue;
   using bf = __nv_bfloat16;
-  switch (slots * 2 + (is_bf16 ? 1 : 0)) {
-    case 2: return launch<float, 1, kBackward>(p, st);
-    case 3: return launch<bf, 1, kBackward>(p, st);
-    case 4: return launch<float, 2, kBackward>(p, st);
-    case 5: return launch<bf, 2, kBackward>(p, st);
-    case 6: return launch<float, 3, kBackward>(p, st);
-    case 7: return launch<bf, 3, kBackward>(p, st);
-    case 8: return launch<float, 4, kBackward>(p, st);
-    case 9: return launch<bf, 4, kBackward>(p, st);
-    default: return cudaErrorInvalidValue;
+  if (is_bf16) {
+    switch (slots) {
+      case 1: return launch<bf, 1, kBackward>(p, st);
+      case 2: return launch<bf, 2, kBackward>(p, st);
+      case 3: return launch<bf, 3, kBackward>(p, st);
+      case 4: return launch<bf, 4, kBackward>(p, st);
+      default: return cudaErrorInvalidValue;
+    }
   }
+  // the forward runs here only beside the (bf16) tensor-core kernel
+  if constexpr (kBackward) {
+    switch (slots) {
+      case 1: return launch<float, 1, true>(p, st);
+      case 2: return launch<float, 2, true>(p, st);
+      case 3: return launch<float, 3, true>(p, st);
+      case 4: return launch<float, 4, true>(p, st);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 // ---- bf16 packed table: tensor cores ---------------------------------------
@@ -1091,26 +1125,272 @@ bool tc_shape_ok(const TcParams& p, int slots) {
          p.n > 0 && slots >= 1 && slots <= 4;
 }
 
+// ---- f32, and bf16 without a tensor-core packed table: the members only ---
+
+namespace member {
+
+// the loop: common.cuh (declarations, so that they hide the file's own
+// constants of the same names)
+using rc::simt::col_of;
+using rc::simt::kCols;
+using rc::simt::kRows;
+using rc::simt::kThreads;
+using rc::simt::Layout;
+using rc::simt::Roles;
+using rc::simt::roles_of;
+using rc::simt::score_tiles;
+
+constexpr int kMaxSlots = 4;
+
+struct MemberParams {
+  const void* x;
+  const float* temperature;
+  const int* labels;     // [S, n]
+  const float* valid;    // [S, n]
+  long long n;
+  int d;
+  const float* table_t;  // [d, ldt] f32: the selected table's members first
+  int ldt;
+  const int* ids;        // [>= count] their global ids
+  const int* count;      // [1] members
+  const int* mask;       // [c] the full table's membership
+  int c;
+  const int* pmask;      // [k] packed membership, or NULL
+  const int* pids;       // [k] packed global ids
+  int k;
+  const int* use_packed;  // device flag (packed where non-zero), or NULL
+  float* ce;              // [n] per-row CE
+};
+
+// Dynamic shared memory beyond the loop's (rc::simt::Layout): the block's
+// labels [S][kRows], and each class half's per-row state, its online max,
+// sum-exp and slot picks [2][2 + S][kRows], which only the row's owner
+// lane writes (so the loop carries no per-row registers).  107,008 bytes
+// for f32: two blocks per SM.
+template <typename T>
+struct Extra {
+  static constexpr int kLabels = Layout<T>::kEnd;
+  static constexpr int kState = kLabels + kMaxSlots * kRows * 4;
+  static constexpr int kBytes = kState + 2 * (2 + kMaxSlots) * kRows * 4;
+};
+
+// Reductions over the 8 lanes of a quarter warp (the same 8 rows).
+__device__ __forceinline__ float quarter_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+}
+
+__device__ __forceinline__ float quarter_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v + __shfl_xor_sync(0xffffffffu, v, 4);
+}
+
+template <typename T, int S>
+__global__ void __launch_bounds__(kThreads, 2)
+    ce_members_kernel(const MemberParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* lab = reinterpret_cast<int*>(smem + Extra<T>::kLabels);
+  const int tid = threadIdx.x;
+  const Roles roles = roles_of(tid);
+  const long long base = (long long)blockIdx.x * kRows;
+  const long long n = p.n;
+  const int count = __ldg(p.count);
+  const bool packed = p.use_packed != nullptr && *p.use_packed != 0;
+  const int total = packed ? p.k : p.c;  // rows of the selected table
+  const float inv_temp = 1.0f / *p.temperature;
+  const int* __restrict__ ids = p.ids;
+  for (int i = tid; i < S * kRows; i += kThreads) {
+    const long long row = base + i % kRows;
+    lab[i] = row < n ? p.labels[(i / kRows) * n + row] : INT_MIN;
+  }
+  // this half's state: st[0][r] max, st[1][r] sum-exp, st[2 + s][r] picks.
+  // Half 0 starts from the plain version's total - count non-member terms
+  // exp(-1e30 - m) at m = -1e30: they vanish at the first member tile's
+  // rescale, as in f32, and with no member the value is -1e30 +
+  // log(total), as the plain version's.
+  float(*st)[kRows] = reinterpret_cast<float(*)[kRows]>(
+      smem + Extra<T>::kState + roles.wn * (2 + kMaxSlots) * kRows * 4);
+  const int own = roles.row0 + 4 * roles.wx;  // the row this lane owns
+  st[0][own] = rc::kNegInf;
+  st[1][own] = roles.wn == 0 ? (float)(total - count) : 0.f;
+#pragma unroll
+  for (int s = 0; s < S; ++s) st[2 + s][own] = 0.f;
+  __syncthreads();
+
+  score_tiles<T>(
+      smem, static_cast<const T*>(p.x), p.table_t, p.ldt, count, n, p.d,
+      roles, [&](float (&acc)[8][8], const float* rs, int tile) {
+        const int c0 = tile * kCols + roles.col0;
+        int id[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = c0 + col_of(j, roles.wx);
+          id[j] = col < count ? __ldg(ids + col) : 0;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          // logits: f32 scales the sum (rs * sum(x * t)), bf16 summed the
+          // products of bf16(x * rs); then 1/tau; past the count -inf
+          const int r = roles.row0 + 4 * i;
+          const float scale = Layout<T>::kRoundFirst ? 1.f : rs[r];
+          const float m_old = st[0][r];  // read before the owner writes
+          float tmax = -CUDART_INF_F;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float sim = Layout<T>::kRoundFirst
+                                  ? acc[i][j]
+                                  : __fmul_rn(acc[i][j], scale);
+            acc[i][j] = c0 + col_of(j, roles.wx) < count
+                            ? __fmul_rn(sim, inv_temp)
+                            : -CUDART_INF_F;
+            tmax = fmaxf(tmax, acc[i][j]);
+          }
+          const float m_new = fmaxf(m_old, quarter_max(tmax));
+          float ps = 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) ps += expf(acc[i][j] - m_new);
+          ps = quarter_sum(ps);
+          float pv[S];  // the logits at the slots' labels (0 if none)
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            const int l = lab[s * kRows + r];
+            float v = 0.f;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              if (c0 + col_of(j, roles.wx) < count && id[j] == l)
+                v += acc[i][j];
+            pv[s] = quarter_sum(v);
+          }
+          __syncwarp();  // every lane has read m_old
+          if (roles.wx == i) {
+            st[1][r] = __fadd_rn(__fmul_rn(st[1][r], expf(m_old - m_new)),
+                                 ps);
+            st[0][r] = m_new;
+#pragma unroll
+            for (int s = 0; s < S; ++s) st[2 + s][r] += pv[s];
+          }
+        }
+      });
+
+  // The two class halves of a row merge in the owner of the first.
+  __syncthreads();
+  const long long row = base + own;
+  if (roles.wn != 0 || row >= n) return;
+  const float(*other)[kRows] = st + (2 + kMaxSlots);
+  const float m0 = st[0][own], m1 = other[0][own];
+  const float m = fmaxf(m0, m1);
+  const float z = __fadd_rn(__fmul_rn(st[1][own], expf(m0 - m)),
+                            __fmul_rn(other[1][own], expf(m1 - m)));
+  const float lse = m + logf(z);
+  float wsum = 0.f, wpick = 0.f;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int l = lab[s * kRows + own];
+    float pk = st[2 + s][own] + other[2 + s][own];
+    // each row of the selected table with the label's id that is not a
+    // member adds its logit, -1e30 (labels outside [0, c) hit no row of
+    // the full table)
+    if (packed) {
+      for (int q = 0; q < p.k; ++q)
+        if (__ldg(p.pids + q) == l && __ldg(p.pmask + q) == 0)
+          pk = __fadd_rn(pk, rc::kNegInf);
+    } else if (l >= 0 && l < p.c && __ldg(p.mask + l) == 0) {
+      pk = __fadd_rn(pk, rc::kNegInf);
+    }
+    const float w = p.valid[s * n + row];
+    wsum = __fadd_rn(wsum, w);
+    wpick = __fadd_rn(wpick, __fmul_rn(w, pk));
+  }
+  p.ce[row] = __fsub_rn(__fmul_rn(wsum, lse), wpick);
+}
+
+template <typename T, int S>
+cudaError_t launch(const MemberParams& p, cudaStream_t stream) {
+  constexpr int smem = Extra<T>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      ce_members_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  // all of the SM's shared memory, so that two blocks are resident
+  err = cudaFuncSetAttribute(ce_members_kernel<T, S>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             100);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((p.n + kRows - 1) / kRows));
+  ce_members_kernel<T, S><<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(const MemberParams& p, int is_bf16, int slots,
+                     cudaStream_t st) {
+  using bf = __nv_bfloat16;
+  switch (slots * 2 + (is_bf16 ? 1 : 0)) {
+    case 2: return launch<float, 1>(p, st);
+    case 3: return launch<bf, 1>(p, st);
+    case 4: return launch<float, 2>(p, st);
+    case 5: return launch<bf, 2>(p, st);
+    case 6: return launch<float, 3>(p, st);
+    case 7: return launch<bf, 3>(p, st);
+    case 8: return launch<float, 4>(p, st);
+    case 9: return launch<bf, 4>(p, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace member
+
 }  // namespace
 
-// x: [n, d] f32 (is_bf16 == 0) or bf16, un-normalised, 16-byte aligned;
-// temperature: [1] f32; labels: [slots, n] int32; valid: [slots, n] f32;
-// table: [c, d] normalised, in x's dtype; mask: [c] int32.  The packed
-// members (ptable [k, d], pmask [k], pids [k]) and the device flag
-// use_packed may be NULL (full table only).  ce: [n] f32.  1 <= slots <= 4.
-// skip_packed: return at once where *use_packed != 0 (the tensor-core
-// kernel takes that branch).
+// The full-table forward launched beside the tensor-core forward: it
+// returns at once where *use_packed != 0 (the tensor-core kernel takes that
+// branch) and scores the full table otherwise.  x: [n, d] bf16,
+// un-normalised, 16-byte aligned; temperature: [1] f32; labels: [slots, n]
+// int32; valid: [slots, n] f32; table: [c, d] bf16 normalised; mask: [c]
+// int32; the packed members ptable [k, d], pmask [k], pids [k]; the device
+// flag use_packed.  ce: [n] f32.  1 <= slots <= 4.
 extern "C" int rc_pixel_text_ce_fwd(
-    const void* x, int is_bf16, const float* temperature, const int* labels,
+    const void* x, const float* temperature, const int* labels,
     const float* valid, int slots, long long n, int d, const void* table,
     const int* mask, int c, const void* ptable, const int* pmask,
-    const int* pids, int k, const int* use_packed, int skip_packed,
-    float* ce, void* stream) {
-  Params p{x,     temperature, nullptr, labels,     valid,       n,
-           d,     table,       mask,    c,          ptable,      pmask,
-           pids,  k,           use_packed, skip_packed, ce,      nullptr,
+    const int* pids, int k, const int* use_packed, float* ce,
+    void* stream) {
+  Params p{x,     temperature, nullptr, labels,     valid,   n,
+           d,     table,       mask,    c,          ptable,  pmask,
+           pids,  k,           use_packed, 1,       ce,      nullptr,
            nullptr, nullptr};
-  return dispatch<false>(p, is_bf16, slots, static_cast<cudaStream_t>(stream));
+  return dispatch<false>(p, 1, slots, static_cast<cudaStream_t>(stream));
+}
+
+// The member-only forward, for the routes where the CUDA-core forward runs
+// alone (f32, and bf16 without a tensor-core packed table).  x: [n, d] f32
+// (is_bf16 == 0) or bf16; labels, valid, temperature, ce as
+// rc_pixel_text_ce_fwd; table_t: [d, ldt] f32,
+// 16-byte aligned, ldt % 4 == 0: the members of the table the flag selects
+// (the packed one where *use_packed != 0, else the full one), first and
+// transposed, with their global ids and *count (device memory) of them;
+// the columns past the count are not read.  mask [c]: the full table's
+// membership; pmask, pids [k]: the packed table's (NULL with use_packed).
+// A label's pick is its member's logit, plus -1e30 for each row of the
+// selected table with its id that is not a member.
+extern "C" int rc_pixel_text_ce_members_fwd(
+    const void* x, int is_bf16, const float* temperature, const int* labels,
+    const float* valid, int slots, long long n, int d, const float* table_t,
+    int ldt, const int* ids, const int* count, const int* mask, int c,
+    const int* pmask, const int* pids, int k, const int* use_packed,
+    float* ce, void* stream) {
+  if (d % 8 != 0 || d <= 0 || c <= 0 || n <= 0 || ldt <= 0 ||
+      ldt % 4 != 0 ||
+      (use_packed != nullptr && (pmask == nullptr || pids == nullptr ||
+                                 k <= 0)))
+    return cudaErrorInvalidValue;
+  const member::MemberParams p{x,     temperature, labels, valid, n,
+                               d,     table_t,     ldt,    ids,   count,
+                               mask,  c,           pmask,  pids,  k,
+                               use_packed, ce};
+  return member::dispatch(p, is_bf16, slots,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // As the forward, plus coeff: [1] f32, the upstream gradient of the summed

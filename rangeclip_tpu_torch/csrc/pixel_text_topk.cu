@@ -52,31 +52,16 @@
 // count, and transposed to [D, C] f32 (C padded to a multiple of 4); the
 // columns past the count are never read.  A block of 256 threads (two per
 // SM) owns 128 pixel rows and walks the live classes in tiles of 128.
-//   1. Copies: (class tile, dim chunk) steps stream through a shared-memory
-//      ring by cp.async (simt::kStages stages of simt::kChunk dims), with
-//      no register staging: the pixel chunk row-major in the field's dtype,
-//      the table chunk dim-major in f32, zero-filled past N, the count and
-//      D; each thread's sources and places are fixed but for the step's
-//      offsets.  The steps run on across class tiles, so the next tile's
-//      first copies are in flight while a tile's selection runs.  The
-//      pixel tile is read again for each class tile (from L2 mostly); it
-//      is never re-scaled.
-//   2. Scores: the 8 warps tile the 128 x 128 sums as 4 (rows) x 2 (class
-//      halves of 64), a warp's lanes as 4 x 8; each thread holds 8 rows x 8
-//      classes.  Per 4 dims, 8 float4 reads of pixel rows and 8 of table
-//      classes feed 256 FMAs, each read one shared-memory wavefront (the
-//      pixel rows' 16-byte pieces are XOR-swizzled).  One barrier per step.
-//      A ragged last tile of at most 64 live classes skips its second
-//      half's products; each SM sub-partition (warp % 4) holds one warp of
-//      each half, so that halves the work of every sub-partition.
-//   3. Scale.  f32: the scale moves past the sum, rs * sum(x * t) where
-//      the TPU kernel sums f32(x * rs) * t; the two differ by f32 rounding
-//      only, which the fp32 contract allows (and on power-of-two norms not
-//      at all).  During the first class tile each thread sums x^2 of half a
-//      row's dims from the landed chunks (f64).  bf16 keeps the TPU
-//      kernel's rounding point: a first pass over the rows gives rs (f64,
-//      warp-reduced, overlapping the first copies), and each landed chunk
-//      is rounded to bf16(x * rs) and widened before its product.
+//   1-3. The loop it shares with pixel_text_ce.cu's member-only forward
+//      (common.cuh: rc::simt::score_tiles): (class tile, 32-dim chunk)
+//      steps through a three-stage cp.async ring with no register
+//      staging, running on across class tiles; 8 x 8 sums a thread of a
+//      128 x 128 tile; a ragged last tile of at most 64 live classes skips
+//      its second half's products.  Scale.  f32: the scale moves past the
+//      sum, rs * sum(x * t) where the TPU kernel sums f32(x * rs) * t; the
+//      two differ by f32 rounding only, which the fp32 contract allows (and
+//      on power-of-two norms not at all).  bf16 keeps the TPU kernel's
+//      rounding point, bf16(x * rs) before the product.
 //   4. Selection from the registers, no score tile: the 8 lanes of a
 //      quarter warp hold the same 8 rows; a round takes, for several rows
 //      at once, each lane's best untaken class and the quarter's best by
@@ -99,137 +84,27 @@ namespace {
 
 namespace simt {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 128;   // pixel rows per block
-constexpr int kCols = 128;   // classes per tile
-constexpr int kChunk = 32;   // dims per ring stage: an f32 row of 128 bytes
-constexpr int kStages = 3;   // ring depth: two steps in flight
+// the loop: common.cuh
+using rc::simt::col_of;
+using rc::simt::kCols;
+using rc::simt::kRows;
+using rc::simt::kThreads;
+using rc::simt::Layout;
+using rc::simt::Roles;
+using rc::simt::roles_of;
+using rc::simt::score_tiles;
+
 constexpr int kMaxK = 8;
 constexpr int kSelRows = 4;  // rows a selection round takes at once
 
-// Dynamic shared memory of a block: the ring (each stage a pixel chunk
-// [kRows, kChunk] in the field's dtype, f32 rows swizzled, then a table
-// chunk [kChunk, kCols] f32), for bf16 the chunk rounded and widened to f32
-// (swizzled), the row scales, and two top-k lists (value, table column)
-// per row, one per class half.  115,200 bytes for f32: two blocks per SM.
+// Dynamic shared memory of a block: the loop's (rc::simt::Layout), then two
+// top-k lists (value, table column) per row, one per class half.  115,200
+// bytes for f32: two blocks per SM.
 template <typename T>
-struct Layout {
-  static constexpr bool kRoundFirst = sizeof(T) == 2;
-  static constexpr int kRowBytes = kChunk * (int)sizeof(T);
-  static constexpr int kABytes = kRows * kRowBytes;
-  static constexpr int kStageBytes = kABytes + kChunk * kCols * 4;
-  static constexpr int kWideOffset = kStages * kStageBytes;
-  static constexpr int kScaleOffset =
-      kWideOffset + (kRoundFirst ? kRows * kChunk * 4 : 0);
-  static constexpr int kListOffset = kScaleOffset + kRows * 4;
-  static constexpr int kBytes = kListOffset + 2 * kRows * kMaxK * 8;
+struct Lists {
+  static constexpr int kOffset = Layout<T>::kEnd;
+  static constexpr int kBytes = kOffset + 2 * kRows * kMaxK * 8;
 };
-
-// Byte offset of the 16-byte piece q (4 dims) of f32 row r in a chunk: the
-// pieces of a row are XOR-swizzled by r % 8, so that the float4 reads of
-// rows r .. r+3 at one dim fall in distinct banks (and a row's 8 pieces
-// still fill one 128-byte line).
-__device__ __forceinline__ int swz(int r, int q) {
-  return r * kChunk * 4 + ((q ^ (r & 7)) << 4);
-}
-
-// Thread roles.  The 8 warps tile the block's 128 x 128 sums as 4 (rows) x
-// 2 (class halves); a warp's lanes as 4 (wy) x 8 (wx); each thread holds 8
-// rows (row0 + 4 i) and 8 classes (col0 + col_of(j, wx)).  A quarter warp
-// then reads one 128-byte line of the table chunk, and the four rows a
-// warp reads at one dim fall in distinct banks (swz), so every shared load
-// is one wavefront.
-struct Roles {
-  int row0;  // wm * 32 + wy
-  int col0;  // wn * 64
-  int wx, wn, lane;
-};
-
-__device__ __forceinline__ int col_of(int j, int wx) {
-  return (j < 4 ? 0 : 32) + wx * 4 + (j & 3);
-}
-
-// acc[i][j] += sum over the chunk's dims of A[row0 + 4 i][k] * B[k][col]:
-// per 4 dims, 8 float4 reads of pixel rows (swz) and 2 float4 reads of
-// table classes per dim feed 256 FMAs.
-__device__ __forceinline__ void product(const float* __restrict__ a,
-                                        const float* __restrict__ b,
-                                        float (&acc)[8][8], const Roles& r) {
-  const char* ar = reinterpret_cast<const char*>(a) + r.row0 * kChunk * 4;
-  // row row0 + 4 i is wy + 4 (i % 2) modulo 8
-  const int wy16 = (r.row0 & 7) << 4;
-  const float* br = b + r.col0 + r.wx * 4;
-#pragma unroll
-  for (int q = 0; q < kChunk / 4; ++q) {
-    float4 av[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      av[i] = *reinterpret_cast<const float4*>(
-          ar + 4 * i * kChunk * 4 + ((((q ^ ((i & 1) << 2))) << 4) ^ wy16));
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float4 b0 =
-          *reinterpret_cast<const float4*>(br + (4 * q + kk) * kCols);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(br + (4 * q + kk) * kCols + 32);
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float x = kk == 0   ? av[i].x
-                        : kk == 1 ? av[i].y
-                        : kk == 2 ? av[i].z
-                                  : av[i].w;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(x, bv[j], acc[i][j]);
-      }
-    }
-  }
-}
-
-// Thread t's share of sum x^2 of row t / 2 in an f32 chunk (half its
-// dims, f64).
-__device__ __forceinline__ double chunk_sumsq(const float* __restrict__ a,
-                                              int tid) {
-  const char* p = reinterpret_cast<const char*>(a);
-  const int r = tid >> 1;
-  double s = 0.0;
-#pragma unroll
-  for (int q = 0; q < kChunk / 8; ++q) {
-    const float4 v = *reinterpret_cast<const float4*>(
-        p + swz(r, (tid & 1) * (kChunk / 8) + q));
-    s = fma((double)v.x, (double)v.x, s);
-    s = fma((double)v.y, (double)v.y, s);
-    s = fma((double)v.z, (double)v.z, s);
-    s = fma((double)v.w, (double)v.w, s);
-  }
-  return s;
-}
-
-// bf16: thread t rounds x * rs of its half of row t / 2 to bf16 (the TPU
-// kernel's rounding point) and writes it widened to the f32 chunk.
-template <typename T>
-__device__ __forceinline__ void round_chunk(const T* __restrict__ raw,
-                                            float* __restrict__ wide,
-                                            const float* __restrict__ rs,
-                                            int tid) {
-  const int r = tid >> 1;
-  const float scale = rs[r];
-  char* w = reinterpret_cast<char*>(wide);
-#pragma unroll
-  for (int q = 0; q < kChunk / 16; ++q) {
-    const int dim = (tid & 1) * (kChunk / 2) + q * 8;
-    T v[8];
-    rc::load8(raw + r * kChunk + dim, v);
-    float o[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      o[e] = rc::to_float(rc::round_to(rc::to_float(v[e]) * scale, T()));
-    *reinterpret_cast<float4*>(w + swz(r, dim / 4)) =
-        make_float4(o[0], o[1], o[2], o[3]);
-    *reinterpret_cast<float4*>(w + swz(r, dim / 4 + 1)) =
-        make_float4(o[4], o[5], o[6], o[7]);
-  }
-}
 
 // Merge one class tile's sums into the lists.  The 8 lanes of a quarter
 // warp hold the same 8 rows (8 classes each, 64 in all); lane wx owns the
@@ -340,103 +215,12 @@ __global__ void __launch_bounds__(kThreads, 2)
                                const int* __restrict__ count, long long n,
                                int d, int* __restrict__ idx,
                                float* __restrict__ vals) {
-  using L = Layout<T>;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* rs = reinterpret_cast<float*>(smem + L::kScaleOffset);
-  float* wide = reinterpret_cast<float*>(smem + L::kWideOffset);
-  float* list_v = reinterpret_cast<float*>(smem + L::kListOffset);
+  float* list_v = reinterpret_cast<float*>(smem + Lists<T>::kOffset);
   int* list_c = reinterpret_cast<int*>(list_v + 2 * kRows * kMaxK);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  Roles roles;
-  roles.lane = lane;
-  roles.wx = lane & 7;
-  roles.wn = warp >> 2;  // each sub-partition (warp % 4) has both halves
-  roles.row0 = (warp & 3) * 32 + (lane >> 3);
-  roles.col0 = roles.wn * 64;
-  const long long base = (long long)blockIdx.x * kRows;  // first pixel row
+  const Roles roles = roles_of(threadIdx.x);
   const int c = __ldg(count);  // live classes: the table's first columns
-  const int chunks = (d + kChunk - 1) / kChunk;
-  const int steps = chunks * ((c + kCols - 1) / kCols);
 
-  // Copies: step s (class tile s / chunks, dim chunk s % chunks) into stage
-  // s % kStages, 16-byte pieces zero-filled past n, c and d, one commit
-  // group per step (empty past the last).  Each thread's sources and places
-  // are fixed but for the step's offsets.
-  constexpr int kPer = 16 / (int)sizeof(T);
-  constexpr int kRowPieces = kChunk / kPer;
-  constexpr int kRowStep = kThreads / kRowPieces;  // a thread's rows apart
-  constexpr int kAIters = kRows / kRowStep;
-  const int a_row = tid / kRowPieces;
-  const int a_dim = (tid % kRowPieces) * kPer;
-  const T* a_src = field + (base + a_row) * d + a_dim;
-  unsigned a_ok = 0;
-#pragma unroll
-  for (int i = 0; i < kAIters; ++i)
-    if (base + a_row + i * kRowStep < n) a_ok |= 1u << i;
-  // f32 rows are swizzled (swz); a thread's rows are 32 apart, the same % 8
-  const uint32_t a_dst =
-      rc::tc::smem_addr(smem) +
-      (L::kRoundFirst ? a_row * L::kRowBytes + (tid % kRowPieces) * 16
-                      : swz(a_row, tid % kRowPieces));
-  const int b_dim = tid >> 5;
-  const int b_col = (tid & 31) * 4;
-  const float* b_src = table_t + (long long)b_dim * ldt + b_col;
-  const uint32_t b_dst = rc::tc::smem_addr(smem) + L::kABytes + tid * 16;
-  int next_tile = 0, next_dim0 = 0;
-  auto copy_step = [&](int s) {
-    if (s < steps) {
-      const uint32_t stage = (s % kStages) * L::kStageBytes;
-      const bool dim_ok = next_dim0 + a_dim < d;
-#pragma unroll
-      for (int i = 0; i < kAIters; ++i) {
-        const bool ok = dim_ok && ((a_ok >> i) & 1u);
-        rc::tc::cp_async16(
-            a_dst + stage + i * kRowStep * L::kRowBytes,
-            ok ? a_src + (long long)i * kRowStep * d + next_dim0 : field, ok);
-      }
-      const bool col_ok = next_tile * kCols + b_col < c;
-      const float* b = b_src + (long long)next_dim0 * ldt + next_tile * kCols;
-#pragma unroll
-      for (int i = 0; i < kChunk / 8; ++i) {
-        const bool ok = col_ok && next_dim0 + b_dim + 8 * i < d;
-        rc::tc::cp_async16(b_dst + stage + i * 8 * kCols * 4,
-                           ok ? b + (long long)8 * i * ldt : table_t, ok);
-      }
-      next_dim0 += kChunk;
-      if (next_dim0 >= d) {
-        next_dim0 = 0;
-        ++next_tile;
-      }
-    }
-    rc::tc::cp_async_commit();
-  };
-  for (int s = 0; s < kStages - 1; ++s) copy_step(s);
-
-  if constexpr (L::kRoundFirst) {
-    // bf16 rounds x * rs before the product, so the scales come first: a
-    // pass over the rows (f64 sums, warp-reduced), overlapping the copies.
-    constexpr int kRowsPerWarp = kRows / (kThreads / 32);
-    for (int r = warp * kRowsPerWarp; r < (warp + 1) * kRowsPerWarp; ++r) {
-      double sq = 0.0;
-      if (base + r < n) {
-        for (int g = lane * 8; g < d; g += 256) {
-          T v[8];
-          rc::load8(field + (base + r) * d + g, v);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const double x = rc::to_float(v[e]);
-            sq = fma(x, x, sq);
-          }
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sq += __shfl_xor_sync(0xffffffffu, sq, off);
-      if (lane == 0) rs[r] = (float)(1.0 / sqrt(fmax(sq, 1e-24)));
-    }
-  }
   // this lane's list: row row0 + 4 wx of its quarter, class half wn
   const int own_row = roles.row0 + 4 * roles.wx;
   float* lv = list_v + (roles.wn * kRows + own_row) * kMaxK;
@@ -449,56 +233,18 @@ __global__ void __launch_bounds__(kThreads, 2)
   float thr_v = -CUDART_INF_F;
   int thr_c = INT_MAX;
 
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  double sq = 0.0;  // f32: this thread's share of sum x^2 of row tid / 2
-  int tile = 0, chunk = 0;
-  for (int s = 0; s < steps; ++s) {
-    rc::tc::cp_async_wait<kStages - 2>();
-    __syncthreads();  // step s landed everywhere; stage (s - 1) is free
-    copy_step(s + kStages - 1);
-    const unsigned char* stage = smem + (s % kStages) * L::kStageBytes;
-    const float* a;
-    if constexpr (L::kRoundFirst) {
-      round_chunk(reinterpret_cast<const T*>(stage), wide, rs, tid);
-      __syncthreads();
-      a = wide;
-    } else {
-      a = reinterpret_cast<const float*>(stage);
-      if (tile == 0) sq += chunk_sumsq(a, tid);
-    }
-    const float* b = reinterpret_cast<const float*>(stage + L::kABytes);
-    if (tile * kCols + roles.col0 < c)  // the half holds live classes
-      product(a, b, acc, roles);
-    if (++chunk == chunks) {
-      if constexpr (!L::kRoundFirst) {
-        if (tile == 0) {  // rs[r] = 1/sqrt(max(sum x^2, 1e-24))
-          sq += __shfl_xor_sync(0xffffffffu, sq, 1);
-          if ((tid & 1) == 0)
-            rs[tid >> 1] = (float)(1.0 / sqrt(fmax(sq, 1e-24)));
-          __syncthreads();
-        }
-      }
-      select_tile<K, !L::kRoundFirst>(acc, rs, tile * kCols, c, lv, lc,
-                                      thr_v, thr_c, roles);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      chunk = 0;
-      ++tile;
-    }
-  }
+  score_tiles<T>(smem, field, table_t, ldt, c, n, d, roles,
+                 [&](float (&acc)[8][8], const float* rs, int tile) {
+                   select_tile<K, !Layout<T>::kRoundFirst>(
+                       acc, rs, tile * kCols, c, lv, lc, thr_v, thr_c, roles);
+                 });
 
   // The lists of the two class halves of a row merge in the owner of the
   // first; list columns map to ids, and picks past the live classes are
   // dead slots.
   __syncthreads();
   if (roles.wn != 0) return;
-  const long long row = base + own_row;
+  const long long row = (long long)blockIdx.x * kRows + own_row;
   if (row >= n) return;
   float v[K];
   int col[K];
@@ -527,7 +273,7 @@ template <int K, typename T>
 cudaError_t launch(const T* field, const float* table_t, int ldt,
                    const int* ids, const int* count, long long n, int d,
                    int* idx, float* vals, cudaStream_t stream) {
-  constexpr int smem = Layout<T>::kBytes;
+  constexpr int smem = Lists<T>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       pixel_text_topk_fma_kernel<K, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -730,6 +476,6 @@ extern "C" long long rc_pixel_text_topk_tc_smem(int d) {
 // Dynamic shared memory of the CUDA-core kernel's block for an f32
 // (is_bf16 == 0) or bf16 field, for reports.
 extern "C" long long rc_pixel_text_topk_fma_smem(int is_bf16) {
-  return is_bf16 ? simt::Layout<__nv_bfloat16>::kBytes
-                 : simt::Layout<float>::kBytes;
+  return is_bf16 ? simt::Lists<__nv_bfloat16>::kBytes
+                 : simt::Lists<float>::kBytes;
 }

@@ -15,13 +15,25 @@
 // 32 x 128 x 128 x 512) and the backward reads it once and writes the
 // gradient once (1.07 GB).
 //
-// Forward: each thread owns 8 channels (one 16-byte load) of one pixel
-// column and walks down a tile of 8 image rows, keeping the rows above, at
-// and below in registers; the horizontal neighbours are the next thread
-// group's own loads (L1/L2 hits), so device memory sees about one read of
-// the field.  The per-block partial sums are written out and summed by the
-// caller in a fixed order (deterministic), as the TPU kernel's per-tile
-// partials are.
+// Forward: the backward's band, one streaming pass.  A block owns a band of
+// 32 image rows x 32 pixel columns x 64 channels and streams its rows down
+// the image through a shared-memory ring of six row slabs (cp.async,
+// 16-byte pieces), rows h+2 .. h+5 in flight while row h is summed.  The
+// forward pairs a pixel with its right-hand and lower neighbours only, so
+// a slab holds the band's 32 columns and one halo column on the right, and
+// the ring takes one halo row below the band: every byte of the field is
+// read once, plus 1/32 for each halo.  Each thread owns one column x 8
+// channels, carries its row in registers from the step before (the row
+// below becomes the next row) and reads its two neighbours from shared
+// memory; differences are rounded to bf16 and summed as |.| in f32 in
+// registers.  Zero-filled pieces (past W or D) belong to idle threads and
+// are never a right-hand neighbour: a column's right pair exists only
+// where w + 1 < W.  One (sum |dh| * w, sum |dv| * w) pair leaves each block;
+// a one-block kernel launched by the same entry point sums the partials in
+// block order (two calls are bit-equal) and forms the TV value with the
+// f32 arithmetic of tv_rowtile.py's scale_sums: true division by each
+// direction's pair count, the upsample factor, the add.  The grid is
+// one-dimensional, so the forward takes any B * H.
 //
 // Backward: a block owns a band of 32 image rows x 32 pixel columns x 64
 // channels and streams it down the image through a shared-memory ring of
@@ -45,16 +57,11 @@
 
 namespace {
 
-// ---- forward ----------------------------------------------------------------
-
-constexpr int kThreads = 256;
-constexpr int kRows = 8;  // image rows per block
 using bf16 = __nv_bfloat16;
 
 // The difference a - b rounded to bf16, widened back to f32.
-__device__ __forceinline__ float diff_bf16(bf16 a, bf16 b) {
-  return __bfloat162float(
-      __float2bfloat16_rn(__bfloat162float(a) - __bfloat162float(b)));
+__device__ __forceinline__ float diff_bf16(float a, float b) {
+  return __bfloat162float(__float2bfloat16_rn(a - b));
 }
 
 // The backward's slope of two widened bf16 values: +1 where the bf16
@@ -66,98 +73,14 @@ __device__ __forceinline__ float sign_of_diff(float a, float b) {
   return a - b >= 0.f ? 1.f : -1.f;
 }
 
-struct Tile {
-  long long p;  // (pixel column, channel group) pair of this thread
-  int w, g;
-  int b, h0, h1;
-};
+// ---- the band and its ring of row slabs, shared by both kernels ----------
 
-__device__ __forceinline__ Tile tile_of(int H, int W, int D) {
-  Tile t;
-  const int groups = D / 8;
-  t.p = (long long)blockIdx.x * kThreads + threadIdx.x;
-  t.w = (int)(t.p / groups);
-  t.g = (int)(t.p % groups);
-  const int tiles = (H + kRows - 1) / kRows;
-  t.b = blockIdx.y / tiles;
-  t.h0 = (blockIdx.y % tiles) * kRows;
-  t.h1 = min(t.h0 + kRows, H);
-  return t;
-}
-
-__global__ void __launch_bounds__(kThreads)
-    tv_fwd_kernel(const bf16* __restrict__ x, int H, int W, int D,
-                  const float* __restrict__ weight,
-                  float* __restrict__ partials) {
-  const Tile t = tile_of(H, W, D);
-  float sh = 0.f, sv = 0.f;
-  if (t.p < (long long)W * (D / 8)) {
-    const long long row = (long long)W * D;
-    const bf16* col = x + (long long)t.b * H * row + (long long)t.w * D +
-                      t.g * 8;
-    bf16 cur[8], nxt[8], right[8];
-    rc::load8(col + t.h0 * row, cur);
-    for (int h = t.h0; h < t.h1; ++h) {
-      if (t.w < W - 1) {
-        rc::load8(col + h * row + D, right);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) sh += fabsf(diff_bf16(cur[i], right[i]));
-      }
-      if (h < H - 1) {
-        rc::load8(col + (h + 1) * row, nxt);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          sv += fabsf(diff_bf16(cur[i], nxt[i]));
-          cur[i] = nxt[i];
-        }
-      }
-    }
-  }
-  __shared__ float red[2][kThreads / 32];
-  sh = rc::warp_sum(sh);
-  sv = rc::warp_sum(sv);
-  if ((threadIdx.x & 31) == 0) {
-    red[0][threadIdx.x >> 5] = sh;
-    red[1][threadIdx.x >> 5] = sv;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float th = 0.f, tv = 0.f;
-#pragma unroll
-    for (int i = 0; i < kThreads / 32; ++i) {
-      th += red[0][i];
-      tv += red[1][i];
-    }
-    const float wt = weight != nullptr ? weight[t.b] : 1.f;
-    const long long block =
-        (long long)blockIdx.y * gridDim.x + blockIdx.x;
-    partials[2 * block] = th * wt;
-    partials[2 * block + 1] = tv * wt;
-  }
-}
-
-dim3 grid_of(int B, int H, int W, int D) {
-  const long long pairs = (long long)W * (D / 8);
-  return dim3((unsigned)((pairs + kThreads - 1) / kThreads),
-              (unsigned)(B * ((H + kRows - 1) / kRows)));
-}
-
-// The forward grid's y extent is at most 65535: B * ceil(H / 8) blocks.
-bool valid_shape(int B, int H, int W, int D) {
-  return B >= 1 && H >= 1 && W >= 1 && D >= 8 && D % 8 == 0 &&
-         (long long)B * ((H + kRows - 1) / kRows) <= 65535;
-}
-
-// ---- backward: a shared-memory halo stencil --------------------------------
-
-constexpr int kBwdThreads = 256;
-constexpr int kBwdPixels = 32;  // pixel columns per block (W-tile)
-constexpr int kBwdGroups = 8;   // 8-channel groups per block: 64 channels
-constexpr int kBand = 32;       // image rows per block
-constexpr int kSlabs = 6;       // ring slots: rows h-1 .. h+4
-constexpr int kBwdBlocks = 4;   // resident blocks per SM (64 registers)
-constexpr int kSlabPieces = (kBwdPixels + 2) * kBwdGroups;  // with the halo
-constexpr int kSlabBytes = kSlabPieces * 16;
+constexpr int kThreads = 256;
+constexpr int kPixels = 32;  // pixel columns per block (W-tile)
+constexpr int kGroups = 8;   // 8-channel groups per block: 64 channels
+constexpr int kBand = 32;    // image rows per block
+constexpr int kSlabs = 6;    // ring slots
+constexpr int kBlocks = 4;   // resident blocks per SM (64 registers)
 
 struct Band {
   int b, h0, h1, w0, g0;  // image, rows [h0, h1), first column and group
@@ -166,14 +89,14 @@ struct Band {
 // One 32-bit division chain per block: W-tiles fastest, then channel
 // chunks, bands and images.
 __device__ __forceinline__ Band band_of(int H, int W, int D) {
-  const unsigned wtiles = (W + kBwdPixels - 1) / kBwdPixels;
-  const unsigned chunks = (D / 8 + kBwdGroups - 1) / kBwdGroups;
+  const unsigned wtiles = (W + kPixels - 1) / kPixels;
+  const unsigned chunks = (D / 8 + kGroups - 1) / kGroups;
   const unsigned bands = (H + kBand - 1) / kBand;
   unsigned i = blockIdx.x;
   Band t;
-  t.w0 = (int)(i % wtiles) * kBwdPixels;
+  t.w0 = (int)(i % wtiles) * kPixels;
   i /= wtiles;
-  t.g0 = (int)(i % chunks) * kBwdGroups;
+  t.g0 = (int)(i % chunks) * kGroups;
   i /= chunks;
   t.h0 = (int)(i % bands) * kBand;
   t.b = (int)(i / bands);
@@ -181,52 +104,203 @@ __device__ __forceinline__ Band band_of(int H, int W, int D) {
   return t;
 }
 
-__global__ void __launch_bounds__(kBwdThreads, kBwdBlocks)
+long long band_blocks(int B, int H, int W, int D) {
+  return (long long)B * ((H + kBand - 1) / kBand) *
+         ((D / 8 + kGroups - 1) / kGroups) * ((W + kPixels - 1) / kPixels);
+}
+
+bool valid_shape(int B, int H, int W, int D) {
+  return B >= 1 && H >= 1 && W >= 1 && D >= 8 && D % 8 == 0 &&
+         band_blocks(B, H, W, D) < (1ll << 31);
+}
+
+// A band's ring of row slabs.  Row r's slab holds the band's 32 columns,
+// kLeft halo columns on the left and one on the right, 64 channels
+// (zero-filled past the image), in slot (r - h0 + kUp) % kSlabs: the
+// backward (kLeft = kUp = 1) takes rows h0-1 .. h1, the forward (kLeft =
+// kUp = 0) rows h0 .. h1.  Each thread copies the same one or two pieces of
+// every row; one commit group per call, empty where there is no row.
+template <int kLeft, int kUp>
+struct SlabRing {
+  static constexpr int kPieces = (kPixels + kLeft + 1) * kGroups;
+  static constexpr int kSlabBytes = kPieces * 16;
+  static constexpr int kBytes = kSlabs * kSlabBytes;
+
+  unsigned char* ring;
+  const bf16* x;
+  long long row;  // elements per image row
+  int h0, h1, H;
+  long long src[2];
+  bool ok[2];
+
+  __device__ __forceinline__ SlabRing(unsigned char* ring_, const bf16* x_,
+                                      const Band& t, int H_, int W, int D)
+      : ring(ring_), x(x_), row((long long)W * D), h0(t.h0), h1(t.h1),
+        H(H_) {
+    const long long image = (long long)t.b * H * row;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int p = threadIdx.x + q * kThreads;
+      const int w = t.w0 - kLeft + p / kGroups;
+      const int grp = t.g0 + p % kGroups;
+      ok[q] = p < kPieces && w >= 0 && w < W && grp * 8 < D;
+      src[q] = image + (long long)w * D + grp * 8;
+    }
+  }
+
+  __device__ __forceinline__ void copy_row(int r) {
+    if (r >= 0 && r < H && r <= h1) {
+      const uint32_t slot = rc::tc::smem_addr(ring) +
+                            ((r - h0 + kUp) % kSlabs) * kSlabBytes;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int p = threadIdx.x + q * kThreads;
+        if (p < kPieces)
+          rc::tc::cp_async16(slot + p * 16, ok[q] ? x + src[q] + r * row : x,
+                             ok[q]);
+      }
+    }
+    rc::tc::cp_async_commit();
+  }
+
+  // The 8 channels of piece `piece` (column * kGroups + group) of row r.
+  __device__ __forceinline__ const bf16* at(int r, int piece) const {
+    return reinterpret_cast<const bf16*>(
+               ring + ((r - h0 + kUp) % kSlabs) * kSlabBytes) +
+           piece * 8;
+  }
+};
+
+// ---- forward: one streaming pass, then the value ---------------------------
+
+constexpr int kSumThreads = 1024;
+
+__global__ void __launch_bounds__(kThreads, kBlocks)
+    tv_fwd_kernel(const bf16* __restrict__ x, int H, int W, int D,
+                  const float* __restrict__ weight,
+                  float* __restrict__ partials) {
+  using Ring = SlabRing<0, 0>;
+  __shared__ __align__(16) unsigned char ring_mem[Ring::kBytes];
+  __shared__ float red[2][kThreads / 32];
+  const Band t = band_of(H, W, D);
+  Ring ring(ring_mem, x, t, H, W, D);
+  const int tid = threadIdx.x;
+  for (int i = 0; i < kSlabs - 1; ++i) ring.copy_row(t.h0 + i);
+
+  // this thread: column j of the tile, channel group tid % kGroups
+  const int j = tid / kGroups;
+  const int w = t.w0 + j;
+  const bool active = w < W && (t.g0 + tid % kGroups) * 8 < D;
+  const bool has_r = w < W - 1;
+  const int at = j * kGroups + tid % kGroups;  // piece in a slab
+  float cur[8];  // row h, widened
+  float sh = 0.f, sv = 0.f;
+  bf16 v[8];
+  for (int h = t.h0; h < t.h1; ++h) {
+    // rows <= h+1 landed; later ones in flight
+    rc::tc::cp_async_wait<kSlabs - 3>();
+    __syncthreads();             // ... for every thread; row h-1 is free
+    ring.copy_row(h + kSlabs - 1);  // into row h-1's slot
+    if (!active) continue;
+    if (h == t.h0) {
+      rc::load8(ring.at(h, at), v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) cur[i] = __bfloat162float(v[i]);
+    }
+    if (has_r) {
+      rc::load8(ring.at(h, at + kGroups), v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        sh += fabsf(diff_bf16(cur[i], __bfloat162float(v[i])));
+    }
+    if (h < H - 1) {
+      rc::load8(ring.at(h + 1, at), v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float below = __bfloat162float(v[i]);
+        sv += fabsf(diff_bf16(cur[i], below));
+        cur[i] = below;
+      }
+    }
+  }
+  sh = rc::warp_sum(sh);
+  sv = rc::warp_sum(sv);
+  if ((tid & 31) == 0) {
+    red[0][tid >> 5] = sh;
+    red[1][tid >> 5] = sv;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float th = 0.f, tv = 0.f;
+#pragma unroll
+    for (int i = 0; i < kThreads / 32; ++i) {
+      th += red[0][i];
+      tv += red[1][i];
+    }
+    const float wt = weight != nullptr ? weight[t.b] : 1.f;
+    partials[2ll * blockIdx.x] = th * wt;
+    partials[2ll * blockIdx.x + 1] = tv * wt;
+  }
+}
+
+// The partials summed in block order (each thread a strided run, then a
+// fixed tree), and scale_sums' f32 arithmetic: true division by the pair
+// counts, the upsample factors (1 at upsample 1), the add.
+__global__ void __launch_bounds__(kSumThreads)
+    tv_fwd_value_kernel(const float* __restrict__ partials, int blocks,
+                        float pairs_h, float pairs_v, float rescale_h,
+                        float rescale_v, float* __restrict__ out) {
+  __shared__ float red[2][kSumThreads / 32];
+  const int tid = threadIdx.x;
+  float sh = 0.f, sv = 0.f;
+  for (int i = tid; i < blocks; i += kSumThreads) {
+    sh += partials[2ll * i];
+    sv += partials[2ll * i + 1];
+  }
+  sh = rc::warp_sum(sh);
+  sv = rc::warp_sum(sv);
+  if ((tid & 31) == 0) {
+    red[0][tid >> 5] = sh;
+    red[1][tid >> 5] = sv;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float th = 0.f, tv = 0.f;
+#pragma unroll
+    for (int i = 0; i < kSumThreads / 32; ++i) {
+      th += red[0][i];
+      tv += red[1][i];
+    }
+    const float tv_h = __fmul_rn(__fdiv_rn(th, pairs_h), rescale_h);
+    const float tv_v = __fmul_rn(__fdiv_rn(tv, pairs_v), rescale_v);
+    *out = __fadd_rn(tv_h, tv_v);
+  }
+}
+
+// ---- backward: a shared-memory halo stencil --------------------------------
+
+__global__ void __launch_bounds__(kThreads, kBlocks)
     tv_bwd_kernel(const bf16* __restrict__ x, int H, int W, int D,
                   const float* __restrict__ weight,
                   const float* __restrict__ grad, float pairs_h,
                   float pairs_v, float rescale_h, float rescale_v,
                   bf16* __restrict__ dx) {
-  __shared__ __align__(16) unsigned char ring[kSlabs * kSlabBytes];
+  using Ring = SlabRing<1, 1>;
+  __shared__ __align__(16) unsigned char ring_mem[Ring::kBytes];
   const Band t = band_of(H, W, D);
+  Ring ring(ring_mem, x, t, H, W, D);
   const int tid = threadIdx.x;
   const long long row = (long long)W * D;  // elements per image row
   const long long image = (long long)t.b * H * row;
-  const uint32_t base = rc::tc::smem_addr(ring);
-  // Row r's slab (columns w0-1 .. w0+32, 64 channels; zero-filled past the
-  // image) into slot (r - h0 + 1) % kSlabs; rows h0-1 .. h1 are needed.
-  // Each thread copies the same one or two pieces of every row.  One
-  // commit group per call, empty where there is no row.
-  long long src[2];
-  bool ok[2];
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int p = tid + q * kBwdThreads;
-    const int w = t.w0 - 1 + p / kBwdGroups;
-    const int grp = t.g0 + p % kBwdGroups;
-    ok[q] = p < kSlabPieces && w >= 0 && w < W && grp * 8 < D;
-    src[q] = image + (long long)w * D + grp * 8;
-  }
-  auto copy_row = [&](int r) {
-    if (r >= 0 && r < H && r <= t.h1) {
-      const uint32_t slot = base + ((r - t.h0 + 1) % kSlabs) * kSlabBytes;
-#pragma unroll
-      for (int q = 0; q < 2; ++q)
-        if (tid + q * kBwdThreads < kSlabPieces)
-          rc::tc::cp_async16(slot + (tid + q * kBwdThreads) * 16,
-                             ok[q] ? x + src[q] + r * row : x, ok[q]);
-    }
-    rc::tc::cp_async_commit();
-  };
-  for (int i = 0; i < kSlabs - 1; ++i) copy_row(t.h0 - 1 + i);
+  for (int i = 0; i < kSlabs - 1; ++i) ring.copy_row(t.h0 - 1 + i);
 
   // this thread: column j of the tile, channel group gi of the chunk
-  const int j = tid / kBwdGroups;
+  const int j = tid / kGroups;
   const int w = t.w0 + j;
-  const bool active = w < W && (t.g0 + tid % kBwdGroups) * 8 < D;
+  const bool active = w < W && (t.g0 + tid % kGroups) * 8 < D;
   const bool has_l = w > 0;
   const bool has_r = w < W - 1;
-  const int at = (j + 1) * kBwdGroups + tid % kBwdGroups;  // piece in a slab
+  const int at = (j + 1) * kGroups + tid % kGroups;  // piece in a slab
   // (gh, gv) as the wrapper's pair_grads forms them (f32 true division,
   // then the rescale), times the image's weight
   const float wt = weight != nullptr ? weight[t.b] : 1.f;
@@ -234,11 +308,6 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdBlocks)
       __fmul_rn(__fmul_rn(__fdiv_rn(*grad, pairs_h), rescale_h), wt);
   const float gv =
       __fmul_rn(__fmul_rn(__fdiv_rn(*grad, pairs_v), rescale_v), wt);
-  auto slab = [&](int r) {
-    return reinterpret_cast<const bf16*>(ring + ((r - t.h0 + 1) % kSlabs) *
-                                                    kSlabBytes) +
-           at * 8;
-  };
   float cur[8];  // row h, widened
   float sv_u[8];  // slope(row h-1, row h): the previous row's sv_d
   bf16 v[8], out[8];
@@ -246,28 +315,28 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdBlocks)
     // rows <= h+1 landed; later ones in flight
     rc::tc::cp_async_wait<kSlabs - 4>();
     __syncthreads();              // ... for every thread; row h-2 is free
-    copy_row(h + kSlabs - 2);     // row h+kSlabs-2 into row h-2's slot
+    ring.copy_row(h + kSlabs - 2);  // into row h-2's slot
     if (!active) continue;
     if (h == t.h0) {
-      rc::load8(slab(h), v);
+      rc::load8(ring.at(h, at), v);
 #pragma unroll
       for (int i = 0; i < 8; ++i) cur[i] = __bfloat162float(v[i]);
-      if (h > 0) rc::load8(slab(h - 1), v);
+      if (h > 0) rc::load8(ring.at(h - 1, at), v);
 #pragma unroll
       for (int i = 0; i < 8; ++i)
         sv_u[i] = h > 0 ? sign_of_diff(__bfloat162float(v[i]), cur[i]) : 0.f;
     }
     float sh[8];  // sh_r - sh_l
-    if (has_r) rc::load8(slab(h) + 8 * kBwdGroups, v);
+    if (has_r) rc::load8(ring.at(h, at + kGroups), v);
 #pragma unroll
     for (int i = 0; i < 8; ++i)
       sh[i] = has_r ? sign_of_diff(cur[i], __bfloat162float(v[i])) : 0.f;
-    if (has_l) rc::load8(slab(h) - 8 * kBwdGroups, v);
+    if (has_l) rc::load8(ring.at(h, at - kGroups), v);
 #pragma unroll
     for (int i = 0; i < 8; ++i)
       sh[i] -= has_l ? sign_of_diff(__bfloat162float(v[i]), cur[i]) : 0.f;
     const bool has_d = h < H - 1;
-    if (has_d) rc::load8(slab(h + 1), v);
+    if (has_d) rc::load8(ring.at(h + 1, at), v);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float below = __bfloat162float(v[i]);
@@ -278,46 +347,55 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdBlocks)
       cur[i] = below;
     }
     rc::store8(dx + image + h * row + (long long)w * D +
-                   (t.g0 + tid % kBwdGroups) * 8,
+                   (t.g0 + tid % kGroups) * 8,
                out);
   }
-}
-
-long long bwd_blocks(int B, int H, int W, int D) {
-  return (long long)B * ((H + kBand - 1) / kBand) *
-         ((D / 8 + kBwdGroups - 1) / kBwdGroups) *
-         ((W + kBwdPixels - 1) / kBwdPixels);
 }
 
 }  // namespace
 
 // x: [B, H, W, D] bf16, 16-byte aligned; weight: [B] f32 or NULL (all 1);
-// partials: [grid.y * grid.x, 2] f32 with grid.x = ceil(W * D / 8 / 256)
-// and grid.y = B * ceil(H / 8): per block (sum |dh|, sum |dv|) * weight.
+// partials: rc_tv_rowtile_fwd_partials(B, H, W, D) f32 of scratch (per
+// block: sum |dh| * weight, sum |dv| * weight); pairs_h, pairs_v, rescale_h,
+// rescale_v: as the backward's; out: [1] f32, the TV value
+// tv_h / pairs_h * rescale_h + tv_v / pairs_v * rescale_v.  Two launches,
+// the band kernel and the one-block sum, on the stream.  Any B, H, W >= 1
+// and D % 8 == 0 with fewer than 2^31 blocks.
 extern "C" int rc_tv_rowtile_fwd(const void* x, int B, int H, int W, int D,
                                  const float* weight, float* partials,
-                                 void* stream) {
+                                 float pairs_h, float pairs_v,
+                                 float rescale_h, float rescale_v,
+                                 float* out, void* stream) {
   if (!valid_shape(B, H, W, D)) return cudaErrorInvalidValue;
-  tv_fwd_kernel<<<grid_of(B, H, W, D), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
+  const long long blocks = band_blocks(B, H, W, D);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  tv_fwd_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
       static_cast<const bf16*>(x), H, W, D, weight, partials);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  tv_fwd_value_kernel<<<1, kSumThreads, 0, st>>>(
+      partials, (int)blocks, pairs_h, pairs_v, rescale_h, rescale_v, out);
   return cudaGetLastError();
+}
+
+// Floats of the forward's partials at (B, H, W, D): two per block (0 for
+// a shape the kernels refuse).
+extern "C" long long rc_tv_rowtile_fwd_partials(int B, int H, int W, int D) {
+  return valid_shape(B, H, W, D) ? 2 * band_blocks(B, H, W, D) : 0;
 }
 
 // grad: the upstream gradient, an f32 scalar on the device; pairs_h,
 // pairs_v: each direction's pair count; rescale_h, rescale_v: the upsample
 // rescales (1 at upsample 1); (gh, gv) = grad / pairs * rescale in f32, as
-// tv_rowtile.py's pair_grads.  dx: [B, H, W, D] bf16.  Any B, H, W >= 1 and
-// D % 8 == 0 with fewer than 2^31 blocks (no limit of the forward's grid).
+// tv_rowtile.py's pair_grads.  dx: [B, H, W, D] bf16.  Shapes as the
+// forward's.
 extern "C" int rc_tv_rowtile_bwd(const void* x, int B, int H, int W, int D,
                                  const float* weight, const float* grad,
                                  float pairs_h, float pairs_v,
                                  float rescale_h, float rescale_v, void* dx,
                                  void* stream) {
-  if (B < 1 || H < 1 || W < 1 || D < 8 || D % 8 != 0 ||
-      bwd_blocks(B, H, W, D) >= (1ll << 31))
-    return cudaErrorInvalidValue;
-  tv_bwd_kernel<<<(unsigned)bwd_blocks(B, H, W, D), kBwdThreads, 0,
+  if (!valid_shape(B, H, W, D)) return cudaErrorInvalidValue;
+  tv_bwd_kernel<<<(unsigned)band_blocks(B, H, W, D), kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), H, W, D, weight, grad, pairs_h, pairs_v,
       rescale_h, rescale_v, static_cast<bf16*>(dx));

@@ -61,7 +61,7 @@ launch_counts = {
     "l2_normalize[fwd]": 0,
     "l2_normalize[bwd]": 0,
     "histogram": 0,
-    "pixel_text_ce[fwd]": 0,  # CUDA cores (fp32, full table, wide D)
+    "pixel_text_ce[fwd]": 0,  # CUDA cores (the members, or the full table)
     "pixel_text_ce[bwd]": 0,
     "pixel_text_ce_tc[fwd]": 0,  # tensor cores: the bf16 packed branch
     "pixel_text_ce_tc[bwd]": 0,
@@ -87,15 +87,19 @@ _SIGNATURES = {
     "rc_l2_normalize_fwd": (_P, _I, _P, _L, _I, _P),
     "rc_l2_normalize_bwd": (_P, _P, _I, _P, _L, _I, _P),
     "rc_histogram": (_P, _I, _L, _I, _P, _P),
-    "rc_pixel_text_ce_fwd": (_P, _I, _P, _P, _P, _I, _L, _I, _P, _P, _I,
-                             _P, _P, _P, _I, _P, _I, _P, _P),
+    "rc_pixel_text_ce_fwd": (_P, _P, _P, _P, _I, _L, _I, _P, _P, _I, _P,
+                             _P, _P, _I, _P, _P, _P),
+    "rc_pixel_text_ce_members_fwd": (_P, _I, _P, _P, _P, _I, _L, _I, _P, _I,
+                                     _P, _P, _P, _I, _P, _P, _I, _P, _P,
+                                     _P),
     "rc_pixel_text_ce_bwd": (_P, _I, _P, _P, _P, _P, _I, _L, _I, _P, _P, _I,
                              _P, _P, _P, _I, _P, _I, _P, _P, _P, _P),
     "rc_pixel_text_ce_tc_fwd": (_P, _P, _P, _P, _I, _L, _I, _P, _P, _P, _I,
                                 _P, _P, _P),
     "rc_pixel_text_ce_tc_bwd": (_P, _P, _P, _P, _P, _I, _L, _I, _P, _P, _P,
                                 _P, _I, _P, _P, _P, _P),
-    "rc_tv_rowtile_fwd": (_P, _I, _I, _I, _I, _P, _P, _P),
+    "rc_tv_rowtile_fwd": (_P, _I, _I, _I, _I, _P, _P, _F, _F, _F, _F, _P,
+                          _P),
     "rc_tv_rowtile_bwd": (_P, _I, _I, _I, _I, _P, _P, _F, _F, _F, _F, _P,
                           _P),
     "rc_masked_pooling": (_P, _I, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P),
@@ -110,6 +114,8 @@ _QUERIES = ("rc_pixel_text_topk_tc_smem", "rc_conv_score_topk_smem",
             "rc_pixel_text_topk_fma_smem")
 # Queries of a kernel's device workspace in bytes at (D, rows).
 _WORKSPACE_QUERIES = ("rc_pixel_text_ce_workspace", "rc_head_topk_workspace")
+# Queries of a kernel's scratch at a field shape (B, H, W, D).
+_SHAPE_QUERIES = ("rc_tv_rowtile_fwd_partials",)
 
 OPS = torch.library.Library("rangeclip", "DEF")
 
@@ -227,6 +233,9 @@ def library() -> ctypes.CDLL:
             getattr(lib, name).restype = ctypes.c_longlong
         for name in _WORKSPACE_QUERIES:
             getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_longlong]
+            getattr(lib, name).restype = ctypes.c_longlong
+        for name in _SHAPE_QUERIES:
+            getattr(lib, name).argtypes = [ctypes.c_int] * 4
             getattr(lib, name).restype = ctypes.c_longlong
         lib.rc_error_string.argtypes = [ctypes.c_int]
         lib.rc_error_string.restype = ctypes.c_char_p

@@ -33,7 +33,9 @@ packed table, D <= 1280 (the backward also K <= 128), launches the
 tensor-core kernel and the CUDA-core kernel together; the first runs where
 the flag selects the packed table, the second (told to skip that branch)
 where it selects the full one.  Everything else, fp32 and wider or larger
-packed tables, takes the CUDA-core kernel alone, at any D % 8 == 0.
+packed tables, takes CUDA-core kernels alone, at any D % 8 == 0: the
+forward scores only the contrast members (:func:`member_table`, gathered
+on the device), the backward the whole selected table.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from typing import Optional, Tuple
 import torch
 
 from rangeclip_tpu_torch.ops.kernels import _lib
+from rangeclip_tpu_torch.ops.kernels.live_rows import live_table
 
 NEG_INF = -1e30
 MAX_SLOTS = 4  # csrc/pixel_text_ce.cu dispatch
@@ -270,6 +273,24 @@ def transposed_table(ptable: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def member_table(table, mask, ptable=None, pmask=None, pids=None,
+                 use_packed=None):
+    """The member-only forward's table operand: the members of the table the
+    device flag selects (the packed one where it is non-zero, else the full
+    one), first and in table order, as :func:`live_rows.live_table` gives
+    them ([D, Cp] f32), with their global ids and a [1] device count; no
+    host sync.  With a packed table both tables are gathered from, each
+    row live only where its branch is selected."""
+    C = table.shape[0]
+    ids = torch.arange(C, dtype=torch.int32, device=table.device)
+    live = mask != 0
+    if ptable is None:
+        return live_table(table, ids, live)
+    full = use_packed == 0
+    return live_table(torch.cat([table, ptable]), torch.cat([ids, pids]),
+                      torch.cat([live & full, (pmask != 0) & ~full]))
+
+
 def _fwd_cuda(samples, temperature, labels, valid, table, mask, ptable,
               pmask, pids, use_packed):
     _aligned(samples, table, ptable)
@@ -279,19 +300,31 @@ def _fwd_cuda(samples, temperature, labels, valid, table, mask, ptable,
     ce = samples.new_empty(N, dtype=torch.float32)
     lib, stream = _lib.library(), _lib.stream_of(samples)
     K = 0 if ptable is None else ptable.shape[0]
-    tc = tc_route(samples, ptable, backward=False)
-    if tc:
+    if tc_route(samples, ptable, backward=False):
+        # the tensor-core kernel, and beside it the full-table CUDA-core
+        # kernel, which returns at once unless the flag selects the full
+        # table: one of the two writes
         _lib.check(lib.rc_pixel_text_ce_tc_fwd(
             samples.data_ptr(), temperature.data_ptr(), labels.data_ptr(),
             valid.data_ptr(), labels.shape[0], N, D, ptable.data_ptr(),
             pmask.data_ptr(), pids.data_ptr(), K, use_packed.data_ptr(),
             ce.data_ptr(), stream), "pixel_text_ce_tc[fwd]")
-    code = lib.rc_pixel_text_ce_fwd(
-        samples.data_ptr(), int(samples.dtype == torch.bfloat16),
-        temperature.data_ptr(), labels.data_ptr(), valid.data_ptr(),
-        labels.shape[0], N, D, table.data_ptr(), mask.data_ptr(),
-        table.shape[0], _ptr(ptable), _ptr(pmask), _ptr(pids), K,
-        _ptr(use_packed), int(tc), ce.data_ptr(), stream)
+        code = lib.rc_pixel_text_ce_fwd(
+            samples.data_ptr(), temperature.data_ptr(), labels.data_ptr(),
+            valid.data_ptr(), labels.shape[0], N, D, table.data_ptr(),
+            mask.data_ptr(), table.shape[0], ptable.data_ptr(),
+            pmask.data_ptr(), pids.data_ptr(), K, use_packed.data_ptr(),
+            ce.data_ptr(), stream)
+    else:
+        table_t, ids, count = member_table(table, mask, ptable, pmask, pids,
+                                           use_packed)
+        code = lib.rc_pixel_text_ce_members_fwd(
+            samples.data_ptr(), int(samples.dtype == torch.bfloat16),
+            temperature.data_ptr(), labels.data_ptr(), valid.data_ptr(),
+            labels.shape[0], N, D, table_t.data_ptr(), table_t.shape[1],
+            ids.data_ptr(), count.data_ptr(), mask.data_ptr(),
+            table.shape[0], _ptr(pmask), _ptr(pids), K, _ptr(use_packed),
+            ce.data_ptr(), stream)
     _lib.check(code, "pixel_text_ce[fwd]")
     return ce.sum()
 

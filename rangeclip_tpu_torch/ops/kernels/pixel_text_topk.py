@@ -5,7 +5,7 @@ Port of ``rangeclip_tpu/ops/pallas/pixel_text_topk.py``
 CUDA kernels are in ``csrc/pixel_text_topk.cu``: a bf16 field takes the
 tensor-core kernel (up to :data:`TC_MAX_DIMS` dims), an fp32 field the
 CUDA-core one, which takes the live table rows only, transposed
-(:func:`live_table`, built inside the operator on each call); launches
+(``live_rows.live_table``, built inside the operator on each call); launches
 count as ``pixel_text_topk[bf16]`` and ``pixel_text_topk[fp32]``.
 :func:`pixel_text_topk_plain` is the same function in plain PyTorch, used
 for CPU tensors and as the reference the kernels are held against on the
@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from rangeclip_tpu_torch.ops.kernels import _lib
+from rangeclip_tpu_torch.ops.kernels.live_rows import live_table
 from rangeclip_tpu_torch.ops.kernels.score_topk import (
     MAX_TOP_K,
     score_topk_plain,
@@ -141,23 +142,6 @@ def pixel_text_topk(
                  f"pixel_text_topk: the kernel needs D % 8 == 0, got {D}")
     idx, val = pixel_text_topk_op(flat, table, ids, top_k, want_values)
     return idx, (val if want_values else None)
-
-
-def live_table(table: torch.Tensor, ids: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The CUDA-core kernel's table operand.  Masked rows (id -1) cannot
-    change the answer, so the live rows go first, in ascending order, then
-    the others: (that table transposed, [D, Cp] f32 with Cp = C rounded up
-    to a multiple of 4 (16-byte rows; the padding zero); the ids in that
-    order [C]; the live count [1] int32), on the table's device, with no
-    host sync.  A bf16 table widens exactly."""
-    live = ids >= 0
-    order = torch.argsort((~live).to(torch.uint8), stable=True)
-    C, D = table.shape
-    table_t = table.new_zeros((D, -(-C // 4) * 4), dtype=torch.float32)
-    table_t[:, :C] = table.index_select(0, order).T
-    return (table_t, ids.index_select(0, order),
-            live.sum(dtype=torch.int32).reshape(1))
 
 
 def _pixel_text_topk_cuda(field, table, ids, top_k, want_values):

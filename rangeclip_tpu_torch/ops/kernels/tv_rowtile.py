@@ -3,13 +3,16 @@
 Port of ``rangeclip_tpu/ops/pallas/tv_rowtile.py`` (``tv_rowtile``, a
 ``jax.custom_vjp``): the value is ``TV(x * w)`` of the (0/1-sample-weighted)
 field without the B / sum(w) rescale, which the caller applies.  The CUDA
-kernels are ``csrc/tv_rowtile.cu`` (the backward a shared-memory halo
-stencil with its own grid and constants); the pair is the operator
+kernels are ``csrc/tv_rowtile.cu``, both shared-memory band stencils with a
+one-dimensional grid (any B * H); the pair is the operator
 ``rangeclip::tv_rowtile`` with ``rangeclip::tv_rowtile_backward`` registered
-as its gradient, whose kernel turns the upstream gradient into the
-per-direction scalars with the f32 arithmetic of :func:`pair_grads`, as the
-plain VJP does (its divisors and factors from :func:`pair_scalars`).  Like
-the JAX function it saves x (and the weights) as its only residuals.
+as its gradient.  Each is one C entry point that does all of its device
+work: the forward sums its per-block partials in a fixed order and forms
+the value with the f32 arithmetic of :func:`scale_sums`, the backward turns
+the upstream gradient into the per-direction scalars with that of
+:func:`pair_grads`, as the plain VJP does; both take their divisors and
+factors from :func:`pair_scalars`.  Like the JAX function it saves x (and
+the weights) as its only residuals.
 
 The plain version is :func:`tv_plain` on ``x * w``: the formulation of
 ``losses/smoothness.py`` (``_tv``) with its hand-derived VJP, a
@@ -29,8 +32,6 @@ import torch.nn.functional as F
 
 from rangeclip_tpu_torch.ops.kernels import _lib
 
-_THREADS = 256  # csrc/tv_rowtile.cu kThreads (the forward's)
-_ROWS = 8  # csrc/tv_rowtile.cu kRows (the forward's)
 _BWD_TILE_BYTES = 1024 * 1024  # the JAX gate's VMEM budget
 
 
@@ -48,8 +49,9 @@ def kernel_applicable(shape, dtype) -> bool:
 
 def pair_scalars(shape, upsample: int):
     """(pairs_h, pairs_v, rescale_h, rescale_v): the divisors and factors of
-    :func:`pair_grads` (1.0 at upsample 1) as Python floats, which the
-    backward kernel's f32 arguments round once, as its tensors do."""
+    :func:`pair_grads` and :func:`scale_sums` (1.0 at upsample 1) as Python
+    floats, which the kernels' f32 arguments round once, as those tensors
+    do."""
     B, H, W, D = shape
     if upsample > 1:
         rescale = ((W - 1) / (upsample * W - 1), (H - 1) / (upsample * H - 1))
@@ -157,34 +159,28 @@ def tv_rowtile(x: torch.Tensor, sample_weight: Optional[torch.Tensor] = None,
     _lib.require(sample_weight is None
                  or tuple(sample_weight.shape) == (B,),
                  f"tv_rowtile: sample_weight must be [{B}]")
-    # the forward's grid (B * ceil(H / 8) <= 65535 rows of blocks); the
-    # backward's one-dimensional grid has no such limit
-    _lib.require(B * -(-H // _ROWS) <= 65535,
-                 f"tv_rowtile: the forward kernel takes B * ceil(H / 8) <= "
-                 f"65535, got B={B}, H={H}")
     w = (None if sample_weight is None
          else sample_weight.float().contiguous())
     return tv_rowtile_op(x, w, upsample)
-
-
-def _n_blocks(B, H, W, D) -> int:
-    col_blocks = -(-(W * (D // 8)) // _THREADS)
-    return col_blocks * B * (-(-H // _ROWS))
 
 
 def _fwd_cuda(x, weight, upsample):
     B, H, W, D = x.shape
     _lib.require(x.data_ptr() % 16 == 0, "tv_rowtile: x must be 16-byte "
                  "aligned")
-    partials = torch.empty(_n_blocks(B, H, W, D), 2, dtype=torch.float32,
-                           device=x.device)
-    code = _lib.library().rc_tv_rowtile_fwd(
+    # one entry point: the band kernel's per-block partials, then their sum
+    # in block order and scale_sums' f32 arithmetic on the device
+    lib = _lib.library()
+    partials = torch.empty(lib.rc_tv_rowtile_fwd_partials(B, H, W, D),
+                           dtype=torch.float32, device=x.device)
+    value = torch.empty((), dtype=torch.float32, device=x.device)
+    code = lib.rc_tv_rowtile_fwd(
         x.data_ptr(), B, H, W, D,
         weight.data_ptr() if weight is not None else None,
-        partials.data_ptr(), _lib.stream_of(x))
+        partials.data_ptr(), *pair_scalars(x.shape, upsample),
+        value.data_ptr(), _lib.stream_of(x))
     _lib.check(code, "tv_rowtile[fwd]")
-    sums = partials.sum(dim=0)
-    return scale_sums(sums[0], sums[1], x.shape, upsample)
+    return value
 
 
 def _bwd_cuda(x, weight, grad, upsample):

@@ -8,15 +8,24 @@ The port's counterpart of ``rangeclip_tpu/utils/profiling.py``:
 
 ``train_step`` is the flagship train configuration (:func:`train_setup`):
 bf16, accumulation 1 x batch 32 at 256^2, C = 512 hash-stub labels with 40
-present, contrast capacity 128, the full hybrid loss.  Each configuration
-runs two calls, then ``--calls`` calls under the
-profiler, at full width with random weights from seed 0.  Only device events
-count (``device_type`` CUDA: kernels, copies and memsets), never the
-host-side operator rows that enclose them, so no kernel is counted twice.
-Per call it prints the host wall time, the sum of device event times, the
-time the device was busy (the union of the events' intervals) and the busy
-share (busy time / host wall time), then the device time of each event name
-in decreasing order (the first 25).
+present, contrast capacity 128, the full hybrid loss.  ``ce_forward``,
+``ce_forward_all`` and ``tv_forward`` call one operator at the shape of its
+main path (:func:`kernel_call`): ``pixel_text_ce``'s forward on the fp32
+validation shape with 90 and with all 512 classes in the contrast set, and
+``tv_rowtile``'s forward on the flagship train field.  Each configuration
+runs two calls, then ``--calls`` calls timed by the host clock
+(synchronised), then as many under the profiler, at full width with random
+weights from seed 0.  Only device events count (``device_type`` CUDA:
+kernels, copies and memsets), never the host-side operator rows that
+enclose them, so no kernel is counted twice.  Per call it prints the
+unprofiled host clock, the host wall time under the profiler, the sum of
+device event times, the number of device events (the launches, copies and
+memsets), the time the device was busy (the union of the events'
+intervals) and the busy share (busy time / host wall time under the
+profiler), then the device time of each event name in decreasing order
+(the first 25), and with ``--host N`` the N host operators with the most
+CPU time of their own.  The script calls public operators only, so a copy
+of it placed in another checkout of the package profiles that checkout.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ CONFIGS = {
     "serve_bf16": (8, True, True, 1, None),
     "serve_fp32_default": (8, False, False, 1, None),
 }
+KERNEL_CONFIGS = ("ce_forward", "ce_forward_all", "tv_forward")
 NUM_CLASSES = 512
 RES = 256
 
@@ -54,11 +64,16 @@ def busy_us(spans: List[tuple]) -> float:
 
 def profile(fn: Callable[[], object], calls: int = 3, warmup: int = 2
             ) -> Dict[str, object]:
-    """Profile ``calls`` calls of ``fn`` after ``warmup`` unprofiled ones;
-    times are ms per call."""
+    """Time ``calls`` calls of ``fn`` by the host clock, then profile as
+    many, after ``warmup`` unprofiled ones; times are ms per call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / calls
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
@@ -78,13 +93,21 @@ def profile(fn: Callable[[], object], calls: int = 3, warmup: int = 2
     for e in events:
         by_name[e.name] += e.time_range.elapsed_us()
     busy = busy_us([(e.time_range.start, e.time_range.end) for e in events])
+    host = sorted((a for a in prof.key_averages()
+                   if a.device_type == DeviceType.CPU),
+                  key=lambda a: a.self_cpu_time_total, reverse=True)
     return {
+        "host_ms": host_ms,
         "wall_ms": wall_us / calls / 1e3,
         "device_ms": sum(by_name.values()) / calls / 1e3,
+        "device_events": len(events) / calls,
         "busy_ms": busy / calls / 1e3,
         "busy_share": busy / wall_us,
         "events": [(name, us / calls / 1e3)
                    for name, us in by_name.most_common()],
+        # host operators by their own CPU time: (name, ms, count) per call
+        "host_events": [(a.key, a.self_cpu_time_total / calls / 1e3,
+                         a.count / calls) for a in host],
     }
 
 
@@ -130,6 +153,46 @@ def predict_call(config: str) -> Callable[[], torch.Tensor]:
             return run()
 
     return call
+
+
+def kernel_call(config: str) -> Callable[[], torch.Tensor]:
+    """One operator call at its main path's shape, on the GPU: the fp32
+    CE forward of validation (N = 8 x 128 x 128 pixel rows, D = 512, C =
+    512, 4 label slots, 90 or all classes members), or the TV forward of
+    the flagship train step (bf16 [32, 128, 128, 512], upsample 2, one
+    sample weight 0)."""
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(0)
+    if config == "tv_forward":
+        from rangeclip_tpu_torch.ops.kernels.tv_rowtile import tv_rowtile_op
+
+        x = torch.randn(32, 128, 128, 512, device=device,
+                        generator=gen).to(torch.bfloat16)
+        w = torch.ones(32, device=device)
+        w[-1] = 0.0
+        return lambda: tv_rowtile_op(x, w, 2)
+    from rangeclip_tpu_torch.ops.kernels.pixel_text_ce import (
+        ce_operands,
+        pixel_text_ce_op,
+    )
+    from rangeclip_tpu_torch.utils.math import l2_normalize
+
+    n, d = 8 * 128 * 128, 512
+    members = 90 if config == "ce_forward" else NUM_CLASSES
+    samples = torch.randn(n, d, device=device, generator=gen)
+    table = l2_normalize(torch.randn(NUM_CLASSES, d, device=device,
+                                     generator=gen), dim=-1)
+    ids = torch.randperm(NUM_CLASSES, device=device, generator=gen)[:members]
+    mask = torch.zeros(NUM_CLASSES, dtype=torch.bool, device=device)
+    mask[ids] = True
+    labels = ids.sort().values.int()[torch.randint(
+        0, members, (4, n), device=device, generator=gen)]
+    valid = torch.randint(0, 3, (4, n), device=device, generator=gen).float()
+    temp = torch.tensor(0.07, device=device)
+    flat, lab, val, msk, *_ = ce_operands(samples, temp, labels, valid,
+                                          table, mask, None)
+    return lambda: pixel_text_ce_op(flat, temp, lab, val, table, msk, None,
+                                    None, None, None)
 
 
 def train_setup(device: torch.device, batch: int = 32, bf16: bool = True,
@@ -199,23 +262,34 @@ def train_call() -> Callable[[], object]:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--config", nargs="+",
-                        choices=sorted(CONFIGS) + [TRAIN_CONFIG],
+                        choices=sorted(CONFIGS) + [TRAIN_CONFIG,
+                                                   *KERNEL_CONFIGS],
                         default=["bench_unfolded"])
     parser.add_argument("--calls", type=int, default=3)
+    parser.add_argument("--host", type=int, default=0,
+                        help="also print this many host operators by their "
+                             "own CPU time")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling: CUDA is not available")
     for config in args.config:
-        result = profile(train_call() if config == TRAIN_CONFIG
-                         else predict_call(config), args.calls)
+        call = (train_call() if config == TRAIN_CONFIG
+                else kernel_call(config) if config in KERNEL_CONFIGS
+                else predict_call(config))
+        result = profile(call, args.calls)
         print(f"{config} on {torch.cuda.get_device_name(0)}, {args.calls} "
-              f"calls: wall {result['wall_ms']:.3f} ms/call, device events "
-              f"{result['device_ms']:.3f} ms/call, busy "
+              f"calls: host clock {result['host_ms']:.3f} ms/call unprofiled, "
+              f"wall {result['wall_ms']:.3f} ms/call, device events "
+              f"{result['device_ms']:.4f} ms/call "
+              f"({result['device_events']:g} a call), busy "
               f"{result['busy_ms']:.3f} ms/call, busy share "
               f"{result['busy_share']:.3f}", flush=True)
         for name, ms in result["events"][:25]:
-            print(f"  {ms:9.3f} ms  {ms / result['device_ms']:6.1%}  "
+            print(f"  {ms:9.4f} ms  {ms / result['device_ms']:6.1%}  "
                   f"{name[:110]}", flush=True)
+        for name, ms, count in result["host_events"][:args.host]:
+            print(f"  host {ms:9.4f} ms  {count:7.1f} calls  {name[:90]}",
+                  flush=True)
         torch.cuda.empty_cache()
 
 

@@ -534,6 +534,81 @@ def test_pixel_text_ce_matches_plain(cuda_device, dtype, slots, form, d):
              cuda_device)
 
 
+def _member_inputs(gen, dtype, n, d, c, slots, members, form):
+    """Inputs of the member-only forward: labels of any class (members,
+    non-members in [0, C), and classes outside it), and the valid weights
+    with the non-member labels' zeroed; a packed table (capacity 128) for
+    the packed and overflow forms."""
+    samples = torch.randn(n, d, generator=gen).to(dtype)
+    table = torch.nn.functional.normalize(torch.randn(c, d, generator=gen),
+                                          dim=-1).to(dtype)
+    member_ids = torch.randperm(c, generator=gen)[:members].sort().values
+    mask = torch.zeros(c, dtype=torch.int32)
+    mask[member_ids] = 1
+    labels = torch.randint(0, c, (slots, n), generator=gen, dtype=torch.int32)
+    if members:
+        labels[:, ::3] = member_ids[torch.randint(
+            0, members, labels[:, ::3].shape, generator=gen)].int()
+    labels[:, ::17] = c + 3
+    labels[:, 5::19] = -2
+    valid = torch.randint(0, 3, (slots, n), generator=gen).float()
+    nonmember = (labels >= 0) & (labels < c) & (
+        mask[labels.clamp(0, c - 1).long()] == 0)
+    packed = None
+    if form != "full":
+        ids = torch.full((128,), c, dtype=torch.int32)
+        ids[:min(members, 128)] = member_ids[:128].int()
+        packed = (table[ids.clamp_max(c - 1).long()], (ids < c).int(), ids,
+                  torch.tensor(int(form == "packed")))
+    return (samples, torch.tensor(0.07), labels, valid,
+            torch.where(nonmember, 0.0, valid), table, mask, packed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,members,slots,form,n", [
+    *[(dt, 136, m, 4, "full", 1111)
+      for dt in (torch.float32, torch.bfloat16)
+      for m in (0, 1, 64, 65, 128, 129, 300)],
+    *[(dt, d, 90, 1, "full", 1111)
+      for dt in (torch.float32, torch.bfloat16) for d in (8, 768, 1344)],
+    (torch.float32, 136, 60, 4, "packed", 1111),
+    (torch.float32, 136, 140, 4, "overflow", 1111),
+    (torch.bfloat16, 1344, 60, 1, "packed", 1111),
+    (torch.bfloat16, 1344, 140, 1, "overflow", 1111),
+    (torch.float32, 136, 90, 4, "full", 1),
+    (torch.bfloat16, 136, 90, 4, "full", 129)])
+def test_pixel_text_ce_members_forward(cuda_device, dtype, d, members,
+                                       slots, form, n):
+    """The member-only forward (every route without a tensor-core kernel
+    beside it: f32, bf16 over the full table, bf16 packed beyond D = 1280)
+    against the plain version over C = 300 at the tolerance of
+    test_pixel_text_ce_matches_plain (rtol 2e-5): with the non-member
+    labels weighted (each picks -1e30, so the sum is near 1e30 times their
+    weight) and with them at weight 0 (the members' part alone).  0 to all
+    300 classes members, one and two class tiles and their edges (64, 65,
+    128, 129), labels outside [0, C), one and four slots, D = 8 to 1344,
+    ragged N, and the packed table where the device flag selects it and
+    where it does not.  One launch per call, none of the tensor-core
+    kernel's."""
+    gen = torch.Generator().manual_seed(21)
+    (samples, temperature, labels, valid, valid_members, table, mask,
+     packed) = _member_inputs(gen, dtype, n, d, 300, slots, members, form)
+    dev = lambda t: t.to(cuda_device)
+    packed_d = None if packed is None else tuple(map(dev, packed))
+    before = dict(_lib.launch_counts)
+    for weights in (valid, valid_members):
+        args = tuple(map(dev, (samples, temperature, labels, weights, table,
+                               mask)))
+        got = fused_pixel_text_ce(*args, packed_d)
+        want = pixel_text_ce_plain(*args, packed=packed_d)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-4)
+    torch.cuda.synchronize()
+    assert _lib.launch_counts["pixel_text_ce[fwd]"] == (
+        before["pixel_text_ce[fwd]"] + 2)
+    assert (_lib.launch_counts["pixel_text_ce_tc[fwd]"]
+            == before["pixel_text_ce_tc[fwd]"])
+
+
 def _tc_ce(samples, temperature, labels, valid, packed, flag=None):
     """The tensor-core kernels launched directly (flag None: always run):
     (per-row ce [N], dx [N, D], per-row dtau [N]), each filled with NaN
@@ -638,23 +713,46 @@ def test_tv_rowtile_matches_plain(cuda_device, shape, weights, upsample):
 
 @pytest.mark.cuda
 def test_tv_rowtile_backward_past_the_forward_grid(cuda_device):
-    """B * ceil(H / 8) = 65,544 rows of forward blocks: the forward refuses
-    the shape, the backward's one-dimensional grid takes it, bit-equal to
-    the plain VJP."""
+    """B * ceil(H / 8) = 65,544, past the grid the forward once had: both
+    one-dimensional grids take the shape, the value within rtol 1e-5 of the
+    plain version and the backward bit-equal to the plain VJP."""
     shape = (8193, 64, 2, 8)
     gen = torch.Generator().manual_seed(11)
     x = (torch.randint(-6, 7, shape, generator=gen) / 4).to(
         torch.bfloat16).to(cuda_device)
-    with pytest.raises(ValueError, match="65535"):
-        tv_rowtile(x)
     grad = torch.tensor(1.7, device=cuda_device)
-    before = _lib.launch_counts["tv_rowtile[bwd]"]
+    before = dict(_lib.launch_counts)
+    value = tv_rowtile(x)
     got = tv_rowtile_backward_op(x, None, grad, 1)
     torch.cuda.synchronize()
-    assert _lib.launch_counts["tv_rowtile[bwd]"] == before + 1
+    for name in ("tv_rowtile[fwd]", "tv_rowtile[bwd]"):
+        assert _lib.launch_counts[name] == before[name] + 1
     xp = x.clone().requires_grad_()
-    tv_rowtile_plain(xp, None, 1).backward(grad)
+    want = tv_rowtile_plain(xp, None, 1)
+    want.backward(grad)
+    torch.testing.assert_close(value, want.detach(), rtol=1e-5, atol=0.0)
     assert torch.equal(got, xp.grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,upsample", [((32, 128, 128, 512), 2),
+                                            ((3, 65, 97, 136), 1)])
+def test_tv_rowtile_forward_is_deterministic(cuda_device, shape, upsample):
+    """Two forward calls are bit-equal (the partials are summed in block
+    order), each one launch of tv_rowtile[fwd], within rtol 1e-5 of the
+    plain value."""
+    gen = torch.Generator().manual_seed(12)
+    x = torch.randn(shape, generator=gen).to(torch.bfloat16).to(cuda_device)
+    w = torch.ones(shape[0], device=cuda_device)
+    w[-1] = 0.0
+    values = []
+    for _ in range(2):
+        values.append(_counted("tv_rowtile[fwd]",
+                               lambda: tv_rowtile(x, w, upsample)))
+    assert [launches for _, launches in values] == [1, 1]
+    assert torch.equal(values[0][0], values[1][0])
+    torch.testing.assert_close(values[0][0], tv_rowtile_plain(x, w, upsample),
+                               rtol=1e-5, atol=0.0)
 
 
 @pytest.mark.cuda

@@ -48,35 +48,48 @@ def test_histogram_plain_bit_equal_to_pallas():
         np.testing.assert_array_equal(got.numpy(), want)
 
 
-def _ce_case(rng, dtype, shape, C, slots, packed):
+def _ce_case(rng, dtype, shape, C, slots, packed, n_members=40,
+             nonmember=False):
     """Inputs of both sides: samples (numpy f32, cast per side), labels and
-    valid [S, N] (valid labels are members of the mask), the normalised
-    table, the mask and, packed, the class ids with sentinel C."""
+    valid [S, N] (valid labels are members of the mask, or with
+    ``nonmember`` every fifth one a class in [0, C) outside it), the
+    normalised table, the mask and, packed, the class ids with sentinel
+    C."""
     N = int(np.prod(shape[:-1]))
     D = shape[-1]
     samples = rng.standard_normal(shape).astype(np.float32)
-    members = np.sort(rng.choice(C, 40, replace=False))
+    members = np.sort(rng.choice(C, n_members, replace=False))
     mask = np.zeros(C, bool)
     mask[members] = True
-    labels = members[rng.integers(0, 40, (slots, N))].astype(np.int32)
+    labels = members[rng.integers(0, n_members, (slots, N))].astype(np.int32)
     valid = rng.integers(0, 3, (slots, N)).astype(np.float32)
+    if nonmember:
+        outside = np.flatnonzero(~mask)
+        labels[:, ::5] = outside[rng.integers(0, outside.size,
+                                              labels[:, ::5].shape)]
     text = np.array(jax_l2(jnp.asarray(
         rng.standard_normal((C, D)).astype(np.float32)), axis=-1))
     ids = None
     if packed:
         ids = np.full(128, C, np.int32)
-        ids[:40] = members
+        ids[:n_members] = members
     return samples, labels, valid, text, mask, ids
 
 
-@pytest.mark.parametrize("dtype,shape,slots,packed", [
-    ("f32", (300, 32), 1, False),
-    ("f32", (2, 16, 16, 128), 4, False),
-    ("bf16", (2, 16, 16, 128), 4, True),
-    ("bf16", (300, 32), 1, True),
-    ("bf16", (2, 16, 16, 128), 1, False),
+@pytest.mark.parametrize("dtype,shape,slots,packed,n_members,nonmember", [
+    ("f32", (300, 32), 1, False, 40, False),
+    ("f32", (2, 16, 16, 128), 4, False, 40, False),
+    ("bf16", (2, 16, 16, 128), 4, True, 40, False),
+    ("bf16", (300, 32), 1, True, 40, False),
+    ("bf16", (2, 16, 16, 128), 1, False, 40, False),
+    ("f32", (300, 32), 4, False, 40, True),
+    ("bf16", (2, 16, 16, 128), 1, False, 40, True),
+    ("bf16", (300, 32), 4, True, 40, True),
+    ("f32", (300, 32), 1, False, 1, True),
+    ("f32", (2, 8, 8, 128), 4, False, 1, True),
 ])
-def test_pixel_text_ce_plain_matches_pallas(dtype, shape, slots, packed):
+def test_pixel_text_ce_plain_matches_pallas(dtype, shape, slots, packed,
+                                            n_members, nonmember):
     """Value, d samples and d temperature of the port's CPU route (the plain
     forward and the written-out backward) against ``fused_pixel_text_ce``
     in interpret mode.  Both normalise rows with rsqrt(max(sum x^2,
@@ -84,11 +97,19 @@ def test_pixel_text_ce_plain_matches_pallas(dtype, shape, slots, packed):
     gradients within rtol 1e-4 (atol 1e-6 of the largest entry); bf16
     rows whose scale rounds differently round their bf16 operand
     differently, so bf16 values within rtol 1e-3, d samples within 2 bf16
-    ulps of the largest entry of the row, d temperature rtol 1e-3."""
+    ulps of the largest entry of the row, d temperature rtol 1e-3.  The
+    semantics a member-only kernel must keep: a valid label of a class in
+    [0, C) outside the contrast set picks that class's -1e30 over the full
+    table (the row's CE near 1e30) and nothing from a packed one, and a
+    contrast set of one member leaves C - 1 terms of exp(-1e30 - m) in the
+    sum-exp.  With one member, a row whose every slot is that member has a
+    CE and a gradient of exactly 0 here and f32 rounding noise in the JAX
+    kernel, so those cases also hold non-member labels (a nonzero value)
+    and are f32 (the gradient held to the array's largest entry)."""
     rng = np.random.default_rng(1)
     C = 200
-    samples, labels, valid, text, mask, ids = _ce_case(rng, dtype, shape, C,
-                                                       slots, packed)
+    samples, labels, valid, text, mask, ids = _ce_case(
+        rng, dtype, shape, C, slots, packed, n_members, nonmember)
     jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
     tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
     temp = np.float32(0.07)
@@ -174,6 +195,58 @@ def test_pixel_text_ce_tc_route_by_shape(dtype, D, K, fwd, bwd):
     assert ptable_t.shape == (D, -(-(K - 3) // 8) * 8)
     assert torch.equal(ptable_t[:, :K - 3], ptable[:K - 3].T)
     assert not ptable_t[:, K - 3:].any()
+
+
+@pytest.mark.parametrize("packed,flag", [(False, None), (True, True),
+                                         (True, False)])
+def test_pixel_text_ce_member_table(packed, flag):
+    """The member-only forward's table operand: the members of the table the
+    flag selects (the packed one where it is set, else the full one),
+    first and in table order, transposed to f32 exactly, their global ids
+    and the device count."""
+    rng = np.random.default_rng(5)
+    C, D, K = 70, 24, 32
+    text = t(rng.standard_normal((C, D)).astype(np.float32)).bfloat16()
+    mask = t(rng.random(C) < 0.3).int()
+    members = mask.nonzero()[:, 0].int()
+    args = ()
+    if packed:
+        ids = torch.full((K,), C, dtype=torch.int32)
+        ids[:members.numel()] = members
+        args = (text[ids.clamp_max(C - 1).long()], (ids < C).int(), ids,
+                torch.tensor([int(flag)], dtype=torch.int32))
+    table_t, row_ids, count = ce_k.member_table(text, mask, *args)
+    n = int(count)
+    assert count.shape == (1,) and count.dtype == torch.int32
+    assert n == members.numel()
+    assert table_t.dtype == torch.float32
+    rows = C + (K if packed else 0)
+    assert table_t.shape == (D, -(-rows // 4) * 4)
+    assert torch.equal(row_ids[:n], members)
+    assert torch.equal(table_t[:, :n], text[members.long()].float().T)
+
+
+@pytest.mark.parametrize("shape", [(32, 128, 128, 512), (3, 10, 16, 128),
+                                   (1, 2, 2, 8), (7, 33, 35, 136),
+                                   (8193, 64, 2, 8)])
+@pytest.mark.parametrize("upsample", [1, 2])
+def test_tv_forward_value_arithmetic_matches_scale_sums(shape, upsample):
+    """The forward kernel's last step (csrc/tv_rowtile.cu,
+    tv_fwd_value_kernel): from the summed |dh| and |dv|, true f32 division
+    by the pair counts, the upsample factors, then the add, with its
+    arguments the Python floats of ``pair_scalars`` rounded once to f32.
+    It reproduces ``scale_sums``' tensor arithmetic bit for bit."""
+    rng = np.random.default_rng(6)
+    ph, pv, rh, rv = (np.float32(v) for v in tv_k.pair_scalars(shape,
+                                                                upsample))
+    for _ in range(50):
+        s_h, s_v = (np.float32(v) for v in rng.uniform(0, 2, 2) * ph)
+        got = np.float32(np.float32(s_h / ph) * rh) + np.float32(
+            np.float32(s_v / pv) * rv)
+        want = tv_k.scale_sums(torch.tensor(s_h), torch.tensor(s_v), shape,
+                               upsample)
+        assert want.dtype == torch.float32
+        assert np.float32(want.item()).tobytes() == got.tobytes()
 
 
 @pytest.mark.parametrize("shape,weights,upsample", [

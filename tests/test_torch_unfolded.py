@@ -45,8 +45,8 @@ from rangeclip_tpu_torch.ops.kernels.l2_normalize import (
     l2_normalize_plain,
     l2_normalize_rows,
 )
+from rangeclip_tpu_torch.ops.kernels.live_rows import live_table
 from rangeclip_tpu_torch.ops.kernels.pixel_text_topk import (
-    live_table,
     normalize_rows_rsqrt,
     pixel_text_topk,
 )
