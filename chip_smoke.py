@@ -12,7 +12,8 @@ Phases (any failure raises; nothing is caught):
    registers, shared memory and spills (``ptxas -v``) of the sources with
    tensor-core kernels (pixel_text_topk's bf16 path, conv_score_topk and
    pixel_text_ce) and with the redesigned CUDA-core ones
-   (pixel_text_topk's fp32 path, tv_rowtile); require that the fp32
+   (pixel_text_topk's fp32 path, pixel_text_ce's member-only forward and
+   backward, the live_rows gather, tv_rowtile); require that the fp32
    kernel's SASS holds no tensor-core instruction.
 2. Hold each kernel against its plain PyTorch version at the shapes the
    main paths give it, and time both and, where one PyTorch call computes
@@ -23,12 +24,14 @@ Phases (any failure raises; nothing is caught):
    table only its contrast members (a non-member's exp term is 0).  Beside
    the tensor-core kernels and the fp32 CUDA-core kernels of
    pixel_text_topk and pixel_text_ce, their product stage alone through
-   cuBLAS (torch.matmul, TF32 off for f32; the CE's over its members) and
-   cuDNN (F.conv2d) at their shapes, printed on a line of its own: a
-   yardstick, not the same function.
+   cuBLAS (torch.matmul, TF32 off for f32; the CE's over its members, the
+   backward's two products in f32) and cuDNN (F.conv2d) at their shapes,
+   printed on a line of its own: a yardstick, not the same function.
    pixel_text_ce runs bf16 packed (its tensor-core kernels, also timed
-   alone) at D = 512 and 768, bf16 over the full table (overflow) and fp32
-   with 90 and with all 512 classes members (its CUDA-core kernels).
+   alone) at D = 512 and 768, bf16 over the full table (overflow, 200
+   members) and fp32 with 90 and with all 512 classes members (its
+   member-only kernels).  live_rows, the gather of those kernels' table,
+   bit-equal to its plain version at the overflow branch's shape.
    tv_rowtile's forward is timed as the operator call and, read with
    torch.profiler, as its kernels alone, which must be its only device
    events.
@@ -55,9 +58,14 @@ Phases (any failure raises; nothing is caught):
 7. Train: the flagship train step (bf16, accumulation 1 x batch 32 at
    256^2, C=512 with 40 labels present so the packed CE runs, the full
    hybrid loss with hash-stub image embeddings), 3 steps: finite losses,
-   changed parameters, ms/step and maps/s.  Then the kernel step against
-   the same step through the plain versions with the same draws, in fp32
-   at batch 8 and in bf16 at batch 32.
+   changed parameters, ms/step and maps/s.  Then cli/train's default
+   precision at its microbatch (fp32, batch 16, 40 labels present: the
+   member-only CE kernels over 90 members) and a bf16 batch-32 step whose
+   contrast set overflows the capacity (150 labels present: 200 members),
+   3 steps each, ms/step and their pixel_text_ce[bwd] launches.  Then the
+   kernel step against the same step through the plain versions with the
+   same draws, in fp32 at batch 8, in bf16 at batch 32, and in bf16 at
+   batch 32 overflowing.
 8. cli/train --bf16 on a synthetic 256^2 dataset: 2 optimizer steps of
    accumulation 8 x batch 4, validating at step 2 ([Val] lines and best
    results in its log); its checkpoint loads strictly and predicts.  Then
@@ -130,6 +138,10 @@ KERNEL_ROWS = {
                           "rangeclip_tpu/ops/pallas/l2_normalize.py:164"),
     "histogram": ("rangeclip_tpu_torch/csrc/histogram.cu",
                   "rangeclip_tpu/ops/pallas/histogram.py:44"),
+    # no TPU kernel of its own: the JAX package gathers the contrast
+    # members in XLA (pack_contrast_set)
+    "live_rows": ("rangeclip_tpu_torch/csrc/live_rows.cu",
+                  "rangeclip_tpu/losses/infonce.py:311"),
     "pixel_text_ce[fwd]": ("rangeclip_tpu_torch/csrc/pixel_text_ce.cu",
                            "rangeclip_tpu/ops/pallas/pixel_text_ce.py:96"),
     "pixel_text_ce[bwd]": ("rangeclip_tpu_torch/csrc/pixel_text_ce.cu",
@@ -151,15 +163,18 @@ KERNEL_ROWS = {
     "tv_loss[bwd]": ("rangeclip_tpu_torch/csrc/tv_loss.cu",
                      "rangeclip_tpu/ops/pallas/tv_loss.py:55"),
 }
-TRAIN_KERNELS = ["histogram", "class_presence", "pixel_text_ce[fwd]",
-                 "pixel_text_ce[bwd]", "pixel_text_ce_tc[fwd]",
-                 "pixel_text_ce_tc[bwd]", "tv_rowtile[fwd]", "tv_rowtile[bwd]",
-                 "l2_normalize[fwd]", "l2_normalize[bwd]"]
+TRAIN_KERNELS = ["histogram", "class_presence", "live_rows",
+                 "pixel_text_ce[fwd]", "pixel_text_ce[bwd]",
+                 "pixel_text_ce_tc[fwd]", "pixel_text_ce_tc[bwd]",
+                 "tv_rowtile[fwd]", "tv_rowtile[bwd]", "l2_normalize[fwd]",
+                 "l2_normalize[bwd]"]
 TRAIN_BATCH = 32
 TRAIN_PRESENT = 40  # labels in the segmentation: the packed CE branch
+OVERFLOW_PRESENT = 150  # with 50 distractors past the capacity: full table
+CLI_TRAIN_BATCH = 16  # cli/train's default --batch_size
 POOL_OBJECTS = 256  # object ids of masked_average_pooling (masked_pooling.py:8)
 VAL_KERNELS = ["pixel_text_topk[fp32]", "class_presence", "histogram",
-               "pixel_text_ce[fwd]"]
+               "live_rows", "pixel_text_ce[fwd]"]
 CAPACITY = 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
@@ -1016,7 +1031,7 @@ def tc_alone(flat, temp, g, labels, valid, ptable, pmask, pids, flag):
     fwd = lambda: lib.rc_pixel_text_ce_tc_fwd(  # noqa: E731
         flat.data_ptr(), temp.data_ptr(), labels.data_ptr(),
         valid.data_ptr(), S, N, D, ptable.data_ptr(), pmask.data_ptr(),
-        pids.data_ptr(), K, flag.data_ptr(), ce.data_ptr(), stream)
+        pids.data_ptr(), K, flag.data_ptr(), ce.data_ptr(), None, stream)
     bwd = lambda: lib.rc_pixel_text_ce_tc_bwd(  # noqa: E731
         flat.data_ptr(), temp.data_ptr(), coeff.data_ptr(),
         labels.data_ptr(), valid.data_ptr(), S, N, D, ptable.data_ptr(),
@@ -1035,8 +1050,10 @@ def phase_train_kernels(device, stats):
         histogram,
         histogram_plain,
     )
+    from rangeclip_tpu_torch.ops.kernels.live_rows import live_table
     from rangeclip_tpu_torch.ops.kernels.pixel_text_ce import (
         ce_operands,
+        member_table,
         pixel_text_ce_backward_op,
         pixel_text_ce_backward_plain,
         pixel_text_ce_op,
@@ -1084,6 +1101,46 @@ def phase_train_kernels(device, stats):
     # table, drawn after the others' data)
     text = l2_normalize(torch.randn(NUM_CLASSES, D, device=device,
                                     generator=gen), dim=-1)
+
+    # live_rows: the member-only kernels' table at the overflow branch's
+    # shape (the bf16 table of 512 and the packed one of 128, 200 members,
+    # the flag at 0), bit-equal to live_table over the rows in the order
+    # the kernel gathers them (the selected table first)
+    mask, _ = contrast_set(torch.Generator(device=device).manual_seed(
+        SEED + 19), device, 200)
+    pids, ptable, pmask = pack_contrast_set(mask, text, CAPACITY)
+    flag = (mask.sum() <= CAPACITY).int().reshape(1)
+    tb, ptb = text.to(torch.bfloat16), ptable.to(torch.bfloat16)
+    mask_i, pmask_i, pids_i = mask.int(), pmask.int(), pids.int()
+    arange = torch.arange(NUM_CLASSES, dtype=torch.int32, device=device)
+    on = bool(flag)
+    order = [(ptb, pids_i, pmask_i != 0), (tb, arange, mask_i != 0)]
+    order = order if on else order[::-1]
+    plain_rows = torch.cat([order[0][0], order[1][0]])
+    plain_ids = torch.cat([order[0][1], order[1][1]])
+    plain_live = torch.cat([order[0][2], torch.zeros_like(order[1][2])])
+
+    def gather():
+        return member_table(tb, mask_i, ptb, pmask_i, pids_i, flag)
+
+    def gather_plain():
+        return live_table(plain_rows, plain_ids, plain_live)
+
+    got, want = gather(), gather_plain()
+    torch.cuda.synchronize()
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            "live_rows differs from live_table")
+    ms, plain_ms = time_pair(gather, gather_plain, 50, 20)
+    rows_n = plain_rows.shape[0]
+    log(f"  live_rows bf16 [{NUM_CLASSES} + {CAPACITY}, {D}] -> [{D}, "
+        f"{got[0].shape[1]}] f32, {int(got[2])} live: bit-equal to "
+        f"live_table; kernel {ms:.4f} ms (one launch), plain {plain_ms:.4f} "
+        f"ms")
+    stats["live_rows"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **bound(rows_n * D * 2 + rows_n * 8 + got[0].numel() * 4
+                + rows_n * 4 + 4, 0, "bf16"))
+    del got, want, plain_rows
     rows = {}
     for case, dtype, batch, members, width in (
             ("bf16 packed", torch.bfloat16, B, 90, D),
@@ -1117,9 +1174,9 @@ def phase_train_kernels(device, stats):
         plain_args = (flat, temp, lab, val, table, msk)
         plain_packed = None if pt is None else (pt, pm, pi, flag)
         g = torch.tensor(1.0 / N, device=device)
-        got = pixel_text_ce_op(*op_args)
+        got, row_stats = pixel_text_ce_op(*op_args)
         want = pixel_text_ce_plain(*plain_args, packed=plain_packed)
-        dx, dt = pixel_text_ce_backward_op(g, *op_args)
+        dx, dt = pixel_text_ce_backward_op(g, row_stats, *op_args)
         dx_p, dt_p = pixel_text_ce_backward_plain(g, *plain_args,
                                                   packed=plain_packed)
         torch.cuda.synchronize()
@@ -1140,15 +1197,16 @@ def phase_train_kernels(device, stats):
         fwd = time_pair(lambda: pixel_text_ce_op(*op_args),
                         lambda: pixel_text_ce_plain(
                             *plain_args, packed=plain_packed), 5, 2)
-        bwd = time_pair(lambda: pixel_text_ce_backward_op(g, *op_args),
+        bwd = time_pair(lambda: pixel_text_ce_backward_op(g, row_stats,
+                                                          *op_args),
                         lambda: pixel_text_ce_backward_plain(
                             g, *plain_args, packed=plain_packed), 5, 2)
         kind = "bf16" if dtype == torch.bfloat16 else "f32"
         # the packed cases run on the tensor cores; on overflow (the flag
-        # at 0) the tensor-core kernels return at once and the CUDA-core
-        # kernels score the full table
+        # at 0) the tensor-core kernels return at once and the member-only
+        # kernels score the full table's members
         tc = case.startswith("bf16 packed")
-        require(tc_route(flat, pt, backward=True) == (pt is not None),
+        require(tc_route(flat, pt) == (pt is not None),
                 f"pixel_text_ce {case}: route")
         # a non-member's logit is -1e30 and its exp term exactly 0: the
         # function needs the members only (the packed table holds them)
@@ -1163,13 +1221,20 @@ def phase_train_kernels(device, stats):
             PRODUCT_ONLY_MS["pixel_text_ce (bf16 [N, 512] x [512, 128])"] = (
                 cuda_ms(lambda: torch.matmul(emb, pt.T), 20))
             del emb
-        if case.startswith("fp32 full C"):  # TF32 off (main)
-            emb = l2_normalize(flat, dim=-1)
-            rows_t = table[mask].contiguous()
+        if not tc:  # the member-only kernels' products alone, TF32 off (main)
+            emb = l2_normalize(flat.float(), dim=-1)
+            rows_t = table[mask].float().contiguous()
+            m_ = rows_t.shape[0]
+            if dtype == torch.float32:
+                PRODUCT_ONLY_MS[
+                    f"pixel_text_ce[fwd] (f32 [N, {width}] x [{width}, "
+                    f"{m_} members])"] = cuda_ms(
+                        lambda: torch.matmul(emb, rows_t.T), 10)
             PRODUCT_ONLY_MS[
-                f"pixel_text_ce[fwd] (f32 [N, {width}] x [{width}, "
-                f"{rows_t.shape[0]} members])"] = cuda_ms(
-                    lambda: torch.matmul(emb, rows_t.T), 10)
+                f"pixel_text_ce[bwd] {case} (f32 [{N}, {width}] x "
+                f"[{width}, {m_}], then [{N}, {m_}] x [{m_}, {width}])"] = (
+                    cuda_ms(lambda: torch.matmul(torch.matmul(emb, rows_t.T),
+                                                 rows_t), 5))
             del emb, rows_t
         esize = flat.element_size()
         io = flat.numel() * esize + lab.numel() * 8 + classes * width * esize
@@ -1181,7 +1246,8 @@ def phase_train_kernels(device, stats):
             bwd=dict(max_abs_err=float(err.max()), ms=bwd[0],
                      plain_ms=bwd[1], library_ms=None,
                      **bound(io + flat.numel() * esize, 2 * flops, kind)))
-        log(f"  pixel_text_ce {case} ({'tensor' if tc else 'CUDA'} cores), "
+        log(f"  pixel_text_ce {case} "
+            f"({'tensor cores' if tc else 'member-only, CUDA cores'}), "
             f"N={N} D={width} S=4 "
             f"({int(mask.sum())} members): CE {float(got):.6g} vs plain "
             f"{float(want):.6g}, d tau {float(dt):.6g} vs {float(dt_p):.6g}, "
@@ -1193,8 +1259,8 @@ def phase_train_kernels(device, stats):
         del samples, flat, dx, dx_p, err, op_args, plain_args
         torch.cuda.empty_cache()
     # the rows: the tensor-core kernels at the flagship packed shape, the
-    # CUDA-core kernels at fp32 full C with 90 members (the route of fp32
-    # validation)
+    # member-only kernels at fp32 full C with 90 members (the route of fp32
+    # validation and of cli/train's default precision)
     for name, case in (("pixel_text_ce_tc", "bf16 packed"),
                        ("pixel_text_ce", "fp32 full C")):
         tc = name.endswith("_tc")
@@ -1538,6 +1604,28 @@ def plain_pixel_text_topk(field, text, candidate_mask=None, top_k=5,
     return idx, (val if want_values else None)
 
 
+@contextlib.contextmanager
+def packed_flags(flags: list):
+    """Within the block, each CE call's device flag (n_contrast <= the
+    packed capacity) is appended to ``flags``; calls without a packed table
+    append nothing."""
+    from rangeclip_tpu_torch.losses import infonce
+
+    inner = infonce.fused_pixel_text_ce
+
+    def recording(*args, **kwargs):
+        packed = args[6] if len(args) > 6 else kwargs.get("packed")
+        if packed is not None:
+            flags.append(packed[3])
+        return inner(*args, **kwargs)
+
+    infonce.fused_pixel_text_ce = recording
+    try:
+        yield
+    finally:
+        infonce.fused_pixel_text_ce = inner
+
+
 class plain_versions:
     """Within the block, the losses, the decoder's normalisation and
     predict's candidate mask and scoring call the kernels' plain versions
@@ -1569,7 +1657,8 @@ class plain_versions:
             setattr(module, attr, old)
 
 
-def compare_train_step(device, batch: int, bf16: bool):
+def compare_train_step(device, batch: int, bf16: bool,
+                       present: int = TRAIN_PRESENT):
     """One kernel step and one plain step from the same weights, data and
     draws; returns the (kernel, plain) infos."""
     from rangeclip_tpu_torch.losses.hybrid import Draws
@@ -1579,7 +1668,7 @@ def compare_train_step(device, batch: int, bf16: bool):
     from rangeclip_tpu_torch.utils.profiling import train_setup
 
     state, data, text, medium, hard, step = train_setup(
-        device, batch=batch, bf16=bf16, seed=SEED + 10)
+        device, batch=batch, bf16=bf16, present=present, seed=SEED + 10)
     gen = torch.Generator(device=device).manual_seed(SEED + 11)
     draws = [Draws(draw_pixels(batch, RES, RES, 0.7, gen, device),
                    (sample_gumbel(NUM_CLASSES, gen, device),
@@ -1601,7 +1690,9 @@ def compare_train_step(device, batch: int, bf16: bool):
 
 
 def phase_train(device, card: str, totals):
-    """The flagship train step, 3 steps; then kernel vs plain steps."""
+    """The flagship train step, 3 steps; cli/train's fp32 microbatch and a
+    bf16 step overflowing the contrast capacity, 3 steps each; then kernel
+    vs plain steps."""
     from rangeclip_tpu_torch.utils.profiling import train_setup
 
     state, data, text, medium, hard, step = train_setup(
@@ -1638,15 +1729,59 @@ def phase_train(device, card: str, totals):
     del state, data
     torch.cuda.empty_cache()
 
+    # cli/train's default precision at its microbatch (fp32, batch 16: the
+    # member-only CE kernels over 90 members), and a bf16 step whose
+    # contrast set overflows the capacity (200 members: the tensor-core CE
+    # kernels return at once, the member-only ones write)
+    for name, batch, bf16, present, expect in (
+            (f"fp32 batch {CLI_TRAIN_BATCH}, 90 members", CLI_TRAIN_BATCH,
+             False, TRAIN_PRESENT, ["pixel_text_ce[fwd]",
+                                    "pixel_text_ce[bwd]", "live_rows"]),
+            (f"bf16 batch {TRAIN_BATCH}, {OVERFLOW_PRESENT + 50} members "
+             f"(overflow)", TRAIN_BATCH, True, OVERFLOW_PRESENT,
+             ["pixel_text_ce[fwd]", "pixel_text_ce[bwd]",
+              "pixel_text_ce_tc[fwd]", "pixel_text_ce_tc[bwd]",
+              "live_rows"])):
+        state, data, text, medium, hard, step = train_setup(
+            device, batch=batch, bf16=bf16, present=present, seed=SEED + 14)
+        times, flags = [], []
+
+        def drive():
+            with packed_flags(flags):
+                for i in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _, info = step(state, data, (SEED, i), 1e-4, 0.0, 0.75,
+                                   text, medium, hard)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    require(np.isfinite(float(info["total_loss"])),
+                            f"train step ({name}): loss {info}")
+
+        _, counts = run_path(f"train step ({name})", expect, drive, totals)
+        # the CE's branch: the flag (n_contrast <= capacity) of each call
+        require(all(not bool(f) for f in flags) if bf16 else not flags,
+                f"train step ({name}): packed flags {flags}")
+        step_s = sum(times[1:]) / len(times[1:])
+        log(f"  train step ({name}): {1e3 * step_s:.2f} ms/step (steps 2-3, "
+            f"host clock, synchronised; first step {1e3 * times[0]:.1f} "
+            f"ms), {counts['pixel_text_ce[bwd]'] / 3:g} pixel_text_ce[bwd] "
+            f"launches a step, {len(flags)} CE calls with the full-table "
+            f"flag on {card}")
+        del state, data
+        torch.cuda.empty_cache()
+
     # kernel step vs the same step through the plain versions: fp32 at
     # batch 8 (TF32 off; f32 summation orders: loss rtol 1e-4, grad_norm
-    # 1e-3) and bf16 at batch 32 (the kernels round the bf16 pixel and the
-    # CE delta where the plain versions do, but sum in other orders: loss
-    # rtol 2e-3, grad_norm 2e-2)
-    for batch, bf16, rtol_loss, rtol_norm in ((8, False, 1e-4, 1e-3),
-                                              (TRAIN_BATCH, True, 2e-3,
-                                               2e-2)):
-        info, plain = compare_train_step(device, batch, bf16)
+    # 1e-3), bf16 at batch 32 and bf16 at batch 32 overflowing the contrast
+    # capacity (the kernels round the bf16 pixel and the CE delta where the
+    # plain versions do, but sum in other orders: loss rtol 2e-3, grad_norm
+    # 2e-2)
+    for batch, bf16, present, rtol_loss, rtol_norm in (
+            (8, False, TRAIN_PRESENT, 1e-4, 1e-3),
+            (TRAIN_BATCH, True, TRAIN_PRESENT, 2e-3, 2e-2),
+            (TRAIN_BATCH, True, OVERFLOW_PRESENT, 2e-3, 2e-2)):
+        info, plain = compare_train_step(device, batch, bf16, present)
         for key, rtol in (("total_loss", rtol_loss),
                           ("text_contrastive_loss", rtol_loss),
                           ("smoothness_loss", rtol_loss),
@@ -1656,6 +1791,7 @@ def phase_train(device, card: str, totals):
                     f"train step {'bf16' if bf16 else 'fp32'} {key}: kernel "
                     f"{got} vs plain {want} (rtol {rtol})")
         log(f"  train step {'bf16' if bf16 else 'fp32'} batch {batch}, "
+            f"{present} labels present, "
             f"kernels vs plain versions, same draws: loss "
             f"{float(info['total_loss']):.6f} vs "
             f"{float(plain['total_loss']):.6f}, grad_norm "
@@ -1994,7 +2130,7 @@ def main(argv=None) -> int:
         for bf16, path, expect in (
                 (False, "auto", ["score_topk[knockout]"]),
                 (True, "auto", ["score_topk[packed]"]),
-                (False, "default", ["pixel_text_topk[fp32]"]),
+                (False, "default", ["pixel_text_topk[fp32]", "live_rows"]),
                 (True, "default", ["pixel_text_topk[bf16]"])):
             folded, _ = run_path(
                 f"serve {'bf16' if bf16 else 'fp32'} {path}", expect,

@@ -861,16 +861,20 @@ __device__ __forceinline__ void round_chunk(const T* __restrict__ raw,
   }
 }
 
-// The block's loop: pixel rows blockIdx.x * kRows .. + kRows of `field`
-// [n, d] against columns [0, c) of `table_t` [d, ldt] f32 (ldt % 4 == 0),
-// class tile by class tile.  After a tile's last chunk, epilogue(acc, rs,
-// tile) gets the thread's 8 x 8 sums (rows row0 + 4 i, columns tile *
-// kCols + col0 + col_of(j, wx); columns >= c hold no meaning) and the row
-// scales in shared memory; the sums are zeroed after.  No tile runs when
-// c == 0.
+// The block's loop: rows base .. base + kRows of `field` [n, d] (row
+// stride ldf, 16-byte aligned rows) against columns [0, c) of `table_t`
+// [d, ldt] f32 (ldt % 4 == 0), class tile by class tile.  After a tile's
+// last chunk, epilogue(acc, rs, tile) gets the thread's 8 x 8 sums (rows
+// row0 + 4 i, columns tile * kCols + col0 + col_of(j, wx); columns >= c
+// hold no meaning) and the row scales in shared memory; the sums are
+// zeroed after.  No tile runs when c == 0.  Past d the table is
+// zero-filled, the field only in whole 16-byte pieces: a field row's piece
+// that straddles d (d not a multiple of 4 f32 or 8 bf16 values) is read
+// whole, so its values past d must be finite (they meet zeros).
 template <typename T, typename Epilogue>
 __device__ __forceinline__ void score_tiles(unsigned char* smem,
                                             const T* __restrict__ field,
+                                            long long ldf, long long base,
                                             const float* __restrict__ table_t,
                                             int ldt, int c, long long n,
                                             int d, const Roles& roles,
@@ -881,7 +885,6 @@ __device__ __forceinline__ void score_tiles(unsigned char* smem,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const long long base = (long long)blockIdx.x * kRows;  // first pixel row
   const int chunks = (d + kChunk - 1) / kChunk;
   const int steps = chunks * ((c + kCols - 1) / kCols);
 
@@ -895,7 +898,7 @@ __device__ __forceinline__ void score_tiles(unsigned char* smem,
   constexpr int kAIters = kRows / kRowStep;
   const int a_row = tid / kRowPieces;
   const int a_dim = (tid % kRowPieces) * kPer;
-  const T* a_src = field + (base + a_row) * d + a_dim;
+  const T* a_src = field + (base + a_row) * ldf + a_dim;
   unsigned a_ok = 0;
 #pragma unroll
   for (int i = 0; i < kAIters; ++i)
@@ -919,7 +922,8 @@ __device__ __forceinline__ void score_tiles(unsigned char* smem,
         const bool ok = dim_ok && ((a_ok >> i) & 1u);
         tc::cp_async16(
             a_dst + stage + i * kRowStep * L::kRowBytes,
-            ok ? a_src + (long long)i * kRowStep * d + next_dim0 : field, ok);
+            ok ? a_src + (long long)i * kRowStep * ldf + next_dim0 : field,
+            ok);
       }
       const bool col_ok = next_tile * kCols + b_col < c;
       const float* b = b_src + (long long)next_dim0 * ldt + next_tile * kCols;
@@ -948,7 +952,7 @@ __device__ __forceinline__ void score_tiles(unsigned char* smem,
       if (base + r < n) {
         for (int g = lane * 8; g < d; g += 256) {
           T v[8];
-          load8(field + (base + r) * d + g, v);
+          load8(field + (base + r) * ldf + g, v);
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
             const double x = to_float(v[e]);

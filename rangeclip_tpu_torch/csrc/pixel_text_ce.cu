@@ -27,18 +27,17 @@
 // (0.54 GB): bytes at the tensor cores' bf16 rate (0.07 ms of products
 // against 0.16 ms of reads), operations on the CUDA cores, counted over
 // the members (2 N D count FLOP: 0.18 ms at N = 131,072, D = 512 and 90
-// members in f32).  The backward
-// does the product twice or more (see below) and writes dx too.  The
-// [N, C] logits never touch device memory.
+// members in f32).  The backward does twice the products and writes dx
+// too.  The [N, C] logits never touch device memory.
 //
-// Three designs, chosen by shape on the host and by the device flag:
+// Two designs, chosen by shape on the host and by the device flag:
 //
-// bf16 with a packed table, d <= 1280 (the backward: k <= 128): tensor
-// cores (ce_tc_fwd_kernel, ce_tc_bwd_kernel).  A block of one or two
-// consumer warpgroups owns 64 pixel rows each, and a producer warpgroup
-// streams the table through a four-stage TMA ring (common.cuh: tc::); it
-// hands its registers to the consumers (setmaxnreg: 232 each), and nothing
-// spills.
+// bf16 with a packed table, d <= 1280 and k <= 128 (the forward kernel
+// takes any k): tensor cores (ce_tc_fwd_kernel, ce_tc_bwd_kernel).  A
+// block of one or two consumer warpgroups owns 64 pixel rows each, and a
+// producer warpgroup streams the table through a four-stage TMA ring
+// (common.cuh: tc::); it hands its registers to the consumers (setmaxnreg:
+// 232 each), and nothing spills.
 //   1. The rows are copied once into shared memory in wgmma's swizzled A
 //      layout, their f64 scale taken from that copy and the tile rewritten
 //      as bf16(x * rs) in place (common.cuh: tc::normalized_rows).
@@ -57,196 +56,76 @@
 //      proj = emb . d_emb over all of d, so the chunks run twice: pass 0
 //      sums proj, pass 1 writes dx.  emb = x * rs in f32 re-reads x (L2),
 //      staged with dx through other free rows of the A tile.
-// The kernels return at once unless *use_packed != 0; the CUDA-core kernel,
-// launched beside them with skip_packed, returns at once otherwise.
+// The kernels return at once unless *use_packed != 0; the member-only
+// kernels, launched beside them with skip_packed, return at once otherwise.
 //
 // Against the plain version, whose logits are an f32 FMA chain over d in
 // order, no other summation order agrees on every bf16 rounding of delta:
 // even exactly rounded logits flip a label's delta in a few rows of a
 // flagship-sized draw, and such a flip moves the row's dx by about the
-// checks' bound (utils/ce_rounding.py measures it).  The CUDA-core kernel
-// sums in the plain version's order.
+// checks' bound (utils/ce_rounding.py measures it).  The CUDA-core kernels
+// sum in the plain version's order.
 //
-// The forward where no tensor-core kernel runs beside it (f32, and bf16
-// without a tensor-core packed table): the members only
-// (member::ce_members_kernel).  A non-member's logit is -1e30 and its exp
-// term is exactly 0 in f32, so only the members' logits are needed: the
-// wrapper gathers the members of the table the device flag selects on the
-// device (no host sync), first and transposed to [D, C] f32 with their
-// global ids and a device count, and the kernel runs ceil(count / 128)
-// class tiles of pixel_text_topk.cu's fp32 loop (common.cuh:
-// rc::simt::score_tiles: 128 rows x 128 classes a block, a three-stage
-// cp.async ring of 32-dim chunks, two blocks per SM; the f32 scale moves
-// past the sum, bf16 rounds bf16(x * rs) on the landed chunk).  The
-// epilogue runs on the accumulators: 1/tau, an online max / sum-exp per
-// row and class half reduced over a quarter warp by shuffles, and the slot
-// picks found by comparing the members' global ids with the labels; the
-// halves merge at the end.  What the full table gave and a member-only
-// product must keep: the C - count non-member terms of the sum-exp seed
-// the online state (m = -1e30, z = C - count), so they vanish at the first
-// member tile's rescale as in f32 and no member gives -1e30 + log C; a
-// label of a non-member in [0, C) picks its -1e30 (mask[label] read per
-// slot), a label outside picks 0.
+// Everything else, f32 and bf16 without a tensor-core branch, and the
+// tensor-core route's full-table branch (a contrast set over the
+// capacity): the members only (member::).  A non-member's logit is -1e30
+// and its exp term is exactly 0 in f32, so only the members' logits are
+// needed: the wrapper gathers the members of the table the device flag
+// selects on the device (live_rows.cu, no host sync), first and transposed
+// to [D, Cp] f32 with their global ids and a device count, and the kernels
+// run ceil(count / 128) class tiles of pixel_text_topk.cu's fp32 loop
+// (common.cuh: rc::simt::score_tiles: 128 rows x 128 classes a block, a
+// three-stage cp.async ring of 32-dim chunks, two blocks per SM; the f32
+// scale moves past the sum, bf16 rounds bf16(x * rs) on the landed chunk,
+// so each bf16 logit is one f32 FMA chain over d in order).  Epilogues run
+// on the accumulators, per row and class half reduced over a quarter warp
+// by shuffles, with the row's state in shared memory.  What the full table
+// gave and a member-only product must keep: the C - count non-member terms
+// of the sum-exp seed the forward's online state (m = -1e30, z = C -
+// count), so they vanish at the first member tile's rescale as in f32 and
+// no member gives -1e30 + log C; a label of a non-member in [0, C) picks
+// its -1e30 (mask[label] read per slot), a label outside picks 0.
 //
-// The full-table CUDA-core kernel (ce_kernel): the backward of every route
-// but the tensor-core one, and the forward launched beside the tensor-core
-// kernel (skip_packed), which returns at once unless the flag selects the
-// full table (a contrast set over the capacity).  A block of 256 threads
-// owns 64 pixel rows and walks the table in tiles of 128 classes.
-//   1. Scale: each warp sums x^2 of 8 rows in f64.
-//   2. Logits: a 64 x 128 register-tiled product over D in chunks of 16
-//      dims, double-buffered in shared memory; staging rounds x * rs to T.
-//      Each thread holds 4 x 8 sums.  The tile lands class-major in shared
-//      memory with the mask and 1/tau applied.
-//   3. Row statistics: four threads per row scan the tile (pitch 72 floats:
-//      conflict-free), with an online max / sum-exp across tiles (one tile:
-//      the plain formula exactly) and the slot picks.
-//   4. Backward only: per tile, delta into the same shared tile, then
-//      d_emb [64, D] += delta_tile [64, 128] x table_tile [128, D]; last,
-//      one warp per row applies the normalisation VJP.  The backward does
-//      the product twice for one class tile and three times for several
-//      (pass 1 for the row statistics, pass 2 recomputes each tile).  The
-//      d_emb tile [64, D + 4] f32 is in shared memory up to D = 648; beyond,
-//      it lives in a device workspace, one slice per block, and a grid of
-//      at most one block per SM strides over the row tiles.
-// The TPU kernel's class-major [C, TILE_N] layout and row-tile search are
-// TPU work; here rows are the block's axis.  Any N, C, K; D % 8 == 0;
-// S <= 4.
+// The member-only backward (ce_members_bwd_kernel) is bound by its two
+// products over the members, 4 N D count FLOP on the CUDA cores (0.36 ms
+// at N = 131,072, D = 512 and 90 members).  The forward's row max and
+// sum-exp are its second output (stats), so the backward runs the logits
+// once, however many class tiles the members span, where recomputing the
+// statistics would cost one more product over the members.  Per block of
+// 128 pixel rows:
+//   1. The logits again, tile by tile, delta rounded to T into a
+//      class-major [count, 128] f32 slice of a device workspace, and per
+//      row sum_c e_c logit_c and the picks.
+//   2. Per row, a valid label of a non-member in [0, C) (its table row is
+//      not gathered): delta = -w at that class, so that row of the
+//      selected table is added to d_emb times -w in step 3, and -1e30 w to
+//      dtau, as the plain version does.  Then dtau.
+//   3. d_emb = delta x table / tau in 128-dim tiles on the same loop with
+//      the roles swapped: the gathered [D, Cp] table is the loop's "field"
+//      (dims as rows, members along k) and the delta slice its "table" (k
+//      = members, columns = the block's pixel rows), so no second gather
+//      is needed.  Each tile's sums go through shared memory (the ring is
+//      free after the tile's last step) to rows of d_emb in the workspace
+//      ([128, D] f32 a block), 128 dims at a time with x read alongside for
+//      proj = emb . d_emb, summed over dims as the plain version sums it.
+//      (Taken in class space, sum_c delta_c sim_c / tau, proj would need
+//      no d_emb tile, but in bf16 its sims come from bf16(emb): 0.88 of the
+//      bf16 check's bound at D = 64, against 1e-4 from f32 sims.)
+//   4. dx = rs * (d_emb - emb * proj), the block's d_emb rows read back.
+// The workspace slices ((ldt + D) x 128 f32 each) bound the grid: at most
+// two blocks per SM, each walking its row tiles.  The d_emb rows cross L2
+// twice, device memory at worst (0.16 ms at N = 131,072, D = 512).  With
+// no member at all (count == 0) every row of the selected table is a
+// column at -1e30, as in the plain version.  The tensor-core forward's
+// statistics come from its own logits, not the FMA chain that delta's bf16
+// rounding follows, so the tensor-core route is taken by both directions
+// or by neither (bf16, a packed table of at most 128, D <= 1280).  The TPU
+// kernel's class-major [C, TILE_N] layout and row-tile search are TPU
+// work; here rows are the block's axis.  Any N; D % 8 == 0; 1 <= S <= 4.
 
 #include "common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kRows = 64;              // pixel rows per block
-constexpr int kCols = 128;             // classes (or dims) per tile
-constexpr int kChunk = 16;             // k per staging step
-constexpr int kAPitch = kRows + 4;
-constexpr int kBPitch = kCols + 4;
-constexpr int kLPitch = kRows + 8;     // == 8 mod 32: conflict-free scans
-constexpr int kMaxSmem = 232448;
-
-struct Smem {
-  float a[2][kChunk][kAPitch];  // A operand, k-major
-  float b[2][kChunk][kBPitch];  // B operand, k-major
-  float l[kCols][kLPitch];      // logits (then delta) of a tile, class-major
-  float rs[kRows];
-  int ids[kCols];
-  int mask[kCols];
-};
-
-struct Params {
-  const void* x;
-  const float* temperature;
-  const float* coeff;  // backward: the upstream gradient of the sum
-  const int* labels;   // [S, n]
-  const float* valid;  // [S, n]
-  long long n;
-  int d;
-  const void* table;   // [c, d]
-  const int* mask;     // [c]
-  int c;
-  const void* ptable;  // [k, d] packed members, or NULL
-  const int* pmask;    // [k]
-  const int* pids;     // [k] global ids
-  int k;
-  const int* use_packed;  // device flag, or NULL (full table)
-  int skip_packed;        // return at once where the flag selects packed
-  float* ce;              // forward: [n] per-row CE
-  void* dx;               // backward: [n, d] in x's dtype
-  float* dtau;            // backward: [n] per-row d log tau
-  float* workspace;       // backward, where de_in_smem(d) fails: d_emb tiles
-};
-
-template <typename T>
-__device__ __forceinline__ void load_group(const T* base, long long rows,
-                                           int d, long long r, int dim,
-                                           T (&v)[8]) {
-  if (r < rows && dim < d) {
-    rc::load8(base + r * d + dim, v);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = rc::round_to(0.f, T());
-  }
-}
-
-// acc[i][j] for rows ty*4+i and columns (j < 4 ? 0 : 64) + tx*4 + (j & 3).
-__device__ __forceinline__ void mma_chunk(const float (&a)[kChunk][kAPitch],
-                                          const float (&b)[kChunk][kBPitch],
-                                          int tx, int ty,
-                                          float (&acc)[4][8]) {
-#pragma unroll
-  for (int k = 0; k < kChunk; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(&a[k][ty * 4]);
-    const float4 b0 = *reinterpret_cast<const float4*>(&b[k][tx * 4]);
-    const float4 b1 = *reinterpret_cast<const float4*>(&b[k][64 + tx * 4]);
-    const float av[4] = {a0.x, a0.y, a0.z, a0.w};
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// The logits of classes [c0, c0 + 128) for the block's rows into sm.l
-// (class-major), masked (sm.mask) and scaled by inv_temp.  sm.ids/sm.mask
-// of the tile must be written before the call.
-template <typename T>
-__device__ void logits_tile(const T* x, long long n, long long row0, int d,
-                            const T* table, int count, int c0,
-                            float inv_temp, Smem& sm) {
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int st_row = tid >> 1, st_dim = (tid & 1) * 8;
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  T pv[8], tv[8];
-  const int chunks = (d + kChunk - 1) / kChunk;
-  auto fetch = [&](int chunk) {
-    const int dim = chunk * kChunk + st_dim;
-    if (st_row < kRows) load_group(x + row0 * d, n - row0, d, st_row, dim, pv);
-    load_group(table + (long long)c0 * d, (long long)(count - c0), d, st_row,
-               dim, tv);
-  };
-  auto stage = [&](int buf) {
-    if (st_row < kRows) {
-      const float scale = sm.rs[st_row];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        sm.a[buf][st_dim + i][st_row] =
-            rc::to_float(rc::round_to(rc::to_float(pv[i]) * scale, T()));
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) sm.b[buf][st_dim + i][st_row] = rc::to_float(tv[i]);
-  };
-  fetch(0);
-  stage(0);
-  __syncthreads();
-  for (int chunk = 0; chunk < chunks; ++chunk) {
-    const int buf = chunk & 1;
-    if (chunk + 1 < chunks) fetch(chunk + 1);
-    mma_chunk(sm.a[buf], sm.b[buf], tx, ty, acc);
-    // the other buffer was last read before the previous barrier
-    if (chunk + 1 < chunks) stage(buf ^ 1);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int cl = (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
-    const bool live = sm.mask[cl] != 0;
-    float4 v;
-    v.x = live ? acc[0][j] * inv_temp : rc::kNegInf;
-    v.y = live ? acc[1][j] * inv_temp : rc::kNegInf;
-    v.z = live ? acc[2][j] * inv_temp : rc::kNegInf;
-    v.w = live ? acc[3][j] * inv_temp : rc::kNegInf;
-    *reinterpret_cast<float4*>(&sm.l[cl][ty * 4]) = v;
-  }
-  __syncthreads();
-}
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -256,326 +135,6 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// The 64 pixel rows from row0 of the block: the CE (forward) or dx and
-// dtau (backward).  de is the [64, d + 4] f32 d_emb tile (backward).
-template <typename T, int S, bool kBackward>
-__device__ __forceinline__ void ce_rows(const Params& p, Smem& sm, float* de,
-                                        long long row0) {
-  const int de_pitch = p.d + 4;
-
-  const bool packed = p.use_packed != nullptr && *p.use_packed != 0;
-  const T* table = static_cast<const T*>(packed ? p.ptable : p.table);
-  const int* mask = packed ? p.pmask : p.mask;
-  const int* ids = packed ? p.pids : nullptr;
-  const int count = packed ? p.k : p.c;
-  const float inv_temp = 1.0f / *p.temperature;
-  const T* x = static_cast<const T*>(p.x);
-  const int d = p.d;
-  const long long n = p.n;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-
-  // 1. rs[r] = 1/sqrt(max(sum x^2, 1e-24)), the sum in f64
-  constexpr int kRowsPerWarp = kRows / (kThreads / 32);
-  for (int r = warp * kRowsPerWarp; r < (warp + 1) * kRowsPerWarp; ++r) {
-    double sq = 0.0;
-    if (row0 + r < n) {
-      for (int g = lane * 8; g < d; g += 256) {
-        T v[8];
-        rc::load8(x + (row0 + r) * d + g, v);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const double xv = rc::to_float(v[i]);
-          sq = fma(xv, xv, sq);
-        }
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sq += __shfl_xor_sync(0xffffffffu, sq, off);
-    if (lane == 0) sm.rs[r] = (float)(1.0 / sqrt(fmax(sq, 1e-24)));
-  }
-  __syncthreads();  // rs is read by other warps when staging
-
-  // scan roles: four threads per row, classes q, q + 4, ... of a tile
-  const int r = warp * 8 + (lane >> 2);
-  const int q = lane & 3;
-  const long long row = row0 + r;
-  const bool live_row = row < n;
-  const float coeff = kBackward ? *p.coeff : 1.f;
-  int lab[S];
-  float w[S];
-  float wsum = 0.f;
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    lab[s] = live_row ? p.labels[s * n + row] : INT_MIN;
-    const float v = live_row ? p.valid[s * n + row] : 0.f;
-    w[s] = kBackward ? __fmul_rn(coeff, v) : v;
-    wsum = __fadd_rn(wsum, w[s]);
-  }
-
-  auto load_tile_ids = [&](int c0, int cn) {
-    if (tid < kCols) {
-      sm.ids[tid] = tid < cn ? (ids != nullptr ? ids[c0 + tid] : c0 + tid)
-                             : INT_MIN;
-      sm.mask[tid] = tid < cn ? mask[c0 + tid] : 0;
-    }
-  };
-
-  // 2-3. logits tile by tile, online row statistics and slot picks
-  float m_run = -CUDART_INF_F, z = 0.f, t_el = 0.f;
-  float pick[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) pick[s] = 0.f;
-  const int tiles = (count + kCols - 1) / kCols;
-  for (int c0 = 0; c0 < count; c0 += kCols) {
-    const int cn = min(kCols, count - c0);
-    load_tile_ids(c0, cn);
-    logits_tile(x, n, row0, d, table, count, c0, inv_temp, sm);
-    float mt = -CUDART_INF_F;
-    for (int c = q; c < cn; c += 4) mt = fmaxf(mt, sm.l[c][r]);
-    const float m_new = fmaxf(m_run, quad_max(mt));
-    float ps = 0.f, pt = 0.f;
-    for (int c = q; c < cn; c += 4) {
-      const float l = sm.l[c][r];
-      const float e = expf(l - m_new);
-      ps += e;
-      if (kBackward) pt = __fadd_rn(pt, __fmul_rn(e, l));
-      const int id = sm.ids[c];
-#pragma unroll
-      for (int s = 0; s < S; ++s)
-        if (id == lab[s]) pick[s] += l;
-    }
-    const float scale = expf(m_run - m_new);  // 0 on the first tile
-    z = __fadd_rn(__fmul_rn(z, scale), quad_sum(ps));
-    if (kBackward) t_el = __fadd_rn(__fmul_rn(t_el, scale), quad_sum(pt));
-    m_run = m_new;
-    __syncthreads();  // the tile, ids and mask are consumed
-  }
-  float wpick = 0.f;
-#pragma unroll
-  for (int s = 0; s < S; ++s)
-    wpick = __fadd_rn(wpick, __fmul_rn(w[s], quad_sum(pick[s])));
-
-  if (!kBackward) {
-    const float lse = m_run + logf(z);
-    if (live_row && q == 0)
-      p.ce[row] = __fsub_rn(__fmul_rn(wsum, lse), wpick);
-    return;
-  }
-
-  const float inv_z = 1.0f / z;
-  const float f = __fmul_rn(wsum, inv_z);
-  if (live_row && q == 0)
-    p.dtau[row] = __fsub_rn(wpick, __fmul_rn(wsum, __fmul_rn(t_el, inv_z)));
-
-  // 4. per tile: delta, then d_emb += delta x table
-  const int tx = tid & 15, ty = tid >> 4;
-  for (int c0 = 0; c0 < count; c0 += kCols) {
-    const int cn = min(kCols, count - c0);
-    if (tiles > 1) {
-      load_tile_ids(c0, cn);
-      logits_tile(x, n, row0, d, table, count, c0, inv_temp, sm);
-    }
-    for (int c = q; c < kCols; c += 4) {
-      float dl = 0.f;
-      if (c < cn) {
-        dl = __fmul_rn(expf(sm.l[c][r] - m_run), f);
-        const int id = sm.ids[c];
-#pragma unroll
-        for (int s = 0; s < S; ++s)
-          if (id == lab[s]) dl = __fsub_rn(dl, w[s]);
-      }
-      sm.l[c][r] = rc::to_float(rc::round_to(dl, T()));
-    }
-    __syncthreads();
-    for (int d0 = 0; d0 < d; d0 += kCols) {
-      float acc[4][8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      const int st_k = tid >> 4, st_col = (tid & 15) * 8;
-      for (int k0 = 0; k0 < kCols; k0 += kChunk) {
-        T tv[8];
-        load_group(table + (long long)(c0 + k0) * d, (long long)(count - c0 - k0),
-                   d, st_k, d0 + st_col, tv);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) sm.b[0][st_k][st_col + i] = rc::to_float(tv[i]);
-        __syncthreads();
-#pragma unroll
-        for (int k = 0; k < kChunk; ++k) {
-          const float4 a0 =
-              *reinterpret_cast<const float4*>(&sm.l[k0 + k][ty * 4]);
-          const float4 b0 =
-              *reinterpret_cast<const float4*>(&sm.b[0][k][tx * 4]);
-          const float4 b1 =
-              *reinterpret_cast<const float4*>(&sm.b[0][k][64 + tx * 4]);
-          const float av[4] = {a0.x, a0.y, a0.z, a0.w};
-          const float bv[8] = {b0.x, b0.y, b0.z, b0.w,
-                               b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j)
-              acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int col = d0 + half * 64 + tx * 4;
-          if (col >= d) continue;
-          float4* dst = reinterpret_cast<float4*>(
-              &de[(ty * 4 + i) * de_pitch + col]);
-          float4 v = make_float4(acc[i][half * 4], acc[i][half * 4 + 1],
-                                 acc[i][half * 4 + 2], acc[i][half * 4 + 3]);
-          if (c0 > 0) {
-            const float4 o = *dst;
-            v.x += o.x;
-            v.y += o.y;
-            v.z += o.z;
-            v.w += o.w;
-          }
-          *dst = v;
-        }
-      }
-    }
-    __syncthreads();  // de is complete for this tile; sm.l is consumed
-  }
-
-  // 5. dx = rs * (d_emb - emb * (emb . d_emb)), one warp per row
-  T* dx = static_cast<T*>(p.dx);
-  for (int rr = warp * kRowsPerWarp; rr < (warp + 1) * kRowsPerWarp; ++rr) {
-    const long long grow = row0 + rr;
-    if (grow >= n) break;
-    const float rsr = sm.rs[rr];
-    float proj = 0.f;
-    for (int g = lane * 8; g < d; g += 256) {
-      T v[8];
-      rc::load8(x + grow * d + g, v);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float emb = __fmul_rn(rc::to_float(v[i]), rsr);
-        const float dd = __fmul_rn(de[rr * de_pitch + g + i], inv_temp);
-        proj = __fadd_rn(proj, __fmul_rn(emb, dd));
-      }
-    }
-    proj = rc::warp_sum(proj);
-    for (int g = lane * 8; g < d; g += 256) {
-      T v[8], o[8];
-      rc::load8(x + grow * d + g, v);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float emb = __fmul_rn(rc::to_float(v[i]), rsr);
-        const float dd = __fmul_rn(de[rr * de_pitch + g + i], inv_temp);
-        o[i] = rc::round_to(
-            __fmul_rn(rsr, __fsub_rn(dd, __fmul_rn(emb, proj))), T());
-      }
-      rc::store8(dx + grow * d + g, o);
-    }
-  }
-}
-
-// kWorkspace: the d_emb tiles live in p.workspace, one per block, and the
-// grid (bounded by the SMs) strides over the row tiles.
-template <typename T, int S, bool kBackward, bool kWorkspace>
-__global__ void __launch_bounds__(kThreads, kBackward ? 1 : 2)
-    ce_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  if (p.skip_packed && *p.use_packed != 0) return;
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  float* de = kWorkspace ? p.workspace + (size_t)blockIdx.x * kRows * (p.d + 4)
-                         : reinterpret_cast<float*>(smem_raw + sizeof(Smem));
-  for (long long row0 = (long long)blockIdx.x * kRows; row0 < p.n;
-       row0 += (long long)gridDim.x * kRows) {
-    ce_rows<T, S, kBackward>(p, sm, de, row0);
-    __syncthreads();  // sm and de are free for the next tile
-  }
-}
-
-// The backward keeps its d_emb tile in shared memory while sizeof(Smem) +
-// 64 (d + 4) floats fit in 227 KB (d <= 648); beyond, in a workspace of one
-// tile per block, with one block per SM.
-bool de_in_smem(int d) {
-  return sizeof(Smem) + (size_t)kRows * (d + 4) * sizeof(float) <=
-         (size_t)kMaxSmem;
-}
-
-long long row_tiles(long long n) { return (n + kRows - 1) / kRows; }
-
-// Blocks of the backward's grid at width d: a block per row tile, or at
-// most one per SM when the d_emb tiles live in the workspace.
-long long bwd_blocks(int d, long long n) {
-  if (de_in_smem(d)) return row_tiles(n);
-  return std::min<long long>(row_tiles(n), rc::sm_count());
-}
-
-size_t workspace_bytes(int d, long long n) {
-  return de_in_smem(d) ? 0
-                       : (size_t)bwd_blocks(d, n) * kRows * (d + 4) *
-                             sizeof(float);
-}
-
-template <typename T, int S, bool kBackward, bool kWorkspace>
-cudaError_t launch_grid(const Params& p, long long blocks,
-                        cudaStream_t stream) {
-  const size_t smem =
-      sizeof(Smem) + (kBackward && !kWorkspace
-                          ? (size_t)kRows * (p.d + 4) * sizeof(float)
-                          : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      ce_kernel<T, S, kBackward, kWorkspace>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  ce_kernel<T, S, kBackward, kWorkspace>
-      <<<(unsigned)blocks, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <typename T, int S, bool kBackward>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  if (!kBackward) return launch_grid<T, S, false, false>(p, row_tiles(p.n),
-                                                         stream);
-  if (de_in_smem(p.d))
-    return launch_grid<T, S, true, false>(p, row_tiles(p.n), stream);
-  if (p.workspace == nullptr) return cudaErrorInvalidValue;
-  return launch_grid<T, S, true, true>(p, bwd_blocks(p.d, p.n), stream);
-}
-
-template <bool kBackward>
-cudaError_t dispatch(const Params& p, int is_bf16, int slots,
-                     cudaStream_t st) {
-  if (p.d % 8 != 0 || p.d <= 0 || p.c <= 0 || p.n <= 0 ||
-      (p.use_packed != nullptr && p.k <= 0) ||
-      (p.skip_packed && p.use_packed == nullptr))
-    return cudaErrorInvalidValue;
-  using bf = __nv_bfloat16;
-  if (is_bf16) {
-    switch (slots) {
-      case 1: return launch<bf, 1, kBackward>(p, st);
-      case 2: return launch<bf, 2, kBackward>(p, st);
-      case 3: return launch<bf, 3, kBackward>(p, st);
-      case 4: return launch<bf, 4, kBackward>(p, st);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  // the forward runs here only beside the (bf16) tensor-core kernel
-  if constexpr (kBackward) {
-    switch (slots) {
-      case 1: return launch<float, 1, true>(p, st);
-      case 2: return launch<float, 2, true>(p, st);
-      case 3: return launch<float, 3, true>(p, st);
-      case 4: return launch<float, 4, true>(p, st);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  return cudaErrorInvalidValue;
 }
 
 // ---- bf16 packed table: tensor cores ---------------------------------------
@@ -601,6 +160,7 @@ struct TcParams {
   float* ce;              // forward: [n]
   __nv_bfloat16* dx;      // backward: [n, d]
   float* dtau;            // backward: [n]
+  float* stats;           // forward: [2, n] row max and sum-exp, or NULL
 };
 
 // The label slots of the two rows a thread holds (rows past n: none).
@@ -855,8 +415,13 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     for (int s = 0; s < S; ++s)
       wpick = __fadd_rn(wpick, __fmul_rn(sl.w[h][s], quad_sum(pick[h][s])));
     const float lse = m_run[h] + logf(z[h]);
-    if ((blk.lane & 3) == 0 && blk.row[h] < p.n)
+    if ((blk.lane & 3) == 0 && blk.row[h] < p.n) {
       p.ce[blk.row[h]] = __fsub_rn(__fmul_rn(sl.wsum[h], lse), wpick);
+      if (p.stats != nullptr) {
+        p.stats[blk.row[h]] = m_run[h];
+        p.stats[p.n + blk.row[h]] = z[h];
+      }
+    }
   }
 }
 
@@ -1125,7 +690,7 @@ bool tc_shape_ok(const TcParams& p, int slots) {
          p.n > 0 && slots >= 1 && slots <= 4;
 }
 
-// ---- f32, and bf16 without a tensor-core packed table: the members only ---
+// ---- the members only: f32, bf16 without a tensor-core branch, overflow ---
 
 namespace member {
 
@@ -1159,7 +724,9 @@ struct MemberParams {
   const int* pids;       // [k] packed global ids
   int k;
   const int* use_packed;  // device flag (packed where non-zero), or NULL
+  int skip_packed;        // return at once where the flag selects packed
   float* ce;              // [n] per-row CE
+  float* stats;           // [2, n]: each row's max logit and sum-exp, or NULL
 };
 
 // Dynamic shared memory beyond the loop's (rc::simt::Layout): the block's
@@ -1190,6 +757,7 @@ __device__ __forceinline__ float quarter_sum(float v) {
 template <typename T, int S>
 __global__ void __launch_bounds__(kThreads, 2)
     ce_members_kernel(const MemberParams p) {
+  if (p.skip_packed && *p.use_packed != 0) return;
   extern __shared__ __align__(16) unsigned char smem[];
   int* lab = reinterpret_cast<int*>(smem + Extra<T>::kLabels);
   const int tid = threadIdx.x;
@@ -1220,8 +788,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   __syncthreads();
 
   score_tiles<T>(
-      smem, static_cast<const T*>(p.x), p.table_t, p.ldt, count, n, p.d,
-      roles, [&](float (&acc)[8][8], const float* rs, int tile) {
+      smem, static_cast<const T*>(p.x), p.d, base, p.table_t, p.ldt, count,
+      n, p.d, roles, [&](float (&acc)[8][8], const float* rs, int tile) {
         const int c0 = tile * kCols + roles.col0;
         int id[8];
 #pragma unroll
@@ -1284,6 +852,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   const float z = __fadd_rn(__fmul_rn(st[1][own], expf(m0 - m)),
                             __fmul_rn(other[1][own], expf(m1 - m)));
   const float lse = m + logf(z);
+  if (p.stats != nullptr) {
+    p.stats[row] = m;
+    p.stats[n + row] = z;
+  }
   float wsum = 0.f, wpick = 0.f;
 #pragma unroll
   for (int s = 0; s < S; ++s) {
@@ -1323,113 +895,500 @@ cudaError_t launch(const MemberParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(const MemberParams& p, int is_bf16, int slots,
+// ---- the backward --------------------------------------------------------
+
+struct BwdParams {
+  const void* x;
+  const float* temperature;
+  const float* coeff;    // the upstream gradient of the summed CE
+  const int* labels;     // [S, n]
+  const float* valid;    // [S, n]
+  long long n;
+  int d;
+  const float* table_t;  // [d, ldt] f32: the selected table's members first
+  int ldt;
+  const int* ids;        // their global ids (then the other rows')
+  const int* count;      // [1] members
+  const void* table;     // [c, d] the full table, in x's dtype
+  const int* mask;       // [c] its membership
+  int c;
+  const void* ptable;    // [k, d] the packed table, or NULL
+  const int* pmask;      // [k]
+  const int* pids;       // [k] global ids
+  int k;
+  const int* use_packed;  // device flag (packed where non-zero), or NULL
+  int skip_packed;        // return at once where the flag selects packed
+  const float* stats;     // [2, n] the forward's row max and sum-exp
+  void* dx;               // [n, d] in x's dtype
+  float* dtau;            // [n] per-row d log tau
+  float* work;            // per block: delta [ldt, kRows], d_emb [kRows, d]
+};
+
+// Per-row values of the block: [kRowValues][kRows] f32.
+enum RowValue { kWsum, kScale, kMax, kInvZ, kProj, kRowValues };
+// Per class half and row: [2][kHalfValues][kRows] f32, written by the
+// row's owner lane in that half.
+enum HalfValue { kHalfTel, kHalfPick, kHalfValues = kHalfPick + kMaxSlots };
+constexpr int kStagePitch = kCols + 4;  // a d_emb tile staged [rows][dims]
+
+// Dynamic shared memory: the loop's ring (the f32 layout, which the second
+// product uses, is the larger), then the block's labels and weights w_s =
+// coeff * valid [S][kRows], the row values and the half states; the
+// non-member labels' delta [S][kRows] reuses half 0's picks once they are
+// merged.  110,592 bytes: two blocks per SM.
+template <typename T>
+struct Bwd {
+  static constexpr int kLabels =
+      Layout<float>::kEnd > Layout<T>::kEnd ? Layout<float>::kEnd
+                                            : Layout<T>::kEnd;
+  static constexpr int kWeights = kLabels + kMaxSlots * kRows * 4;
+  static constexpr int kRowState = kWeights + kMaxSlots * kRows * 4;
+  static constexpr int kHalfState = kRowState + kRowValues * kRows * 4;
+  static constexpr int kBytes = kHalfState + 2 * kHalfValues * kRows * 4;
+  static_assert(kRows * kStagePitch * 4 <= Layout<float>::kScaleOffset,
+                "the staged d_emb tile fits in the ring");
+};
+
+// Four consecutive values through one 16-byte (f32) or 8-byte (bf16)
+// access.
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  v[0] = u.x;
+  v[1] = u.y;
+  v[2] = u.z;
+  v[3] = u.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  v[0] = __low2float(h[0]);
+  v[1] = __high2float(h[0]);
+  v[2] = __low2float(h[1]);
+  v[3] = __high2float(h[1]);
+}
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p,
+                                       const float (&v)[4]) {
+  uint2 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+  h[0] = __floats2bfloat162_rn(v[0], v[1]);
+  h[1] = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+template <typename T, int S>
+__global__ void __launch_bounds__(kThreads, 2)
+    ce_members_bwd_kernel(const BwdParams p) {
+  if (p.skip_packed && *p.use_packed != 0) return;
+  extern __shared__ __align__(16) unsigned char smem[];
+  using B = Bwd<T>;
+  int* lab = reinterpret_cast<int*>(smem + B::kLabels);
+  float* wt = reinterpret_cast<float*>(smem + B::kWeights);
+  float* rowv = reinterpret_cast<float*>(smem + B::kRowState);
+  float* halfv = reinterpret_cast<float*>(smem + B::kHalfState);
+  auto RV = [&](int v, int r) -> float& { return rowv[v * kRows + r]; };
+  auto HV = [&](int h, int v, int r) -> float& {
+    return halfv[(h * kHalfValues + v) * kRows + r];
+  };
+  float* coef = &HV(0, kHalfPick, 0);  // [S][kRows], after the merge
+  const float* pixel_rs =
+      reinterpret_cast<const float*>(smem + Layout<T>::kScaleOffset);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Roles roles = roles_of(tid);
+  const int own = roles.row0 + 4 * roles.wx;  // the row this lane owns
+  const long long n = p.n;
+  const int d = p.d;
+  const T* x = static_cast<const T*>(p.x);
+  T* dx = static_cast<T*>(p.dx);
+  const int count = __ldg(p.count);
+  const bool packed = p.use_packed != nullptr && *p.use_packed != 0;
+  const T* table = static_cast<const T*>(packed ? p.ptable : p.table);
+  // the columns scored: the members; with none, every row of the selected
+  // table, masked (count == 0 puts them first, in table order)
+  const int ncol = count > 0 ? count : (packed ? p.k : p.c);
+  const float inv_temp = 1.0f / *p.temperature;
+  const float coeff = *p.coeff;
+  // this block's workspace: delta [ldt][kRows], then d_emb [kRows][d]
+  float* work = p.work + (size_t)blockIdx.x * (p.ldt + d) * kRows;
+  float* d_emb = work + (size_t)p.ldt * kRows;
+
+  // column col's logit from its (unmasked) logit lu
+  auto logit = [&](float lu, int col) {
+    return col < count ? lu : col < ncol ? rc::kNegInf : -CUDART_INF_F;
+  };
+  // a valid label's rows of the selected table that are not gathered:
+  // visit(row pointer) for each (count > 0 only: with no member every row
+  // is a column)
+  auto nonmember_rows = [&](int l, auto&& visit) {
+    if (count == 0) return;
+    if (packed) {
+      for (int q = 0; q < p.k; ++q)
+        if (__ldg(p.pids + q) == l && __ldg(p.pmask + q) == 0)
+          visit(table + (long long)q * d);
+    } else if (l >= 0 && l < p.c && __ldg(p.mask + l) == 0) {
+      visit(table + (long long)l * d);
+    }
+  };
+
+  for (long long base = (long long)blockIdx.x * kRows; base < n;
+       base += (long long)gridDim.x * kRows) {
+    // 0. labels and weights, the half states
+    for (int i = tid; i < S * kRows; i += kThreads) {
+      const long long row = base + i % kRows;
+      const long long at = (i / kRows) * n + row;
+      lab[i] = row < n ? p.labels[at] : INT_MIN;
+      wt[i] = row < n ? __fmul_rn(coeff, p.valid[at]) : 0.f;
+    }
+    HV(roles.wn, kHalfTel, own) = 0.f;
+#pragma unroll
+    for (int s = 0; s < S; ++s) HV(roles.wn, kHalfPick + s, own) = 0.f;
+    __syncthreads();
+    if (tid < kRows) {
+      float ws = 0.f;
+#pragma unroll
+      for (int s = 0; s < S; ++s) ws = __fadd_rn(ws, wt[s * kRows + tid]);
+      RV(kWsum, tid) = ws;
+      RV(kProj, tid) = 0.f;
+      // the forward's row statistics (rows past n: e * 0)
+      const long long row = base + tid;
+      RV(kMax, tid) = row < n ? p.stats[row] : 0.f;
+      RV(kInvZ, tid) = row < n ? 1.0f / p.stats[n + row] : 0.f;
+    }
+    // (read in the epilogues, after the loop's first barrier)
+
+    // 1. the delta pass: per tile, the logits, delta into the workspace,
+    // and the row sums of e * logit and the picks
+    score_tiles<T>(
+        smem, x, d, base, p.table_t, p.ldt, ncol, n, d, roles,
+        [&](float (&acc)[8][8], const float* rs, int tile) {
+          const int c0 = tile * kCols + roles.col0;
+          int id[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = c0 + col_of(j, roles.wx);
+            id[j] = col < ncol ? __ldg(p.ids + col) : 0;
+          }
+          // acc becomes the logits
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int r = roles.row0 + 4 * i;
+            const float scale = Layout<T>::kRoundFirst ? 1.f : rs[r];
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              acc[i][j] = logit(
+                  __fmul_rn(Layout<T>::kRoundFirst
+                                ? acc[i][j]
+                                : __fmul_rn(acc[i][j], scale),
+                            inv_temp),
+                  c0 + col_of(j, roles.wx));
+          }
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int r = roles.row0 + 4 * i;
+            const float m = RV(kMax, r);
+            const float f = __fmul_rn(RV(kWsum, r), RV(kInvZ, r));
+            float pt = 0.f, pk[S];
+#pragma unroll
+            for (int s = 0; s < S; ++s) pk[s] = 0.f;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int col = c0 + col_of(j, roles.wx);
+              if (col >= ncol) continue;
+              const float l = acc[i][j];
+              const float e = expf(l - m);
+              float dl = __fmul_rn(e, f);
+#pragma unroll
+              for (int s = 0; s < S; ++s)
+                if (id[j] == lab[s * kRows + r]) {
+                  dl = __fsub_rn(dl, wt[s * kRows + r]);
+                  pk[s] += l;
+                }
+              work[(size_t)col * kRows + r] =
+                  rc::to_float(rc::round_to(dl, T()));
+              pt = __fadd_rn(pt, __fmul_rn(e, l));
+            }
+            pt = quarter_sum(pt);
+#pragma unroll
+            for (int s = 0; s < S; ++s) pk[s] = quarter_sum(pk[s]);
+            if (roles.wx == i) {
+              HV(roles.wn, kHalfTel, r) += pt;
+#pragma unroll
+              for (int s = 0; s < S; ++s)
+                HV(roles.wn, kHalfPick + s, r) += pk[s];
+            }
+          }
+        });
+
+    // 2. per row: the halves merged; each valid label's rows of the
+    // selected table that were not gathered pick -1e30 and get a delta
+    // (e = 0, minus the weights of the slots with that label; kept once,
+    // at the label's first slot), added to d_emb in step 3; then dtau
+    __syncthreads();
+    if (tid < kRows) {
+      const int r = tid;
+      const long long row = base + r;
+      float pk[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        pk[s] = __fadd_rn(HV(0, kHalfPick + s, r), HV(1, kHalfPick + s, r));
+      const float t_el = __fadd_rn(HV(0, kHalfTel, r), HV(1, kHalfTel, r));
+      RV(kScale, r) = pixel_rs[r];
+      float wpick = 0.f;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const int l = lab[s * kRows + r];
+        bool first = true;
+        for (int s2 = 0; s2 < s; ++s2) first &= lab[s2 * kRows + r] != l;
+        float cf = 0.f;
+        for (int s2 = s; s2 < S; ++s2)
+          if (lab[s2 * kRows + r] == l) cf = __fsub_rn(cf, wt[s2 * kRows + r]);
+        bool hit = false;
+        nonmember_rows(l, [&](const T*) {
+          hit = true;
+          pk[s] = __fadd_rn(pk[s], rc::kNegInf);
+        });
+        coef[s * kRows + r] =
+            hit && first ? rc::to_float(rc::round_to(cf, T())) : 0.f;
+        wpick = __fadd_rn(wpick, __fmul_rn(wt[s * kRows + r], pk[s]));
+      }
+      if (row < n)
+        p.dtau[row] = __fsub_rn(
+            wpick, __fmul_rn(RV(kWsum, r), __fmul_rn(t_el, RV(kInvZ, r))));
+    }
+    __syncthreads();
+
+    // 3. d_emb = delta x table / tau, 128 dims at a time, into the
+    // workspace, and proj = emb . d_emb: the gathered table is the loop's
+    // field (rows = dims, k = members), the delta slice its table (k =
+    // members, columns = this block's pixel rows)
+    const int rows_here = (int)min((long long)kRows, n - base);
+    for (int d0 = 0; d0 < d; d0 += kCols) {
+      score_tiles<float>(
+          smem, p.table_t, p.ldt, d0, work, kRows, rows_here, d, ncol, roles,
+          [&](float (&acc)[8][8], const float*, int) {
+            __syncthreads();  // every warp's last product is done: the
+                              // ring is free
+            float* stage = reinterpret_cast<float*>(smem);
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                stage[(roles.col0 + col_of(j, roles.wx)) * kStagePitch +
+                      roles.row0 + 4 * i] = acc[i][j];
+            __syncthreads();
+            const int dim = d0 + 4 * lane;
+            const bool in = dim < d;
+            for (int r = warp; r < rows_here; r += kThreads / 32) {
+              float part = 0.f;
+              if (in) {
+                float v[4];
+                load4(stage + r * kStagePitch + 4 * lane, v);
+#pragma unroll 1
+                for (int s = 0; s < S; ++s) {  // a non-member label's rows
+                  const float cf = coef[s * kRows + r];
+                  if (cf == 0.f) continue;
+                  nonmember_rows(lab[s * kRows + r], [&](const T* t_row) {
+                    float t[4];
+                    load4(t_row + dim, t);
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                      v[e] = __fadd_rn(v[e], __fmul_rn(cf, t[e]));
+                  });
+                }
+                float xv[4];
+                load4(x + (base + r) * d + dim, xv);
+                const float rsr = RV(kScale, r);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  v[e] = __fmul_rn(v[e], inv_temp);
+                  part = __fadd_rn(part, __fmul_rn(__fmul_rn(xv[e], rsr),
+                                                   v[e]));
+                }
+                store4(d_emb + (size_t)r * d + dim, v);
+              }
+              part = rc::warp_sum(part);
+              if (lane == 0) RV(kProj, r) = __fadd_rn(RV(kProj, r), part);
+            }
+            __syncthreads();  // the stage is read before the ring reloads
+          });
+    }
+
+    // 4. dx = rs * (d_emb - emb * proj), a warp per row
+    for (int r = warp; r < rows_here; r += kThreads / 32) {
+      const float rsr = RV(kScale, r), proj = RV(kProj, r);
+      const long long row = base + r;
+      for (int dim = 4 * lane; dim < d; dim += 128) {
+        float v[4], xv[4], o[4];
+        load4(d_emb + (size_t)r * d + dim, v);
+        load4(x + row * d + dim, xv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float emb = __fmul_rn(xv[e], rsr);
+          o[e] = __fmul_rn(rsr, __fsub_rn(v[e], __fmul_rn(emb, proj)));
+        }
+        store4(dx + row * d + dim, o);
+      }
+    }
+    __syncthreads();  // the row state is read before the next row tile
+  }
+}
+
+// Row tiles of 128 pixel rows, and the backward's grid: a block per row
+// tile, at most two per SM (the blocks resident at once), each walking its
+// row tiles with its own workspace slice.
+long long row_tiles(long long n) { return (n + kRows - 1) / kRows; }
+
+long long bwd_blocks(long long n) {
+  const long long resident = 2LL * rc::sm_count();
+  return resident > 0 ? std::min(row_tiles(n), resident) : row_tiles(n);
+}
+
+template <typename T, int S>
+cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
+  constexpr int smem = Bwd<T>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      ce_members_bwd_kernel<T, S>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(ce_members_bwd_kernel<T, S>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             100);
+  if (err != cudaSuccess) return err;
+  ce_members_bwd_kernel<T, S>
+      <<<(unsigned)bwd_blocks(p.n), kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// One of the eight (dtype, slots) instances of a member-only kernel.
+template <template <typename, int> class Kernel, typename Params>
+cudaError_t dispatch(const Params& p, int is_bf16, int slots,
                      cudaStream_t st) {
   using bf = __nv_bfloat16;
   switch (slots * 2 + (is_bf16 ? 1 : 0)) {
-    case 2: return launch<float, 1>(p, st);
-    case 3: return launch<bf, 1>(p, st);
-    case 4: return launch<float, 2>(p, st);
-    case 5: return launch<bf, 2>(p, st);
-    case 6: return launch<float, 3>(p, st);
-    case 7: return launch<bf, 3>(p, st);
-    case 8: return launch<float, 4>(p, st);
-    case 9: return launch<bf, 4>(p, st);
+    case 2: return Kernel<float, 1>::run(p, st);
+    case 3: return Kernel<bf, 1>::run(p, st);
+    case 4: return Kernel<float, 2>::run(p, st);
+    case 5: return Kernel<bf, 2>::run(p, st);
+    case 6: return Kernel<float, 3>::run(p, st);
+    case 7: return Kernel<bf, 3>::run(p, st);
+    case 8: return Kernel<float, 4>::run(p, st);
+    case 9: return Kernel<bf, 4>::run(p, st);
     default: return cudaErrorInvalidValue;
   }
 }
+
+template <typename T, int S>
+struct Forward {
+  static cudaError_t run(const MemberParams& p, cudaStream_t st) {
+    return launch<T, S>(p, st);
+  }
+};
+
+template <typename T, int S>
+struct Backward {
+  static cudaError_t run(const BwdParams& p, cudaStream_t st) {
+    return launch_bwd<T, S>(p, st);
+  }
+};
 
 }  // namespace member
 
 }  // namespace
 
-// The full-table forward launched beside the tensor-core forward: it
-// returns at once where *use_packed != 0 (the tensor-core kernel takes that
-// branch) and scores the full table otherwise.  x: [n, d] bf16,
-// un-normalised, 16-byte aligned; temperature: [1] f32; labels: [slots, n]
-// int32; valid: [slots, n] f32; table: [c, d] bf16 normalised; mask: [c]
-// int32; the packed members ptable [k, d], pmask [k], pids [k]; the device
-// flag use_packed.  ce: [n] f32.  1 <= slots <= 4.
-extern "C" int rc_pixel_text_ce_fwd(
-    const void* x, const float* temperature, const int* labels,
-    const float* valid, int slots, long long n, int d, const void* table,
-    const int* mask, int c, const void* ptable, const int* pmask,
-    const int* pids, int k, const int* use_packed, float* ce,
-    void* stream) {
-  Params p{x,     temperature, nullptr, labels,     valid,   n,
-           d,     table,       mask,    c,          ptable,  pmask,
-           pids,  k,           use_packed, 1,       ce,      nullptr,
-           nullptr, nullptr};
-  return dispatch<false>(p, 1, slots, static_cast<cudaStream_t>(stream));
-}
 
-// The member-only forward, for the routes where the CUDA-core forward runs
-// alone (f32, and bf16 without a tensor-core packed table).  x: [n, d] f32
-// (is_bf16 == 0) or bf16; labels, valid, temperature, ce as
-// rc_pixel_text_ce_fwd; table_t: [d, ldt] f32,
-// 16-byte aligned, ldt % 4 == 0: the members of the table the flag selects
-// (the packed one where *use_packed != 0, else the full one), first and
-// transposed, with their global ids and *count (device memory) of them;
-// the columns past the count are not read.  mask [c]: the full table's
-// membership; pmask, pids [k]: the packed table's (NULL with use_packed).
-// A label's pick is its member's logit, plus -1e30 for each row of the
-// selected table with its id that is not a member.
+// The member-only forward.  x: [n, d] f32 (is_bf16 == 0) or bf16,
+// un-normalised, 16-byte aligned; temperature: [1] f32; labels: [slots, n]
+// int32; valid: [slots, n] f32; table_t: [d, ldt] f32, 16-byte aligned,
+// ldt % 4 == 0: the members of the table the flag selects (the packed one
+// where *use_packed != 0, else the full one), first and transposed, with
+// their global ids and *count (device memory) of them (rc_live_rows); the
+// columns past the count are not read.  mask [c]: the full table's
+// membership; pmask, pids [k]: the packed table's (NULL without
+// use_packed).  A label's pick is its member's logit, plus -1e30 for each
+// row of the selected table with its id that is not a member.  With
+// skip_packed the kernel returns at once where *use_packed != 0 (the
+// tensor-core kernel, launched beside it, takes that branch).  ce: [n] f32;
+// stats: [2, n] f32, each row's max logit and sum-exp for the backward, or
+// NULL.  1 <= slots <= 4.
 extern "C" int rc_pixel_text_ce_members_fwd(
     const void* x, int is_bf16, const float* temperature, const int* labels,
     const float* valid, int slots, long long n, int d, const float* table_t,
     int ldt, const int* ids, const int* count, const int* mask, int c,
     const int* pmask, const int* pids, int k, const int* use_packed,
-    float* ce, void* stream) {
+    int skip_packed, float* ce, float* stats, void* stream) {
   if (d % 8 != 0 || d <= 0 || c <= 0 || n <= 0 || ldt <= 0 ||
       ldt % 4 != 0 ||
       (use_packed != nullptr && (pmask == nullptr || pids == nullptr ||
-                                 k <= 0)))
+                                 k <= 0)) ||
+      (skip_packed && use_packed == nullptr))
     return cudaErrorInvalidValue;
   const member::MemberParams p{x,     temperature, labels, valid, n,
                                d,     table_t,     ldt,    ids,   count,
                                mask,  c,           pmask,  pids,  k,
-                               use_packed, ce};
-  return member::dispatch(p, is_bf16, slots,
-                          static_cast<cudaStream_t>(stream));
+                               use_packed, skip_packed, ce, stats};
+  return member::dispatch<member::Forward>(
+      p, is_bf16, slots, static_cast<cudaStream_t>(stream));
 }
 
-// As the forward, plus coeff: [1] f32, the upstream gradient of the summed
-// CE; dx: [n, d] in x's dtype; dtau: [n] f32 per-row d log tau; workspace:
-// rc_pixel_text_ce_workspace(d, n) bytes, 16-byte aligned (NULL when that
-// is 0).
+// The member-only backward: arguments as the forward's, plus coeff: [1]
+// f32, the upstream gradient of the summed CE; table [c, d] and ptable [k,
+// d] (or NULL): the full and packed tables in x's dtype, 16-byte aligned
+// (a non-member label's row is read from them); ids must hold ldt entries
+// when *count can be 0 (then every row of the selected table is scored,
+// as rc_live_rows orders them); stats: the forward's [2, n] row
+// statistics on the same operands.  dx: [n, d] in x's dtype; dtau: [n] f32
+// per-row d log tau; workspace: rc_pixel_text_ce_workspace(ldt + d, n)
+// bytes.
 extern "C" int rc_pixel_text_ce_bwd(
     const void* x, int is_bf16, const float* temperature, const float* coeff,
     const int* labels, const float* valid, int slots, long long n, int d,
+    const float* table_t, int ldt, const int* ids, const int* count,
     const void* table, const int* mask, int c, const void* ptable,
     const int* pmask, const int* pids, int k, const int* use_packed,
-    int skip_packed, void* dx, float* dtau, void* workspace, void* stream) {
-  Params p{x,     temperature, coeff, labels,     valid,       n,
-           d,     table,       mask,  c,          ptable,      pmask,
-           pids,  k,           use_packed, skip_packed, nullptr, dx,
-           dtau,  static_cast<float*>(workspace)};
-  return dispatch<true>(p, is_bf16, slots, static_cast<cudaStream_t>(stream));
+    int skip_packed, const float* stats, void* dx, float* dtau,
+    void* workspace, void* stream) {
+  if (d % 8 != 0 || d <= 0 || c <= 0 || n <= 0 || ldt < c ||
+      ldt % 4 != 0 || workspace == nullptr || stats == nullptr ||
+      (use_packed != nullptr &&
+       (ptable == nullptr || pmask == nullptr || pids == nullptr || k <= 0 ||
+        ldt < c + k)) ||
+      (skip_packed && use_packed == nullptr))
+    return cudaErrorInvalidValue;
+  const member::BwdParams p{x,      temperature, coeff,  labels, valid,
+                            n,      d,           table_t, ldt,   ids,
+                            count,  table,       mask,   c,      ptable,
+                            pmask,  pids,        k,      use_packed,
+                            skip_packed, stats,  dx,     dtau,
+                            static_cast<float*>(workspace)};
+  return member::dispatch<member::Backward>(
+      p, is_bf16, slots, static_cast<cudaStream_t>(stream));
 }
 
-// Bytes of the backward's workspace at (d, n): 0 while the d_emb tile fits
-// in shared memory.
-extern "C" long long rc_pixel_text_ce_workspace(int d, long long n) {
-  return (long long)workspace_bytes(d, n);
+// Bytes of the backward's workspace at width = ldt + d and n rows: a
+// [width, 128] f32 slice per block of its grid (delta, then d_emb).
+extern "C" long long rc_pixel_text_ce_workspace(int width, long long n) {
+  return member::bwd_blocks(n) * (long long)width * member::kRows *
+         (long long)sizeof(float);
 }
 
 // The tensor-core kernels of the bf16 packed branch.  x: [n, d] bf16,
 // un-normalised, 16-byte aligned, d % 8 == 0, d <= 1280; ptable [k, d] bf16
 // normalised, pmask [k] int32, pids [k] int32 global ids; labels, valid,
-// temperature, coeff as above.  They run only where *use_packed != 0
-// (always when it is NULL), so they pair with the CUDA-core kernels called
-// with skip_packed = 1: one of the two writes.
+// temperature, coeff as above; the forward's stats as the member-only
+// forward's (or NULL).  They run only where *use_packed != 0 (always when
+// it is NULL), so they pair with the member-only kernels called with
+// skip_packed = 1: one of the two writes.
 extern "C" int rc_pixel_text_ce_tc_fwd(
     const void* x, const float* temperature, const int* labels,
     const float* valid, int slots, long long n, int d, const void* ptable,
     const int* pmask, const int* pids, int k, const int* use_packed,
-    float* ce, void* stream) {
+    float* ce, float* stats, void* stream) {
   const TcParams p{static_cast<const __nv_bfloat16*>(x), temperature,
                    nullptr, labels, valid, n, d, pmask, pids, k, use_packed,
-                   ce, nullptr, nullptr};
+                   ce, nullptr, nullptr, stats};
   if (!tc_shape_ok(p, slots)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (slots) {
@@ -1451,7 +1410,7 @@ extern "C" int rc_pixel_text_ce_tc_bwd(
     void* stream) {
   const TcParams p{static_cast<const __nv_bfloat16*>(x), temperature, coeff,
                    labels, valid, n, d, pmask, pids, k, use_packed, nullptr,
-                   static_cast<__nv_bfloat16*>(dx), dtau};
+                   static_cast<__nv_bfloat16*>(dx), dtau, nullptr};
   if (!tc_shape_ok(p, slots) || k > kMaxTcBwdClasses)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -233,7 +233,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   float thr_v = -CUDART_INF_F;
   int thr_c = INT_MAX;
 
-  score_tiles<T>(smem, field, table_t, ldt, c, n, d, roles,
+  score_tiles<T>(smem, field, d, (long long)blockIdx.x * kRows, table_t, ldt,
+                 c, n, d, roles,
                  [&](float (&acc)[8][8], const float* rs, int tile) {
                    select_tile<K, !Layout<T>::kRoundFirst>(
                        acc, rs, tile * kCols, c, lv, lc, thr_v, thr_c, roles);

@@ -45,7 +45,7 @@ NVCC_FLAGS = (
 )
 # Sources whose ptxas resource lines (registers, shared memory, spills) the
 # build keeps: the tensor-core kernels and the redesigned CUDA-core ones.
-PTXAS_VERBOSE = ("conv_score_topk.cu", "pixel_text_ce.cu",
+PTXAS_VERBOSE = ("conv_score_topk.cu", "live_rows.cu", "pixel_text_ce.cu",
                  "pixel_text_topk.cu", "tv_rowtile.cu")
 
 # Launches per kernel (and selector), counted by each wrapper right after a
@@ -61,7 +61,8 @@ launch_counts = {
     "l2_normalize[fwd]": 0,
     "l2_normalize[bwd]": 0,
     "histogram": 0,
-    "pixel_text_ce[fwd]": 0,  # CUDA cores (the members, or the full table)
+    "live_rows": 0,  # the gather of the CUDA-core scoring kernels' rows
+    "pixel_text_ce[fwd]": 0,  # CUDA cores: the contrast members
     "pixel_text_ce[bwd]": 0,
     "pixel_text_ce_tc[fwd]": 0,  # tensor cores: the bf16 packed branch
     "pixel_text_ce_tc[bwd]": 0,
@@ -87,15 +88,16 @@ _SIGNATURES = {
     "rc_l2_normalize_fwd": (_P, _I, _P, _L, _I, _P),
     "rc_l2_normalize_bwd": (_P, _P, _I, _P, _L, _I, _P),
     "rc_histogram": (_P, _I, _L, _I, _P, _P),
-    "rc_pixel_text_ce_fwd": (_P, _P, _P, _P, _I, _L, _I, _P, _P, _I, _P,
-                             _P, _P, _I, _P, _P, _P),
+    "rc_live_rows": (_P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P, _I,
+                     _P, _P, _P),
     "rc_pixel_text_ce_members_fwd": (_P, _I, _P, _P, _P, _I, _L, _I, _P, _I,
-                                     _P, _P, _P, _I, _P, _P, _I, _P, _P,
-                                     _P),
-    "rc_pixel_text_ce_bwd": (_P, _I, _P, _P, _P, _P, _I, _L, _I, _P, _P, _I,
-                             _P, _P, _P, _I, _P, _I, _P, _P, _P, _P),
+                                     _P, _P, _P, _I, _P, _P, _I, _P, _I,
+                                     _P, _P, _P),
+    "rc_pixel_text_ce_bwd": (_P, _I, _P, _P, _P, _P, _I, _L, _I, _P, _I, _P,
+                             _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P, _P,
+                             _P, _P, _P),
     "rc_pixel_text_ce_tc_fwd": (_P, _P, _P, _P, _I, _L, _I, _P, _P, _P, _I,
-                                _P, _P, _P),
+                                _P, _P, _P, _P),
     "rc_pixel_text_ce_tc_bwd": (_P, _P, _P, _P, _P, _I, _L, _I, _P, _P, _P,
                                 _P, _I, _P, _P, _P, _P),
     "rc_tv_rowtile_fwd": (_P, _I, _I, _I, _I, _P, _P, _F, _F, _F, _F, _P,
@@ -112,7 +114,7 @@ _SIGNATURES = {
 # block at a width (D, C_in) or for a field dtype (is_bf16).
 _QUERIES = ("rc_pixel_text_topk_tc_smem", "rc_conv_score_topk_smem",
             "rc_pixel_text_topk_fma_smem")
-# Queries of a kernel's device workspace in bytes at (D, rows).
+# Queries of a kernel's device workspace in bytes at (a width, rows).
 _WORKSPACE_QUERIES = ("rc_pixel_text_ce_workspace", "rc_head_topk_workspace")
 # Queries of a kernel's scratch at a field shape (B, H, W, D).
 _SHAPE_QUERIES = ("rc_tv_rowtile_fwd_partials",)

@@ -1,7 +1,13 @@
 """The live rows of a score table, gathered on the device for the CUDA-core
 scoring kernels (``pixel_text_topk``'s fp32 kernel and ``pixel_text_ce``'s
-member-only forward): rows that cannot change the answer are left out with
-no host sync, and the kernels read the live count from device memory."""
+member-only forward and backward): rows that cannot change the answer are
+left out with no host sync, and the kernels read the live count from device
+memory.
+
+:func:`live_rows` launches ``csrc/live_rows.cu`` (one launch, counted as
+``live_rows``) on CUDA tensors; :func:`live_table` is its plain version,
+which CPU tensors run.
+"""
 
 from __future__ import annotations
 
@@ -9,10 +15,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from rangeclip_tpu_torch.ops.kernels import _lib
+
+Gathered = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
 
 def live_table(table: torch.Tensor, ids: torch.Tensor,
-               live: Optional[torch.Tensor] = None
-               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+               live: Optional[torch.Tensor] = None) -> Gathered:
     """The live rows of ``table`` [C, D] first, in ascending order, then the
     others: (that table transposed, [D, Cp] f32 with Cp = C rounded up to a
     multiple of 4 (16-byte rows; the padding zero); ``ids`` [C] in that
@@ -27,3 +36,68 @@ def live_table(table: torch.Tensor, ids: torch.Tensor,
     table_t[:, :C] = table.index_select(0, order).T
     return (table_t, ids.index_select(0, order),
             live.sum(dtype=torch.int32).reshape(1))
+
+
+Second = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def live_rows(table: torch.Tensor, ids: Optional[torch.Tensor] = None,
+              live: Optional[torch.Tensor] = None,
+              second: Optional[Second] = None) -> Gathered:
+    """:func:`live_table` of ``table`` [C, D] (f32 or bf16) with ``ids`` [C]
+    int32 (default 0..C-1) and ``live`` [C] (bool or int32; default ``ids
+    >= 0``).  ``second`` = (table [K, D], ids [K] int32, live [K] int32,
+    flag [1] int32 on the device) adds a second table: the flag selects
+    which of the two has live rows (the second where it is non-zero), and
+    that one comes first in the concatenation that is gathered.  CUDA
+    tensors take one launch of the kernel; CPU tensors run
+    :func:`live_table` (the flag read on the host)."""
+    C, D = table.shape
+    kind = _lib.require_device("live_rows", table,
+                               *[t for t in (ids, live) if t is not None],
+                               *(second or ()))
+    if kind == "cpu":
+        ids = torch.arange(C, dtype=torch.int32) if ids is None else ids
+        live = (ids >= 0) if live is None else live != 0
+        if second is None:
+            return live_table(table, ids, live)
+        table_b, ids_b, live_b, flag = second
+        on = bool(flag.reshape(()))
+        parts = [(table, ids, live & (not on)),
+                 (table_b, ids_b, (live_b != 0) & on)]
+        if on:
+            parts.reverse()
+        return live_table(*(torch.cat(p) for p in zip(*parts)))
+    _lib.require(ids is not None or live is not None,
+                 "live_rows: give the ids or the live mask")
+    _lib.require(table.dtype in (torch.float32, torch.bfloat16),
+                 f"live_rows: f32 or bf16 rows, got {table.dtype}")
+    _lib.require(all(t is None or t.is_contiguous()
+                     for t in (table, ids, live, *(second or ()))),
+                 "live_rows: contiguous tensors expected")
+    rows = C + (0 if second is None else second[0].shape[0])
+    table_t = table.new_empty((D, -(-rows // 4) * 4), dtype=torch.float32)
+    out_ids = table.new_empty(rows, dtype=torch.int32)
+    count = table.new_empty(1, dtype=torch.int32)
+    if live is not None and live.dtype != torch.int32:
+        live = live.to(torch.int32)
+    b = b_ids = b_live = flag = None
+    if second is not None:
+        b, b_ids, b_live, flag = second
+        _lib.require(b.dtype == table.dtype and b.shape[1] == D
+                     and b_ids.dtype == torch.int32
+                     and b_live.dtype == torch.int32,
+                     "live_rows: the second table [K, D] in the first's "
+                     "dtype, int32 ids and live mask")
+    code = _lib.library().rc_live_rows(
+        table.data_ptr(), _ptr(ids), _ptr(live), C,
+        _ptr(b), _ptr(b_ids), _ptr(b_live), 0 if b is None else b.shape[0],
+        _ptr(flag), D, int(table.dtype == torch.bfloat16), table_t.data_ptr(),
+        table_t.shape[1], out_ids.data_ptr(), count.data_ptr(),
+        _lib.stream_of(table))
+    _lib.check(code, "live_rows")
+    return table_t, out_ids, count
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()

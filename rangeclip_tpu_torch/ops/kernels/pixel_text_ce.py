@@ -8,9 +8,12 @@ the temperature; the text table is frozen.
 
 The CUDA kernels are ``csrc/pixel_text_ce.cu``; the pair is the operator
 ``rangeclip::pixel_text_ce`` with ``rangeclip::pixel_text_ce_backward``
-registered as its gradient.  CPU tensors run the plain versions,
-:func:`pixel_text_ce_plain` and :func:`pixel_text_ce_backward_plain`, as a
-``torch.autograd.Function``; the operators have no CPU implementation.
+registered as its gradient.  The forward operator also returns each row's
+max logit and sum-exp ([2, N] f32, not differentiable), which the
+member-only backward reads instead of scoring the members once more.  CPU
+tensors run the plain versions, :func:`pixel_text_ce_plain` and
+:func:`pixel_text_ce_backward_plain`, as a ``torch.autograd.Function``; the
+operators have no CPU implementation.
 
 Rounding points, as in the TPU kernel: rows normalised in f32 with
 ``rsqrt(max(sum x^2, 1e-24))`` (the sum in f64 and the scale rounded once,
@@ -28,14 +31,15 @@ is a device flag, n_contrast <= K: the kernels read it and score either the
 packed or the full table, so choosing the branch needs no host sync (the
 plain versions read it on the host).
 
-Routes on the card (:func:`tc_route`, by shape on the host): bf16 with a
-packed table, D <= 1280 (the backward also K <= 128), launches the
-tensor-core kernel and the CUDA-core kernel together; the first runs where
-the flag selects the packed table, the second (told to skip that branch)
-where it selects the full one.  Everything else, fp32 and wider or larger
-packed tables, takes CUDA-core kernels alone, at any D % 8 == 0: the
-forward scores only the contrast members (:func:`member_table`, gathered
-on the device), the backward the whole selected table.
+Routes on the card (:func:`tc_route`, by shape on the host, one for both
+directions): bf16 with a packed table, D <= 1280 and K <= 128, launches
+the tensor-core kernel and the member-only CUDA-core kernel together; the
+first runs where the flag selects the packed table, the second (told to
+skip that branch) where it selects the full one.  Everything else, fp32
+and wider or larger packed tables, takes the member-only kernels alone, at
+any D % 8 == 0.  Both member-only kernels score only the contrast members
+of the table the flag selects (:func:`member_table`, gathered on the device
+in one launch); no route scores a full table.
 """
 
 from __future__ import annotations
@@ -45,12 +49,12 @@ from typing import Optional, Tuple
 import torch
 
 from rangeclip_tpu_torch.ops.kernels import _lib
-from rangeclip_tpu_torch.ops.kernels.live_rows import live_table
+from rangeclip_tpu_torch.ops.kernels.live_rows import live_rows
 
 NEG_INF = -1e30
 MAX_SLOTS = 4  # csrc/pixel_text_ce.cu dispatch
 TC_MAX_DIM = 1280  # csrc/pixel_text_ce.cu kMaxTcDims: the A tile in smem
-TC_MAX_BWD_CLASSES = 128  # kMaxTcBwdClasses: delta is one class tile
+TC_MAX_CLASSES = 128  # kMaxTcBwdClasses: the backward's delta is one tile
 
 Packed = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -242,7 +246,7 @@ def fused_pixel_text_ce(samples: torch.Tensor, temperature: torch.Tensor,
                  f"D % 8 == 0; got S={S}, D={D}")
     return pixel_text_ce_op(flat, temperature.reshape(()).contiguous(),
                             labels, valid, table.contiguous(), mask, ptable,
-                            pmask, pids, flag)
+                            pmask, pids, flag)[0]
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -254,14 +258,15 @@ def _aligned(*tensors):
                  "pixel_text_ce: samples and tables must be 16-byte aligned")
 
 
-def tc_route(samples: torch.Tensor, ptable: Optional[torch.Tensor],
-             backward: bool) -> bool:
-    """Whether the packed branch runs on the tensor-core kernel: bf16
-    samples with a packed table, D <= TC_MAX_DIM, and for the backward K <=
-    TC_MAX_BWD_CLASSES.  The device flag still chooses packed or full."""
+def tc_route(samples: torch.Tensor, ptable: Optional[torch.Tensor]) -> bool:
+    """Whether the packed branch runs on the tensor-core kernels: bf16
+    samples with a packed table, D <= TC_MAX_DIM and K <= TC_MAX_CLASSES,
+    in both directions (the tensor-core forward writes no row statistics
+    for a member-only backward).  The device flag still chooses packed or
+    full."""
     return (ptable is not None and samples.dtype == torch.bfloat16
             and samples.shape[1] <= TC_MAX_DIM
-            and (not backward or ptable.shape[0] <= TC_MAX_BWD_CLASSES))
+            and ptable.shape[0] <= TC_MAX_CLASSES)
 
 
 def transposed_table(ptable: torch.Tensor) -> torch.Tensor:
@@ -275,62 +280,57 @@ def transposed_table(ptable: torch.Tensor) -> torch.Tensor:
 
 def member_table(table, mask, ptable=None, pmask=None, pids=None,
                  use_packed=None):
-    """The member-only forward's table operand: the members of the table the
+    """The member-only kernels' table operand: the members of the table the
     device flag selects (the packed one where it is non-zero, else the full
     one), first and in table order, as :func:`live_rows.live_table` gives
     them ([D, Cp] f32), with their global ids and a [1] device count; no
-    host sync.  With a packed table both tables are gathered from, each
-    row live only where its branch is selected."""
-    C = table.shape[0]
-    ids = torch.arange(C, dtype=torch.int32, device=table.device)
-    live = mask != 0
-    if ptable is None:
-        return live_table(table, ids, live)
-    full = use_packed == 0
-    return live_table(torch.cat([table, ptable]), torch.cat([ids, pids]),
-                      torch.cat([live & full, (pmask != 0) & ~full]))
+    host sync.  With a packed table both tables are gathered, the selected
+    one first, each row live only where its branch is selected: with no
+    member, the selected table's rows lead in table order.  CUDA tensors
+    take one launch (:func:`live_rows.live_rows`)."""
+    second = None
+    if ptable is not None:
+        second = (ptable, pids.to(torch.int32), pmask.to(torch.int32),
+                  use_packed.to(torch.int32).reshape(1))
+    return live_rows(table, None, mask, second)
 
 
 def _fwd_cuda(samples, temperature, labels, valid, table, mask, ptable,
               pmask, pids, use_packed):
     _aligned(samples, table, ptable)
     N, D = samples.shape
+    stats = samples.new_empty((2, N), dtype=torch.float32)
     if N == 0:
-        return samples.new_zeros((), dtype=torch.float32)
+        return samples.new_zeros((), dtype=torch.float32), stats
     ce = samples.new_empty(N, dtype=torch.float32)
     lib, stream = _lib.library(), _lib.stream_of(samples)
     K = 0 if ptable is None else ptable.shape[0]
-    if tc_route(samples, ptable, backward=False):
-        # the tensor-core kernel, and beside it the full-table CUDA-core
-        # kernel, which returns at once unless the flag selects the full
-        # table: one of the two writes
+    tc = tc_route(samples, ptable)
+    if tc:
+        # the tensor-core kernel, and beside it the member-only kernel,
+        # which returns at once unless the flag selects the full table: one
+        # of the two writes the CE and the row statistics
         _lib.check(lib.rc_pixel_text_ce_tc_fwd(
             samples.data_ptr(), temperature.data_ptr(), labels.data_ptr(),
             valid.data_ptr(), labels.shape[0], N, D, ptable.data_ptr(),
             pmask.data_ptr(), pids.data_ptr(), K, use_packed.data_ptr(),
-            ce.data_ptr(), stream), "pixel_text_ce_tc[fwd]")
-        code = lib.rc_pixel_text_ce_fwd(
-            samples.data_ptr(), temperature.data_ptr(), labels.data_ptr(),
-            valid.data_ptr(), labels.shape[0], N, D, table.data_ptr(),
-            mask.data_ptr(), table.shape[0], ptable.data_ptr(),
-            pmask.data_ptr(), pids.data_ptr(), K, use_packed.data_ptr(),
-            ce.data_ptr(), stream)
-    else:
-        table_t, ids, count = member_table(table, mask, ptable, pmask, pids,
-                                           use_packed)
-        code = lib.rc_pixel_text_ce_members_fwd(
-            samples.data_ptr(), int(samples.dtype == torch.bfloat16),
-            temperature.data_ptr(), labels.data_ptr(), valid.data_ptr(),
-            labels.shape[0], N, D, table_t.data_ptr(), table_t.shape[1],
-            ids.data_ptr(), count.data_ptr(), mask.data_ptr(),
-            table.shape[0], _ptr(pmask), _ptr(pids), K, _ptr(use_packed),
-            ce.data_ptr(), stream)
+            ce.data_ptr(), stats.data_ptr(), stream),
+            "pixel_text_ce_tc[fwd]")
+    table_t, ids, count = member_table(table, mask, ptable, pmask, pids,
+                                       use_packed)
+    code = lib.rc_pixel_text_ce_members_fwd(
+        samples.data_ptr(), int(samples.dtype == torch.bfloat16),
+        temperature.data_ptr(), labels.data_ptr(), valid.data_ptr(),
+        labels.shape[0], N, D, table_t.data_ptr(), table_t.shape[1],
+        ids.data_ptr(), count.data_ptr(), mask.data_ptr(), table.shape[0],
+        _ptr(pmask), _ptr(pids), K, _ptr(use_packed), int(tc),
+        ce.data_ptr(), stats.data_ptr(), stream)
     _lib.check(code, "pixel_text_ce[fwd]")
-    return ce.sum()
+    return ce.sum(), stats
 
 
-def _bwd_cuda(grad, samples, temperature, labels, valid, table, mask, ptable,
-              pmask, pids, use_packed):
+def _bwd_cuda(grad, stats, samples, temperature, labels, valid, table, mask,
+              ptable, pmask, pids, use_packed):
     _aligned(samples, table, ptable)
     N, D = samples.shape
     dx = torch.empty_like(samples)
@@ -340,7 +340,7 @@ def _bwd_cuda(grad, samples, temperature, labels, valid, table, mask, ptable,
     dtau = samples.new_empty(N, dtype=torch.float32)
     lib, stream = _lib.library(), _lib.stream_of(samples)
     K = 0 if ptable is None else ptable.shape[0]
-    tc = tc_route(samples, ptable, backward=True)
+    tc = tc_route(samples, ptable)
     if tc:
         ptable_t = transposed_table(ptable)
         _lib.check(lib.rc_pixel_text_ce_tc_bwd(
@@ -349,14 +349,20 @@ def _bwd_cuda(grad, samples, temperature, labels, valid, table, mask, ptable,
             ptable.data_ptr(), ptable_t.data_ptr(),
             pmask.data_ptr(), pids.data_ptr(), K, use_packed.data_ptr(),
             dx.data_ptr(), dtau.data_ptr(), stream), "pixel_text_ce_tc[bwd]")
-    work = _lib.workspace("rc_pixel_text_ce_workspace", samples, D, N)
+    # the member-only backward (returning at once where the tensor-core
+    # kernel writes): its delta and d_emb slices live in a workspace
+    table_t, ids, count = member_table(table, mask, ptable, pmask, pids,
+                                       use_packed)
+    work = _lib.workspace("rc_pixel_text_ce_workspace", samples,
+                          table_t.shape[1] + D, N)
     code = lib.rc_pixel_text_ce_bwd(
         samples.data_ptr(), int(samples.dtype == torch.bfloat16),
         temperature.data_ptr(), coeff.data_ptr(), labels.data_ptr(),
-        valid.data_ptr(), labels.shape[0], N, D, table.data_ptr(),
+        valid.data_ptr(), labels.shape[0], N, D, table_t.data_ptr(),
+        table_t.shape[1], ids.data_ptr(), count.data_ptr(), table.data_ptr(),
         mask.data_ptr(), table.shape[0], _ptr(ptable), _ptr(pmask),
-        _ptr(pids), K, _ptr(use_packed), int(tc), dx.data_ptr(),
-        dtau.data_ptr(), _ptr(work), stream)
+        _ptr(pids), K, _ptr(use_packed), int(tc), stats.data_ptr(),
+        dx.data_ptr(), dtau.data_ptr(), _ptr(work), stream)
     _lib.check(code, "pixel_text_ce[bwd]")
     return dx, dtau.sum() / temperature
 
@@ -365,24 +371,31 @@ _ARGS = ("Tensor samples, Tensor temperature, Tensor labels, Tensor valid, "
          "Tensor table, Tensor mask, Tensor? packed_table, "
          "Tensor? packed_mask, Tensor? packed_ids, Tensor? use_packed")
 pixel_text_ce_op = _lib.define_op(
-    f"pixel_text_ce({_ARGS}) -> Tensor", _fwd_cuda, None,
-    lambda samples, *rest: samples.new_empty((), dtype=torch.float32))
+    f"pixel_text_ce({_ARGS}) -> (Tensor, Tensor)", _fwd_cuda, None,
+    lambda samples, *rest: (
+        samples.new_empty((), dtype=torch.float32),
+        samples.new_empty((2, samples.shape[0]), dtype=torch.float32)))
 pixel_text_ce_backward_op = _lib.define_op(
-    f"pixel_text_ce_backward(Tensor grad, {_ARGS}) -> (Tensor, Tensor)",
+    f"pixel_text_ce_backward(Tensor grad, Tensor stats, {_ARGS}) -> "
+    "(Tensor, Tensor)",
     _bwd_cuda, None,
-    lambda grad, samples, temperature, *rest: (
+    lambda grad, stats, samples, temperature, *rest: (
         torch.empty_like(samples), torch.empty_like(temperature)))
 
 
 def _setup_context(ctx, inputs, output):
-    ctx.save_for_backward(*[t for t in inputs if t is not None])
+    # the row statistics take no gradient, and no zeros are made for one
+    ctx.mark_non_differentiable(output[1])
+    ctx.set_materialize_grads(False)
+    ctx.save_for_backward(output[1], *[t for t in inputs if t is not None])
     ctx.present = [t is not None for t in inputs]
 
 
-def _backward(ctx, grad):
-    saved = iter(ctx.saved_tensors)
+def _backward(ctx, grad, _grad_stats):
+    stats, *saved = ctx.saved_tensors
+    saved = iter(saved)
     inputs = [next(saved) if p else None for p in ctx.present]
-    dx, dt = pixel_text_ce_backward_op(grad, *inputs)
+    dx, dt = pixel_text_ce_backward_op(grad, stats, *inputs)
     return (dx, dt) + (None,) * 8
 
 

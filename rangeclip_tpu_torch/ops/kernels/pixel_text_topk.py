@@ -5,8 +5,8 @@ Port of ``rangeclip_tpu/ops/pallas/pixel_text_topk.py``
 CUDA kernels are in ``csrc/pixel_text_topk.cu``: a bf16 field takes the
 tensor-core kernel (up to :data:`TC_MAX_DIMS` dims), an fp32 field the
 CUDA-core one, which takes the live table rows only, transposed
-(``live_rows.live_table``, built inside the operator on each call); launches
-count as ``pixel_text_topk[bf16]`` and ``pixel_text_topk[fp32]``.
+(``live_rows.live_rows``, one launch inside the operator on each call);
+launches count as ``pixel_text_topk[bf16]`` and ``pixel_text_topk[fp32]``.
 :func:`pixel_text_topk_plain` is the same function in plain PyTorch, used
 for CPU tensors and as the reference the kernels are held against on the
 card.
@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from rangeclip_tpu_torch.ops.kernels import _lib
-from rangeclip_tpu_torch.ops.kernels.live_rows import live_table
+from rangeclip_tpu_torch.ops.kernels.live_rows import live_rows
 from rangeclip_tpu_torch.ops.kernels.score_topk import (
     MAX_TOP_K,
     score_topk_plain,
@@ -163,7 +163,7 @@ def _pixel_text_topk_cuda(field, table, ids, top_k, want_values):
                                       ids.data_ptr(), n, d, table.shape[0],
                                       top_k, *out)
     else:
-        table_t, live_ids, count = live_table(table, ids)
+        table_t, live_ids, count = live_rows(table, ids)
         code = lib.rc_pixel_text_topk_fma(
             field.data_ptr(), int(field.dtype == torch.bfloat16),
             table_t.data_ptr(), table_t.shape[1], live_ids.data_ptr(),

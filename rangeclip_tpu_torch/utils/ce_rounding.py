@@ -11,7 +11,8 @@ a sizeable share of the bound.  At the flagship packed shape (bf16, D =
 512, K = 128, S = 4, 90 members of C = 512) this prints, for each variant,
 the largest ratio of error to bound and the rows past 1 and 0.5 of it:
 
-- the tensor-core kernel and the CUDA-core kernel, launched directly;
+- the tensor-core kernel and the member-only CUDA-core kernel, launched
+  directly;
 - the plain formula with other logits: exactly rounded (an f64 sum), and an
   f32 FMA chain over D in order, which is the plain version's own sum.
 
@@ -37,6 +38,7 @@ def main(argv=None) -> None:
     from rangeclip_tpu_torch.ops.kernels import _lib
     from rangeclip_tpu_torch.ops.kernels.pixel_text_ce import (
         ce_operands,
+        member_table,
         pixel_text_ce_backward_plain,
         row_scale,
         transposed_table,
@@ -84,12 +86,25 @@ def main(argv=None) -> None:
         dtau.data_ptr(), stream), "pixel_text_ce_tc[bwd]")
     torch.cuda.synchronize()
     report("tensor-core kernel", dx)
+    table_bf16 = text.bfloat16()
+    table_t, row_ids, count = member_table(table_bf16, msk, pt, pm, pi, flag)
+    work = _lib.workspace("rc_pixel_text_ce_workspace", x,
+                          table_t.shape[1] + D, N)
+    # its forward first, for the row statistics the backward reads
+    ce_rows, stats = torch.empty(N, device=dev), torch.empty(2, N, device=dev)
+    _lib.check(lib.rc_pixel_text_ce_members_fwd(
+        x.data_ptr(), 1, temp.data_ptr(), lab.data_ptr(), val.data_ptr(), S,
+        N, D, table_t.data_ptr(), table_t.shape[1], row_ids.data_ptr(),
+        count.data_ptr(), msk.data_ptr(), C, pm.data_ptr(), pi.data_ptr(), K,
+        flag.data_ptr(), 0, ce_rows.data_ptr(), stats.data_ptr(), stream),
+        "pixel_text_ce[fwd]")
     _lib.check(lib.rc_pixel_text_ce_bwd(
         x.data_ptr(), 1, temp.data_ptr(), g.data_ptr(), lab.data_ptr(),
-        val.data_ptr(), S, N, D, text.bfloat16().data_ptr(), msk.data_ptr(),
-        C, pt.data_ptr(), pm.data_ptr(), pi.data_ptr(), K, flag.data_ptr(),
-        0, dx.data_ptr(), dtau.data_ptr(), None, stream),
-        "pixel_text_ce[bwd]")
+        val.data_ptr(), S, N, D, table_t.data_ptr(), table_t.shape[1],
+        row_ids.data_ptr(), count.data_ptr(), table_bf16.data_ptr(),
+        msk.data_ptr(), C, pt.data_ptr(), pm.data_ptr(), pi.data_ptr(), K,
+        flag.data_ptr(), 0, stats.data_ptr(), dx.data_ptr(), dtau.data_ptr(),
+        work.data_ptr(), stream), "pixel_text_ce[bwd]")
     torch.cuda.synchronize()
     report("CUDA-core kernel", dx)
 

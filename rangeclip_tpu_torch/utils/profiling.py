@@ -8,10 +8,15 @@ The port's counterpart of ``rangeclip_tpu/utils/profiling.py``:
 
 ``train_step`` is the flagship train configuration (:func:`train_setup`):
 bf16, accumulation 1 x batch 32 at 256^2, C = 512 hash-stub labels with 40
-present, contrast capacity 128, the full hybrid loss.  ``ce_forward``,
-``ce_forward_all`` and ``tv_forward`` call one operator at the shape of its
+present, contrast capacity 128, the full hybrid loss.  ``train_step_fp32``
+is ``cli/train``'s default precision at its microbatch (fp32, batch 16, 40
+labels present: 90 contrast members), ``train_step_overflow`` the bf16
+step whose contrast set overflows the capacity (150 labels present: 200
+members, the full-table branch).  ``ce_forward``, ``ce_forward_all``,
+``ce_backward`` and ``tv_forward`` call one operator at the shape of its
 main path (:func:`kernel_call`): ``pixel_text_ce``'s forward on the fp32
-validation shape with 90 and with all 512 classes in the contrast set, and
+validation shape with 90 and with all 512 classes in the contrast set, its
+backward with 90 (an fp32 train microbatch of batch 8), and
 ``tv_rowtile``'s forward on the flagship train field.  Each configuration
 runs two calls, then ``--calls`` calls timed by the host clock
 (synchronised), then as many under the profiler, at full width with random
@@ -38,8 +43,13 @@ from typing import Callable, Dict, List
 import torch
 from torch.autograd import DeviceType
 
+# (batch, bf16, labels present) of the train steps
+TRAIN_CONFIGS = {
+    "train_step": (32, True, 40),
+    "train_step_fp32": (16, False, 40),
+    "train_step_overflow": (32, True, 150),
+}
 # (batch, bf16, folded, top_k, candidate slots or None for the full table)
-TRAIN_CONFIG = "train_step"
 CONFIGS = {
     "bench_folded": (128, True, True, 5, 384),
     "bench_unfolded": (128, True, False, 5, 384),
@@ -47,7 +57,8 @@ CONFIGS = {
     "serve_bf16": (8, True, True, 1, None),
     "serve_fp32_default": (8, False, False, 1, None),
 }
-KERNEL_CONFIGS = ("ce_forward", "ce_forward_all", "tv_forward")
+KERNEL_CONFIGS = ("ce_forward", "ce_forward_all", "ce_backward",
+                  "tv_forward")
 NUM_CLASSES = 512
 RES = 256
 
@@ -158,9 +169,9 @@ def predict_call(config: str) -> Callable[[], torch.Tensor]:
 def kernel_call(config: str) -> Callable[[], torch.Tensor]:
     """One operator call at its main path's shape, on the GPU: the fp32
     CE forward of validation (N = 8 x 128 x 128 pixel rows, D = 512, C =
-    512, 4 label slots, 90 or all classes members), or the TV forward of
-    the flagship train step (bf16 [32, 128, 128, 512], upsample 2, one
-    sample weight 0)."""
+    512, 4 label slots, 90 or all classes members) or its backward (90
+    members), or the TV forward of the flagship train step (bf16 [32, 128,
+    128, 512], upsample 2, one sample weight 0)."""
     device = torch.device("cuda")
     gen = torch.Generator(device=device).manual_seed(0)
     if config == "tv_forward":
@@ -173,12 +184,13 @@ def kernel_call(config: str) -> Callable[[], torch.Tensor]:
         return lambda: tv_rowtile_op(x, w, 2)
     from rangeclip_tpu_torch.ops.kernels.pixel_text_ce import (
         ce_operands,
+        pixel_text_ce_backward_op,
         pixel_text_ce_op,
     )
     from rangeclip_tpu_torch.utils.math import l2_normalize
 
     n, d = 8 * 128 * 128, 512
-    members = 90 if config == "ce_forward" else NUM_CLASSES
+    members = NUM_CLASSES if config == "ce_forward_all" else 90
     samples = torch.randn(n, d, device=device, generator=gen)
     table = l2_normalize(torch.randn(NUM_CLASSES, d, device=device,
                                      generator=gen), dim=-1)
@@ -191,8 +203,12 @@ def kernel_call(config: str) -> Callable[[], torch.Tensor]:
     temp = torch.tensor(0.07, device=device)
     flat, lab, val, msk, *_ = ce_operands(samples, temp, labels, valid,
                                           table, mask, None)
-    return lambda: pixel_text_ce_op(flat, temp, lab, val, table, msk, None,
-                                    None, None, None)
+    args = (flat, temp, lab, val, table, msk, None, None, None, None)
+    if config == "ce_backward":
+        grad = torch.tensor(1.0 / n, device=device)
+        stats = pixel_text_ce_op(*args)[1]
+        return lambda: pixel_text_ce_backward_op(grad, stats, *args)
+    return lambda: pixel_text_ce_op(*args)
 
 
 def train_setup(device: torch.device, batch: int = 32, bf16: bool = True,
@@ -201,7 +217,8 @@ def train_setup(device: torch.device, batch: int = 32, bf16: bool = True,
     256^2, C = 512) with random weights and data from ``seed``: (state,
     batch dict with a leading accumulation axis, text table, medium matrix,
     hard matrix, step function).  The segmentation holds ``present``
-    labels, so the packed CE branch runs."""
+    labels: up to 78 (128 contrast members with the 50 distractors) the
+    packed CE branch runs, beyond it the full-table one."""
     import numpy as np
 
     from rangeclip_tpu_torch.losses.hybrid import HybridLossConfig
@@ -245,12 +262,15 @@ def train_setup(device: torch.device, batch: int = 32, bf16: bool = True,
     return state, data, text, medium, hard, step
 
 
-def train_call() -> Callable[[], object]:
-    """One flagship train step per call, on the GPU."""
+def train_call(config: str) -> Callable[[], object]:
+    """One train step of a configuration of TRAIN_CONFIGS per call, on the
+    GPU."""
     from rangeclip_tpu_torch.cli.common import set_precision
 
-    set_precision(True)
-    state, data, text, medium, hard, step = train_setup(torch.device("cuda"))
+    batch, bf16, present = TRAIN_CONFIGS[config]
+    set_precision(bf16)
+    state, data, text, medium, hard, step = train_setup(
+        torch.device("cuda"), batch=batch, bf16=bf16, present=present)
 
     def call():
         return step(state, data, (0, state.step), 1e-4, 0.0, 0.75, text,
@@ -262,8 +282,8 @@ def train_call() -> Callable[[], object]:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--config", nargs="+",
-                        choices=sorted(CONFIGS) + [TRAIN_CONFIG,
-                                                   *KERNEL_CONFIGS],
+                        choices=sorted(CONFIGS) + sorted(TRAIN_CONFIGS)
+                        + list(KERNEL_CONFIGS),
                         default=["bench_unfolded"])
     parser.add_argument("--calls", type=int, default=3)
     parser.add_argument("--host", type=int, default=0,
@@ -273,7 +293,7 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profiling: CUDA is not available")
     for config in args.config:
-        call = (train_call() if config == TRAIN_CONFIG
+        call = (train_call(config) if config in TRAIN_CONFIGS
                 else kernel_call(config) if config in KERNEL_CONFIGS
                 else predict_call(config))
         result = profile(call, args.calls)

@@ -504,9 +504,9 @@ def test_pixel_text_ce_matches_plain(cuda_device, dtype, slots, form, d):
     samples f32 within 1e-4 of the row's largest entry, bf16 within one
     bf16 ulp plus 2^-10 of the row's largest entry (an order change in f32
     can flip a bf16 rounding, and d samples subtracts its projection).
-    D = 768 puts the CUDA-core backward's d_emb tiles in its workspace.  A
-    bf16 packed table also launches the tensor-core kernels, which write
-    only where the device flag selects it (not in the overflow form)."""
+    A bf16 packed table also launches the tensor-core kernels, which write
+    only where the device flag selects it (not in the overflow form); the
+    member-only kernels beside them write otherwise."""
     gen = torch.Generator().manual_seed(9)
     n, c = 1111, 300
     capacity = None if form == "full" else 128
@@ -534,10 +534,10 @@ def test_pixel_text_ce_matches_plain(cuda_device, dtype, slots, form, d):
              cuda_device)
 
 
-def _member_inputs(gen, dtype, n, d, c, slots, members, form):
-    """Inputs of the member-only forward: labels of any class (members,
+def _member_inputs(gen, dtype, n, d, c, slots, members, form, capacity=128):
+    """Inputs of the member-only kernels: labels of any class (members,
     non-members in [0, C), and classes outside it), and the valid weights
-    with the non-member labels' zeroed; a packed table (capacity 128) for
+    with the non-member labels' zeroed; a packed table of ``capacity`` for
     the packed and overflow forms."""
     samples = torch.randn(n, d, generator=gen).to(dtype)
     table = torch.nn.functional.normalize(torch.randn(c, d, generator=gen),
@@ -556,8 +556,8 @@ def _member_inputs(gen, dtype, n, d, c, slots, members, form):
         mask[labels.clamp(0, c - 1).long()] == 0)
     packed = None
     if form != "full":
-        ids = torch.full((128,), c, dtype=torch.int32)
-        ids[:min(members, 128)] = member_ids[:128].int()
+        ids = torch.full((capacity,), c, dtype=torch.int32)
+        ids[:min(members, capacity)] = member_ids[:capacity].int()
         packed = (table[ids.clamp_max(c - 1).long()], (ids < c).int(), ids,
                   torch.tensor(int(form == "packed")))
     return (samples, torch.tensor(0.07), labels, valid,
@@ -609,6 +609,130 @@ def test_pixel_text_ce_members_forward(cuda_device, dtype, d, members,
             == before["pixel_text_ce_tc[fwd]"])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,members,slots,form,n,capacity", [
+    *[(dt, 136, m, 4, "full", 1111, 128)
+      for dt in (torch.float32, torch.bfloat16)
+      for m in (0, 2, 64, 65, 90, 128, 129, 200, 300)],
+    *[(dt, d, 90, 1, "full", 1111, 128)
+      for dt in (torch.float32, torch.bfloat16)
+      for d in (8, 648, 656, 768, 1344)],
+    *[(dt, 136, m, s, form, 1111, 128)
+      for dt in (torch.float32, torch.bfloat16)
+      for m, form in ((60, "packed"), (140, "overflow")) for s in (1, 4)],
+    (torch.bfloat16, 136, 200, 4, "packed", 1111, 256),
+    (torch.bfloat16, 136, 300, 4, "overflow", 1111, 256),
+    (torch.float32, 136, 200, 1, "packed", 1111, 256),
+    (torch.float32, 136, 90, 4, "full", 1, 128),
+    (torch.bfloat16, 136, 90, 4, "full", 129, 128),
+    (torch.float32, 648, 200, 2, "full", 129, 128)])
+def test_pixel_text_ce_members_backward(cuda_device, dtype, d, members,
+                                        slots, form, n, capacity):
+    """The member-only backward (every route but the tensor-core packed
+    branch: f32, bf16 over the full table, bf16 with the flag at 0 beside
+    the tensor-core kernels, a bf16 packed table past K = 128 or D = 1280)
+    against the plain version over C = 300 at the tolerances of
+    test_pixel_text_ce_matches_plain, unloosened: with the non-member
+    labels weighted (a valid label of a class in [0, C) outside the set
+    adds its table row to d samples and -1e30 to d tau) and at weight 0.
+    0 to all 300 classes members (none: every row scored at -1e30; one,
+    two and three class tiles and their edges), labels outside [0, C), one
+    to four slots, D = 8 to 1344, N = 1, 129 and a ragged 1111, the packed
+    table with the flag either way at K = 128 and 256.  Each backward is
+    one launch of pixel_text_ce[bwd] and one of the gather; two calls are
+    bit-equal."""
+    from rangeclip_tpu_torch.ops.kernels.pixel_text_ce import (
+        ce_operands,
+        pixel_text_ce_backward_op,
+        pixel_text_ce_op,
+    )
+
+    gen = torch.Generator().manual_seed(23)
+    (samples, temperature, labels, valid, valid_members, table, mask,
+     packed) = _member_inputs(gen, dtype, n, d, 300, slots, members, form,
+                              capacity)
+    dev = lambda t: t.to(cuda_device)
+    packed_d = None if packed is None else tuple(map(dev, packed))
+    for weights in (valid, valid_members):
+        args = tuple(map(dev, (samples, temperature, labels, weights, table,
+                               mask)))
+        xs = args[0].clone().requires_grad_()
+        ts = args[1].clone().requires_grad_()
+        before = dict(_lib.launch_counts)
+        loss = fused_pixel_text_ce(xs, ts, *args[2:], packed_d)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert _lib.launch_counts["pixel_text_ce[bwd]"] == (
+            before["pixel_text_ce[bwd]"] + 1)
+        assert _lib.launch_counts["live_rows"] == before["live_rows"] + 2
+        _hold_ce(loss.detach(), xs.grad, ts.grad, args, packed_d, dtype,
+                 cuda_device)
+    operands = ce_operands(*args, packed_d)
+    op_args = (operands[0], args[1], operands[1], operands[2], args[4],
+               *operands[3:])
+    g = torch.tensor(0.37, device=cuda_device)
+    stats = pixel_text_ce_op(*op_args)[1]
+    first = pixel_text_ce_backward_op(g, stats, *op_args)
+    second = pixel_text_ce_backward_op(g, stats, *op_args)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1],
+                                                            second[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,d", [(1, 8), (7, 24), (130, 136), (1000, 512)])
+@pytest.mark.parametrize("live", ["none", "some", "all"])
+def test_live_rows_matches_live_table(cuda_device, dtype, c, d, live):
+    """The gather kernel bit-equal to its plain version (live_table):
+    ids-keyed (pixel_text_topk's form, -1 dead) and mask-keyed (the CE's),
+    with none, some and all rows live, C % 4 != 0 (zero padding columns);
+    and the CE's two-table form (member_table) with the device flag either
+    way, the selected table first.  One launch each."""
+    from rangeclip_tpu_torch.ops.kernels.live_rows import (
+        live_rows,
+        live_table,
+    )
+    from rangeclip_tpu_torch.ops.kernels.pixel_text_ce import member_table
+
+    gen = torch.Generator().manual_seed(24)
+    table = torch.randn(c, d, generator=gen).to(dtype)
+    keep = {"none": torch.zeros(c, dtype=torch.bool),
+            "all": torch.ones(c, dtype=torch.bool),
+            "some": torch.rand(c, generator=gen) < 0.4}[live]
+    ids = torch.where(keep, torch.randperm(c, generator=gen).int(), -1)
+    dev = lambda t: t.to(cuda_device)
+    cases = [
+        (lambda: live_rows(dev(table), dev(ids)),
+         live_table(table, ids)),
+        (lambda: live_rows(dev(table), None, dev(keep.int())),
+         live_table(table, torch.arange(c, dtype=torch.int32), keep)),
+    ]
+    K = 32
+    pids = torch.full((K,), c, dtype=torch.int32)
+    members = keep.nonzero()[:, 0].int()[:K]
+    pids[:members.numel()] = members
+    ptable = table[pids.clamp_max(c - 1).long()]
+    for flag in (0, 1):
+        fl = torch.tensor([flag], dtype=torch.int32)
+        sel = (ptable, pids) if flag else (table,
+                                           torch.arange(c, dtype=torch.int32))
+        other = (table, torch.arange(c, dtype=torch.int32)) if flag else (
+            ptable, pids)
+        sel_live = (pids < c) if flag else keep
+        want = live_table(torch.cat([sel[0], other[0]]),
+                          torch.cat([sel[1], other[1]]),
+                          torch.cat([sel_live, torch.zeros(
+                              other[0].shape[0], dtype=torch.bool)]))
+        cases.append((lambda fl=fl: member_table(
+            dev(table), dev(keep.int()), dev(ptable), dev((pids < c).int()),
+            dev(pids), dev(fl)), want))
+    for run, want in cases:
+        got, launches = _counted("live_rows", run)
+        assert launches == 1
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), (g.shape, w.shape)
+
+
 def _tc_ce(samples, temperature, labels, valid, packed, flag=None):
     """The tensor-core kernels launched directly (flag None: always run):
     (per-row ce [N], dx [N, D], per-row dtau [N]), each filled with NaN
@@ -628,7 +752,7 @@ def _tc_ce(samples, temperature, labels, valid, packed, flag=None):
     assert lib.rc_pixel_text_ce_tc_fwd(
         samples.data_ptr(), temperature.data_ptr(), labels.data_ptr(),
         valid.data_ptr(), S, N, D, ptable.data_ptr(), pmask.data_ptr(),
-        pids.data_ptr(), K, fp, ce.data_ptr(), stream) == 0
+        pids.data_ptr(), K, fp, ce.data_ptr(), None, stream) == 0
     code = lib.rc_pixel_text_ce_tc_bwd(
         samples.data_ptr(), temperature.data_ptr(), coeff.data_ptr(),
         labels.data_ptr(), valid.data_ptr(), S, N, D, ptable.data_ptr(),
@@ -781,6 +905,19 @@ def test_training_ops_pass_opcheck(cuda_device):
     torch.library.opcheck(pixel_text_ce_op, (
         flat.requires_grad_(), dev(temperature).requires_grad_(), lab, val,
         dev(table), msk, pt, pm, pi, flag))
+    # the member-only kernels: fp32 over the full table, and bf16 with the
+    # flag at 0 (beside the tensor-core kernels)
+    for dtype, form in ((torch.float32, "full"), (torch.bfloat16,
+                                                   "overflow")):
+        (samples, temperature, labels, valid, _, table, mask,
+         packed) = _member_inputs(gen, dtype, 200, 32, 300, 4, 140, form)
+        flat, lab, val, msk, pt, pm, pi, flag = ce_operands(
+            dev(samples), dev(temperature), dev(labels), dev(valid),
+            dev(table), dev(mask),
+            None if packed is None else tuple(map(dev, packed)))
+        torch.library.opcheck(pixel_text_ce_op, (
+            flat.requires_grad_(), dev(temperature).requires_grad_(), lab,
+            val, dev(table), msk, pt, pm, pi, flag))
 
 
 @pytest.mark.cuda

@@ -72,7 +72,7 @@ def _ce_case(rng, dtype, shape, C, slots, packed, n_members=40,
     ids = None
     if packed:
         ids = np.full(128, C, np.int32)
-        ids[:n_members] = members
+        ids[:min(n_members, 128)] = members[:128]
     return samples, labels, valid, text, mask, ids
 
 
@@ -173,24 +173,42 @@ def test_pixel_text_ce_packed_overflow_reads_the_flag():
         np.testing.assert_allclose(float(got), float(full), rtol=1e-6)
 
 
-@pytest.mark.parametrize("dtype,D,K,fwd,bwd", [
-    (torch.bfloat16, 512, 128, True, True),
-    (torch.bfloat16, 768, 128, True, True),
-    (torch.bfloat16, 1280, 40, True, True),
-    (torch.bfloat16, 1288, 128, False, False),
-    (torch.bfloat16, 512, 256, True, False),
-    (torch.float32, 512, 128, False, False),
+TC_FWD, TC_BWD = "pixel_text_ce_tc[fwd]", "pixel_text_ce_tc[bwd]"
+MEM_FWD, MEM_BWD = "pixel_text_ce[fwd]", "pixel_text_ce[bwd]"
+
+
+@pytest.mark.parametrize("dtype,D,K,flag,fwd,bwd", [
+    (torch.bfloat16, 512, 128, True, TC_FWD, TC_BWD),
+    (torch.bfloat16, 512, 128, False, MEM_FWD, MEM_BWD),
+    (torch.bfloat16, 768, 128, True, TC_FWD, TC_BWD),
+    (torch.bfloat16, 1280, 40, True, TC_FWD, TC_BWD),
+    (torch.bfloat16, 1288, 128, True, MEM_FWD, MEM_BWD),
+    (torch.bfloat16, 512, 256, True, MEM_FWD, MEM_BWD),
+    (torch.bfloat16, 512, 256, False, MEM_FWD, MEM_BWD),
+    (torch.float32, 512, 128, True, MEM_FWD, MEM_BWD),
+    (torch.float32, 512, 128, False, MEM_FWD, MEM_BWD),
 ])
-def test_pixel_text_ce_tc_route_by_shape(dtype, D, K, fwd, bwd):
-    """The tensor-core kernels take bf16 packed tables up to D = 1280, the
-    backward up to K = 128; fp32 and a full table take the CUDA-core
-    kernel.  The backward's transposed table is the packed table exactly,
-    zero-padded to a multiple of 8 classes."""
+def test_pixel_text_ce_tc_route_by_shape(dtype, D, K, flag, fwd, bwd):
+    """The kernel that writes for each (dtype, D, K, device flag): the
+    tensor-core kernels take bf16 packed tables up to D = 1280 and K =
+    128, in both directions (the member-only backward reads row statistics
+    that only the member-only forward writes), where the flag selects the
+    packed table; the member-only kernels (launched beside them, or alone)
+    take the rest: fp32, a full table, wider or larger packed tables, and
+    the flag at 0 (a contrast set over the capacity).  No route scores a
+    full table.  The tensor-core backward's transposed table is the packed
+    table exactly, zero-padded to a multiple of 8 classes."""
     samples = torch.zeros(3, D, dtype=dtype)
     ptable = torch.randn(K, D).to(dtype)
-    assert ce_k.tc_route(samples, ptable, backward=False) == fwd
-    assert ce_k.tc_route(samples, ptable, backward=True) == bwd
-    assert not ce_k.tc_route(samples, None, backward=False)
+
+    def writer(backward):
+        names = (TC_BWD, MEM_BWD) if backward else (TC_FWD, MEM_FWD)
+        return names[0] if ce_k.tc_route(samples, ptable) and flag else (
+            names[1])
+
+    assert writer(False) == fwd
+    assert writer(True) == bwd
+    assert not ce_k.tc_route(samples, None)
     ptable_t = ce_k.transposed_table(ptable[:K - 3])
     assert ptable_t.shape == (D, -(-(K - 3) // 8) * 8)
     assert torch.equal(ptable_t[:, :K - 3], ptable[:K - 3].T)
@@ -200,10 +218,11 @@ def test_pixel_text_ce_tc_route_by_shape(dtype, D, K, fwd, bwd):
 @pytest.mark.parametrize("packed,flag", [(False, None), (True, True),
                                          (True, False)])
 def test_pixel_text_ce_member_table(packed, flag):
-    """The member-only forward's table operand: the members of the table the
+    """The member-only kernels' table operand: the members of the table the
     flag selects (the packed one where it is set, else the full one),
     first and in table order, transposed to f32 exactly, their global ids
-    and the device count."""
+    and the device count; then the selected table's other rows in table
+    order (what the backward scores when there is no member)."""
     rng = np.random.default_rng(5)
     C, D, K = 70, 24, 32
     text = t(rng.standard_normal((C, D)).astype(np.float32)).bfloat16()
@@ -224,6 +243,156 @@ def test_pixel_text_ce_member_table(packed, flag):
     assert table_t.shape == (D, -(-rows // 4) * 4)
     assert torch.equal(row_ids[:n], members)
     assert torch.equal(table_t[:, :n], text[members.long()].float().T)
+    sel_ids = args[2] if packed and flag else torch.arange(C,
+                                                           dtype=torch.int32)
+    rest = sel_ids[~torch.isin(sel_ids, members)]
+    assert torch.equal(row_ids[n:n + rest.numel()], rest)
+
+
+def _members_backward(grad, samples, temperature, labels, valid, table,
+                      mask, packed=None):
+    """The member-only backward (csrc/pixel_text_ce.cu,
+    ce_members_bwd_kernel) transcribed in torch: the members of the
+    selected table gathered by ``member_table`` (with none, every row of
+    the selected table, at -1e30), delta rounded to the samples' dtype over
+    them only, and each valid label of a non-member in the selected table
+    adding its row's terms: -1e30 to its pick, and its delta (minus the
+    weights of the slots with that label) times its row to d_emb.  The
+    non-members' exp terms are exactly 0, so the statistics need no seed
+    here."""
+    flat, lab, val, msk, pt, pm, pi, flag = ce_k.ce_operands(
+        samples, temperature, labels, valid, table, mask, packed)
+    dtype = flat.dtype
+    table_t, ids, count = ce_k.member_table(table, msk, pt, pm, pi, flag)
+    on = pt is not None and bool(flag)
+    sel_table, sel_mask, sel_ids = ((pt, pm, pi) if on else
+                                    (table, msk, torch.arange(
+                                        table.shape[0], dtype=torch.int32)))
+    n = int(count)
+    ncol = n if n > 0 else sel_table.shape[0]
+    cols = table_t[:, :ncol]
+    x = flat.float()
+    rs = ce_k.row_scale(x)
+    emb = x * rs
+    inv_temp = 1.0 / temperature.float()
+    lu = (emb.to(dtype).float() @ cols) * inv_temp
+    logits = lu if n > 0 else torch.full_like(lu, ce_k.NEG_INF)
+    m = logits.max(dim=1, keepdim=True).values
+    e = torch.exp(logits - m)
+    inv_z = 1.0 / e.sum(dim=1, keepdim=True)
+    w = grad.float() * val
+    wsum = w.sum(dim=0)[:, None]
+    delta = e * (wsum * inv_z)
+    picks = []
+    for s in range(lab.shape[0]):
+        match = ids[None, :ncol] == lab[s][:, None]
+        delta = delta - torch.where(match, w[s][:, None], 0.0)
+        picks.append(torch.where(match, logits, 0.0).sum(dim=1))
+    delta = delta.to(dtype).float()
+    d_emb = delta @ cols.T
+    if n > 0:
+        rows = sel_table.float()
+        for s in range(lab.shape[0]):
+            hits = (sel_ids[None, :] == lab[s][:, None]) & (sel_mask == 0)
+            picks[s] = picks[s] + hits.sum(dim=1) * ce_k.NEG_INF
+            first = torch.ones_like(lab[s], dtype=torch.bool)
+            for s2 in range(s):
+                first &= lab[s2] != lab[s]
+            cf = torch.zeros_like(w[s])
+            for s2 in range(s, lab.shape[0]):
+                cf = cf - torch.where(lab[s2] == lab[s], w[s2], 0.0)
+            cf = cf.to(dtype).float()
+            coef = torch.where(hits & first[:, None], cf[:, None], 0.0)
+            d_emb = d_emb + coef @ rows
+    wpick = sum(w[s] * picks[s] for s in range(lab.shape[0]))
+    dtau = wpick - wsum[:, 0] * ((e * logits).sum(dim=1) * inv_z[:, 0])
+    d_emb = d_emb * inv_temp
+    proj = (emb * d_emb).sum(dim=1, keepdim=True)
+    dx = rs * (d_emb - emb * proj)
+    return dx.to(dtype).reshape(samples.shape), dtau.sum() / temperature
+
+
+@pytest.mark.parametrize("dtype,slots,packed,flag,n_members,nonmember", [
+    ("f32", 4, False, None, 40, False),
+    ("f32", 4, False, None, 40, True),
+    ("f32", 1, False, None, 150, True),
+    ("bf16", 4, False, None, 40, True),
+    ("bf16", 4, True, True, 40, True),
+    ("bf16", 1, True, False, 150, True),
+    ("f32", 4, True, True, 40, False),
+    ("f32", 4, False, None, 0, True),
+])
+def test_pixel_text_ce_members_backward_transcription(dtype, slots, packed,
+                                                      flag, n_members,
+                                                      nonmember):
+    """The member-only backward's arithmetic, transcribed
+    (``_members_backward``), against the plain backward and JAX's
+    ``_ce_bwd_rule`` in interpret mode (``fused_pixel_text_ce``'s
+    custom_vjp), on the table the flag selects (C = 200, capacity 128).
+    Against the plain version: f32 d samples within 1e-5 of the row's
+    largest entry (f32 summation order), bf16 within one bf16 ulp plus
+    2^-10 of it (the card's check), d temperature within rtol 1e-5.
+    Against JAX the tolerances of test_pixel_text_ce_plain_matches_pallas.
+    With non-member labels weighted, a contrast set of 150 (past one
+    128-class tile, and over the capacity: the flag at 0), and none at all
+    (every row of the table scored at -1e30)."""
+    rng = np.random.default_rng(7)
+    C, D = 200, 64
+    samples, labels, valid, text, mask, ids = _ce_case(
+        rng, dtype, (300, D), C, slots, packed, max(n_members, 1), nonmember)
+    if n_members == 0:
+        mask[:] = False
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    temp = torch.tensor(0.07)
+    args = (t(samples).to(tdt), temp, t(labels), t(valid), t(text).to(tdt),
+            t(mask))
+    packed_args = None
+    if packed:
+        packed_args = (t(text[np.minimum(ids, C - 1)]).to(tdt), t(ids < C),
+                       t(ids), torch.tensor(flag))
+    g = torch.tensor(1.0)
+    got_dx, got_dt = _members_backward(g, *args, packed=packed_args)
+    flat, lab_t, val_t, msk, pt, pm, pi, flag_t = ce_k.ce_operands(
+        *args, packed_args)
+    want_dx, want_dt = ce_k.pixel_text_ce_backward_plain(
+        g, flat, temp, lab_t, val_t, args[4], msk,
+        packed=None if pt is None else (pt, pm, pi, flag_t))
+    scale = want_dx.double().abs().amax(dim=-1, keepdim=True)
+    err = (got_dx.double() - want_dx.double()).abs()
+    if dtype == "f32":
+        assert bool((err <= 1e-5 * scale + 1e-12).all()), float(err.max())
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            want_dx.double().abs().clamp_min(1e-30))) - 7)
+        assert bool((err <= ulp + scale * 2.0 ** -10).all())
+    np.testing.assert_allclose(float(got_dt), float(want_dt), rtol=1e-5)
+
+    # JAX's backward on the selected table (its lax.cond is outside)
+    on = packed and flag
+    jtable = text[np.minimum(ids, C - 1)] if on else text
+    jmask = ids < C if on else mask
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    lab = labels if slots > 1 else labels[0]
+    val = valid if slots > 1 else valid[0]
+    _, (gs, gt) = jax.value_and_grad(
+        lambda s, tau: jax_ce(s, tau, jnp.asarray(lab), jnp.asarray(val),
+                              jnp.asarray(jtable), jnp.asarray(jmask), 512,
+                              True, jnp.asarray(ids) if on else None),
+        argnums=(0, 1))(jnp.asarray(samples).astype(jdt), np.float32(0.07))
+    gs = np.asarray(gs.astype(jnp.float32))
+    dx = got_dx.float().numpy()
+    # with no member, d tau is a difference of sums of 1e30-sized terms
+    # whose f32 rounding depends on their order: held to the plain version
+    # above only
+    if dtype == "f32":
+        np.testing.assert_allclose(dx, gs, rtol=1e-4,
+                                   atol=1e-6 * np.abs(gs).max())
+        if n_members:
+            np.testing.assert_allclose(float(got_dt), float(gt), rtol=1e-4)
+    else:
+        np.testing.assert_allclose(float(got_dt), float(gt), rtol=1e-3)
+        ref_scale = np.abs(gs).max(axis=1, keepdims=True)
+        assert (np.abs(dx - gs) <= 2 * ref_scale * 2.0 ** -8).all()
 
 
 @pytest.mark.parametrize("shape", [(32, 128, 128, 512), (3, 10, 16, 128),
@@ -310,7 +479,9 @@ def test_fake_implementations_give_the_output_metadata():
         args = (s, torch.empty(()), torch.empty(4, 64, dtype=torch.int32),
                 torch.empty(4, 64), torch.empty(10, 16, dtype=torch.bfloat16),
                 torch.empty(10, dtype=torch.int32), None, None, None, None)
-        out = ce_k.pixel_text_ce_op(*args)
+        out, stats = ce_k.pixel_text_ce_op(*args)
         assert out.shape == () and out.dtype == torch.float32
-        ds, dt = ce_k.pixel_text_ce_backward_op(torch.empty(()), *args)
+        assert stats.shape == (2, 64) and stats.dtype == torch.float32
+        ds, dt = ce_k.pixel_text_ce_backward_op(torch.empty(()), stats,
+                                                *args)
         assert ds.shape == s.shape and ds.dtype == s.dtype and dt.shape == ()
