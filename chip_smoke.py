@@ -37,6 +37,14 @@ Phases (any failure raises; nothing is caught):
    events.
    masked_pooling and tv_loss run on a bf16 field of the flagship train
    native shape [32, 128, 128, 512], head_topk at the bench configuration.
+   class_presence runs at the bench shape and at the main paths' label
+   counts (2,097,152, 1,048,576, 524,288), with a validity vector and
+   without (the labels-only route), and histogram at the flagship shape;
+   each must be one device event a call.  Every row's ``ms`` is a
+   CUDA-event loop of calls of the operator; beside it ``device_ms`` and
+   ``device_events`` are its device time and events per call read with
+   torch.profiler (for a call of a few microseconds the loop measures the
+   host's launch rate, the device time the kernel).
 3. Serve: the port's ``cli/serve`` engine and HTTP server in this process,
    four POSTed depth maps per configuration: default flags (fp32, batch 8,
    top-1, --predict_path auto: folded), --bf16, --predict_path default in
@@ -76,14 +84,24 @@ Phases (any failure raises; nothing is caught):
 9. One val step of the flagship batch (bf16, batch 32) through the kernels,
    twice (identical metrics), and through the plain versions with the same
    draws: ids up to near-ties, metrics, loss parts within 2e-3 relative.
+10. D % 8 != 0, which the wrappers zero-pad to a multiple of 8.  D = 100
+   after the model, which takes only embedding_dim % 32 == 0 (GroupNorm(32),
+   as in JAX): the flagship step's hybrid loss and its gradient on a random
+   [32, 128, 128, 100] field in fp32 and bf16, and validation's scoring of
+   8 maps, each against the plain versions, each launching the CE (the
+   scoring the top-k) kernels.  Then the four padding wrappers
+   (pixel_text_ce, pixel_text_topk, masked_pooling, tv_loss) at D = 20 and
+   100 on main-path row counts, masked_pooling also at D = 2056 (two column
+   chunks), each launching its kernel.
 
 Each path of phases 3-8 runs with the launch counts set to 0 just before
-it and read just after (phase 9 compares, and counts nothing); each must
+it and read just after (phases 9-10 compare, and count nothing); each must
 launch the kernels it is built on, and every kernel must be launched by
 some path.
 
 The second-to-last line is a JSON object with each kernel's launches, error
-against its plain version and times; the last line names the device.  The
+against its plain version, times and device time; the last line names the
+device.  The
 script exits non-zero without printing them when CUDA is unavailable.
 """
 
@@ -128,6 +146,8 @@ KERNEL_ROWS = {
                         "rangeclip_tpu/ops/pallas/conv_score_topk.py:60"),
     "class_presence": ("rangeclip_tpu_torch/csrc/class_presence.cu",
                        "rangeclip_tpu/ops/pallas/class_presence.py:21"),
+    "class_presence[labels]": ("rangeclip_tpu_torch/csrc/class_presence.cu",
+                               "rangeclip_tpu/ops/pallas/class_presence.py:21"),
     "pixel_text_topk[bf16]": ("rangeclip_tpu_torch/csrc/pixel_text_topk.cu",
                               "rangeclip_tpu/ops/pallas/pixel_text_topk.py:79"),
     "pixel_text_topk[fp32]": ("rangeclip_tpu_torch/csrc/pixel_text_topk.cu",
@@ -173,10 +193,24 @@ TRAIN_PRESENT = 40  # labels in the segmentation: the packed CE branch
 OVERFLOW_PRESENT = 150  # with 50 distractors past the capacity: full table
 CLI_TRAIN_BATCH = 16  # cli/train's default --batch_size
 POOL_OBJECTS = 256  # object ids of masked_average_pooling (masked_pooling.py:8)
-VAL_KERNELS = ["pixel_text_topk[fp32]", "class_presence", "histogram",
+VAL_KERNELS = ["pixel_text_topk[fp32]", "class_presence",
+               "class_presence[labels]", "histogram",
                "live_rows", "pixel_text_ce[fwd]"]
 CAPACITY = 128
+# class_presence's label counts: the bench shape (128 x 256^2, the kernels
+# line's row), then the flagship step's contrast set (32 x 256^2), the fp32
+# step's (16 x 256^2) and validation's candidate mask (8 x 256^2)
+PRESENCE_SHAPES = (BENCH_BATCH * RES * RES, 32 * RES * RES, 16 * RES * RES,
+                   8 * RES * RES)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# phase 10's padded bf16 CE: d samples within this share of its norm, and
+# at most ce_pad_rows(rows of exactly rounded logits) rows past the
+# per-row check
+CE_PAD_NORM = 2e-4
+
+
+def ce_pad_rows(exact_rows: int) -> int:
+    return 2 * exact_rows + 8
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 # Beside the tensor-core kernels and pixel_text_topk[fp32]: their product
 # stage alone through cuBLAS / cuDNN at their shapes (ms), printed before
@@ -217,6 +251,25 @@ def time_pair(kernel, plain, iters: int, plain_iters: int):
     k2 = cuda_ms(kernel, iters)
     p2 = cuda_ms(plain, plain_iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def device_time(fn, calls: int = 20):
+    """(device ms, device events) per call of ``fn`` by torch.profiler: the
+    time of a kernel whose calls a CUDA-event loop would time by the host's
+    launch rate."""
+    from rangeclip_tpu_torch.utils.profiling import profile
+
+    result = profile(fn, calls=calls)
+    return result["device_ms"], result["device_events"]
+
+
+def device_fields(fn, calls: int = 10) -> dict:
+    """The kernels line's ``device_ms`` and ``device_events``: the device
+    time and events per call of ``fn`` by torch.profiler, beside ``ms``,
+    the CUDA-event loop of the same call (which for a call of a few
+    microseconds measures the host's launch rate)."""
+    ms, events = device_time(fn, calls)
+    return {"device_ms": ms, "device_events": events}
 
 
 def bound(nbytes: float, ops: float, kind: str) -> dict:
@@ -307,6 +360,7 @@ def phase_kernels(device, bench_model, bench_depth, text, cand, stats):
     from rangeclip_tpu_torch.ops.kernels.class_presence import (
         class_presence,
         class_presence_plain,
+        launch_name,
     )
     from rangeclip_tpu_torch.ops.kernels.conv_score_topk import (
         conv_score_topk,
@@ -348,33 +402,51 @@ def phase_kernels(device, bench_model, bench_depth, text, cand, stats):
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     library_ms=library_ms,
                     **bound(scores.numel() * scores.element_size() + N * 4,
-                            0, "f32"))
+                            0, "f32"),
+                    **device_fields(lambda: score_topk(
+                        scores, ids, k, False, selector, max_id=S - 1)))
                 log(f"  {name}: torch.topk k=1 {library_ms:.4f} ms")
         stats[name]["max_abs_err"] = err
     del field
 
-    # class_presence at the bench shape: N = 128 * 256^2 labels, C = 512
-    labels = torch.randint(0, 40, (BENCH_BATCH * RES * RES,), device=device,
-                           generator=gen, dtype=torch.int32)
-    labels[::977] = torch.randint(-5, NUM_CLASSES + 5, labels[::977].shape,
-                                  device=device, generator=gen,
-                                  dtype=torch.int32)
-    valid = (torch.rand(labels.shape, device=device, generator=gen)
-             > 0.1).float()
-    got = class_presence(labels, valid, NUM_CLASSES)
-    want = class_presence_plain(labels, valid, NUM_CLASSES)
-    torch.cuda.synchronize()
-    require(torch.equal(got, want), "class_presence differs")
-    ms, plain_ms = time_pair(
-        lambda: class_presence(labels, valid, NUM_CLASSES),
-        lambda: class_presence_plain(labels, valid, NUM_CLASSES), 20, 5)
-    log(f"  class_presence N={labels.numel()} C={NUM_CLASSES}: bit-equal "
-        f"({int(got.sum())} present); kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms")
-    stats["class_presence"] = dict(
-        max_abs_err=max_abs_err(got.int(), want.int()), ms=ms,
-        plain_ms=plain_ms, library_ms=None,
-        **bound(labels.numel() * 8 + NUM_CLASSES * 4, 0, "f32"))
+    # class_presence at the bench shape (N = 128 * 256^2 labels, C = 512)
+    # and at the main paths' shapes: the flagship step's contrast set (32 *
+    # 256^2), the fp32 step's (16 * 256^2) and validation's candidate mask
+    # (8 * 256^2); with a validity vector, and without (every label valid:
+    # the candidate mask's route, the labels only)
+    for n in PRESENCE_SHAPES:
+        labels = torch.randint(0, 40, (n,), device=device, generator=gen,
+                               dtype=torch.int32)
+        labels[::977] = torch.randint(-5, NUM_CLASSES + 5, labels[::977].shape,
+                                      device=device, generator=gen,
+                                      dtype=torch.int32)
+        valid = (torch.rand(labels.shape, device=device, generator=gen)
+                 > 0.1).float()
+        for v in (valid, None):
+            name = launch_name(v)
+            got = class_presence(labels, v, NUM_CLASSES)
+            want = class_presence_plain(labels, v, NUM_CLASSES)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want), f"{name} N={n} differs")
+            ms, plain_ms = time_pair(
+                lambda: class_presence(labels, v, NUM_CLASSES),
+                lambda: class_presence_plain(labels, v, NUM_CLASSES), 50, 5)
+            row = dict(
+                max_abs_err=max_abs_err(got.int(), want.int()), ms=ms,
+                plain_ms=plain_ms, library_ms=None,
+                **bound(n * (4 if v is None else 8) + NUM_CLASSES, 0, "f32"),
+                **device_fields(
+                    lambda: class_presence(labels, v, NUM_CLASSES), 20))
+            events, dev_ms = row["device_events"], row["device_ms"]
+            require(events == 1, f"{name}: {events} device events a call")
+            log(f"  {name} N={n} C={NUM_CLASSES}: bit-equal "
+                f"({int(got.sum())} present), {events:g} device event a "
+                f"call; kernel {ms:.4f} ms a call in a loop of calls (CUDA "
+                f"events), {dev_ms:.4f} ms device time (torch.profiler), "
+                f"plain {plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_ms'] / dev_ms:.0%} of the device time)")
+            if n == PRESENCE_SHAPES[0]:  # the kernels line: the bench shape
+                stats[name] = row
     del labels, valid
 
     # conv_score_topk at the bench shape: B=128, h=w=128, C_in=32, S=384
@@ -430,7 +502,9 @@ def phase_kernels(device, bench_model, bench_depth, text, cand, stats):
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
         **bound(feats.numel() * 2 + n_live * 9 * c_in * 2
                 + n_pix * BENCH_TOP_K * 4,
-                2.0 * n_pix * 9 * c_in * n_live, "bf16"))
+                2.0 * n_pix * 9 * c_in * n_live, "bf16"),
+        **device_fields(lambda: conv_score_topk(feats, rows, slot_ids,
+                                                BENCH_TOP_K)))
 
 
 def sparse_signs(rows: int, dim: int, nonzero: int, gen, device):
@@ -552,7 +626,9 @@ def phase_unfolded_kernels(device, bench_model, serve_model, depths, text,
                 stats["pixel_text_topk[fp32]"] = dict(
                     ms=ms, plain_ms=plain_ms, library_ms=None,
                     **bound(field.numel() * 4 + n_live * D * 4 + N * 4,
-                            2.0 * N * D * n_live, "f32"))
+                            2.0 * N * D * n_live, "f32"),
+                    **device_fields(lambda: pixel_text_topk(
+                        field, table, mask, k, False)))
                 log(f"  pixel_text_topk[fp32] serve shape: {n_live} of {C} "
                     f"classes live, bound "
                     f"{stats['pixel_text_topk[fp32]']['bound_ms']:.4f} ms")
@@ -624,7 +700,9 @@ def phase_unfolded_kernels(device, bench_model, serve_model, depths, text,
     stats["pixel_text_topk[bf16]"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
         **bound(field.numel() * 2 + n_live * D * 2 + N * BENCH_TOP_K * 4,
-                2.0 * N * D * n_live, "bf16"))
+                2.0 * N * D * n_live, "bf16"),
+        **device_fields(lambda: pixel_text_topk(
+            field, q_table, slot_mask, BENCH_TOP_K, False, slot_ids)))
     # the product stage alone through cuBLAS: the normalised bf16 field by
     # the table's transpose (a yardstick, not the same function)
     normed = normalize_rows_rsqrt(field)
@@ -663,7 +741,8 @@ def phase_unfolded_kernels(device, bench_model, serve_model, depths, text,
     log(f"  l2_normalize[fwd]: F.normalize {library_ms:.4f} ms")
     stats["l2_normalize[fwd]"] = dict(
         max_abs_err=l2_errs[0], ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms, **bound(2 * flat.numel() * 2, 0, "bf16"))
+        library_ms=library_ms, **bound(2 * flat.numel() * 2, 0, "bf16"),
+        **device_fields(lambda: l2_normalize_op(flat)))
     xp = flat.detach().clone().requires_grad_()
     yp = l2_normalize_plain(xp)
     ms, plain_ms = time_pair(
@@ -673,7 +752,8 @@ def phase_unfolded_kernels(device, bench_model, serve_model, depths, text,
         f"(autograd backward) {plain_ms:.4f} ms")
     stats["l2_normalize[bwd]"] = dict(
         max_abs_err=l2_errs[1], ms=ms, plain_ms=plain_ms, library_ms=None,
-        **bound(3 * flat.numel() * 2, 0, "bf16"))
+        **bound(3 * flat.numel() * 2, 0, "bf16"),
+        **device_fields(lambda: l2_normalize_backward_op(flat, g)))
     del field, flat, g, xp, yp
     torch.cuda.empty_cache()
 
@@ -1077,7 +1157,8 @@ def phase_train_kernels(device, stats):
     n, bins = n_draws(RES, RES), RES * RES
     idx = torch.randint(0, bins, (B, n), device=device, generator=gen,
                         dtype=torch.int32)
-    got, want = histogram(idx, bins), histogram_plain(idx, bins)
+    got = histogram(idx, bins)
+    want = histogram_plain(idx, bins)
     torch.cuda.synchronize()
     require(torch.equal(got, want), "histogram differs from its plain version")
     ms, plain_ms = time_pair(lambda: histogram(idx, bins),
@@ -1086,13 +1167,18 @@ def phase_train_kernels(device, stats):
                ).reshape(-1)
     library_ms = cuda_ms(lambda: torch.bincount(offsets, minlength=B * bins),
                          50)
+    row = stats["histogram"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        **bound(idx.numel() * 4 + B * bins * 4, 0, "f32"),
+        **device_fields(lambda: histogram(idx, bins), 20))
+    require(row["device_events"] == 1,
+            f"histogram: {row['device_events']} device events a call")
     log(f"  histogram [{B}, {n}] -> [{B}, {bins}]: bit-equal; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bincount over "
-        f"row-offset draws {library_ms:.4f} ms")
-    stats["histogram"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                              library_ms=library_ms,
-                              **bound(idx.numel() * 4 + B * bins * 4, 0,
-                                      "f32"))
+        f"{ms:.4f} ms a call in a loop of calls (CUDA events), "
+        f"{row['device_ms']:.4f} ms device time (torch.profiler) in 1 "
+        f"device event a call, bound {row['bound_ms']:.4f} ms; plain "
+        f"{plain_ms:.4f} ms, torch.bincount over row-offset draws "
+        f"{library_ms:.4f} ms")
     del idx, offsets, got, want
 
     # pixel_text_ce: bf16 packed (the tensor-core kernels), bf16 overflowing
@@ -1139,7 +1225,8 @@ def phase_train_kernels(device, stats):
     stats["live_rows"] = dict(
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
         **bound(rows_n * D * 2 + rows_n * 8 + got[0].numel() * 4
-                + rows_n * 4 + 4, 0, "bf16"))
+                + rows_n * 4 + 4, 0, "bf16"),
+        **device_fields(gather))
     del got, want, plain_rows
     rows = {}
     for case, dtype, batch, members, width in (
@@ -1242,10 +1329,13 @@ def phase_train_kernels(device, stats):
         rows[case] = dict(
             fwd=dict(max_abs_err=max_abs_err(got, want), ms=fwd[0],
                      plain_ms=fwd[1], library_ms=None,
-                     **bound(io, flops, kind)),
+                     **bound(io, flops, kind),
+                     **device_fields(lambda: pixel_text_ce_op(*op_args))),
             bwd=dict(max_abs_err=float(err.max()), ms=bwd[0],
                      plain_ms=bwd[1], library_ms=None,
-                     **bound(io + flat.numel() * esize, 2 * flops, kind)))
+                     **bound(io + flat.numel() * esize, 2 * flops, kind),
+                     **device_fields(lambda: pixel_text_ce_backward_op(
+                         g, row_stats, *op_args))))
         log(f"  pixel_text_ce {case} "
             f"({'tensor cores' if tc else 'member-only, CUDA cores'}), "
             f"N={N} D={width} S=4 "
@@ -1295,8 +1385,8 @@ def phase_train_kernels(device, stats):
                     lambda: tv_grad(xw, g, 2), 20, 5)
     # the forward's device events per operator call, read with the profiler:
     # its kernels alone, and nothing else on the device
-    events = profile(lambda: tv_rowtile_op(x, w, 2), calls=20)["events"]
-    alone = sum(ms for _, ms in events)
+    fwd_prof = profile(lambda: tv_rowtile_op(x, w, 2), calls=20)
+    events, alone = fwd_prof["events"], fwd_prof["device_ms"]
     require(all("tv_fwd" in name for name, _ in events),
             f"tv_rowtile[fwd]: device events other than its kernels: "
             f"{events}")
@@ -1309,11 +1399,13 @@ def phase_train_kernels(device, stats):
         f"{bwd[0]:.4f} ms (plain {bwd[1]:.4f})")
     stats["tv_rowtile[fwd]"] = dict(
         max_abs_err=max_abs_err(value.detach(), want.detach()), ms=fwd[0],
-        plain_ms=fwd[1], library_ms=None, **bound(x.numel() * 2, 0, "bf16"))
+        plain_ms=fwd[1], library_ms=None, **bound(x.numel() * 2, 0, "bf16"),
+        device_ms=alone, device_events=fwd_prof["device_events"])
     stats["tv_rowtile[bwd]"] = dict(
         max_abs_err=max_abs_err(xk.grad, xp.grad), ms=bwd[0],
         plain_ms=bwd[1], library_ms=None,
-        **bound(2 * x.numel() * 2, 0, "bf16"))
+        **bound(2 * x.numel() * 2, 0, "bf16"),
+        **device_fields(lambda: tv_rowtile_backward_op(x, w, g, 2)))
     del x, xk, xp, xw
     torch.cuda.empty_cache()
 
@@ -1403,7 +1495,8 @@ def phase_eval_kernels(device, bench_model, depths, text, seg, stats):
         max_abs_err=max_abs_err(sums, want), ms=ms, plain_ms=plain_ms,
         library_ms=library_ms,
         **bound(emb.numel() * 2 + labels.numel() * 4 + obj.numel() * 4
-                + POOL_OBJECTS * (D + 1) * 4, emb.numel(), "f32"))
+                + POOL_OBJECTS * (D + 1) * 4, emb.numel(), "f32"),
+        **device_fields(lambda: fused_masked_pooling(emb, labels, obj)))
     del emb32, rowmap, scale
 
     # tv_loss: ties from the quarter grid (sign(0) = 0); the forward within
@@ -1417,8 +1510,9 @@ def phase_eval_kernels(device, bench_model, depths, text, seg, stats):
     torch.testing.assert_close(value.detach(), want, rtol=1e-5, atol=0.0)
     require(torch.equal(xk.grad, tv_loss_grad(x, g)),
             "tv_loss[bwd] is not bit-equal to the plain VJP")
-    fwd = time_pair(lambda: tv_loss_op(x), lambda: tv_loss_value(x), 20, 5)
-    bwd = time_pair(lambda: tv_loss_backward_op(x, g),
+    fwd = time_pair(lambda: tv_loss_op(x, D), lambda: tv_loss_value(x), 20,
+                    5)
+    bwd = time_pair(lambda: tv_loss_backward_op(x, g, D),
                     lambda: tv_loss_grad(x, g), 20, 5)
     log(f"  tv_loss [{B}, {h}, {h}, {D}] bf16: value "
         f"{float(value.detach()):.7g} vs plain {float(want):.7g}, backward "
@@ -1426,11 +1520,13 @@ def phase_eval_kernels(device, bench_model, depths, text, seg, stats):
         f"kernel {bwd[0]:.4f} ms (plain {bwd[1]:.4f})")
     stats["tv_loss[fwd]"] = dict(
         max_abs_err=max_abs_err(value.detach(), want), ms=fwd[0],
-        plain_ms=fwd[1], library_ms=None, **bound(x.numel() * 2, 0, "bf16"))
+        plain_ms=fwd[1], library_ms=None, **bound(x.numel() * 2, 0, "bf16"),
+        **device_fields(lambda: tv_loss_op(x, D)))
     stats["tv_loss[bwd]"] = dict(
         max_abs_err=max_abs_err(xk.grad, tv_loss_grad(x, g)), ms=bwd[0],
         plain_ms=bwd[1], library_ms=None,
-        **bound(2 * x.numel() * 2, 0, "bf16"))
+        **bound(2 * x.numel() * 2, 0, "bf16"),
+        **device_fields(lambda: tv_loss_backward_op(x, g, D)))
     del x, xk, emb, labels
     torch.cuda.empty_cache()
 
@@ -1474,7 +1570,9 @@ def phase_eval_kernels(device, bench_model, depths, text, seg, stats):
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
         **bound(feats.numel() * 2 + rows.numel() * 2 + table.numel() * 2
                 + n_pix * BENCH_TOP_K * 8,
-                2.0 * n_pix * (9 * c_in * D + D * live), "bf16"))
+                2.0 * n_pix * (9 * c_in * D + D * live), "bf16"),
+        **device_fields(lambda: fused_head_score_topk(feats, rows, table,
+                                                      mask, BENCH_TOP_K)))
     del feats
     torch.cuda.empty_cache()
 
@@ -1870,6 +1968,106 @@ def compare_val_step(device) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_dim100(device) -> None:
+    """The train step's loss and validation's scoring at D = 100, which the
+    CE and top-k wrappers zero-pad to 104.  The model takes only
+    embedding_dim % 32 == 0 (its ASPP's GroupNorm(32), as in the JAX
+    package), so no model path reaches such a width; the layers after the
+    model do.  The hybrid loss (the flagship step's: labels at 256^2 with
+    40 present, label_upsample 2, capacity 128) runs on a random normalised
+    [32, 128, 128, 100] field in fp32 and in bf16 with its gradient, and
+    validation's scoring (build_candidate_mask with 50 negatives, then
+    pixel_text_topk at k = 5, fp32) on 8 maps of it; each against the same
+    call through the plain versions with the same draws."""
+    from rangeclip_tpu_torch.losses.hybrid import Draws, compute_hybrid_loss
+    from rangeclip_tpu_torch.losses.infonce import draw_pixels, sample_gumbel
+    from rangeclip_tpu_torch.models.clip.provider import HashTextEmbedder
+    from rangeclip_tpu_torch.models.depth_unet import build_candidate_mask
+    from rangeclip_tpu_torch.ops.kernels.pixel_text_topk import (
+        pixel_text_topk,
+    )
+    from rangeclip_tpu_torch.utils.math import l2_normalize
+
+    D, h = 100, RES // 2
+    gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    text = torch.from_numpy(HashTextEmbedder(D)(
+        [f"class {i:03d}" for i in range(NUM_CLASSES)])).to(device)
+    rng = np.random.default_rng(SEED + 22)
+    medium, hard = (torch.from_numpy(rng.random((NUM_CLASSES, NUM_CLASSES))
+                                     < 3 / NUM_CLASSES).to(device)
+                    for _ in range(2))
+    seg = torch.randint(1, TRAIN_PRESENT + 1, (TRAIN_BATCH, RES, RES),
+                        device=device, generator=gen, dtype=torch.int32)
+    base = l2_normalize(torch.randn(TRAIN_BATCH, h, h, D, device=device,
+                                    generator=gen), dim=-1)
+    draws = Draws(draw_pixels(TRAIN_BATCH, RES, RES, 0.7, gen, device),
+                  (sample_gumbel(NUM_CLASSES, gen, device),
+                   sample_gumbel(NUM_CLASSES, gen, device)))
+    temp = torch.tensor(0.07, device=device)
+
+    # the loss and its gradient: loss parts as the train step comparisons
+    # hold them (fp32 rtol 1e-4, bf16 2e-3), the gradient's norm as their
+    # grad_norm (fp32 1e-3, bf16 2e-2)
+    for dtype, rtol_loss, rtol_norm, expect in (
+            (torch.float32, 1e-4, 1e-3,
+             ["pixel_text_ce[fwd]", "pixel_text_ce[bwd]", "live_rows"]),
+            (torch.bfloat16, 2e-3, 2e-2,
+             ["pixel_text_ce_tc[fwd]", "pixel_text_ce_tc[bwd]"])):
+        def loss_and_grad():
+            field = base.to(dtype).clone().requires_grad_()
+            total, info = compute_hybrid_loss(
+                field, seg, text, medium, hard, temp, temp, 0.0, 0.75,
+                label_upsample=2, draws=draws)
+            total.backward()
+            return {k: v.detach() for k, v in info.items()}, field.grad
+
+        (info, grad), launched = launched_by(loss_and_grad)
+        with plain_versions():
+            (plain, plain_grad), plain_launched = launched_by(loss_and_grad)
+        require(not plain_launched, f"plain loss launched {plain_launched}")
+        expect = expect + ["histogram", "class_presence"]
+        require(all(launched.get(k) for k in expect),
+                f"loss D={D} {dtype}: launches {launched}, expected {expect}")
+        for key in ("total_loss", "text_contrastive_loss", "smoothness_loss"):
+            got, want = float(info[key]), float(plain[key])
+            require(abs(got - want) <= rtol_loss * abs(want),
+                    f"loss D={D} {dtype} {key}: kernel {got} vs plain {want}")
+        norm, plain_norm = float(grad.float().norm()), float(
+            plain_grad.float().norm())
+        require(abs(norm - plain_norm) <= rtol_norm * plain_norm,
+                f"loss D={D} {dtype}: gradient norm {norm} vs {plain_norm}")
+        log(f"  hybrid loss {dtype} [{TRAIN_BATCH}, {h}, {h}, {D}]: "
+            f"text loss {float(info['text_contrastive_loss']):.6f} vs plain "
+            f"{float(plain['text_contrastive_loss']):.6f}, gradient norm "
+            f"{norm:.6g} vs {plain_norm:.6g}; launches {launched}")
+        del grad, plain_grad
+        torch.cuda.empty_cache()
+
+    # validation's scoring of 8 maps (fp32)
+    field = base[:8]
+    gumbel = sample_gumbel(NUM_CLASSES, gen, device)
+    table = l2_normalize(text.float(), dim=-1)
+
+    def score(topk):
+        mask = build_candidate_mask(seg[:8], NUM_CLASSES, 50, gumbel=gumbel)
+        return topk(field, table, mask, 5)
+
+    got, launched = launched_by(lambda: score(pixel_text_topk))
+    with plain_versions():
+        want, plain_launched = launched_by(
+            lambda: score(plain_pixel_text_topk))
+    require(not plain_launched, f"plain scoring launched {plain_launched}")
+    expect = ["class_presence[labels]", "pixel_text_topk[fp32]", "live_rows"]
+    require(all(launched.get(k) for k in expect),
+            f"scoring D={D}: launches {launched}, expected {expect}")
+    near_tie_check(f"validation scoring fp32 D={D}", got, want,
+                   field.reshape(-1, D), table)
+    log(f"  validation scoring fp32 [8, {h}, {h}, {D}], k=5: launches "
+        f"{launched}")
+    del base, field
+    torch.cuda.empty_cache()
+
+
 def phase_cli_train(tmp: str, device, totals) -> None:
     """cli/train --bf16 on a synthetic 256^2 dataset, validating at step 2;
     its checkpoint loaded strictly and run through predict; then
@@ -2027,6 +2225,228 @@ def val_shape_topk(device, model, loader, text_table) -> None:
         f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms (operations)")
 
 
+def launched_by(fn):
+    """(fn(), the kernels it launched: {name: launches}, the launched only),
+    with the counts set to 0 just before it."""
+    from rangeclip_tpu_torch.ops.kernels import _lib
+
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: n for k, n in _lib.launch_counts.items() if n}
+
+
+def phase_padded_widths(device) -> None:
+    """The four wrappers that zero-pad D % 8 != 0 (pixel_text_ce forward
+    and backward, pixel_text_topk, masked_pooling, tv_loss), at D = 20 and
+    100 on main-path row counts, and masked_pooling at D = 2056 (two column
+    chunks): each launches its kernel and holds to its plain version on
+    the unpadded operands, at the tolerances of tests/test_torch_cuda.py."""
+    from rangeclip_tpu_torch.ops.kernels.masked_pooling import (
+        fused_masked_pooling,
+        masked_pooling_plain,
+    )
+    from rangeclip_tpu_torch.ops.kernels.pixel_text_ce import (
+        fused_pixel_text_ce,
+        pixel_text_ce_backward_plain,
+        pixel_text_ce_plain,
+    )
+    from rangeclip_tpu_torch.ops.kernels.pixel_text_topk import (
+        kernel_route,
+        pixel_text_topk,
+    )
+    from rangeclip_tpu_torch.ops.kernels.tv_loss import (
+        fused_tv_loss,
+        tv_loss_grad,
+        tv_loss_value,
+    )
+    from rangeclip_tpu_torch.utils.ce_rounding import plain_dx
+    from rangeclip_tpu_torch.utils.math import l2_normalize
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    pixels = (RES // 2) ** 2  # native pixels of one map
+
+    def counted(names, fn):
+        out, launched = launched_by(fn)
+        counts = {k: launched.get(k, 0) for k in names}
+        require(all(counts.values()), f"not launched: {counts}")
+        return out, counts
+
+    for D in (20, 100):
+        # pixel_text_ce: fp32 over 90 members of C = 512 (S = 4, N =
+        # 131,072: batch 8), and bf16 with a packed table of 128 (N =
+        # 524,288: batch 32)
+        for dtype, N, packed in ((torch.float32, 8 * pixels, False),
+                                 (torch.bfloat16, TRAIN_BATCH * pixels,
+                                  True)):
+            x = torch.randn(N, D, device=device, generator=gen).to(dtype)
+            table = l2_normalize(torch.randn(NUM_CLASSES, D, device=device,
+                                             generator=gen), dim=-1).to(dtype)
+            mask, members = contrast_set(gen, device, 90)
+            labels = members[torch.randint(0, 90, (4, N), device=device,
+                                           generator=gen)]
+            valid = torch.randint(0, 3, (4, N), device=device,
+                                  generator=gen).float()
+            temp = torch.tensor(0.07, device=device)
+            pk = None
+            if packed:
+                ids = torch.full((CAPACITY,), NUM_CLASSES, dtype=torch.int32,
+                                 device=device)
+                ids[:90] = members
+                pk = (table[ids.clamp_max(NUM_CLASSES - 1).long()],
+                      (ids < NUM_CLASSES).int(), ids,
+                      torch.tensor(1, device=device))
+            xs, ts = x.clone().requires_grad_(), temp.clone().requires_grad_()
+
+            def run():
+                loss = fused_pixel_text_ce(xs, ts, labels, valid, table,
+                                           mask.int(), pk)
+                loss.backward()
+                return loss.detach()
+
+            names = (["pixel_text_ce_tc[fwd]", "pixel_text_ce_tc[bwd]"]
+                     if packed else []) + ["pixel_text_ce[fwd]",
+                                           "pixel_text_ce[bwd]"]
+            loss, counts = counted(names, run)
+            args = (x, temp, labels, valid, table, mask.int())
+            want = pixel_text_ce_plain(*args, packed=pk)
+            dx, dt = pixel_text_ce_backward_plain(
+                torch.tensor(1.0, device=device), *args, packed=pk)
+            torch.testing.assert_close(loss, want, rtol=2e-5, atol=1e-4)
+            torch.testing.assert_close(ts.grad, dt, rtol=2e-5, atol=1e-4)
+            scale = dx.double().abs().amax(dim=-1, keepdim=True)
+            require(tuple(xs.grad.shape) == (N, D), "CE d samples shape")
+            err = (xs.grad.double() - dx.double()).abs()
+            if dtype == torch.bfloat16:
+                # at these widths no order of the logits' sums holds every
+                # row of a flagship-sized draw within one bf16 ulp plus
+                # 2^-10 of the row's largest entry: a flipped rounding of a
+                # label's delta moves a row of 20-100 entries by more.  So
+                # the plain formula with exactly rounded logits
+                # (utils/ce_rounding.py) at this draw sets how many rows
+                # may pass that check, and d samples as a whole holds to
+                # CE_PAD_NORM of its norm; the same formula with the logits
+                # rounded to bf16, a rounding fault, must break one of the
+                # two.
+                ulp = torch.exp2(torch.floor(torch.log2(
+                    dx.double().abs().clamp_min(1e-30))) - 7)
+                limit = ulp + scale * 2.0 ** -10
+
+                def reading(d):
+                    diff = (d.double() - dx.double()).abs()
+                    return (int((diff > limit).any(dim=1).sum()),
+                            float(diff.norm() / dx.double().norm()))
+
+                past, rel = reading(xs.grad)
+                one = torch.tensor(1.0, device=device)
+                exact = reading(plain_dx(x, temp, one, labels, valid,
+                                         *pk[:3], "exact"))
+                fault = reading(plain_dx(x, temp, one, labels, valid,
+                                         *pk[:3], "bf16"))
+                allowed = ce_pad_rows(exact[0])
+                require(rel <= CE_PAD_NORM,
+                        f"pixel_text_ce bf16 D={D}: d samples {rel}")
+                require(past <= allowed,
+                        f"pixel_text_ce bf16 D={D}: {past} rows past the "
+                        f"per-row check, exact logits {exact[0]}")
+                require(fault[0] > ce_pad_rows(exact[0])
+                        or fault[1] > CE_PAD_NORM,
+                        f"pixel_text_ce bf16 D={D}: bf16 logits {fault} "
+                        f"pass the check")
+                detail = (f"d samples within {rel:.3g} of the plain norm "
+                          f"(limit {CE_PAD_NORM:g}), {past} of {N} rows past "
+                          f"one bf16 ulp + 2^-10 of the row's largest entry "
+                          f"(at most {allowed}); exactly rounded logits "
+                          f"{exact[0]} rows, {exact[1]:.3g}; bf16-rounded "
+                          f"logits {fault[0]} rows, {fault[1]:.3g}")
+            else:
+                require(bool((err <= 1e-4 * scale + 1e-9).all()),
+                        f"pixel_text_ce f32 D={D}: d samples {err.max()}")
+                detail = "d samples within 1e-4 of each row's largest entry"
+            ms, plain_ms = time_pair(
+                lambda: fused_pixel_text_ce(xs, ts, labels, valid, table,
+                                            mask.int(), pk).backward(),
+                lambda: pixel_text_ce_backward_plain(
+                    torch.tensor(1.0, device=device), *args, packed=pk),
+                5, 2)
+            log(f"  pixel_text_ce {dtype} D={D} N={N} "
+                f"{'packed K=128' if packed else 'full C'}: launches "
+                f"{counts}, value and d tau within rtol 2e-5, {detail}; "
+                f"forward + backward {ms:.4f} ms, plain backward "
+                f"{plain_ms:.4f} ms")
+            del x, xs, labels, valid, dx
+
+        # pixel_text_topk: fp32 (the CUDA-core kernel) and bf16 (the
+        # tensor cores) over the full table, k = 5, near-ties allowed
+        field = torch.randn(8 * pixels, D, device=device, generator=gen)
+        text = l2_normalize(torch.randn(NUM_CLASSES, D, device=device,
+                                        generator=gen), dim=-1)
+        for dtype in (torch.float32, torch.bfloat16):
+            f = field.to(dtype)
+            route = kernel_route(dtype, D)
+            got, _ = counted([route], lambda: pixel_text_topk(f, text,
+                                                               top_k=5))
+            want = plain_pixel_text_topk(f, text, top_k=5)
+            near_tie_check(f"pixel_text_topk {dtype} D={D}", got, want, f,
+                           text.to(dtype))
+            ms, plain_ms = time_pair(
+                lambda: pixel_text_topk(f, text, top_k=5),
+                lambda: plain_pixel_text_topk(f, text, top_k=5), 10, 2)
+            log(f"  pixel_text_topk {dtype} D={D} N={f.shape[0]} C="
+                f"{NUM_CLASSES} k=5: one {route} launch, ids as the plain "
+                f"version's up to near-ties; kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms")
+        del field, f
+
+        # tv_loss: the flagship field's shape at D (bf16), backward
+        # bit-equal, forward within rtol 1e-5
+        x = (torch.randint(-6, 7, (TRAIN_BATCH, RES // 2, RES // 2, D),
+                           device=device, generator=gen) / 4).to(
+                               torch.bfloat16)
+        xk = x.clone().requires_grad_()
+        g = torch.tensor(1.0, device=device)
+
+        def tv():
+            value = fused_tv_loss(xk)
+            value.backward()
+            return value.detach()
+
+        value, counts = counted(["tv_loss[fwd]", "tv_loss[bwd]"], tv)
+        torch.testing.assert_close(value, tv_loss_value(x), rtol=1e-5,
+                                   atol=0.0)
+        require(torch.equal(xk.grad, tv_loss_grad(x, g)),
+                f"tv_loss D={D}: backward differs from the plain VJP")
+        log(f"  tv_loss bf16 {tuple(x.shape)}: launches {counts}, value "
+            f"within rtol 1e-5, backward bit-equal")
+        del x, xk
+
+    # masked_pooling at D = 20, 100 and 2056 (column chunks of <= 2048)
+    for D in (20, 100, 2056):
+        P = (TRAIN_BATCH if D < 2048 else 4) * pixels
+        emb = torch.randn(P, D, device=device, generator=gen).to(
+            torch.bfloat16)
+        seg = torch.randint(-1, TRAIN_PRESENT, (P,), device=device,
+                            generator=gen, dtype=torch.int32)
+        obj = pool_objects(device)
+        (sums, counts), launched = counted(
+            ["masked_pooling"], lambda: fused_masked_pooling(emb, seg, obj))
+        want, want_counts = masked_pooling_plain(emb, seg, obj)
+        scale = masked_pooling_plain(emb.abs(), seg, obj)[0]
+        require(tuple(sums.shape) == (POOL_OBJECTS, D), "pooling shape")
+        require(torch.equal(counts, want_counts),
+                f"masked_pooling D={D}: counts differ")
+        require(bool(((sums - want).abs() <= 1e-5 * scale + 1e-6).all()),
+                f"masked_pooling D={D}: sums beyond 1e-5")
+        require(launched["masked_pooling"] == -(-D // 2048),
+                f"masked_pooling D={D}: {launched} launches")
+        log(f"  masked_pooling bf16 [{P}, {D}], {POOL_OBJECTS} ids: "
+            f"{launched['masked_pooling']} launch(es), counts exact, sums "
+            f"within 1e-5 of the summed magnitudes")
+        del emb, seg, sums, want, scale
+    torch.cuda.empty_cache()
+
+
 def run_path(name: str, expect, fn, totals):
     """Run one path with the launch counts set to 0 just before it; require
     the kernels it is built on; add its counts to ``totals``."""
@@ -2145,7 +2565,7 @@ def main(argv=None) -> int:
 
         log("phase 4: bench configuration")
         run_path("bench predict_folded + DepthUNet.predict",
-                 ["class_presence", "conv_score_topk",
+                 ["class_presence[labels]", "conv_score_topk",
                   "pixel_text_topk[bf16]"],
                  lambda: phase_bench(device, bench_model, depths, text, seg,
                                      card), totals)
@@ -2176,6 +2596,10 @@ def main(argv=None) -> int:
     log("phase 9: val step, kernels against plain versions")
     compare_val_step(device)
 
+    log("phase 10: D % 8 != 0, kernels against plain versions")
+    phase_dim100(device)
+    phase_padded_widths(device)
+
     log(f"launches over phases 3-8: {totals} "
         f"({time.perf_counter() - t_start:.1f} s since the start)")
     for name in KERNEL_ROWS:
@@ -2183,6 +2607,7 @@ def main(argv=None) -> int:
 
     rows = []
     for name, (source, replaces) in KERNEL_ROWS.items():
+        require("device_ms" in stats[name], f"{name}: no device time")
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": totals[name],
                      **stats[name]})

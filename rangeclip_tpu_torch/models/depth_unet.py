@@ -438,9 +438,9 @@ def build_candidate_mask(segmentation: torch.Tensor, num_classes: int,
     drawn from ``generator``.  JAX draws its noise inside the function from
     a key; passing the same draw here gives the same mask."""
     device = segmentation.device
-    labels = segmentation.reshape(-1).to(torch.int32).contiguous()
+    # every label counts: JAX's all-ones validity vector
     gt_mask = class_presence(
-        labels, torch.ones(labels.shape, dtype=torch.float32, device=device),
+        segmentation.reshape(-1).to(torch.int32).contiguous(), None,
         num_classes)
     if gumbel is None:
         gumbel = sample_gumbel(num_classes, generator)

@@ -45,14 +45,16 @@ NVCC_FLAGS = (
 )
 # Sources whose ptxas resource lines (registers, shared memory, spills) the
 # build keeps: the tensor-core kernels and the redesigned CUDA-core ones.
-PTXAS_VERBOSE = ("conv_score_topk.cu", "live_rows.cu", "pixel_text_ce.cu",
-                 "pixel_text_topk.cu", "tv_rowtile.cu")
+PTXAS_VERBOSE = ("class_presence.cu", "conv_score_topk.cu", "histogram.cu",
+                 "live_rows.cu", "pixel_text_ce.cu", "pixel_text_topk.cu",
+                 "tv_rowtile.cu")
 
 # Launches per kernel (and selector), counted by each wrapper right after a
 # successful launch, so a run can show which kernels its main path went
 # through.  Comparison and timing code resets it before the path it proves.
 launch_counts = {
-    "class_presence": 0,
+    "class_presence": 0,  # with a validity vector
+    "class_presence[labels]": 0,  # every label valid: the labels only
     "score_topk[knockout]": 0,
     "score_topk[packed]": 0,
     "conv_score_topk": 0,
@@ -79,7 +81,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    "rc_class_presence": (_P, _P, _L, _I, _P, _P),
+    "rc_class_presence": (_P, _P, _L, _I, _P, _P, _P),
     "rc_score_topk": (_P, _I, _I, _P, _L, _I, _I, _P, _P, _P),
     "rc_conv_score_topk": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "rc_pixel_text_topk": (_P, _P, _P, _L, _I, _I, _I, _P, _P, _P),
@@ -274,6 +276,15 @@ def workspace(query: str, like: torch.Tensor, d: int, rows: int
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def pad_dim8(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t`` with its last dimension zero-padded up to the next multiple of
+    8, the width the kernels take; ``t`` itself (or None) when it already
+    is one.  Differentiable: the gradient is sliced back."""
+    if t is None or t.shape[-1] % 8 == 0:
+        return t
+    return torch.nn.functional.pad(t, (0, -t.shape[-1] % 8))
 
 
 def require(cond: bool, message: str) -> None:

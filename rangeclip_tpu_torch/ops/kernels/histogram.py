@@ -3,11 +3,12 @@
 
 Port of ``rangeclip_tpu/ops/pallas/histogram.py`` (``fused_histogram``), the
 multiplicity histogram behind the sampled-pixel InfoNCE weights.  The CUDA
-kernel is ``csrc/histogram.cu`` (shared-memory atomics over bin ranges: the
-TPU kernel's one-hot matmul has no purpose on the card);
+kernel is ``csrc/histogram.cu``: each block counts one row's draws into a
+range of bins with shared-memory atomics and writes the range once (the
+TPU kernel's one-hot matmul has no purpose on the card).
 :func:`histogram_plain` is the same function in plain PyTorch, used for CPU
-tensors and as the reference the kernel is held against on the card.  Counts
-are integers, so the two are bit-equal.
+tensors and as the reference the kernel is held against on the card.
+Counts are integers, so the two are bit-equal.
 """
 
 from __future__ import annotations

@@ -8,8 +8,11 @@ one-hot match tiles on the MXU.  :func:`masked_pooling_plain` is the same
 function in plain PyTorch, the dense match product of the JAX kernel, used
 for CPU tensors and as the reference the kernel is held against on the
 card: the two sum in different orders (f32 values within rtol 1e-5), the
-counts are exact.  ``tile_p`` and ``interpret`` are TPU tiling and
-interpret knobs with no counterpart here.
+counts are exact.  The kernel takes D % 8 == 0 and D <= :data:`MAX_DIM`;
+the wrapper zero-pads D and runs wider rows as column chunks
+(:func:`column_chunks`): sums and counts are per column, so this is exact.
+``tile_p`` and ``interpret`` are TPU tiling and interpret knobs with no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -55,15 +58,31 @@ def fused_masked_pooling(embeddings: torch.Tensor, segmentation: torch.Tensor,
         return masked_pooling_plain(embeddings, segmentation, object_indices)
     P, D = embeddings.shape
     _lib.require(embeddings.dtype in (torch.float32, torch.bfloat16)
-                 and D % 8 == 0 and 8 <= D <= MAX_DIM,
+                 and D >= 1,
                  "masked_pooling: the kernel takes f32 or bf16 rows with "
-                 f"D % 8 == 0 and 8 <= D <= {MAX_DIM}, got "
-                 f"{embeddings.dtype} D={D}")
+                 f"D >= 1, got {embeddings.dtype} D={D}")
     _lib.require(-(-P // _CHUNK) <= 65535,
                  f"masked_pooling: at most {65535 * _CHUNK} pixels")
-    return masked_pooling_op(embeddings.contiguous(),
-                             segmentation.to(torch.int32).contiguous(),
-                             object_indices.to(torch.int32).contiguous())
+    segmentation = segmentation.to(torch.int32).contiguous()
+    object_indices = object_indices.to(torch.int32).contiguous()
+    parts = [masked_pooling_op(chunk, segmentation, object_indices)
+             for chunk in column_chunks(embeddings)]
+    sums = parts[0][0] if len(parts) == 1 else torch.cat(
+        [s for s, _ in parts], dim=1)
+    return sums[:, :D], parts[0][1]
+
+
+def column_chunks(embeddings: torch.Tensor) -> list:
+    """The [P, D] rows as the kernel takes them: D zero-padded up to D8,
+    the next multiple of 8, and cut into contiguous column blocks of at
+    most :data:`MAX_DIM`; one block, the rows themselves, when D already
+    fits.  Each block's sums are its columns' sums, and every block counts
+    the same pixels."""
+    padded = _lib.pad_dim8(embeddings)
+    if padded.shape[1] <= MAX_DIM:
+        return [padded.contiguous()]
+    return [padded[:, c:c + MAX_DIM].contiguous()
+            for c in range(0, padded.shape[1], MAX_DIM)]
 
 
 def _outputs(embeddings, object_indices):

@@ -36,10 +36,11 @@ directions): bf16 with a packed table, D <= 1280 and K <= 128, launches
 the tensor-core kernel and the member-only CUDA-core kernel together; the
 first runs where the flag selects the packed table, the second (told to
 skip that branch) where it selects the full one.  Everything else, fp32
-and wider or larger packed tables, takes the member-only kernels alone, at
-any D % 8 == 0.  Both member-only kernels score only the contrast members
-of the table the flag selects (:func:`member_table`, gathered on the device
-in one launch); no route scores a full table.
+and wider or larger packed tables, takes the member-only kernels alone.  Both
+member-only kernels score only the contrast members of the table the flag
+selects (:func:`member_table`, gathered on the device in one launch); no
+route scores a full table.  The kernels take D % 8 == 0; the wrapper
+zero-pads any other D (``_lib.pad_dim8``).
 """
 
 from __future__ import annotations
@@ -238,15 +239,21 @@ def fused_pixel_text_ce(samples: torch.Tensor, temperature: torch.Tensor,
                                        table, mask, packed)
     flat, labels, valid, mask, ptable, pmask, pids, flag = ce_operands(
         samples, temperature, labels, valid, table, mask, packed)
-    S, D = labels.shape[0], flat.shape[1]
+    S = labels.shape[0]
     _lib.require(flat.is_contiguous(),
                  "pixel_text_ce: the samples' rows must be contiguous")
-    _lib.require(1 <= S <= MAX_SLOTS and D % 8 == 0,
-                 f"pixel_text_ce: the kernels take 1..{MAX_SLOTS} slots and "
-                 f"D % 8 == 0; got S={S}, D={D}")
+    _lib.require(1 <= S <= MAX_SLOTS,
+                 f"pixel_text_ce: the kernels take 1..{MAX_SLOTS} slots; got "
+                 f"S={S}")
+    # D zero-padded to a multiple of 8: a zero column adds nothing to a
+    # row's f64 sum of squares, to a product or to the sum-exp, and d
+    # samples comes back sliced to D through the pad's gradient
+    flat, table, ptable = (_lib.pad_dim8(flat),
+                           _lib.pad_dim8(table.contiguous()),
+                           _lib.pad_dim8(ptable))
     return pixel_text_ce_op(flat, temperature.reshape(()).contiguous(),
-                            labels, valid, table.contiguous(), mask, ptable,
-                            pmask, pids, flag)[0]
+                            labels, valid, table, mask, ptable, pmask, pids,
+                            flag)[0]
 
 
 def _ptr(t: Optional[torch.Tensor]):

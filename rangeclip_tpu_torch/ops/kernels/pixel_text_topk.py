@@ -7,6 +7,9 @@ tensor-core kernel (up to :data:`TC_MAX_DIMS` dims), an fp32 field the
 CUDA-core one, which takes the live table rows only, transposed
 (``live_rows.live_rows``, one launch inside the operator on each call);
 launches count as ``pixel_text_topk[bf16]`` and ``pixel_text_topk[fp32]``.
+Both take D % 8 == 0; the wrapper zero-pads any other D
+(``_lib.pad_dim8``: zero columns leave every row's scale, every score and
+so every tie as they were).
 :func:`pixel_text_topk_plain` is the same function in plain PyTorch, used
 for CPU tensors and as the reference the kernels are held against on the
 card.
@@ -138,9 +141,8 @@ def pixel_text_topk(
     if kind == "cpu":
         idx, val = pixel_text_topk_plain(flat, table, ids, top_k)
         return idx, (val if want_values else None)
-    _lib.require(D % 8 == 0,
-                 f"pixel_text_topk: the kernel needs D % 8 == 0, got {D}")
-    idx, val = pixel_text_topk_op(flat, table, ids, top_k, want_values)
+    idx, val = pixel_text_topk_op(_lib.pad_dim8(flat), _lib.pad_dim8(table),
+                                  ids, top_k, want_values)
     return idx, (val if want_values else None)
 
 

@@ -18,7 +18,11 @@ kernel by the f32 summation order (rtol 1e-5), the backward is bit-equal.
 The backward rounds the horizontal and the vertical term each to x's
 dtype and adds them in x's dtype, as the TPU kernel's in-tile rows do; its
 tile-seam and column-chunk-seam rows round a third time, so JAX may differ
-there by one ulp of x's dtype.
+there by one ulp of x's dtype.  The kernels take D % 8 == 0; the wrapper
+zero-pads any other D (``_lib.pad_dim8``) and hands the operators the true
+D: zero columns add no difference, the means divide by the true pair
+counts (the plain versions' ``dim``), and the gradient comes back sliced
+through the pad's.
 """
 
 from __future__ import annotations
@@ -32,40 +36,45 @@ _THREADS = 256  # csrc/tv_loss.cu kThreads
 _ROWS = 8  # csrc/tv_loss.cu kRows
 
 
-def pair_counts(shape):
-    """(B H (W-1) D, B (H-1) W D): the pairs in each direction."""
+def pair_counts(shape, dim=None):
+    """(B H (W-1) D, B (H-1) W D): the pairs in each direction, at D =
+    ``dim`` where given (a field zero-padded past its true width)."""
     B, H, W, D = shape
+    D = D if dim is None else dim
     return float(B * H * (W - 1) * D), float(B * (H - 1) * W * D)
 
 
-def scales(g: torch.Tensor, shape) -> torch.Tensor:
+def scales(g: torch.Tensor, shape, dim=None) -> torch.Tensor:
     """[2] f32 (scale_h, scale_v): the upstream gradient over each
     direction's pair count (tv_loss.py:187-188), divided by device tensors
     (true division, as JAX does)."""
     g = g.float()
-    count_h, count_v = pair_counts(shape)
+    count_h, count_v = pair_counts(shape, dim)
     return torch.stack([g / g.new_tensor(count_h), g / g.new_tensor(count_v)])
 
 
-def combine(s_h: torch.Tensor, s_v: torch.Tensor, shape) -> torch.Tensor:
+def combine(s_h: torch.Tensor, s_v: torch.Tensor, shape,
+            dim=None) -> torch.Tensor:
     """sum |dh|, sum |dv| -> mean |dh| + mean |dv| (tv_loss.py:168-170)."""
-    count_h, count_v = pair_counts(shape)
+    count_h, count_v = pair_counts(shape, dim)
     return s_h / s_h.new_tensor(count_h) + s_v / s_v.new_tensor(count_v)
 
 
-def tv_loss_value(x: torch.Tensor) -> torch.Tensor:
-    """mean |dh| + mean |dv| with the differences in f32."""
+def tv_loss_value(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """mean |dh| + mean |dv| with the differences in f32; the means over
+    ``dim`` channels where given (x zero-padded past them)."""
     xf = x.float()
     s_h = (xf[:, :, 1:] - xf[:, :, :-1]).abs().sum()
     s_v = (xf[:, 1:] - xf[:, :-1]).abs().sum()
-    return combine(s_h, s_v, x.shape)
+    return combine(s_h, s_v, x.shape, dim)
 
 
-def tv_loss_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def tv_loss_grad(x: torch.Tensor, g: torch.Tensor, dim=None) -> torch.Tensor:
     """The VJP (tv_loss.py:55-73): (sign(x - left) - sign(right - x))
     * scale_h and the same vertically, each exact in f32 and rounded to x's
-    dtype, then added in x's dtype; sign(0) = 0."""
-    scale_h, scale_v = scales(g, x.shape)
+    dtype, then added in x's dtype; sign(0) = 0.  ``dim`` as in
+    :func:`tv_loss_value`."""
+    scale_h, scale_v = scales(g, x.shape, dim)
     xf = x.float()
     sh = torch.sign(xf[:, :, 1:] - xf[:, :, :-1])
     sv = torch.sign(xf[:, 1:] - xf[:, :-1])
@@ -88,20 +97,19 @@ class _TVLoss(torch.autograd.Function):
 
 def fused_tv_loss(x: torch.Tensor) -> torch.Tensor:
     """mean|dh| + mean|dv| of a [B, H, W, D] field (model.py:329-334),
-    differentiable.  CUDA tensors run the kernels (f32 or bf16, contiguous,
-    D % 8 == 0); CPU tensors the plain versions."""
+    differentiable.  CUDA tensors run the kernels (f32 or bf16, contiguous;
+    D zero-padded to a multiple of 8); CPU tensors the plain versions."""
     kind = _lib.require_device("tv_loss", x)
     _lib.require(x.dim() == 4, "tv_loss: x must be [B, H, W, D]")
     if kind == "cpu":
         return _TVLoss.apply(x)
     B, H, W, D = x.shape
     _lib.require(x.dtype in (torch.float32, torch.bfloat16)
-                 and x.is_contiguous() and D % 8 == 0
+                 and x.is_contiguous() and D >= 1
                  and B * -(-H // _ROWS) <= 65535,
                  "tv_loss: the kernel takes a contiguous f32 or bf16 "
-                 f"[B, H, W, D % 8 == 0] field, got {x.dtype} "
-                 f"{tuple(x.shape)}")
-    return tv_loss_op(x)
+                 f"[B, H, W, D] field, got {x.dtype} {tuple(x.shape)}")
+    return tv_loss_op(_lib.pad_dim8(x), D)
 
 
 def _grid(shape) -> int:
@@ -109,7 +117,7 @@ def _grid(shape) -> int:
     return -(-(W * (D // 8)) // _THREADS) * B * -(-H // _ROWS)
 
 
-def _fwd_cuda(x):
+def _fwd_cuda(x, dim):
     _lib.require(x.data_ptr() % 16 == 0, "tv_loss: x must be 16-byte aligned")
     B, H, W, D = x.shape
     partials = torch.empty(_grid(x.shape), 2, dtype=torch.float32,
@@ -119,12 +127,12 @@ def _fwd_cuda(x):
         partials.data_ptr(), _lib.stream_of(x))
     _lib.check(code, "tv_loss[fwd]")
     sums = partials.sum(dim=0)
-    return combine(sums[0], sums[1], x.shape)
+    return combine(sums[0], sums[1], x.shape, dim)
 
 
-def _bwd_cuda(x, grad):
+def _bwd_cuda(x, grad, dim):
     B, H, W, D = x.shape
-    s = scales(grad, x.shape).contiguous()
+    s = scales(grad, x.shape, dim).contiguous()
     dx = torch.empty_like(x)
     code = _lib.library().rc_tv_loss_bwd(
         x.data_ptr(), int(x.dtype == torch.bfloat16), B, H, W, D,
@@ -133,21 +141,23 @@ def _bwd_cuda(x, grad):
     return dx
 
 
+# x: [B, H, W, D8] (D8 % 8 == 0); dim: the true D <= D8 the means count
 tv_loss_op = _lib.define_op(
-    "tv_loss(Tensor x) -> Tensor", _fwd_cuda, None,
-    lambda x: x.new_empty((), dtype=torch.float32))
+    "tv_loss(Tensor x, int dim) -> Tensor", _fwd_cuda, None,
+    lambda x, dim: x.new_empty((), dtype=torch.float32))
 tv_loss_backward_op = _lib.define_op(
-    "tv_loss_backward(Tensor x, Tensor grad) -> Tensor", _bwd_cuda, None,
-    lambda x, grad: torch.empty_like(x))
+    "tv_loss_backward(Tensor x, Tensor grad, int dim) -> Tensor", _bwd_cuda,
+    None, lambda x, grad, dim: torch.empty_like(x))
 
 
 def _setup_context(ctx, inputs, output):
     ctx.save_for_backward(inputs[0])
+    ctx.dim = inputs[1]
 
 
 def _backward(ctx, grad):
     (x,) = ctx.saved_tensors
-    return tv_loss_backward_op(x, grad.float())
+    return tv_loss_backward_op(x, grad.float(), ctx.dim), None
 
 
 torch.library.register_autograd("rangeclip::tv_loss", _backward,

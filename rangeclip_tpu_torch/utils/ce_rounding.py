@@ -13,8 +13,12 @@ the largest ratio of error to bound and the rows past 1 and 0.5 of it:
 
 - the tensor-core kernel and the member-only CUDA-core kernel, launched
   directly;
-- the plain formula with other logits: exactly rounded (an f64 sum), and an
-  f32 FMA chain over D in order, which is the plain version's own sum.
+- the plain formula with other logits: exactly rounded (an f64 sum), an
+  f32 FMA chain over D in order, which is the plain version's own sum, and
+  the exact sums rounded to bf16, a rounding fault the check must see.
+
+``--dim`` sets D; the kernels then get the operands zero-padded to a
+multiple of 8, as the wrapper gives them.
 
 Needs a CUDA device.
 """
@@ -30,6 +34,9 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--seed", type=int, default=5)
     parser.add_argument("--rows", type=int, default=524288)
+    parser.add_argument("--dim", type=int, default=512,
+                        help="D; the kernels get the operands zero-padded "
+                             "to a multiple of 8, as the wrapper pads them")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ce_rounding: CUDA is not available")
@@ -40,7 +47,6 @@ def main(argv=None) -> None:
         ce_operands,
         member_table,
         pixel_text_ce_backward_plain,
-        row_scale,
         transposed_table,
     )
     from rangeclip_tpu_torch.utils.math import l2_normalize
@@ -48,7 +54,7 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    N, D, C, K, S = args.rows, 512, 512, 128, 4
+    N, D, C, K, S = args.rows, args.dim, 512, 128, 4
     text = l2_normalize(torch.randn(C, D, device=dev, generator=gen), dim=-1)
     samples = torch.randn(N, D, device=dev, generator=gen).bfloat16()
     perm = torch.randperm(C, device=dev, generator=gen)
@@ -76,72 +82,90 @@ def main(argv=None) -> None:
               f"past 1: {int((ratio > 1).sum())}, past 0.5: "
               f"{int((ratio > 0.5).sum())}", flush=True)
 
+    # the kernels' operands, D zero-padded as the wrapper pads it
+    xk, table_bf16, ptk = (_lib.pad_dim8(x), _lib.pad_dim8(text.bfloat16()),
+                           _lib.pad_dim8(pt))
+    D8 = xk.shape[1]
     lib, stream = _lib.library(), _lib.stream_of(x)
-    dx, dtau = torch.empty_like(x), torch.empty(N, device=dev)
-    ptable_t = transposed_table(pt)
+    dx, dtau = torch.empty_like(xk), torch.empty(N, device=dev)
+    ptable_t = transposed_table(ptk)
     _lib.check(lib.rc_pixel_text_ce_tc_bwd(
-        x.data_ptr(), temp.data_ptr(), g.data_ptr(), lab.data_ptr(),
-        val.data_ptr(), S, N, D, pt.data_ptr(), ptable_t.data_ptr(),
+        xk.data_ptr(), temp.data_ptr(), g.data_ptr(), lab.data_ptr(),
+        val.data_ptr(), S, N, D8, ptk.data_ptr(), ptable_t.data_ptr(),
         pm.data_ptr(), pi.data_ptr(), K, flag.data_ptr(), dx.data_ptr(),
         dtau.data_ptr(), stream), "pixel_text_ce_tc[bwd]")
     torch.cuda.synchronize()
-    report("tensor-core kernel", dx)
-    table_bf16 = text.bfloat16()
-    table_t, row_ids, count = member_table(table_bf16, msk, pt, pm, pi, flag)
-    work = _lib.workspace("rc_pixel_text_ce_workspace", x,
-                          table_t.shape[1] + D, N)
+    report("tensor-core kernel", dx[:, :D])
+    table_t, row_ids, count = member_table(table_bf16, msk, ptk, pm, pi,
+                                           flag)
+    work = _lib.workspace("rc_pixel_text_ce_workspace", xk,
+                          table_t.shape[1] + D8, N)
     # its forward first, for the row statistics the backward reads
     ce_rows, stats = torch.empty(N, device=dev), torch.empty(2, N, device=dev)
     _lib.check(lib.rc_pixel_text_ce_members_fwd(
-        x.data_ptr(), 1, temp.data_ptr(), lab.data_ptr(), val.data_ptr(), S,
-        N, D, table_t.data_ptr(), table_t.shape[1], row_ids.data_ptr(),
+        xk.data_ptr(), 1, temp.data_ptr(), lab.data_ptr(), val.data_ptr(), S,
+        N, D8, table_t.data_ptr(), table_t.shape[1], row_ids.data_ptr(),
         count.data_ptr(), msk.data_ptr(), C, pm.data_ptr(), pi.data_ptr(), K,
         flag.data_ptr(), 0, ce_rows.data_ptr(), stats.data_ptr(), stream),
         "pixel_text_ce[fwd]")
     _lib.check(lib.rc_pixel_text_ce_bwd(
-        x.data_ptr(), 1, temp.data_ptr(), g.data_ptr(), lab.data_ptr(),
-        val.data_ptr(), S, N, D, table_t.data_ptr(), table_t.shape[1],
+        xk.data_ptr(), 1, temp.data_ptr(), g.data_ptr(), lab.data_ptr(),
+        val.data_ptr(), S, N, D8, table_t.data_ptr(), table_t.shape[1],
         row_ids.data_ptr(), count.data_ptr(), table_bf16.data_ptr(),
-        msk.data_ptr(), C, pt.data_ptr(), pm.data_ptr(), pi.data_ptr(), K,
+        msk.data_ptr(), C, ptk.data_ptr(), pm.data_ptr(), pi.data_ptr(), K,
         flag.data_ptr(), 0, stats.data_ptr(), dx.data_ptr(), dtau.data_ptr(),
         work.data_ptr(), stream), "pixel_text_ce[bwd]")
     torch.cuda.synchronize()
-    report("CUDA-core kernel", dx)
+    report("CUDA-core kernel", dx[:, :D])
 
-    # the plain backward (pixel_text_ce_backward_plain) on given sums
+    report("plain formula, exactly rounded logits",
+           plain_dx(x, temp, g, lab, val, pt, pm, pi, "exact"))
+    report("plain formula, f32 FMA-chain logits",
+           plain_dx(x, temp, g, lab, val, pt, pm, pi, "chain"))
+    report("plain formula, bf16-rounded logits (a fault)",
+           plain_dx(x, temp, g, lab, val, pt, pm, pi, "bf16"))
+
+
+def plain_dx(x, temp, g, lab, val, ptable, pmask, pids, sums: str,
+             step: int = 65536) -> torch.Tensor:
+    """d samples of the plain backward (``pixel_text_ce_backward_plain``)
+    over the packed table, [N, D] in x's dtype, with the logits' dot
+    products summed another way: ``"exact"`` (in f64, rounded once to f32),
+    ``"chain"`` (an f32 FMA chain over D in order, the plain version's own
+    sum) or ``"bf16"`` (the exact sums rounded to bf16, a control with a
+    rounding fault).  The products run ``step`` rows at a time."""
+    from rangeclip_tpu_torch.ops.kernels.pixel_text_ce import row_scale
+
     xf = x.float()
     rs = row_scale(xf)
     emb = xf * rs
-    eb, table = emb.bfloat16().float(), pt.float()
+    eb, table = emb.to(ptable.dtype).float(), ptable.float()
 
-    def plain_dx(sims):
-        inv_temp = 1.0 / temp
-        logits = torch.where(pm[None, :] != 0, sims * inv_temp,
-                             torch.full_like(sims, -1e30))
-        e = torch.exp(logits - logits.max(dim=1, keepdim=True).values)
-        inv_z = 1.0 / e.sum(dim=1, keepdim=True)
-        wsum = sum(g * val[s][:, None] for s in range(S))
-        delta = e * (wsum * inv_z)
-        for s in range(S):
-            delta = delta - torch.where(pi[None, :] == lab[s][:, None],
-                                        g * val[s][:, None], 0.0)
-        d_emb = (delta.bfloat16().float() @ table) * inv_temp
-        proj = (emb * d_emb).sum(dim=1, keepdim=True)
-        return (rs * (d_emb - emb * proj)).bfloat16()
+    def sims_of(a):
+        if sums == "chain":
+            acc = torch.zeros(a.shape[0], table.shape[0], device=a.device)
+            for k in range(a.shape[1]):
+                acc = torch.addcmul(acc, a[:, k:k + 1], table[None, :, k])
+            return acc
+        exact = (a.double() @ table.double().T).float()
+        return exact.bfloat16().float() if sums == "bf16" else exact
 
-    def by_rows(fn, step=65536):
-        return torch.cat([fn(eb[i:i + step]) for i in range(0, N, step)])
-
-    def chain(a):
-        acc = torch.zeros(a.shape[0], K, device=dev)
-        for k in range(D):
-            acc = torch.addcmul(acc, a[:, k:k + 1], table[None, :, k])
-        return acc
-
-    report("plain formula, exactly rounded logits",
-           plain_dx(by_rows(lambda a: (a.double() @ table.double().T)
-                            .float())))
-    report("plain formula, f32 FMA-chain logits", plain_dx(by_rows(chain)))
+    sims = torch.cat([sims_of(eb[i:i + step])
+                      for i in range(0, eb.shape[0], step)])
+    inv_temp = 1.0 / temp
+    logits = torch.where(pmask[None, :] != 0, sims * inv_temp,
+                         torch.full_like(sims, -1e30))
+    e = torch.exp(logits - logits.max(dim=1, keepdim=True).values)
+    inv_z = 1.0 / e.sum(dim=1, keepdim=True)
+    S = lab.shape[0]
+    wsum = sum(g * val[s][:, None] for s in range(S))
+    delta = e * (wsum * inv_z)
+    for s in range(S):
+        delta = delta - torch.where(pids[None, :] == lab[s][:, None],
+                                    g * val[s][:, None], 0.0)
+    d_emb = (delta.to(ptable.dtype).float() @ table) * inv_temp
+    proj = (emb * d_emb).sum(dim=1, keepdim=True)
+    return (rs * (d_emb - emb * proj)).to(x.dtype)
 
 
 if __name__ == "__main__":

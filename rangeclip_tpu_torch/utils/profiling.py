@@ -13,11 +13,14 @@ is ``cli/train``'s default precision at its microbatch (fp32, batch 16, 40
 labels present: 90 contrast members), ``train_step_overflow`` the bf16
 step whose contrast set overflows the capacity (150 labels present: 200
 members, the full-table branch).  ``ce_forward``, ``ce_forward_all``,
-``ce_backward`` and ``tv_forward`` call one operator at the shape of its
-main path (:func:`kernel_call`): ``pixel_text_ce``'s forward on the fp32
-validation shape with 90 and with all 512 classes in the contrast set, its
-backward with 90 (an fp32 train microbatch of batch 8), and
-``tv_rowtile``'s forward on the flagship train field.  Each configuration
+``ce_backward``, ``tv_forward``, ``histogram`` and ``presence_*`` call
+one operator at the shape of its main path (:func:`kernel_call`):
+``pixel_text_ce``'s forward on the fp32 validation shape with 90 and with
+all 512 classes in the contrast set, its backward with 90 (an fp32 train
+microbatch of batch 8), ``tv_rowtile``'s forward on the flagship train
+field, the flagship step's histogram, and ``class_presence`` at the bench
+shape and the main paths' label counts; ``candidate_mask`` is
+validation's ``build_candidate_mask`` at batch 8.  Each configuration
 runs two calls, then ``--calls`` calls timed by the host clock
 (synchronised), then as many under the profiler, at full width with random
 weights from seed 0.  Only device events count (``device_type`` CUDA:
@@ -57,10 +60,18 @@ CONFIGS = {
     "serve_bf16": (8, True, True, 1, None),
     "serve_fp32_default": (8, False, False, 1, None),
 }
-KERNEL_CONFIGS = ("ce_forward", "ce_forward_all", "ce_backward",
-                  "tv_forward")
 NUM_CLASSES = 512
 RES = 256
+# class_presence's label counts: the bench shape, the flagship step's
+# contrast set, the fp32 step's and validation's candidate mask (its
+# build_candidate_mask call at batch 8 is ``candidate_mask``)
+PRESENCE_LABELS = {"presence_bench": 128 * RES * RES,
+                   "presence_2m": 32 * RES * RES,
+                   "presence_1m": 16 * RES * RES,
+                   "presence_512k": 8 * RES * RES,
+                   "candidate_mask": 8 * RES * RES}
+KERNEL_CONFIGS = ("ce_forward", "ce_forward_all", "ce_backward",
+                  "tv_forward", "histogram", *PRESENCE_LABELS)
 
 
 def busy_us(spans: List[tuple]) -> float:
@@ -170,10 +181,36 @@ def kernel_call(config: str) -> Callable[[], torch.Tensor]:
     """One operator call at its main path's shape, on the GPU: the fp32
     CE forward of validation (N = 8 x 128 x 128 pixel rows, D = 512, C =
     512, 4 label slots, 90 or all classes members) or its backward (90
-    members), or the TV forward of the flagship train step (bf16 [32, 128,
-    128, 512], upsample 2, one sample weight 0)."""
+    members), the TV forward of the flagship train step (bf16 [32, 128,
+    128, 512], upsample 2, one sample weight 0), the flagship step's
+    histogram (32 x 45,875 draws into 65,536 bins), class_presence with a
+    validity vector at :data:`PRESENCE_LABELS` (labels 0..39, C = 512), or
+    validation's build_candidate_mask at batch 8 (50 negatives)."""
     device = torch.device("cuda")
     gen = torch.Generator(device=device).manual_seed(0)
+    if config == "histogram":
+        from rangeclip_tpu_torch.losses.infonce import n_draws
+        from rangeclip_tpu_torch.ops.kernels.histogram import histogram
+
+        idx = torch.randint(0, RES * RES, (32, n_draws(RES, RES)),
+                            device=device, generator=gen, dtype=torch.int32)
+        return lambda: histogram(idx, RES * RES)
+    if config in PRESENCE_LABELS:
+        from rangeclip_tpu_torch.models.depth_unet import build_candidate_mask
+        from rangeclip_tpu_torch.ops.kernels.class_presence import (
+            class_presence,
+        )
+
+        n = PRESENCE_LABELS[config]
+        labels = torch.randint(0, 40, (n,), device=device, generator=gen,
+                               dtype=torch.int32)
+        if config == "candidate_mask":
+            seg = labels.reshape(-1, RES, RES)
+            gumbel = torch.rand(NUM_CLASSES, device=device, generator=gen)
+            return lambda: build_candidate_mask(seg, NUM_CLASSES, 50,
+                                                gumbel=gumbel)
+        valid = (torch.rand(n, device=device, generator=gen) > 0.1).float()
+        return lambda: class_presence(labels, valid, NUM_CLASSES)
     if config == "tv_forward":
         from rangeclip_tpu_torch.ops.kernels.tv_rowtile import tv_rowtile_op
 

@@ -20,6 +20,7 @@ from rangeclip_tpu_torch.ops.kernels import _lib
 from rangeclip_tpu_torch.ops.kernels.class_presence import (
     class_presence,
     class_presence_plain,
+    launch_name,
 )
 from rangeclip_tpu_torch.ops.kernels.conv_score_topk import (
     conv_score_topk,
@@ -113,6 +114,149 @@ def test_class_presence_matches_plain(cuda_device, n, num_classes):
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(),
                        class_presence_plain(labels, valid, num_classes))
+
+
+def _offset_view(t, offset, device):
+    """``t`` on the device as a contiguous view ``offset`` elements into a
+    larger buffer: its start 4 * offset bytes past the buffer's."""
+    buf = torch.zeros(t.numel() + offset, dtype=t.dtype, device=device)
+    buf[offset:] = t.to(device)
+    return buf[offset:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,num_classes,label_offset,valid_offset", [
+    (0, 33, 0, 0), (1, 33, 0, 0), (1, 1, 3, None), (5, 31, 1, 1),
+    (4098, 33, 2, 2), (100_003, 2049, 3, 3), (100_001, 1, 1, 0),
+    (300_002, 512, 0, 3), (100_003, 2049, 1, None), (4099, 31, 3, None),
+    (2_097_152, 512, 0, None), (2_097_153, 512, 2, 1)])
+def test_class_presence_unaligned_and_ragged(cuda_device, n, num_classes,
+                                             label_offset, valid_offset):
+    """Bit-equal to the plain version in one launch: N % 4 in {1, 2, 3},
+    N = 0 and 1, C in {1, 31, 33, 512, 2049}, labels and valid starting
+    off a 16-byte boundary (the same way, and differently: the scalar
+    validity loads), and ``valid=None`` (every label valid)."""
+    gen = torch.Generator().manual_seed(20 + n % 97)
+    labels = torch.randint(-3, num_classes + 50, (n,), generator=gen,
+                           dtype=torch.int32)
+    valid = (torch.rand(n, generator=gen) > 0.5).float()
+    labels_d = _offset_view(labels, label_offset, cuda_device)
+    valid_d = None
+    if valid_offset is not None:
+        valid_d = _offset_view(valid, valid_offset, cuda_device)
+    else:
+        valid = None
+    assert labels_d.is_contiguous()
+    got, launches = _counted(launch_name(valid_d), lambda: class_presence(
+        labels_d, valid_d, num_classes))
+    assert launches == 1
+    assert got.dtype == torch.bool and got.shape == (num_classes,)
+    assert torch.equal(got.cpu(),
+                       class_presence_plain(labels, valid, num_classes))
+
+
+@pytest.mark.cuda
+def test_class_presence_workspace_resets(cuda_device):
+    """The per-stream workspace is zero again after every call: calls back
+    to back with other labels and classes, calls on two streams at once,
+    and one CUDA graph replayed with other labels each give the plain
+    version's answer."""
+    gen = torch.Generator().manual_seed(21)
+
+    def case(n, c, hi):
+        labels = torch.randint(0, hi, (n,), generator=gen, dtype=torch.int32)
+        return labels, (torch.rand(n, generator=gen) > 0.3).float(), c
+
+    cases = [case(50_000, 512, 40), case(7, 512, 3), case(300_001, 33, 40),
+             case(2_000_000, 512, 512), case(1000, 512, 2)]
+    for labels, valid, c in cases:  # back to back on one stream
+        for v in (valid, None):
+            got = class_presence(labels.to(cuda_device),
+                                 None if v is None else v.to(cuda_device), c)
+            assert torch.equal(got.cpu(), class_presence_plain(labels, v, c))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    inputs = [tuple(x.to(cuda_device) for x in cases[i][:2]) for i in (3, 4)]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(3):
+        for stream, (labels, valid) in zip(streams, inputs):
+            with torch.cuda.stream(stream):
+                outs.append(class_presence(labels, valid, 512))
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        labels, valid, c = cases[3 + i % 2]
+        assert torch.equal(out.cpu(), class_presence_plain(labels, valid, c))
+    for with_valid in (True, False):
+        stream = torch.cuda.Stream()
+        static_labels = cases[0][0].to(cuda_device)
+        static_valid = cases[0][1].to(cuda_device) if with_valid else None
+        with torch.cuda.stream(stream):  # warm-up: the stream's workspace
+            class_presence(static_labels, static_valid, 512)
+        stream.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            out = class_presence(static_labels, static_valid, 512)
+        for hi in (40, 3, 512, 1):
+            labels = torch.randint(0, hi, static_labels.shape, generator=gen,
+                                   dtype=torch.int32)
+            static_labels.copy_(labels)
+            graph.replay()
+            torch.cuda.synchronize()
+            want = class_presence_plain(
+                labels, cases[0][1] if with_valid else None, 512)
+            assert torch.equal(out.cpu(), want), (with_valid, hi)
+
+
+@pytest.mark.cuda
+def test_class_presence_graphs_replayed_at_once(cuda_device):
+    """Two graphs captured on the default capture stream, replayed at once
+    on two streams with other labels each round: each call in a graph has
+    its own workspace, so each gives the plain version's answer."""
+    gen = torch.Generator().manual_seed(23)
+    n = 4_000_000
+    statics = [torch.zeros(n, dtype=torch.int32, device=cuda_device)
+               for _ in range(2)]
+    valid = (torch.rand(n, generator=gen) > 0.3).float()
+    valid_d = valid.to(cuda_device)
+    class_presence(statics[0], valid_d, 512)  # build and load the kernel
+    torch.cuda.synchronize()
+    graphs, outs = [], []
+    for labels in statics:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs.append(class_presence(labels, valid_d, 512))
+        graphs.append(graph)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for round_ in range(6):
+        draws = [torch.randint(0, hi, (n,), generator=gen, dtype=torch.int32)
+                 for hi in (40 + round_, 3 + 100 * round_)]
+        for static, draw in zip(statics, draws):
+            static.copy_(draw)
+        torch.cuda.synchronize()
+        for stream, graph in zip(streams, graphs):
+            with torch.cuda.stream(stream):
+                graph.replay()
+        torch.cuda.synchronize()
+        for out, draw in zip(outs, draws):
+            assert torch.equal(out.cpu(),
+                               class_presence_plain(draw, valid, 512)), round_
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_valid", [True, False])
+def test_class_presence_is_one_device_event(cuda_device, with_valid):
+    """One call is one device event, the kernel: no memset before it and
+    no cast after it (torch.profiler, device events only)."""
+    from rangeclip_tpu_torch.utils.profiling import profile
+
+    gen = torch.Generator().manual_seed(22)
+    labels = torch.randint(0, 40, (524_288,), generator=gen,
+                           dtype=torch.int32).to(cuda_device)
+    valid = torch.ones(labels.shape, device=cuda_device) if with_valid else None
+    result = profile(lambda: class_presence(labels, valid, 512), calls=5)
+    assert result["device_events"] == 1, result["events"]
+    assert len(result["events"]) == 1
+    assert "class_presence_kernel" in result["events"][0][0]
 
 
 @pytest.mark.cuda
@@ -247,13 +391,26 @@ def test_pixel_text_topk_matches_plain(cuda_device, dtype, n, d, c, tied):
                      n, d, c, tied, "contiguous")
 
 
-def _hold_pixel_topk(cuda_device, gen, dtype, n, d, c, tied, layout):
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [20, 100])
+def test_pixel_text_topk_pads_odd_widths(cuda_device, dtype, d):
+    """D % 8 != 0: the wrapper zero-pads the field and the table to 24 and
+    104 and launches the route's kernel once per call; ids and values
+    bit-equal to the plain version on the unpadded operands (16 nonzeros
+    a row: power-of-two norms)."""
+    _hold_pixel_topk(cuda_device, torch.Generator().manual_seed(40 + d),
+                     dtype, 700, d, 130, False, "contiguous", nonzero=16)
+
+
+def _hold_pixel_topk(cuda_device, gen, dtype, n, d, c, tied, layout,
+                     nonzero=None):
     """Quantised-exact field and table drawn from ``gen`` (power-of-two
     norms: 16 nonzeros a row, 4 where d < 32), the table placed on the card
     as ``layout`` says: the kernel's ids and values bit-equal to the plain
     version's for the mask form, sparse global ids and an exhausted set at
     k = 1, 5, 8, and one launch of the route's kernel per call."""
-    field = (_sparse_signs(gen, n, d, min(16, d // 2))
+    field = (_sparse_signs(gen, n, d, nonzero or min(16, d // 2))
              * 2.0 ** torch.randint(-3, 4, (n, 1), generator=gen)).to(dtype)
     table = (_sparse_signs(gen, 1 if tied else c, d, 4) / 2).expand(
         c, d).contiguous().to(dtype)
@@ -446,6 +603,38 @@ def test_histogram_matches_plain(cuda_device, rows, n, n_bins):
     assert torch.equal(got.cpu(), histogram_plain(idx, n_bins))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,n_bins,offset", [
+    (32, 1, 65536, 0), (32, 3, 65536, 1), (32, 45875, 65536, 0),
+    (32, 45876, 65536, 3), (1, 45875, 65536, 2), (1, 7, 8193, 0),
+    (65535, 3, 16, 0), (65535, 5, 9000, 1), (4, 100_000, 20, 2)])
+def test_histogram_rows_and_offsets(cuda_device, rows, n, n_bins, offset):
+    """Bit-equal to the plain version in one launch: n in {1, 3, 45,875,
+    45,876} (rows starting off a 16-byte boundary), one row, 65,535 rows,
+    a bin range past 8192, many draws per bin, and a storage-offset view
+    of the draws."""
+    gen = torch.Generator().manual_seed(9 + n + rows)
+    idx = torch.randint(-1, n_bins + 2, (rows, n), generator=gen,
+                        dtype=torch.int32)
+    idx_d = _offset_view(idx.flatten(), offset, cuda_device).view(rows, n)
+    assert idx_d.is_contiguous()
+    got, launches = _counted("histogram", lambda: histogram(idx_d, n_bins))
+    assert launches == 1
+    assert torch.equal(got.cpu(), histogram_plain(idx, n_bins))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [65535, 65536, 100_000])
+def test_histogram_counts_past_16_bits(cuda_device, n):
+    """Every draw in one bin: the count n exact whether the kernel counts in
+    16 bits (n < 2^16) or in 32."""
+    idx = torch.zeros(2, n, dtype=torch.int32)
+    idx[1, ::2] = 40_000
+    got = histogram(idx.to(cuda_device), 65536)
+    assert torch.equal(got.cpu(), histogram_plain(idx, 65536))
+    assert got[0, 0] == n
+
+
 def _ce_inputs(gen, dtype, n, d, c, slots, members, capacity=None):
     """(samples, temperature, labels, valid, table, mask, packed) with the
     valid labels members of the contrast set (packed-path precondition)."""
@@ -493,7 +682,7 @@ def _hold_ce(loss, xs_grad, ts_grad, args, packed, dtype, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [136, 768])
+@pytest.mark.parametrize("d", [136, 768, 20, 100])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("slots", [1, 4])
 @pytest.mark.parametrize("form", ["full", "packed", "overflow"])
@@ -506,7 +695,9 @@ def test_pixel_text_ce_matches_plain(cuda_device, dtype, slots, form, d):
     can flip a bf16 rounding, and d samples subtracts its projection).
     A bf16 packed table also launches the tensor-core kernels, which write
     only where the device flag selects it (not in the overflow form); the
-    member-only kernels beside them write otherwise."""
+    member-only kernels beside them write otherwise.  D = 20 and 100 are
+    zero-padded to 24 and 104 by the wrapper, the plain versions run
+    unpadded."""
     gen = torch.Generator().manual_seed(9)
     n, c = 1111, 300
     capacity = None if form == "full" else 128
@@ -883,6 +1074,9 @@ def test_tv_rowtile_forward_is_deterministic(cuda_device, shape, upsample):
 def test_training_ops_pass_opcheck(cuda_device):
     """The training operators' fake implementations, schemas and autograd
     registrations against their CUDA implementations."""
+    from rangeclip_tpu_torch.ops.kernels.class_presence import (
+        class_presence_op,
+    )
     from rangeclip_tpu_torch.ops.kernels.histogram import histogram_op
     from rangeclip_tpu_torch.ops.kernels.pixel_text_ce import (
         ce_operands,
@@ -894,6 +1088,10 @@ def test_training_ops_pass_opcheck(cuda_device):
     dev = lambda t: t.to(cuda_device)
     torch.library.opcheck(histogram_op, (dev(torch.randint(
         -1, 70, (3, 50), generator=gen, dtype=torch.int32)), 64))
+    labels = dev(torch.randint(-1, 40, (999,), generator=gen,
+                               dtype=torch.int32))
+    for valid in (dev(torch.rand(999, generator=gen)), None):
+        torch.library.opcheck(class_presence_op, (labels, valid, 33))
     x = dev(torch.randn(2, 4, 8, 16, generator=gen).bfloat16())
     torch.library.opcheck(tv_rowtile_op, (x.requires_grad_(),
                                           dev(torch.tensor([1.0, 0.0])), 2))
@@ -923,11 +1121,16 @@ def test_training_ops_pass_opcheck(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("P,D,dtype", [(70_000, 512, torch.bfloat16),
                                        (5000, 40, torch.float32),
-                                       (17, 8, torch.float32)])
+                                       (17, 8, torch.float32),
+                                       (5000, 20, torch.bfloat16),
+                                       (3000, 100, torch.float32),
+                                       (2000, 2056, torch.bfloat16)])
 def test_masked_pooling_matches_plain(cuda_device, P, D, dtype):
     """Counts exact, sums within rtol 1e-5 of the dense match product (f32
     sums in another order), the same bits on a second run (no atomics);
-    duplicate, absent and -1 labels as the plain version has them."""
+    duplicate, absent and -1 labels as the plain version has them.  D % 8
+    != 0 is zero-padded; D past 2048 runs as column chunks of at most 2048,
+    one launch each."""
     from rangeclip_tpu_torch.ops.kernels.masked_pooling import (
         fused_masked_pooling,
         masked_pooling_plain,
@@ -941,7 +1144,8 @@ def test_masked_pooling_matches_plain(cuda_device, P, D, dtype):
                        dtype=torch.int32).to(cuda_device)
     (sums, counts), launches = _counted(
         "masked_pooling", lambda: fused_masked_pooling(emb, seg, obj))
-    assert launches == 1
+    assert launches == -(-D // 2048)
+    assert sums.shape == (obj.shape[0], D)
     want_sums, want_counts = masked_pooling_plain(emb, seg, obj)
     assert torch.equal(counts, want_counts)
     torch.testing.assert_close(sums, want_sums, rtol=1e-5, atol=1e-5)
@@ -953,11 +1157,16 @@ def test_masked_pooling_matches_plain(cuda_device, P, D, dtype):
 @pytest.mark.parametrize("shape,dtype", [((3, 9, 16, 8), torch.float32),
                                          ((2, 17, 33, 24), torch.bfloat16),
                                          ((2, 64, 64, 512), torch.bfloat16),
-                                         ((1, 2, 5, 8), torch.float32)])
+                                         ((1, 2, 5, 8), torch.float32),
+                                         ((2, 9, 10, 20), torch.bfloat16),
+                                         ((1, 5, 7, 100), torch.float32),
+                                         ((2, 17, 33, 100), torch.bfloat16),
+                                         ((3, 9, 16, 20), torch.float32)])
 def test_tv_loss_matches_plain(cuda_device, shape, dtype):
     """Quantised values with exact ties (sign(0) = 0): the backward
     bit-equal to the plain VJP, the forward within rtol 1e-5 (f32
-    summation order)."""
+    summation order).  D = 20 and 100 are zero-padded by the operators,
+    which divide by the true pair counts and slice the gradient back."""
     from rangeclip_tpu_torch.ops.kernels.tv_loss import (
         fused_tv_loss,
         tv_loss_grad,
@@ -1069,4 +1278,8 @@ def test_eval_ops_pass_opcheck(cuda_device):
         dev(l2_normalize(torch.randn(20, 16, generator=gen), dim=-1)),
         dev(torch.ones(20, dtype=torch.int32)), 3))
     x = dev(torch.randn(2, 4, 8, 16, generator=gen).bfloat16())
-    torch.library.opcheck(tv_loss_op, (x.requires_grad_(),))
+    torch.library.opcheck(tv_loss_op, (x.requires_grad_(), 16))
+    # D = 20 as the wrapper hands it: padded to 24, the means over 20
+    x = dev(torch.nn.functional.pad(torch.randn(2, 4, 8, 20, generator=gen),
+                                    (0, 4)))
+    torch.library.opcheck(tv_loss_op, (x.requires_grad_(), 20))
