@@ -10,8 +10,9 @@ Phases (any failure raises; nothing is caught):
 
 1. Build the CUDA kernels from ``rangeclip_tpu_torch/csrc/``; print the
    registers, shared memory and spills (``ptxas -v``) of the sources with
-   tensor-core kernels (pixel_text_topk's bf16 path, conv_score_topk and
-   pixel_text_ce) and with the redesigned CUDA-core ones
+   tensor-core kernels (pixel_text_topk's bf16 path, conv_score_topk,
+   pixel_text_ce and head_topk's bf16 path) and with the redesigned
+   CUDA-core ones
    (pixel_text_topk's fp32 path, pixel_text_ce's member-only forward and
    backward, the live_rows gather, tv_rowtile); require that the fp32
    kernel's SASS holds no tensor-core instruction.
@@ -36,7 +37,11 @@ Phases (any failure raises; nothing is caught):
    torch.profiler, as its kernels alone, which must be its only device
    events.
    masked_pooling and tv_loss run on a bf16 field of the flagship train
-   native shape [32, 128, 128, 512], head_topk at the bench configuration.
+   native shape [32, 128, 128, 512]; head_topk's tensor-core route at the
+   bench configuration (its product stage alone: cuDNN's F.conv2d to D =
+   512 and cuBLAS over the live classes), its CUDA-core route on the fp32
+   serve model's features at the serve shape (batch 8, C = 512 all live,
+   top-1).
    class_presence runs at the bench shape and at the main paths' label
    counts (2,097,152, 1,048,576, 524,288), with a validity vector and
    without (the labels-only route), and histogram at the flagship shape;
@@ -53,9 +58,12 @@ Phases (any failure raises; nothing is caught):
 4. The bench configuration: bf16 batch 128 over 384 candidate slots drawn
    by build_candidate_indices, through predict_folded and through the
    unfolded DepthUNet.predict, each run twice with identical checksums;
-   maps/s of both and their top-1 agreement.  Then predict_topk_fused (the
-   head_topk kernel) over the full table under the bench candidate mask,
-   its labels against DepthUNet.predict up to near-ties, and its maps/s.
+   maps/s of both and their top-1 agreement.  Then predict_topk_fused over
+   the full table under the bench candidate mask (head_topk's tensor-core
+   kernel), its labels against DepthUNet.predict up to near-ties, and its
+   maps/s; and the fp32 serve model through predict_topk_fused at the
+   serve shape (batch 8, C = 512, top-1: the CUDA-core kernel), against
+   its DepthUNet.predict up to near-ties.
 5. cli/infer over 20 16-bit depth PNGs (batch 8, a padded tail,
    --predict_path default), and cli/export --predict_path default
    --text_as_input --verify, then the .pt2 loaded and run once.
@@ -176,8 +184,10 @@ KERNEL_ROWS = {
                         "rangeclip_tpu/ops/pallas/tv_rowtile.py:131"),
     "masked_pooling": ("rangeclip_tpu_torch/csrc/masked_pooling.cu",
                        "rangeclip_tpu/ops/pallas/masked_pooling.py:26"),
-    "head_topk": ("rangeclip_tpu_torch/csrc/head_topk.cu",
-                  "rangeclip_tpu/ops/pallas/head_topk.py:72"),
+    "head_topk[bf16]": ("rangeclip_tpu_torch/csrc/head_topk.cu",
+                        "rangeclip_tpu/ops/pallas/head_topk.py:72"),
+    "head_topk[fp32]": ("rangeclip_tpu_torch/csrc/head_topk.cu",
+                        "rangeclip_tpu/ops/pallas/head_topk.py:72"),
     "tv_loss[fwd]": ("rangeclip_tpu_torch/csrc/tv_loss.cu",
                      "rangeclip_tpu/ops/pallas/tv_loss.py:35"),
     "tv_loss[bwd]": ("rangeclip_tpu_torch/csrc/tv_loss.cu",
@@ -1427,10 +1437,12 @@ def pool_objects(device) -> torch.Tensor:
                       torch.tensor([3], device=device)]).to(torch.int32)
 
 
-def phase_eval_kernels(device, bench_model, depths, text, seg, stats):
+def phase_eval_kernels(device, bench_model, serve_model, depths, text, seg,
+                       stats):
     """masked_pooling and tv_loss on a bf16 field of the flagship train
-    native shape [32, 128, 128, 512], head_topk at the bench
-    configuration."""
+    native shape [32, 128, 128, 512]; head_topk's tensor-core route at the
+    bench configuration, its CUDA-core route on the fp32 serve model at the
+    serve shape."""
     from rangeclip_tpu_torch.ops.kernels.head_topk import (
         fused_head_score_topk,
         head_field,
@@ -1562,27 +1574,81 @@ def phase_eval_kernels(device, bench_model, depths, text, seg, stats):
         3, 1)
     n_pix, c_in = feats.shape[0] * h * h, feats.shape[-1]
     live = int(mask.sum())  # masked classes cannot change the answer
+    # the product stage alone, a yardstick: cuDNN's conv to D = 512, then
+    # cuBLAS over the live classes
+    conv = torch.nn.functional.conv2d
+    conv_w = bench_model.decoder.output_conv.conv.weight.detach().to(
+        torch.bfloat16, memory_format=torch.channels_last)
+    x_nchw = feats.permute(0, 3, 1, 2)
+    conv_ms = cuda_ms(lambda: conv(x_nchw, conv_w, padding=1), 3)
+    emb = conv(x_nchw, conv_w, padding=1).permute(0, 2, 3, 1).reshape(-1, D)
+    live_table = table_b[mask]
+    mm_ms = cuda_ms(lambda: emb @ live_table.T, 3)
+    PRODUCT_ONLY_MS["head_topk[bf16]"] = conv_ms + mm_ms
+    del emb
+    torch.cuda.empty_cache()
     log(f"  head_topk B={feats.shape[0]} h=w={h} C_in={c_in} D={D} "
         f"C={NUM_CLASSES} ({live} live) k={BENCH_TOP_K} bf16: values within "
         f"{err:.3g} of plain where the ids agree; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms")
-    stats["head_topk"] = dict(
+        f"{plain_ms:.4f} ms; product only {conv_ms + mm_ms:.4f} ms (cuDNN "
+        f"conv {conv_ms:.4f}, cuBLAS over the live classes {mm_ms:.4f})")
+    stats["head_topk[bf16]"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
         **bound(feats.numel() * 2 + rows.numel() * 2 + table.numel() * 2
                 + n_pix * BENCH_TOP_K * 8,
                 2.0 * n_pix * (9 * c_in * D + D * live), "bf16"),
         **device_fields(lambda: fused_head_score_topk(feats, rows, table,
                                                       mask, BENCH_TOP_K)))
-    del feats
+    del feats, x_nchw
+    torch.cuda.empty_cache()
+
+    # head_topk's CUDA-core route: the fp32 serve model's pre-head features
+    # at the serve shape, the full table all live (serve's mask), top-1;
+    # ids against the plain version up to f32 near-ties (the conv sums in
+    # another order)
+    with torch.inference_mode():
+        feats = serve_model.decode_features(
+            depths[0][:SERVE_BATCH]).contiguous()
+    rows = weight_rows(serve_model.decoder.output_conv.conv.weight.detach())
+    every = torch.ones(NUM_CLASSES, dtype=torch.bool, device=device)
+    got = fused_head_score_topk(feats, rows, table, every, 1)
+    want = head_topk_plain(feats, rows, table, every.int(), 1)
+    near_tie_check("head_topk fp32 serve vs plain", got, want,
+                   head_field(feats, rows), table)
+    same = got[0] == want[0]
+    err = max_abs_err(got[1][same], want[1][same])
+    require(err <= 1e-5, f"head_topk fp32 values beyond 1e-5 of the plain "
+                         f"version where the ids agree ({err})")
+    ms, plain_ms = time_pair(
+        lambda: fused_head_score_topk(feats, rows, table, every, 1),
+        lambda: head_topk_plain(feats, rows, table, every.int(), 1), 10, 3)
+    n_pix, c_in = feats.shape[0] * h * h, feats.shape[-1]
+    log(f"  head_topk B={feats.shape[0]} h=w={h} C_in={c_in} D={D} "
+        f"C={NUM_CLASSES} (all live) k=1 fp32: values within {err:.3g} of "
+        f"plain where the ids agree; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms")
+    stats["head_topk[fp32]"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **bound(feats.numel() * 4 + rows.numel() * 4 + table.numel() * 4
+                + n_pix * 8,
+                2.0 * n_pix * (9 * c_in * D + D * NUM_CLASSES), "f32"),
+        **device_fields(lambda: fused_head_score_topk(feats, rows, table,
+                                                      every, 1)))
+    del feats, got, want, same
     torch.cuda.empty_cache()
 
 
-def phase_fused_head(device, model, depths, text, seg, card, totals):
+def phase_fused_head(device, model, serve_model, depths, text, seg, card,
+                     totals):
     """predict_topk_fused at the bench configuration (the path whose
-    launches count), then its labels against DepthUNet.predict with the
-    pixel_text_topk kernel, up to near-ties under f32 scoring of the f32
-    conv: the fused head rounds the normalised embedding to bf16 once,
-    predict rounds the conv output and then the normalised field."""
+    launches count: head_topk's tensor-core kernel), then its labels
+    against DepthUNet.predict with the pixel_text_topk kernel, up to
+    near-ties under f32 scoring of the f32 conv: the fused head rounds the
+    normalised embedding to bf16 once, predict rounds the conv output and
+    then the normalised field.  Then the fp32 serve model through
+    predict_topk_fused at the serve shape (batch 8, C = 512 all live,
+    top-1: the CUDA-core kernel), its labels against its DepthUNet.predict
+    up to f32 near-ties."""
     from rangeclip_tpu_torch.models.depth_unet import predict_topk_fused
     from rangeclip_tpu_torch.ops.kernels.head_topk import (
         head_field,
@@ -1605,8 +1671,10 @@ def phase_fused_head(device, model, depths, text, seg, card, totals):
             torch.cuda.synchronize()
         return ids, time.perf_counter() - t0
 
-    (fused, seconds), _ = run_path("predict_topk_fused (bench)", ["head_topk"],
-                                   drive, totals)
+    (fused, seconds), counts = run_path("predict_topk_fused (bench)",
+                                        ["head_topk[bf16]"], drive, totals)
+    require(counts["head_topk[fp32]"] == 0,
+            "predict_topk_fused (bench) took the CUDA-core head_topk")
     require(tuple(fused.shape) == (BENCH_BATCH, RES, RES, BENCH_TOP_K)
             and bool(((fused >= 0) & (fused < NUM_CLASSES)).all()),
             f"predict_topk_fused output {tuple(fused.shape)}")
@@ -1618,7 +1686,7 @@ def phase_fused_head(device, model, depths, text, seg, card, totals):
         torch.bfloat16)
     table_b = l2_normalize(text.float(), dim=-1).to(torch.bfloat16)
     field = head_field(feats, rows_b)
-    native = lambda ids: (ids[:, ::2, ::2].reshape(-1, BENCH_TOP_K),)  # noqa
+    native = lambda ids: (ids[:, ::2, ::2].reshape(-1, ids.shape[-1]),)  # noqa
     rate = near_tie_check("predict_topk_fused vs DepthUNet.predict (bench)",
                           native(fused), native(ref), field, table_b,
                           tol=1e-3, min_rate=0.95)
@@ -1629,6 +1697,33 @@ def phase_fused_head(device, model, depths, text, seg, card, totals):
         f"({1e3 * seconds / iters:.2f} ms/batch, host clock) on {card}; "
         f"ids vs predict {rate:.6f} (top-1 {top1:.6f})")
     del field, feats, fused, ref
+    torch.cuda.empty_cache()
+
+    depth = depths[0][:SERVE_BATCH]
+    every = torch.ones(NUM_CLASSES, dtype=torch.bool, device=device)
+
+    def drive_fp32():
+        with torch.inference_mode():
+            return predict_topk_fused(serve_model, depth, text, every, 1)
+
+    fused, counts = run_path("predict_topk_fused fp32 (serve shape)",
+                             ["head_topk[fp32]"], drive_fp32, totals)
+    require(counts["head_topk[bf16]"] == 0,
+            "predict_topk_fused fp32 took the tensor-core head_topk")
+    require(tuple(fused.shape) == (SERVE_BATCH, RES, RES, 1),
+            f"predict_topk_fused fp32 output {tuple(fused.shape)}")
+    with torch.inference_mode():
+        ref = serve_model.predict(depth, text, every, 1, scoring="pallas",
+                                  return_embeddings=False)[0]
+        feats = serve_model.decode_features(depth).contiguous()
+    rows = weight_rows(serve_model.decoder.output_conv.conv.weight.detach())
+    table = l2_normalize(text.float(), dim=-1)
+    rate = near_tie_check("predict_topk_fused fp32 vs DepthUNet.predict "
+                          "(serve shape)", native(fused), native(ref),
+                          head_field(feats, rows), table)
+    log(f"  predict_topk_fused fp32 batch {SERVE_BATCH} @ {RES}^2, all "
+        f"{NUM_CLASSES} classes, top-1: ids vs predict {rate:.6f}")
+    del feats, fused, ref
     torch.cuda.empty_cache()
 
 
@@ -2534,7 +2629,8 @@ def main(argv=None) -> int:
     phase_unfolded_kernels(device, bench_model, serve_model, depths, text,
                            cand, stats)
     phase_train_kernels(device, stats)
-    phase_eval_kernels(device, bench_model, depths, text, seg, stats)
+    phase_eval_kernels(device, bench_model, serve_model, depths, text, seg,
+                       stats)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"  phase 2 done at {time.perf_counter() - t_start:.1f} s")
@@ -2542,7 +2638,6 @@ def main(argv=None) -> int:
     totals = {name: 0 for name in KERNEL_ROWS}
     with tempfile.TemporaryDirectory() as tmp:
         save_reference_pth(serve_model, os.path.join(tmp, "model.pth"))
-        del serve_model
         write_labels(os.path.join(tmp, "labels.csv"))
         write_labels(os.path.join(tmp, "labels_large.csv"), LARGE_TABLE)
 
@@ -2569,9 +2664,9 @@ def main(argv=None) -> int:
                   "pixel_text_topk[bf16]"],
                  lambda: phase_bench(device, bench_model, depths, text, seg,
                                      card), totals)
-        phase_fused_head(device, bench_model, depths, text, seg, card,
-                         totals)
-        del bench_model, depths
+        phase_fused_head(device, bench_model, serve_model, depths, text, seg,
+                         card, totals)
+        del bench_model, serve_model, depths
         torch.cuda.empty_cache()
 
         log("phase 5: infer and export")

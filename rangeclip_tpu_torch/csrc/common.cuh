@@ -247,6 +247,14 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
                : "memory");
 }
 
+// The mbarrier gets one arrival (counted in its init) once every cp.async
+// this thread issued before has landed.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
+               : "memory");
+}
+
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
                    "r"(bar),
@@ -290,9 +298,10 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
 
 // Keep the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma.
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (+)= A[64 x 16] * B[128 x 16]^T, both from shared memory; scale_d == 0
@@ -331,6 +340,44 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (+)= A[64 x 16] * B[64 x 16]^T, both from shared memory: the same
+// fragment layout over 64 columns (32 registers).
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// One wgmma of N = 128 or 64 columns.
+template <int N>
+__device__ __forceinline__ void wgmma_k16(float (&d)[N / 2], uint64_t a,
+                                          uint64_t b, int scale_d) {
+  if constexpr (N == 128) {
+    wgmma_m64n128k16(d, a, b, scale_d);
+  } else {
+    static_assert(N == 64, "wgmma_k16: N is 64 or 128");
+    wgmma_m64n64k16(d, a, b, scale_d);
+  }
 }
 
 // Two floats as a bf16 pair, the first in the low half (the lower address).
@@ -396,67 +443,150 @@ struct Ring {
   }
 
   // The producer: every chunk of every class tile of the [rows, dims]
-  // matrix behind `map`, in the consumers' order (tile-major, dims inner).
-  __device__ __forceinline__ void produce(const CUtensorMap* map, int rows,
-                                          int k16) const {
+  // matrix behind `map`, in the consumers' order (score_tiles: tiles in
+  // groups of `group`, dims-major within a group, its tiles inner; tile-
+  // major for one), as the ring's chunks first, first + 1, ...; returns the
+  // number after the last (a kernel that streams several matrices chains
+  // the calls).
+  __device__ __forceinline__ int produce(const CUtensorMap* map, int rows,
+                                         int k16, int first = 0,
+                                         int group = 1) const {
     const int blocks_k = (k16 + 3) / 4;
-    const int total = blocks_k * ((rows + kTileN - 1) / kTileN);
-    for (int i = 0; i < total; ++i) {
-      const int s = i % kStages;
-      if (i >= kStages) mbar_wait(empty(s), ((i / kStages) - 1) & 1);
-      mbar_expect_tx(full(s), kChunkBytes);
-      tma_load(stage(s), map, (i % blocks_k) * kBlockDims,
-               (i / blocks_k) * kTileN, full(s));
+    const int tiles = (rows + kTileN - 1) / kTileN;
+    int i = first;
+    for (int t0 = 0; t0 < tiles; t0 += group) {
+      const int n = min(group, tiles - t0);
+      for (int kb = 0; kb < blocks_k; ++kb) {
+        for (int u = 0; u < n; ++u, ++i) {
+          const int s = i % kStages;
+          if (i >= kStages) mbar_wait(empty(s), ((i / kStages) - 1) & 1);
+          mbar_expect_tx(full(s), kChunkBytes);
+          tma_load(stage(s), map, kb * kBlockDims, (t0 + u) * kTileN,
+                   full(s));
+        }
+      }
     }
+    return i;
   }
 };
 
-// The consumers' main loop, shared by both kernels: every class tile of B
+// The consumers' main loop, shared by the kernels: every class tile of B
 // against this warpgroup's 64 rows of A.  `a` is the shared address of
 // this warpgroup's rows in dim block 0, `a_block_bytes` the distance
 // between dim blocks; k16 is the number of 16-dim steps (dims rounded up to
 // 16, zero-filled past the end in both operands).  A is in shared memory
-// and fenced for the async proxy.  prep(t) runs as tile t starts (its loads
-// have the tile's products to land in); epi(acc, t) takes tile t's
-// accumulators after its last dim block.  Chunk i's products stay in flight
-// while chunk i + 1 is waited for; a warpgroup releases a stage once the
-// products that read it are done.
-template <class Prep, class Epi>
-__device__ __forceinline__ void score_tiles(const Ring& ring, uint32_t a,
-                                            int a_block_bytes, int rows,
-                                            int k16, int wg_tid, Prep&& prep,
-                                            Epi&& epi) {
+// and fenced for the async proxy.  The tiles go in groups of G, each tile
+// of a group into accumulators of its own, the group's chunks dims-major
+// with its tiles inner (Ring::produce's order): a kernel that needs
+// several tiles' sums at once (head_topk.cu's conv, whose epilogue needs
+// every dim of a row) takes them as one group.  prep(t) runs as a group
+// starts, for each of its tiles t (their loads have the products to land
+// in); after the group's last dim block, epi(acc, t) takes tile t's
+// accumulators (G = 1), or epi(acc, t0) the group's (acc[u] for tile t0 +
+// u, u < min(G, tiles - t0)).  Chunk i's products stay in flight while
+// chunk i + 1 is waited for; a warpgroup releases a stage once the
+// products that read it are done.  N = 128 scores a stage's 128 rows; N =
+// 64 the 64 at `b_offset` bytes into it (two warpgroups sharing one A tile
+// take a half each).  The tiles are the ring's chunks first, first + 1,
+// ...; returns the number after the last.
+template <int N = kTileN, int G = 1, class Prep, class Epi>
+__device__ __forceinline__ int score_tiles(const Ring& ring, uint32_t a,
+                                           int a_block_bytes, int rows,
+                                           int k16, int wg_tid, Prep&& prep,
+                                           Epi&& epi, int first = 0,
+                                           uint32_t b_offset = 0) {
   const int blocks_k = (k16 + 3) / 4;
-  const int total = blocks_k * ((rows + kTileN - 1) / kTileN);
-  float acc[64];
-  int released = 0;  // chunks whose stage this warpgroup gave back
-  for (int i = 0; i < total; ++i) {
-    const int kb = i % blocks_k;
-    if (kb == 0) prep(i / blocks_k);
-    const int s = i % kStages;
-    mbar_wait(ring.full(s), (i / kStages) & 1);
-    const int steps = min(4, k16 - kb * 4);
-    const uint32_t a_kb = a + kb * a_block_bytes;
-    fence_regs(acc);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  const int tiles = (rows + kTileN - 1) / kTileN;
+  float acc[G][N / 2];
+  int i = first;
+  int released = first;  // chunks whose stage this warpgroup gave back
+  for (int t0 = 0; t0 < tiles; t0 += G) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (k < steps)
-        wgmma_m64n128k16(acc, sw128_desc(a_kb + k * 32),
-                         sw128_desc(ring.stage(s) + k * 32), kb > 0 || k > 0);
+    for (int u = 0; u < G; ++u)
+      if (t0 + u < tiles) prep(t0 + u);
+    for (int kb = 0; kb < blocks_k; ++kb) {
+      const int steps = min(4, k16 - kb * 4);
+      const uint32_t a_kb = a + kb * a_block_bytes;
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        if (t0 + u < tiles) {
+          const int s = i % kStages;
+          mbar_wait(ring.full(s), (i / kStages) & 1);
+          const uint32_t b = ring.stage(s) + b_offset;
+          fence_regs(acc[u]);
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (k < steps)
+              wgmma_k16<N>(acc[u], sw128_desc(a_kb + k * 32),
+                           sw128_desc(b + k * 32), kb > 0 || k > 0);
+          }
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+          for (; released < i; ++released)
+            if (wg_tid == 0) mbar_arrive(ring.empty(released % kStages));
+          ++i;
+        }
+      }
     }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    const bool last = kb == blocks_k - 1;
-    if (last) {
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    } else {
-      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-    }
-    for (const int done = last ? i + 1 : i; released < done; ++released)
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    for (; released < i; ++released)
       if (wg_tid == 0) mbar_arrive(ring.empty(released % kStages));
-    if (last) {
-      fence_regs(acc);
-      epi(acc, i / blocks_k);
+#pragma unroll
+    for (int u = 0; u < G; ++u) fence_regs(acc[u]);
+    if constexpr (G == 1) {
+      epi(acc[0], t0);
+    } else {
+      epi(acc, t0);
+    }
+  }
+  return i;
+}
+
+// The (x, y) of pixels p0 .. p0 + rows (flattened (b, y, x) order, npix
+// of them) into `coords`, y = -h past the last pixel (every tap then
+// falls outside the image), by `nthreads` threads, `thread` being the
+// caller's index among them.  The caller synchronises before im2col reads
+// them.
+__device__ __forceinline__ void pixel_coords(int2* coords, int p0, int rows,
+                                             int npix, int h, int w,
+                                             int nthreads, int thread) {
+  for (int r = thread; r < rows; r += nthreads) {
+    const int p = p0 + r;
+    coords[r] = p < npix ? make_int2(p % w, (p / w) % h) : make_int2(0, -h);
+  }
+}
+
+// The im2col A tile of pixel rows p0 .. p0 + rows of bf16 features [npix,
+// c_in] (npix = batch * h * w < 2^31, c_in % 8 == 0), each row's (x, y) in
+// `coords` (pixel_coords), issued by `nthreads` threads, `thread` being
+// the caller's index among them, a warp per pixel: row r gets pixel p0 +
+// r's 9 taps x c_in channels, K ordered (dy, dx, c) as the weight rows are,
+// copied with cp.async through L1 (neighbouring pixels share their taps)
+// into the swizzled layout at `a`.  Taps outside the image (the SAME
+// border), rows past npix and K past 9 * c_in up to k16 * 16 are zero-
+// filled by the copies themselves.  The caller commits, waits and fences.
+__device__ __forceinline__ void im2col(uint32_t a, int a_block_bytes,
+                                       const __nv_bfloat16* __restrict__ feats,
+                                       int p0, int rows,
+                                       const int2* __restrict__ coords, int h,
+                                       int w, int c_in, int k16, int nthreads,
+                                       int thread) {
+  const int lane = thread & 31;
+  const int chunks = k16 * 2;   // 16-byte chunks of a padded row
+  const int groups = c_in / 8;  // 16-byte chunks of one tap
+  for (int r = thread >> 5; r < rows; r += nthreads >> 5) {
+    const int2 xy = coords[r];
+    for (int j = lane; j < chunks; j += 32) {
+      const int tap = j / groups;
+      const int dy = tap / 3 - 1;
+      const int dx = tap - 3 * (tap / 3) - 1;
+      const bool ok = j < 9 * groups && xy.x + dx >= 0 && xy.x + dx < w &&
+                      xy.y + dy >= 0 && xy.y + dy < h;
+      const long long q = (long long)p0 + r + dy * w + dx;  // the tap's pixel
+      cp_async16_l1(a + (j >> 3) * a_block_bytes + swizzle(r, j & 7),
+                    ok ? feats + q * c_in + (j - tap * groups) * 8 : feats,
+                    ok);
     }
   }
 }

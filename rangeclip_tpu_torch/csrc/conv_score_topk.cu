@@ -19,13 +19,14 @@
 // longer fit in shared memory beside the ring) owns 64 consecutive pixels
 // each of the flattened (B, h, w) order, so ragged rows and images need no
 // special case.
-//   1. im2col: the block copies each pixel's 9 taps x C_in channels straight
-//      from device memory (cp.async through L1, which serves the taps that
-//      neighbouring pixels share) into shared memory in wgmma's 128-byte-
-//      swizzled A layout, K ordered (dy, dx, c) as the weight rows are and
-//      zero-filled up to a multiple of 16.  Taps outside the image are
-//      zero-filled by the copy itself (the SAME border).  80 KB at C_in=32
-//      (K = 288 in five 64-dim blocks).
+//   1. im2col (common.cuh: tc::im2col, shared with head_topk.cu's
+//      tensor-core kernel): the block copies each pixel's 9 taps x C_in
+//      channels straight from device memory (cp.async through L1, which
+//      serves the taps that neighbouring pixels share) into shared memory
+//      in wgmma's 128-byte-swizzled A layout, K ordered (dy, dx, c) as the
+//      weight rows are and zero-filled up to a multiple of 16.  Taps
+//      outside the image are zero-filled by the copy itself (the SAME
+//      border).  80 KB at C_in=32 (K = 288 in five 64-dim blocks).
 //   2. A producer warp streams the folded rows as [128 slots, 64 dims]
 //      chunks through a four-stage ring with TMA (216 KB in all at S=384,
 //      resident in L2); each chunk is up to four wgmma m64n128k16 into f32
@@ -64,8 +65,6 @@ __global__ void __launch_bounds__(rc::tc::kMaxWarpgroups * 128 + 32, 1)
   const int pixels = nthreads / 128 * kWarpRows;  // of the block
   const int taps = 9 * c_in;  // weight row length, ordered (dy, dx, c)
   const int k16 = (taps + 15) / 16;
-  const int chunks = k16 * 2;  // 16-byte chunks of a padded im2col row
-  const int groups = c_in / 8;  // 16-byte chunks of one tap
   const int blocks_k = (k16 + 3) / 4;
   const int a_block_bytes = pixels * kRowBytes;
   const uint32_t a = smem_addr(smem);
@@ -78,30 +77,15 @@ __global__ void __launch_bounds__(rc::tc::kMaxWarpgroups * 128 + 32, 1)
     if (tid == nthreads) ring.produce(&wt_map, s, k16);
     return;
   }
-  // (x, y) of each pixel of the block, y = -h past the last pixel
+  // (x, y) of each pixel of the block
   int2* coords = reinterpret_cast<int2*>(
       smem + blocks_k * a_block_bytes + kStages * kChunkBytes + kBarrierBytes);
-  for (int r = tid; r < pixels; r += nthreads) {
-    const int p = p0 + r;
-    coords[r] = p < npix ? make_int2(p % w, (p / w) % h) : make_int2(0, -h);
-  }
+  pixel_coords(coords, p0, pixels, npix, h, w, nthreads, tid);
   consumer_sync(nthreads);
 
-  // 1. im2col into the swizzled A tile, a warp per pixel
-  for (int r = tid >> 5; r < pixels; r += nthreads >> 5) {
-    const int2 xy = coords[r];
-    for (int j = lane; j < chunks; j += 32) {
-      const int tap = j / groups;
-      const int dy = tap / 3 - 1;
-      const int dx = tap - 3 * (tap / 3) - 1;
-      const bool ok = j < 9 * groups && xy.x + dx >= 0 && xy.x + dx < w &&
-                      xy.y + dy >= 0 && xy.y + dy < h;
-      const long long q = (long long)p0 + r + dy * w + dx;  // the tap's pixel
-      cp_async16_l1(a + (j >> 3) * a_block_bytes + swizzle(r, j & 7),
-                    ok ? feats + q * c_in + (j - tap * groups) * 8 : feats,
-                    ok);
-    }
-  }
+  // 1. im2col into the swizzled A tile, a warp per pixel (common.cuh)
+  im2col(a, a_block_bytes, feats, p0, pixels, coords, h, w, c_in, k16,
+         nthreads, tid);
   cp_async_wait_all();
   fence_proxy_async();
   consumer_sync(nthreads);

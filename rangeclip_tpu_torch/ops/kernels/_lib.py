@@ -45,9 +45,9 @@ NVCC_FLAGS = (
 )
 # Sources whose ptxas resource lines (registers, shared memory, spills) the
 # build keeps: the tensor-core kernels and the redesigned CUDA-core ones.
-PTXAS_VERBOSE = ("class_presence.cu", "conv_score_topk.cu", "histogram.cu",
-                 "live_rows.cu", "pixel_text_ce.cu", "pixel_text_topk.cu",
-                 "tv_rowtile.cu")
+PTXAS_VERBOSE = ("class_presence.cu", "conv_score_topk.cu", "head_topk.cu",
+                 "histogram.cu", "live_rows.cu", "pixel_text_ce.cu",
+                 "pixel_text_topk.cu", "tv_rowtile.cu")
 
 # Launches per kernel (and selector), counted by each wrapper right after a
 # successful launch, so a run can show which kernels its main path went
@@ -71,7 +71,8 @@ launch_counts = {
     "tv_rowtile[fwd]": 0,
     "tv_rowtile[bwd]": 0,
     "masked_pooling": 0,
-    "head_topk": 0,
+    "head_topk[bf16]": 0,  # tensor cores
+    "head_topk[fp32]": 0,  # CUDA cores (and bf16 beyond C_in 64 or D 512)
     "tv_loss[fwd]": 0,
     "tv_loss[bwd]": 0,
 }
@@ -109,6 +110,8 @@ _SIGNATURES = {
     "rc_masked_pooling": (_P, _I, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P),
     "rc_head_topk": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                      _P, _P),
+    "rc_head_topk_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                        _P, _P),
     "rc_tv_loss_fwd": (_P, _I, _I, _I, _I, _I, _P, _P),
     "rc_tv_loss_bwd": (_P, _I, _I, _I, _I, _I, _P, _P, _P),
 }

@@ -3,10 +3,17 @@ pixel x text scoring + masked top-k.
 
 Port of ``rangeclip_tpu/ops/pallas/head_topk.py``
 (``fused_head_score_topk``), the kernel behind the opt-in
-``models/depth_unet.predict_topk_fused``.  The CUDA kernel is
-``csrc/head_topk.cu``; :func:`head_topk_plain` is the same function in plain
-PyTorch, used for CPU tensors and as the reference the kernel is held
-against on the card.
+``models/depth_unet.predict_topk_fused``.  The CUDA kernels are in
+``csrc/head_topk.cu``: bf16 features with C_in <= :data:`TC_MAX_C_IN` and
+D <= :data:`TC_MAX_DIMS` take the tensor-core kernel, f32 features (and
+wider bf16 ones) the CUDA-core one (:func:`kernel_route`); launches count
+as ``head_topk[bf16]`` and ``head_topk[fp32]``.  The tensor-core kernel
+scores only the live classes: the mask's table rows gathered first, in
+ascending id order, with their ids and a device count
+(:func:`live_head_rows`, no host sync).  :func:`head_topk_plain` is the
+same function in plain PyTorch, used for CPU tensors and as the reference
+the kernels are held against on the card; it masks the full table and
+shares no code with the gather.
 
 Rounding points, as in the TPU kernel: the conv of the features with the
 weights (both in the features' dtype) summed in f32; s = sum f^2 in f32;
@@ -21,11 +28,11 @@ bf16 embedding may round differently and near-tied labels flip; f32 ids
 agree up to near-ties.  ``interpret`` is the TPU kernel's interpret knob
 and has no counterpart here.
 
-The kernel takes C_in and D in multiples of 8; the wrapper zero-pads other
+The kernels take C_in and D in multiples of 8; the wrapper zero-pads other
 widths (:func:`pad_head_operands`), which is exact: a zero channel adds
 nothing to the conv, and a zero dim is zero in the field, its norm and
-every score.  Beyond D = 656 the kernel's embedding tile moves from shared
-memory to a device workspace the wrapper allocates.
+every score.  Beyond D = 656 the CUDA-core kernel's embedding tile moves
+from shared memory to a device workspace the wrapper allocates.
 """
 
 from __future__ import annotations
@@ -39,6 +46,21 @@ from rangeclip_tpu_torch.ops.kernels import _lib
 from rangeclip_tpu_torch.ops.kernels.score_topk import MAX_TOP_K
 
 NEG_INF = -1e30
+# The widest features of the tensor-core kernel, as csrc/head_topk.cu's
+# tc_head::fits takes them (kMaxCIn, kMaxDims; the card test
+# test_head_topk_route_matches_the_kernel holds the two together); wider
+# bf16 features take the CUDA-core one.
+TC_MAX_C_IN = 64
+TC_MAX_DIMS = 512
+
+
+def kernel_route(dtype: torch.dtype, c_in: int, dims: int) -> str:
+    """The launch-count name of the kernel that CUDA features take, at the
+    widths the kernel is handed (C_in and D zero-padded to multiples of
+    8)."""
+    tc = (dtype == torch.bfloat16 and -(-c_in // 8) * 8 <= TC_MAX_C_IN
+          and -(-dims // 8) * 8 <= TC_MAX_DIMS)
+    return f"head_topk[{'bf16' if tc else 'fp32'}]"
 
 
 def weight_rows(conv_weight: torch.Tensor) -> torch.Tensor:
@@ -92,6 +114,23 @@ def head_field(features: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     weight = rows.float().reshape(3, 3, C_in, D).permute(3, 2, 0, 1)
     f = F.conv2d(features.float().permute(0, 3, 1, 2), weight, padding=1)
     return f.permute(0, 2, 3, 1).reshape(-1, D)
+
+
+def live_head_rows(table: torch.Tensor, mask: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The rows of ``table`` [C, D] with ``mask`` [C] non-zero first, in
+    ascending id order, then the others: (that table, in the table's dtype;
+    the class id of each of its rows [C] int32; the live count [1] int32),
+    on the table's device with no host sync: each row's place comes from
+    cumulative sums of the mask and the rows land by ``index_copy_``."""
+    live = mask != 0
+    ids = torch.arange(table.shape[0], device=table.device)
+    before = live.cumsum(0)  # live rows up to and including each
+    count = before[-1:]
+    place = torch.where(live, before - 1, count + ids - before)
+    gathered = torch.empty_like(table).index_copy_(0, place, table)
+    row_ids = torch.empty_like(ids).index_copy_(0, place, ids)
+    return gathered, row_ids.to(torch.int32), count.to(torch.int32)
 
 
 def head_topk_plain(features: torch.Tensor, rows: torch.Tensor,
@@ -168,15 +207,27 @@ def _head_topk_cuda(features, rows, table, mask, top_k):
     if idx.shape[0] == 0:
         return idx, val
     B, h, w, C_in = features.shape
-    D = rows.shape[1]
-    work = _lib.workspace("rc_head_topk_workspace", features, D, B * h * w)
-    code = _lib.library().rc_head_topk(
-        features.data_ptr(), int(features.dtype == torch.bfloat16),
-        rows.data_ptr(), table.data_ptr(), mask.data_ptr(), B, h, w, C_in,
-        D, table.shape[0], top_k, idx.data_ptr(), val.data_ptr(),
-        None if work is None else work.data_ptr(),
-        _lib.stream_of(features))
-    _lib.check(code, "head_topk")
+    C, D = table.shape
+    route = kernel_route(features.dtype, C_in, D)
+    lib = _lib.library()
+    out = (idx.data_ptr(), val.data_ptr())
+    if route == "head_topk[bf16]":
+        live_table, ids, count = live_head_rows(table, mask)
+        wt = rows.T.contiguous()  # [D, 9 * C_in]: the conv's B operand
+        code = lib.rc_head_topk_tc(
+            features.data_ptr(), wt.data_ptr(), live_table.data_ptr(),
+            ids.data_ptr(), count.data_ptr(), B, h, w, C_in, D, C, top_k,
+            *out, _lib.stream_of(features))
+    else:
+        work = _lib.workspace("rc_head_topk_workspace", features, D,
+                              B * h * w)
+        code = lib.rc_head_topk(
+            features.data_ptr(), int(features.dtype == torch.bfloat16),
+            rows.data_ptr(), table.data_ptr(), mask.data_ptr(), B, h, w,
+            C_in, D, C, top_k, *out,
+            None if work is None else work.data_ptr(),
+            _lib.stream_of(features))
+    _lib.check(code, route)
     return idx, val
 
 

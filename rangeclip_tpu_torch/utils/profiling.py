@@ -13,14 +13,16 @@ is ``cli/train``'s default precision at its microbatch (fp32, batch 16, 40
 labels present: 90 contrast members), ``train_step_overflow`` the bf16
 step whose contrast set overflows the capacity (150 labels present: 200
 members, the full-table branch).  ``ce_forward``, ``ce_forward_all``,
-``ce_backward``, ``tv_forward``, ``histogram`` and ``presence_*`` call
-one operator at the shape of its main path (:func:`kernel_call`):
+``ce_backward``, ``tv_forward``, ``histogram``, ``presence_*`` and
+``head_topk`` call one operator at the shape of its main path
+(:func:`kernel_call`):
 ``pixel_text_ce``'s forward on the fp32 validation shape with 90 and with
 all 512 classes in the contrast set, its backward with 90 (an fp32 train
 microbatch of batch 8), ``tv_rowtile``'s forward on the flagship train
 field, the flagship step's histogram, and ``class_presence`` at the bench
-shape and the main paths' label counts; ``candidate_mask`` is
-validation's ``build_candidate_mask`` at batch 8.  Each configuration
+shape and the main paths' label counts, and ``fused_head_score_topk`` on
+bf16 pre-head features at the bench shape (its tensor-core route);
+``candidate_mask`` is validation's ``build_candidate_mask`` at batch 8.  Each configuration
 runs two calls, then ``--calls`` calls timed by the host clock
 (synchronised), then as many under the profiler, at full width with random
 weights from seed 0.  Only device events count (``device_type`` CUDA:
@@ -71,7 +73,7 @@ PRESENCE_LABELS = {"presence_bench": 128 * RES * RES,
                    "presence_512k": 8 * RES * RES,
                    "candidate_mask": 8 * RES * RES}
 KERNEL_CONFIGS = ("ce_forward", "ce_forward_all", "ce_backward",
-                  "tv_forward", "histogram", *PRESENCE_LABELS)
+                  "tv_forward", "histogram", "head_topk", *PRESENCE_LABELS)
 
 
 def busy_us(spans: List[tuple]) -> float:
@@ -84,10 +86,18 @@ def busy_us(spans: List[tuple]) -> float:
     return total
 
 
+# The profiled window's host range: device events count from its start.
+WINDOW = "rangeclip::profiled_calls"
+
+
 def profile(fn: Callable[[], object], calls: int = 3, warmup: int = 2
             ) -> Dict[str, object]:
     """Time ``calls`` calls of ``fn`` by the host clock, then profile as
-    many, after ``warmup`` unprofiled ones; times are ms per call."""
+    many, after ``warmup`` unprofiled ones; times are ms per call.  The
+    tracer's start can lose device events (6 of 20 kernels once), so it
+    first traces as many calls again, then idles 1 ms, and counts only the
+    events from the profiled calls' host range (less half the idle, for
+    the alignment of the device and host clocks) on."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -99,25 +109,39 @@ def profile(fn: Callable[[], object], calls: int = 3, warmup: int = 2
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
+        for _ in range(calls):  # the tracer's start: not counted
             fn()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        time.sleep(1e-3)
+        with torch.profiler.record_function(WINDOW):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    traced = prof.events()
+    window = next(e for e in traced if e.name == WINDOW
+                  and e.device_type == DeviceType.CPU)
+    since = window.time_range.start - 500  # us
     # device events only; user annotations on the GPU timeline (e.g. the
-    # optimizer's "Optimizer.step#Adam.step" range) enclose kernels and
-    # would count them twice
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
+    # optimizer's "Optimizer.step#Adam.step" range, or the window's own)
+    # enclose kernels and would count them twice
+    events = [e for e in traced if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and e.time_range.start >= since]
     if not events:
         raise RuntimeError("the profiler recorded no device event")
     by_name = collections.Counter()
     for e in events:
         by_name[e.name] += e.time_range.elapsed_us()
     busy = busy_us([(e.time_range.start, e.time_range.end) for e in events])
-    host = sorted((a for a in prof.key_averages()
-                   if a.device_type == DeviceType.CPU),
-                  key=lambda a: a.self_cpu_time_total, reverse=True)
+    # host operators by their own CPU time, in the window
+    host_us, host_n = collections.Counter(), collections.Counter()
+    for e in traced:
+        if (e.device_type == DeviceType.CPU and e.name != WINDOW
+                and e.time_range.start >= window.time_range.start):
+            host_us[e.name] += e.self_cpu_time_total
+            host_n[e.name] += 1
     return {
         "host_ms": host_ms,
         "wall_ms": wall_us / calls / 1e3,
@@ -127,9 +151,9 @@ def profile(fn: Callable[[], object], calls: int = 3, warmup: int = 2
         "busy_share": busy / wall_us,
         "events": [(name, us / calls / 1e3)
                    for name, us in by_name.most_common()],
-        # host operators by their own CPU time: (name, ms, count) per call
-        "host_events": [(a.key, a.self_cpu_time_total / calls / 1e3,
-                         a.count / calls) for a in host],
+        # (name, ms, count) per call
+        "host_events": [(name, us / calls / 1e3, host_n[name] / calls)
+                        for name, us in host_us.most_common()],
     }
 
 
@@ -184,8 +208,10 @@ def kernel_call(config: str) -> Callable[[], torch.Tensor]:
     members), the TV forward of the flagship train step (bf16 [32, 128,
     128, 512], upsample 2, one sample weight 0), the flagship step's
     histogram (32 x 45,875 draws into 65,536 bins), class_presence with a
-    validity vector at :data:`PRESENCE_LABELS` (labels 0..39, C = 512), or
-    validation's build_candidate_mask at batch 8 (50 negatives)."""
+    validity vector at :data:`PRESENCE_LABELS` (labels 0..39, C = 512),
+    validation's build_candidate_mask at batch 8 (50 negatives), or
+    fused_head_score_topk at the bench shape (bf16 features [128, 128, 128,
+    32], D = C = 512, 340 classes live, top-5)."""
     device = torch.device("cuda")
     gen = torch.Generator(device=device).manual_seed(0)
     if config == "histogram":
@@ -211,6 +237,21 @@ def kernel_call(config: str) -> Callable[[], torch.Tensor]:
                                                 gumbel=gumbel)
         valid = (torch.rand(n, device=device, generator=gen) > 0.1).float()
         return lambda: class_presence(labels, valid, NUM_CLASSES)
+    if config == "head_topk":
+        from rangeclip_tpu_torch.ops.kernels.head_topk import (
+            fused_head_score_topk,
+        )
+        from rangeclip_tpu_torch.utils.math import l2_normalize
+
+        feats = torch.randn(128, RES // 2, RES // 2, 32, device=device,
+                            generator=gen).to(torch.bfloat16)
+        rows = torch.randn(9 * 32, 512, device=device, generator=gen) / 17
+        table = l2_normalize(torch.randn(NUM_CLASSES, 512, device=device,
+                                         generator=gen), dim=-1)
+        mask = torch.zeros(NUM_CLASSES, dtype=torch.bool, device=device)
+        mask[torch.randperm(NUM_CLASSES, device=device,
+                            generator=gen)[:340]] = True
+        return lambda: fused_head_score_topk(feats, rows, table, mask, 5)
     if config == "tv_forward":
         from rangeclip_tpu_torch.ops.kernels.tv_rowtile import tv_rowtile_op
 

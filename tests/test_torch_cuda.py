@@ -1191,39 +1191,59 @@ def test_tv_loss_matches_plain(cuda_device, shape, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,h,dtype,C,C_in,D", [
-    (2, 16, torch.float32, 512, 32, 512),
-    (3, 7, torch.float32, 130, 32, 512),
-    (2, 12, torch.bfloat16, 40, 32, 512),
-    (2, 70, torch.float32, 130, 32, 768),
-    (2, 12, torch.bfloat16, 40, 32, 768),
-    (3, 9, torch.float32, 40, 12, 20),
-    (2, 12, torch.bfloat16, 40, 12, 20)])
-def test_head_topk_matches_plain(cuda_device, B, h, dtype, C, C_in, D):
+@pytest.mark.parametrize("B,h,w,dtype,C,C_in,D,k", [
+    (2, 16, 16, torch.float32, 512, 32, 512, 5),
+    (3, 7, 7, torch.float32, 130, 32, 512, 5),
+    (2, 12, 12, torch.bfloat16, 40, 32, 512, 5),
+    (2, 70, 70, torch.float32, 130, 32, 768, 5),
+    (2, 12, 12, torch.bfloat16, 40, 32, 768, 5),
+    (3, 9, 9, torch.float32, 40, 12, 20, 5),
+    (2, 12, 12, torch.bfloat16, 40, 12, 20, 5),
+    (3, 7, 9, torch.bfloat16, 130, 8, 8, 1),
+    (2, 9, 11, torch.bfloat16, 512, 64, 136, 8),
+    (1, 40, 41, torch.bfloat16, 512, 64, 512, 5),
+    (1, 1, 200, torch.bfloat16, 130, 32, 512, 5),
+    (1, 150, 1, torch.bfloat16, 1, 32, 512, 5),
+    (2, 16, 16, torch.bfloat16, 512, 32, 520, 5),
+    (2, 10, 10, torch.bfloat16, 40, 72, 64, 5)])
+def test_head_topk_matches_plain(cuda_device, B, h, w, dtype, C, C_in, D, k):
     """Ids against the plain version: every mismatch a near-tie (the
     winning values within 1e-5 in f32, and within 1e-3, two bf16 ulps of the
     top scores, in bf16, where an embedding component's rounding may flip
-    with the conv's summation order); an exhausted mask of 3 live classes
-    gives id 0 at -1e30 past them.  D = 768 keeps the embedding tiles in
-    the kernel's workspace (9,800 pixels: blocks take several tiles);
-    C_in = 12, D = 20 runs on operands zero-padded to 16 and 24."""
+    with the conv's summation order); a mask of 3 live classes, or none,
+    gives id 0 at -1e30 past them.  Each call launches the route's kernel
+    once and the other none: bf16 with C_in <= 64 and D <= 512 the
+    tensor-core kernel (C_in 8 and 64, D 8, 136 and 512, C 1, 130 and 512,
+    k 1, 5 and 8, pixel counts off the 64-pixel tile, h = 1, w = 1), f32
+    and bf16 past those widths (D = 520, C_in = 72) the CUDA-core one.
+    D = 768 keeps the CUDA-core kernel's embedding tiles in its workspace
+    (9,800 pixels: blocks take several tiles); C_in = 12, D = 20 runs on
+    operands zero-padded to 16 and 24."""
     from rangeclip_tpu_torch.ops.kernels.head_topk import (
         fused_head_score_topk,
         head_topk_plain,
+        kernel_route,
     )
 
     gen = torch.Generator().manual_seed(14)
-    k = 5
-    feats = torch.randn(B, h, h, C_in, generator=gen).to(dtype)
+    feats = torch.randn(B, h, w, C_in, generator=gen).to(dtype)
     rows = torch.randn(9 * C_in, D, generator=gen) / 17
     text = l2_normalize(torch.randn(C, D, generator=gen), dim=-1)
-    mask = torch.rand(C, generator=gen) < 0.7
+    route = kernel_route(dtype, C_in, D)
+    assert route == ("head_topk[bf16]" if dtype == torch.bfloat16
+                     and C_in <= 64 and D <= 512 else "head_topk[fp32]")
     dev = lambda t: t.to(cuda_device)
-    for m in (mask, torch.isin(torch.arange(C), torch.tensor([4, 9, 33]))):
-        (idx, val), launches = _counted("head_topk", lambda: (
-            fused_head_score_topk(dev(feats), dev(rows), dev(text), dev(m),
-                                  k)))
-        assert launches == 1
+    for m in (torch.rand(C, generator=gen) < 0.7,
+              torch.isin(torch.arange(C), torch.tensor([4, 9, 33])),
+              torch.zeros(C, dtype=torch.bool)):
+        before = dict(_lib.launch_counts)
+        idx, val = fused_head_score_topk(dev(feats), dev(rows), dev(text),
+                                         dev(m), k)
+        torch.cuda.synchronize()
+        assert {name: _lib.launch_counts[name] - before[name]
+                for name in ("head_topk[bf16]", "head_topk[fp32]")} == {
+            name: int(name == route)
+            for name in ("head_topk[bf16]", "head_topk[fp32]")}
         want_idx, want_val = head_topk_plain(
             dev(feats), dev(rows).to(dtype), dev(text).to(dtype),
             dev(m).int(), k)
@@ -1231,7 +1251,39 @@ def test_head_topk_matches_plain(cuda_device, B, h, dtype, C, C_in, D):
         torch.testing.assert_close(val, want_val, rtol=0, atol=tol)
         agree = float((idx == want_idx).float().mean())
         assert agree >= (0.999 if dtype == torch.float32 else 0.99), agree
-    assert bool((idx[:, 3:] == 0).all() and (val[:, 3:] == -1e30).all())
+        live = int(m.sum())
+        assert bool((idx[:, live:] == 0).all()
+                    and (val[:, live:] == -1e30).all())
+
+
+@pytest.mark.cuda
+def test_head_topk_route_matches_the_kernel(cuda_device):
+    """The route's width limits (``kernel_route``: TC_MAX_C_IN,
+    TC_MAX_DIMS) against the tensor-core kernel's own (``tc_head::fits``):
+    its C entry point, called on one pixel, launches at exactly the widths
+    the route gives it, C_in = 8..80 and D from 8 to 1024, and refuses the
+    others."""
+    from rangeclip_tpu_torch.ops.kernels.head_topk import kernel_route
+
+    lib = _lib.library()
+    stream = _lib.stream_of(torch.empty(0, device=cuda_device))
+    bf16 = dict(dtype=torch.bfloat16, device=cuda_device)
+    ids = torch.tensor([0, 1], dtype=torch.int32, device=cuda_device)
+    count = torch.tensor([2], dtype=torch.int32, device=cuda_device)
+    idx = torch.empty(1, 1, dtype=torch.int32, device=cuda_device)
+    val = torch.empty(1, 1, device=cuda_device)
+    for c_in in range(8, 81, 8):
+        for d in (8, 136, 504, 512, 520, 1024):
+            feats = torch.ones(1, 1, 1, c_in, **bf16)
+            wt = torch.ones(d, 9 * c_in, **bf16)
+            table = torch.ones(2, d, **bf16)
+            code = lib.rc_head_topk_tc(
+                feats.data_ptr(), wt.data_ptr(), table.data_ptr(),
+                ids.data_ptr(), count.data_ptr(), 1, 1, 1, c_in, d, 2, 1,
+                idx.data_ptr(), val.data_ptr(), stream)
+            torch.cuda.synchronize()
+            assert (code == 0) == (kernel_route(torch.bfloat16, c_in, d)
+                                   == "head_topk[bf16]"), (c_in, d, code)
 
 
 @pytest.mark.cuda
@@ -1248,7 +1300,7 @@ def test_predict_topk_fused_on_cuda_matches_cpu(cuda_device):
     text = torch.randn(30, 32, generator=gen)
     mask = torch.rand(30, generator=gen) < 0.5
     want = predict_topk_fused(model, depth, text, mask)
-    got, launches = _counted("head_topk", lambda: predict_topk_fused(
+    got, launches = _counted("head_topk[fp32]", lambda: predict_topk_fused(
         model.to(cuda_device), depth.to(cuda_device), text.to(cuda_device),
         mask.to(cuda_device)))
     assert launches == 1 and got.shape == (2, 64, 64, 5)
@@ -1272,11 +1324,13 @@ def test_eval_ops_pass_opcheck(cuda_device):
         dev(torch.randn(300, 16, generator=gen)),
         dev(torch.randint(-1, 6, (300,), generator=gen, dtype=torch.int32)),
         dev(torch.tensor([0, 2, 2, 9], dtype=torch.int32))))
-    torch.library.opcheck(head_topk_op, (
-        dev(torch.randn(2, 5, 6, 8, generator=gen)),
-        dev(torch.randn(72, 16, generator=gen)),
-        dev(l2_normalize(torch.randn(20, 16, generator=gen), dim=-1)),
-        dev(torch.ones(20, dtype=torch.int32)), 3))
+    for dtype in (torch.float32, torch.bfloat16):  # both routes
+        torch.library.opcheck(head_topk_op, (
+            dev(torch.randn(2, 5, 6, 8, generator=gen).to(dtype)),
+            dev(torch.randn(72, 16, generator=gen).to(dtype)),
+            dev(l2_normalize(torch.randn(20, 16, generator=gen),
+                             dim=-1).to(dtype)),
+            dev(torch.ones(20, dtype=torch.int32)), 3))
     x = dev(torch.randn(2, 4, 8, 16, generator=gen).bfloat16())
     torch.library.opcheck(tv_loss_op, (x.requires_grad_(), 16))
     # D = 20 as the wrapper hands it: padded to 24, the means over 20

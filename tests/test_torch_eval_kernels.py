@@ -36,6 +36,8 @@ from rangeclip_tpu_torch.models.depth_unet import (
 )
 from rangeclip_tpu_torch.ops.kernels.head_topk import (
     fused_head_score_topk,
+    head_field,
+    live_head_rows,
     weight_rows,
 )
 from rangeclip_tpu_torch.ops.kernels.masked_pooling import (
@@ -164,18 +166,45 @@ def _head_inputs(seed, B, h, C_in, D, C):
     return feats, kernel, text
 
 
-@pytest.mark.parametrize("live", [None, 3])
-def test_head_topk_plain_matches_jax_kernel(live):
-    """fp32 ids equal to the TPU kernel in interpret mode and values within
-    1e-5.  With 3 live classes at k = 5 the picks past them are id 0 at
-    -1e30 (the knockout's answer, not the -1 sentinel)."""
-    B, h, C_in, D, C, k = 2, 6, 8, 16, 20, 5
-    feats, kernel, text = _head_inputs(4, B, h, C_in, D, C)
+def _head_mask(C, live, seed):
+    """12 random live classes (None), none (0), class 9 alone (1), [2, 11,
+    17] (3) or every class ("all")."""
     mask = np.zeros(C, bool)
     if live is None:
-        mask[np.random.default_rng(5).choice(C, 12, replace=False)] = True
+        mask[np.random.default_rng(seed).choice(C, 12, replace=False)] = True
+    elif live == "all":
+        mask[:] = True
     else:
-        mask[[2, 11, 17]] = True
+        mask[[9] if live == 1 else [2, 11, 17][:live]] = True
+    return mask
+
+
+def _select_live(scores, ids, count, top_k):
+    """The tensor-core kernel's selection in plain PyTorch: top-k of f32
+    ``scores`` [N, C] against a gathered table (``live_head_rows``), where
+    only its first ``count`` columns can win (the knockout, ties to the
+    smaller column, which is the smaller id), the columns mapped to
+    ``ids``, and picks past the live columns (id 0, -1e30)."""
+    from rangeclip_tpu_torch.ops.kernels.head_topk import knockout_topk
+
+    cols = torch.arange(scores.shape[1])
+    col, val = knockout_topk(
+        torch.where(cols < count, scores, scores.new_tensor(-1e30)), top_k)
+    empty = torch.arange(top_k) >= count
+    return torch.where(empty, 0, ids[col.long()]).to(torch.int32), val
+
+
+@pytest.mark.parametrize("live", [None, 3, 0, 1, "all"])
+def test_head_topk_plain_matches_jax_kernel(live):
+    """fp32 ids equal to the TPU kernel in interpret mode and values within
+    1e-5.  With 3, 1 or no live classes at k = 5 the picks past them are id
+    0 at -1e30 (the knockout's answer, not the -1 sentinel).  The selection
+    the tensor-core kernel makes, over the live rows gathered first
+    (``live_head_rows``) with the columns mapped back through their ids,
+    gives the same ids and values."""
+    B, h, C_in, D, C, k = 2, 6, 8, 16, 20, 5
+    feats, kernel, text = _head_inputs(4, B, h, C_in, D, C)
+    mask = _head_mask(C, live, 5)
     idx, val = jax_head_topk(jnp.asarray(feats), jnp.asarray(kernel),
                              jnp.asarray(text), jnp.asarray(mask), top_k=k,
                              interpret=True)
@@ -186,10 +215,89 @@ def test_head_topk_plain_matches_jax_kernel(live):
     np.testing.assert_array_equal(got_idx.numpy(), np.asarray(idx))
     np.testing.assert_allclose(got_val.numpy(), np.asarray(val), rtol=1e-5,
                                atol=1e-5)
-    if live is not None:
-        assert (got_idx.numpy()[:, 3:] == 0).all()
-        assert (got_val.numpy()[:, 3:] == -1e30).all()
-        assert set(np.unique(got_idx.numpy()[:, :3])) <= {2, 11, 17}
+    n_live = int(mask.sum())
+    if n_live < k:
+        assert (got_idx.numpy()[:, n_live:] == 0).all()
+        assert (got_val.numpy()[:, n_live:] == -1e30).all()
+        assert set(np.unique(got_idx.numpy()[:, :n_live])) <= set(
+            np.flatnonzero(mask))
+    f = head_field(t(feats), rows)
+    emb = f / torch.sqrt(f.square().sum(dim=1, keepdim=True).clamp_min(1e-24))
+    table, ids, count = live_head_rows(t(text), t(mask).int())
+    sel_idx, sel_val = _select_live(emb @ table.T, ids, count, k)
+    np.testing.assert_array_equal(sel_idx.numpy(), np.asarray(idx))
+    np.testing.assert_allclose(sel_val.numpy(), np.asarray(val), rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(sel_idx, got_idx)
+
+
+def _syncing_ops(fn):
+    """The ATen operators ``fn`` dispatches that read a tensor's value on
+    the host (``.item()``, ``bool()``, shapes that depend on the data),
+    recorded below autograd on CPU tensors."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    syncing = {"_local_scalar_dense", "nonzero", "masked_select", "unique",
+               "_unique", "_unique2", "unique_consecutive", "unique_dim",
+               "repeat_interleave", "item", "equal", "is_nonzero"}
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func._schema.name.split("::")[-1]
+            if name == "index" and any(  # a boolean mask: its nonzero
+                    isinstance(i, torch.Tensor) and i.dtype == torch.bool
+                    for i in (args[1] if len(args) > 1 else ())):
+                name = "nonzero"
+            self.names.add(name)
+            return func(*args, **(kwargs or {}))
+
+    with Record() as record:
+        out = fn()
+    return out, record.names & syncing, record.names
+
+
+@pytest.mark.parametrize("live", [None, 0, 1, "all"])
+def test_live_head_rows_gathers_on_the_device(live):
+    """The tensor-core route's gather: the live rows first in ascending id
+    order, then the masked ones in theirs; each row's id; the live count as
+    a one-element tensor; and no operator that reads a value on the host
+    (the count stays on the device, as the kernel reads it)."""
+    C, D = 20, 16
+    table = t(np.random.default_rng(8).standard_normal((C, D)).astype(
+        np.float32)).to(torch.bfloat16)
+    mask = _head_mask(C, live, 9)
+    (gathered, ids, count), synced, seen = _syncing_ops(
+        lambda: live_head_rows(table, t(mask).int()))
+    assert not synced, synced
+    assert {"cumsum", "index_copy_"} <= seen, seen
+    # the recorder sees what a host sync dispatches
+    for sync in (lambda: bool(table.sum() > 0), lambda: table.nonzero(),
+                 lambda: table[table > 0]):
+        assert _syncing_ops(sync)[1]
+    order = np.concatenate([np.flatnonzero(mask), np.flatnonzero(~mask)])
+    assert ids.dtype == torch.int32 and count.dtype == torch.int32
+    np.testing.assert_array_equal(ids.numpy(), order)
+    assert count.shape == (1,) and int(count) == int(mask.sum())
+    assert gathered.dtype == torch.bfloat16
+    assert torch.equal(gathered, table[torch.from_numpy(order)])
+
+
+@pytest.mark.parametrize("dtype,c_in,dims,route", [
+    (torch.bfloat16, 64, 512, "bf16"), (torch.bfloat16, 8, 8, "bf16"),
+    (torch.bfloat16, 61, 505, "bf16"), (torch.bfloat16, 65, 512, "fp32"),
+    (torch.bfloat16, 64, 513, "fp32"), (torch.bfloat16, 32, 768, "fp32"),
+    (torch.float32, 32, 512, "fp32"), (torch.float32, 8, 8, "fp32")])
+def test_head_topk_route_at_the_limits(dtype, c_in, dims, route):
+    """bf16 features take the tensor-core kernel while C_in and D, zero-
+    padded to multiples of 8, are within 64 and 512; f32 features and wider
+    bf16 ones take the CUDA-core kernel."""
+    from rangeclip_tpu_torch.ops.kernels.head_topk import kernel_route
+
+    assert kernel_route(dtype, c_in, dims) == f"head_topk[{route}]"
 
 
 @pytest.mark.parametrize("live", [None, 3])
