@@ -14,8 +14,9 @@ Phases (any failure raises; nothing is caught):
    pixel_text_ce and head_topk's bf16 path) and with the redesigned
    CUDA-core ones
    (pixel_text_topk's fp32 path, pixel_text_ce's member-only forward and
-   backward, the live_rows gather, tv_rowtile); require that the fp32
-   kernel's SASS holds no tensor-core instruction.
+   backward, the live_rows gather, tv_rowtile, head_topk's CUDA-core
+   route, masked_pooling); require that the fp32 kernel's SASS holds no
+   tensor-core instruction.
 2. Hold each kernel against its plain PyTorch version at the shapes the
    main paths give it, and time both and, where one PyTorch call computes
    the same function, that call; each row's bound is the larger of its
@@ -37,11 +38,16 @@ Phases (any failure raises; nothing is caught):
    torch.profiler, as its kernels alone, which must be its only device
    events.
    masked_pooling and tv_loss run on a bf16 field of the flagship train
-   native shape [32, 128, 128, 512]; head_topk's tensor-core route at the
-   bench configuration (its product stage alone: cuDNN's F.conv2d to D =
-   512 and cuBLAS over the live classes), its CUDA-core route on the fp32
-   serve model's features at the serve shape (batch 8, C = 512 all live,
-   top-1).
+   native shape [32, 128, 128, 512]; masked_pooling under uniform labels
+   (its row), then under spatially coherent labels (8 Voronoi regions an
+   image, all 256 ids present) and uniform labels over all 256 ids (every
+   id in every chunk: its workspace's worst case), each exact in its
+   counts, within 1e-5 of the summed magnitudes and bit-equal run to run.
+   head_topk's tensor-core route at the bench configuration, its CUDA-core
+   route on the fp32 serve model's features at the serve shape (batch 8,
+   C = 512 all live, top-1; then the bench candidate mask, 340 live, top-5),
+   each with its product stage alone (cuDNN's F.conv2d to D = 512 and
+   cuBLAS over the live classes; TF32 off in f32).
    class_presence runs at the bench shape and at the main paths' label
    counts (2,097,152, 1,048,576, 524,288), with a validity vector and
    without (the labels-only route), and histogram at the flagship shape;
@@ -1437,6 +1443,22 @@ def pool_objects(device) -> torch.Tensor:
                       torch.tensor([3], device=device)]).to(torch.int32)
 
 
+def region_labels(batch: int, h: int, per_image: int, gen, device
+                  ) -> torch.Tensor:
+    """[batch * h * h] int32 labels, spatially coherent: each image's h x h
+    pixels split into ``per_image`` Voronoi regions about distinct seed
+    pixels (so none is empty), image b's regions numbered b * per_image +
+    0 .. per_image - 1."""
+    seeds = torch.stack([torch.randperm(h * h, device=device, generator=gen)
+                         [:per_image] for _ in range(batch)])
+    pix = torch.arange(h * h, device=device)
+    dy = pix[None, :, None] // h - seeds[:, None, :] // h
+    dx = pix[None, :, None] % h - seeds[:, None, :] % h
+    region = (dy * dy + dx * dx).argmin(dim=-1)  # [batch, h * h]
+    base = torch.arange(batch, device=device)[:, None] * per_image
+    return (region + base).reshape(-1).to(torch.int32)
+
+
 def phase_eval_kernels(device, bench_model, serve_model, depths, text, seg,
                        stats):
     """masked_pooling and tv_loss on a bf16 field of the flagship train
@@ -1477,15 +1499,23 @@ def phase_eval_kernels(device, bench_model, serve_model, depths, text, seg,
                            generator=gen, dtype=torch.int32)
     labels[::101] = -1
     obj = pool_objects(device)
-    sums, counts = fused_masked_pooling(emb, labels, obj)
-    again = fused_masked_pooling(emb, labels, obj)[0]
-    want, want_counts = masked_pooling_plain(emb, labels, obj)
-    scale = masked_pooling_plain(emb.abs(), labels, obj)[0]
-    torch.cuda.synchronize()
-    require(torch.equal(counts, want_counts), "masked_pooling counts differ")
-    require(bool(((sums - want).abs() <= 1e-5 * scale + 1e-6).all()),
-            "masked_pooling sums beyond 1e-5 of the summed magnitudes")
-    require(torch.equal(sums, again), "masked_pooling is not deterministic")
+
+    def pool_check(name, labels, obj):
+        sums, counts = fused_masked_pooling(emb, labels, obj)
+        again = fused_masked_pooling(emb, labels, obj)[0]
+        want, want_counts = masked_pooling_plain(emb, labels, obj)
+        scale = masked_pooling_plain(emb.abs(), labels, obj)[0]
+        torch.cuda.synchronize()
+        require(torch.equal(counts, want_counts),
+                f"masked_pooling ({name}) counts differ")
+        require(bool(((sums - want).abs() <= 1e-5 * scale + 1e-6).all()),
+                f"masked_pooling ({name}) sums beyond 1e-5 of the summed "
+                f"magnitudes")
+        require(torch.equal(sums, again),
+                f"masked_pooling ({name}) is not deterministic")
+        return sums, counts, want
+
+    sums, counts, want = pool_check("uniform, 40 labels", labels, obj)
     ms, plain_ms = time_pair(lambda: fused_masked_pooling(emb, labels, obj),
                              lambda: masked_pooling_plain(emb, labels, obj),
                              20, 3)
@@ -1503,13 +1533,38 @@ def phase_eval_kernels(device, bench_model, serve_model, depths, text, seg,
         f"{max_abs_err(sums, want):.3g}), deterministic; kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, index_add_ (f32 copy, unique ids) "
         f"{library_ms:.4f} ms")
+    pool_bytes = (emb.numel() * 2 + labels.numel() * 4 + obj.numel() * 4
+                  + POOL_OBJECTS * (D + 1) * 4)
     stats["masked_pooling"] = dict(
         max_abs_err=max_abs_err(sums, want), ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms,
-        **bound(emb.numel() * 2 + labels.numel() * 4 + obj.numel() * 4
-                + POOL_OBJECTS * (D + 1) * 4, emb.numel(), "f32"),
+        library_ms=library_ms, **bound(pool_bytes, emb.numel(), "f32"),
         **device_fields(lambda: fused_masked_pooling(emb, labels, obj)))
-    del emb32, rowmap, scale
+    del emb32, rowmap
+
+    # the same field under spatially coherent labels (each image's 128^2
+    # in 8 Voronoi regions about distinct seed pixels, image b's ids 8 b ..
+    # 8 b + 7: all 256 present, a few in each chunk) and under the worst
+    # case for the workspace (uniform over the 256 ids: every id in every
+    # chunk)
+    every_id = torch.arange(POOL_OBJECTS, dtype=torch.int32, device=device)
+    pool_gen = torch.Generator(device=device).manual_seed(SEED + 16)
+    for name, case_labels in (
+            ("regions", region_labels(B, h, POOL_OBJECTS // B, pool_gen,
+                                      device)),
+            ("uniform, 256 labels",
+             torch.randint(0, POOL_OBJECTS, (emb.shape[0],), device=device,
+                           generator=pool_gen, dtype=torch.int32))):
+        sums, counts, want = pool_check(name, case_labels, every_id)
+        require(bool((counts > 0).all()),
+                f"masked_pooling ({name}): an id is absent")
+        case_ms = cuda_ms(
+            lambda: fused_masked_pooling(emb, case_labels, every_id), 20)
+        log(f"  masked_pooling [{emb.shape[0]}, {D}] bf16, {name}: "
+            f"{int((counts > 0).sum())} ids present, counts exact, sums "
+            f"within 1e-5 of the summed magnitudes (max |diff| "
+            f"{max_abs_err(sums, want):.3g}), deterministic; kernel "
+            f"{case_ms:.4f} ms (bound "
+            f"{bound(pool_bytes, 0, 'f32')['bound_ms']:.4f} ms)")
 
     # tv_loss: ties from the quarter grid (sign(0) = 0); the forward within
     # rtol 1e-5 (f32 summation order), the backward bit-equal
@@ -1623,10 +1678,21 @@ def phase_eval_kernels(device, bench_model, serve_model, depths, text, seg,
         lambda: fused_head_score_topk(feats, rows, table, every, 1),
         lambda: head_topk_plain(feats, rows, table, every.int(), 1), 10, 3)
     n_pix, c_in = feats.shape[0] * h * h, feats.shape[-1]
+    # the product stage alone, a yardstick: cuDNN's f32 conv to D = 512,
+    # then cuBLAS over the live classes (TF32 off for both)
+    conv = torch.nn.functional.conv2d
+    conv_w = serve_model.decoder.output_conv.conv.weight.detach()
+    x_nchw = feats.permute(0, 3, 1, 2)
+    conv_ms = cuda_ms(lambda: conv(x_nchw, conv_w, padding=1), 10)
+    emb = conv(x_nchw, conv_w, padding=1).permute(0, 2, 3, 1).reshape(-1, D)
+    mm_ms = cuda_ms(lambda: emb @ table.T, 10)
+    PRODUCT_ONLY_MS["head_topk[fp32]"] = conv_ms + mm_ms
     log(f"  head_topk B={feats.shape[0]} h=w={h} C_in={c_in} D={D} "
         f"C={NUM_CLASSES} (all live) k=1 fp32: values within {err:.3g} of "
         f"plain where the ids agree; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms")
+        f"{plain_ms:.4f} ms; product only {conv_ms + mm_ms:.4f} ms (cuDNN "
+        f"conv {conv_ms:.4f}, cuBLAS over the {NUM_CLASSES} classes "
+        f"{mm_ms:.4f})")
     stats["head_topk[fp32]"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
         **bound(feats.numel() * 4 + rows.numel() * 4 + table.numel() * 4
@@ -1634,6 +1700,35 @@ def phase_eval_kernels(device, bench_model, serve_model, depths, text, seg,
                 2.0 * n_pix * (9 * c_in * D + D * NUM_CLASSES), "f32"),
         **device_fields(lambda: fused_head_score_topk(feats, rows, table,
                                                       every, 1)))
+
+    # the same features under the bench candidate mask (340 live), top-5:
+    # scoring over the live classes only
+    mask = bench_mask(seg)
+    live = int(mask.sum())
+    got = fused_head_score_topk(feats, rows, table, mask, BENCH_TOP_K)
+    want = head_topk_plain(feats, rows, table, mask.int(), BENCH_TOP_K)
+    near_tie_check(f"head_topk fp32 serve shape, {live} live, "
+                   f"k={BENCH_TOP_K} vs plain", got, want,
+                   head_field(feats, rows), table)
+    same = got[0] == want[0]
+    err = max_abs_err(got[1][same], want[1][same])
+    require(err <= 1e-5, f"head_topk fp32 ({live} live) values beyond 1e-5 "
+                         f"of the plain version where the ids agree ({err})")
+    masked_ms = cuda_ms(
+        lambda: fused_head_score_topk(feats, rows, table, mask, BENCH_TOP_K),
+        10)
+    live_table = table[mask]
+    masked_mm_ms = cuda_ms(lambda: emb @ live_table.T, 10)
+    masked_bound = bound(
+        feats.numel() * 4 + rows.numel() * 4 + table.numel() * 4
+        + n_pix * BENCH_TOP_K * 8,
+        2.0 * n_pix * (9 * c_in * D + D * live), "f32")
+    log(f"  head_topk fp32 serve shape, {live} live, k={BENCH_TOP_K}: "
+        f"values within {err:.3g} of plain where the ids agree; kernel "
+        f"{masked_ms:.4f} ms (bound {masked_bound['bound_ms']:.4f} ms); "
+        f"product only {conv_ms + masked_mm_ms:.4f} ms (cuBLAS over "
+        f"the {live} live {masked_mm_ms:.4f})")
+    del emb, x_nchw, live_table
     del feats, got, want, same
     torch.cuda.empty_cache()
 

@@ -544,16 +544,17 @@ __device__ __forceinline__ int score_tiles(const Ring& ring, uint32_t a,
 }
 
 // The (x, y) of pixels p0 .. p0 + rows (flattened (b, y, x) order, npix
-// of them) into `coords`, y = -h past the last pixel (every tap then
-// falls outside the image), by `nthreads` threads, `thread` being the
-// caller's index among them.  The caller synchronises before im2col reads
-// them.
+// of them) into `coords`, y = -2 past the last pixel (every tap, dy <= 1,
+// then falls outside the image; y = -h let the dy = +1 taps of an image
+// of height 1 read pixels past the end of the features), by `nthreads`
+// threads, `thread` being the caller's index among them.  The caller
+// synchronises before im2col reads them.
 __device__ __forceinline__ void pixel_coords(int2* coords, int p0, int rows,
                                              int npix, int h, int w,
                                              int nthreads, int thread) {
   for (int r = thread; r < rows; r += nthreads) {
     const int p = p0 + r;
-    coords[r] = p < npix ? make_int2(p % w, (p / w) % h) : make_int2(0, -h);
+    coords[r] = p < npix ? make_int2(p % w, (p / w) % h) : make_int2(0, -2);
   }
 }
 
@@ -819,8 +820,11 @@ struct KeyTopK {
 
 // ---------------------------------------------------------------------------
 // CUDA-core f32 scoring of normalised pixel rows against a dim-major table
-// (pixel_text_topk.cu's fp32 kernel and pixel_text_ce.cu's member-only
-// forward; they differ only in their epilogues).
+// (pixel_text_topk.cu's fp32 kernel, pixel_text_ce.cu's member-only
+// forward, head_topk.cu's CUDA-core scoring; they differ only in their
+// epilogues), and the same loop as a plain f32 product (pixel_text_ce.cu's
+// member-only backward, head_topk.cu's conv, whose A rows are the im2col
+// rows of the features: Im2colSource).
 //
 // A block of 256 threads (two per SM) owns 128 pixel rows of an [n, d]
 // field (f32, or bf16 widened) and walks the first c columns of a [d, ldt]
@@ -846,7 +850,11 @@ struct KeyTopK {
 // over the rows gives rs (warp-reduced, overlapping the first copies), and
 // each landed chunk is rounded to bf16(x * rs) and widened before its
 // product.  After each class tile's last chunk the epilogue gets the sums
-// (f32: unscaled) and the row scales.
+// (f32: unscaled) and the row scales.  The general loop (tiles) also takes
+// a rounding type R apart from the field's T (an f32 field rounded to
+// bf16(x * rs) before the product: head_topk.cu's bf16 features), and
+// kNormalise = false for a plain product (no scales; a bf16 field widened
+// exactly).
 // ---------------------------------------------------------------------------
 namespace simt {
 
@@ -857,12 +865,13 @@ constexpr int kChunk = 32;   // dims per ring stage: an f32 row of 128 bytes
 constexpr int kStages = 3;   // ring depth: two steps in flight
 
 // Dynamic shared memory of the loop: the ring (each stage a pixel chunk
-// [kRows, kChunk] in the field's dtype, f32 rows swizzled, then a table
-// chunk [kChunk, kCols] f32), for bf16 the chunk rounded and widened to f32
-// (swizzled), and the row scales.  A kernel's own region starts at kEnd.
-template <typename T>
+// [kRows, kChunk] in the field's dtype T, f32 rows swizzled, then a table
+// chunk [kChunk, kCols] f32), for a bf16 field or rounding type R the chunk
+// rounded and widened to f32 (swizzled), and the row scales.  A kernel's
+// own region starts at kEnd.
+template <typename T, typename R = T>
 struct Layout {
-  static constexpr bool kRoundFirst = sizeof(T) == 2;
+  static constexpr bool kRoundFirst = sizeof(T) == 2 || sizeof(R) == 2;
   static constexpr int kRowBytes = kChunk * (int)sizeof(T);
   static constexpr int kABytes = kRows * kRowBytes;
   static constexpr int kStageBytes = kABytes + kChunk * kCols * 4;
@@ -965,9 +974,10 @@ __device__ __forceinline__ double chunk_sumsq(const float* __restrict__ a,
   return s;
 }
 
-// bf16: thread t rounds x * rs of its half of row t / 2 to bf16 (the TPU
-// kernels' rounding point) and writes it widened to the f32 chunk.
-template <typename T>
+// Thread t rounds x * rs of its half of row t / 2 to R (bf16: the TPU
+// kernels' rounding point; f32 with rs = 1: a bf16 value widened exactly)
+// and writes it widened to the f32 chunk.
+template <typename T, typename R>
 __device__ __forceinline__ void round_chunk(const T* __restrict__ raw,
                                             float* __restrict__ wide,
                                             const float* __restrict__ rs,
@@ -983,7 +993,7 @@ __device__ __forceinline__ void round_chunk(const T* __restrict__ raw,
     float o[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e)
-      o[e] = to_float(round_to(to_float(v[e]) * scale, T()));
+      o[e] = to_float(round_to(to_float(v[e]) * scale, R()));
     *reinterpret_cast<float4*>(w + swz(r, dim / 4)) =
         make_float4(o[0], o[1], o[2], o[3]);
     *reinterpret_cast<float4*>(w + swz(r, dim / 4 + 1)) =
@@ -991,25 +1001,115 @@ __device__ __forceinline__ void round_chunk(const T* __restrict__ raw,
   }
 }
 
-// The block's loop: rows base .. base + kRows of `field` [n, d] (row
-// stride ldf, 16-byte aligned rows) against columns [0, c) of `table_t`
-// [d, ldt] f32 (ldt % 4 == 0), class tile by class tile.  After a tile's
-// last chunk, epilogue(acc, rs, tile) gets the thread's 8 x 8 sums (rows
-// row0 + 4 i, columns tile * kCols + col0 + col_of(j, wx); columns >= c
-// hold no meaning) and the row scales in shared memory; the sums are
-// zeroed after.  No tile runs when c == 0.  Past d the table is
-// zero-filled, the field only in whole 16-byte pieces: a field row's piece
-// that straddles d (d not a multiple of 4 f32 or 8 bf16 values) is read
-// whole, so its values past d must be finite (they meet zeros).
-template <typename T, typename Epilogue>
-__device__ __forceinline__ void score_tiles(unsigned char* smem,
-                                            const T* __restrict__ field,
-                                            long long ldf, long long base,
-                                            const float* __restrict__ table_t,
-                                            int ldt, int c, long long n,
-                                            int d, const Roles& roles,
-                                            Epilogue&& epilogue) {
-  using L = Layout<T>;
+// Where the loop's A rows come from.  A source gives each thread a cursor
+// over its pieces of a step: rows row, row + step, ... (kIters of them,
+// those >= n zero-filled), dims dim0 + a_dim .. + 16 bytes of the step's
+// chunk.  step(dim0) sets up a step, piece(i, ok) gives the source of the
+// i-th piece and whether it holds data (else the piece is zero-filled).
+
+// Rows of a field [n, d] with row stride ldf.
+template <typename T>
+struct RowSource {
+  const T* field;
+  long long ldf;
+
+  __device__ __forceinline__ const T* base() const { return field; }
+  __device__ __forceinline__ const T* row(long long r) const {
+    return field + r * ldf;
+  }
+
+  template <int kIters>
+  struct Cursor {
+    const T* src;
+    long long stride;
+    unsigned ok_rows = 0;
+    int dim0 = 0;
+
+    __device__ __forceinline__ Cursor(const RowSource& s, long long row,
+                                      int step, long long n, int a_dim)
+        : src(s.field + row * s.ldf + a_dim), stride(step * s.ldf) {
+#pragma unroll
+      for (int i = 0; i < kIters; ++i)
+        if (row + (long long)i * step < n) ok_rows |= 1u << i;
+    }
+    __device__ __forceinline__ void step(int d0) { dim0 = d0; }
+    __device__ __forceinline__ const T* piece(int i, bool& ok) const {
+      ok = (ok_rows >> i) & 1u;
+      return src + i * stride + dim0;
+    }
+  };
+};
+
+// The im2col rows of a 3x3 SAME conv over features [batch, h, w, c_in]
+// (pixels in (b, y, x) order): row p, dim k = tap * c_in + channel with
+// tap = 3 * (dy + 1) + (dx + 1), is the channel of the neighbour (y + dy,
+// x + dx), zero outside the image.  A 16-byte piece never straddles two
+// taps (c_in % 8 == 0).  h, w < 32768.
+template <typename T>
+struct Im2colSource {
+  const T* feats;
+  int h, w, c_in;
+
+  __device__ __forceinline__ const T* base() const { return feats; }
+
+  template <int kIters>
+  struct Cursor {
+    const T* src;       // the thread's first pixel's own channels
+    long long stride;   // between its pixels
+    int yx[kIters];     // each pixel's y << 16 | x; y = -8 past n
+    int h, w, c_in, a_dim;
+    int dy = 0, dx = 0;
+    long long off = 0;  // the neighbour's channels from the pixel's
+
+    __device__ __forceinline__ Cursor(const Im2colSource& s, long long row,
+                                      int step, long long n, int a_dim_)
+        : src(s.feats + row * s.c_in),
+          stride((long long)step * s.c_in),
+          h(s.h), w(s.w), c_in(s.c_in), a_dim(a_dim_) {
+#pragma unroll
+      for (int i = 0; i < kIters; ++i) {
+        const long long p = row + (long long)i * step;
+        yx[i] = p < n ? (int)((p / w) % h) * 65536 + (int)(p % w)
+                     : -8 * 65536;
+      }
+    }
+    __device__ __forceinline__ void step(int dim0) {
+      const int k = dim0 + a_dim;
+      const int tap = k / c_in;
+      dy = tap / 3 - 1;
+      dx = tap % 3 - 1;
+      off = (long long)(dy * w + dx) * c_in + (k - tap * c_in);
+    }
+    __device__ __forceinline__ const T* piece(int i, bool& ok) const {
+      const int y = (yx[i] >> 16) + dy;
+      const int x = (yx[i] & 0xFFFF) + dx;
+      ok = (unsigned)y < (unsigned)h && (unsigned)x < (unsigned)w;
+      return src + i * stride + off;
+    }
+  };
+};
+
+// The block's loop: rows base .. base + kRows of the source's [n, d] rows
+// against columns [0, c) of `table_t` [d, ldt] f32 (ldt % 4 == 0), class
+// tile by class tile.  After a tile's last chunk, epilogue(acc, rs, tile)
+// gets the thread's 8 x 8 sums (rows row0 + 4 i, columns tile * kCols +
+// col0 + col_of(j, wx); columns >= c hold no meaning) and the row scales in
+// shared memory (kNormalise; else none); the sums are zeroed after.  No
+// tile runs when c == 0.  Past d the table is zero-filled, the rows only in
+// whole 16-byte pieces: a row's piece that straddles d (d not a multiple
+// of 4 f32 or 8 bf16 values) is read whole, so its values past d must be
+// finite (they meet zeros).  R: the rounding type of x * rs before the
+// product (a bf16 field or R; f32 moves the scale past the sum); with
+// kNormalise false the rows enter as they are (bf16 widened exactly).
+template <typename T, typename R, bool kNormalise, typename Src,
+          typename Epilogue>
+__device__ __forceinline__ void tiles(unsigned char* smem, const Src& src,
+                                      long long base,
+                                      const float* __restrict__ table_t,
+                                      int ldt, int c, long long n, int d,
+                                      const Roles& roles,
+                                      Epilogue&& epilogue) {
+  using L = Layout<T, R>;
   float* rs = reinterpret_cast<float*>(smem + L::kScaleOffset);
   float* wide = reinterpret_cast<float*>(smem + L::kWideOffset);
   const int tid = threadIdx.x;
@@ -1028,11 +1128,8 @@ __device__ __forceinline__ void score_tiles(unsigned char* smem,
   constexpr int kAIters = kRows / kRowStep;
   const int a_row = tid / kRowPieces;
   const int a_dim = (tid % kRowPieces) * kPer;
-  const T* a_src = field + (base + a_row) * ldf + a_dim;
-  unsigned a_ok = 0;
-#pragma unroll
-  for (int i = 0; i < kAIters; ++i)
-    if (base + a_row + i * kRowStep < n) a_ok |= 1u << i;
+  typename Src::template Cursor<kAIters> a_src(src, base + a_row, kRowStep,
+                                               n, a_dim);
   // f32 rows are swizzled (swz); a thread's rows are 32 apart, the same % 8
   const uint32_t a_dst =
       tc::smem_addr(smem) +
@@ -1047,13 +1144,14 @@ __device__ __forceinline__ void score_tiles(unsigned char* smem,
     if (s < steps) {
       const uint32_t stage = (s % kStages) * L::kStageBytes;
       const bool dim_ok = next_dim0 + a_dim < d;
+      a_src.step(next_dim0);
 #pragma unroll
       for (int i = 0; i < kAIters; ++i) {
-        const bool ok = dim_ok && ((a_ok >> i) & 1u);
-        tc::cp_async16(
-            a_dst + stage + i * kRowStep * L::kRowBytes,
-            ok ? a_src + (long long)i * kRowStep * ldf + next_dim0 : field,
-            ok);
+        bool ok;
+        const T* p = a_src.piece(i, ok);
+        ok = ok && dim_ok;
+        tc::cp_async16(a_dst + stage + i * kRowStep * L::kRowBytes,
+                       ok ? p : src.base(), ok);
       }
       const bool col_ok = next_tile * kCols + b_col < c;
       const float* b = b_src + (long long)next_dim0 * ldt + next_tile * kCols;
@@ -1074,26 +1172,31 @@ __device__ __forceinline__ void score_tiles(unsigned char* smem,
   for (int s = 0; s < kStages - 1; ++s) copy_step(s);
 
   if constexpr (L::kRoundFirst) {
-    // bf16 rounds x * rs before the product, so the scales come first: a
-    // pass over the rows (f64 sums, warp-reduced), overlapping the copies.
     constexpr int kRowsPerWarp = kRows / (kThreads / 32);
-    for (int r = warp * kRowsPerWarp; r < (warp + 1) * kRowsPerWarp; ++r) {
-      double sq = 0.0;
-      if (base + r < n) {
-        for (int g = lane * 8; g < d; g += 256) {
-          T v[8];
-          load8(field + (base + r) * ldf + g, v);
+    if constexpr (kNormalise) {
+      // the rounding point bf16(x * rs) needs the scales first: a pass over
+      // the rows (f64 sums, warp-reduced), overlapping the copies
+      for (int r = warp * kRowsPerWarp; r < (warp + 1) * kRowsPerWarp; ++r) {
+        double sq = 0.0;
+        if (base + r < n) {
+          const T* row = src.row(base + r);
+          for (int g = lane * 8; g < d; g += 256) {
+            T v[8];
+            load8(row + g, v);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const double x = to_float(v[e]);
-            sq = fma(x, x, sq);
+            for (int e = 0; e < 8; ++e) {
+              const double x = to_float(v[e]);
+              sq = fma(x, x, sq);
+            }
           }
         }
-      }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sq += __shfl_xor_sync(0xffffffffu, sq, off);
-      if (lane == 0) rs[r] = (float)(1.0 / sqrt(fmax(sq, 1e-24)));
+        for (int off = 16; off > 0; off >>= 1)
+          sq += __shfl_xor_sync(0xffffffffu, sq, off);
+        if (lane == 0) rs[r] = (float)(1.0 / sqrt(fmax(sq, 1e-24)));
+      }
+    } else {
+      if (tid < kRows) rs[tid] = 1.f;  // widened as they are
     }
   }
 
@@ -1111,18 +1214,18 @@ __device__ __forceinline__ void score_tiles(unsigned char* smem,
     const unsigned char* stage = smem + (s % kStages) * L::kStageBytes;
     const float* a;
     if constexpr (L::kRoundFirst) {
-      round_chunk(reinterpret_cast<const T*>(stage), wide, rs, tid);
+      round_chunk<T, R>(reinterpret_cast<const T*>(stage), wide, rs, tid);
       __syncthreads();
       a = wide;
     } else {
       a = reinterpret_cast<const float*>(stage);
-      if (tile == 0) sq += chunk_sumsq(a, tid);
+      if (kNormalise && tile == 0) sq += chunk_sumsq(a, tid);
     }
     const float* b = reinterpret_cast<const float*>(stage + L::kABytes);
     if (tile * kCols + roles.col0 < c)  // the half holds live classes
       product(a, b, acc, roles);
     if (++chunk == chunks) {
-      if constexpr (!L::kRoundFirst) {
+      if constexpr (!L::kRoundFirst && kNormalise) {
         if (tile == 0) {  // rs[r] = 1/sqrt(max(sum x^2, 1e-24))
           sq += __shfl_xor_sync(0xffffffffu, sq, 1);
           if ((tid & 1) == 0)
@@ -1140,6 +1243,175 @@ __device__ __forceinline__ void score_tiles(unsigned char* smem,
     }
   }
 }
+
+// The loop over the rows of a field [n, d] (row stride ldf, 16-byte
+// aligned rows), normalised: f32 scaled past the sum, bf16 rounded to
+// bf16(x * rs) before the product.
+template <typename T, typename Epilogue>
+__device__ __forceinline__ void score_tiles(unsigned char* smem,
+                                            const T* __restrict__ field,
+                                            long long ldf, long long base,
+                                            const float* __restrict__ table_t,
+                                            int ldt, int c, long long n,
+                                            int d, const Roles& roles,
+                                            Epilogue&& epilogue) {
+  tiles<T, T, true>(smem, RowSource<T>{field, ldf}, base, table_t, ldt, c, n,
+                    d, roles, epilogue);
+}
+
+// ---- Register top-k selection of the CUDA-core scoring kernels
+// (pixel_text_topk.cu's fp32 kernel, head_topk.cu's CUDA-core route) ------
+
+constexpr int kMaxK = 8;
+constexpr int kSelRows = 4;  // rows a selection round takes at once
+
+// Dynamic shared memory of a block: the loop's (Layout), then two top-k
+// lists (value, table column) per row, one per class half.  115,200 bytes
+// for an f32 field: two blocks per SM.
+template <typename T, typename R = T>
+struct Lists {
+  static constexpr int kOffset = Layout<T, R>::kEnd;
+  static constexpr int kBytes = kOffset + 2 * kRows * kMaxK * 8;
+};
+
+// Merge one class tile's sums into the lists.  The 8 lanes of a quarter
+// warp hold the same 8 rows (8 classes each, 64 in all); lane wx owns the
+// list of its quarter's row wx (shared memory) and keeps its last entry in
+// registers.  A round takes, for all 8 rows at once, each lane's best
+// untaken class and the quarter's best by three shuffles, and each owner
+// inserts its row's best if it ranks above its last entry; the rounds stop
+// when no row of the warp has one to insert (at most K rounds).
+template <int K, bool kScale>
+__device__ __forceinline__ void select_tile(
+    float (&acc)[8][8], const float* __restrict__ rs, int c0,
+    int c, float* __restrict__ lv, int* __restrict__ lc, float& thr_v,
+    int& thr_c, const Roles& r) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float scale = kScale ? rs[r.row0 + 4 * i] : 1.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = c0 + r.col0 + col_of(j, r.wx);
+      acc[i][j] = col >= c ? -CUDART_INF_F : acc[i][j] * scale;
+    }
+  }
+  const int quarter = r.lane & 24;
+#pragma unroll
+  for (int g = 0; g < 8; g += kSelRows) {  // rows g .. g + kSelRows - 1
+#pragma unroll 1
+    for (int round = 0; round < K; ++round) {
+      float gv[kSelRows];
+      int gc[kSelRows], bj[kSelRows];
+#pragma unroll
+      for (int i = 0; i < kSelRows; ++i) {  // columns ascend with j: ties
+        gv[i] = -CUDART_INF_F;            // keep the first
+        bj[i] = -1;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (acc[g + i][j] > gv[i]) {
+            gv[i] = acc[g + i][j];
+            bj[i] = j;
+          }
+        }
+        gc[i] = bj[i] < 0 ? INT_MAX : c0 + r.col0 + col_of(bj[i], r.wx);
+      }
+#pragma unroll
+      for (int off = 4; off > 0; off >>= 1) {
+#pragma unroll
+        for (int i = 0; i < kSelRows; ++i) {
+          const float ov = __shfl_xor_sync(0xffffffffu, gv[i], off);
+          const int oc = __shfl_xor_sync(0xffffffffu, gc[i], off);
+          if (better(ov, oc, gv[i], gc[i])) {
+            gv[i] = ov;
+            gc[i] = oc;
+          }
+        }
+      }
+      unsigned want = 0;
+#pragma unroll
+      for (int i = 0; i < kSelRows; ++i) {
+        const float tv = __shfl_sync(0xffffffffu, thr_v, quarter | (g + i));
+        const int tc = __shfl_sync(0xffffffffu, thr_c, quarter | (g + i));
+        if (better(gv[i], gc[i], tv, tc)) want |= 1u << i;
+      }
+      if (!__any_sync(0xffffffffu, want != 0)) break;
+      // the owner of row g + i (lane wx == g + i) inserts its row's best
+      const int mine = r.wx - g;
+      float ov = gv[0];
+      int oc = gc[0];
+#pragma unroll
+      for (int i = 1; i < kSelRows; ++i) {
+        ov = mine == i ? gv[i] : ov;
+        oc = mine == i ? gc[i] : oc;
+      }
+      if (mine >= 0 && mine < kSelRows && ((want >> mine) & 1u)) {
+        float v[K];
+        int id[K];
+#pragma unroll
+        for (int t = 0; t < K; ++t) {
+          v[t] = lv[t];
+          id[t] = lc[t];
+        }
+        insert_pair(v, id, ov, oc);
+#pragma unroll
+        for (int t = 0; t < K; ++t) {
+          lv[t] = v[t];
+          lc[t] = id[t];
+        }
+        thr_v = v[K - 1];
+        thr_c = id[K - 1];
+      }
+      if (K > 1) {  // the winning lane marks its class taken
+#pragma unroll
+        for (int i = 0; i < kSelRows; ++i) {
+          const bool won = ((want >> i) & 1u) && bj[i] >= 0 &&
+                           c0 + r.col0 + col_of(bj[i], r.wx) == gc[i];
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (won && j == bj[i]) acc[g + i][j] = -CUDART_INF_F;
+        }
+      }
+    }
+  }
+}
+
+// This lane's list in the lists region `lists` (row row0 + 4 wx of its
+// quarter, class half wn), emptied: (-inf, INT_MAX) entries.
+template <int K>
+__device__ __forceinline__ void own_list(unsigned char* lists,
+                                         const Roles& r, float*& lv,
+                                         int*& lc) {
+  float* list_v = reinterpret_cast<float*>(lists);
+  int* list_c = reinterpret_cast<int*>(list_v + 2 * kRows * kMaxK);
+  const int own_row = r.row0 + 4 * r.wx;
+  lv = list_v + (r.wn * kRows + own_row) * kMaxK;
+  lc = list_c + (r.wn * kRows + own_row) * kMaxK;
+#pragma unroll
+  for (int t = 0; t < K; ++t) {
+    lv[t] = -CUDART_INF_F;
+    lc[t] = INT_MAX;
+  }
+}
+
+// After the loop and a barrier, the owner of a row's first-half list (wn
+// == 0) merges the second half's into it: (v, col)[0..K) in `better`
+// order, table columns (INT_MAX where empty).
+template <int K>
+__device__ __forceinline__ void merged_list(const float* lv, const int* lc,
+                                            float (&v)[K], int (&col)[K]) {
+#pragma unroll
+  for (int t = 0; t < K; ++t) {
+    v[t] = lv[t];
+    col[t] = lc[t];
+  }
+#pragma unroll
+  for (int t = 0; t < K; ++t) {
+    const float ov = lv[kRows * kMaxK + t];
+    const int oc = lc[kRows * kMaxK + t];
+    if (better(ov, oc, v[K - 1], col[K - 1])) insert_pair(v, col, ov, oc);
+  }
+}
+
 
 }  // namespace simt
 

@@ -1,5 +1,5 @@
-// The whole segmentation head in one kernel: 3x3 SAME conv of the pre-head
-// features to the embedding field, per-pixel L2 normalisation, scoring
+// The whole segmentation head: 3x3 SAME conv of the pre-head features to
+// the embedding field, per-pixel L2 normalisation, scoring
 // against the normalised text table, masked top-k.
 //
 // Replaces rangeclip_tpu/ops/pallas/head_topk.py: _head_kernel, entry point
@@ -18,10 +18,10 @@
 // Bound on the card: operations.  A pixel costs 9 * C_in * D MACs of conv
 // and D for each class that can win (C_in = 32, D = 512, 340 live of C =
 // 512: 147,456 + 174,080), against 2 * C_in bytes of features read and k *
-// 8 bytes written; the [B, h, w, D] field and the [N, C] scores never touch
-// device memory.
+// 8 bytes written; the [N, C] scores never touch device memory, nor the
+// [B, h, w, D] field on the tensor-core route.
 //
-// Two kernels, chosen by the features' dtype and widths (the wrapper names
+// Two routes, chosen by the features' dtype and widths (the wrapper names
 // the route, ops/kernels/head_topk.py: kernel_route):
 //
 // bf16 with C_in <= 64 and D <= 512 (every model config of the repo):
@@ -68,373 +68,192 @@
 // holds it back: each block runs conv, normalisation, scoring and the list
 // epilogues in turn, and the epilogues leave the tensor cores idle.
 
-// f32, and bf16 beyond those widths: CUDA-core f32 FMA, head_topk_kernel.
-// The tensor cores take f32 only as TF32, which would break the fp32
-// contract; bf16 wider than the tensor-core kernel's registers and shared
-// memory hold.  A block of 256 threads owns 64 consecutive pixels.
-//   1. Conv, for each 128-dim chunk of D: a 64 x 128 register-tiled product
-//      (4 pixels x 8 dims per thread) over the 9 * C_in taps in chunks of
-//      16, both operands double-buffered in shared memory with the next
-//      chunk prefetched into registers; the im2col operand is gathered from
-//      the features (zeros outside the image) as it is staged.  The f32
-//      results go to the embedding tile emb[D][64] in shared memory (139 KB
-//      at D = 512).
-//   2. Each warp sums f^2 of 8 pixels; the tile is scaled and rounded to
-//      the features' dtype in place.
-//   3. Scores, per tile of 128 classes: the same product with emb resident
-//      and the table streamed in 16-dim chunks; the sums go to shared
-//      memory and four threads per pixel insert the live classes into
-//      register top-k lists, merged by shuffles after the last tile.
-// One block per SM (186 KB of shared memory at D = 512).  Beyond D = 656
-// the embedding tile does not fit in shared memory: it lives in a device
-// workspace, one slice per block, with the same indexing, and a grid of at
-// most one block per SM strides over the pixel tiles (28 MB at D = 768).
-// Any number of pixels and classes; C_in % 8 == 0, D % 8 == 0 (the wrapper
-// zero-pads other widths), 1 <= k <= 8.
+// f32, and bf16 beyond those widths: the CUDA cores in f32 FMA (the tensor
+// cores take f32 only as TF32, which would break the fp32 contract; bf16
+// features wider than the tensor-core kernel's registers and shared memory
+// hold).  Three launches on the port's f32 loop (common.cuh: rc::simt: 8 x
+// 8 sums a thread, 128 x 128 a block, two blocks per SM, a three-stage
+// cp.async ring with no register staging), over slabs of pixels whose f32
+// field fits the wrapper's workspace (ops/kernels/head_topk.py:
+// field_slab_rows; one slab at the serve shape):
+//   0. The live table rows: live_rows.cu's gather (rc_live_rows): the
+//      mask's rows first and ascending, transposed to [D, Cp] f32, with
+//      their ids and a device count; no host sync.
+//   1. The conv, head_conv_kernel: the loop's product of the im2col rows
+//      (common.cuh: Im2colSource: each 16-byte piece one tap's channels of
+//      a neighbour pixel, copied by cp.async and zero-filled at the SAME
+//      border; at C_in % 32 == 0 a 32-dim chunk is 128 contiguous bytes)
+//      with the weight rows [9 * C_in, D] f32, which already are the loop's
+//      dim-major table.  Its 128-dim tiles of D are the loop's class tiles.
+//      The f32 field goes to the workspace [slab, D] (268 MB at the serve
+//      shape, written and read back).
+//   2. Scores, head_score_kernel: the loop over the field's rows against
+//      the live columns only, the selection in registers (common.cuh:
+//      select_tile, as pixel_text_topk.cu's fp32 kernel).  Rounding: the
+//      scale is 1 / sqrt(max(s, 1e-24)) of the f64 sum of squares s,
+//      rounded once, in place of the TPU kernel's f32 sum; f32 features
+//      move it past the sum (rs * sum(f * t)), bf16 ones keep the TPU
+//      kernel's rounding point, bf16(f * rs) of the f32 conv before the
+//      product (one block per SM: the rounded chunk takes 16 KB more).
+//      Picks past the live classes are (id 0, -1e30).
+// A 128-pixel f32 embedding tile does not fit in shared memory (256 KB at
+// D = 512), so the field takes the workspace and both launches run the
+// loop at its own tile.  Any C >= 1 and D; C_in % 8 == 0 and D % 8 == 0
+// (the wrapper zero-pads other widths), 1 <= k <= 8, h and w < 32768.
 
 #include "common.cuh"
 
+extern "C" int rc_live_rows(const void* a, const int* a_ids,
+                            const int* a_mask, int ca, const void* b,
+                            const int* b_ids, const int* b_mask, int cb,
+                            const int* use_packed, int d, int is_bf16,
+                            float* table_t, int ldt, int* ids, int* count,
+                            void* stream);
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPix = 64;               // pixels per block
-constexpr int kCols = 128;             // dims (conv) or classes (scores) per tile
-constexpr int kChunk = 16;             // reduction depth staged per step
-constexpr int kEPitch = kPix + 4;      // emb rows [dim][pixel]
-constexpr int kBPitch = kCols + 4;     // staged operand rows [k][col]
-constexpr int kSPitch = kCols + 2;     // score rows [pixel][class]
+namespace fma_head {
 
-struct ConvBufs {
-  float a[2][kChunk][kEPitch];  // im2col taps x pixels
-  float b[2][kChunk][kBPitch];  // taps x dims
-};
-struct ScoreBufs {
-  float b[2][kChunk][kBPitch];  // dims x classes
-  float s[kPix][kSPitch];       // one class tile's sums
-};
-union Work {
-  ConvBufs conv;
-  ScoreBufs score;
-};
-constexpr size_t kFixedSmem = sizeof(Work) + kPix * sizeof(float) +
-                              kCols * sizeof(int);
+using rc::simt::Im2colSource;
+using rc::simt::kCols;
+using rc::simt::kRows;
+using rc::simt::kThreads;
+using rc::simt::Layout;
+using rc::simt::Lists;
+using rc::simt::merged_list;
+using rc::simt::own_list;
+using rc::simt::Roles;
+using rc::simt::roles_of;
+using rc::simt::RowSource;
+using rc::simt::select_tile;
+using rc::simt::tiles;
 
-// Floats of one embedding tile [dpad][kEPitch].
-__host__ __device__ size_t emb_floats(int d) {
-  return (size_t)((d + kChunk - 1) / kChunk * kChunk) * kEPitch;
+// Pixels [p0, p1) of the features [.., h, w, c_in] -> field [p1 - p0, d]
+// f32, the conv with wrows [9 * c_in, d] f32.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+    head_conv_kernel(const T* __restrict__ feats,
+                     const float* __restrict__ wrows, long long p0,
+                     long long p1, int h, int w, int c_in, int d,
+                     float* __restrict__ field) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Roles roles = roles_of(threadIdx.x);
+  const long long base = p0 + (long long)blockIdx.x * kRows;
+  tiles<T, float, false>(
+      smem, Im2colSource<T>{feats, h, w, c_in}, base, wrows, d, d, p1,
+      9 * c_in, roles, [&](float (&acc)[8][8], const float*, int tile) {
+        // columns col .. col + 3 and col + 32 .. col + 35 (col_of)
+        const int col = tile * kCols + roles.col0 + roles.wx * 4;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const long long row = base + roles.row0 + 4 * i;
+          if (row >= p1) continue;
+          float* out = field + (row - p0) * d + col;
+          if (col < d)
+            *reinterpret_cast<float4*>(out) =
+                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          if (col + 32 < d)
+            *reinterpret_cast<float4*>(out + 32) =
+                make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+        }
+      });
 }
 
-size_t smem_bytes(int d) { return kFixedSmem + emb_floats(d) * sizeof(float); }
+// Rows [0, rows) of the field [rows, d] f32 against the live columns of
+// table_t [d, ldt] (*count of them, with their ids): the top-k of rs * f .
+// t (R = float) or of bf16(f * rs) . t (R = bf16), picks past the live
+// classes (0, -1e30).
+template <int K, typename R>
+__global__ void __launch_bounds__(kThreads, 2)
+    head_score_kernel(const float* __restrict__ field, long long rows, int d,
+                      const float* __restrict__ table_t, int ldt,
+                      const int* __restrict__ ids,
+                      const int* __restrict__ count, int* __restrict__ idx,
+                      float* __restrict__ vals) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Roles roles = roles_of(threadIdx.x);
+  const int c = __ldg(count);  // live classes: the table's first columns
+  float* lv;
+  int* lc;
+  own_list<K>(smem + Lists<float, R>::kOffset, roles, lv, lc);
+  float thr_v = -CUDART_INF_F;
+  int thr_c = INT_MAX;
+  const long long base = (long long)blockIdx.x * kRows;
+  tiles<float, R, true>(
+      smem, RowSource<float>{field, d}, base, table_t, ldt, c, rows, d, roles,
+      [&](float (&acc)[8][8], const float* rs, int tile) {
+        select_tile<K, !Layout<float, R>::kRoundFirst>(
+            acc, rs, tile * kCols, c, lv, lc, thr_v, thr_c, roles);
+      });
 
-constexpr size_t kMaxSmem = 232448;
-
-// The tile sits in shared memory while it fits there (d <= 656); beyond,
-// in the workspace, with at most one block per SM.
-bool emb_in_smem(int d) { return smem_bytes(d) <= kMaxSmem; }
-
-long long tiles_of(long long n_pix) { return (n_pix + kPix - 1) / kPix; }
-
-long long grid_blocks(int d, long long n_pix) {
-  return emb_in_smem(d) ? tiles_of(n_pix)
-                        : std::min<long long>(tiles_of(n_pix),
-                                              rc::sm_count());
-}
-
-// acc[i][j] += sum_k a[k][ty*4 + i] * b[k][col(j)] over one staged chunk,
-// with col(j) = tx*4 + j for j < 4 and 64 + tx*4 + (j - 4) after.
-__device__ __forceinline__ void chunk_product(const float* a, int a_pitch,
-                                              const float (*b)[kBPitch],
-                                              int ty, int tx,
-                                              float (&acc)[4][8]) {
+  __syncthreads();
+  if (roles.wn != 0) return;
+  const long long row = base + roles.row0 + 4 * roles.wx;
+  if (row >= rows) return;
+  float v[K];
+  int col[K];
+  merged_list(lv, lc, v, col);
 #pragma unroll
-  for (int k = 0; k < kChunk; ++k) {
-    const float4 av = *reinterpret_cast<const float4*>(a + k * a_pitch + ty * 4);
-    const float4 b0 = *reinterpret_cast<const float4*>(&b[k][tx * 4]);
-    const float4 b1 = *reinterpret_cast<const float4*>(&b[k][64 + tx * 4]);
-    const float x[4] = {av.x, av.y, av.z, av.w};
-    const float y[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+  for (int t = 0; t < K; ++t) {
+    const bool empty = col[t] >= c;  // the live classes ran out
+    idx[row * K + t] = empty ? 0 : __ldg(ids + col[t]);
+    vals[row * K + t] = empty ? rc::kNegInf : v[t];
   }
 }
 
-__device__ __forceinline__ int col_of(int j, int tx) {
-  return (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
-}
-
-// kWorkspace: the embedding tile lives in `workspace`, one slice of
-// emb_floats(d) per block, and the grid (bounded by the SMs) strides over
-// the pixel tiles; otherwise it is in shared memory, a block per tile.
-template <int K, typename T, bool kWorkspace>
-__global__ void __launch_bounds__(kThreads, 1)
-    head_topk_kernel(const T* __restrict__ feats, const T* __restrict__ wrows,
-                     const T* __restrict__ table,
-                     const int* __restrict__ mask, int batch, int h, int w,
-                     int c_in, int d, int c, int* __restrict__ idx,
-                     float* __restrict__ vals, float* __restrict__ workspace) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Work& wk = *reinterpret_cast<Work*>(smem_raw);
-  float* rs = reinterpret_cast<float*>(smem_raw + sizeof(Work));
-  int* live = reinterpret_cast<int*>(rs + kPix);
-  float* emb = kWorkspace  // [dpad][kEPitch]
-                   ? workspace + (size_t)blockIdx.x * emb_floats(d)
-                   : reinterpret_cast<float*>(live + kCols);
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const long long n_pix = (long long)batch * h * w;
-  const int taps = 9 * c_in;
-  const int dpad = (d + kChunk - 1) / kChunk * kChunk;
-
-  // the dims in [d, dpad) stay zero: the score product reads them
-  for (int e = d * kEPitch + tid; e < dpad * kEPitch; e += kThreads)
-    emb[e] = 0.f;
-
-  for (long long p0 = (long long)blockIdx.x * kPix; p0 < n_pix;
-       p0 += (long long)gridDim.x * kPix) {
-
-    // --- 1. conv ----------------------------------------------------------
-    // staging roles: im2col pixel a_px, taps a_k..a_k+3 (one tap, 4
-    // channels, since c_in % 4 == 0); weight row b_k, dims b_d..b_d+7
-    const int a_px = tid & (kPix - 1);
-    const int a_k = (tid >> 6) * 4;
-    const long long ap = p0 + a_px;
-    const bool a_in = ap < n_pix;
-    int ax = 0, ay = 0, ab = 0;
-    if (a_in) {
-      ax = (int)(ap % w);
-      const long long r = ap / w;
-      ay = (int)(r % h);
-      ab = (int)(r / h);
-    }
-    const int b_k = tid >> 4;
-    const int b_d = (tid & 15) * 8;
-    const int conv_chunks = (taps + kChunk - 1) / kChunk;
-
-    for (int dc0 = 0; dc0 < d; dc0 += kCols) {
-      float acc[4][8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      float av[4];
-      T bv[8];
-      auto fetch = [&](int chunk) {
-        const int k = chunk * kChunk + a_k;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = 0.f;
-        if (a_in && k < taps) {
-          const int tap = k / c_in;
-          const int ch = k - tap * c_in;
-          const int yy = ay + tap / 3 - 1;
-          const int xx = ax + tap % 3 - 1;
-          if (yy >= 0 && yy < h && xx >= 0 && xx < w) {
-            const T* src =
-                feats + (((long long)ab * h + yy) * w + xx) * c_in + ch;
-#pragma unroll
-            for (int i = 0; i < 4; ++i) av[i] = rc::to_float(src[i]);
-          }
-        }
-        const int kb = chunk * kChunk + b_k;
-        const int dd = dc0 + b_d;
-        if (kb < taps && dd < d) {
-          rc::load8(wrows + (long long)kb * d + dd, bv);
-        } else {
-#pragma unroll
-          for (int i = 0; i < 8; ++i) bv[i] = rc::round_to(0.f, T());
-        }
-      };
-      auto stage = [&](int buf) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) wk.conv.a[buf][a_k + i][a_px] = av[i];
-        float4* dst = reinterpret_cast<float4*>(&wk.conv.b[buf][b_k][b_d]);
-        dst[0] = make_float4(rc::to_float(bv[0]), rc::to_float(bv[1]),
-                             rc::to_float(bv[2]), rc::to_float(bv[3]));
-        dst[1] = make_float4(rc::to_float(bv[4]), rc::to_float(bv[5]),
-                             rc::to_float(bv[6]), rc::to_float(bv[7]));
-      };
-      fetch(0);
-      stage(0);
-      __syncthreads();
-      for (int chunk = 0; chunk < conv_chunks; ++chunk) {
-        const int buf = chunk & 1;
-        if (chunk + 1 < conv_chunks) fetch(chunk + 1);
-        chunk_product(&wk.conv.a[buf][0][0], kEPitch, wk.conv.b[buf], ty, tx,
-                      acc);
-        // the other buffer was last read before the previous barrier
-        if (chunk + 1 < conv_chunks) stage(buf ^ 1);
-        __syncthreads();
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int dim = dc0 + col_of(j, tx);
-        if (dim < d) {
-          *reinterpret_cast<float4*>(&emb[dim * kEPitch + ty * 4]) =
-              make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
-        }
-      }
-    }
-    __syncthreads();
-
-    // --- 2. normalise: rs = 1 / sqrt(max(sum f^2, 1e-24)), round to T ------
-    const int warp = tid >> 5;
-    const int lane = tid & 31;
-    for (int px = warp * (kPix / 8); px < (warp + 1) * (kPix / 8); ++px) {
-      float sq = 0.f;
-      for (int dim = lane; dim < d; dim += 32) {
-        const float f = emb[dim * kEPitch + px];
-        sq = fmaf(f, f, sq);
-      }
-      sq = rc::warp_sum(sq);
-      if (lane == 0) rs[px] = 1.f / sqrtf(fmaxf(sq, 1e-24f));
-    }
-    __syncthreads();
-    for (int e = tid; e < d * kPix; e += kThreads) {
-      const int dim = e / kPix;
-      const int px = e % kPix;
-      float* f = &emb[dim * kEPitch + px];
-      *f = rc::to_float(rc::round_to(__fmul_rn(*f, rs[px]), T()));
-    }
-
-    // --- 3. scores and top-k ----------------------------------------------
-    const int st_cls = tid >> 1;       // staging: class, dims st_dim..+7
-    const int st_dim = (tid & 1) * 8;
-    const int sel_px = tid >> 2;       // selection: pixel, classes = res mod 4
-    const int res = tid & 3;
-    const int score_chunks = dpad / kChunk;
-    float v[K];
-    int id[K];
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      v[i] = -CUDART_INF_F;
-      id[i] = INT_MAX;
-    }
-
-    for (int c0 = 0; c0 < c; c0 += kCols) {
-      if (tid < kCols) live[tid] = c0 + tid < c && mask[c0 + tid] != 0;
-      float acc[4][8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      T tv[8];
-      auto fetch = [&](int chunk) {
-        const int dim = chunk * kChunk + st_dim;
-        if (c0 + st_cls < c && dim < d) {
-          rc::load8(table + (long long)(c0 + st_cls) * d + dim, tv);
-        } else {
-#pragma unroll
-          for (int i = 0; i < 8; ++i) tv[i] = rc::round_to(0.f, T());
-        }
-      };
-      auto stage = [&](int buf) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          wk.score.b[buf][st_dim + i][st_cls] = rc::to_float(tv[i]);
-      };
-      fetch(0);
-      stage(0);
-      __syncthreads();  // emb normalised (first tile), live and b written
-      for (int chunk = 0; chunk < score_chunks; ++chunk) {
-        const int buf = chunk & 1;
-        if (chunk + 1 < score_chunks) fetch(chunk + 1);
-        chunk_product(emb + chunk * kChunk * kEPitch, kEPitch,
-                      wk.score.b[buf], ty, tx, acc);
-        if (chunk + 1 < score_chunks) stage(buf ^ 1);
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; j += 2) {
-          *reinterpret_cast<float2*>(&wk.score.s[ty * 4 + i][col_of(j, tx)]) =
-              make_float2(acc[i][j], acc[i][j + 1]);
-        }
-      }
-      __syncthreads();
-      const int cn = min(kCols, c - c0);
-      for (int cl = res; cl < cn; cl += 4) {
-        if (live[cl]) {
-          const float sv = wk.score.s[sel_px][cl];
-          const int cid = c0 + cl;
-          if (rc::better(sv, cid, v[K - 1], id[K - 1]))
-            rc::insert_pair(v, id, sv, cid);
-        }
-      }
-      __syncthreads();  // s and live are consumed
-    }
-
-    // merge the four class-residue lists of each pixel (adjacent lanes)
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      float ov[K];
-      int oid[K];
-#pragma unroll
-      for (int t = 0; t < K; ++t) {
-        ov[t] = __shfl_xor_sync(0xffffffffu, v[t], off);
-        oid[t] = __shfl_xor_sync(0xffffffffu, id[t], off);
-      }
-#pragma unroll
-      for (int t = 0; t < K; ++t) rc::insert_pair(v, id, ov[t], oid[t]);
-    }
-
-    const long long p = p0 + sel_px;
-    if (res == 0 && p < n_pix) {
-#pragma unroll
-      for (int t = 0; t < K; ++t) {
-        const bool empty = id[t] == INT_MAX;  // the live classes ran out
-        idx[p * K + t] = empty ? 0 : id[t];
-        vals[p * K + t] = empty ? rc::kNegInf : v[t];
-      }
-    }
-    __syncthreads();  // emb, rs and live are free for the next tile
-  }
-}
-
-template <int K, typename T, bool kWorkspace>
-cudaError_t launch_as(const void* feats, const void* wrows, const void* table,
-                      const int* mask, int batch, int h, int w, int c_in,
-                      int d, int c, int* idx, float* vals, float* workspace,
-                      cudaStream_t stream) {
-  const size_t smem = kWorkspace ? kFixedSmem : smem_bytes(d);
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
   cudaError_t err = cudaFuncSetAttribute(
-      head_topk_kernel<K, T, kWorkspace>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)grid_blocks(d, (long long)batch * h * w));
-  head_topk_kernel<K, T, kWorkspace><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(feats), static_cast<const T*>(wrows),
-      static_cast<const T*>(table), mask, batch, h, w, c_in, d, c, idx, vals,
-      workspace);
-  return cudaGetLastError();
+  // all of the SM's shared memory, so that two blocks are resident
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
 }
 
 template <int K, typename T>
-cudaError_t launch(const void* feats, const void* wrows, const void* table,
-                   const int* mask, int batch, int h, int w, int c_in, int d,
-                   int c, int* idx, float* vals, float* workspace,
-                   cudaStream_t stream) {
-  if (emb_in_smem(d))
-    return launch_as<K, T, false>(feats, wrows, table, mask, batch, h, w,
-                                  c_in, d, c, idx, vals, nullptr, stream);
-  if (workspace == nullptr) return cudaErrorInvalidValue;
-  return launch_as<K, T, true>(feats, wrows, table, mask, batch, h, w, c_in,
-                               d, c, idx, vals, workspace, stream);
+cudaError_t launch(const T* feats, const float* wrows, const T* table,
+                   const int* mask, long long npix, int h, int w, int c_in,
+                   int d, int c, float* table_t, int ldt, int* ids,
+                   int* count, float* field, long long slab, int* idx,
+                   float* vals, cudaStream_t stream) {
+  cudaError_t err = static_cast<cudaError_t>(rc_live_rows(
+      table, nullptr, mask, c, nullptr, nullptr, nullptr, 0, nullptr, d,
+      sizeof(T) == 2, table_t, ldt, ids, count, stream));
+  if (err != cudaSuccess) return err;
+  constexpr int conv_smem = Layout<T, float>::kEnd;
+  constexpr int score_smem = Lists<float, T>::kBytes;
+  if ((err = allow_smem(head_conv_kernel<T>, conv_smem)) != cudaSuccess ||
+      (err = allow_smem(head_score_kernel<K, T>, score_smem)) != cudaSuccess)
+    return err;
+  for (long long p0 = 0; p0 < npix; p0 += slab) {
+    const long long p1 = std::min(npix, p0 + slab);
+    const dim3 grid((unsigned)((p1 - p0 + kRows - 1) / kRows));
+    head_conv_kernel<T><<<grid, kThreads, conv_smem, stream>>>(
+        feats, wrows, p0, p1, h, w, c_in, d, field);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    head_score_kernel<K, T><<<grid, kThreads, score_smem, stream>>>(
+        field, p1 - p0, d, table_t, ldt, ids, count, idx + p0 * K,
+        vals + p0 * K);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 template <typename T>
-cudaError_t dispatch(const void* feats, const void* wrows, const void* table,
-                     const int* mask, int batch, int h, int w, int c_in,
-                     int d, int c, int k, int* idx, float* vals,
-                     float* workspace, cudaStream_t st) {
+cudaError_t dispatch(const void* feats, const float* wrows, const void* table,
+                     const int* mask, long long npix, int h, int w, int c_in,
+                     int d, int c, int k, float* table_t, int ldt, int* ids,
+                     int* count, float* field, long long slab, int* idx,
+                     float* vals, cudaStream_t st) {
+  const T* f = static_cast<const T*>(feats);
+  const T* t = static_cast<const T*>(table);
   switch (k) {
-#define RC_HEAD_CASE(KK)                                                    \
-  case KK:                                                                  \
-    return launch<KK, T>(feats, wrows, table, mask, batch, h, w, c_in, d, \
-                         c, idx, vals, workspace, st);
+#define RC_HEAD_CASE(KK)                                                   \
+  case KK:                                                                 \
+    return launch<KK, T>(f, wrows, t, mask, npix, h, w, c_in, d, c,        \
+                         table_t, ldt, ids, count, field, slab, idx, vals, \
+                         st);
     RC_HEAD_CASE(1)
     RC_HEAD_CASE(2)
     RC_HEAD_CASE(3)
@@ -448,6 +267,8 @@ cudaError_t dispatch(const void* feats, const void* wrows, const void* table,
       return cudaErrorInvalidValue;
   }
 }
+
+}  // namespace fma_head
 
 // ---- bf16: tensor cores ---------------------------------------------------
 
@@ -716,36 +537,34 @@ cudaError_t launch(const __nv_bfloat16* feats, const __nv_bfloat16* wt,
 
 }  // namespace
 
-// The CUDA-core kernel.  feats: [batch, h, w, c_in] f32 (is_bf16 == 0) or
-// bf16, c_in % 8 == 0; wrows: [9 * c_in, d] of the same dtype, rows ordered
-// (dy, dx, c_in), 16-byte aligned, d % 8 == 0; table: [c, d] of the same
-// dtype, L2-normalised, 16-byte aligned; mask: [c] int32 (non-zero = candidate).  idx: [batch*h*w,
-// k] int32 and vals: [batch*h*w, k] f32, pixels in (b, y, x) order.
-// 1 <= k <= 8, c >= 1, batch * h * w >= 1.  workspace:
-// rc_head_topk_workspace(d, batch * h * w) bytes, 16-byte aligned (NULL
-// when that is 0).
-extern "C" int rc_head_topk(const void* feats, int is_bf16, const void* wrows,
-                            const void* table, const int* mask, int batch,
-                            int h, int w, int c_in, int d, int c, int k,
-                            int* idx, float* vals, void* workspace,
+// The CUDA-core route.  feats: [batch, h, w, c_in] f32 (is_bf16 == 0) or
+// bf16, c_in % 8 == 0, h and w < 32768; wrows: [9 * c_in, d] f32, the
+// weight rows (ordered (dy, dx, c_in)) in f32 whatever the features' dtype,
+// d % 8 == 0; table: [c, d] in the features' dtype, L2-normalised; mask:
+// [c] int32 (non-zero = candidate); all 16-byte aligned.  Workspace:
+// table_t [d, ldt] f32 (ldt >= c, ldt % 4 == 0), ids [c] and count [1]
+// int32 (the live rows' gather), field [slab, d] f32.  idx: [batch*h*w, k]
+// int32 and vals: [batch*h*w, k] f32, pixels in (b, y, x) order.  1 <= k
+// <= 8, c >= 1, batch * h * w >= 1, slab >= 1.
+extern "C" int rc_head_topk(const void* feats, int is_bf16,
+                            const float* wrows, const void* table,
+                            const int* mask, int batch, int h, int w,
+                            int c_in, int d, int c, int k, float* table_t,
+                            int ldt, int* ids, int* count, float* field,
+                            long long slab, int* idx, float* vals,
                             void* stream) {
+  const long long npix = (long long)batch * h * w;
   if (c_in % 8 != 0 || c_in < 8 || d % 8 != 0 || d < 8 || c < 1 ||
-      (long long)batch * h * w < 1)
+      npix < 1 || h >= 32768 || w >= 32768 || ldt < c || ldt % 4 != 0 ||
+      slab < 1)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* ws = static_cast<float*>(workspace);
-  return is_bf16 ? dispatch<__nv_bfloat16>(feats, wrows, table, mask, batch, h,
-                                           w, c_in, d, c, k, idx, vals, ws, st)
-                 : dispatch<float>(feats, wrows, table, mask, batch, h, w,
-                                   c_in, d, c, k, idx, vals, ws, st);
-}
-
-// Bytes of the workspace at width d over n_pix pixels: 0 while the
-// embedding tile fits in shared memory.
-extern "C" long long rc_head_topk_workspace(int d, long long n_pix) {
-  return emb_in_smem(d) ? 0
-                        : (long long)(grid_blocks(d, n_pix) * emb_floats(d) *
-                                      sizeof(float));
+  return is_bf16 ? fma_head::dispatch<__nv_bfloat16>(
+                       feats, wrows, table, mask, npix, h, w, c_in, d, c, k,
+                       table_t, ldt, ids, count, field, slab, idx, vals, st)
+                 : fma_head::dispatch<float>(
+                       feats, wrows, table, mask, npix, h, w, c_in, d, c, k,
+                       table_t, ldt, ids, count, field, slab, idx, vals, st);
 }
 
 // The tensor-core kernel.  feats: [batch, h, w, c_in] bf16, c_in % 8 == 0,

@@ -62,12 +62,14 @@
 //      two differ by f32 rounding only, which the fp32 contract allows (and
 //      on power-of-two norms not at all).  bf16 keeps the TPU kernel's
 //      rounding point, bf16(x * rs) before the product.
-//   4. Selection from the registers, no score tile: the 8 lanes of a
-//      quarter warp hold the same 8 rows; a round takes, for several rows
-//      at once, each lane's best untaken class and the quarter's best by
-//      three shuffles, and the row's owner lane inserts it into the row's
-//      list (shared memory) if it ranks above the last entry (kept in the
-//      owner's registers); rounds stop when no row of the warp gains one.
+//   4. Selection from the registers, no score tile (common.cuh:
+//      select_tile, shared with head_topk.cu's CUDA-core route): the 8
+//      lanes of a quarter warp hold the same 8 rows; a round takes, for
+//      several rows at once, each lane's best untaken class and the
+//      quarter's best by three shuffles, and the row's owner lane inserts
+//      it into the row's list (shared memory) if it ranks above the last
+//      entry (kept in the owner's registers); rounds stop when no row of
+//      the warp gains one.
 //      Classes past the count never enter; the lists hold live columns
 //      (ranked as their ids, which ascend with the column), one list per
 //      row and class half, merged at the end and mapped to ids; picks past
@@ -85,127 +87,17 @@ namespace {
 namespace simt {
 
 // the loop: common.cuh
-using rc::simt::col_of;
 using rc::simt::kCols;
 using rc::simt::kRows;
 using rc::simt::kThreads;
 using rc::simt::Layout;
+using rc::simt::Lists;
+using rc::simt::merged_list;
+using rc::simt::own_list;
 using rc::simt::Roles;
 using rc::simt::roles_of;
 using rc::simt::score_tiles;
-
-constexpr int kMaxK = 8;
-constexpr int kSelRows = 4;  // rows a selection round takes at once
-
-// Dynamic shared memory of a block: the loop's (rc::simt::Layout), then two
-// top-k lists (value, table column) per row, one per class half.  115,200
-// bytes for f32: two blocks per SM.
-template <typename T>
-struct Lists {
-  static constexpr int kOffset = Layout<T>::kEnd;
-  static constexpr int kBytes = kOffset + 2 * kRows * kMaxK * 8;
-};
-
-// Merge one class tile's sums into the lists.  The 8 lanes of a quarter
-// warp hold the same 8 rows (8 classes each, 64 in all); lane wx owns the
-// list of its quarter's row wx (shared memory) and keeps its last entry in
-// registers.  A round takes, for all 8 rows at once, each lane's best
-// untaken class and the quarter's best by three shuffles, and each owner
-// inserts its row's best if it ranks above its last entry; the rounds stop
-// when no row of the warp has one to insert (at most K rounds).
-template <int K, bool kScale>
-__device__ __forceinline__ void select_tile(
-    float (&acc)[8][8], const float* __restrict__ rs, int c0,
-    int c, float* __restrict__ lv, int* __restrict__ lc, float& thr_v,
-    int& thr_c, const Roles& r) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float scale = kScale ? rs[r.row0 + 4 * i] : 1.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = c0 + r.col0 + col_of(j, r.wx);
-      acc[i][j] = col >= c ? -CUDART_INF_F : acc[i][j] * scale;
-    }
-  }
-  const int quarter = r.lane & 24;
-#pragma unroll
-  for (int g = 0; g < 8; g += kSelRows) {  // rows g .. g + kSelRows - 1
-#pragma unroll 1
-    for (int round = 0; round < K; ++round) {
-      float gv[kSelRows];
-      int gc[kSelRows], bj[kSelRows];
-#pragma unroll
-      for (int i = 0; i < kSelRows; ++i) {  // columns ascend with j: ties
-        gv[i] = -CUDART_INF_F;            // keep the first
-        bj[i] = -1;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          if (acc[g + i][j] > gv[i]) {
-            gv[i] = acc[g + i][j];
-            bj[i] = j;
-          }
-        }
-        gc[i] = bj[i] < 0 ? INT_MAX : c0 + r.col0 + col_of(bj[i], r.wx);
-      }
-#pragma unroll
-      for (int off = 4; off > 0; off >>= 1) {
-#pragma unroll
-        for (int i = 0; i < kSelRows; ++i) {
-          const float ov = __shfl_xor_sync(0xffffffffu, gv[i], off);
-          const int oc = __shfl_xor_sync(0xffffffffu, gc[i], off);
-          if (rc::better(ov, oc, gv[i], gc[i])) {
-            gv[i] = ov;
-            gc[i] = oc;
-          }
-        }
-      }
-      unsigned want = 0;
-#pragma unroll
-      for (int i = 0; i < kSelRows; ++i) {
-        const float tv = __shfl_sync(0xffffffffu, thr_v, quarter | (g + i));
-        const int tc = __shfl_sync(0xffffffffu, thr_c, quarter | (g + i));
-        if (rc::better(gv[i], gc[i], tv, tc)) want |= 1u << i;
-      }
-      if (!__any_sync(0xffffffffu, want != 0)) break;
-      // the owner of row g + i (lane wx == g + i) inserts its row's best
-      const int mine = r.wx - g;
-      float ov = gv[0];
-      int oc = gc[0];
-#pragma unroll
-      for (int i = 1; i < kSelRows; ++i) {
-        ov = mine == i ? gv[i] : ov;
-        oc = mine == i ? gc[i] : oc;
-      }
-      if (mine >= 0 && mine < kSelRows && ((want >> mine) & 1u)) {
-        float v[K];
-        int id[K];
-#pragma unroll
-        for (int t = 0; t < K; ++t) {
-          v[t] = lv[t];
-          id[t] = lc[t];
-        }
-        rc::insert_pair(v, id, ov, oc);
-#pragma unroll
-        for (int t = 0; t < K; ++t) {
-          lv[t] = v[t];
-          lc[t] = id[t];
-        }
-        thr_v = v[K - 1];
-        thr_c = id[K - 1];
-      }
-      if (K > 1) {  // the winning lane marks its class taken
-#pragma unroll
-        for (int i = 0; i < kSelRows; ++i) {
-          const bool won = ((want >> i) & 1u) && bj[i] >= 0 &&
-                           c0 + r.col0 + col_of(bj[i], r.wx) == gc[i];
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            if (won && j == bj[i]) acc[g + i][j] = -CUDART_INF_F;
-        }
-      }
-    }
-  }
-}
+using rc::simt::select_tile;
 
 template <int K, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -216,20 +108,11 @@ __global__ void __launch_bounds__(kThreads, 2)
                                int d, int* __restrict__ idx,
                                float* __restrict__ vals) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* list_v = reinterpret_cast<float*>(smem + Lists<T>::kOffset);
-  int* list_c = reinterpret_cast<int*>(list_v + 2 * kRows * kMaxK);
   const Roles roles = roles_of(threadIdx.x);
   const int c = __ldg(count);  // live classes: the table's first columns
-
-  // this lane's list: row row0 + 4 wx of its quarter, class half wn
-  const int own_row = roles.row0 + 4 * roles.wx;
-  float* lv = list_v + (roles.wn * kRows + own_row) * kMaxK;
-  int* lc = list_c + (roles.wn * kRows + own_row) * kMaxK;
-#pragma unroll
-  for (int t = 0; t < K; ++t) {
-    lv[t] = -CUDART_INF_F;
-    lc[t] = INT_MAX;
-  }
+  float* lv;
+  int* lc;
+  own_list<K>(smem + Lists<T>::kOffset, roles, lv, lc);
   float thr_v = -CUDART_INF_F;
   int thr_c = INT_MAX;
 
@@ -245,22 +128,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   // dead slots.
   __syncthreads();
   if (roles.wn != 0) return;
-  const long long row = (long long)blockIdx.x * kRows + own_row;
+  const long long row = (long long)blockIdx.x * kRows + roles.row0 +
+                        4 * roles.wx;
   if (row >= n) return;
   float v[K];
   int col[K];
-#pragma unroll
-  for (int t = 0; t < K; ++t) {
-    v[t] = lv[t];
-    col[t] = lc[t];
-  }
-#pragma unroll
-  for (int t = 0; t < K; ++t) {
-    const float ov = lv[kRows * kMaxK + t];
-    const int oc = lc[kRows * kMaxK + t];
-    if (rc::better(ov, oc, v[K - 1], col[K - 1]))
-      rc::insert_pair(v, col, ov, oc);
-  }
+  merged_list(lv, lc, v, col);
 #pragma unroll
   for (int t = 0; t < K; ++t) {
     const bool dead = col[t] >= c;

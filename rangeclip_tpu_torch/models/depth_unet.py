@@ -275,9 +275,11 @@ def predict_topk_fused(model: DepthUNet, depth: torch.Tensor,
                        candidate_mask: torch.Tensor,
                        top_k: int = 5) -> torch.Tensor:
     """Labels-only predict with the whole segmentation head (output conv,
-    L2 normalisation, scoring, masked top-k) in the ``head_topk`` kernel:
-    the [B, h, w, D] field never reaches device memory.  Opt-in, as in the
-    JAX package; CPU tensors run the kernel's plain version.
+    L2 normalisation, scoring, masked top-k) in the ``head_topk`` kernels:
+    on the tensor-core route (bf16) the [B, h, w, D] field never reaches
+    device memory; the CUDA-core route (f32) keeps it in a workspace
+    between its conv and its scoring launch.  Opt-in, as in the JAX
+    package; CPU tensors run the kernel's plain version.
 
     The output conv's OIHW weight is reordered into the kernel's
     [9 * C_in, D] rows.  Unlike ``predict``, an exhausted candidate set

@@ -46,8 +46,8 @@ NVCC_FLAGS = (
 # Sources whose ptxas resource lines (registers, shared memory, spills) the
 # build keeps: the tensor-core kernels and the redesigned CUDA-core ones.
 PTXAS_VERBOSE = ("class_presence.cu", "conv_score_topk.cu", "head_topk.cu",
-                 "histogram.cu", "live_rows.cu", "pixel_text_ce.cu",
-                 "pixel_text_topk.cu", "tv_rowtile.cu")
+                 "histogram.cu", "live_rows.cu", "masked_pooling.cu",
+                 "pixel_text_ce.cu", "pixel_text_topk.cu", "tv_rowtile.cu")
 
 # Launches per kernel (and selector), counted by each wrapper right after a
 # successful launch, so a run can show which kernels its main path went
@@ -107,9 +107,10 @@ _SIGNATURES = {
                           _P),
     "rc_tv_rowtile_bwd": (_P, _I, _I, _I, _I, _P, _P, _F, _F, _F, _F, _P,
                           _P),
-    "rc_masked_pooling": (_P, _I, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P),
-    "rc_head_topk": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                     _P, _P),
+    "rc_masked_pooling": (_P, _I, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _P,
+                          _P, _P),
+    "rc_head_topk": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I,
+                     _P, _P, _P, _L, _P, _P, _P),
     "rc_head_topk_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                         _P, _P),
     "rc_tv_loss_fwd": (_P, _I, _I, _I, _I, _I, _P, _P),
@@ -120,7 +121,7 @@ _SIGNATURES = {
 _QUERIES = ("rc_pixel_text_topk_tc_smem", "rc_conv_score_topk_smem",
             "rc_pixel_text_topk_fma_smem")
 # Queries of a kernel's device workspace in bytes at (a width, rows).
-_WORKSPACE_QUERIES = ("rc_pixel_text_ce_workspace", "rc_head_topk_workspace")
+_WORKSPACE_QUERIES = ("rc_pixel_text_ce_workspace",)
 # Queries of a kernel's scratch at a field shape (B, H, W, D).
 _SHAPE_QUERIES = ("rc_tv_rowtile_fwd_partials",)
 

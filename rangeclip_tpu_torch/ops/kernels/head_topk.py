@@ -6,17 +6,23 @@ Port of ``rangeclip_tpu/ops/pallas/head_topk.py``
 ``models/depth_unet.predict_topk_fused``.  The CUDA kernels are in
 ``csrc/head_topk.cu``: bf16 features with C_in <= :data:`TC_MAX_C_IN` and
 D <= :data:`TC_MAX_DIMS` take the tensor-core kernel, f32 features (and
-wider bf16 ones) the CUDA-core one (:func:`kernel_route`); launches count
-as ``head_topk[bf16]`` and ``head_topk[fp32]``.  The tensor-core kernel
-scores only the live classes: the mask's table rows gathered first, in
-ascending id order, with their ids and a device count
-(:func:`live_head_rows`, no host sync).  :func:`head_topk_plain` is the
+wider bf16 ones) the CUDA-core route (:func:`kernel_route`); a call counts
+one launch as ``head_topk[bf16]`` or ``head_topk[fp32]``.  Both score only
+the live classes: the mask's table rows gathered first, in ascending id
+order, with their ids and a device count, with no host sync (the
+tensor-core route by :func:`live_head_rows`, the CUDA-core one by
+``csrc/live_rows.cu``'s gather inside its C entry point).  The CUDA-core
+route runs the conv and the scoring as two launches of the port's f32 loop
+with the f32 field in a device workspace between them, in slabs of
+:func:`field_slab_rows` pixels.  :func:`head_topk_plain` is the
 same function in plain PyTorch, used for CPU tensors and as the reference
 the kernels are held against on the card; it masks the full table and
 shares no code with the gather.
 
 Rounding points, as in the TPU kernel: the conv of the features with the
-weights (both in the features' dtype) summed in f32; s = sum f^2 in f32;
+weights (both in the features' dtype) summed in f32; s = sum f^2 in f32
+(the CUDA-core route: in f64, the scale rounded once; for f32 features it
+scales the sum, rs * sum(f * t), which differs by f32 rounding only);
 the embedding f / sqrt(max(s, 1e-24)) rounded to the features' dtype; its
 scores against the table (cast to the features' dtype) summed in f32;
 classes off the mask score -1e30; top-k by the knockout, ties to the
@@ -31,8 +37,7 @@ and has no counterpart here.
 The kernels take C_in and D in multiples of 8; the wrapper zero-pads other
 widths (:func:`pad_head_operands`), which is exact: a zero channel adds
 nothing to the conv, and a zero dim is zero in the field, its norm and
-every score.  Beyond D = 656 the CUDA-core kernel's embedding tile moves
-from shared memory to a device workspace the wrapper allocates.
+every score.
 """
 
 from __future__ import annotations
@@ -52,6 +57,10 @@ NEG_INF = -1e30
 # bf16 features take the CUDA-core one.
 TC_MAX_C_IN = 64
 TC_MAX_DIMS = 512
+# The CUDA-core route's f32 field workspace holds at most this many values
+# (256 MB); more pixels run as slabs of it (field_slab_rows).
+FIELD_SLAB_VALUES = 1 << 26
+_ROWS = 128  # csrc/common.cuh rc::simt::kRows: pixels of a block tile
 
 
 def kernel_route(dtype: torch.dtype, c_in: int, dims: int) -> str:
@@ -61,6 +70,15 @@ def kernel_route(dtype: torch.dtype, c_in: int, dims: int) -> str:
     tc = (dtype == torch.bfloat16 and -(-c_in // 8) * 8 <= TC_MAX_C_IN
           and -(-dims // 8) * 8 <= TC_MAX_DIMS)
     return f"head_topk[{'bf16' if tc else 'fp32'}]"
+
+
+def field_slab_rows(dims: int, n_pix: int) -> int:
+    """Pixels of one slab of the CUDA-core route at width ``dims`` (the
+    padded D) over ``n_pix`` pixels: all of them while their f32 field
+    fits :data:`FIELD_SLAB_VALUES`, else the most whole 128-pixel block
+    tiles that do (at least one).  The workspace is [slab, dims] f32."""
+    fit = max(_ROWS, FIELD_SLAB_VALUES // dims // _ROWS * _ROWS)
+    return max(1, min(n_pix, fit))
 
 
 def weight_rows(conv_weight: torch.Tensor) -> torch.Tensor:
@@ -219,13 +237,18 @@ def _head_topk_cuda(features, rows, table, mask, top_k):
             ids.data_ptr(), count.data_ptr(), B, h, w, C_in, D, C, top_k,
             *out, _lib.stream_of(features))
     else:
-        work = _lib.workspace("rc_head_topk_workspace", features, D,
-                              B * h * w)
+        n_pix, ldt = B * h * w, -(-C // 4) * 4
+        slab = field_slab_rows(D, n_pix)
+        wrows = rows.float().contiguous()  # the loop's f32 table
+        table_t = features.new_empty((D, ldt), dtype=torch.float32)
+        ids = features.new_empty(C, dtype=torch.int32)
+        count = features.new_empty(1, dtype=torch.int32)
+        field = features.new_empty((slab, D), dtype=torch.float32)
         code = lib.rc_head_topk(
             features.data_ptr(), int(features.dtype == torch.bfloat16),
-            rows.data_ptr(), table.data_ptr(), mask.data_ptr(), B, h, w,
-            C_in, D, C, top_k, *out,
-            None if work is None else work.data_ptr(),
+            wrows.data_ptr(), table.data_ptr(), mask.data_ptr(), B, h, w,
+            C_in, D, C, top_k, table_t.data_ptr(), ldt, ids.data_ptr(),
+            count.data_ptr(), field.data_ptr(), slab, *out,
             _lib.stream_of(features))
     _lib.check(code, route)
     return idx, val

@@ -8,9 +8,11 @@ one-hot match tiles on the MXU.  :func:`masked_pooling_plain` is the same
 function in plain PyTorch, the dense match product of the JAX kernel, used
 for CPU tensors and as the reference the kernel is held against on the
 card: the two sum in different orders (f32 values within rtol 1e-5), the
-counts are exact.  The kernel takes D % 8 == 0 and D <= :data:`MAX_DIM`;
-the wrapper zero-pads D and runs wider rows as column chunks
-(:func:`column_chunks`): sums and counts are per column, so this is exact.
+counts are exact.  The kernel takes D % 8 == 0, D <= :data:`MAX_DIM` and
+at most :data:`MAX_IDS` ids; the wrapper zero-pads D and runs wider rows as
+column chunks (:func:`column_chunks`) and more ids as groups of ids
+(:func:`id_groups`): sums and counts are per column and per id, so this is
+exact.
 ``tile_p`` and ``interpret`` are TPU tiling and interpret knobs with no
 counterpart here.
 """
@@ -23,8 +25,10 @@ import torch
 
 from rangeclip_tpu_torch.ops.kernels import _lib
 
-_CHUNK = 16384  # csrc/masked_pooling.cu kChunk: pixels per partial block
-MAX_DIM = 2048  # csrc/masked_pooling.cu: 8 channels per thread, 256 threads
+CHUNK = 8192  # csrc/masked_pooling.cu kChunk: pixels a chunk
+MAX_DIM = 2048  # csrc/masked_pooling.cu kMaxDims: the reduce's 8 a thread
+MAX_IDS = 1024  # csrc/masked_pooling.cu kMaxIds: the sort's id hash
+MAX_CHUNKS = 65535  # the sum kernel's grid.y
 
 
 def masked_pooling_plain(embeddings: torch.Tensor, segmentation: torch.Tensor,
@@ -61,15 +65,43 @@ def fused_masked_pooling(embeddings: torch.Tensor, segmentation: torch.Tensor,
                  and D >= 1,
                  "masked_pooling: the kernel takes f32 or bf16 rows with "
                  f"D >= 1, got {embeddings.dtype} D={D}")
-    _lib.require(-(-P // _CHUNK) <= 65535,
-                 f"masked_pooling: at most {65535 * _CHUNK} pixels")
+    _lib.require(-(-P // CHUNK) <= MAX_CHUNKS,
+                 f"masked_pooling: at most {MAX_CHUNKS * CHUNK} pixels")
     segmentation = segmentation.to(torch.int32).contiguous()
     object_indices = object_indices.to(torch.int32).contiguous()
-    parts = [masked_pooling_op(chunk, segmentation, object_indices)
-             for chunk in column_chunks(embeddings)]
-    sums = parts[0][0] if len(parts) == 1 else torch.cat(
-        [s for s, _ in parts], dim=1)
-    return sums[:, :D], parts[0][1]
+    blocks = column_chunks(embeddings)
+    sums, counts = [], []
+    for a, b in id_groups(object_indices.shape[0]):
+        ids = object_indices[a:b]
+        parts = [masked_pooling_op(block, segmentation, ids)
+                 for block in blocks]
+        sums.append(parts[0][0] if len(parts) == 1
+                    else torch.cat([s for s, _ in parts], dim=1))
+        counts.append(parts[0][1])
+    if len(sums) == 1:
+        return sums[0][:, :D], counts[0]
+    return torch.cat(sums)[:, :D], torch.cat(counts)
+
+
+def id_groups(n_ids: int) -> list:
+    """[start, stop) ranges of at most :data:`MAX_IDS` ids that cover
+    ``n_ids`` in order (one empty range for none); each is a launch of its
+    own, with its own duplicates."""
+    return [(a, min(n_ids, a + MAX_IDS))
+            for a in range(0, max(n_ids, 1), MAX_IDS)]
+
+
+def workspace_shapes(n_pix: int, n_ids: int, dims: int) -> dict:
+    """The shapes of the kernels' int32 and f32 scratch for ``n_pix``
+    pixels, ``n_ids`` ids (<= :data:`MAX_IDS`) and ``dims`` columns, over G
+    = ceil(n_pix / :data:`CHUNK`) chunks: the chunks' sorted keys, each
+    slot's count per chunk, each chunk's matched total, each id's first
+    slot, and the per-chunk partial sums (written only where a slot is
+    present: at most G * n_ids * dims * 4 bytes of traffic each way)."""
+    chunks = -(-n_pix // CHUNK)
+    return {"keys": (chunks * CHUNK,), "pcount": (chunks, n_ids),
+            "totals": (chunks,), "first": (n_ids,),
+            "part": (chunks, n_ids, dims)}
 
 
 def column_chunks(embeddings: torch.Tensor) -> list:
@@ -99,16 +131,15 @@ def _masked_pooling_cuda(embeddings, segmentation, object_indices):
         return sums.zero_(), counts.zero_()
     _lib.require(embeddings.data_ptr() % 16 == 0,
                  "masked_pooling: embeddings must be 16-byte aligned")
-    chunks = -(-P // _CHUNK)
-    part = torch.empty(chunks, N, D, dtype=torch.float32,
-                       device=embeddings.device)
-    pcount = torch.empty(chunks, N, dtype=torch.int32,
-                         device=embeddings.device)
+    work = {name: embeddings.new_empty(
+        shape, dtype=torch.float32 if name == "part" else torch.int32)
+        for name, shape in workspace_shapes(P, N, D).items()}
     code = _lib.library().rc_masked_pooling(
         embeddings.data_ptr(), int(embeddings.dtype == torch.bfloat16),
         segmentation.data_ptr(), object_indices.data_ptr(), P, D, N,
-        part.data_ptr(), pcount.data_ptr(), sums.data_ptr(),
-        counts.data_ptr(), _lib.stream_of(embeddings))
+        *(work[name].data_ptr()
+          for name in ("keys", "pcount", "totals", "first", "part")),
+        sums.data_ptr(), counts.data_ptr(), _lib.stream_of(embeddings))
     _lib.check(code, "masked_pooling")
     return sums, counts
 

@@ -12,16 +12,21 @@ present, contrast capacity 128, the full hybrid loss.  ``train_step_fp32``
 is ``cli/train``'s default precision at its microbatch (fp32, batch 16, 40
 labels present: 90 contrast members), ``train_step_overflow`` the bf16
 step whose contrast set overflows the capacity (150 labels present: 200
-members, the full-table branch).  ``ce_forward``, ``ce_forward_all``,
-``ce_backward``, ``tv_forward``, ``histogram``, ``presence_*`` and
-``head_topk`` call one operator at the shape of its main path
-(:func:`kernel_call`):
+members, the full-table branch).  ``serve_fp32_fused`` is
+``predict_topk_fused`` on the fp32 serve model (batch 8, all 512 classes
+live, top-1: ``head_topk``'s CUDA-core route).  ``ce_forward``,
+``ce_forward_all``,
+``ce_backward``, ``tv_forward``, ``histogram``, ``presence_*``,
+``head_topk``, ``head_topk_fp32`` and ``masked_pooling`` call one operator
+at the shape of its main path (:func:`kernel_call`):
 ``pixel_text_ce``'s forward on the fp32 validation shape with 90 and with
 all 512 classes in the contrast set, its backward with 90 (an fp32 train
 microbatch of batch 8), ``tv_rowtile``'s forward on the flagship train
 field, the flagship step's histogram, and ``class_presence`` at the bench
-shape and the main paths' label counts, and ``fused_head_score_topk`` on
-bf16 pre-head features at the bench shape (its tensor-core route);
+shape and the main paths' label counts, ``fused_head_score_topk`` on
+bf16 pre-head features at the bench shape (its tensor-core route) and on
+f32 ones at the serve shape (its CUDA-core route), and
+``fused_masked_pooling`` on the flagship train field;
 ``candidate_mask`` is validation's ``build_candidate_mask`` at batch 8.  Each configuration
 runs two calls, then ``--calls`` calls timed by the host clock
 (synchronised), then as many under the profiler, at full width with random
@@ -54,13 +59,15 @@ TRAIN_CONFIGS = {
     "train_step_fp32": (16, False, 40),
     "train_step_overflow": (32, True, 150),
 }
-# (batch, bf16, folded, top_k, candidate slots or None for the full table)
+# (batch, bf16, folded, top_k, candidate slots or None for the full table);
+# folded "fused": predict_topk_fused over the full table, all classes live
 CONFIGS = {
     "bench_folded": (128, True, True, 5, 384),
     "bench_unfolded": (128, True, False, 5, 384),
     "serve_fp32": (8, False, True, 1, None),
     "serve_bf16": (8, True, True, 1, None),
     "serve_fp32_default": (8, False, False, 1, None),
+    "serve_fp32_fused": (8, False, "fused", 1, None),
 }
 NUM_CLASSES = 512
 RES = 256
@@ -73,7 +80,8 @@ PRESENCE_LABELS = {"presence_bench": 128 * RES * RES,
                    "presence_512k": 8 * RES * RES,
                    "candidate_mask": 8 * RES * RES}
 KERNEL_CONFIGS = ("ce_forward", "ce_forward_all", "ce_backward",
-                  "tv_forward", "histogram", "head_topk", *PRESENCE_LABELS)
+                  "tv_forward", "histogram", "head_topk", "head_topk_fp32",
+                  "masked_pooling", *PRESENCE_LABELS)
 
 
 def busy_us(spans: List[tuple]) -> float:
@@ -97,7 +105,10 @@ def profile(fn: Callable[[], object], calls: int = 3, warmup: int = 2
     tracer's start can lose device events (6 of 20 kernels once), so it
     first traces as many calls again, then idles 1 ms, and counts only the
     events from the profiled calls' host range (less half the idle, for
-    the alignment of the device and host clocks) on."""
+    the alignment of the device and host clocks) on.  A trace that holds
+    no device event in that range (twice in 8 runs of ``chip_smoke.py`` on
+    an H100 80GB HBM3 at 700 W) is taken again, up to three traces in
+    all."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -108,29 +119,33 @@ def profile(fn: Callable[[], object], calls: int = 3, warmup: int = 2
     host_ms = (time.perf_counter() - t0) * 1e3 / calls
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(calls):  # the tracer's start: not counted
-            fn()
-        torch.cuda.synchronize()
-        time.sleep(1e-3)
-        with torch.profiler.record_function(WINDOW):
-            t0 = time.perf_counter()
-            for _ in range(calls):
+    for _ in range(3):
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(calls):  # the tracer's start: not counted
                 fn()
             torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-    traced = prof.events()
-    window = next(e for e in traced if e.name == WINDOW
-                  and e.device_type == DeviceType.CPU)
-    since = window.time_range.start - 500  # us
-    # device events only; user annotations on the GPU timeline (e.g. the
-    # optimizer's "Optimizer.step#Adam.step" range, or the window's own)
-    # enclose kernels and would count them twice
-    events = [e for e in traced if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)
-              and e.time_range.start >= since]
-    if not events:
-        raise RuntimeError("the profiler recorded no device event")
+            time.sleep(1e-3)
+            with torch.profiler.record_function(WINDOW):
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+        traced = prof.events()
+        window = next(e for e in traced if e.name == WINDOW
+                      and e.device_type == DeviceType.CPU)
+        since = window.time_range.start - 500  # us
+        # device events only; user annotations on the GPU timeline (e.g.
+        # the optimizer's "Optimizer.step#Adam.step" range, or the window's
+        # own) enclose kernels and would count them twice
+        events = [e for e in traced if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and e.time_range.start >= since]
+        if events:
+            break
+    else:
+        raise RuntimeError("the profiler recorded no device event in "
+                           "three traces")
     by_name = collections.Counter()
     for e in events:
         by_name[e.name] += e.time_range.elapsed_us()
@@ -177,7 +192,13 @@ def predict_call(config: str) -> Callable[[], torch.Tensor]:
     depth = torch.randn(batch, RES, RES, 1, device=device, generator=gen)
     text = torch.randn(NUM_CLASSES, model.config.embedding_dim, device=device,
                        generator=gen)
-    if slots is None:
+    if folded == "fused":
+        from rangeclip_tpu_torch.models.depth_unet import predict_topk_fused
+
+        every = torch.ones(NUM_CLASSES, dtype=torch.bool, device=device)
+        run = lambda: predict_topk_fused(  # noqa: E731
+            model, depth, text, every, top_k)
+    elif slots is None:
         predict = make_predict(model, top_k, folded)
         run = lambda: predict(depth, text)  # noqa: E731
     else:
@@ -209,9 +230,12 @@ def kernel_call(config: str) -> Callable[[], torch.Tensor]:
     128, 512], upsample 2, one sample weight 0), the flagship step's
     histogram (32 x 45,875 draws into 65,536 bins), class_presence with a
     validity vector at :data:`PRESENCE_LABELS` (labels 0..39, C = 512),
-    validation's build_candidate_mask at batch 8 (50 negatives), or
+    validation's build_candidate_mask at batch 8 (50 negatives),
     fused_head_score_topk at the bench shape (bf16 features [128, 128, 128,
-    32], D = C = 512, 340 classes live, top-5)."""
+    32], D = C = 512, 340 classes live, top-5) or at the serve shape (f32
+    features [8, 128, 128, 32], D = C = 512 all live, top-1), or
+    fused_masked_pooling on the flagship train field (bf16 [32 * 128 * 128,
+    512], labels 0..39 with every 101st -1, 256 ids 0..255)."""
     device = torch.device("cuda")
     gen = torch.Generator(device=device).manual_seed(0)
     if config == "histogram":
@@ -237,12 +261,32 @@ def kernel_call(config: str) -> Callable[[], torch.Tensor]:
                                                 gumbel=gumbel)
         valid = (torch.rand(n, device=device, generator=gen) > 0.1).float()
         return lambda: class_presence(labels, valid, NUM_CLASSES)
-    if config == "head_topk":
+    if config == "masked_pooling":
+        from rangeclip_tpu_torch.ops.kernels.masked_pooling import (
+            fused_masked_pooling,
+        )
+
+        emb = torch.randn(32 * 128 * 128, 512, device=device,
+                          generator=gen).to(torch.bfloat16)
+        labels = torch.randint(0, 40, (emb.shape[0],), device=device,
+                               generator=gen, dtype=torch.int32)
+        labels[::101] = -1
+        obj = torch.arange(256, device=device, dtype=torch.int32)
+        return lambda: fused_masked_pooling(emb, labels, obj)
+    if config in ("head_topk", "head_topk_fp32"):
         from rangeclip_tpu_torch.ops.kernels.head_topk import (
             fused_head_score_topk,
         )
         from rangeclip_tpu_torch.utils.math import l2_normalize
 
+        if config == "head_topk_fp32":
+            feats = torch.randn(8, RES // 2, RES // 2, 32, device=device,
+                                generator=gen)
+            rows = torch.randn(9 * 32, 512, device=device, generator=gen) / 17
+            table = l2_normalize(torch.randn(NUM_CLASSES, 512, device=device,
+                                             generator=gen), dim=-1)
+            every = torch.ones(NUM_CLASSES, dtype=torch.bool, device=device)
+            return lambda: fused_head_score_topk(feats, rows, table, every, 1)
         feats = torch.randn(128, RES // 2, RES // 2, 32, device=device,
                             generator=gen).to(torch.bfloat16)
         rows = torch.randn(9 * 32, 512, device=device, generator=gen) / 17

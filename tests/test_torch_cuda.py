@@ -1153,6 +1153,76 @@ def test_masked_pooling_matches_plain(cuda_device, P, D, dtype):
     assert (sums[4] == 0).all() and (sums[6] == 0).all()
 
 
+def _regions(gen, batch, h, w, per_image):
+    """[batch * h * w] int32 labels: each image in ``per_image`` Voronoi
+    regions about distinct seed pixels (none empty), image b's numbered b
+    * per_image + 0 .. per_image - 1."""
+    pix = torch.arange(h * w)
+    out = []
+    for b in range(batch):
+        seeds = torch.randperm(h * w, generator=gen)[:per_image]
+        d2 = ((pix[:, None] // w - seeds[None] // w) ** 2
+              + (pix[:, None] % w - seeds[None] % w) ** 2)
+        out.append(d2.argmin(dim=1) + b * per_image)
+    return torch.cat(out).to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype", [
+    ("regions", torch.bfloat16), ("regions", torch.float32),
+    ("all_ids", torch.bfloat16), ("one_id", torch.bfloat16),
+    ("padding", torch.float32), ("below_chunk", torch.bfloat16),
+    ("duplicates", torch.float32), ("many_ids", torch.bfloat16)])
+def test_masked_pooling_label_layouts(cuda_device, case, dtype):
+    """The one-pass kernels on the label layouts their design turns on:
+    spatially coherent labels (8 images of 96 x 112 in 32 Voronoi regions
+    each, all 256 ids present, runs of one id crossing the sum blocks'
+    segments), uniform labels over 256 ids (every id in every 8192-pixel
+    chunk), one id, every label -1, fewer pixels than one chunk, duplicate
+    ids (one id five times), and 1,500 ids (two id groups, two launches).
+    Counts exact, sums within 1e-5 of the summed magnitudes (f32 sums in
+    another order), a second run bit-equal."""
+    from rangeclip_tpu_torch.ops.kernels.masked_pooling import (
+        fused_masked_pooling,
+        id_groups,
+        masked_pooling_plain,
+    )
+
+    gen = torch.Generator().manual_seed(18)
+    P, D = 8 * 96 * 112, 512
+    seg = _regions(gen, 8, 96, 112, 32)
+    obj = torch.arange(256, dtype=torch.int32)
+    if case == "all_ids":
+        P = 70_000
+        seg = torch.randint(0, 256, (P,), generator=gen, dtype=torch.int32)
+    elif case == "one_id":
+        obj = torch.tensor([77], dtype=torch.int32)
+    elif case == "padding":
+        seg = torch.full((P,), -1, dtype=torch.int32)
+    elif case == "below_chunk":
+        P, seg = 3000, seg[:3000]
+    elif case == "duplicates":
+        obj = torch.tensor([5, 9, 5, 300, 5, 2, 9, 5, 5], dtype=torch.int32)
+    elif case == "many_ids":
+        obj = torch.randint(0, 300, (1500,), generator=gen,
+                            dtype=torch.int32)
+    emb = torch.randn(P, D, generator=gen).to(dtype).to(cuda_device)
+    seg, obj = seg.to(cuda_device), obj.to(cuda_device)
+    (sums, counts), launches = _counted(
+        "masked_pooling", lambda: fused_masked_pooling(emb, seg, obj))
+    assert launches == len(id_groups(obj.shape[0]))
+    want, want_counts = masked_pooling_plain(emb, seg, obj)
+    scale = masked_pooling_plain(emb.abs(), seg, obj)[0]
+    assert torch.equal(counts, want_counts)
+    assert bool(((sums - want).abs() <= 1e-5 * scale + 1e-6).all())
+    again = fused_masked_pooling(emb, seg, obj)
+    assert torch.equal(sums, again[0]) and torch.equal(counts, again[1])
+    if case in ("regions", "all_ids"):
+        assert bool((counts > 0).all())
+    if case == "padding":
+        assert bool((counts == 0).all() and (sums == 0).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype", [((3, 9, 16, 8), torch.float32),
                                          ((2, 17, 33, 24), torch.bfloat16),
@@ -1205,20 +1275,31 @@ def test_tv_loss_matches_plain(cuda_device, shape, dtype):
     (1, 1, 200, torch.bfloat16, 130, 32, 512, 5),
     (1, 150, 1, torch.bfloat16, 1, 32, 512, 5),
     (2, 16, 16, torch.bfloat16, 512, 32, 520, 5),
-    (2, 10, 10, torch.bfloat16, 40, 72, 64, 5)])
+    (2, 10, 10, torch.bfloat16, 40, 72, 64, 5),
+    (1, 5, 7, torch.float32, 130, 32, 512, 5),
+    (2, 15, 17, torch.float32, 512, 32, 512, 1),
+    (2, 12, 13, torch.float32, 130, 16, 1288, 5),
+    (2, 11, 9, torch.float32, 200, 72, 136, 5),
+    (2, 16, 16, torch.float32, 512, 32, 512, 8),
+    (1, 13, 14, torch.bfloat16, 130, 72, 768, 8)])
 def test_head_topk_matches_plain(cuda_device, B, h, w, dtype, C, C_in, D, k):
     """Ids against the plain version: every mismatch a near-tie (the
     winning values within 1e-5 in f32, and within 1e-3, two bf16 ulps of the
     top scores, in bf16, where an embedding component's rounding may flip
     with the conv's summation order); a mask of 3 live classes, or none,
-    gives id 0 at -1e30 past them.  Each call launches the route's kernel
-    once and the other none: bf16 with C_in <= 64 and D <= 512 the
+    gives id 0 at -1e30 past them.  Each call counts one launch of its
+    route and none of the other (nor of ``live_rows``): bf16 with C_in <= 64 and D <= 512 the
     tensor-core kernel (C_in 8 and 64, D 8, 136 and 512, C 1, 130 and 512,
     k 1, 5 and 8, pixel counts off the 64-pixel tile, h = 1, w = 1), f32
     and bf16 past those widths (D = 520, C_in = 72) the CUDA-core one.
-    D = 768 keeps the CUDA-core kernel's embedding tiles in its workspace
-    (9,800 pixels: blocks take several tiles); C_in = 12, D = 20 runs on
-    operands zero-padded to 16 and 24."""
+    The CUDA-core route (a gather, a conv and a scoring launch on the f32
+    loop, its f32 field in a workspace): fewer pixels than one 128-pixel
+    tile (35), a ragged last tile (510), D = 768 (9,800 pixels) and 1288,
+    C_in = 12 (padded to 16), 16 and 72 (the im2col chunk not one tap), k =
+    1, 5 and 8, and bf16 at C_in = 72, D = 768, k = 8; C_in = 12, D = 20
+    runs on operands zero-padded to 16 and 24.  Masks: random (70% live),
+    3 live classes, none, and 130 live where C >= 130; a second call gives
+    the same bits."""
     from rangeclip_tpu_torch.ops.kernels.head_topk import (
         fused_head_score_topk,
         head_topk_plain,
@@ -1233,17 +1314,25 @@ def test_head_topk_matches_plain(cuda_device, B, h, w, dtype, C, C_in, D, k):
     assert route == ("head_topk[bf16]" if dtype == torch.bfloat16
                      and C_in <= 64 and D <= 512 else "head_topk[fp32]")
     dev = lambda t: t.to(cuda_device)
-    for m in (torch.rand(C, generator=gen) < 0.7,
-              torch.isin(torch.arange(C), torch.tensor([4, 9, 33])),
-              torch.zeros(C, dtype=torch.bool)):
+    masks = [torch.rand(C, generator=gen) < 0.7,
+             torch.isin(torch.arange(C), torch.tensor([4, 9, 33])),
+             torch.zeros(C, dtype=torch.bool)]
+    if C >= 130:
+        masks.append(torch.isin(torch.arange(C),
+                                torch.randperm(C, generator=gen)[:130]))
+    for m in masks:
         before = dict(_lib.launch_counts)
         idx, val = fused_head_score_topk(dev(feats), dev(rows), dev(text),
                                          dev(m), k)
+        again = fused_head_score_topk(dev(feats), dev(rows), dev(text),
+                                      dev(m), k)
         torch.cuda.synchronize()
+        assert torch.equal(idx, again[0]) and torch.equal(val, again[1])
         assert {name: _lib.launch_counts[name] - before[name]
                 for name in ("head_topk[bf16]", "head_topk[fp32]")} == {
-            name: int(name == route)
+            name: 2 * int(name == route)
             for name in ("head_topk[bf16]", "head_topk[fp32]")}
+        assert _lib.launch_counts["live_rows"] == before["live_rows"]
         want_idx, want_val = head_topk_plain(
             dev(feats), dev(rows).to(dtype), dev(text).to(dtype),
             dev(m).int(), k)
