@@ -15,8 +15,8 @@ Phases (any failure raises; nothing is caught):
    CUDA-core ones
    (pixel_text_topk's fp32 path, pixel_text_ce's member-only forward and
    backward, the live_rows gather, tv_rowtile, head_topk's CUDA-core
-   route, masked_pooling); require that the fp32 kernel's SASS holds no
-   tensor-core instruction.
+   route, masked_pooling, tv_loss); require that the fp32 kernel's SASS
+   holds no tensor-core instruction.
 2. Hold each kernel against its plain PyTorch version at the shapes the
    main paths give it, and time both and, where one PyTorch call computes
    the same function, that call; each row's bound is the larger of its
@@ -42,10 +42,14 @@ Phases (any failure raises; nothing is caught):
    (its row), then under spatially coherent labels (8 Voronoi regions an
    image, all 256 ids present) and uniform labels over all 256 ids (every
    id in every chunk: its workspace's worst case), each exact in its
-   counts, within 1e-5 of the summed magnitudes and bit-equal run to run.
+   counts, within 1e-5 of the summed magnitudes and bit-equal run to run,
+   each timed against its plain version and index_add_; tv_loss on that
+   field (its rows) and on its values in f32 (beside them in the rows),
+   the forward bit-equal across two calls.
    head_topk's tensor-core route at the bench configuration, its CUDA-core
    route on the fp32 serve model's features at the serve shape (batch 8,
-   C = 512 all live, top-1; then the bench candidate mask, 340 live, top-5),
+   C = 512 all live, top-1; then the bench candidate mask, 340 live, top-5,
+   against its plain version too),
    each with its product stage alone (cuDNN's F.conv2d to D = 512 and
    cuBLAS over the live classes; TF32 off in f32).
    class_presence runs at the bench shape and at the main paths' label
@@ -55,7 +59,9 @@ Phases (any failure raises; nothing is caught):
    CUDA-event loop of calls of the operator; beside it ``device_ms`` and
    ``device_events`` are its device time and events per call read with
    torch.profiler (for a call of a few microseconds the loop measures the
-   host's launch rate, the device time the kernel).
+   host's launch rate, the device time the kernel), and ``device_traces``
+   the traces the profiler took for them (more than 1 where a trace lost a
+   launch's kernel).
 3. Serve: the port's ``cli/serve`` engine and HTTP server in this process,
    four POSTed depth maps per configuration: default flags (fp32, batch 8,
    top-1, --predict_path auto: folded), --bf16, --predict_path default in
@@ -269,23 +275,19 @@ def time_pair(kernel, plain, iters: int, plain_iters: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def device_time(fn, calls: int = 20):
-    """(device ms, device events) per call of ``fn`` by torch.profiler: the
-    time of a kernel whose calls a CUDA-event loop would time by the host's
-    launch rate."""
+def device_fields(fn, calls: int = 10) -> dict:
+    """The kernels line's ``device_ms``, ``device_events`` and
+    ``device_traces``: the device time and events per call of ``fn`` by
+    torch.profiler, and the traces it took (more than 1 where one lost a
+    launch's kernel), beside ``ms``, the CUDA-event loop of the same call
+    (which for a call of a few microseconds measures the host's launch
+    rate)."""
     from rangeclip_tpu_torch.utils.profiling import profile
 
     result = profile(fn, calls=calls)
-    return result["device_ms"], result["device_events"]
-
-
-def device_fields(fn, calls: int = 10) -> dict:
-    """The kernels line's ``device_ms`` and ``device_events``: the device
-    time and events per call of ``fn`` by torch.profiler, beside ``ms``,
-    the CUDA-event loop of the same call (which for a call of a few
-    microseconds measures the host's launch rate)."""
-    ms, events = device_time(fn, calls)
-    return {"device_ms": ms, "device_events": events}
+    return {"device_ms": result["device_ms"],
+            "device_events": result["device_events"],
+            "device_traces": result["traces"]}
 
 
 def bound(nbytes: float, ops: float, kind: str) -> dict:
@@ -1416,7 +1418,8 @@ def phase_train_kernels(device, stats):
     stats["tv_rowtile[fwd]"] = dict(
         max_abs_err=max_abs_err(value.detach(), want.detach()), ms=fwd[0],
         plain_ms=fwd[1], library_ms=None, **bound(x.numel() * 2, 0, "bf16"),
-        device_ms=alone, device_events=fwd_prof["device_events"])
+        device_ms=alone, device_events=fwd_prof["device_events"],
+        device_traces=fwd_prof["traces"])
     stats["tv_rowtile[bwd]"] = dict(
         max_abs_err=max_abs_err(xk.grad, xp.grad), ms=bwd[0],
         plain_ms=bwd[1], library_ms=None,
@@ -1557,44 +1560,74 @@ def phase_eval_kernels(device, bench_model, serve_model, depths, text, seg,
         sums, counts, want = pool_check(name, case_labels, every_id)
         require(bool((counts > 0).all()),
                 f"masked_pooling ({name}): an id is absent")
-        case_ms = cuda_ms(
-            lambda: fused_masked_pooling(emb, case_labels, every_id), 20)
+        case_ms, case_plain_ms = time_pair(
+            lambda: fused_masked_pooling(emb, case_labels, every_id),
+            lambda: masked_pooling_plain(emb, case_labels, every_id), 20, 3)
+        # every id once in the list and every label an id: index_add_
+        # over the labels themselves
+        case_rows = case_labels.long()
+        emb32 = emb.float()
+        case_library_ms = cuda_ms(lambda: torch.zeros(
+            POOL_OBJECTS, D, device=device).index_add_(0, case_rows, emb32),
+            20)
+        del emb32, case_rows
         log(f"  masked_pooling [{emb.shape[0]}, {D}] bf16, {name}: "
             f"{int((counts > 0).sum())} ids present, counts exact, sums "
             f"within 1e-5 of the summed magnitudes (max |diff| "
             f"{max_abs_err(sums, want):.3g}), deterministic; kernel "
             f"{case_ms:.4f} ms (bound "
-            f"{bound(pool_bytes, 0, 'f32')['bound_ms']:.4f} ms)")
+            f"{bound(pool_bytes, 0, 'f32')['bound_ms']:.4f} ms), plain "
+            f"{case_plain_ms:.4f} ms, index_add_ (f32 copy) "
+            f"{case_library_ms:.4f} ms")
 
-    # tv_loss: ties from the quarter grid (sign(0) = 0); the forward within
-    # rtol 1e-5 (f32 summation order), the backward bit-equal
-    xk = x.clone().requires_grad_()
-    value = fused_tv_loss(xk)
-    value.backward()
+    # tv_loss in bf16 (its row) and in f32 (the same values widened, beside
+    # it in the row): ties from the quarter grid (sign(0) = 0); the forward
+    # within rtol 1e-5 (f32 summation order) and bit-equal across calls,
+    # the backward bit-equal
     g = torch.tensor(1.0, device=device)
-    want = tv_loss_value(x)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(value.detach(), want, rtol=1e-5, atol=0.0)
-    require(torch.equal(xk.grad, tv_loss_grad(x, g)),
-            "tv_loss[bwd] is not bit-equal to the plain VJP")
-    fwd = time_pair(lambda: tv_loss_op(x, D), lambda: tv_loss_value(x), 20,
-                    5)
-    bwd = time_pair(lambda: tv_loss_backward_op(x, g, D),
-                    lambda: tv_loss_grad(x, g), 20, 5)
-    log(f"  tv_loss [{B}, {h}, {h}, {D}] bf16: value "
-        f"{float(value.detach()):.7g} vs plain {float(want):.7g}, backward "
-        f"bit-equal; fwd kernel {fwd[0]:.4f} ms (plain {fwd[1]:.4f}), bwd "
-        f"kernel {bwd[0]:.4f} ms (plain {bwd[1]:.4f})")
-    stats["tv_loss[fwd]"] = dict(
-        max_abs_err=max_abs_err(value.detach(), want), ms=fwd[0],
-        plain_ms=fwd[1], library_ms=None, **bound(x.numel() * 2, 0, "bf16"),
-        **device_fields(lambda: tv_loss_op(x, D)))
-    stats["tv_loss[bwd]"] = dict(
-        max_abs_err=max_abs_err(xk.grad, tv_loss_grad(x, g)), ms=bwd[0],
-        plain_ms=bwd[1], library_ms=None,
-        **bound(2 * x.numel() * 2, 0, "bf16"),
-        **device_fields(lambda: tv_loss_backward_op(x, g, D)))
-    del x, xk, emb, labels
+    for xt in (x, x.float()):
+        kind = "bf16" if xt.dtype == torch.bfloat16 else "f32"
+        xk = xt.clone().requires_grad_()
+        value = fused_tv_loss(xk)
+        value.backward()
+        again = fused_tv_loss(xt)
+        want = tv_loss_value(xt)
+        want_grad = tv_loss_grad(xt, g)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(value.detach(), want, rtol=1e-5, atol=0.0)
+        require(torch.equal(again, value.detach()),
+                f"tv_loss[fwd] {kind}: two calls differ")
+        require(torch.equal(xk.grad, want_grad),
+                f"tv_loss[bwd] {kind} is not bit-equal to the plain VJP")
+        fwd = time_pair(lambda: tv_loss_op(xt, D), lambda: tv_loss_value(xt),
+                        20, 5)
+        bwd = time_pair(lambda: tv_loss_backward_op(xt, g, D),
+                        lambda: tv_loss_grad(xt, g), 20, 5)
+        rows = {
+            "tv_loss[fwd]": dict(
+                max_abs_err=max_abs_err(value.detach(), want), ms=fwd[0],
+                plain_ms=fwd[1], library_ms=None,
+                **bound(xt.numel() * xt.element_size(), 0, kind),
+                **device_fields(lambda: tv_loss_op(xt, D))),
+            "tv_loss[bwd]": dict(
+                max_abs_err=max_abs_err(xk.grad, want_grad), ms=bwd[0],
+                plain_ms=bwd[1], library_ms=None,
+                **bound(2 * xt.numel() * xt.element_size(), 0, kind),
+                **device_fields(lambda: tv_loss_backward_op(xt, g, D)))}
+        for name, row in rows.items():
+            log(f"  {name} [{B}, {h}, {h}, {D}] {kind}: kernel "
+                f"{row['ms']:.4f} ms, device {row['device_ms']:.4f} ms in "
+                f"{row['device_events']:g} events, bound "
+                f"{row['bound_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms"
+                + (f"; value {float(value.detach()):.7g} vs plain "
+                   f"{float(want):.7g}, deterministic" if "fwd" in name
+                   else "; bit-equal"))
+            if kind == "bf16":
+                stats[name] = row
+            else:  # beside the bf16 row
+                stats[name]["f32"] = row
+        del xk, want_grad
+    del x, emb, labels
     torch.cuda.empty_cache()
 
     # head_topk at the bench configuration: the bench model's pre-head
@@ -1714,9 +1747,10 @@ def phase_eval_kernels(device, bench_model, serve_model, depths, text, seg,
     err = max_abs_err(got[1][same], want[1][same])
     require(err <= 1e-5, f"head_topk fp32 ({live} live) values beyond 1e-5 "
                          f"of the plain version where the ids agree ({err})")
-    masked_ms = cuda_ms(
+    masked_ms, masked_plain_ms = time_pair(
         lambda: fused_head_score_topk(feats, rows, table, mask, BENCH_TOP_K),
-        10)
+        lambda: head_topk_plain(feats, rows, table, mask.int(), BENCH_TOP_K),
+        10, 3)
     live_table = table[mask]
     masked_mm_ms = cuda_ms(lambda: emb @ live_table.T, 10)
     masked_bound = bound(
@@ -1725,9 +1759,10 @@ def phase_eval_kernels(device, bench_model, serve_model, depths, text, seg,
         2.0 * n_pix * (9 * c_in * D + D * live), "f32")
     log(f"  head_topk fp32 serve shape, {live} live, k={BENCH_TOP_K}: "
         f"values within {err:.3g} of plain where the ids agree; kernel "
-        f"{masked_ms:.4f} ms (bound {masked_bound['bound_ms']:.4f} ms); "
-        f"product only {conv_ms + masked_mm_ms:.4f} ms (cuBLAS over "
-        f"the {live} live {masked_mm_ms:.4f})")
+        f"{masked_ms:.4f} ms (bound {masked_bound['bound_ms']:.4f} ms), "
+        f"plain {masked_plain_ms:.4f} ms; product only "
+        f"{conv_ms + masked_mm_ms:.4f} ms (cuBLAS over the {live} live "
+        f"{masked_mm_ms:.4f})")
     del emb, x_nchw, live_table
     del feats, got, want, same
     torch.cuda.empty_cache()

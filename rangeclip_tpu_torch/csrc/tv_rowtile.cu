@@ -50,10 +50,12 @@
 // bands, W-tiles and channel chunks (D % 64 != 0) leave threads idle.  The
 // grid is one-dimensional, so the backward takes any B * H.
 //
-// The TPU kernel's VMEM tile search has no purpose here.  Requires D % 8 ==
-// 0 and 16-byte aligned rows.
+// The band, its ring of row slabs and the one-block value kernel are
+// band_ring.cuh's, shared with tv_loss.cu.  The TPU kernel's VMEM tile
+// search has no purpose here.  Requires D % 8 == 0 and 16-byte aligned
+// rows.
 
-#include "common.cuh"
+#include "band_ring.cuh"
 
 namespace {
 
@@ -73,116 +75,27 @@ __device__ __forceinline__ float sign_of_diff(float a, float b) {
   return a - b >= 0.f ? 1.f : -1.f;
 }
 
-// ---- the band and its ring of row slabs, shared by both kernels ----------
-
-constexpr int kThreads = 256;
-constexpr int kPixels = 32;  // pixel columns per block (W-tile)
-constexpr int kGroups = 8;   // 8-channel groups per block: 64 channels
-constexpr int kBand = 32;    // image rows per block
-constexpr int kSlabs = 6;    // ring slots
-constexpr int kBlocks = 4;   // resident blocks per SM (64 registers)
-
-struct Band {
-  int b, h0, h1, w0, g0;  // image, rows [h0, h1), first column and group
-};
-
-// One 32-bit division chain per block: W-tiles fastest, then channel
-// chunks, bands and images.
-__device__ __forceinline__ Band band_of(int H, int W, int D) {
-  const unsigned wtiles = (W + kPixels - 1) / kPixels;
-  const unsigned chunks = (D / 8 + kGroups - 1) / kGroups;
-  const unsigned bands = (H + kBand - 1) / kBand;
-  unsigned i = blockIdx.x;
-  Band t;
-  t.w0 = (int)(i % wtiles) * kPixels;
-  i /= wtiles;
-  t.g0 = (int)(i % chunks) * kGroups;
-  i /= chunks;
-  t.h0 = (int)(i % bands) * kBand;
-  t.b = (int)(i / bands);
-  t.h1 = min(t.h0 + kBand, H);
-  return t;
-}
-
-long long band_blocks(int B, int H, int W, int D) {
-  return (long long)B * ((H + kBand - 1) / kBand) *
-         ((D / 8 + kGroups - 1) / kGroups) * ((W + kPixels - 1) / kPixels);
-}
-
-bool valid_shape(int B, int H, int W, int D) {
-  return B >= 1 && H >= 1 && W >= 1 && D >= 8 && D % 8 == 0 &&
-         band_blocks(B, H, W, D) < (1ll << 31);
-}
-
-// A band's ring of row slabs.  Row r's slab holds the band's 32 columns,
-// kLeft halo columns on the left and one on the right, 64 channels
-// (zero-filled past the image), in slot (r - h0 + kUp) % kSlabs: the
-// backward (kLeft = kUp = 1) takes rows h0-1 .. h1, the forward (kLeft =
-// kUp = 0) rows h0 .. h1.  Each thread copies the same one or two pieces of
-// every row; one commit group per call, empty where there is no row.
-template <int kLeft, int kUp>
-struct SlabRing {
-  static constexpr int kPieces = (kPixels + kLeft + 1) * kGroups;
-  static constexpr int kSlabBytes = kPieces * 16;
-  static constexpr int kBytes = kSlabs * kSlabBytes;
-
-  unsigned char* ring;
-  const bf16* x;
-  long long row;  // elements per image row
-  int h0, h1, H;
-  long long src[2];
-  bool ok[2];
-
-  __device__ __forceinline__ SlabRing(unsigned char* ring_, const bf16* x_,
-                                      const Band& t, int H_, int W, int D)
-      : ring(ring_), x(x_), row((long long)W * D), h0(t.h0), h1(t.h1),
-        H(H_) {
-    const long long image = (long long)t.b * H * row;
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int p = threadIdx.x + q * kThreads;
-      const int w = t.w0 - kLeft + p / kGroups;
-      const int grp = t.g0 + p % kGroups;
-      ok[q] = p < kPieces && w >= 0 && w < W && grp * 8 < D;
-      src[q] = image + (long long)w * D + grp * 8;
-    }
-  }
-
-  __device__ __forceinline__ void copy_row(int r) {
-    if (r >= 0 && r < H && r <= h1) {
-      const uint32_t slot = rc::tc::smem_addr(ring) +
-                            ((r - h0 + kUp) % kSlabs) * kSlabBytes;
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int p = threadIdx.x + q * kThreads;
-        if (p < kPieces)
-          rc::tc::cp_async16(slot + p * 16, ok[q] ? x + src[q] + r * row : x,
-                             ok[q]);
-      }
-    }
-    rc::tc::cp_async_commit();
-  }
-
-  // The 8 channels of piece `piece` (column * kGroups + group) of row r.
-  __device__ __forceinline__ const bf16* at(int r, int piece) const {
-    return reinterpret_cast<const bf16*>(
-               ring + ((r - h0 + kUp) % kSlabs) * kSlabBytes) +
-           piece * 8;
-  }
-};
+// the band, its ring and the value kernel: band_ring.cuh
+using rc::band::Band;
+using rc::band::band_blocks;
+using rc::band::band_of;
+using rc::band::kBlocks;
+using rc::band::kGroups;
+using rc::band::kSlabs;
+using rc::band::kSumThreads;
+using rc::band::kThreads;
+using rc::band::SlabRing;
+using rc::band::valid_shape;
 
 // ---- forward: one streaming pass, then the value ---------------------------
-
-constexpr int kSumThreads = 1024;
 
 __global__ void __launch_bounds__(kThreads, kBlocks)
     tv_fwd_kernel(const bf16* __restrict__ x, int H, int W, int D,
                   const float* __restrict__ weight,
                   float* __restrict__ partials) {
-  using Ring = SlabRing<0, 0>;
+  using Ring = SlabRing<bf16, 0, 0>;
   __shared__ __align__(16) unsigned char ring_mem[Ring::kBytes];
-  __shared__ float red[2][kThreads / 32];
-  const Band t = band_of(H, W, D);
+  const Band t = band_of<bf16>(H, W, D);
   Ring ring(ring_mem, x, t, H, W, D);
   const int tid = threadIdx.x;
   for (int i = 0; i < kSlabs - 1; ++i) ring.copy_row(t.h0 + i);
@@ -223,58 +136,8 @@ __global__ void __launch_bounds__(kThreads, kBlocks)
       }
     }
   }
-  sh = rc::warp_sum(sh);
-  sv = rc::warp_sum(sv);
-  if ((tid & 31) == 0) {
-    red[0][tid >> 5] = sh;
-    red[1][tid >> 5] = sv;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float th = 0.f, tv = 0.f;
-#pragma unroll
-    for (int i = 0; i < kThreads / 32; ++i) {
-      th += red[0][i];
-      tv += red[1][i];
-    }
-    const float wt = weight != nullptr ? weight[t.b] : 1.f;
-    partials[2ll * blockIdx.x] = th * wt;
-    partials[2ll * blockIdx.x + 1] = tv * wt;
-  }
-}
-
-// The partials summed in block order (each thread a strided run, then a
-// fixed tree), and scale_sums' f32 arithmetic: true division by the pair
-// counts, the upsample factors (1 at upsample 1), the add.
-__global__ void __launch_bounds__(kSumThreads)
-    tv_fwd_value_kernel(const float* __restrict__ partials, int blocks,
-                        float pairs_h, float pairs_v, float rescale_h,
-                        float rescale_v, float* __restrict__ out) {
-  __shared__ float red[2][kSumThreads / 32];
-  const int tid = threadIdx.x;
-  float sh = 0.f, sv = 0.f;
-  for (int i = tid; i < blocks; i += kSumThreads) {
-    sh += partials[2ll * i];
-    sv += partials[2ll * i + 1];
-  }
-  sh = rc::warp_sum(sh);
-  sv = rc::warp_sum(sv);
-  if ((tid & 31) == 0) {
-    red[0][tid >> 5] = sh;
-    red[1][tid >> 5] = sv;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float th = 0.f, tv = 0.f;
-#pragma unroll
-    for (int i = 0; i < kSumThreads / 32; ++i) {
-      th += red[0][i];
-      tv += red[1][i];
-    }
-    const float tv_h = __fmul_rn(__fdiv_rn(th, pairs_h), rescale_h);
-    const float tv_v = __fmul_rn(__fdiv_rn(tv, pairs_v), rescale_v);
-    *out = __fadd_rn(tv_h, tv_v);
-  }
+  rc::band::write_partials(sh, sv, weight != nullptr ? weight[t.b] : 1.f,
+                           partials);
 }
 
 // ---- backward: a shared-memory halo stencil --------------------------------
@@ -285,9 +148,9 @@ __global__ void __launch_bounds__(kThreads, kBlocks)
                   const float* __restrict__ grad, float pairs_h,
                   float pairs_v, float rescale_h, float rescale_v,
                   bf16* __restrict__ dx) {
-  using Ring = SlabRing<1, 1>;
+  using Ring = SlabRing<bf16, 1, 1>;
   __shared__ __align__(16) unsigned char ring_mem[Ring::kBytes];
-  const Band t = band_of(H, W, D);
+  const Band t = band_of<bf16>(H, W, D);
   Ring ring(ring_mem, x, t, H, W, D);
   const int tid = threadIdx.x;
   const long long row = (long long)W * D;  // elements per image row
@@ -366,14 +229,14 @@ extern "C" int rc_tv_rowtile_fwd(const void* x, int B, int H, int W, int D,
                                  float pairs_h, float pairs_v,
                                  float rescale_h, float rescale_v,
                                  float* out, void* stream) {
-  if (!valid_shape(B, H, W, D)) return cudaErrorInvalidValue;
-  const long long blocks = band_blocks(B, H, W, D);
+  if (!valid_shape<bf16>(B, H, W, D)) return cudaErrorInvalidValue;
+  const long long blocks = band_blocks<bf16>(B, H, W, D);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   tv_fwd_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
       static_cast<const bf16*>(x), H, W, D, weight, partials);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  tv_fwd_value_kernel<<<1, kSumThreads, 0, st>>>(
+  rc::band::tv_fwd_value_kernel<<<1, kSumThreads, 0, st>>>(
       partials, (int)blocks, pairs_h, pairs_v, rescale_h, rescale_v, out);
   return cudaGetLastError();
 }
@@ -381,7 +244,8 @@ extern "C" int rc_tv_rowtile_fwd(const void* x, int B, int H, int W, int D,
 // Floats of the forward's partials at (B, H, W, D): two per block (0 for
 // a shape the kernels refuse).
 extern "C" long long rc_tv_rowtile_fwd_partials(int B, int H, int W, int D) {
-  return valid_shape(B, H, W, D) ? 2 * band_blocks(B, H, W, D) : 0;
+  return valid_shape<bf16>(B, H, W, D) ? 2 * band_blocks<bf16>(B, H, W, D)
+                                        : 0;
 }
 
 // grad: the upstream gradient, an f32 scalar on the device; pairs_h,
@@ -394,8 +258,8 @@ extern "C" int rc_tv_rowtile_bwd(const void* x, int B, int H, int W, int D,
                                  float pairs_h, float pairs_v,
                                  float rescale_h, float rescale_v, void* dx,
                                  void* stream) {
-  if (!valid_shape(B, H, W, D)) return cudaErrorInvalidValue;
-  tv_bwd_kernel<<<(unsigned)band_blocks(B, H, W, D), kThreads, 0,
+  if (!valid_shape<bf16>(B, H, W, D)) return cudaErrorInvalidValue;
+  tv_bwd_kernel<<<(unsigned)band_blocks<bf16>(B, H, W, D), kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), H, W, D, weight, grad, pairs_h, pairs_v,
       rescale_h, rescale_v, static_cast<bf16*>(dx));

@@ -47,7 +47,8 @@ NVCC_FLAGS = (
 # build keeps: the tensor-core kernels and the redesigned CUDA-core ones.
 PTXAS_VERBOSE = ("class_presence.cu", "conv_score_topk.cu", "head_topk.cu",
                  "histogram.cu", "live_rows.cu", "masked_pooling.cu",
-                 "pixel_text_ce.cu", "pixel_text_topk.cu", "tv_rowtile.cu")
+                 "pixel_text_ce.cu", "pixel_text_topk.cu", "tv_loss.cu",
+                 "tv_rowtile.cu")
 
 # Launches per kernel (and selector), counted by each wrapper right after a
 # successful launch, so a run can show which kernels its main path went
@@ -113,8 +114,8 @@ _SIGNATURES = {
                      _P, _P, _P, _L, _P, _P, _P),
     "rc_head_topk_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                         _P, _P),
-    "rc_tv_loss_fwd": (_P, _I, _I, _I, _I, _I, _P, _P),
-    "rc_tv_loss_bwd": (_P, _I, _I, _I, _I, _I, _P, _P, _P),
+    "rc_tv_loss_fwd": (_P, _I, _I, _I, _I, _I, _P, _F, _F, _P, _P),
+    "rc_tv_loss_bwd": (_P, _I, _I, _I, _I, _I, _P, _F, _F, _P, _P),
 }
 # Queries that return a long long: the dynamic shared memory of a kernel's
 # block at a width (D, C_in) or for a field dtype (is_bf16).
@@ -122,8 +123,10 @@ _QUERIES = ("rc_pixel_text_topk_tc_smem", "rc_conv_score_topk_smem",
             "rc_pixel_text_topk_fma_smem")
 # Queries of a kernel's device workspace in bytes at (a width, rows).
 _WORKSPACE_QUERIES = ("rc_pixel_text_ce_workspace",)
-# Queries of a kernel's scratch at a field shape (B, H, W, D).
-_SHAPE_QUERIES = ("rc_tv_rowtile_fwd_partials",)
+# Queries of a kernel's scratch at a field shape: their int arguments,
+# (B, H, W, D) or (is_bf16, B, H, W, D).
+_SHAPE_QUERIES = {"rc_tv_rowtile_fwd_partials": 4,
+                  "rc_tv_loss_fwd_partials": 5}
 
 OPS = torch.library.Library("rangeclip", "DEF")
 
@@ -242,8 +245,8 @@ def library() -> ctypes.CDLL:
         for name in _WORKSPACE_QUERIES:
             getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_longlong]
             getattr(lib, name).restype = ctypes.c_longlong
-        for name in _SHAPE_QUERIES:
-            getattr(lib, name).argtypes = [ctypes.c_int] * 4
+        for name, ints in _SHAPE_QUERIES.items():
+            getattr(lib, name).argtypes = [ctypes.c_int] * ints
             getattr(lib, name).restype = ctypes.c_longlong
         lib.rc_error_string.argtypes = [ctypes.c_int]
         lib.rc_error_string.restype = ctypes.c_char_p

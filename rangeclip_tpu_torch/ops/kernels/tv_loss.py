@@ -9,12 +9,19 @@ the backward's slope is sign(.) with sign(0) = 0, where
 ties.  ``tile_r`` and ``interpret`` are the TPU kernel's row-tile and
 interpret knobs and have no counterpart here: the function takes x only.
 
-The CUDA kernels are ``csrc/tv_loss.cu``; the pair is the operator
-``rangeclip::tv_loss`` with ``rangeclip::tv_loss_backward`` registered as
-its gradient.  :func:`tv_loss_value` and :func:`tv_loss_grad` are the plain
-versions (a ``torch.autograd.Function`` for CPU tensors, and the reference
-the kernels are held against on the card): the forward differs from the
-kernel by the f32 summation order (rtol 1e-5), the backward is bit-equal.
+The CUDA kernels are ``csrc/tv_loss.cu``, band stencils on
+``csrc/band_ring.cuh``'s shared-memory ring of row slabs (as
+``tv_rowtile``'s are) with a one-dimensional grid, so any B * H runs that
+makes fewer than 2^31 blocks (:func:`band_blocks`); the pair is the
+operator ``rangeclip::tv_loss`` with ``rangeclip::tv_loss_backward``
+registered as its gradient.  Each is one C entry point that does all of
+its device work: the forward sums its per-block partials in a fixed order
+and writes the value with :func:`combine`'s f32 arithmetic, the backward
+forms :func:`scales`' quotients from the upstream gradient on the device.
+:func:`tv_loss_value` and :func:`tv_loss_grad` are the plain versions (a
+``torch.autograd.Function`` for CPU tensors, and the reference the kernels
+are held against on the card): the forward differs from the kernel by the
+f32 summation order (rtol 1e-5), the backward is bit-equal.
 The backward rounds the horizontal and the vertical term each to x's
 dtype and adds them in x's dtype, as the TPU kernel's in-tile rows do; its
 tile-seam and column-chunk-seam rows round a third time, so JAX may differ
@@ -32,8 +39,19 @@ import torch.nn.functional as F
 
 from rangeclip_tpu_torch.ops.kernels import _lib
 
-_THREADS = 256  # csrc/tv_loss.cu kThreads
-_ROWS = 8  # csrc/tv_loss.cu kRows
+# csrc/band_ring.cuh: a band is kBand rows x kPixels columns x kGroups
+# 16-byte pieces (8 bf16 or 4 f32 channels each)
+_BAND, _PIXELS, _GROUPS = 32, 32, 8
+
+
+def band_blocks(shape, dtype) -> int:
+    """Blocks of the kernels' grid (csrc/band_ring.cuh ``band_blocks``) for a
+    [B, H, W, D] field of ``dtype`` with D % 8 == 0; the forward writes two
+    partials per block."""
+    B, H, W, D = shape
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    return (B * -(-H // _BAND) * -(-(D // per) // _GROUPS)
+            * -(-W // _PIXELS))
 
 
 def pair_counts(shape, dim=None):
@@ -106,37 +124,40 @@ def fused_tv_loss(x: torch.Tensor) -> torch.Tensor:
     B, H, W, D = x.shape
     _lib.require(x.dtype in (torch.float32, torch.bfloat16)
                  and x.is_contiguous() and D >= 1
-                 and B * -(-H // _ROWS) <= 65535,
+                 and band_blocks((B, H, W, D + -D % 8), x.dtype) < 2 ** 31,
                  "tv_loss: the kernel takes a contiguous f32 or bf16 "
                  f"[B, H, W, D] field, got {x.dtype} {tuple(x.shape)}")
     return tv_loss_op(_lib.pad_dim8(x), D)
 
 
-def _grid(shape) -> int:
-    B, H, W, D = shape
-    return -(-(W * (D // 8)) // _THREADS) * B * -(-H // _ROWS)
-
-
 def _fwd_cuda(x, dim):
     _lib.require(x.data_ptr() % 16 == 0, "tv_loss: x must be 16-byte aligned")
     B, H, W, D = x.shape
-    partials = torch.empty(_grid(x.shape), 2, dtype=torch.float32,
-                           device=x.device)
-    code = _lib.library().rc_tv_loss_fwd(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), B, H, W, D,
-        partials.data_ptr(), _lib.stream_of(x))
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    # one entry point: the band kernel's per-block partials, then their sum
+    # in block order and combine's f32 arithmetic on the device
+    lib = _lib.library()
+    partials = torch.empty(lib.rc_tv_loss_fwd_partials(is_bf16, B, H, W, D),
+                           dtype=torch.float32, device=x.device)
+    value = torch.empty((), dtype=torch.float32, device=x.device)
+    code = lib.rc_tv_loss_fwd(
+        x.data_ptr(), is_bf16, B, H, W, D, partials.data_ptr(),
+        *pair_counts(x.shape, dim), value.data_ptr(), _lib.stream_of(x))
     _lib.check(code, "tv_loss[fwd]")
-    sums = partials.sum(dim=0)
-    return combine(sums[0], sums[1], x.shape, dim)
+    return value
 
 
 def _bwd_cuda(x, grad, dim):
     B, H, W, D = x.shape
-    s = scales(grad, x.shape, dim).contiguous()
+    _lib.require(x.data_ptr() % 16 == 0, "tv_loss: x must be 16-byte aligned")
+    # the kernel forms scales' f32 quotients itself, from the upstream
+    # gradient on the device: no small launches, no copies
+    grad = grad.float().contiguous()
     dx = torch.empty_like(x)
     code = _lib.library().rc_tv_loss_bwd(
         x.data_ptr(), int(x.dtype == torch.bfloat16), B, H, W, D,
-        s.data_ptr(), dx.data_ptr(), _lib.stream_of(x))
+        grad.data_ptr(), *pair_counts(x.shape, dim), dx.data_ptr(),
+        _lib.stream_of(x))
     _lib.check(code, "tv_loss[bwd]")
     return dx
 

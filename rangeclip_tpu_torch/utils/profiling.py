@@ -15,29 +15,30 @@ step whose contrast set overflows the capacity (150 labels present: 200
 members, the full-table branch).  ``serve_fp32_fused`` is
 ``predict_topk_fused`` on the fp32 serve model (batch 8, all 512 classes
 live, top-1: ``head_topk``'s CUDA-core route).  ``ce_forward``,
-``ce_forward_all``,
-``ce_backward``, ``tv_forward``, ``histogram``, ``presence_*``,
-``head_topk``, ``head_topk_fp32`` and ``masked_pooling`` call one operator
-at the shape of its main path (:func:`kernel_call`):
-``pixel_text_ce``'s forward on the fp32 validation shape with 90 and with
-all 512 classes in the contrast set, its backward with 90 (an fp32 train
-microbatch of batch 8), ``tv_rowtile``'s forward on the flagship train
-field, the flagship step's histogram, and ``class_presence`` at the bench
-shape and the main paths' label counts, ``fused_head_score_topk`` on
-bf16 pre-head features at the bench shape (its tensor-core route) and on
-f32 ones at the serve shape (its CUDA-core route), and
-``fused_masked_pooling`` on the flagship train field;
-``candidate_mask`` is validation's ``build_candidate_mask`` at batch 8.  Each configuration
-runs two calls, then ``--calls`` calls timed by the host clock
-(synchronised), then as many under the profiler, at full width with random
-weights from seed 0.  Only device events count (``device_type`` CUDA:
-kernels, copies and memsets), never the host-side operator rows that
-enclose them, so no kernel is counted twice.  Per call it prints the
-unprofiled host clock, the host wall time under the profiler, the sum of
-device event times, the number of device events (the launches, copies and
-memsets), the time the device was busy (the union of the events'
-intervals) and the busy share (busy time / host wall time under the
-profiler), then the device time of each event name in decreasing order
+``ce_forward_all``, ``ce_backward``, ``tv_forward``, ``tv_loss``,
+``tv_loss_fp32``, ``histogram``, ``presence_*``, ``head_topk``,
+``head_topk_fp32`` and ``masked_pooling`` call one operator (``tv_loss*``:
+its forward and backward) at the shape of its main path
+(:func:`kernel_call`): ``pixel_text_ce``'s forward on the fp32 validation
+shape with 90 and with all 512 classes in the contrast set, its backward
+with 90 (an fp32 train microbatch of batch 8), ``tv_rowtile``'s forward on
+the flagship train field, ``fused_tv_loss``'s operators on the flagship
+train field in bf16 and in f32, the flagship step's histogram, and
+``class_presence`` at the bench shape and the main paths' label counts,
+``fused_head_score_topk`` on bf16 pre-head features at the bench shape
+(its tensor-core route) and on f32 ones at the serve shape (its CUDA-core
+route), and ``fused_masked_pooling`` on the flagship train field;
+``candidate_mask`` is validation's ``build_candidate_mask`` at batch 8.
+Each configuration runs two calls, then ``--calls`` calls timed by the
+host clock (synchronised), then as many under the profiler, at full width
+with random weights from seed 0.  Only device events count
+(``device_type`` CUDA: kernels, copies and memsets), never the host-side
+operator rows that enclose them, so no kernel is counted twice.  Per call
+it prints the unprofiled host clock, the host wall time under the profiler,
+the sum of device event times, the number of device events (the launches,
+copies and memsets), the time the device was busy (the union of the
+events' intervals), the busy share (busy time / host wall time under the
+profiler) and the traces taken (:func:`profile`), then the device time of each event name in decreasing order
 (the first 25), and with ``--host N`` the N host operators with the most
 CPU time of their own.  The script calls public operators only, so a copy
 of it placed in another checkout of the package profiles that checkout.
@@ -80,8 +81,9 @@ PRESENCE_LABELS = {"presence_bench": 128 * RES * RES,
                    "presence_512k": 8 * RES * RES,
                    "candidate_mask": 8 * RES * RES}
 KERNEL_CONFIGS = ("ce_forward", "ce_forward_all", "ce_backward",
-                  "tv_forward", "histogram", "head_topk", "head_topk_fp32",
-                  "masked_pooling", *PRESENCE_LABELS)
+                  "tv_forward", "tv_loss", "tv_loss_fp32", "histogram",
+                  "head_topk", "head_topk_fp32", "masked_pooling",
+                  *PRESENCE_LABELS)
 
 
 def busy_us(spans: List[tuple]) -> float:
@@ -104,11 +106,12 @@ def profile(fn: Callable[[], object], calls: int = 3, warmup: int = 2
     many, after ``warmup`` unprofiled ones; times are ms per call.  The
     tracer's start can lose device events (6 of 20 kernels once), so it
     first traces as many calls again, then idles 1 ms, and counts only the
-    events from the profiled calls' host range (less half the idle, for
-    the alignment of the device and host clocks) on.  A trace that holds
-    no device event in that range (twice in 8 runs of ``chip_smoke.py`` on
-    an H100 80GB HBM3 at 700 W) is taken again, up to three traces in
-    all."""
+    device events of the runtime calls (launches, copies, memsets, graphs)
+    that the profiled calls' host range made, matched by correlation id.  A
+    trace that misses the kernel of a launch in that range (19 of 20 once,
+    on an H100 80GB HBM3 at 700 W) is taken again, up to five traces in
+    all, and ``traces`` says how many were taken; when all five miss one it
+    raises."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -119,7 +122,7 @@ def profile(fn: Callable[[], object], calls: int = 3, warmup: int = 2
     host_ms = (time.perf_counter() - t0) * 1e3 / calls
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
+    for traces in range(1, 6):
         with torch.profiler.profile(activities=activities) as prof:
             for _ in range(calls):  # the tracer's start: not counted
                 fn()
@@ -134,18 +137,25 @@ def profile(fn: Callable[[], object], calls: int = 3, warmup: int = 2
         traced = prof.events()
         window = next(e for e in traced if e.name == WINDOW
                       and e.device_type == DeviceType.CPU)
-        since = window.time_range.start - 500  # us
+        # the window's runtime calls on the host clock; their device events
+        # share their correlation ids, so no alignment of the clocks is
+        # needed
+        runtime = [e for e in traced if e.device_type == DeviceType.CPU
+                   and e.name.startswith("cu")
+                   and e.time_range.start >= window.time_range.start]
+        ids = {e.id for e in runtime}
         # device events only; user annotations on the GPU timeline (e.g.
         # the optimizer's "Optimizer.step#Adam.step" range, or the window's
         # own) enclose kernels and would count them twice
         events = [e for e in traced if e.device_type == DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False)
-                  and e.time_range.start >= since]
-        if events:
+                  and e.id in ids]
+        launched = {e.id for e in runtime if "LaunchKernel" in e.name}
+        if events and launched <= {e.id for e in events}:
             break
     else:
-        raise RuntimeError("the profiler recorded no device event in "
-                           "three traces")
+        raise RuntimeError("the profiler missed the device events of the "
+                           "window's launches in five traces")
     by_name = collections.Counter()
     for e in events:
         by_name[e.name] += e.time_range.elapsed_us()
@@ -158,6 +168,7 @@ def profile(fn: Callable[[], object], calls: int = 3, warmup: int = 2
             host_us[e.name] += e.self_cpu_time_total
             host_n[e.name] += 1
     return {
+        "traces": traces,
         "host_ms": host_ms,
         "wall_ms": wall_us / calls / 1e3,
         "device_ms": sum(by_name.values()) / calls / 1e3,
@@ -230,7 +241,9 @@ def kernel_call(config: str) -> Callable[[], torch.Tensor]:
     128, 512], upsample 2, one sample weight 0), the flagship step's
     histogram (32 x 45,875 draws into 65,536 bins), class_presence with a
     validity vector at :data:`PRESENCE_LABELS` (labels 0..39, C = 512),
-    validation's build_candidate_mask at batch 8 (50 negatives),
+    validation's build_candidate_mask at batch 8 (50 negatives), the
+    opt-in TV loss's forward and backward on the flagship train field (bf16
+    ``tv_loss``, or the same shape in f32 ``tv_loss_fp32``),
     fused_head_score_topk at the bench shape (bf16 features [128, 128, 128,
     32], D = C = 512, 340 classes live, top-5) or at the serve shape (f32
     features [8, 128, 128, 32], D = C = 512 all live, top-1), or
@@ -296,6 +309,22 @@ def kernel_call(config: str) -> Callable[[], torch.Tensor]:
         mask[torch.randperm(NUM_CLASSES, device=device,
                             generator=gen)[:340]] = True
         return lambda: fused_head_score_topk(feats, rows, table, mask, 5)
+    if config in ("tv_loss", "tv_loss_fp32"):
+        from rangeclip_tpu_torch.ops.kernels.tv_loss import (
+            tv_loss_backward_op,
+            tv_loss_op,
+        )
+
+        x = torch.randn(32, 128, 128, 512, device=device, generator=gen)
+        if config == "tv_loss":
+            x = x.to(torch.bfloat16)
+        g = torch.tensor(1.0, device=device)
+
+        def call():
+            tv_loss_op(x, 512)
+            return tv_loss_backward_op(x, g, 512)
+
+        return call
     if config == "tv_forward":
         from rangeclip_tpu_torch.ops.kernels.tv_rowtile import tv_rowtile_op
 
@@ -425,7 +454,8 @@ def main(argv=None) -> None:
               f"{result['device_ms']:.4f} ms/call "
               f"({result['device_events']:g} a call), busy "
               f"{result['busy_ms']:.3f} ms/call, busy share "
-              f"{result['busy_share']:.3f}", flush=True)
+              f"{result['busy_share']:.3f}, {result['traces']} trace(s)",
+              flush=True)
         for name, ms in result["events"][:25]:
             print(f"  {ms:9.4f} ms  {ms / result['device_ms']:6.1%}  "
                   f"{name[:110]}", flush=True)

@@ -1231,12 +1231,23 @@ def test_masked_pooling_label_layouts(cuda_device, case, dtype):
                                          ((2, 9, 10, 20), torch.bfloat16),
                                          ((1, 5, 7, 100), torch.float32),
                                          ((2, 17, 33, 100), torch.bfloat16),
-                                         ((3, 9, 16, 20), torch.float32)])
+                                         ((3, 9, 16, 20), torch.float32),
+                                         ((2, 33, 70, 72), torch.bfloat16),
+                                         ((1, 65, 33, 72), torch.bfloat16),
+                                         ((2, 33, 70, 40), torch.float32),
+                                         ((1, 65, 33, 40), torch.float32),
+                                         ((2, 64, 64, 512), torch.float32),
+                                         ((8200, 64, 2, 8), torch.bfloat16)])
 def test_tv_loss_matches_plain(cuda_device, shape, dtype):
     """Quantised values with exact ties (sign(0) = 0): the backward
     bit-equal to the plain VJP, the forward within rtol 1e-5 (f32
-    summation order).  D = 20 and 100 are zero-padded by the operators,
-    which divide by the true pair counts and slice the gradient back."""
+    summation order) and bit-equal across two calls, each one launch.  D =
+    20 and 100 are zero-padded by the operators, which divide by the true
+    pair counts and slice the gradient back.  The band's edges: H and W
+    not multiples of its 32 rows and columns (33, 65, 70), channel chunks
+    ragged against 64 bf16 (72) and 32 f32 (40) channels, W = 2; and
+    [8200, 64, 2, 8], past the grid the kernels once had (B * ceil(H / 8)
+    <= 65535)."""
     from rangeclip_tpu_torch.ops.kernels.tv_loss import (
         fused_tv_loss,
         tv_loss_grad,
@@ -1258,6 +1269,50 @@ def test_tv_loss_matches_plain(cuda_device, shape, dtype):
     torch.testing.assert_close(value.detach(), tv_loss_value(x), rtol=1e-5,
                                atol=0.0)
     assert torch.equal(xk.grad, tv_loss_grad(x, g))
+    again, launches = _counted("tv_loss[fwd]", lambda: fused_tv_loss(x))
+    assert launches == 1 and torch.equal(again, value.detach())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tv_loss_band_blocks_match_the_kernel(cuda_device, dtype):
+    """The wrapper's mirror of the grid, ``band_blocks``, against the
+    kernel's own count of the forward's partials (two floats a block), and
+    a width the kernels refuse (D % 8 != 0) sized 0."""
+    from rangeclip_tpu_torch.ops.kernels.tv_loss import band_blocks
+
+    lib = _lib.library()
+    is_bf16 = int(dtype == torch.bfloat16)
+    for shape in ((32, 128, 128, 512), (8200, 64, 2, 8), (2, 33, 70, 72),
+                  (1, 65, 33, 40), (1, 2, 2, 8), (3, 1, 1, 2056)):
+        assert (lib.rc_tv_loss_fwd_partials(is_bf16, *shape)
+                == 2 * band_blocks(shape, dtype)), shape
+    assert lib.rc_tv_loss_fwd_partials(is_bf16, 2, 4, 4, 12) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("g", [1.7, 0.0, -3e-34, 1e36])
+def test_tv_loss_backward_at_every_scale(cuda_device, dtype, g):
+    """The backward bit-equal to the plain VJP on both of its paths: in
+    bf16, scales within 2^-100 .. 2^100 (1.7) take the products of the
+    pre-rounded scales, the others (0, a scale in bf16's subnormal range,
+    one past 2^100) the general path's three roundings, which f32 takes at
+    every scale."""
+    from rangeclip_tpu_torch.ops.kernels.tv_loss import (
+        tv_loss_backward_op,
+        tv_loss_grad,
+    )
+
+    shape = (2, 33, 70, 72)
+    gen = torch.Generator().manual_seed(14)
+    x = (torch.randint(-6, 7, shape, generator=gen) / 4).to(dtype).to(
+        cuda_device)
+    grad = torch.tensor(g, device=cuda_device)
+    got, launches = _counted("tv_loss[bwd]",
+                             lambda: tv_loss_backward_op(x, grad, shape[-1]))
+    assert launches == 1
+    assert torch.equal(got, tv_loss_grad(x, grad))
 
 
 @pytest.mark.cuda

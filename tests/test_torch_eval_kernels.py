@@ -34,6 +34,7 @@ from rangeclip_tpu_torch.models.depth_unet import (
     DepthUNetConfig,
     predict_topk_fused,
 )
+from rangeclip_tpu_torch.ops.kernels import tv_loss as tv_k
 from rangeclip_tpu_torch.ops.kernels.head_topk import (
     fused_head_score_topk,
     head_field,
@@ -155,6 +156,56 @@ def test_fused_tv_loss_matches_jax(monkeypatch, dtype, shape, tile_r,
     flat = torch.zeros(shape).to(x_port.dtype).requires_grad_()
     fused_tv_loss(flat).backward()
     assert (flat.grad == 0).all()
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    ("bfloat16", (2, 33, 70, 72)), (np.float32, (1, 65, 33, 40)),
+    ("bfloat16", (1, 65, 33, 72)), (np.float32, (2, 33, 70, 40))])
+def test_fused_tv_loss_matches_jax_at_band_edges(dtype, shape):
+    """The shapes that cross the CUDA kernels' band edges (H and W not
+    multiples of 32, bf16 D % 64 and f32 D % 32 not 0), through the plain
+    versions against the TPU kernel in interpret mode: the value within
+    rtol 1e-5, the gradient within one ulp of x's dtype at the magnitude 2
+    (scale_h + scale_v), as test_fused_tv_loss_matches_jax."""
+    x_jax, x_port = _quantised(shape, sum(shape), dtype)
+    g = 1.7
+    want = float(jax_tv.fused_tv_loss(x_jax, 8, True))
+    want_grad = np.asarray(jax.grad(
+        lambda x: g * jax_tv.fused_tv_loss(x, 8, True).astype(
+            jnp.float32))(x_jax), np.float32)
+    x = x_port.clone().requires_grad_()
+    value = fused_tv_loss(x)
+    value.backward(torch.tensor(g))
+    np.testing.assert_allclose(float(value.detach()), want, rtol=1e-5)
+    B, H, W, D = shape
+    scale = g / (B * H * (W - 1) * D) + g / (B * (H - 1) * W * D)
+    np.testing.assert_allclose(x.grad.float().numpy(), want_grad, rtol=0,
+                               atol=_ulp(2 * scale, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [
+    (32, 128, 128, 512), (8200, 64, 2, 8), (2, 33, 70, 72),
+    (3, 65, 33, 40), (1, 2, 2, 8)])
+def test_tv_loss_band_blocks(dtype, shape):
+    """The wrapper's mirror of the kernels' grid (csrc/band_ring.cuh
+    ``band_blocks``) against a direct count: the distinct images, 32-row
+    bands, 32-column W-tiles and 8-piece channel chunks that the elements
+    fall in, a piece being 16 bytes (8 bf16 or 4 f32 channels); a block is
+    one of each, and the forward writes two partials a block.  [8200, 64,
+    2, 8] is past the grid the kernels once had (B * ceil(H / 8) <=
+    65535), and the one-dimensional grid takes it."""
+    B, H, W, D = shape
+    per = 8 if dtype == torch.bfloat16 else 4
+    # the tile of each element along each axis; a block is one tile of each
+    tiles = [np.arange(B), np.arange(H) // 32, np.arange(W) // 32,
+             np.arange(D) // per // 8]
+    direct = int(np.prod([len(np.unique(t_)) for t_ in tiles]))
+    blocks = tv_k.band_blocks(shape, dtype)
+    assert blocks == direct
+    assert blocks < 2 ** 31
+    if shape == (8200, 64, 2, 8):
+        assert B * -(-H // 8) > 65535 and blocks == 2 * B
 
 
 def _head_inputs(seed, B, h, C_in, D, C):

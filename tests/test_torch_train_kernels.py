@@ -400,7 +400,7 @@ def test_pixel_text_ce_members_backward_transcription(dtype, slots, packed,
                                    (8193, 64, 2, 8)])
 @pytest.mark.parametrize("upsample", [1, 2])
 def test_tv_forward_value_arithmetic_matches_scale_sums(shape, upsample):
-    """The forward kernel's last step (csrc/tv_rowtile.cu,
+    """The forward kernel's last step (csrc/band_ring.cuh,
     tv_fwd_value_kernel): from the summed |dh| and |dv|, true f32 division
     by the pair counts, the upsample factors, then the add, with its
     arguments the Python floats of ``pair_scalars`` rounded once to f32.
