@@ -5,7 +5,9 @@ NVIDIA GPU.
 
 Full width: the ResNet-18 UNet with embedding dim 512 and filters 32..512
 at 256x256, a label table of C=512 (hash-stub text embeddings) and random
-weights made from a seed, saved to and reloaded from a reference ``.pth``.
+weights made from a seed, saved to and reloaded from a reference ``.pth``;
+phase 11 adds the ViT-B/32 CLIP towers, the MiT UNet (stage widths
+64..512) and the ResNet-50 UNet at the same widths.
 Phases (any failure raises; nothing is caught):
 
 1. Build the CUDA kernels from ``rangeclip_tpu_torch/csrc/``; print the
@@ -114,10 +116,37 @@ Phases (any failure raises; nothing is caught):
    100 on main-path row counts, masked_pooling also at D = 2056 (two column
    chunks), each launching its kernel.
 
-Each path of phases 3-8 runs with the launch counts set to 0 just before
-it and read just after (phases 9-10 compare, and count nothing); each must
-launch the kernels it is built on, and every kernel must be launched by
-some path.
+11. The modules of the frozen-encoder finetune, the CLIP towers and the
+   other encoders, at full width (none of them holds a kernel; the paths
+   they open run the kernels above).  (a) cli/train --bf16, accumulation
+   1 x 32 at 256^2 on phase 8's dataset, 3 steps, with both CLIP towers
+   converted from a random full-width ViT-B/32 checkpoint in HF's layout
+   written as .safetensors, and a synthetic byte-level vocab.json /
+   merges.txt: finite losses, the text tower called once per 128 labels,
+   the image tower once per window; then the text precompute of the 512
+   labels and the image tower on a window of 32 crops at 224^2, timed
+   alone, the latter's device time beside that of phase 7's flagship step
+   (torch.profiler, both).  (b) cli/train
+   --restore_path_encoder from phase 8's checkpoint, 2 steps: every
+   encoder parameter and BatchNorm statistic bit-equal to the restored
+   ones, the decoder moved.  (c) cli/train --bf16 --unet_architecture mit,
+   2 steps; the first step's CE operands (16 label slots on the H/4 field)
+   recorded, and pixel_text_ce held on them, packed as the step passed
+   them and over the full table, against its plain versions at phase 2's
+   tolerances and timed; its checkpoint through predict_folded at the
+   bench configuration twice (identical checksums, maps/s),
+   conv_score_topk on its features and folded head against its plain
+   version, and its fp32 labels at batch 8 against the same model on the
+   CPU up to near-ties.  (d) a ResNet-50 UNet (random weights from a seed)
+   through the same but the CE.  (e)
+   evaluate_mask_clip's prediction on one batch of the split at 224^2 with
+   the random full-width vision tower: the card's ids against the CPU's up
+   to near-ties, then the evaluator over that batch.
+
+Each path of phases 3-8 and of phase 11's (a)-(d) runs with the launch
+counts set to 0 just before it and read just after (phases 9-10 compare,
+and count nothing); each must launch the kernels it is built on, and
+every kernel must be launched by some path.
 
 The second-to-last line is a JSON object with each kernel's launches, error
 against its plain version, times and device time; the last line names the
@@ -131,6 +160,7 @@ import argparse
 import contextlib
 import copy
 import csv
+import dataclasses
 import http.client
 import io
 import json
@@ -383,13 +413,11 @@ def phase_kernels(device, bench_model, bench_depth, text, cand, stats):
     from rangeclip_tpu_torch.ops.kernels.conv_score_topk import (
         conv_score_topk,
         conv_score_topk_plain,
-        fold_to_rows,
     )
     from rangeclip_tpu_torch.ops.kernels.score_topk import (
         score_topk,
         score_topk_plain,
     )
-    from rangeclip_tpu_torch.utils.math import l2_normalize
 
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
 
@@ -479,26 +507,9 @@ def phase_kernels(device, bench_model, bench_depth, text, cand, stats):
     log(f"  conv_score_topk B={B} h=w={h} C_in={c_in} S={BENCH_SLOTS} "
         f"k={BENCH_TOP_K}, quantised-exact inputs: bit-equal")
     # real features: the bench model's pre-head features and folded head
-    with torch.inference_mode():
-        feats = bench_model.decode_features(bench_depth).contiguous()
-        table = l2_normalize(text[cand.clamp_min(0).long()].float(), dim=-1)
-        W = bench_model.decoder.output_conv.conv.weight.float()
-        rows = fold_to_rows(torch.einsum("diyx,sd->siyx", W, table).to(
-            torch.bfloat16))
-    got = conv_score_topk(feats, rows, slot_ids, BENCH_TOP_K, True)
-    want = conv_score_topk_plain(feats, rows, slot_ids, BENCH_TOP_K)
-    torch.cuda.synchronize()
-    agree = got[0] == want[0]
-    rate = float(agree.float().mean())
-    v_got, v_want = got[1][~agree], want[1][~agree]
-    top = torch.maximum(v_got.abs(), v_want.abs()).clamp_min(1e-30)
-    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
-    ties = bool(((v_got - v_want).abs() <= ulp).all())
-    err = max(err, max_abs_err(got[1], want[1]))
-    log(f"  conv_score_topk, decoder features: id agreement {rate:.6f}, "
-        f"{int((~agree).sum())} mismatches, all within one bf16 ulp: {ties}")
-    require(rate >= 0.999, f"conv_score_topk id agreement {rate} < 0.999")
-    require(ties, "conv_score_topk mismatch beyond a one-ulp tie")
+    feats, rows, real_err = hold_conv_score_topk(
+        "decoder features", bench_model, bench_depth, text, cand)
+    err = max(err, real_err)
     ms, plain_ms = time_pair(
         lambda: conv_score_topk(feats, rows, slot_ids, BENCH_TOP_K),
         lambda: conv_score_topk_plain(feats, rows, slot_ids, BENCH_TOP_K),
@@ -523,6 +534,42 @@ def phase_kernels(device, bench_model, bench_depth, text, cand, stats):
                 2.0 * n_pix * 9 * c_in * n_live, "bf16"),
         **device_fields(lambda: conv_score_topk(feats, rows, slot_ids,
                                                 BENCH_TOP_K)))
+
+
+def hold_conv_score_topk(name, model, depth, text, cand):
+    """conv_score_topk on a bf16 model's pre-head features and its head
+    folded with the candidates' rows (as predict_folded folds it) against
+    its plain version: ids agree at >= 0.999 and every mismatch is a tie
+    within one bf16 ulp.  Returns (features, rows, largest value error)."""
+    from rangeclip_tpu_torch.ops.kernels.conv_score_topk import (
+        conv_score_topk,
+        conv_score_topk_plain,
+        fold_to_rows,
+    )
+    from rangeclip_tpu_torch.utils.math import l2_normalize
+
+    slot_ids = cand.to(torch.int32)
+    with torch.inference_mode():
+        feats = model.decode_features(depth).contiguous()
+        table = l2_normalize(text[cand.clamp_min(0).long()].float(), dim=-1)
+        W = model.decoder.output_conv.conv.weight.float()
+        rows = fold_to_rows(torch.einsum("diyx,sd->siyx", W, table).to(
+            torch.bfloat16))
+    got = conv_score_topk(feats, rows, slot_ids, BENCH_TOP_K, True)
+    want = conv_score_topk_plain(feats, rows, slot_ids, BENCH_TOP_K)
+    torch.cuda.synchronize()
+    agree = got[0] == want[0]
+    rate = float(agree.float().mean())
+    v_got, v_want = got[1][~agree], want[1][~agree]
+    ulp = bf16_ulp(torch.maximum(v_got.abs(), v_want.abs()))
+    ties = bool(((v_got - v_want).abs() <= ulp).all())
+    log(f"  conv_score_topk, {name} (bf16 {list(feats.shape)}, "
+        f"{rows.shape[0]} slots): id agreement {rate:.6f}, "
+        f"{int((~agree).sum())} mismatches, all within one bf16 ulp: {ties}")
+    require(rate >= 0.999,
+            f"conv_score_topk {name}: id agreement {rate} < 0.999")
+    require(ties, f"conv_score_topk {name}: mismatch beyond a one-ulp tie")
+    return feats, rows, max_abs_err(got[1], want[1])
 
 
 def sparse_signs(rows: int, dim: int, nonzero: int, gen, device):
@@ -571,11 +618,19 @@ def near_tie_check(name, got, want, field, table, slot_ids=None,
     return rate
 
 
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each |x| (the spacing of bf16 values in its binade:
+    2^(e - 8) for |x| in [2^(e-1), 2^e)), in f64, exact on any device:
+    exp2(floor(log2(x))) is not on the card, whose f64 log2 can fall just
+    below an integer at a power of two and halve the ulp."""
+    _, e = torch.frexp(x.double().abs().clamp_min(1e-30))
+    return torch.ldexp(torch.ones_like(e, dtype=torch.float64), e - 8)
+
+
 def within_bf16_ulp(got: torch.Tensor, want: torch.Tensor,
                     slack=0.0) -> bool:
     got, want = got.double(), want.double()
-    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
-    return bool(((got - want).abs() <= ulp + slack).all())
+    return bool(((got - want).abs() <= bf16_ulp(want) + slack).all())
 
 
 def vjp_scale(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -2015,7 +2070,8 @@ def compare_train_step(device, batch: int, bf16: bool,
 def phase_train(device, card: str, totals):
     """The flagship train step, 3 steps; cli/train's fp32 microbatch and a
     bf16 step overflowing the contrast capacity, 3 steps each; then kernel
-    vs plain steps."""
+    vs plain steps.  Returns the flagship step's device time (ms a step,
+    torch.profiler)."""
     from rangeclip_tpu_torch.utils.profiling import train_setup
 
     state, data, text, medium, hard, step = train_setup(
@@ -2043,12 +2099,16 @@ def phase_train(device, card: str, totals):
             f"non-finite train info: {losses}")
     require(changed > 0, "no parameter changed")
     step_s = sum(times[1:]) / len(times[1:])
+    flagship_ms = device_fields(lambda: step(
+        state, data, (SEED, 3), 1e-4, 0.0, 0.75, text, medium, hard),
+        calls=3)["device_ms"]
     log(f"  train: losses {[round(l['total_loss'], 4) for l in losses]}, "
         f"grad_norm {[round(l['grad_norm'], 4) for l in losses]}; "
         f"{changed} of {len(before)} float tensors changed; "
         f"{1e3 * step_s:.2f} ms/step (steps 2-3, host clock, synchronised; "
         f"first step {1e3 * times[0]:.1f} ms), {TRAIN_BATCH / step_s:.1f} "
-        f"maps/s on {card}")
+        f"maps/s; {flagship_ms:.2f} ms of device time a step "
+        f"(torch.profiler, 3 more steps) on {card}")
     del state, data
     torch.cuda.empty_cache()
 
@@ -2120,6 +2180,7 @@ def phase_train(device, card: str, totals):
             f"{float(plain['total_loss']):.6f}, grad_norm "
             f"{float(info['grad_norm']):.6f} vs {float(plain['grad_norm']):.6f}")
         torch.cuda.empty_cache()
+    return flagship_ms
 
 
 def compare_val_step(device) -> None:
@@ -2296,7 +2357,8 @@ def phase_dim100(device) -> None:
 def phase_cli_train(tmp: str, device, totals) -> None:
     """cli/train --bf16 on a synthetic 256^2 dataset, validating at step 2;
     its checkpoint loaded strictly and run through predict; then
-    cli/validate --baselines from that checkpoint."""
+    cli/validate --baselines from that checkpoint.  Returns the dataset's
+    paths (phase 11 trains on it and restores from the checkpoint)."""
     from rangeclip_tpu_torch.cli import train, validate
     from rangeclip_tpu_torch.data.labels import load_candidate_labels
     from rangeclip_tpu_torch.data.synthetic import write_synthetic_dataset
@@ -2402,6 +2464,7 @@ def phase_cli_train(tmp: str, device, totals) -> None:
         f"after a warm pass): {n_maps} maps in {seconds:.3f} s, "
         f"{n_maps / seconds:.1f} maps/s (host clock, loading included)")
     val_shape_topk(device, model, loader, inputs["text_table"])
+    return data
 
 
 def val_shape_topk(device, model, loader, text_table) -> None:
@@ -2554,9 +2617,7 @@ def phase_padded_widths(device) -> None:
                 # CE_PAD_NORM of its norm; the same formula with the logits
                 # rounded to bf16, a rounding fault, must break one of the
                 # two.
-                ulp = torch.exp2(torch.floor(torch.log2(
-                    dx.double().abs().clamp_min(1e-30))) - 7)
-                limit = ulp + scale * 2.0 ** -10
+                limit = bf16_ulp(dx) + scale * 2.0 ** -10
 
                 def reading(d):
                     diff = (d.double() - dx.double()).abs()
@@ -2670,6 +2731,522 @@ def phase_padded_widths(device) -> None:
             f"within 1e-5 of the summed magnitudes")
         del emb, seg, sums, want, scale
     torch.cuda.empty_cache()
+
+
+CLIP_TRAIN_KERNELS = ["histogram", "class_presence", "pixel_text_ce[fwd]",
+                      "pixel_text_ce[bwd]", "tv_rowtile[fwd]",
+                      "tv_rowtile[bwd]"]
+BENCH_PREDICT_KERNELS = ["class_presence[labels]", "conv_score_topk"]
+CLIP_LABELS = NUM_CLASSES  # the synthetic dataset's label table
+
+
+def write_clip_files(tmp: str):
+    """A full-width ViT-B/32 CLIP checkpoint in HF's layout with random
+    weights from a seed, written as .safetensors, and a byte-level BPE
+    vocabulary (every byte alone and as a word end, no merges) whose
+    end-of-text token has the highest id, as in CLIP's.  Returns the three
+    paths."""
+    from rangeclip_tpu_torch.models.clip.convert import (
+        hf_state_dict,
+        write_safetensors,
+    )
+    from rangeclip_tpu_torch.models.clip.model import (
+        CLIP_VIT_B32,
+        CLIPTextTower,
+        CLIPVisionTower,
+    )
+    from rangeclip_tpu_torch.models.clip.tokenizer import bytes_to_unicode
+
+    t0 = time.perf_counter()
+    towers = (CLIPTextTower(CLIP_VIT_B32,
+                            generator=torch.Generator().manual_seed(SEED + 20)),
+              CLIPVisionTower(CLIP_VIT_B32, generator=torch.Generator()
+                              .manual_seed(SEED + 21)))
+    sd = {k: v.numpy() for k, v in hf_state_dict(*towers).items()}
+    ckpt = write_safetensors(os.path.join(tmp, "clip.safetensors"), sd)
+    symbols = list(bytes_to_unicode().values())
+    vocab = {s: i for i, s in enumerate(symbols + [s + "</w>"
+                                                   for s in symbols])}
+    vocab["<|startoftext|>"] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    paths = (ckpt, os.path.join(tmp, "vocab.json"),
+             os.path.join(tmp, "merges.txt"))
+    with open(paths[1], "w") as f:
+        json.dump(vocab, f)
+    with open(paths[2], "w") as f:
+        f.write("#version: 0.2\n")
+    log(f"  wrote a random ViT-B/32 CLIP checkpoint ({len(sd)} tensors, "
+        f"{sum(v.size for v in sd.values()) / 1e6:.1f} M parameters, "
+        f"{os.path.getsize(ckpt) / 2 ** 20:.0f} MiB .safetensors) and a "
+        f"{len(vocab)}-token vocabulary in {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def transformer_flops(width: int, layers: int, tokens: int) -> float:
+    """Operations (2 per multiply-add) of one sequence through pre-LN
+    transformer layers: per token the four attention projections and the
+    4x MLP (12 width^2), per layer the two attention products (2 tokens^2
+    width)."""
+    return 2.0 * layers * (12 * width * width * tokens
+                           + 2 * tokens * tokens * width)
+
+
+def train_argv(data, ckpt: str, *extra) -> list:
+    return ["--labeled_metadata_path", data["metadata"],
+            "--labels_path", data["labels"],
+            "--equivalence_dict_path", data["similarity"],
+            "--checkpoint_path", ckpt, "--n_height", str(RES),
+            "--n_width", str(RES), "--n_step_per_summary", "1",
+            "--n_step_per_checkpoint", "1", "--bf16", *extra]
+
+
+def train_losses(ckpt: str) -> list:
+    """The Loss/train_step scalars of a cli/train run, in step order."""
+    with open(os.path.join(ckpt, "tensorboard-train", "events.csv")) as f:
+        return [float(row["value"]) for row in csv.DictReader(f)
+                if row["tag"] == "Loss/train_step"]
+
+
+@contextlib.contextmanager
+def counted_calls(cls, calls: list):
+    """Record the input shape of every ``cls.forward`` call meanwhile."""
+    forward = cls.forward
+
+    def spy(self, x, *args):
+        calls.append(tuple(x.shape))
+        return forward(self, x, *args)
+
+    cls.forward = spy
+    try:
+        yield calls
+    finally:
+        cls.forward = forward
+
+
+def phase_clip_train(tmp: str, data, device, card: str, step_ms: float,
+                     totals) -> None:
+    """(a) cli/train --bf16, accumulation 1 x 32 at 256^2, 3 steps, with
+    the CLIP towers built from a .safetensors checkpoint, vocab and merges;
+    then the text precompute and the image tower timed alone, the tower's
+    device time beside ``step_ms``, the flagship step's."""
+    from rangeclip_tpu_torch.cli import train
+    from rangeclip_tpu_torch.data.labels import load_candidate_labels
+    from rangeclip_tpu_torch.models.clip.model import (
+        CLIPTextTower,
+        CLIPVisionTower,
+    )
+    from rangeclip_tpu_torch.models.clip.provider import (
+        CLIPImageEmbedder,
+        CLIPTextEmbedder,
+        get_image_provider,
+        get_text_provider,
+    )
+
+    clip = write_clip_files(tmp)
+    ckpt = os.path.join(tmp, "clip_train")
+    argv = train_argv(data, ckpt, "--unet_architecture", "resnet",
+                      "--batch_size", str(TRAIN_BATCH),
+                      "--accumulation_steps", "1",
+                      "--learning_rates", "1e-4", "1e-4",
+                      "--learning_schedule", "1", "2", "--max_steps", "3",
+                      "--clip_checkpoint_path", clip[0],
+                      "--clip_vocab_path", clip[1],
+                      "--clip_merges_path", clip[2])
+    text_calls, image_calls = [], []
+    t0 = time.perf_counter()
+    with counted_calls(CLIPTextTower, text_calls), \
+            counted_calls(CLIPVisionTower, image_calls):
+        run_path("cli/train --bf16 with the CLIP towers (1 x 32)",
+                 CLIP_TRAIN_KERNELS, lambda: train.main(argv), totals)
+    seconds = time.perf_counter() - t0
+    losses = train_losses(ckpt)
+    require(len(losses) == 3 and np.isfinite(losses).all(),
+            f"cli/train with the CLIP towers: losses {losses}")
+    require(text_calls == [(128, 77)] * (CLIP_LABELS // 128),
+            f"text tower calls {text_calls}")
+    require(image_calls == [(TRAIN_BATCH, 224, 224, 3)] * 3,
+            f"image tower calls {image_calls}")
+    log(f"  cli/train --bf16 with the CLIP towers: losses {losses}; text "
+        f"tower {len(text_calls)} calls of [128, 77], image tower "
+        f"{len(image_calls)} calls of [{TRAIN_BATCH}, 224, 224, 3]; "
+        f"{seconds:.1f} s with start-up")
+
+    labels = load_candidate_labels(data["labels"])
+    text = get_text_provider(*clip, device=device)
+    require(isinstance(text, CLIPTextEmbedder), "no CLIP text tower")
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table = text(labels)
+        times.append(time.perf_counter() - t0)
+    require(table.shape == (CLIP_LABELS, 512) and np.isfinite(table).all(),
+            f"text table {table.shape}")
+    image = get_image_provider(clip[0], device=device)
+    require(isinstance(image, CLIPImageEmbedder), "no CLIP image tower")
+    crops = torch.randn(TRAIN_BATCH, 224, 224, 3, device=device,
+                        generator=torch.Generator(device=device).manual_seed(
+                            SEED + 22))
+    ms = cuda_ms(lambda: image(crops), 10)
+    dev = device_fields(lambda: image(crops), calls=5)
+    share = dev["device_ms"] / (dev["device_ms"] + step_ms)  # device times
+    cfg = image.tower.config
+    n = (cfg.image_size // cfg.patch_size) ** 2
+    image_ops = TRAIN_BATCH * (
+        transformer_flops(cfg.vision_width, cfg.vision_layers, n + 1)
+        + 2.0 * n * 3 * cfg.patch_size ** 2 * cfg.vision_width)
+    text_cfg = text.tower.config
+    text_ops = CLIP_LABELS * transformer_flops(
+        text_cfg.text_width, text_cfg.text_layers, 77)
+    image_bound = bound(0, image_ops, "f32")["bound_ms"]
+    log(f"  text precompute of {CLIP_LABELS} labels (4 calls of [128, 77], "
+        f"tokenizer included, host clock): {1e3 * times[0]:.1f} ms the "
+        f"first time, {1e3 * times[1]:.1f} ms the second "
+        f"({text_ops / 1e12:.3f} TFLOP, {text_ops / times[1] / 1e12:.1f} "
+        f"TFLOP/s); image tower (fp32 ViT-B/32) on a window of "
+        f"{TRAIN_BATCH} crops at 224^2: {ms:.3f} ms (CUDA events), "
+        f"{dev['device_ms']:.3f} ms device time in "
+        f"{dev['device_events']:g} events, {image_ops / 1e9:.1f} GFLOP: "
+        f"bound {image_bound:.3f} ms at the f32 peak, "
+        f"{100 * image_bound / dev['device_ms']:.1f}% of it; "
+        f"{100 * share:.1f}% of the device time of a window beside phase "
+        f"7's flagship step ({step_ms:.2f} ms of device time) on {card}")
+
+
+@contextlib.contextmanager
+def recorded_ce(calls: list):
+    """Keep a detached copy of the operands of the train step's first
+    fused_pixel_text_ce call meanwhile."""
+    from rangeclip_tpu_torch.losses import infonce
+
+    fn = infonce.fused_pixel_text_ce
+
+    def spy(*args):
+        if not calls:
+            copy_of = lambda t: t.detach().clone()  # noqa: E731
+            calls.append(tuple(
+                tuple(map(copy_of, a)) if isinstance(a, tuple)
+                else None if a is None else copy_of(a) for a in args))
+        return fn(*args)
+
+    infonce.fused_pixel_text_ce = spy
+    try:
+        yield calls
+    finally:
+        infonce.fused_pixel_text_ce = fn
+
+
+def hold_step_ce(name: str, args, card: str) -> None:
+    """A train step's CE on its own operands, with the packed table as the
+    step passed it (and with its flag set, where the step's contrast set
+    overflowed the capacity) and over the full table: the value and both
+    gradients against pixel_text_ce_reference at the flagship check's
+    tolerances (rtol 2e-5 on the value and d tau, d samples within one
+    bf16 ulp plus 2^-10 of the row's largest entry, or 1e-4 of it in f32);
+    then forward and backward timed against the plain versions."""
+    from rangeclip_tpu_torch.ops.kernels.pixel_text_ce import (
+        fused_pixel_text_ce,
+        pixel_text_ce_reference,
+        tc_route,
+    )
+
+    samples, temp, labels, valid, table, mask, packed = args
+    D = samples.shape[-1]
+    S = labels.shape[0]
+
+    def run(fn, pk):
+        xs = samples.clone().requires_grad_()
+        ts = temp.clone().requires_grad_()
+        loss = fn(xs, ts, labels, valid, table, mask, pk)
+        loss.backward()
+        return loss.detach(), xs.grad.reshape(-1, D), ts.grad
+
+    forms = [("full table", None)]
+    if packed is not None:
+        forms.insert(0, ("packed as the step ran it", packed))
+        if not bool(packed[3]):  # the step's contrast set overflowed K
+            forms.insert(1, ("packed with the flag set", (
+                *packed[:3], torch.ones_like(packed[3]))))
+    for form, pk in forms:
+        got, want = run(fused_pixel_text_ce, pk), run(
+            pixel_text_ce_reference, pk)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=0.0)
+        torch.testing.assert_close(got[2], want[2], rtol=2e-5, atol=1e-6)
+        scale = want[1].double().abs().amax(dim=-1, keepdim=True)
+        if samples.dtype == torch.bfloat16:
+            require(within_bf16_ulp(got[1], want[1], scale * 2.0 ** -10),
+                    f"{name} CE ({form}): d samples beyond one bf16 ulp")
+        else:
+            err = (got[1].double() - want[1].double()).abs()
+            require(bool((err <= 1e-4 * scale + 1e-12).all()),
+                    f"{name} CE ({form}): d samples {float(err.max())}")
+        ms, plain_ms = time_pair(lambda: run(fused_pixel_text_ce, pk),
+                                 lambda: run(pixel_text_ce_reference, pk),
+                                 5, 2)
+        dev = device_fields(lambda: run(fused_pixel_text_ce, pk), calls=5)
+        flag = None if pk is None else int(pk[3])
+        route = ("tensor cores" if flag and tc_route(
+            samples.reshape(-1, D), pk[0], S) else "member-only")
+        log(f"  {name} CE, {form} ({samples.dtype}, {list(samples.shape)}, "
+            f"{S} slots, flag {flag}, {route}): value, d samples and d tau "
+            f"within the flagship check's tolerances of the plain versions "
+            f"(largest d samples error {max_abs_err(got[1], want[1]):.3g}); "
+            f"forward and backward {ms:.4f} ms (CUDA events), "
+            f"{dev['device_ms']:.4f} ms device time in "
+            f"{dev['device_events']:g} events, plain {plain_ms:.4f} ms on "
+            f"{card}")
+        if S > 4:
+            # a yardstick: the same sum as calls of 4 slots each (the
+            # tensor-core kernels where the flag selects the packed table)
+            def grouped(xs, ts, lab, val, tab, msk, p):
+                return sum(fused_pixel_text_ce(xs, ts, lab[i:i + 4],
+                                               val[i:i + 4], tab, msk, p)
+                           for i in range(0, S, 4))
+
+            dx4 = run(grouped, pk)[1].double()
+            limit = (bf16_ulp(want[1]) if samples.dtype == torch.bfloat16
+                     else 0.0) + scale * 2.0 ** -10
+            past = int(((dx4 - want[1].double()).abs() > limit).any(
+                dim=1).sum())
+            ms4 = cuda_ms(lambda: run(grouped, pk), 5)
+            dev4 = device_fields(lambda: run(grouped, pk), calls=5)
+            log(f"  {name} CE, {form}, as {-(-S // 4)} calls of 4 slots "
+                f"(yardstick): {ms4:.4f} ms (CUDA events), "
+                f"{dev4['device_ms']:.4f} ms device time in "
+                f"{dev4['device_events']:g} events; d samples past the "
+                f"check in {past} of {want[1].shape[0]} rows")
+
+
+def phase_restore_encoder(tmp: str, data, device, totals) -> None:
+    """(b) cli/train --restore_path_encoder from phase 8's checkpoint, 2
+    steps: every encoder parameter and BatchNorm statistic of both new
+    checkpoints bit-equal to the restored ones, the decoder moved."""
+    from rangeclip_tpu_torch.cli import train
+    from rangeclip_tpu_torch.models.interop import load_reference_pth
+
+    source = os.path.join(tmp, "train", "checkpoints")
+    ckpt = os.path.join(tmp, "restore_train")
+    argv = train_argv(data, ckpt, "--unet_architecture", "resnet",
+                      "--batch_size", str(CLI_TRAIN_BATCH),
+                      "--accumulation_steps", "1", "--learning_rates", "1e-4",
+                      "--learning_schedule", "1", "--max_steps", "2",
+                      "--restore_path_encoder", source)
+    run_path("cli/train --restore_path_encoder (frozen)", CLIP_TRAIN_KERNELS,
+             lambda: train.main(argv), totals)
+    results = open(os.path.join(ckpt, "results.txt")).read()
+    require("Restored encoder weights (frozen-encoder finetune)." in results,
+            "no frozen-encoder restore line")
+    want = load_reference_pth(os.path.join(
+        source, "depth_segmentation_model-2.pth"))
+    got = [load_reference_pth(os.path.join(
+        ckpt, "checkpoints", f"depth_segmentation_model-{s}.pth"))
+        for s in (1, 2)]
+    enc = [k for k in want if k.startswith("encoder.")]
+    dec = [k for k in want if k.startswith("decoder.")
+           and want[k].is_floating_point()]
+    for sd in got:
+        bad = [k for k in enc if not torch.equal(sd[k], want[k])]
+        require(not bad, f"restored encoder moved: {bad[:5]}")
+    moved = sum(not torch.equal(got[0][k], got[1][k]) for k in dec)
+    require(moved > 0 and np.isfinite(train_losses(ckpt)).all(),
+            "the decoder did not train")
+    log(f"  cli/train --restore_path_encoder: {len(enc)} encoder tensors "
+        f"(BatchNorm statistics included) bit-equal to phase 8's step-2 "
+        f"checkpoint after steps 1 and 2; {moved} of {len(dec)} decoder "
+        f"tensors moved from step 1 to 2; losses {train_losses(ckpt)}")
+
+
+def bench_model(name: str, model, fp32_state, device, card: str,
+                totals) -> None:
+    """A model through predict_folded at the bench configuration (bf16,
+    batch 128, 384 slots, top-5) twice with identical checksums and its
+    maps/s; conv_score_topk on its features and folded head against the
+    plain version; then its weights in fp32 at batch 8 on the card against
+    the same model on the CPU, labels up to near-ties."""
+    from rangeclip_tpu_torch.models.clip.provider import HashTextEmbedder
+    from rangeclip_tpu_torch.models.depth_unet import (
+        DepthUNet,
+        build_candidate_indices,
+        predict_folded,
+    )
+    from rangeclip_tpu_torch.utils.math import l2_normalize
+
+    dgen = torch.Generator(device=device).manual_seed(SEED + 23)
+    depths = [torch.randn(BENCH_BATCH, RES, RES, 1, device=device,
+                          generator=dgen) for _ in range(2)]
+    labels = [f"class {i:03d}" for i in range(NUM_CLASSES)]
+    text = torch.from_numpy(HashTextEmbedder(512)(labels)).to(device)
+    seg = torch.randint(0, 40, (BENCH_BATCH, RES, RES), device=device,
+                        generator=dgen)
+
+    def run():
+        cand = build_candidate_indices(
+            seg, NUM_CLASSES, BENCH_NEGATIVES, BENCH_SLOTS,
+            generator=torch.Generator().manual_seed(SEED + 4))
+        sums = []
+        for _ in range(2):
+            with torch.inference_mode():
+                ids = predict_folded(model, depths[0], text,
+                                     top_k=BENCH_TOP_K,
+                                     candidate_indices=cand)
+            require(ids.shape == (BENCH_BATCH, RES, RES, BENCH_TOP_K)
+                    and bool(((ids >= 0) & (ids < NUM_CLASSES)).all()),
+                    f"{name} bench ids {tuple(ids.shape)}")
+            sums.append(int(ids.long().sum()))
+        require(sums[0] == sums[1], f"{name} checksums differ: {sums}")
+        iters = 6
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(iters):
+            with torch.inference_mode():
+                predict_folded(model, depths[i % 2], text, top_k=BENCH_TOP_K,
+                               candidate_indices=cand)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        log(f"  {name} predict_folded bf16 batch {BENCH_BATCH} @ {RES}^2, "
+            f"{BENCH_SLOTS} slots, top-{BENCH_TOP_K}: checksum {sums[0]} "
+            f"twice; {BENCH_BATCH * iters / seconds:.1f} maps/s "
+            f"({1e3 * seconds / iters:.2f} ms/batch, host clock) on {card}")
+        return cand
+
+    cand, _ = run_path(f"{name} bench predict", BENCH_PREDICT_KERNELS, run,
+                       totals)
+    hold_conv_score_topk(f"{name} decoder features", model, depths[0], text,
+                         cand)
+    del depths
+    torch.cuda.empty_cache()
+
+    fp32 = DepthUNet(dataclasses.replace(model.config, dtype=None),
+                     device=device)
+    fp32.load_state_dict(fp32_state, strict=True)
+    fp32.eval()
+    cpu = copy.deepcopy(fp32).cpu()
+    depth = torch.randn(SERVE_BATCH, RES, RES, 1,
+                        generator=torch.Generator().manual_seed(SEED + 24))
+    with torch.inference_mode():
+        got = predict_folded(fp32, depth.to(device), text, top_k=BENCH_TOP_K,
+                             candidate_indices=cand, upsample=False)
+        want = predict_folded(cpu, depth, text.cpu(), top_k=BENCH_TOP_K,
+                              candidate_indices=cand.cpu(), upsample=False)
+        field = fp32.native_field(depth.to(device), normalize=False)
+    k = BENCH_TOP_K
+    near_tie_check(f"{name} fp32 batch {SERVE_BATCH} card vs CPU",
+                   (got.reshape(-1, k),), (want.reshape(-1, k).to(device),),
+                   field.reshape(-1, field.shape[-1]),
+                   l2_normalize(text, dim=-1))
+
+
+def phase_mit(tmp: str, data, device, card: str, totals) -> None:
+    """(c) cli/train --bf16 --unet_architecture mit, 2 steps, the CE of its
+    first step held on that step's operands; its checkpoint at the bench
+    configuration and against the CPU."""
+    from rangeclip_tpu_torch.cli import train
+    from rangeclip_tpu_torch.models.depth_unet import (
+        DepthUNet,
+        DepthUNetConfig,
+    )
+    from rangeclip_tpu_torch.models.interop import (
+        load_reference_pth,
+        widths_from_state_dict,
+    )
+
+    ckpt = os.path.join(tmp, "mit_train")
+    argv = train_argv(data, ckpt, "--unet_architecture", "mit",
+                      "--batch_size", str(CLI_TRAIN_BATCH),
+                      "--accumulation_steps", "1", "--learning_rates", "1e-4",
+                      "--learning_schedule", "1", "--max_steps", "2")
+    t0 = time.perf_counter()
+    ce_calls = []
+    with recorded_ce(ce_calls):
+        run_path("cli/train --bf16 --unet_architecture mit",
+                 CLIP_TRAIN_KERNELS, lambda: train.main(argv), totals)
+    losses = train_losses(ckpt)
+    require(len(losses) == 2 and np.isfinite(losses).all(),
+            f"MiT cli/train losses {losses}")
+    sd = load_reference_pth(os.path.join(
+        ckpt, "checkpoints", "depth_segmentation_model-2.pth"))
+    widths = widths_from_state_dict(sd)
+    require(widths["unet_type"] == "mit"
+            and widths["encoder_filters"] == (64, 128, 256, 512),
+            f"MiT checkpoint widths {widths}")
+    log(f"  MiT cli/train --bf16, 2 steps of 1 x {CLI_TRAIN_BATCH}: losses "
+        f"{losses}; {time.perf_counter() - t0:.1f} s with start-up; "
+        f"checkpoint widths {widths}")
+    require(len(ce_calls) == 1 and ce_calls[0][2].shape[0] == 16,
+            "the MiT step's CE did not take 16 label slots")
+    hold_step_ce("MiT step", ce_calls[0], card)
+    del ce_calls
+    model = DepthUNet(DepthUNetConfig(**widths, dtype=torch.bfloat16),
+                      device=device)
+    model.load_state_dict(sd, strict=True)
+    bench_model("MiT (stage widths 64-512)", model.eval(), sd, device, card,
+                totals)
+
+
+def phase_resnet50(device, card: str, totals) -> None:
+    """(d) a ResNet-50 DepthUNet (random weights from a seed) at the bench
+    configuration and against the CPU."""
+    from rangeclip_tpu_torch.models.depth_unet import (
+        DepthUNet,
+        DepthUNetConfig,
+    )
+
+    model = DepthUNet(DepthUNetConfig(n_layer=50, dtype=torch.bfloat16),
+                      device=device,
+                      generator=torch.Generator().manual_seed(SEED + 25))
+    bench_model("ResNet-50 UNet", model.eval(), model.state_dict(), device,
+                card, totals)
+
+
+def phase_mask_clip(data, device) -> None:
+    """(e) evaluate_mask_clip on one batch of the synthetic split at 224^2
+    with the random full-width vision tower: the card's ids against the
+    CPU's up to near-ties, then the evaluator over that batch."""
+    from rangeclip_tpu_torch.data.loader import setup_dataloaders
+    from rangeclip_tpu_torch.evals.baselines import (
+        evaluate_mask_clip,
+        mask_clip_predict,
+    )
+    from rangeclip_tpu_torch.models.clip.crops import clip_normalize
+    from rangeclip_tpu_torch.models.clip.provider import (
+        HashTextEmbedder,
+        get_image_provider,
+    )
+    from rangeclip_tpu_torch.models.depth_unet import build_candidate_mask
+    from rangeclip_tpu_torch.ops.resize import resize_bilinear
+    from rangeclip_tpu_torch.utils.math import l2_normalize
+
+    _, val_loader, _, _, labels = setup_dataloaders(
+        data["metadata"], data["labels"], (224, 224), SERVE_BATCH, n_epoch=1)
+    batch = next(iter(val_loader))
+    towers = {d: get_image_provider("random", device=d).tower
+              for d in (device, torch.device("cpu"))}
+    text_n = l2_normalize(torch.from_numpy(HashTextEmbedder(512)(labels)),
+                          dim=-1)
+    seg = torch.from_numpy(np.asarray(batch["segmentation"]))
+    mask = build_candidate_mask(seg, len(labels), 50,
+                                generator=torch.Generator().manual_seed(0))
+    images = clip_normalize(torch.from_numpy(np.asarray(batch["image"],
+                                                        np.float32)))
+    ids = {d: mask_clip_predict(towers[d], images.to(d), (224, 224),
+                                text_n.to(d), mask.to(d), top_k=5)
+           for d in towers}
+    with torch.inference_mode():
+        patches = towers[device](images.to(device), return_patches=True)
+    field = resize_bilinear(patches, (224, 224)).float()
+    k = 5
+    near_tie_check("MaskCLIP probe fp32 card vs CPU",
+                   (ids[device].reshape(-1, k),),
+                   (ids[torch.device("cpu")].reshape(-1, k).to(device),),
+                   field.reshape(-1, field.shape[-1]), text_n.to(device))
+    res = evaluate_mask_clip([batch], towers[device], text_n,
+                             np.eye(len(labels), dtype=bool),
+                             np.arange(len(labels)), len(labels))
+    require(all(np.isfinite(v) for v in res.values()),
+            f"evaluate_mask_clip: {res}")
+    log(f"  evaluate_mask_clip, one batch of {SERVE_BATCH} at 224^2, random "
+        f"ViT-B/32: mIoU_tk {res['mIoU_tk']:.4f}")
 
 
 def run_path(name: str, expect, fn, totals):
@@ -2811,21 +3388,34 @@ def main(argv=None) -> int:
     phase_pool_tv(device, totals)
 
     log("phase 7: train")
-    phase_train(device, card, totals)
+    step_ms = phase_train(device, card, totals)
     log(f"  phase 7 done at {time.perf_counter() - t_start:.1f} s")
 
-    log("phase 8: cli/train (validating) and cli/validate")
     with tempfile.TemporaryDirectory() as tmp:
-        phase_cli_train(tmp, device, totals)
+        log("phase 8: cli/train (validating) and cli/validate")
+        data = phase_cli_train(tmp, device, totals)
 
-    log("phase 9: val step, kernels against plain versions")
-    compare_val_step(device)
+        log("phase 9: val step, kernels against plain versions")
+        compare_val_step(device)
 
-    log("phase 10: D % 8 != 0, kernels against plain versions")
-    phase_dim100(device)
-    phase_padded_widths(device)
+        log("phase 10: D % 8 != 0, kernels against plain versions")
+        phase_dim100(device)
+        phase_padded_widths(device)
+        log(f"  phase 10 done at {time.perf_counter() - t_start:.1f} s")
 
-    log(f"launches over phases 3-8: {totals} "
+        log("phase 11: CLIP towers, frozen encoder, MiT, ResNet-50, "
+            "MaskCLIP")
+        phase_clip_train(tmp, data, device, card, step_ms, totals)
+        torch.cuda.empty_cache()
+        phase_restore_encoder(tmp, data, device, totals)
+        phase_mit(tmp, data, device, card, totals)
+        torch.cuda.empty_cache()
+        phase_resnet50(device, card, totals)
+        torch.cuda.empty_cache()
+        phase_mask_clip(data, device)
+        log(f"  phase 11 done at {time.perf_counter() - t_start:.1f} s")
+
+    log(f"launches over phases 3-8 and 11: {totals} "
         f"({time.perf_counter() - t_start:.1f} s since the start)")
     for name in KERNEL_ROWS:
         require(totals[name] > 0, f"{name} was not launched by a main path")

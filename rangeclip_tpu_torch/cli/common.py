@@ -1,13 +1,14 @@
-"""Set-up shared by the inference CLIs (serve, infer, export): the model from
-a reference ``.pth``, the choice of predict path and the predict function
-itself."""
+"""Set-up shared by the inference CLIs (serve, infer, export): the label
+table, the model from a reference ``.pth``, the choice of predict path and
+the predict function itself."""
 
 from __future__ import annotations
 
-from typing import Callable, Mapping, Optional
+from typing import Callable, Mapping, Optional, Sequence
 
 import torch
 
+from rangeclip_tpu_torch.models.clip.provider import get_text_provider
 from rangeclip_tpu_torch.models.depth_unet import (
     DepthUNet,
     DepthUNetConfig,
@@ -34,15 +35,17 @@ def set_precision(bf16: bool) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def refuse_clip(args) -> None:
-    """Only the deterministic hash stub is ported: real CLIP towers
-    (``--clip_*`` flags) are refused rather than replaced."""
-    if any((args.clip_checkpoint_path, args.clip_vocab_path,
-            args.clip_merges_path)):
-        raise NotImplementedError(
-            "real CLIP text towers are not ported yet (ROADMAP slice 4, "
-            "item 9); "
-            "omit the --clip_* flags to embed labels with the hash stub")
+def label_table(args, labels: Sequence[str], device: torch.device,
+                dim: Optional[int] = None) -> torch.Tensor:
+    """The labels' [C, D] f32 text table on ``device``: the CLIP text tower
+    when ``--clip_checkpoint_path``, ``--clip_vocab_path`` and
+    ``--clip_merges_path`` are all given (the tower runs on ``device``),
+    the hash stub of width ``dim`` (default ``--embedding_dim``)
+    otherwise."""
+    provider = get_text_provider(
+        args.clip_checkpoint_path, args.clip_vocab_path,
+        args.clip_merges_path, dim=dim or args.embedding_dim, device=device)
+    return torch.from_numpy(provider(labels)).to(device)
 
 
 def load_model(args, device: torch.device,

@@ -44,7 +44,6 @@ import torch
 
 from rangeclip_tpu_torch.cli import common
 from rangeclip_tpu_torch.data.labels import load_candidate_labels
-from rangeclip_tpu_torch.models.clip.provider import HashTextEmbedder
 from rangeclip_tpu_torch.utils.device import resolve_device
 
 
@@ -123,14 +122,12 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     """Export (and optionally verify); returns the sidecar."""
     args = parse_args(argv)
-    common.refuse_clip(args)
     common.set_precision(args.bf16)
     device = resolve_device("cpu" if args.portable else "cuda")
     if args.labels_path is not None:
         labels = load_candidate_labels(args.labels_path)
         num_classes = len(labels)
-        text = torch.from_numpy(
-            HashTextEmbedder(dim=args.embedding_dim)(labels)).to(device)
+        text = common.label_table(args, labels, device)
     else:
         num_classes, text = args.num_classes, None
 

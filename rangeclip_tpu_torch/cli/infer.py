@@ -11,8 +11,8 @@ copied back.
 Weights come from a reference ``.pth`` (``--checkpoint_path``, the file
 ``python -m rangeclip_tpu.cli.convert --to_pth`` writes) instead of the
 JAX CLI's orbax ``--checkpoint_dir``; the device is ``--device`` (default
-cuda).  Labels are embedded with the deterministic hash stub: the
-``--clip_*`` flags are refused until the CLIP towers are ported.
+cuda).  Labels are embedded by the CLIP text tower when the three
+``--clip_*`` flags are given, by the deterministic hash stub otherwise.
 
 Usage:
   python -m rangeclip_tpu_torch.cli.infer --checkpoint_path model.pth \\
@@ -36,7 +36,6 @@ from rangeclip_tpu_torch.cli import common
 from rangeclip_tpu_torch.data.dataset import open_gray
 from rangeclip_tpu_torch.data.labels import load_candidate_labels
 from rangeclip_tpu_torch.data.transforms import depth_transform
-from rangeclip_tpu_torch.models.clip.provider import HashTextEmbedder
 from rangeclip_tpu_torch.utils.device import describe_device, resolve_device
 from rangeclip_tpu_torch.utils.visualization import (
     colorize_segmentation,
@@ -81,13 +80,11 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     from PIL import Image
 
-    common.refuse_clip(args)
     common.set_precision(args.bf16)
     device = resolve_device(args.device)
     labels = load_candidate_labels(args.labels_path)
     num_classes = len(labels)
-    text = torch.from_numpy(
-        HashTextEmbedder(dim=args.embedding_dim)(labels)).to(device)
+    text = common.label_table(args, labels, device)
     overrides = ({"encoder_filters": tuple(args.encoder_filters)}
                  if args.encoder_filters else None)
     model = common.load_model(args, device, overrides)

@@ -20,8 +20,9 @@ unfolded ``DepthUNet.predict`` (the ``pixel_text_topk`` kernel on CUDA);
 'auto' folds while ``folded_is_profitable`` allows it and otherwise takes
 the unfolded path, as the JAX server does.
 
-Not ported yet: multi-device serving (``--data_parallel``) and real CLIP
-text towers (labels are embedded with the deterministic hash stub).
+Labels are embedded by the CLIP text tower when the three ``--clip_*``
+flags are given, as in the JAX server, by the deterministic hash stub
+otherwise.  Not ported yet: multi-device serving (``--data_parallel``).
 """
 
 from __future__ import annotations
@@ -40,7 +41,6 @@ import torch
 from rangeclip_tpu_torch.cli import common
 from rangeclip_tpu_torch.data.labels import load_candidate_labels
 from rangeclip_tpu_torch.data.transforms import depth_transform
-from rangeclip_tpu_torch.models.clip.provider import HashTextEmbedder
 from rangeclip_tpu_torch.utils.device import describe_device, resolve_device
 
 
@@ -52,8 +52,7 @@ def build_engine(args, config_overrides=None):
     device = resolve_device(args.device)
     labels = load_candidate_labels(args.labels_path)
     model = common.load_model(args, device, config_overrides)
-    text_table = torch.from_numpy(
-        HashTextEmbedder(dim=args.embedding_dim)(labels)).to(device)
+    text_table = common.label_table(args, labels, device)
     folded = common.use_folded(args.predict_path, len(labels),
                                args.embedding_dim, args.batch_size,
                                model.compute_dtype, device)
@@ -249,6 +248,9 @@ def parse_args(argv=None):
     parser.add_argument("--embedding_dim", type=int, default=512)
     parser.add_argument("--unet_architecture", default="resnet")
     parser.add_argument("--bf16", action="store_true")
+    parser.add_argument("--clip_checkpoint_path", default=None)
+    parser.add_argument("--clip_vocab_path", default=None)
+    parser.add_argument("--clip_merges_path", default=None)
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu; nothing falls back")
     return parser.parse_args(argv)

@@ -1,7 +1,8 @@
 """Validation and baseline CLI: the JAX package's flag surface
 (``rangeclip_tpu/cli/validate.py``) plus ``--device`` (default cuda; cpu
-runs the kernels' plain versions).  The model's widths are read from the
-checkpoint; ``--embedding_dim``, where given, must match it.
+runs the kernels' plain versions).  The model's architecture and widths
+are read from the checkpoint; ``--unet_architecture`` and
+``--embedding_dim``, where given, must match it.
 
 Runs the equivalence-aware validation harness over the held-out split from
 the newest ``depth_segmentation_model-<step>.pth`` in ``--checkpoint_dir``
@@ -15,9 +16,10 @@ Usage:
     --equivalence_dict_path data/label_similarity_sets.csv \
     --checkpoint_dir checkpoints/checkpoints --baselines
 
-The MiT encoder (``--unet_architecture mit``) and real CLIP towers
-(``--clip_*``) are not ported yet and are refused (ROADMAP slice 4, item
-9).
+The label table comes from the CLIP text tower when the three ``--clip_*``
+flags are given, and the image embeddings from the CLIP vision tower when
+``--clip_checkpoint_path`` is (``random``: seeded random weights); the hash
+stubs stand in otherwise.
 """
 
 from __future__ import annotations
@@ -41,8 +43,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--embedding_dim", type=int, default=None,
                         help="the checkpoint's embedding dim (default: read "
                              "from the checkpoint)")
-    parser.add_argument("--unet_architecture", default="resnet",
-                        help="resnet (mit is not ported yet)")
+    parser.add_argument("--unet_architecture", default=None,
+                        help="resnet or mit (SegFormer-style encoder); "
+                             "default: the checkpoint's")
     parser.add_argument("--top_k", type=int, default=5)
     parser.add_argument("--num_negatives", type=int, default=50)
     parser.add_argument("--baselines", action="store_true",
@@ -76,7 +79,7 @@ def load_validation(args):
     ``validate_model``'s remaining tensors and providers by name."""
     import torch
 
-    from rangeclip_tpu_torch.cli.common import refuse_clip, set_precision
+    from rangeclip_tpu_torch.cli.common import label_table, set_precision
     from rangeclip_tpu_torch.data.labels import (
         build_equivalence_class_map,
         build_equivalence_tensor,
@@ -85,10 +88,7 @@ def load_validation(args):
         load_label_similarity_sets,
     )
     from rangeclip_tpu_torch.data.loader import setup_dataloaders
-    from rangeclip_tpu_torch.models.clip.provider import (
-        get_image_provider,
-        get_text_provider,
-    )
+    from rangeclip_tpu_torch.models.clip.provider import get_image_provider
     from rangeclip_tpu_torch.models.depth_unet import (
         DepthUNet,
         DepthUNetConfig,
@@ -102,19 +102,19 @@ def load_validation(args):
     )
     from rangeclip_tpu_torch.utils.device import resolve_device
 
-    refuse_clip(args)
     device = resolve_device(args.device)
     set_precision(False)  # validation runs the fp32 parity mode, as in JAX
     path, step = latest_model_path(args.checkpoint_dir)
     state_dict = load_reference_pth(path)
     widths = widths_from_state_dict(state_dict)
     dim = widths["embedding_dim"]
-    if args.embedding_dim not in (None, dim):
-        raise ValueError(f"--embedding_dim {args.embedding_dim} does not "
-                         f"match the checkpoint's {dim} ({path})")
-    model = DepthUNet(DepthUNetConfig(
-        unet_type=args.unet_architecture, use_batch_norm=True, **widths),
-        device=device)
+    for flag, key in (("--embedding_dim", "embedding_dim"),
+                      ("--unet_architecture", "unet_type")):
+        value = getattr(args, flag[2:])
+        if value not in (None, widths[key]):
+            raise ValueError(f"{flag} {value} does not match the "
+                             f"checkpoint's {widths[key]} ({path})")
+    model = DepthUNet(DepthUNetConfig(**widths), device=device)
     model.load_state_dict(state_dict, strict=True)
     model.eval()
 
@@ -129,15 +129,15 @@ def load_validation(args):
     medium, hard = build_similarity_matrices(load_label_similarity_sets(
         args.equivalence_dict_path, num_classes), num_classes)
     inputs = dict(
-        text_table=torch.from_numpy(get_text_provider(dim=dim)(
-            labels)).to(device),
+        text_table=label_table(args, labels, device, dim),
         medium_matrix=torch.from_numpy(medium).to(device),
         hard_matrix=torch.from_numpy(hard).to(device),
         equivalence_tensor=torch.from_numpy(eq_tensor),
         equiv_class_map=torch.from_numpy(
             build_equivalence_class_map(eq_tensor)),
         curriculum=get_curriculum_schedule(1, 1),
-        image_provider=get_image_provider(dim=dim))
+        image_provider=get_image_provider(args.clip_checkpoint_path,
+                                          dim=dim, device=device))
     return device, step, model, loader, inputs
 
 

@@ -121,7 +121,9 @@
 // rounding follows, so the tensor-core route is taken by both directions
 // or by neither (bf16, a packed table of at most 128, D <= 1280).  The TPU
 // kernel's class-major [C, TILE_N] layout and row-tile search are TPU
-// work; here rows are the block's axis.  Any N; D % 8 == 0; 1 <= S <= 4.
+// work; here rows are the block's axis.  Any N; D % 8 == 0; S of 1-4 on
+// the tensor cores, 1-4 or 16 on the member-only kernels (more slots than
+// 4 take the member-only route in both directions).
 
 #include "common.cuh"
 
@@ -705,7 +707,14 @@ using rc::simt::Roles;
 using rc::simt::roles_of;
 using rc::simt::score_tiles;
 
-constexpr int kMaxSlots = 4;
+// The instances take 1-4 slots or 16 (a field at H/4 upsampled x4); the
+// wrapper pads 5-15 to 16 with weightless slots.  The per-slot state lives
+// in shared memory, with room for 4 slots in the instances of 1-4 (two
+// blocks per SM) and for S in the others (one block per SM: 125,440 bytes
+// for the f32 forward, 135,168 for the backward).
+constexpr int kMaxSlots = 16;
+constexpr int slot_room(int S) { return S <= 4 ? 4 : S; }
+constexpr int blocks_per_sm(int S) { return S <= 4 ? 2 : 1; }
 
 struct MemberParams {
   const void* x;
@@ -730,15 +739,16 @@ struct MemberParams {
 };
 
 // Dynamic shared memory beyond the loop's (rc::simt::Layout): the block's
-// labels [S][kRows], and each class half's per-row state, its online max,
-// sum-exp and slot picks [2][2 + S][kRows], which only the row's owner
-// lane writes (so the loop carries no per-row registers).  107,008 bytes
-// for f32: two blocks per SM.
-template <typename T>
+// labels [room][kRows], and each class half's per-row state, its online
+// max, sum-exp and slot picks [2][2 + room][kRows], which only the row's
+// owner lane writes (so the loop carries no per-row registers).  107,008
+// bytes for f32 with room for 4 slots: two blocks per SM.
+template <typename T, int S>
 struct Extra {
+  static constexpr int kRoom = slot_room(S);
   static constexpr int kLabels = Layout<T>::kEnd;
-  static constexpr int kState = kLabels + kMaxSlots * kRows * 4;
-  static constexpr int kBytes = kState + 2 * (2 + kMaxSlots) * kRows * 4;
+  static constexpr int kState = kLabels + kRoom * kRows * 4;
+  static constexpr int kBytes = kState + 2 * (2 + kRoom) * kRows * 4;
 };
 
 // Reductions over the 8 lanes of a quarter warp (the same 8 rows).
@@ -755,11 +765,12 @@ __device__ __forceinline__ float quarter_sum(float v) {
 }
 
 template <typename T, int S>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, blocks_per_sm(S))
     ce_members_kernel(const MemberParams p) {
+  using E = Extra<T, S>;
   if (p.skip_packed && *p.use_packed != 0) return;
   extern __shared__ __align__(16) unsigned char smem[];
-  int* lab = reinterpret_cast<int*>(smem + Extra<T>::kLabels);
+  int* lab = reinterpret_cast<int*>(smem + E::kLabels);
   const int tid = threadIdx.x;
   const Roles roles = roles_of(tid);
   const long long base = (long long)blockIdx.x * kRows;
@@ -779,7 +790,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   // rescale, as in f32, and with no member the value is -1e30 +
   // log(total), as the plain version's.
   float(*st)[kRows] = reinterpret_cast<float(*)[kRows]>(
-      smem + Extra<T>::kState + roles.wn * (2 + kMaxSlots) * kRows * 4);
+      smem + E::kState + roles.wn * (2 + E::kRoom) * kRows * 4);
   const int own = roles.row0 + 4 * roles.wx;  // the row this lane owns
   st[0][own] = rc::kNegInf;
   st[1][own] = roles.wn == 0 ? (float)(total - count) : 0.f;
@@ -846,7 +857,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   __syncthreads();
   const long long row = base + own;
   if (roles.wn != 0 || row >= n) return;
-  const float(*other)[kRows] = st + (2 + kMaxSlots);
+  const float(*other)[kRows] = st + (2 + E::kRoom);
   const float m0 = st[0][own], m1 = other[0][own];
   const float m = fmaxf(m0, m1);
   const float z = __fadd_rn(__fmul_rn(st[1][own], expf(m0 - m)),
@@ -880,7 +891,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 template <typename T, int S>
 cudaError_t launch(const MemberParams& p, cudaStream_t stream) {
-  constexpr int smem = Extra<T>::kBytes;
+  constexpr int smem = Extra<T, S>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       ce_members_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -926,23 +937,25 @@ struct BwdParams {
 
 // Per-row values of the block: [kRowValues][kRows] f32.
 enum RowValue { kWsum, kScale, kMax, kInvZ, kProj, kRowValues };
-// Per class half and row: [2][kHalfValues][kRows] f32, written by the
-// row's owner lane in that half.
-enum HalfValue { kHalfTel, kHalfPick, kHalfValues = kHalfPick + kMaxSlots };
+// Per class half and row: [2][Bwd::kHalfValues][kRows] f32, written by
+// the row's owner lane in that half: the sum of e * logit, then the picks.
+enum HalfValue { kHalfTel, kHalfPick };
 constexpr int kStagePitch = kCols + 4;  // a d_emb tile staged [rows][dims]
 
 // Dynamic shared memory: the loop's ring (the f32 layout, which the second
 // product uses, is the larger), then the block's labels and weights w_s =
 // coeff * valid [S][kRows], the row values and the half states; the
 // non-member labels' delta [S][kRows] reuses half 0's picks once they are
-// merged.  110,592 bytes: two blocks per SM.
-template <typename T>
+// merged.  110,592 bytes with room for 4 slots: two blocks per SM.
+template <typename T, int S>
 struct Bwd {
+  static constexpr int kRoom = slot_room(S);
+  static constexpr int kHalfValues = kHalfPick + kRoom;
   static constexpr int kLabels =
       Layout<float>::kEnd > Layout<T>::kEnd ? Layout<float>::kEnd
                                             : Layout<T>::kEnd;
-  static constexpr int kWeights = kLabels + kMaxSlots * kRows * 4;
-  static constexpr int kRowState = kWeights + kMaxSlots * kRows * 4;
+  static constexpr int kWeights = kLabels + kRoom * kRows * 4;
+  static constexpr int kRowState = kWeights + kRoom * kRows * 4;
   static constexpr int kHalfState = kRowState + kRowValues * kRows * 4;
   static constexpr int kBytes = kHalfState + 2 * kHalfValues * kRows * 4;
   static_assert(kRows * kStagePitch * 4 <= Layout<float>::kScaleOffset,
@@ -979,18 +992,18 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p,
 }
 
 template <typename T, int S>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, blocks_per_sm(S))
     ce_members_bwd_kernel(const BwdParams p) {
   if (p.skip_packed && *p.use_packed != 0) return;
   extern __shared__ __align__(16) unsigned char smem[];
-  using B = Bwd<T>;
+  using B = Bwd<T, S>;
   int* lab = reinterpret_cast<int*>(smem + B::kLabels);
   float* wt = reinterpret_cast<float*>(smem + B::kWeights);
   float* rowv = reinterpret_cast<float*>(smem + B::kRowState);
   float* halfv = reinterpret_cast<float*>(smem + B::kHalfState);
   auto RV = [&](int v, int r) -> float& { return rowv[v * kRows + r]; };
   auto HV = [&](int h, int v, int r) -> float& {
-    return halfv[(h * kHalfValues + v) * kRows + r];
+    return halfv[(h * B::kHalfValues + v) * kRows + r];
   };
   float* coef = &HV(0, kHalfPick, 0);  // [S][kRows], after the merge
   const float* pixel_rs =
@@ -1248,7 +1261,7 @@ long long bwd_blocks(long long n) {
 
 template <typename T, int S>
 cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
-  constexpr int smem = Bwd<T>::kBytes;
+  constexpr int smem = Bwd<T, S>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       ce_members_bwd_kernel<T, S>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1262,7 +1275,7 @@ cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// One of the eight (dtype, slots) instances of a member-only kernel.
+// One of the ten (dtype, slots) instances of a member-only kernel.
 template <template <typename, int> class Kernel, typename Params>
 cudaError_t dispatch(const Params& p, int is_bf16, int slots,
                      cudaStream_t st) {
@@ -1276,6 +1289,8 @@ cudaError_t dispatch(const Params& p, int is_bf16, int slots,
     case 7: return Kernel<bf, 3>::run(p, st);
     case 8: return Kernel<float, 4>::run(p, st);
     case 9: return Kernel<bf, 4>::run(p, st);
+    case 32: return Kernel<float, kMaxSlots>::run(p, st);
+    case 33: return Kernel<bf, kMaxSlots>::run(p, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1312,7 +1327,7 @@ struct Backward {
 // skip_packed the kernel returns at once where *use_packed != 0 (the
 // tensor-core kernel, launched beside it, takes that branch).  ce: [n] f32;
 // stats: [2, n] f32, each row's max logit and sum-exp for the backward, or
-// NULL.  1 <= slots <= 4.
+// NULL.  slots: 1-4 or 16.
 extern "C" int rc_pixel_text_ce_members_fwd(
     const void* x, int is_bf16, const float* temperature, const int* labels,
     const float* valid, int slots, long long n, int d, const float* table_t,

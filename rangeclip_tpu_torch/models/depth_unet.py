@@ -23,6 +23,7 @@ from torch import nn
 
 from rangeclip_tpu_torch.models.decoder import DepthDecoder
 from rangeclip_tpu_torch.models.encoder import DepthEncoder
+from rangeclip_tpu_torch.models.mit_encoder import MiTConfig, MiTDepthEncoder
 from rangeclip_tpu_torch.ops.kernels.class_presence import class_presence
 from rangeclip_tpu_torch.ops.kernels.conv_score_topk import (
     conv_kernel_fits,
@@ -65,30 +66,46 @@ class DepthUNetConfig:
     temperature_text: float = 0.07
     temperature_image: float = 0.1
     dtype: Optional[torch.dtype] = None
+    # Frozen-encoder finetune (model.py:397): the encoder stays in eval
+    # mode while the model trains, so its BatchNorm normalises with, and
+    # keeps, its running statistics; the optimizer side of the freeze
+    # leaves the encoder's parameters out (training/optim.py).
+    freeze_encoder: bool = False
 
 
 class DepthUNet(nn.Module):
-    """Depth map -> per-pixel CLIP-space embedding field."""
+    """Depth map -> per-pixel CLIP-space embedding field.
+
+    ``unet_type`` "resnet" takes the ResNet encoder of ``n_layer`` 18, 34 or
+    50 over ``encoder_filters``; "mit" the MiT encoder with the last four
+    ``encoder_filters`` as its stage widths.  The decoder has one block per
+    encoder width (reversed) and takes the encoder's skip channels."""
 
     def __init__(self, config: DepthUNetConfig = DepthUNetConfig(),
                  device: Optional[torch.device] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if config.unet_type != "resnet":
-            raise NotImplementedError(
-                f"unet_type {config.unet_type!r} is not ported yet (the MiT "
-                "encoder is ROADMAP slice 4, item 9)")
         self.config = config
         common = dict(weight_initializer=config.weight_initializer,
                       activation=config.activation,
                       use_batch_norm=config.use_batch_norm, device=device,
                       generator=generator)
         filters = tuple(config.encoder_filters)
-        self.encoder = DepthEncoder(config.n_layer, filters,
-                                    config.embedding_dim,
-                                    config.input_channels, **common)
+        if config.unet_type == "resnet":
+            self.encoder = DepthEncoder(config.n_layer, filters,
+                                        config.embedding_dim,
+                                        config.input_channels, **common)
+        elif config.unet_type == "mit":
+            filters = filters[-4:]
+            self.encoder = MiTDepthEncoder(
+                MiTConfig(embed_dims=filters), config.embedding_dim,
+                config.input_channels, device=device, generator=generator)
+        else:
+            raise ValueError(
+                f"Unsupported depth encoder type: {config.unet_type}")
+        skips = self.encoder.feature_channels[:-1]
         self.decoder = DepthDecoder(tuple(reversed(filters)),
-                                    tuple(reversed(filters[:-1])),
+                                    tuple(reversed(skips)),
                                     config.embedding_dim,
                                     config.embedding_dim, **common)
         self.log_temperature_text = nn.Parameter(torch.log(torch.tensor(
@@ -96,6 +113,13 @@ class DepthUNet(nn.Module):
         self.log_temperature_image = nn.Parameter(torch.log(torch.tensor(
             config.temperature_image, dtype=torch.float32, device=device)))
         self.to(memory_format=torch.channels_last)
+
+    def train(self, mode: bool = True) -> "DepthUNet":
+        """``nn.Module.train``, but a frozen encoder stays in eval mode."""
+        super().train(mode)
+        if self.config.freeze_encoder:
+            self.encoder.eval()
+        return self
 
     @property
     def compute_dtype(self) -> torch.dtype:

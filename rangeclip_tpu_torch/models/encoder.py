@@ -1,10 +1,12 @@
 """ResNet depth encoder (``rangeclip_tpu/models/encoder.py``).
 
-7x7 stride-2 conv, 3x3 stride-2 max-pool (pad 1), four groups of basic
-ResNet blocks (groups 2-4 stride 2 on their first block), a global-pool MLP
-projection head giving an L2-normalised embedding, and ASPP on the last
-feature map.  State-dict keys follow the reference: ``conv1``,
-``blocks.{g}.{b}``, ``projection_head.{0,2}``, ``aspp``.
+7x7 stride-2 conv, 3x3 stride-2 max-pool (pad 1), four groups of ResNet
+blocks (groups 2-4 stride 2 on their first block): basic blocks for
+ResNet-18 and 34, bottleneck blocks with 4x expansion for ResNet-50; a
+global-pool MLP projection head giving an L2-normalised embedding, and ASPP
+on the last feature map.  State-dict keys follow the reference: ``conv1``,
+``blocks.{g}.{b}`` (with ``conv3`` in a bottleneck), ``projection_head.
+{0,2}``, ``aspp``.
 """
 
 from __future__ import annotations
@@ -16,11 +18,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from rangeclip_tpu_torch.ops.aspp import ASPP
-from rangeclip_tpu_torch.ops.blocks import Conv2d, ResNetBlock
+from rangeclip_tpu_torch.ops.blocks import (
+    Conv2d,
+    ResNetBlock,
+    ResNetBottleneckBlock,
+)
 from rangeclip_tpu_torch.ops.initializers import init_bias_, init_weight_
 from rangeclip_tpu_torch.utils.math import l2_normalize
 
-_BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
+_BLOCKS = {18: ((2, 2, 2, 2), ResNetBlock, 1),
+           34: ((3, 4, 6, 3), ResNetBlock, 1),
+           50: ((3, 4, 6, 3), ResNetBottleneckBlock, 4)}
 
 
 class DepthEncoder(nn.Module):
@@ -33,24 +41,26 @@ class DepthEncoder(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if n_layer not in _BLOCKS:
-            raise NotImplementedError(
-                f"ResNet-{n_layer} is not ported (18 and 34 are; the "
-                "bottleneck blocks of ResNet-50 are not)")
+            raise ValueError("Only supports 18, 34, 50 layer architecture")
+        n_blocks, block_cls, expansion = _BLOCKS[n_layer]
         common = dict(weight_initializer=weight_initializer,
                       activation=activation, use_batch_norm=use_batch_norm,
                       device=device, generator=generator)
         self.conv1 = Conv2d(input_channels, n_filters[0], 7, 2, **common)
         self.blocks = nn.ModuleList()
         in_ch = n_filters[0]
-        for g, (n_filter, n_block) in enumerate(
-                zip(n_filters[1:], _BLOCKS[n_layer])):
+        # the channels of the skip list that forward returns
+        self.feature_channels = [in_ch]
+        for g, (n_filter, n_block) in enumerate(zip(n_filters[1:],
+                                                    n_blocks)):
             group = nn.ModuleList()
             for b in range(n_block):
                 stride = 2 if (b == 0 and g > 0) else 1
-                group.append(ResNetBlock(in_ch, n_filter, stride, **common))
-                in_ch = n_filter
+                group.append(block_cls(in_ch, n_filter, stride, **common))
+                in_ch = n_filter * expansion
             self.blocks.append(group)
-        final = n_filters[-1]
+            self.feature_channels.append(in_ch)
+        final = in_ch
         self.projection_head = nn.Sequential(
             nn.Linear(final, final, device=device), nn.ReLU(),
             nn.Linear(final, embedding_dim, device=device))

@@ -71,6 +71,8 @@ def _reference_key(path: Path) -> str:
         return f"{_module_prefix(name)}.upsample.{kind}"
     if name.startswith("projection_head"):
         return f"{_module_prefix(name)}.{'weight' if leaf == 'kernel' else 'bias'}"
+    if name.startswith(("patch_embed", "stage")):
+        return _mit_key(path)
     inner = path[1:]
     if inner[-2:] == ("conv", "kernel"):
         suffix = ".".join(inner[:-2] + ("conv", "weight"))
@@ -79,6 +81,21 @@ def _reference_key(path: Path) -> str:
     else:
         raise KeyError(f"unmapped JAX parameter: {path}")
     return f"{_module_prefix(name)}.{suffix}"
+
+
+def _mit_key(path: Path) -> str:
+    """JAX MiT encoder path -> the port's MiT module tree:
+    ``patch_embed{s}`` -> ``patch_embed.{s}``, ``stage{s}_block{i}`` ->
+    ``blocks.{s}.{i}``, ``stage{s}_norm`` -> ``norm.{s}``."""
+    name, *inner, leaf = path
+    if name.startswith("patch_embed"):
+        prefix = f"patch_embed.{name[11:]}"
+    else:
+        stage, sub = name[5:].split("_", 1)
+        prefix = (f"norm.{stage}" if sub == "norm"
+                  else f"blocks.{stage}.{sub[5:]}")
+    leaf = "weight" if leaf in ("kernel", "scale") else leaf
+    return ".".join([prefix, *inner, leaf])
 
 
 def _to_torch_layout(key: str, v: np.ndarray) -> np.ndarray:
@@ -94,7 +111,8 @@ def _to_torch_layout(key: str, v: np.ndarray) -> np.ndarray:
 def state_dict_from_jax(params: Mapping, batch_stats: Mapping,
                         train_step: int = 0) -> Dict[str, torch.Tensor]:
     """The JAX DepthUNet's (params, batch_stats) trees of numpy arrays ->
-    the port's ``DepthUNet.state_dict()``."""
+    the port's ``DepthUNet.state_dict()``: ResNet-18, 34 and 50 encoders
+    under the reference's keys, the MiT encoder under the port's own."""
     out: Dict[str, torch.Tensor] = {}
     for side, target in _SIDES:
         flat = _flatten(params.get(target, {}))
@@ -108,7 +126,9 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping,
                 np.asarray(train_step, np.int64))
         if side == "encoder":
             # the reference keeps a 1x1 projection in every ResNet block;
-            # the JAX tree has only the ones that are applied
+            # the JAX tree has only the ones that are applied (an unused
+            # bottleneck one is written at conv2's width, as the JAX
+            # package's export_reference_checkpoint writes it)
             for key in [k for k in sd if k.startswith("blocks.")
                         and ".conv2.conv.weight" in k]:
                 proj = key.replace("conv2.conv.weight",
@@ -119,6 +139,42 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping,
             out[f"{side}.{key}"] = torch.tensor(v)
     for name in ("log_temperature_text", "log_temperature_image"):
         out[name] = torch.tensor(np.asarray(params[name], np.float32))
+    return out
+
+
+def _clip_key(path: Path) -> str:
+    """JAX CLIP tower tree path -> the port tower's state-dict key."""
+    *mods, leaf = path
+    if not mods:  # the bare parameters: class token, position table
+        return f"embeddings.{leaf}" + (
+            "" if leaf == "class_embedding" else ".weight")
+    if mods[0].startswith("layer") and mods[0][5:].isdigit():
+        sub = {"attn": "self_attn", "fc1": "mlp.fc1",
+               "fc2": "mlp.fc2"}.get(mods[1], mods[1])
+        mods = [f"encoder.layers.{mods[0][5:]}", sub] + mods[2:]
+    elif mods[0] in ("token_embedding", "patch_embedding"):
+        mods = ["embeddings"] + mods
+    elif mods[0] == "pre_layernorm":
+        mods = ["pre_layrnorm"]  # HF's spelling
+    return ".".join(mods + [_CLIP_LEAF.get(leaf, leaf)])
+
+
+_CLIP_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
+
+
+def clip_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX ``CLIPTextTower`` or ``CLIPVisionTower`` param tree of numpy
+    arrays -> the port tower's ``state_dict()``: dense [in, out] ->
+    [out, in], the patch conv HWIO -> OIHW, layers ``layer{i}`` ->
+    ``encoder.layers.{i}`` with HF's submodule names."""
+    out = {}
+    for path, v in _flatten(params).items():
+        key = _clip_key(path)
+        if v.ndim == 4:
+            v = np.transpose(v, (3, 2, 0, 1))
+        elif v.ndim == 2 and path[-1] == "kernel":
+            v = v.T
+        out[key] = torch.tensor(np.ascontiguousarray(v))
     return out
 
 
@@ -139,17 +195,34 @@ def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
 
 
 def widths_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict:
-    """The ResNet UNet's ``encoder_filters`` and ``embedding_dim``, read
-    from the output channels of its stem, its stages' first convs and its
-    output conv."""
-    stages = sorted({int(k.split(".")[2]) for k in sd
-                     if k.startswith("encoder.blocks.")})
+    """The ``DepthUNetConfig`` fields a checkpoint fixes: ``unet_type``;
+    ``encoder_filters`` (a ResNet's stem and stage widths, read from their
+    first convs, or a MiT's four stage widths); a ResNet's ``n_layer``
+    (its blocks per stage and whether they are bottlenecks);
+    ``embedding_dim`` (the output conv's channels) and ``use_batch_norm``."""
+    out = {"embedding_dim": int(sd["decoder.output_conv.conv.weight"]
+                                .shape[0]),
+           "use_batch_norm": any(".batch_norm." in k for k in sd)}
+    if "encoder.patch_embed.0.proj.weight" in sd:
+        stages = sorted({int(k.split(".")[2]) for k in sd
+                         if k.startswith("encoder.patch_embed.")})
+        return {**out, "unet_type": "mit", "encoder_filters": tuple(
+            int(sd[f"encoder.patch_embed.{s}.proj.weight"].shape[0])
+            for s in stages)}
+    blocks = {}
+    for k in sd:
+        if k.startswith("encoder.blocks."):
+            g, b = map(int, k.split(".")[2:4])
+            blocks[g] = max(blocks.get(g, 0), b + 1)
+    stages = sorted(blocks)
     filters = [sd["encoder.conv1.conv.weight"].shape[0]] + [
         sd[f"encoder.blocks.{i}.0.conv1.conv.weight"].shape[0]
         for i in stages]
-    return {"encoder_filters": tuple(int(f) for f in filters),
-            "embedding_dim": int(sd["decoder.output_conv.conv.weight"]
-                                 .shape[0])}
+    counts = tuple(blocks[g] for g in stages)
+    n_layer = (50 if "encoder.blocks.0.0.conv3.conv.weight" in sd
+               else 18 if counts == (2, 2, 2, 2) else 34)
+    return {**out, "unet_type": "resnet", "n_layer": n_layer,
+            "encoder_filters": tuple(int(f) for f in filters)}
 
 
 def save_reference_pth(model: Union[nn.Module, Mapping[str, torch.Tensor]],

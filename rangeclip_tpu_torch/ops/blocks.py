@@ -129,6 +129,44 @@ class ResNetBlock(nn.Module):
         return self.act(out) if self.act is not None else out
 
 
+class ResNetBottleneckBlock(nn.Module):
+    """act(conv3(conv2(conv1(x))) + proj?(x)), conv3 to 4 * features
+    (blocks.py:432-478).  The projection applies when the stride or the
+    channel count of the residual sum changes (the actual shapes, not
+    conv2's).  An unused projection is kept, as in the basic block, at the
+    [features, features] shape that the JAX package's reference export
+    (``torch_interop.export_reference_checkpoint``) writes for it, so that
+    its ``.pth`` files load strictly."""
+
+    expansion = 4
+
+    def __init__(self, in_channels: int, features: int, stride: int = 1,
+                 weight_initializer: str = "kaiming_uniform",
+                 activation=DEFAULT_ACTIVATION, use_batch_norm: bool = False,
+                 device: Optional[torch.device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        common = dict(weight_initializer=weight_initializer,
+                      activation=activation, use_batch_norm=use_batch_norm,
+                      device=device, generator=generator)
+        out = self.expansion * features
+        self.conv1 = Conv2d(in_channels, features, 1, 1, **common)
+        self.conv2 = Conv2d(features, features, 3, stride, **common)
+        self.conv3 = Conv2d(features, out, 1, 1, **common)
+        self.use_projection = stride != 1 or in_channels != out
+        proj = (in_channels, out) if self.use_projection else (features,
+                                                               features)
+        self.projection = Conv2d(*proj, 1, stride, weight_initializer,
+                                 activation=None, device=device,
+                                 generator=generator)
+        self.act = resolve_activation(activation)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv3(self.conv2(self.conv1(x)))
+        out = out + (self.projection(x) if self.use_projection else x)
+        return self.act(out) if self.act is not None else out
+
+
 class DecoderBlock(nn.Module):
     """ConvTranspose(k2, s2, bias) upsample -> bilinear resize to the skip
     if shapes differ -> concat -> two 3x3 convs (blocks.py:707-757)."""

@@ -35,8 +35,11 @@ Routes on the card (:func:`tc_route`, by shape on the host, one for both
 directions): bf16 with a packed table, D <= 1280 and K <= 128, launches
 the tensor-core kernel and the member-only CUDA-core kernel together; the
 first runs where the flag selects the packed table, the second (told to
-skip that branch) where it selects the full one.  Everything else, fp32
-and wider or larger packed tables, takes the member-only kernels alone.  Both
+skip that branch) where it selects the full one, with at most 4 label
+slots.  Everything else, fp32, wider or larger packed tables and more
+slots, takes the member-only kernels alone.  Those take 1-4 slots or 16 (a
+field at H/4 upsampled x4) in one pass; the wrapper pads 5-15 to 16 with
+slots of weight 0, which add exactly nothing.  Both
 member-only kernels score only the contrast members of the table the flag
 selects (:func:`member_table`, gathered on the device in one launch); no
 route scores a full table.  The kernels take D % 8 == 0; the wrapper
@@ -53,7 +56,8 @@ from rangeclip_tpu_torch.ops.kernels import _lib
 from rangeclip_tpu_torch.ops.kernels.live_rows import live_rows
 
 NEG_INF = -1e30
-MAX_SLOTS = 4  # csrc/pixel_text_ce.cu dispatch
+MAX_SLOTS = 16  # csrc/pixel_text_ce.cu: member::dispatch
+TC_MAX_SLOTS = 4  # tc_shape_ok
 TC_MAX_DIM = 1280  # csrc/pixel_text_ce.cu kMaxTcDims: the A tile in smem
 TC_MAX_CLASSES = 128  # kMaxTcBwdClasses: the backward's delta is one tile
 
@@ -221,7 +225,8 @@ def fused_pixel_text_ce(samples: torch.Tensor, temperature: torch.Tensor,
       samples: [N, D] un-normalised pixel embeddings or the [B, h, w, D]
         field with contiguous rows, f32 or bf16.
       temperature: scalar f32 tensor; logits = cos-sim * (1 / temperature).
-      labels: [N] int32 or [S, N] label slots (S <= 4).
+      labels: [N] int32 or [S, N] label slots, S <= MAX_SLOTS (a field at
+        H/4 upsampled x4 has 16).
       valid: [N] or [S, N] f32 weights.
       table: [C, D] L2-normalised rows in the samples' dtype.
       mask: [C] contrast-set membership.
@@ -245,6 +250,8 @@ def fused_pixel_text_ce(samples: torch.Tensor, temperature: torch.Tensor,
     _lib.require(1 <= S <= MAX_SLOTS,
                  f"pixel_text_ce: the kernels take 1..{MAX_SLOTS} slots; got "
                  f"S={S}")
+    if TC_MAX_SLOTS < S < MAX_SLOTS:
+        labels, valid = padded_slots(labels, valid)
     # D zero-padded to a multiple of 8: a zero column adds nothing to a
     # row's f64 sum of squares, to a product or to the sum-exp, and d
     # samples comes back sliced to D through the pad's gradient
@@ -256,6 +263,15 @@ def fused_pixel_text_ce(samples: torch.Tensor, temperature: torch.Tensor,
                             flag)[0]
 
 
+def padded_slots(labels: torch.Tensor, valid: torch.Tensor):
+    """[S, N] labels and weights padded to MAX_SLOTS slots of label -1 and
+    weight 0: the kernels' instances past 4 slots take 16.  A padded slot
+    adds 0 to every sum and picks no class."""
+    pad = MAX_SLOTS - labels.shape[0]
+    return (torch.nn.functional.pad(labels, (0, 0, 0, pad), value=-1),
+            torch.nn.functional.pad(valid, (0, 0, 0, pad)))
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -265,15 +281,17 @@ def _aligned(*tensors):
                  "pixel_text_ce: samples and tables must be 16-byte aligned")
 
 
-def tc_route(samples: torch.Tensor, ptable: Optional[torch.Tensor]) -> bool:
+def tc_route(samples: torch.Tensor, ptable: Optional[torch.Tensor],
+             slots: int = 1) -> bool:
     """Whether the packed branch runs on the tensor-core kernels: bf16
-    samples with a packed table, D <= TC_MAX_DIM and K <= TC_MAX_CLASSES,
-    in both directions (the tensor-core forward writes no row statistics
-    for a member-only backward).  The device flag still chooses packed or
-    full."""
+    samples with a packed table, D <= TC_MAX_DIM, K <= TC_MAX_CLASSES and
+    at most TC_MAX_SLOTS label slots, in both directions (the tensor-core
+    forward writes no row statistics for a member-only backward).  The
+    device flag still chooses packed or full."""
     return (ptable is not None and samples.dtype == torch.bfloat16
             and samples.shape[1] <= TC_MAX_DIM
-            and ptable.shape[0] <= TC_MAX_CLASSES)
+            and ptable.shape[0] <= TC_MAX_CLASSES
+            and slots <= TC_MAX_SLOTS)
 
 
 def transposed_table(ptable: torch.Tensor) -> torch.Tensor:
@@ -312,7 +330,7 @@ def _fwd_cuda(samples, temperature, labels, valid, table, mask, ptable,
     ce = samples.new_empty(N, dtype=torch.float32)
     lib, stream = _lib.library(), _lib.stream_of(samples)
     K = 0 if ptable is None else ptable.shape[0]
-    tc = tc_route(samples, ptable)
+    tc = tc_route(samples, ptable, labels.shape[0])
     if tc:
         # the tensor-core kernel, and beside it the member-only kernel,
         # which returns at once unless the flag selects the full table: one
@@ -347,7 +365,7 @@ def _bwd_cuda(grad, stats, samples, temperature, labels, valid, table, mask,
     dtau = samples.new_empty(N, dtype=torch.float32)
     lib, stream = _lib.library(), _lib.stream_of(samples)
     K = 0 if ptable is None else ptable.shape[0]
-    tc = tc_route(samples, ptable)
+    tc = tc_route(samples, ptable, labels.shape[0])
     if tc:
         ptable_t = transposed_table(ptable)
         _lib.check(lib.rc_pixel_text_ce_tc_bwd(

@@ -1,7 +1,8 @@
 """Spatial resizes with ``F.interpolate`` semantics (``rangeclip_tpu/ops/resize.py``).
 
 NHWC in and out, like the JAX functions: nearest uses torch's floor index
-rule idx = floor(dst * in / out); bilinear uses align_corners=True.
+rule idx = floor(dst * in / out); bilinear uses align_corners=True, or
+half-pixel centres in :func:`resize_bilinear` (align_corners=False).
 """
 
 from __future__ import annotations
@@ -51,3 +52,14 @@ def resize_bilinear_align_corners(x: torch.Tensor,
     """NHWC form of :func:`resize_bilinear_align_corners_nchw`."""
     out = resize_bilinear_align_corners_nchw(x.permute(0, 3, 1, 2), size)
     return out.permute(0, 2, 3, 1)
+
+
+def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of NHWC ``x`` with half-pixel centres
+    (align_corners=False, no antialiasing), computed in f32 and returned in
+    ``x``'s dtype."""
+    if tuple(x.shape[1:3]) == tuple(size):
+        return x
+    out = F.interpolate(x.permute(0, 3, 1, 2).float(), size=tuple(size),
+                        mode="bilinear", align_corners=False)
+    return out.permute(0, 2, 3, 1).to(x.dtype)

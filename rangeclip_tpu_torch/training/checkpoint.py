@@ -6,7 +6,9 @@ log_temperature_image}``) under the reference's name template
 ``depth_segmentation_model-{step}.pth`` (train_util.py:552-556), so
 ``cli/serve`` and ``cli/infer`` load a trained checkpoint as they are; the
 optimizer state and the step go beside it in ``optimizer-{step}.pt``.
-Restore keeps the optimizer state (the reference discards it).  Each file
+Restore keeps the optimizer state (the reference discards it);
+:meth:`CheckpointManager.restore_encoder` takes only the encoder's weights
+and BatchNorm statistics (the frozen-encoder finetune).  Each file
 is written under a temporary name and renamed, so a checkpoint is listed
 only once both files are whole.
 """
@@ -75,4 +77,24 @@ class CheckpointManager:
                            weights_only=True)
         state.optimizer.load_state_dict(saved["optimizer"])
         state.step = int(saved["step"])
+        return state
+
+    def restore_encoder(self, state: TrainState) -> TrainState:
+        """Encoder-only restore (``restore_encoder_params``,
+        checkpoint.py:94-120): the latest checkpoint's ``encoder.*``
+        weights and BatchNorm running statistics replace the model's;
+        the decoder, the temperatures, the optimizer state and the step
+        stay as initialised, so the source run's optimizer need not match
+        this one."""
+        step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"No checkpoint found in {self.directory}")
+        merged = state.model.state_dict()
+        encoder = {k: v for k, v in load_reference_pth(
+            self.model_path(step)).items() if k.startswith("encoder.")}
+        if set(encoder) != {k for k in merged if k.startswith("encoder.")}:
+            raise KeyError(f"{self.model_path(step)}: its encoder is not "
+                           "this model's")
+        merged.update(encoder)
+        state.model.load_state_dict(merged, strict=True)
         return state

@@ -14,6 +14,11 @@ log-temperatures included), eps outside the square root — the JAX chain
 add_decayed_weights -> scale_by_adam -> scale(-1) with the learning rate
 multiplied in by the train step.  The learning rate is set per step.
 
+The frozen-encoder finetune (the JAX ``make_optimizer(freeze_encoder=True)``,
+an ``optax.multi_transform`` with ``set_to_zero`` on the encoder) is Adam over
+:func:`optimized_parameters`: the encoder's parameters are not the
+optimizer's, so no step, weight decay included, touches them.
+
 The schedules are copies of the JAX package's, pinned to them by a test.
 All are stepped per EPOCH (train_util.py:409) and produce a plain float.
 """
@@ -21,9 +26,10 @@ All are stepped per EPOCH (train_util.py:409) and produce a plain float.
 from __future__ import annotations
 
 import math
-from typing import Iterable, Sequence
+from typing import Iterable, List, Sequence
 
 import torch
+from torch import nn
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter],
@@ -32,6 +38,14 @@ def make_optimizer(params: Iterable[torch.nn.Parameter],
     learning rate is set per step (:func:`set_learning_rate`)."""
     return torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=weight_decay)
+
+
+def optimized_parameters(model: nn.Module, freeze_encoder: bool = False
+                         ) -> List[nn.Parameter]:
+    """The parameters the optimizer updates: all of ``model``'s, or with
+    ``freeze_encoder`` all but those under ``model.encoder``."""
+    return [p for name, p in model.named_parameters()
+            if not (freeze_encoder and name.startswith("encoder."))]
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:

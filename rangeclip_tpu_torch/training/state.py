@@ -12,7 +12,10 @@ from typing import Optional
 import torch
 
 from rangeclip_tpu_torch.models.depth_unet import DepthUNet, DepthUNetConfig
-from rangeclip_tpu_torch.training.optim import make_optimizer
+from rangeclip_tpu_torch.training.optim import (
+    make_optimizer,
+    optimized_parameters,
+)
 
 
 @dataclasses.dataclass
@@ -26,10 +29,11 @@ def create_train_state(config: DepthUNetConfig, device: torch.device,
                        weight_decay: float = 0.0, seed: int = 0,
                        model: Optional[DepthUNet] = None) -> TrainState:
     """A model with random weights from ``seed`` (or ``model``), in train
-    mode on ``device``, and a fresh Adam."""
+    mode on ``device``, and a fresh Adam over its parameters (without the
+    encoder's when its config freezes the encoder)."""
     if model is None:
         model = DepthUNet(config, device=device,
                           generator=torch.Generator().manual_seed(seed))
     model = model.to(device).train()
-    return TrainState(model, make_optimizer(model.parameters(),
-                                            weight_decay))
+    params = optimized_parameters(model, model.config.freeze_encoder)
+    return TrainState(model, make_optimizer(params, weight_decay))

@@ -112,7 +112,9 @@ def make_train_step(loss_config: HybridLossConfig = HybridLossConfig(),
             raise ValueError(f"batch has {A} microbatches, the step "
                              f"accumulates {accum_steps}")
         model.train()
-        optimizer.zero_grad(set_to_none=True)
+        # every parameter's, not only the optimizer's: a frozen encoder's
+        # gradients count in grad_norm and must not add up over steps
+        model.zero_grad(set_to_none=True)
         info_sum = None
         for idx in range(A):
             mb = {k: v[idx] for k, v in batch.items()}

@@ -1,9 +1,12 @@
 """End-to-end training (``rangeclip_tpu/training/trainer.py``:
 ``TrainerConfig``, ``train_depth_clip_model``) on one device.
 
-Data and label structures, the frozen hash-stub text table (computed once),
-the model and Adam, restore (``--auto_resume``, ``--restore_path_model``),
-then the epoch loop: the curriculum and the learning rate per epoch, one
+Data and label structures, the frozen text table (computed once, by the CLIP
+text tower or the hash stub), the image provider (the CLIP vision tower,
+``--clip_checkpoint_path random`` for seeded random weights, or the hash
+stub), the model and Adam, restore (``--auto_resume``, then
+``--restore_path_encoder``, then ``--restore_path_model``), then the epoch
+loop: the curriculum and the learning rate per epoch, one
 accumulation window per optimizer step, one image-tower call per window
 (skipped when the image loss is off), summaries, validation and checkpoints
 on the JAX cadence, a final save.  Step s always trains under the positional key
@@ -18,9 +21,13 @@ their draws, the BatchNorm statistics and the loader order are those of a
 run without it; the best results are logged and returned, and the latest
 val loss is the plateau schedule's metric.
 
+The frozen-encoder finetune (trainer.py:252-295): ``freeze_encoder=None``
+freezes exactly when ``restore_path_encoder`` is given; the encoder then
+runs in eval mode and is not the optimizer's (``DepthUNetConfig.
+freeze_encoder``, ``training/optim.optimized_parameters``).
+
 Options that need later slices raise ``NotImplementedError`` at start-up:
-multi-GPU (item 10), encoder restore and freezing (item 7), real CLIP
-towers (item 9), profiling traces (item 11).
+multi-GPU (item 10) and profiling traces (item 11).
 """
 
 from __future__ import annotations
@@ -116,18 +123,9 @@ def check_supported(cfg: TrainerConfig) -> None:
         (cfg.ddp_parity or cfg.distributed,
          "--ddp_parity and --distributed (multi-GPU) are not ported yet "
          "(ROADMAP slice 4, item 10)"),
-        (cfg.restore_path_encoder is not None or bool(cfg.freeze_encoder),
-         "--restore_path_encoder and --freeze_encoder are not ported yet "
-         "(ROADMAP slice 3, item 7)"),
-        (bool(cfg.clip_checkpoint_path),
-         "real CLIP towers (--clip_checkpoint_path) are not ported yet "
-         "(ROADMAP slice 4, item 9)"),
         (cfg.profile_dir is not None,
          "--profile_dir is not ported yet (ROADMAP slice 4, item 11); "
          "profile with rangeclip_tpu_torch.utils.profiling"),
-        (cfg.unet_architecture != "resnet",
-         f"--unet_architecture {cfg.unet_architecture} is not ported yet "
-         "(ROADMAP slice 4, item 9)"),
     ]
     for refused, why in refusals:
         if refused:
@@ -173,26 +171,34 @@ def train_depth_clip_model(cfg: TrainerConfig) -> Dict:
     text_provider = get_text_provider(cfg.clip_checkpoint_path,
                                       cfg.clip_vocab_path,
                                       cfg.clip_merges_path,
-                                      dim=cfg.embedding_dim)
+                                      dim=cfg.embedding_dim, device=device)
     image_provider = get_image_provider(cfg.clip_checkpoint_path,
-                                        dim=cfg.embedding_dim)
+                                        dim=cfg.embedding_dim, device=device)
     log(f"Precomputing text embeddings for {num_classes} candidate "
         "labels...", log_path)
     text_table = torch.from_numpy(text_provider(candidate_labels)).to(device)
 
+    freeze_encoder = (cfg.freeze_encoder if cfg.freeze_encoder is not None
+                      else cfg.restore_path_encoder is not None)
     model_kwargs = {}
     if cfg.encoder_filters is not None:
         model_kwargs["encoder_filters"] = tuple(cfg.encoder_filters)
     model_cfg = DepthUNetConfig(
         unet_type=cfg.unet_architecture, embedding_dim=cfg.embedding_dim,
         use_batch_norm=cfg.use_batch_norm,
-        dtype=torch.bfloat16 if cfg.bf16 else None, **model_kwargs)
+        dtype=torch.bfloat16 if cfg.bf16 else None,
+        freeze_encoder=freeze_encoder, **model_kwargs)
     state = create_train_state(model_cfg, device, cfg.w_weight_decay,
                                cfg.seed)
     ckpt = CheckpointManager(os.path.join(ckpt_root, "checkpoints"))
     if cfg.auto_resume and ckpt.latest_step() is not None:
         ckpt.restore(state)
         log(f"Auto-resumed from step {state.step} (preemption recovery).",
+            log_path)
+    elif cfg.restore_path_encoder:
+        CheckpointManager(cfg.restore_path_encoder).restore_encoder(state)
+        log("Restored encoder weights"
+            + (" (frozen-encoder finetune)." if freeze_encoder else "."),
             log_path)
     elif cfg.restore_path_model:
         CheckpointManager(cfg.restore_path_model).restore(state)

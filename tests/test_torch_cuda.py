@@ -1481,3 +1481,129 @@ def test_eval_ops_pass_opcheck(cuda_device):
     x = dev(torch.nn.functional.pad(torch.randn(2, 4, 8, 20, generator=gen),
                                     (0, 4)))
     torch.library.opcheck(tv_loss_op, (x.requires_grad_(), 20))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["text", "vision", "patches"])
+def test_clip_towers_on_cuda_match_cpu(cuda_device, kind):
+    """The CLIP towers (plain PyTorch: no kernel of this slice) on the card
+    against the same weights on the CPU, fp32 with TF32 off: within 1e-4
+    relative to the largest feature."""
+    from rangeclip_tpu_torch.models.clip.model import (
+        CLIPConfig,
+        CLIPTextTower,
+        CLIPVisionTower,
+    )
+
+    cfg = CLIPConfig(vocab_size=99, max_position_embeddings=16,
+                     text_width=32, text_heads=4, text_layers=2,
+                     image_size=64, patch_size=16, vision_width=48,
+                     vision_heads=4, vision_layers=2, projection_dim=24)
+    gen = torch.Generator().manual_seed(4)
+    cls = CLIPTextTower if kind == "text" else CLIPVisionTower
+    tower = cls(cfg, generator=gen).eval()
+    if kind == "text":
+        x = torch.randint(1, 99, (3, 16), generator=gen)
+    else:
+        x = torch.randn(2, 64, 64, 3, generator=gen)
+    args = (True,) if kind == "patches" else ()
+    with torch.no_grad():
+        want = tower(x, *args)
+        got = tower.to(cuda_device)(x.to(cuda_device), *args).cpu()
+    assert got.shape == want.shape
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mit", "resnet50"])
+def test_mit_and_resnet50_on_cuda_match_cpu(cuda_device, kind):
+    """The MiT and ResNet-50 UNets on the card against the CPU, fp32 with
+    TF32 off: the field within 1e-4, predict's and the folded predict's
+    labels on >= 99.9% of entries (near-ties aside)."""
+    kw = (dict(unet_type="mit", encoder_filters=(0, 16, 32, 64, 96))
+          if kind == "mit" else
+          dict(n_layer=50, encoder_filters=(8, 8, 16, 16, 32)))
+    gen = torch.Generator().manual_seed(5)
+    model = DepthUNet(DepthUNetConfig(embedding_dim=32, **kw),
+                      generator=gen).eval()
+    depth = torch.randn(4, 64, 64, generator=gen)
+    text = torch.randn(100, 32, generator=gen)
+    with torch.no_grad():
+        field = model(depth)[0]
+        ids = model.predict(depth, text, None, 5, return_embeddings=False)[0]
+        folded = predict_folded(model, depth, text, top_k=5)
+        model.to(cuda_device)
+        d, t = depth.to(cuda_device), text.to(cuda_device)
+        got_field = model(d)[0].cpu()
+        got_ids = model.predict(d, t, None, 5, return_embeddings=False)[0]
+        got_folded = predict_folded(model, d, t, top_k=5)
+    assert (got_field - field).abs().max() <= 1e-4
+    assert (got_ids.cpu() == ids).float().mean() >= 0.999
+    assert (got_folded.cpu() == folded).float().mean() >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["full", "packed"])
+def test_pixel_text_ce_more_than_four_slots(cuda_device, dtype, form):
+    """16 label slots (a MiT field at H/4, upsampled x4): one pass of the
+    member-only kernels in each direction, on the tensor-core route's
+    packed shape too, held to the plain versions at 4 slots' tolerances
+    (_hold_ce)."""
+    _hold_many_slots(cuda_device, dtype, form, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [5, 9, 15])
+@pytest.mark.parametrize("form", ["full", "packed"])
+def test_pixel_text_ce_padded_slot_counts(cuda_device, slots, form):
+    """5-15 slots run on the 16-slot kernels, padded with weightless slots:
+    bf16 held to the plain version on the unpadded slots (_hold_ce)."""
+    _hold_many_slots(cuda_device, torch.bfloat16, form, slots)
+
+
+def _hold_many_slots(cuda_device, dtype, form, slots):
+    gen = torch.Generator().manual_seed(23)
+    capacity = None if form == "full" else 128
+    samples, temperature, labels, valid, table, mask, packed = _ce_inputs(
+        gen, dtype, 1111, 136, 300, slots, 60, capacity)
+    dev = lambda t: t.to(cuda_device)
+    packed_d = None if packed is None else tuple(map(dev, packed))
+    xs = dev(samples).requires_grad_()
+    ts = dev(temperature).requires_grad_()
+    before = dict(_lib.launch_counts)
+    loss = fused_pixel_text_ce(xs, ts, dev(labels), dev(valid), dev(table),
+                               dev(mask), packed_d)
+    loss.backward()
+    torch.cuda.synchronize()
+    for name in ("pixel_text_ce[fwd]", "pixel_text_ce[bwd]"):
+        assert _lib.launch_counts[name] == before[name] + 1, name
+    for name in ("pixel_text_ce_tc[fwd]", "pixel_text_ce_tc[bwd]"):
+        assert _lib.launch_counts[name] == before[name], name
+    args = tuple(map(dev, (samples, temperature, labels, valid, table,
+                           mask)))
+    _hold_ce(loss.detach(), xs.grad, ts.grad, args, packed_d, dtype,
+             cuda_device)
+
+
+@pytest.mark.cuda
+def test_seg_former_runs_where_the_logits_are(cuda_device):
+    """evaluate_seg_former with logits on the card runs there and gives
+    the accuracy of the same logits on the host (at the labels'
+    resolution, so the resize weighs nothing)."""
+    import numpy as np
+
+    from rangeclip_tpu_torch.evals.baselines import evaluate_seg_former
+
+    rng = np.random.default_rng(3)
+    seg = rng.integers(0, 8, (2, 16, 16)).astype(np.int32)
+    logits = rng.standard_normal((2, 16, 16, 8)).astype(np.float32)
+    batches = [{"image": np.zeros((2, 16, 16, 3), np.float32),
+                "segmentation": seg,
+                "sample_valid": np.array([1.0, 0.0], np.float32)}]
+    want = evaluate_seg_former(batches, lambda images: logits, 8,
+                               num_negatives=3)
+    got = evaluate_seg_former(
+        batches, lambda images: torch.from_numpy(logits).to(cuda_device), 8,
+        num_negatives=3)
+    assert got == want

@@ -251,10 +251,6 @@ def test_random_baseline_draws_uniformly_within_the_candidate_set():
                                           np.eye(8, dtype=bool), np.arange(8),
                                           num_negatives=8)
     assert 0.0 <= res["pixel_accuracy_t1"] <= 1.0
-    for probe in (baselines.evaluate_mask_clip,
-                  baselines.evaluate_seg_former):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            probe()
 
 
 def test_prediction_grid_matches_jax():
@@ -305,10 +301,11 @@ def _validate_argv(paths, ckpt, *extra):
 def test_cli_validate_on_synthetic_data(validate_workspace, capsys):
     """``--device cpu --baselines``: the newest checkpoint (step 12), the
     validation results of ``validate_model`` on that model, and both
-    baselines; the widths come from the checkpoint, and an
-    ``--embedding_dim`` that does not match it is refused; the default
-    device is cuda; the MiT encoder and real CLIP are refused naming item
-    9."""
+    baselines; the architecture and widths come from the checkpoint, and an
+    ``--embedding_dim`` or ``--unet_architecture`` that does not match it
+    is refused; the default device is cuda; ``--clip_checkpoint_path
+    random`` validates with the ViT-B/32 image tower (seeded random
+    weights) in place of the hash stub."""
     paths, ckpt = validate_workspace
     out = validate_cli.main(_validate_argv(paths, ckpt, "--device", "cpu",
                                            "--baselines"))
@@ -325,11 +322,13 @@ def test_cli_validate_on_synthetic_data(validate_workspace, capsys):
     with pytest.raises(ValueError, match="does not match"):
         validate_cli.main(_validate_argv(paths, ckpt, "--device", "cpu",
                                          "--embedding_dim", str(2 * D)))
-    for extra in (["--unet_architecture", "mit"],
-                  ["--clip_checkpoint_path", "clip.safetensors"]):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            validate_cli.main(_validate_argv(paths, ckpt, "--device", "cpu",
-                                             *extra))
+    with pytest.raises(ValueError, match="does not match"):
+        validate_cli.main(_validate_argv(paths, ckpt, "--device", "cpu",
+                                         "--unet_architecture", "mit"))
+    tower = validate_cli.main(_validate_argv(
+        paths, ckpt, "--device", "cpu", "--clip_checkpoint_path", "random"))
+    assert np.isfinite(tower["best"]["latest_val_loss"])
+    assert tower["best"]["mIoU_tk"] == out["best"]["mIoU_tk"]
 
 
 def test_candidate_mask_from_jax_noise_is_jax_mask():

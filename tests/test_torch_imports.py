@@ -1,7 +1,9 @@
 """The port stands alone: importing it (CLIs included) and running its CPU
-predict paths, a CPU train step, the opt-in kernel functions and a
-validation step loads no JAX, flax, pandas or PIL, and asking for a CUDA
-device that is absent raises instead of running on the CPU."""
+predict paths, a CPU train step, the opt-in kernel functions, a validation
+step, tiny CLIP towers (one converted from a ``.safetensors`` file) and a
+tiny MiT UNet loads no JAX, flax, pandas, PIL, transformers or
+safetensors, and asking for a CUDA device that is absent raises instead of
+running on the CPU."""
 
 import os
 import subprocess
@@ -78,7 +80,35 @@ acc, parts, pred = make_val_step()(
     torch.arange(20), mb["image_embeddings"], metrics_init(20))
 assert torch.isfinite(parts).all() and pred.shape == (1, 32, 32, 5)
 assert 0.0 <= metrics_finalize(acc)["mIoU_tk"] <= 1.0
-loaded = sorted(m for m in ("jax", "flax", "pandas", "PIL", "rangeclip_tpu")
+from rangeclip_tpu_torch.models.clip import (
+    CLIPConfig, CLIPTextTower, get_image_provider)
+from rangeclip_tpu_torch.models.clip.convert import (
+    convert_clip_checkpoint, hf_state_dict, write_safetensors)
+import os, tempfile
+cfg = CLIPConfig(vocab_size=99, max_position_embeddings=16, text_width=32,
+                 text_heads=4, text_layers=1, image_size=32, patch_size=8,
+                 vision_width=48, vision_heads=4, vision_layers=1,
+                 projection_dim=24)
+vision = get_image_provider("random", config=cfg,
+                            device=torch.device("cpu"))
+text_tower = CLIPTextTower(cfg, generator=gen)
+with tempfile.TemporaryDirectory() as tmp:
+    path = write_safetensors(os.path.join(tmp, "clip.safetensors"), {
+        k: v.numpy() for k, v in hf_state_dict(text_tower,
+                                               vision.tower).items()})
+    text_sd, _ = convert_clip_checkpoint(path)
+text_tower.load_state_dict(text_sd, strict=True)
+ids = torch.randint(1, 98, (2, 16), generator=gen)
+assert text_tower(ids).shape == (2, 24)
+assert vision(torch.randn(2, 32, 32, 3, generator=gen)).shape == (2, 24)
+mit = DepthUNet(DepthUNetConfig(unet_type="mit",
+                                encoder_filters=(0, 16, 32, 64, 96),
+                                embedding_dim=32),
+                generator=torch.Generator().manual_seed(0)).eval()
+ids, _, _ = mit.predict(depth, text, None, 2, return_embeddings=False)
+assert ids.shape == (1, 32, 32, 2)
+loaded = sorted(m for m in ("jax", "flax", "pandas", "PIL", "rangeclip_tpu",
+                            "transformers", "safetensors")
                 if m in sys.modules)
 assert not loaded, loaded
 print("OK")

@@ -119,11 +119,15 @@ def test_infer_matches_jax_predict(tmp_path, monkeypatch):
 
 
 def test_infer_refuses_clip_towers(tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    """The three --clip_* flags build the CLIP text tower from their files:
+    absent files are refused before any model loads."""
+    with pytest.raises(FileNotFoundError, match="clip.safetensors"):
         infer.main(["--checkpoint_path", "absent.pth", "--depth_glob", "x",
                     "--labels_path", _write_labels(tmp_path / "l.csv", 3),
                     "--output_dir", str(tmp_path), "--device", "cpu",
-                    "--clip_checkpoint_path", "clip.safetensors"])
+                    "--clip_checkpoint_path", "clip.safetensors",
+                    "--clip_vocab_path", "vocab.json",
+                    "--clip_merges_path", "merges.txt"])
 
 
 @pytest.mark.parametrize("predict_path,text_as_input",

@@ -50,7 +50,9 @@ def _args(tmp_path, **kw):
                 labels_path=str(tmp_path / "labels.csv"), batch_size=2,
                 height=SIZE[0], width=SIZE[1], top_k=K, embedding_dim=DIM,
                 unet_architecture="resnet", bf16=False,
-                predict_path="folded", device="cpu")
+                predict_path="folded", device="cpu",
+                clip_checkpoint_path=None, clip_vocab_path=None,
+                clip_merges_path=None)
     base.update(kw)
     return argparse.Namespace(**base)
 

@@ -249,6 +249,39 @@ def test_pixel_text_ce_member_table(packed, flag):
     assert torch.equal(row_ids[n:n + rest.numel()], rest)
 
 
+@pytest.mark.parametrize("slots", [5, 11])
+def test_pixel_text_ce_padded_slots_add_nothing(slots):
+    """5-15 slots run on the kernels' 16-slot instances, on the member-only
+    route: ``padded_slots`` appends slots of label -1 and weight 0, and the
+    plain forward and backward on the padded operands are bit-equal to
+    those on the slots given, over the full and the packed table."""
+    rng = np.random.default_rng(5)
+    C = 200
+    samples, labels, valid, text, mask, ids = _ce_case(
+        rng, "bf16", (300, 64), C, slots, True)
+    args = (t(samples).to(torch.bfloat16), torch.tensor(0.07))
+    table = t(text).to(torch.bfloat16)
+    packed = (table[t(np.minimum(ids, C - 1)).long()], t(ids < C).int(),
+              t(ids), torch.tensor(True))
+    lab, val = ce_k.padded_slots(t(labels), t(valid))
+    assert lab.shape == val.shape == (ce_k.MAX_SLOTS, 300)
+    assert bool((lab[slots:] == -1).all()) and not val[slots:].any()
+    assert not ce_k.tc_route(args[0], packed[0], slots)
+    assert ce_k.tc_route(args[0], packed[0], ce_k.TC_MAX_SLOTS)
+    for pk in (None, packed):
+        want = ce_k.pixel_text_ce_plain(*args, t(labels), t(valid), table,
+                                        t(mask).int(), pk)
+        got = ce_k.pixel_text_ce_plain(*args, lab, val, table, t(mask).int(),
+                                       pk)
+        assert torch.equal(got, want)
+        g = torch.tensor(1.0)
+        want = ce_k.pixel_text_ce_backward_plain(
+            g, *args, t(labels), t(valid), table, t(mask).int(), pk)
+        got = ce_k.pixel_text_ce_backward_plain(g, *args, lab, val, table,
+                                                t(mask).int(), pk)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def _members_backward(grad, samples, temperature, labels, valid, table,
                       mask, packed=None):
     """The member-only backward (csrc/pixel_text_ce.cu,
@@ -321,6 +354,8 @@ def _members_backward(grad, samples, temperature, labels, valid, table,
     ("bf16", 1, True, False, 150, True),
     ("f32", 4, True, True, 40, False),
     ("f32", 4, False, None, 0, True),
+    ("bf16", 16, True, True, 40, True),
+    ("f32", 16, False, None, 40, True),
 ])
 def test_pixel_text_ce_members_backward_transcription(dtype, slots, packed,
                                                       flag, n_members,
@@ -334,8 +369,9 @@ def test_pixel_text_ce_members_backward_transcription(dtype, slots, packed,
     2^-10 of it (the card's check), d temperature within rtol 1e-5.
     Against JAX the tolerances of test_pixel_text_ce_plain_matches_pallas.
     With non-member labels weighted, a contrast set of 150 (past one
-    128-class tile, and over the capacity: the flag at 0), and none at all
-    (every row of the table scored at -1e30)."""
+    128-class tile, and over the capacity: the flag at 0), none at all
+    (every row of the table scored at -1e30), and 16 slots (a MiT field at
+    H/4, the kernels' widest instance)."""
     rng = np.random.default_rng(7)
     C, D = 200, 64
     samples, labels, valid, text, mask, ids = _ce_case(

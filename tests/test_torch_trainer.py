@@ -3,7 +3,8 @@ loader's batches on the same files, ``cli/train --device cpu`` takes four
 steps and writes reference ``.pth`` files that both packages read, a run
 killed after step 1 and resumed is bitwise equal to the straight run, a run
 that validates at steps 2 and 4 trains bitwise as the straight run does,
-the train CLI refuses the options of later slices, and the host modules
+the train CLI refuses the options of later slices (multi-GPU,
+``--profile_dir``), and the host modules
 copied from the JAX package are pinned to their originals."""
 
 import os
@@ -183,10 +184,8 @@ def test_cli_train_validation_leaves_training_unchanged(dataset_dir,
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--restore_path_encoder", "encoder_ckpt"], "item 7"),
     (["--ddp_parity"], "item 10"),
-    (["--freeze_encoder"], "item 7"),
-    (["--clip_checkpoint_path", "clip.safetensors"], "item 9"),
+    (["--distributed"], "item 10"),
     (["--profile_dir", "trace"], "item 11"),
 ])
 def test_cli_train_refuses_later_slices(dataset_dir, tmp_path, extra, item):
