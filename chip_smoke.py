@@ -143,10 +143,24 @@ Phases (any failure raises; nothing is caught):
    the random full-width vision tower: the card's ids against the CPU's up
    to near-ties, then the evaluator over that batch.
 
-Each path of phases 3-8 and of phase 11's (a)-(d) runs with the launch
-counts set to 0 just before it and read just after (phases 9-10 compare,
-and count nothing); each must launch the kernels it is built on, and
-every kernel must be launched by some path.
+12. The measurement and evaluation tools, each through its entry point at
+   full width: ``cli.benchmark throughput`` in fp32 and bf16 at batch 128,
+   256^2, C = 512 through --predict_path auto and default, and a bf16 1 x
+   32 train config with and without the ViT-B/32 image tower (every row's
+   pct_peak in (0, 100], finite times); ``cli.benchmark profile`` of the
+   predict and train programs with their interval tables, whose intervals
+   must add up to the window's device time within 1%; ``cli.benchmark
+   robustness --subject depth`` over phase 8's split and checkpoint at two
+   brightness levels (finite rows, equal at both: the depth model never
+   sees the RGB, and each batch's candidate draw is keyed by the seed and
+   the batch); ``cli.convert`` from phase 8's checkpoint to a ``.pth`` and
+   back, bit-equal; ``cli/train --profile_dir``, 4 steps, a Chrome trace
+   holding kernel events.
+
+Each path of phases 3-8, of phase 11's (a)-(d) and of phase 12 runs with
+the launch counts set to 0 just before it and read just after (phases
+9-10 compare, and count nothing); each must launch the kernels it is
+built on, and every kernel must be launched by some path.
 
 The second-to-last line is a JSON object with each kernel's launches, error
 against its plain version, times and device time; the last line names the
@@ -254,7 +268,6 @@ CAPACITY = 128
 # step's (16 x 256^2) and validation's candidate mask (8 x 256^2)
 PRESENCE_SHAPES = (BENCH_BATCH * RES * RES, 32 * RES * RES, 16 * RES * RES,
                    8 * RES * RES)
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # phase 10's padded bf16 CE: d samples within this share of its norm, and
 # at most ce_pad_rows(rows of exactly rounded logits) rows past the
 # per-row check
@@ -263,7 +276,6 @@ CE_PAD_NORM = 2e-4
 
 def ce_pad_rows(exact_rows: int) -> int:
     return 2 * exact_rows + 8
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 # Beside the tensor-core kernels and pixel_text_topk[fp32]: their product
 # stage alone through cuBLAS / cuDNN at their shapes (ms), printed before
 # the kernels line.
@@ -322,9 +334,15 @@ def device_fields(fn, calls: int = 10) -> dict:
 
 def bound(nbytes: float, ops: float, kind: str) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the peak rate of ``kind``."""
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    memory rate and the operations over the peak rate of ``kind`` (the
+    card's peaks: ``utils/roofline.py``)."""
+    from rangeclip_tpu_torch.utils.roofline import (
+        PEAK_BYTES_PER_S,
+        PEAK_FLOPS,
+    )
+
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_FLOPS[kind] * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
@@ -3249,6 +3267,135 @@ def phase_mask_clip(data, device) -> None:
         f"ViT-B/32: mIoU_tk {res['mIoU_tk']:.4f}")
 
 
+THROUGHPUT_KERNELS = {
+    "auto": ["class_presence[labels]", "score_topk[knockout]",
+             "conv_score_topk"],
+    "default": ["class_presence[labels]", "pixel_text_topk[fp32]",
+                "live_rows", "pixel_text_topk[bf16]"]}
+ROBUSTNESS_KERNELS = ["class_presence[labels]", "pixel_text_topk[fp32]",
+                      "live_rows"]
+SWEEP_KEYS = ("pixel_accuracy_t1", "pixel_accuracy_tk", "mIoU_t1", "mIoU_tk")
+
+
+def check_throughput(rows: list, what: str) -> None:
+    for row in rows:
+        require(row["pct_peak"] is not None and 0 < row["pct_peak"] <= 100
+                and np.isfinite(row["maps_per_sec"])
+                and row["maps_per_sec"] > 0
+                and np.isfinite(row.get("ms_per_batch",
+                                        row.get("s_per_step", np.nan))),
+                f"{what}: {row}")
+
+
+def phase_tools(tmp: str, data, device, totals) -> None:
+    """12. The measurement and evaluation tools at full width, each through
+    its entry point."""
+    from rangeclip_tpu_torch.cli import benchmark, convert, train
+    from rangeclip_tpu_torch.models.interop import load_reference_pth
+
+    t0 = time.perf_counter()
+    common = ["--resolution", str(RES), "--num_classes", str(NUM_CLASSES)]
+    for path, expect in THROUGHPUT_KERNELS.items():
+        rows, _ = run_path(
+            f"cli.benchmark throughput --predict_path {path}", expect,
+            lambda: benchmark.main([
+                "throughput", *common, "--batch_sizes", str(BENCH_BATCH),
+                "--both_precisions", "--predict_path", path,
+                "--train_configs", "--iters", "10", "--rounds", "3"]),
+            totals)
+        require([r["predict_path"] for r in rows]
+                == [{"auto": "folded"}.get(path, path)] * 2,
+                f"throughput --predict_path {path}: {rows}")
+        check_throughput(rows, f"throughput --predict_path {path}")
+    rows, _ = run_path(
+        "cli.benchmark throughput 1x32 bf16 --with_image_tower",
+        TRAIN_KERNELS, lambda: benchmark.main([
+            "throughput", *common, "--bf16", "--batch_sizes",
+            "--train_configs", "1x32", "--with_image_tower", "--iters", "8",
+            "--rounds", "3"]), totals)
+    require([r["image_tower"] for r in rows] == [False, True],
+            f"throughput train rows: {rows}")
+    check_throughput(rows, "throughput 1x32 bf16")
+
+    trace_dir = os.path.join(tmp, "profile")
+    for mode, expect in (("predict", BENCH_PREDICT_KERNELS),
+                         ("train", TRAIN_KERNELS)):
+        out, _ = run_path(
+            f"cli.benchmark profile --mode {mode}", expect,
+            lambda: benchmark.main(["profile", *common, "--mode", mode,
+                                    "--steps", "3", "--top", "12",
+                                    "--trace_dir", trace_dir]), totals)
+        summed = sum(b["ms"] for b in out["buckets"])
+        require(abs(summed - out["window_ms"]) <= 0.01 * out["window_ms"]
+                and {"encoder", "decoder"} <= {
+                    b["interval"] for b in out["buckets"]}
+                and os.path.exists(os.path.join(trace_dir, f"{mode}.json")),
+                f"profile --mode {mode}: intervals {summed} ms against the "
+                f"window's {out['window_ms']} ms, {out['buckets']}")
+        log(f"  profile --mode {mode}: the intervals' {summed:.4f} ms/step "
+            f"against the window's {out['window_ms']:.4f} ms of device "
+            "events")
+
+    checkpoints = os.path.join(tmp, "train", "checkpoints")
+    rows, _ = run_path(
+        "cli.benchmark robustness --subject depth", ROBUSTNESS_KERNELS,
+        lambda: benchmark.main([
+            "robustness", "--labeled_metadata_path", data["metadata"],
+            "--labels_path", data["labels"],
+            "--equivalence_dict_path", data["similarity"],
+            "--checkpoint_dir", checkpoints, "--n_height", str(RES),
+            "--n_width", str(RES), "--brightness_levels", "1.0", "0.1"]),
+        totals)
+    require(len(rows) == 2
+            and all(np.isfinite(rows[0][k]) and rows[0][k] == rows[1][k]
+                    for k in SWEEP_KEYS),
+            f"robustness rows differ across brightness: {rows}")
+
+    exported = os.path.join(tmp, "exported.pth")
+
+    def round_trip():
+        convert.main(["--checkpoint_dir", checkpoints, "--to_pth", exported])
+        return convert.main(["--from_pth", exported, "--checkpoint_path",
+                             os.path.join(tmp, "imported")])
+
+    imported, _ = run_path("cli.convert --to_pth, then --from_pth", [],
+                           round_trip, totals)
+    want = load_reference_pth(os.path.join(
+        checkpoints, "depth_segmentation_model-2.pth"))
+    for path in (exported, os.path.join(
+            imported, "depth_segmentation_model-2.pth")):
+        got = load_reference_pth(path)
+        require(sorted(got) == sorted(want)
+                and all(torch.equal(got[k], want[k]) for k in want),
+                f"cli.convert round trip: {path} differs")
+    log(f"  cli.convert: phase 8's step-2 checkpoint exported and imported "
+        f"again, {len(want)} tensors bit-equal")
+
+    ckpt = os.path.join(tmp, "profile_train")
+    traces = os.path.join(tmp, "train_trace")
+    argv = train_argv(data, ckpt, "--unet_architecture", "resnet",
+                      "--batch_size", str(CLI_TRAIN_BATCH),
+                      "--accumulation_steps", "1",
+                      "--learning_rates", "1e-4", "1e-4",
+                      "--learning_schedule", "1", "2", "--max_steps", "4",
+                      "--profile_dir", traces)
+    run_path("cli/train --profile_dir (4 steps)", CLIP_TRAIN_KERNELS,
+             lambda: train.main(argv), totals)
+    written = os.listdir(traces)
+    require(len(written) == 1, f"cli/train --profile_dir wrote {written}")
+    with open(os.path.join(traces, written[0])) as f:
+        kernels = sum(e.get("cat") == "kernel"
+                      for e in json.load(f)["traceEvents"])
+    losses = train_losses(ckpt)
+    require(len(losses) == 4 and np.isfinite(losses).all()
+            and kernels > 0,
+            f"cli/train --profile_dir: losses {losses}, {kernels} kernel "
+            "events")
+    log(f"  cli/train --profile_dir: a Chrome trace of steps 2-4 with "
+        f"{kernels} kernel events; phase 12 took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def run_path(name: str, expect, fn, totals):
     """Run one path with the launch counts set to 0 just before it; require
     the kernels it is built on; add its counts to ``totals``."""
@@ -3414,8 +3561,13 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         phase_mask_clip(data, device)
         log(f"  phase 11 done at {time.perf_counter() - t_start:.1f} s")
+        torch.cuda.empty_cache()
 
-    log(f"launches over phases 3-8 and 11: {totals} "
+        log("phase 12: cli.benchmark, cli.convert, cli/train --profile_dir")
+        phase_tools(tmp, data, device, totals)
+        log(f"  phase 12 done at {time.perf_counter() - t_start:.1f} s")
+
+    log(f"launches over phases 3-8, 11 and 12: {totals} "
         f"({time.perf_counter() - t_start:.1f} s since the start)")
     for name in KERNEL_ROWS:
         require(totals[name] > 0, f"{name} was not launched by a main path")

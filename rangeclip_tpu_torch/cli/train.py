@@ -11,8 +11,9 @@ Usage:
 Checkpoints are reference ``.pth`` files (``checkpoints/checkpoints/
 depth_segmentation_model-{step}.pth``) that ``cli/serve`` and ``cli/infer``
 load as they are; validation runs from ``--validation_start_step`` on.
-Options of later slices (multi-GPU, encoder restore, real CLIP towers,
-``--profile_dir``) raise NotImplementedError.
+``--profile_dir`` writes a Chrome trace (``torch.profiler``) of optimizer
+steps 2-4 of the run.  Multi-GPU (``--ddp_parity``, ``--distributed``)
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -113,7 +114,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="stop after N optimizer steps (smoke runs)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="write a jax.profiler trace of train steps 2-4")
+                        help="write a torch.profiler Chrome trace of train "
+                             "steps 2-4 into this directory")
     parser.add_argument("--distributed", action="store_true",
                         help="call jax.distributed.initialize() (multi-host)")
     parser.add_argument("--coordinator_address", type=str, default=None,

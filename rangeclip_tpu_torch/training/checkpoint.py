@@ -66,7 +66,10 @@ class CheckpointManager:
 
     def restore(self, state: TrainState) -> TrainState:
         """Load the latest checkpoint's model (``strict=True``), optimizer
-        state and step into ``state``."""
+        state and step into ``state``.  The optimizer's hyperparameters
+        (weight decay, betas, eps) stay the running ones, as an optax
+        state carries none: a checkpoint that ``cli/convert`` imported with
+        fresh Adam state resumes under the resuming run's flags."""
         step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"No checkpoint found in {self.directory}")
@@ -75,7 +78,11 @@ class CheckpointManager:
                                     strict=True)
         saved = torch.load(self.optimizer_path(step), map_location=device,
                            weights_only=True)
+        running = [{k: v for k, v in group.items() if k != "params"}
+                   for group in state.optimizer.param_groups]
         state.optimizer.load_state_dict(saved["optimizer"])
+        for group, hyper in zip(state.optimizer.param_groups, running):
+            group.update(hyper)
         state.step = int(saved["step"])
         return state
 

@@ -26,12 +26,20 @@ freezes exactly when ``restore_path_encoder`` is given; the encoder then
 runs in eval mode and is not the optimizer's (``DepthUNetConfig.
 freeze_encoder``, ``training/optim.optimized_parameters``).
 
-Options that need later slices raise ``NotImplementedError`` at start-up:
-multi-GPU (item 10) and profiling traces (item 11).
+``profile_dir`` (trainer.py:447-459) traces the optimizer steps
+``start_step + 2`` to ``start_step + 4`` with ``utils/monitoring.
+device_trace`` (a Chrome trace of ``torch.profiler``), the device
+synchronised before the trace closes; a run that ends sooner closes it at
+its end.  The trace reads no random stream, so the steps are those of a
+run without it.
+
+Multi-GPU (``ddp_parity``, ``distributed``: ROADMAP item 10) raises
+``NotImplementedError`` at start-up.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -69,6 +77,7 @@ from rangeclip_tpu_torch.utils.logging import (
     log_configuration,
     log_training_summary,
 )
+from rangeclip_tpu_torch.utils.monitoring import device_trace
 
 
 @dataclasses.dataclass
@@ -119,17 +128,21 @@ class TrainerConfig:
 
 def check_supported(cfg: TrainerConfig) -> None:
     """Refuse the options of later slices, naming their ROADMAP item."""
-    refusals = [
-        (cfg.ddp_parity or cfg.distributed,
-         "--ddp_parity and --distributed (multi-GPU) are not ported yet "
-         "(ROADMAP slice 4, item 10)"),
-        (cfg.profile_dir is not None,
-         "--profile_dir is not ported yet (ROADMAP slice 4, item 11); "
-         "profile with rangeclip_tpu_torch.utils.profiling"),
-    ]
-    for refused, why in refusals:
-        if refused:
-            raise NotImplementedError(why)
+    if cfg.ddp_parity or cfg.distributed:
+        raise NotImplementedError(
+            "--ddp_parity and --distributed (multi-GPU) are not ported yet "
+            "(ROADMAP slice 18, item 10)")
+
+
+def _close_trace(trace: contextlib.ExitStack, written: list,
+                 device: torch.device, log_path: str) -> None:
+    """End the profile_dir trace once the device has finished its steps,
+    and log where it went."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    trace.close()
+    for path in written:
+        log(f"Profiler trace written to {path}", log_path)
 
 
 def _window(microbatches, keys, device):
@@ -247,88 +260,103 @@ def train_depth_clip_model(cfg: TrainerConfig) -> Dict:
     keys = ("depth", "segmentation", "object_label", "sample_valid")
     step_count = start_step
     done = False
-    for epoch in range(epoch_start, n_epoch + 1):
-        if done:
-            break
-        train_loader.set_epoch(epoch)
-        curriculum = get_curriculum_schedule(epoch, n_epoch)
-        lr = schedule(epoch - 1)
-        loss_sum, loss_count = None, 0
-        microbatches = []
-        for batch in train_loader:
-            microbatches.append(batch)
-            if len(microbatches) < cfg.accumulation_steps:
-                continue
-            if epoch == epoch_start and skip_windows > 0:
-                skip_windows -= 1
-                microbatches = []
-                continue
-            step_batch = _window(microbatches, keys, device)
-            A, B = step_batch["object_label"].shape
-            if cfg.w_image > 0:
-                # one tower call per accumulation window
-                win = _window(microbatches, ("image", "object_bbox"),
-                              device)
-                crops = prepare_image_crops(
-                    win["image"].reshape((A * B,) + win["image"].shape[2:]),
-                    win["object_bbox"].reshape(A * B, 4))
-                step_batch["image_embeddings"] = image_provider(
-                    crops).reshape(A, B, -1)
-            else:  # the step never reads them
-                step_batch["image_embeddings"] = torch.zeros(
-                    A, B, cfg.embedding_dim, device=device)
-            microbatches = []
-            state, info = train_step(
-                state, step_batch, (cfg.seed + 1, step_count), lr,
-                curriculum["pct_medium"], curriculum["pct_hard"], text_table,
-                medium_matrix, hard_matrix)
-            step_count += 1
-            loss_sum = (info["total_loss"] if loss_sum is None
-                        else loss_sum + info["total_loss"])
-            loss_count += 1
-
-            if step_count % cfg.n_step_per_summary == 0:
-                for tag, key in (("Loss/train_step", "total_loss"),
-                                 ("Loss/text_contrast",
-                                  "text_contrastive_loss"),
-                                 ("Loss/image_contrast",
-                                  "image_contrastive_loss"),
-                                 ("Loss/smoothness", "smoothness_loss"),
-                                 ("Params/temperature_text",
-                                  "temperature_text"),
-                                 ("Params/temperature_image",
-                                  "temperature_image")):
-                    train_writer.add_scalar(tag, float(info[key]), step_count)
-                train_writer.add_scalar("Params/learning_rate", lr,
-                                        step_count)
-                train_writer.add_scalars("train/curriculum", curriculum,
-                                         step_count)
-            if (step_count >= cfg.validation_start_step
-                    and step_count % (cfg.n_step_per_validation
-                                      or cfg.n_step_per_summary) == 0):
-                best_results = validate_model(
-                    state.model, val_loader, text_table, medium_matrix,
-                    hard_matrix, equivalence_tensor, equiv_class_map,
-                    curriculum, image_provider, step_count, best_results,
-                    seed=VAL_SEED, loss_config=loss_cfg, log_path=log_path,
-                    summary_writer=val_writer,
-                    candidate_labels=candidate_labels,
-                    n_sample_per_summary=cfg.n_sample_per_summary)
-            if step_count % cfg.n_step_per_checkpoint == 0:
-                avg = float(loss_sum) / loss_count if loss_count else 0.0
-                log_training_summary(log_path, step_count, n_opt_steps_total,
-                                     start_step, avg, time_start)
-                ckpt.save(state)
-            if cfg.max_steps is not None and step_count >= cfg.max_steps:
-                done = True
+    written = None  # the open trace's output paths (profile_dir)
+    with contextlib.ExitStack() as trace:
+        for epoch in range(epoch_start, n_epoch + 1):
+            if done:
                 break
-        avg_epoch = float(loss_sum) / loss_count if loss_count else 0.0
-        log(f"Epoch {epoch} END | Step {step_count} | Avg Loss: "
-            f"{avg_epoch:.7f} | LR: {lr}", log_path)
-        train_writer.add_scalar("Loss/train_epoch", avg_epoch, epoch)
-        # plateau scheduling keys on the latest validation loss once one
-        # has run, on the epoch's train loss before
-        schedule.step_metric(best_results.get("latest_val_loss", avg_epoch))
+            train_loader.set_epoch(epoch)
+            curriculum = get_curriculum_schedule(epoch, n_epoch)
+            lr = schedule(epoch - 1)
+            loss_sum, loss_count = None, 0
+            microbatches = []
+            for batch in train_loader:
+                microbatches.append(batch)
+                if len(microbatches) < cfg.accumulation_steps:
+                    continue
+                if epoch == epoch_start and skip_windows > 0:
+                    skip_windows -= 1
+                    microbatches = []
+                    continue
+                step_batch = _window(microbatches, keys, device)
+                A, B = step_batch["object_label"].shape
+                if cfg.w_image > 0:
+                    # one tower call per accumulation window
+                    win = _window(microbatches, ("image", "object_bbox"),
+                                  device)
+                    crops = prepare_image_crops(
+                        win["image"].reshape((A * B,)
+                                             + win["image"].shape[2:]),
+                        win["object_bbox"].reshape(A * B, 4))
+                    step_batch["image_embeddings"] = image_provider(
+                        crops).reshape(A, B, -1)
+                else:  # the step never reads them
+                    step_batch["image_embeddings"] = torch.zeros(
+                        A, B, cfg.embedding_dim, device=device)
+                microbatches = []
+                if cfg.profile_dir and step_count == start_step + 1:
+                    written = trace.enter_context(
+                        device_trace(cfg.profile_dir))
+                state, info = train_step(
+                    state, step_batch, (cfg.seed + 1, step_count), lr,
+                    curriculum["pct_medium"], curriculum["pct_hard"],
+                    text_table, medium_matrix, hard_matrix)
+                step_count += 1
+                if written is not None and step_count == start_step + 4:
+                    _close_trace(trace, written, device, log_path)
+                    written = None
+                loss_sum = (info["total_loss"] if loss_sum is None
+                            else loss_sum + info["total_loss"])
+                loss_count += 1
+
+                if step_count % cfg.n_step_per_summary == 0:
+                    for tag, key in (("Loss/train_step", "total_loss"),
+                                     ("Loss/text_contrast",
+                                      "text_contrastive_loss"),
+                                     ("Loss/image_contrast",
+                                      "image_contrastive_loss"),
+                                     ("Loss/smoothness", "smoothness_loss"),
+                                     ("Params/temperature_text",
+                                      "temperature_text"),
+                                     ("Params/temperature_image",
+                                      "temperature_image")):
+                        train_writer.add_scalar(tag, float(info[key]),
+                                                step_count)
+                    train_writer.add_scalar("Params/learning_rate", lr,
+                                            step_count)
+                    train_writer.add_scalars("train/curriculum", curriculum,
+                                             step_count)
+                if (step_count >= cfg.validation_start_step
+                        and step_count % (cfg.n_step_per_validation
+                                          or cfg.n_step_per_summary) == 0):
+                    best_results = validate_model(
+                        state.model, val_loader, text_table, medium_matrix,
+                        hard_matrix, equivalence_tensor, equiv_class_map,
+                        curriculum, image_provider, step_count, best_results,
+                        seed=VAL_SEED, loss_config=loss_cfg,
+                        log_path=log_path,
+                        summary_writer=val_writer,
+                        candidate_labels=candidate_labels,
+                        n_sample_per_summary=cfg.n_sample_per_summary)
+                if step_count % cfg.n_step_per_checkpoint == 0:
+                    avg = float(loss_sum) / loss_count if loss_count else 0.0
+                    log_training_summary(log_path, step_count,
+                                         n_opt_steps_total, start_step, avg,
+                                         time_start)
+                    ckpt.save(state)
+                if cfg.max_steps is not None and step_count >= cfg.max_steps:
+                    done = True
+                    break
+            avg_epoch = float(loss_sum) / loss_count if loss_count else 0.0
+            log(f"Epoch {epoch} END | Step {step_count} | Avg Loss: "
+                f"{avg_epoch:.7f} | LR: {lr}", log_path)
+            train_writer.add_scalar("Loss/train_epoch", avg_epoch, epoch)
+            # plateau scheduling keys on the latest validation loss once one
+            # has run, on the epoch's train loss before
+            schedule.step_metric(best_results.get("latest_val_loss",
+                                                  avg_epoch))
+        if written is not None:  # a run shorter than the profiled steps
+            _close_trace(trace, written, device, log_path)
 
     ckpt.save(state)
     log("Training finished.", log_path)

@@ -49,7 +49,7 @@ from __future__ import annotations
 import argparse
 import collections
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Tuple
 
 import torch
 from torch.autograd import DeviceType
@@ -100,8 +100,28 @@ def busy_us(spans: List[tuple]) -> float:
 WINDOW = "rangeclip::profiled_calls"
 
 
-def profile(fn: Callable[[], object], calls: int = 3, warmup: int = 2
-            ) -> Dict[str, object]:
+def window_events(traced) -> Tuple[object, List[object], List[object]]:
+    """(the window's host range, the runtime calls made from its start,
+    the device events those calls launched) of a trace of
+    :func:`profile`'s form.  The device events are matched to the runtime
+    calls by correlation id, so no alignment of the clocks is needed, and
+    user annotations on the GPU timeline (the optimizer's
+    "Optimizer.step#Adam.step" range, the window's own), which enclose
+    kernels and would count them twice, are left out."""
+    window = next(e for e in traced if e.name == WINDOW
+                  and e.device_type == DeviceType.CPU)
+    runtime = [e for e in traced if e.device_type == DeviceType.CPU
+               and e.name.startswith("cu")
+               and e.time_range.start >= window.time_range.start]
+    ids = {e.id for e in runtime}
+    events = [e for e in traced if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and e.id in ids]
+    return window, runtime, events
+
+
+def profile(fn: Callable[[], object], calls: int = 3, warmup: int = 2,
+            record_shapes: bool = False) -> Dict[str, object]:
     """Time ``calls`` calls of ``fn`` by the host clock, then profile as
     many, after ``warmup`` unprofiled ones; times are ms per call.  The
     tracer's start can lose device events (6 of 20 kernels once), so it
@@ -111,7 +131,9 @@ def profile(fn: Callable[[], object], calls: int = 3, warmup: int = 2
     trace that misses the kernel of a launch in that range (19 of 20 once,
     on an H100 80GB HBM3 at 700 W) is taken again, up to five traces in
     all, and ``traces`` says how many were taken; when all five miss one it
-    raises."""
+    raises.  ``record_shapes`` records the operators' input shapes (for
+    ``utils/roofline.records_from_profile``); ``profiler`` in the result is
+    the trace the figures come from."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -123,7 +145,8 @@ def profile(fn: Callable[[], object], calls: int = 3, warmup: int = 2
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     for traces in range(1, 6):
-        with torch.profiler.profile(activities=activities) as prof:
+        with torch.profiler.profile(activities=activities,
+                                    record_shapes=record_shapes) as prof:
             for _ in range(calls):  # the tracer's start: not counted
                 fn()
             torch.cuda.synchronize()
@@ -135,21 +158,7 @@ def profile(fn: Callable[[], object], calls: int = 3, warmup: int = 2
                 torch.cuda.synchronize()
                 wall_us = (time.perf_counter() - t0) * 1e6
         traced = prof.events()
-        window = next(e for e in traced if e.name == WINDOW
-                      and e.device_type == DeviceType.CPU)
-        # the window's runtime calls on the host clock; their device events
-        # share their correlation ids, so no alignment of the clocks is
-        # needed
-        runtime = [e for e in traced if e.device_type == DeviceType.CPU
-                   and e.name.startswith("cu")
-                   and e.time_range.start >= window.time_range.start]
-        ids = {e.id for e in runtime}
-        # device events only; user annotations on the GPU timeline (e.g.
-        # the optimizer's "Optimizer.step#Adam.step" range, or the window's
-        # own) enclose kernels and would count them twice
-        events = [e for e in traced if e.device_type == DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)
-                  and e.id in ids]
+        window, runtime, events = window_events(traced)
         launched = {e.id for e in runtime if "LaunchKernel" in e.name}
         if events and launched <= {e.id for e in events}:
             break
@@ -180,6 +189,7 @@ def profile(fn: Callable[[], object], calls: int = 3, warmup: int = 2
         # (name, ms, count) per call
         "host_events": [(name, us / calls / 1e3, host_n[name] / calls)
                         for name, us in host_us.most_common()],
+        "profiler": prof,
     }
 
 
@@ -363,13 +373,16 @@ def kernel_call(config: str) -> Callable[[], torch.Tensor]:
 
 
 def train_setup(device: torch.device, batch: int = 32, bf16: bool = True,
-                present: int = 40, seed: int = 0):
+                present: int = 40, seed: int = 0, accum: int = 1,
+                res: int = RES, num_classes: int = NUM_CLASSES,
+                unet_type: str = "resnet"):
     """The flagship train configuration at full width (accumulation 1 at
-    256^2, C = 512) with random weights and data from ``seed``: (state,
-    batch dict with a leading accumulation axis, text table, medium matrix,
-    hard matrix, step function).  The segmentation holds ``present``
-    labels: up to 78 (128 contrast members with the 50 distractors) the
-    packed CE branch runs, beyond it the full-table one."""
+    256^2, C = 512; ``accum``, ``res``, ``num_classes`` and ``unet_type``
+    change it) with random weights and data from ``seed``: (state, batch
+    dict with a leading accumulation axis, text table, medium matrix, hard
+    matrix, step function).  The segmentation holds ``present`` labels: up
+    to 78 (128 contrast members with the 50 distractors) the packed CE
+    branch runs, beyond it the full-table one."""
     import numpy as np
 
     from rangeclip_tpu_torch.losses.hybrid import HybridLossConfig
@@ -382,16 +395,17 @@ def train_setup(device: torch.device, batch: int = 32, bf16: bool = True,
     from rangeclip_tpu_torch.training.state import create_train_state
     from rangeclip_tpu_torch.training.train_step import make_train_step
 
-    cfg = DepthUNetConfig(dtype=torch.bfloat16 if bf16 else None)
+    cfg = DepthUNetConfig(unet_type=unet_type,
+                          dtype=torch.bfloat16 if bf16 else None)
     state = create_train_state(cfg, device, 1e-4, seed)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
-    accum, res, num_classes = 1, RES, NUM_CLASSES
     shape = (accum, batch, res, res)
     seg = torch.randint(1, present + 1, shape, device=device, generator=gen,
                         dtype=torch.int32)
     images = torch.rand(accum * batch, res, res, 3, device=device,
                         generator=gen)
-    boxes = torch.tensor([[16, 32, 200, 240]] * (accum * batch),
+    box = [res // 16, res // 8, res * 25 // 32, res * 15 // 16]
+    boxes = torch.tensor([box] * (accum * batch),
                          dtype=torch.int32, device=device)
     embed = HashImageEmbedder(cfg.embedding_dim)
     data = {

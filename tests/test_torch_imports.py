@@ -1,9 +1,11 @@
 """The port stands alone: importing it (CLIs included) and running its CPU
 predict paths, a CPU train step, the opt-in kernel functions, a validation
-step, tiny CLIP towers (one converted from a ``.safetensors`` file) and a
-tiny MiT UNet loads no JAX, flax, pandas, PIL, transformers or
-safetensors, and asking for a CUDA device that is absent raises instead of
-running on the CPU."""
+step, tiny CLIP towers (one converted from a ``.safetensors`` file), a
+tiny MiT UNet, the robustness sweep, the CLIPSeg mapping, the weighted
+losses, the numpy evaluation helpers, the monitors and the FLOP counter
+loads no JAX, flax, pandas, PIL, transformers, safetensors, matplotlib or
+h5py, and asking for a CUDA device that is absent raises instead of
+running on the CPU (the benchmark and convert CLIs included)."""
 
 import os
 import subprocess
@@ -107,8 +109,30 @@ mit = DepthUNet(DepthUNetConfig(unet_type="mit",
                 generator=torch.Generator().manual_seed(0)).eval()
 ids, _, _ = mit.predict(depth, text, None, 2, return_embeddings=False)
 assert ids.shape == (1, 32, 32, 2)
+import numpy as np
+from rangeclip_tpu_torch.benchmark.clipseg import clipseg_topk_from_logits
+from rangeclip_tpu_torch.benchmark.robustness import (
+    format_results_table, robustness_sweep)
+from rangeclip_tpu_torch.losses.weighted import weighted_l1_loss
+from rangeclip_tpu_torch.utils import eval_utils, monitoring, roofline
+seg_np = np.random.default_rng(0).integers(0, 5, (2, 8, 8)).astype(np.int32)
+batch = {"image": np.random.default_rng(1).random((2, 8, 8, 3)),
+         "segmentation": seg_np, "sample_valid": np.ones(2, np.float32)}
+rows = robustness_sweep(lambda: [batch], lambda g, b, im: torch.from_numpy(
+    np.repeat(b["segmentation"][..., None], 2, -1)), np.eye(5, dtype=bool),
+    np.arange(5), 5, brightness_levels=(1.0, 0.5))
+assert rows[0]["pixel_accuracy_t1"] == 1.0 and format_results_table(rows)
+assert clipseg_topk_from_logits(np.zeros((3, 4, 4), np.float32), [4, 1, 2],
+                                (8, 8), 5).shape == (8, 8, 5)
+assert weighted_l1_loss(torch.ones(2, 3, 3, 1), torch.zeros(2, 3, 3, 1)) == 1
+assert eval_utils.mean_abs_err(np.ones(3), np.zeros(3)) == 1.0
+assert monitoring.validate_tensor(torch.ones(3))["nan"] == 0
+with roofline.flop_counter() as counter:
+    model(depth)
+assert counter.get_total_flops() > 0
 loaded = sorted(m for m in ("jax", "flax", "pandas", "PIL", "rangeclip_tpu",
-                            "transformers", "safetensors")
+                            "transformers", "safetensors", "matplotlib",
+                            "h5py")
                 if m in sys.modules)
 assert not loaded, loaded
 print("OK")
@@ -117,11 +141,19 @@ print("OK")
 _NO_CUDA = r"""
 import sys
 import torch
-from rangeclip_tpu_torch.cli import serve, train, validate
+from rangeclip_tpu_torch.cli import benchmark, convert, serve, train, validate
 from rangeclip_tpu_torch.utils.device import resolve_device
 
 assert not torch.cuda.is_available()
 for call in (lambda: resolve_device("cuda"),
+             lambda: benchmark.main(["throughput"]),
+             lambda: benchmark.main(["profile"]),
+             lambda: benchmark.main([
+                 "robustness", "--labeled_metadata_path", "absent.csv",
+                 "--labels_path", "absent.csv", "--equivalence_dict_path",
+                 "absent.csv", "--checkpoint_dir", "absent"]),
+             lambda: convert.main(["--from_pth", "absent.pth",
+                                   "--checkpoint_path", "absent"]),
              lambda: serve.main(["--checkpoint_path", "absent.pth",
                                  "--labels_path", "absent.csv"]),
              lambda: train.main(["--labeled_metadata_path", "absent.csv",

@@ -3,10 +3,11 @@ loader's batches on the same files, ``cli/train --device cpu`` takes four
 steps and writes reference ``.pth`` files that both packages read, a run
 killed after step 1 and resumed is bitwise equal to the straight run, a run
 that validates at steps 2 and 4 trains bitwise as the straight run does,
-the train CLI refuses the options of later slices (multi-GPU,
-``--profile_dir``), and the host modules
+the train CLI refuses multi-GPU (a later slice) and traces steps 2-4
+under ``--profile_dir`` without moving training, and the host modules
 copied from the JAX package are pinned to their originals."""
 
+import json
 import os
 
 import jax.numpy as jnp
@@ -186,12 +187,47 @@ def test_cli_train_validation_leaves_training_unchanged(dataset_dir,
 @pytest.mark.parametrize("extra,item", [
     (["--ddp_parity"], "item 10"),
     (["--distributed"], "item 10"),
-    (["--profile_dir", "trace"], "item 11"),
 ])
 def test_cli_train_refuses_later_slices(dataset_dir, tmp_path, extra, item):
     _, paths = dataset_dir
     with pytest.raises(NotImplementedError, match=item):
         train.main(_train_argv(paths, tmp_path, *extra))
+
+
+def test_cli_train_profile_dir_traces_and_leaves_training_unchanged(
+        dataset_dir, tmp_path):
+    """--profile_dir over 5 steps (validating at step 3, inside the traced
+    steps 2-4): a Chrome trace is written and logged, and the step-5
+    weights are bit-equal to the same run's without the flag; a 3-step run
+    closes its trace at its end."""
+    _, paths = dataset_dir
+    runs = {}
+    for name, extra in (("plain", []),
+                        ("traced", ["--profile_dir",
+                                    str(tmp_path / "trace")])):
+        ckpt = tmp_path / name
+        train.main(_train_argv(paths, ckpt, "--learning_schedule", "3",
+                               "--max_steps", "5",
+                               "--validation_start_step", "3",
+                               "--n_step_per_validation", "3", *extra))
+        runs[name] = _weights(ckpt, 5)
+    traces = os.listdir(tmp_path / "trace")
+    assert len(traces) == 1 and traces[0].endswith(".json")
+    trace = json.load(open(tmp_path / "trace" / traces[0]))
+    assert trace["traceEvents"]
+    log = open(tmp_path / "traced" / "results.txt").read()
+    assert f"Profiler trace written to {tmp_path / 'trace'}" in log
+    assert "[Val] [Step 3]" in log
+    assert sorted(runs["plain"]) == sorted(runs["traced"])
+    for k, v in runs["plain"].items():
+        assert torch.equal(runs["traced"][k], v), k
+
+    train.main(_train_argv(paths, tmp_path / "short", "--max_steps", "3",
+                           "--profile_dir", str(tmp_path / "short_trace")))
+    assert len(os.listdir(tmp_path / "short_trace")) == 1
+    assert not torch.autograd._profiler_enabled()
+    log = open(tmp_path / "short" / "results.txt").read()
+    assert "Profiler trace written to" in log
 
 
 def test_host_copies_match_jax(dataset_dir, tmp_path, monkeypatch):
