@@ -157,10 +157,28 @@ Phases (any failure raises; nothing is caught):
    back, bit-equal; ``cli/train --profile_dir``, 4 steps, a Chrome trace
    holding kernel events.
 
-Each path of phases 3-8, of phase 11's (a)-(d) and of phase 12 runs with
-the launch counts set to 0 just before it and read just after (phases
-9-10 compare, and count nothing); each must launch the kernels it is
-built on, and every kernel must be launched by some path.
+13. The offline data-prep CLI, the native data path, the multinomial
+   sampler and the block library (none holds a CUDA kernel): (a)
+   ``cli.setup similarity-sets`` over the 512 labels with phase 11's
+   ViT-B/32 checkpoint and vocabulary, ``--device cuda`` and then
+   ``--device cpu``, timed: the same sets but for pairs within 1e-5 of a
+   threshold; (b) the native library built from its sources (seconds
+   logged), phase 8's PNGs decoded byte-identical to PIL, the native depth
+   transform within one ulp of the numpy one; (c) ``cli.benchmark loader``
+   over phase 8's split, its native-c++ and numpy rows; (d) every host
+   subcommand of ``cli.setup`` on synthetic 480x640 fixtures (the h5py ones
+   where h5py is installed), after which pandas must never have been
+   imported; (e) the flagship bf16 train step with
+   ``pixel_sampler="multinomial"``, 3 steps, finite, launching the CE, TV,
+   l2_normalize and class_presence kernels and not the histogram, each
+   image's counts summing to its draws, and the sampler's device time
+   beside the histogram sampler's; (f) the ten library blocks in f32 on
+   the card against the CPU at the UNet's widths, eval and train mode.
+
+Each path of phases 3-8, of phase 11's (a)-(d), of phase 12 and of phase
+13's (e) runs with the launch counts set to 0 just before it and read just
+after (phases 9-10 compare, and count nothing); each must launch the
+kernels it is built on, and every kernel must be launched by some path.
 
 The second-to-last line is a JSON object with each kernel's launches, error
 against its plain version, times and device time; the last line names the
@@ -176,6 +194,7 @@ import copy
 import csv
 import dataclasses
 import http.client
+import importlib.util
 import io
 import json
 import os
@@ -3004,16 +3023,30 @@ def hold_step_ce(name: str, args, card: str) -> None:
                                  5, 2)
         dev = device_fields(lambda: run(fused_pixel_text_ce, pk), calls=5)
         flag = None if pk is None else int(pk[3])
-        route = ("tensor cores" if flag and tc_route(
-            samples.reshape(-1, D), pk[0], S) else "member-only")
+        tc = bool(flag and tc_route(samples.reshape(-1, D), pk[0], S))
+        route = "tensor cores" if tc else "member-only"
+        # phase 2's CE bound: the field, labels and validity, the scored
+        # rows (the packed table, else the members) read once, d samples
+        # written once; 2 N C D operations forward, twice that backward
+        classes = pk[0].shape[0] if tc else int(mask.sum())
+        esize = samples.element_size()
+        io = (samples.numel() * esize + labels.numel() * 8
+              + classes * D * esize)
+        flops = 2.0 * (samples.numel() // D) * classes * D
+        kind = "bf16" if samples.dtype == torch.bfloat16 else "f32"
+        fwd_b = bound(io, flops, kind)
+        bwd_b = bound(io + samples.numel() * esize, 2 * flops, kind)
         log(f"  {name} CE, {form} ({samples.dtype}, {list(samples.shape)}, "
             f"{S} slots, flag {flag}, {route}): value, d samples and d tau "
             f"within the flagship check's tolerances of the plain versions "
             f"(largest d samples error {max_abs_err(got[1], want[1]):.3g}); "
             f"forward and backward {ms:.4f} ms (CUDA events), "
             f"{dev['device_ms']:.4f} ms device time in "
-            f"{dev['device_events']:g} events, plain {plain_ms:.4f} ms on "
-            f"{card}")
+            f"{dev['device_events']:g} events, plain {plain_ms:.4f} ms; "
+            f"bound {fwd_b['bound_ms'] + bwd_b['bound_ms']:.4f} ms over "
+            f"{classes} scored rows (forward {fwd_b['bound_ms']:.4f} by "
+            f"{fwd_b['bound_by']}, backward {bwd_b['bound_ms']:.4f} by "
+            f"{bwd_b['bound_by']}) on {card}")
         if S > 4:
             # a yardstick: the same sum as calls of 4 slots each (the
             # tensor-core kernels where the flag selects the packed table)
@@ -3396,6 +3429,401 @@ def phase_tools(tmp: str, data, device, totals) -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
 
+THRESHOLDS = (0.9, 0.85, 0.8, 0.75)  # cli.setup similarity-sets' defaults
+SAMPLER_KERNELS = [k for k in TRAIN_KERNELS if k != "histogram"]
+BLOCK_RTOL = 1e-4  # card against CPU in f32 (TF32 off): of the max |output|
+
+
+def set_lists(path: str) -> list:
+    with open(path) as f:
+        return [{k: json.loads(row[k]) for k in ("same", "medium", "hard")}
+                for row in csv.DictReader(f)]
+
+
+def phase_similarity_sets(tmp: str, data, device, card: str) -> None:
+    """(a) cli.setup similarity-sets over the 512 labels with phase 11's
+    ViT-B/32 checkpoint and vocabulary, the text tower on the card, then on
+    the CPU: the same sets but for pairs within 1e-5 of a threshold."""
+    from rangeclip_tpu_torch.cli import setup
+    from rangeclip_tpu_torch.data.labels import load_candidate_labels
+    from rangeclip_tpu_torch.models.clip.provider import get_text_provider
+    from rangeclip_tpu_torch.setup_tools.similarity_sets import (
+        label_similarity,
+    )
+
+    clip = [os.path.join(tmp, name) for name in
+            ("clip.safetensors", "vocab.json", "merges.txt")]
+    require(all(os.path.exists(p) for p in clip), "phase 11's CLIP files")
+    outs, seconds = {}, {}
+    for where in ("cuda", "cpu"):
+        outs[where] = os.path.join(tmp, f"similarity_{where}.csv")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            setup.main(["similarity-sets", "--labels_path", data["labels"],
+                        "--output_csv", outs[where],
+                        "--clip_checkpoint_path", clip[0],
+                        "--clip_vocab_path", clip[1],
+                        "--clip_merges_path", clip[2], "--device", where])
+        torch.cuda.synchronize()
+        seconds[where] = time.perf_counter() - t0
+    labels = load_candidate_labels(data["labels"])
+    sim = label_similarity(labels, get_text_provider(*clip, device=device))
+    near = np.min([np.abs(sim - t) for t in THRESHOLDS], axis=0) <= 1e-5
+    got, want = set_lists(outs["cuda"]), set_lists(outs["cpu"])
+    require(len(got) == len(want) == len(labels), "similarity-sets rows")
+    members = excused = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        for key in g:
+            members += len(g[key])
+            diff = set(g[key]) ^ set(w[key])
+            excused += len(diff)
+            require(all(near[i, j] for j in diff),
+                    f"similarity-sets row {i} {key}: card {g[key]} vs CPU "
+                    f"{w[key]}")
+    log(f"  cli.setup similarity-sets (ViT-B/32 text tower, {len(labels)} "
+        f"labels, tokenizer and the CSV included, host clock): "
+        f"{seconds['cuda']:.2f} s with --device cuda, {seconds['cpu']:.2f} "
+        f"s with --device cpu on {card}; {members} set members, the same "
+        f"on both but {excused} within 1e-5 of a threshold")
+
+
+def phase_native(tmp: str, data, card: str) -> None:
+    """(b) the native library built from the sources on the card's host,
+    phase 8's PNGs decoded byte-identical to PIL, the native depth
+    transform within one ulp of the numpy one."""
+    from pathlib import Path
+
+    from PIL import Image
+
+    from rangeclip_tpu_torch import native
+    from rangeclip_tpu_torch.data.transforms import (
+        lower_median_np,
+        resize_nearest_np,
+    )
+
+    t0 = time.perf_counter()
+    built = native.build(Path(tmp) / "native_build")
+    build_s = time.perf_counter() - t0
+    root = os.path.dirname(data["metadata"])
+    with open(data["metadata"]) as f:
+        rows = list(csv.DictReader(f))
+    paths = [os.path.join(root, row[key]) for row in rows
+             for key in ("image_path", "depth_path", "label_path")]
+    native.pil_fallbacks.reset()
+    t0 = time.perf_counter()
+    decoded = [native.decode_png_native(p) for p in paths]
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with_pil = []
+    for p in paths:
+        with Image.open(p) as image:
+            with_pil.append(np.asarray(image))
+    pil_s = time.perf_counter() - t0
+    require(native.pil_fallbacks.value == 0, "a synthetic PNG took PIL")
+    for p, got, want in zip(paths, decoded, with_pil):
+        require(got.dtype == want.dtype and got.tobytes() == want.tobytes(),
+                f"native decode of {p} differs from PIL")
+    worst = 0.0
+    for depth in decoded[1::3]:
+        d = depth.astype(np.float32)
+        for size in ((RES, RES), (224, 224)):
+            got = native.depth_transform_native(d, size)
+            resized = resize_nearest_np(d, size)
+            want = resized / lower_median_np(resized)
+            ulps = np.abs(got - want) / np.spacing(np.abs(want))
+            worst = max(worst, float(ulps.max()))
+    require(worst <= 1.0, f"native depth transform {worst} ulp off numpy")
+    log(f"  native library built from its sources in {build_s:.2f} s "
+        f"({built.name}); {len(paths)} PNGs of phase 8's set ({RES}^2 RGB, "
+        f"16-bit depth and labels) decoded byte-identical to PIL, "
+        f"{1e3 * native_s / len(paths):.3f} ms a file natively against "
+        f"{1e3 * pil_s / len(paths):.3f} ms with PIL (host clock, one "
+        f"thread, warm file cache); the depth transform at {RES}^2 and "
+        f"224^2 within {worst:g} ulp of numpy on {card}")
+
+
+def phase_loader(data, card: str) -> None:
+    """(c) cli.benchmark loader over phase 8's split: both rows."""
+    from rangeclip_tpu_torch.cli import benchmark
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows = benchmark.main([
+            "loader", "--labeled_metadata_path", data["metadata"],
+            "--labels_path", data["labels"], "--n_height", str(RES),
+            "--n_width", str(RES), "--batch_size", "16", "--num_workers",
+            "8"])
+    require([r["path"] for r in rows] == ["native-c++", "numpy"]
+            and rows[0]["pil_files"] == 0
+            and all(r["maps_per_sec"] > 0 for r in rows),
+            f"cli.benchmark loader: {rows}")
+    log(f"  cli.benchmark loader ({RES}^2, batch 16, 8 threads, host "
+        f"clock): native-c++ {rows[0]['maps_per_sec']} maps/s, numpy "
+        f"{rows[1]['maps_per_sec']} maps/s on {card}")
+
+
+def write_setup_fixtures(root: str) -> dict:
+    """Synthetic inputs of every host subcommand of cli.setup (the JAX
+    package's tests/test_setup_cli.py fixtures, grown): VOID image and
+    depth directories, raw labels and label PNGs, a metadata CSV,
+    detection dumps, a labeled NYUv2 .mat (v5, scipy) and, where h5py is
+    installed, NYUv2 .h5 scenes and a v7.3 .mat."""
+    from PIL import Image
+    from scipy.io import savemat
+
+    rng = np.random.default_rng(SEED + 30)
+    for sub in ("void/image", "void/depth", "labelpngs", "dets"):
+        os.makedirs(os.path.join(root, sub))
+    for i in range(16):
+        Image.fromarray(rng.integers(0, 256, (480, 640, 3), np.uint8)).save(
+            os.path.join(root, f"void/image/{i:03d}.png"))
+        # 16-bit grayscale PNGs, as PIL writes a mode "I" image
+        Image.fromarray(rng.integers(0, 5000, (480, 640)).astype(
+            np.uint16)).save(os.path.join(root, f"void/depth/{i:03d}.png"))
+        Image.fromarray(rng.integers(0, 38, (480, 640)).astype(
+            np.uint16)).save(os.path.join(root, f"labelpngs/{i:03d}.png"))
+        with open(os.path.join(root, f"dets/{i:03d}.txt"), "w") as f:
+            for det in rng.random((40, 6)):
+                f.write(f"{int(det[0] * 30)} {det[1]:.6f} {det[2]:.6f} "
+                        f"{det[3] / 3:.6f} {det[4] / 3:.6f} {det[5]:.6f}\n")
+    with open(os.path.join(root, "raw_labels.txt"), "w") as f:
+        # 37 raw labels, 13 once lowercased and deduplicated
+        f.write("".join(f"{'CLASS' if i % 2 else 'class'} {i % 13}\n"
+                        for i in range(37)))
+    with open(os.path.join(root, "meta.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["image", "depth", "object_id"])
+        for k in range(400):
+            w.writerow([f"i{k}.png", f"d{k}.png", int(rng.integers(1, 9))])
+    N, H, W = 4, 480, 640
+    images = rng.integers(0, 256, (N, H, W, 3)).astype(np.uint8)
+    depths = rng.uniform(0.5, 9.0, (N, H, W)).astype(np.float32)
+    labels = np.zeros((N, H, W), np.uint16)
+    for n in range(N):
+        for obj in range(1, 6):
+            y, x = rng.integers(0, H - 60), rng.integers(0, W - 60)
+            labels[n, y:y + 60, x:x + 60] = obj + 10 * n
+    savemat(os.path.join(root, "labeled_v5.mat"),
+            {"images": images.transpose(1, 2, 3, 0),
+             "depths": depths.transpose(1, 2, 0),
+             "labels": labels.transpose(1, 2, 0)})
+    out = {"objects": int(sum(len(np.unique(l)) - 1 for l in labels)),
+           "h5py": importlib.util.find_spec("h5py") is not None}
+    if out["h5py"]:
+        import h5py
+
+        with h5py.File(os.path.join(root, "labeled_v73.mat"), "w") as f:
+            f["images"] = images.transpose(0, 3, 2, 1)
+            f["depths"] = depths.transpose(0, 2, 1)
+            f["labels"] = labels.transpose(0, 2, 1)
+        for i in range(2):
+            with h5py.File(os.path.join(root, f"scene{i}.h5"), "w") as f:
+                f["rgb"] = images[i].transpose(2, 0, 1)
+                f["depth"] = depths[i]
+    return out
+
+
+def phase_setup_tools(tmp: str, card: str) -> None:
+    """(d) every host subcommand of cli.setup on synthetic fixtures; the
+    whole run never imports pandas."""
+    from rangeclip_tpu_torch.cli import setup
+
+    root = os.path.join(tmp, "setup")
+    t0 = time.perf_counter()
+    fixtures = write_setup_fixtures(os.path.join(root, "in"))
+    fixture_s = time.perf_counter() - t0
+    src = lambda *p: os.path.join(root, "in", *p)  # noqa: E731
+    dst = lambda *p: os.path.join(root, "out", *p)  # noqa: E731
+    runs = [
+        ("cleanup-labels", ["--raw_labels", src("raw_labels.txt"),
+                            "--label_png_glob", src("labelpngs/*.png"),
+                            "--output_dir", dst("clean"), "--labels_csv",
+                            dst("clean.csv"), "--frequency_csv",
+                            dst("freq.csv")]),
+        ("void-train-files", ["--image_dir", src("void/image"),
+                              "--depth_dir", src("void/depth"),
+                              "--image_list_out", dst("img.txt"),
+                              "--depth_list_out", dst("dep.txt")]),
+        ("nyu-labeled", ["--mat_path", src("labeled_v5.mat"),
+                         "--output_dir", dst("labeled_v5")]),
+        ("combine-metadata", ["--inputs", src("meta.csv"), src("meta.csv"),
+                              "--output_csv", dst("all.csv")]),
+        ("remove-small", ["--metadata_csv", src("meta.csv"), "--output_csv",
+                          dst("pruned.csv"), "--min_count", "50"]),
+        ("pseudo-gt", ["--detections_glob", src("dets/*.txt"),
+                       "--output_dir", dst("nms")])]
+    if fixtures["h5py"]:
+        runs += [("nyu-labeled", ["--mat_path", src("labeled_v73.mat"),
+                                  "--output_dir", dst("labeled_v73")]),
+                 ("nyu-crops", ["--h5_glob", src("scene*.h5"),
+                                "--output_dir", dst("crops")])]
+    os.makedirs(dst())
+    seconds = {}
+    for name, argv in runs:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            setup.main([name, *argv])
+        seconds[f"{name} {os.path.basename(argv[1])}"] = round(
+            time.perf_counter() - t0, 3)
+    with open(dst("clean.csv")) as f:
+        require(len(f.read().splitlines()) == 1 + 13, "cleanup-labels")
+    require(len(os.listdir(dst("clean"))) == 16
+            and len(open(dst("img.txt")).read().splitlines()) == 16,
+            "cleanup-labels / void-train-files outputs")
+    for out in ("labeled_v5",) + (("labeled_v73",) if fixtures["h5py"]
+                                  else ()):
+        with open(dst(out, "metadata.csv")) as f:
+            require(len(list(csv.DictReader(f))) == fixtures["objects"],
+                    f"nyu-labeled ({out}) rows")
+    with open(dst("all.csv")) as f:
+        require(len(list(csv.DictReader(f))) == 800, "combine-metadata")
+    require(len(os.listdir(dst("nms"))) == 16, "pseudo-gt outputs")
+    require("pandas" not in sys.modules, "the port imported pandas")
+    skipped = ("" if fixtures["h5py"] else "; nyu-crops and a v7.3 "
+               "nyu-labeled not run: this machine has no h5py")
+    log(f"  cli.setup on synthetic 480x640 fixtures (written in "
+        f"{fixture_s:.1f} s), seconds each: {seconds}{skipped}; pandas "
+        f"never imported on {card}")
+
+
+def phase_multinomial_train(device, card: str, totals) -> None:
+    """(e) the flagship bf16 train step with the multinomial sampler, 3
+    steps; the sampler's device time beside the histogram's."""
+    from rangeclip_tpu_torch.losses.infonce import (
+        sample_pixel_multiplicities,
+        sample_pixel_multiplicities_multinomial,
+    )
+    from rangeclip_tpu_torch.utils.profiling import train_setup
+
+    state, data, text, medium, hard, step = train_setup(
+        device, batch=TRAIN_BATCH, bf16=True, present=TRAIN_PRESENT,
+        seed=SEED + 31, res=RES, pixel_sampler="multinomial")
+    losses, times = [], []
+
+    def drive():
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, info = step(state, data, (SEED, i), 1e-4, 0.0, 0.75, text,
+                           medium, hard)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append({k: float(v) for k, v in info.items()})
+
+    _, counts = run_path("train step, multinomial sampler (bf16, 1 x 32)",
+                         SAMPLER_KERNELS, drive, totals)
+    require(counts["histogram"] == 0, "the multinomial step ran the "
+            "histogram kernel")
+    require(all(np.isfinite(list(l.values())).all() for l in losses),
+            f"multinomial train step: {losses}")
+    target = data["segmentation"][0]
+    gen = torch.Generator(device=device).manual_seed(SEED + 32)
+    n_total = RES * RES
+    weights, _ = sample_pixel_multiplicities_multinomial(
+        target, slots=2, generator=gen)
+    per_image = weights.reshape(4, TRAIN_BATCH, -1).sum(dim=(0, 2))
+    require(bool((per_image == int(0.7 * n_total)).all()),
+            f"multinomial counts per image {per_image.tolist()}")
+    sampler = {
+        "multinomial": lambda: sample_pixel_multiplicities_multinomial(
+            target, slots=2, generator=gen),
+        "histogram": lambda: sample_pixel_multiplicities(
+            target, slots=2, generator=gen)}
+    dev = {name: device_fields(fn, calls=5) for name, fn in sampler.items()}
+    step_s = sum(times[1:]) / len(times[1:])
+    log(f"  train step with the multinomial sampler: losses "
+        f"{[round(l['total_loss'], 4) for l in losses]}, "
+        f"{1e3 * step_s:.2f} ms/step (steps 2-3, host clock); the sampler "
+        f"at [{TRAIN_BATCH}, {RES}, {RES}], 2 x 2 slots: multinomial "
+        f"{dev['multinomial']['device_ms']:.4f} ms device time in "
+        f"{dev['multinomial']['device_events']:g} events, histogram "
+        f"{dev['histogram']['device_ms']:.4f} ms in "
+        f"{dev['histogram']['device_events']:g} (draws, kernel, "
+        f"slotting; torch.profiler) on {card}")
+    del state, data
+    torch.cuda.empty_cache()
+
+
+def block_cases():
+    """(name, port block factory on a device, input shape NCHW, extra
+    call arguments) at the UNet's widths."""
+    from rangeclip_tpu_torch.ops import blocks as b
+
+    return [
+        ("DepthwiseSeparableConv2d", lambda d, g: b.DepthwiseSeparableConv2d(
+            128, 128, 3, 2, use_batch_norm=True, device=d, generator=g),
+         (8, 128, 64, 64), ()),
+        ("AtrousConv2d", lambda d, g: b.AtrousConv2d(
+            256, 256, 3, 2, use_batch_norm=True, device=d, generator=g),
+         (8, 256, 32, 32), ()),
+        ("TransposeConv2d", lambda d, g: b.TransposeConv2d(
+            256, 128, 3, use_batch_norm=True, device=d, generator=g),
+         (8, 256, 32, 32), ()),
+        ("UpConv2d", lambda d, g: b.UpConv2d(
+            128, 64, 3, use_instance_norm=True, device=d, generator=g),
+         (8, 128, 48, 48), ((96, 96),)),
+        ("FullyConnected", lambda d, g: b.FullyConnected(
+            512, 512, device=d, generator=g), (32, 512), ()),
+        ("AtrousResNetBlock", lambda d, g: b.AtrousResNetBlock(
+            256, 512, 2, use_batch_norm=True, device=d, generator=g),
+         (8, 256, 32, 32), ()),
+        ("VGGNetBlock", lambda d, g: b.VGGNetBlock(
+            64, 128, 2, 2, use_batch_norm=True, device=d, generator=g),
+         (8, 64, 128, 128), ()),
+        ("AtrousVGGNetBlock", lambda d, g: b.AtrousVGGNetBlock(
+            128, 128, 2, 4, use_batch_norm=True, use_depthwise_separable=True,
+            device=d, generator=g), (8, 128, 64, 64), ()),
+        ("AtrousSpatialPyramidPooling", lambda d, g:
+         b.AtrousSpatialPyramidPooling(512, 256, (6, 12, 18),
+                                       use_batch_norm=True, device=d,
+                                       generator=g), (8, 512, 16, 16), ()),
+        ("SpatialPyramidPooling", lambda d, g: b.SpatialPyramidPooling(
+            128, 64, (2, 4, 8), use_batch_norm=True, device=d, generator=g),
+         (8, 128, 64, 64), ())]
+
+
+def phase_blocks(device, card: str) -> None:
+    """(f) the ten library blocks in f32 on the card against the CPU, same
+    weights and inputs, in eval and train mode."""
+    worst = {}
+    for name, make, shape, args in block_cases():
+        cpu = make(torch.device("cpu"), torch.Generator().manual_seed(7))
+        card_block = copy.deepcopy(cpu).to(device)
+        x = torch.randn(*shape, generator=torch.Generator().manual_seed(8))
+        errs = []
+        for train_mode in (False, True):
+            cpu.train(train_mode)
+            card_block.train(train_mode)
+            with torch.no_grad():
+                want = cpu(x, *args)
+                got = card_block(x.to(device), *args).cpu()
+            scale = float(want.abs().max())
+            errs.append(max_abs_err(got, want) / scale)
+            require(got.shape == want.shape and errs[-1] <= BLOCK_RTOL,
+                    f"{name} ({'train' if train_mode else 'eval'}): card "
+                    f"against CPU {errs[-1]:.3g} of the max |output|")
+        worst[name] = float(f"{max(errs):.3g}")
+    log(f"  the ten library blocks, f32 (TF32 off), card against CPU, "
+        f"eval and train mode, error over the max |output| (limit "
+        f"{BLOCK_RTOL:g}): {worst}")
+
+
+def phase_data_prep(tmp: str, data, device, card: str, totals) -> None:
+    """13. The offline data-prep CLI, the native data path, the multinomial
+    sampler and the block library."""
+    t0 = time.perf_counter()
+    marks = []
+    for part in (lambda: phase_similarity_sets(tmp, data, device, card),
+                 lambda: phase_native(tmp, data, card),
+                 lambda: phase_loader(data, card),
+                 lambda: phase_setup_tools(tmp, card),
+                 lambda: phase_multinomial_train(device, card, totals),
+                 lambda: phase_blocks(device, card)):
+        part()
+        marks.append(round(time.perf_counter() - t0, 1))
+    log(f"  phase 13 (a)-(f) ended at {marks} s")
+
+
 def run_path(name: str, expect, fn, totals):
     """Run one path with the launch counts set to 0 just before it; require
     the kernels it is built on; add its counts to ``totals``."""
@@ -3566,8 +3994,14 @@ def main(argv=None) -> int:
         log("phase 12: cli.benchmark, cli.convert, cli/train --profile_dir")
         phase_tools(tmp, data, device, totals)
         log(f"  phase 12 done at {time.perf_counter() - t_start:.1f} s")
+        torch.cuda.empty_cache()
 
-    log(f"launches over phases 3-8, 11 and 12: {totals} "
+        log("phase 13: cli.setup, the native data path, the multinomial "
+            "sampler, the block library")
+        phase_data_prep(tmp, data, device, card, totals)
+        log(f"  phase 13 done at {time.perf_counter() - t_start:.1f} s")
+
+    log(f"launches over phases 3-8 and 11-13: {totals} "
         f"({time.perf_counter() - t_start:.1f} s since the start)")
     for name in KERNEL_ROWS:
         require(totals[name] > 0, f"{name} was not launched by a main path")

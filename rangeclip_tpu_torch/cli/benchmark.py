@@ -26,8 +26,9 @@ plain version runs.  One JSON line per row:
 CPU; a row above 100 aborts the run (``bench.py``'s integrity gate).  The
 JAX rows' ``hlo_gb_per_step`` and ``hlo_bytes_vs_hbm_pct`` read compiled
 HLO, which the port does not have, so they are not printed; ``profile``
-gives bytes per interval instead.  ``--pixel_sampler multinomial`` is not
-ported (ROADMAP slice 17, Queue 1 item 11).
+gives bytes per interval instead.  ``--pixel_sampler auto multinomial``
+times each train config with each sampler (the histogram of uniform draws,
+the multinomial counts by binomial splitting).
 
 ``robustness`` runs the brightness/saturation sweep (``benchmark/
 robustness.py``) over the validation split: ``--subject depth`` with the
@@ -36,9 +37,11 @@ model's widths read from its weights) through ``DepthUNet.predict`` over
 each batch's GT labels plus 20 distractors, ``--subject clipseg`` with HF
 CLIPSeg from local files (``benchmark/clipseg.py``).
 
-``loader`` measures the host data pipeline (decode + transform + batch).
-It prints the numpy row only: the JAX package's ``native-c++`` row comes
-with the port of its native data path (ROADMAP slice 17).
+``loader`` measures the host data pipeline (decode + transform + batch):
+the ``native-c++`` row (the C++ PNG decoder and transforms, ``native``;
+``pil_files`` counts the PNGs the decoder handed to PIL), then the
+``numpy`` row (``RANGECLIP_NATIVE=off``: PIL and numpy), as JAX prints
+them.
 
 ``profile`` runs ``--steps`` calls of the predict or train program under
 ``torch.profiler`` (``utils/profiling.profile``: device events of the
@@ -59,8 +62,6 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-SAMPLER_REFUSAL = ("--pixel_sampler multinomial is not ported (ROADMAP "
-                   "slice 17, Queue 1 item 11)")
 EMBEDDING_DIM = 512  # the JAX CLI's fixed D
 
 
@@ -132,8 +133,6 @@ def cmd_throughput(args) -> List[Dict]:
     )
     from rangeclip_tpu_torch.utils.profiling import train_setup
 
-    if "multinomial" in args.pixel_sampler:
-        raise NotImplementedError(SAMPLER_REFUSAL)
     device = resolve_device(args.device)
     name = describe_device(device)
     res, C, D = args.resolution, args.num_classes, EMBEDDING_DIM
@@ -179,11 +178,12 @@ def cmd_throughput(args) -> List[Dict]:
                 **rate_fields(flops, dt, batch, peak), "device": name})
         del model
 
-        for config in args.train_configs:
+        for config, sampler in [(c, s) for c in args.train_configs
+                                for s in args.pixel_sampler]:
             A, B = (int(v) for v in config.split("x"))
             state, data, text, medium, hard, step = train_setup(
                 device, batch=B, bf16=bf16, accum=A, res=res, num_classes=C,
-                unet_type=args.unet_architecture)
+                unet_type=args.unet_architecture, pixel_sampler=sampler)
             tower_step = None
             if args.with_image_tower:
                 from rangeclip_tpu_torch.models.clip.crops import (
@@ -221,7 +221,7 @@ def cmd_throughput(args) -> List[Dict]:
                              device)
                 results.append({
                     "mode": "train_step", "precision": precision,
-                    "pixel_sampler": "auto", "image_tower": use_tower,
+                    "pixel_sampler": sampler, "image_tower": use_tower,
                     "accum": A, "microbatch": B, "resolution": res,
                     "s_per_step": round(dt, 5),
                     "maps_per_sec": round(A * B / dt, 2),
@@ -325,25 +325,44 @@ def cmd_robustness(args) -> List[Dict]:
     return results
 
 
-def cmd_loader(args) -> Dict:
-    """Host data-pipeline throughput: decode + transform + batch (the numpy
-    path; the native C++ row comes with slice 17)."""
+def cmd_loader(args) -> List[Dict]:
+    """Host data-pipeline throughput: decode + transform + batch, through
+    the native C++ path, then through numpy and PIL."""
+    from rangeclip_tpu_torch import native
     from rangeclip_tpu_torch.data.loader import setup_dataloaders
 
-    train_loader, _, _, _, _ = setup_dataloaders(
-        args.labeled_metadata_path, args.labels_path,
-        (args.n_height, args.n_width), args.batch_size, n_epoch=1)
-    train_loader.num_workers = args.num_workers
-    n_maps = 0
-    t0 = time.perf_counter()
-    for batch in train_loader:
-        n_maps += int(batch["sample_valid"].sum())
-    dt = time.perf_counter() - t0
-    row = {"mode": "loader", "path": "numpy", "workers": args.num_workers,
-           "resolution": f"{args.n_height}x{args.n_width}",
-           "maps_per_sec": round(n_maps / dt, 2)}
-    print(json.dumps(row))
-    return row
+    def run(path: str) -> Dict:
+        train_loader, _, _, _, _ = setup_dataloaders(
+            args.labeled_metadata_path, args.labels_path,
+            (args.n_height, args.n_width), args.batch_size, n_epoch=1)
+        train_loader.num_workers = args.num_workers
+        native.pil_fallbacks.reset()
+        n_maps = 0
+        t0 = time.perf_counter()
+        for batch in train_loader:
+            n_maps += int(batch["sample_valid"].sum())
+        dt = time.perf_counter() - t0
+        row = {"mode": "loader", "path": path, "workers": args.num_workers,
+               "resolution": f"{args.n_height}x{args.n_width}",
+               "maps_per_sec": round(n_maps / dt, 2)}
+        if path == "native-c++":
+            row["pil_files"] = native.pil_fallbacks.value
+        print(json.dumps(row), flush=True)
+        return row
+
+    rows = []
+    if native.lib() is not None:  # raises if the library cannot be built
+        rows.append(run("native-c++"))
+    saved = os.environ.get("RANGECLIP_NATIVE")
+    os.environ["RANGECLIP_NATIVE"] = "off"
+    try:
+        rows.append(run("numpy"))
+    finally:
+        if saved is None:
+            del os.environ["RANGECLIP_NATIVE"]
+        else:
+            os.environ["RANGECLIP_NATIVE"] = saved
+    return rows
 
 
 def cpu_profile(fn: Callable[[], object], calls: int):
@@ -486,7 +505,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--pixel_sampler", nargs="+",
                    choices=["auto", "multinomial"], default=["auto"],
                    help="'auto': the histogram of uniform draws; "
-                        "'multinomial' is not ported")
+                        "'multinomial': counts by binomial splitting; "
+                        "each train config runs with each")
     t.set_defaults(fn=cmd_throughput)
 
     r = sub.add_parser("robustness")

@@ -2,9 +2,10 @@
 (``rangeclip_tpu/data/dataset.py``).
 
 ``metadata.csv`` rows name [image_path, depth_path, label_path] relative to
-the file's directory (read with ``csv``).  Images load through PIL, which
-is imported when an image is opened (the JAX package tries its C++ PNG
-decoder first, which decodes to the same arrays).  Each sample draws one
+the file's directory (read with ``csv``).  PNGs decode through the native
+C++ decoder (``native.decode_png_native``, byte-identical with PIL) where it
+handles the file, through PIL otherwise or when ``RANGECLIP_NATIVE=off``;
+PIL is imported only then.  Each sample draws one
 foreground object from an explicit ``numpy.random.Generator``, so an
 epoch's stream is reproducible given (seed, epoch, index); outputs are
 numpy arrays in NHWC.
@@ -24,11 +25,16 @@ from rangeclip_tpu_torch.data.transforms import (
     image_transform,
     segmentation_transform,
 )
+from rangeclip_tpu_torch.native import decode_png_native
 
 
 def open_gray(path: str) -> np.ndarray:
-    """Integer grayscale (depth / label) image as a 2-D array:
-    ``np.asarray(Image.open(path).convert("I"))``."""
+    """Integer grayscale (depth / label) image as an int32 2-D array, equal
+    to ``np.asarray(Image.open(path).convert("I"))``; the native decoder
+    first (data/dataset.py:47-57)."""
+    arr = decode_png_native(path)
+    if arr is not None and arr.ndim == 2:
+        return arr.astype(np.int32)
     from PIL import Image
 
     with Image.open(path) as image:
@@ -36,9 +42,13 @@ def open_gray(path: str) -> np.ndarray:
 
 
 def open_rgb(path: str):
-    """An RGB PIL image."""
+    """An RGB PIL image; the native decoder first (data/dataset.py:36-45)."""
     from PIL import Image
 
+    arr = decode_png_native(path)
+    if arr is not None and arr.dtype == np.uint8:
+        image = Image.fromarray(arr)
+        return image if arr.ndim == 3 else image.convert("RGB")
     with Image.open(path) as image:
         return image.convert("RGB")
 

@@ -1,15 +1,25 @@
-"""Sample transforms (``rangeclip_tpu/data/transforms.py``, the numpy and
-PIL paths).  Depth: nearest resize with torch's index rule idx = floor(i *
-in / out), then division by the lower median (torch.median's choice for
-even counts), or zeros when the median is below 1e-6 in magnitude.  Image:
-PIL bilinear resize to [0, 1] f32.  Segmentation: nearest resize.  PIL is
-imported inside the function that uses it."""
+"""Sample transforms (``rangeclip_tpu/data/transforms.py``).  Depth:
+nearest resize with torch's index rule idx = floor(i * in / out), then
+normalisation by the lower median (torch.median's choice for even counts),
+or zeros when the median is below 1e-6 in magnitude.  Image: PIL bilinear
+resize to [0, 1] f32.  Segmentation: nearest resize.
+
+Depth and segmentation take the native C++ path (``native``) as JAX does,
+the numpy path when ``RANGECLIP_NATIVE=off``.  The native depth transform
+multiplies by 1/median where the numpy one divides: the two can differ by
+one ulp, and each is held bit for bit against its JAX counterpart only.
+PIL is imported inside the function that uses it."""
 
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+
+from rangeclip_tpu_torch.native import (
+    depth_transform_native,
+    segmentation_resize_native,
+)
 
 
 def _nearest_idx(out_size: int, in_size: int) -> np.ndarray:
@@ -33,6 +43,9 @@ def lower_median_np(x: np.ndarray) -> float:
 
 def depth_transform(depth: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     """depth [H, W] -> float32 [H, W] at ``size``, median-normalised."""
+    native = depth_transform_native(depth, size)
+    if native is not None:
+        return native
     resized = resize_nearest_np(depth.astype(np.float32), size)
     median = lower_median_np(resized)
     if abs(median) < 1e-6:
@@ -58,4 +71,7 @@ def image_transform(image, size: Tuple[int, int]) -> np.ndarray:
 def segmentation_transform(seg: np.ndarray, size: Tuple[int, int]
                            ) -> np.ndarray:
     """Nearest resize of an integer label map, int32."""
+    native = segmentation_resize_native(np.asarray(seg), size)
+    if native is not None:
+        return native
     return resize_nearest_np(np.asarray(seg), size).astype(np.int32)

@@ -3,8 +3,9 @@
 train step uses (``label_upsample=s``): the decoder's native field with
 full-resolution labels, every term commuting exactly with the nearest xs
 upsample.  The pixel sampling is the histogram of uniform draws in slot
-order, as on the JAX package's kernel path; ``pixel_sampler="multinomial"``
-is not ported (a measured negative on the TPU)."""
+order, as on the JAX package's kernel path (``pixel_sampler="auto"``), or
+multinomial counts drawn by binomial splitting (``"multinomial"``, opt-in:
+the same law, another realisation of it)."""
 
 from __future__ import annotations
 
@@ -18,8 +19,12 @@ from rangeclip_tpu_torch.losses.infonce import (
     build_contrast_mask,
     pixel_text_infonce,
     sample_pixel_multiplicities,
+    sample_pixel_multiplicities_multinomial,
 )
 from rangeclip_tpu_torch.losses.smoothness import total_variation_loss
+
+
+PIXEL_SAMPLERS = ("auto", "histogram", "multinomial")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,16 +38,26 @@ class HybridLossConfig:
     contrast_capacity: Optional[int] = 128
     # opt-in: rescale the CE weights so every present class weighs the same
     class_balanced: bool = False
+    # "auto" (== "histogram"): the histogram of uniform draws;
+    # "multinomial": counts by binomial splitting (hybrid.py:36-49)
+    pixel_sampler: str = "auto"
+
+    def __post_init__(self):
+        if self.pixel_sampler not in PIXEL_SAMPLERS:
+            raise ValueError(f"pixel_sampler {self.pixel_sampler!r}, "
+                             f"expected one of {PIXEL_SAMPLERS}")
 
 
 @dataclasses.dataclass
 class Draws:
     """The random inputs of one loss call (the JAX key's draws, injectable):
-    ``pixels`` [B, n] draw indices in [0, H*W), ``gumbel`` (medium/hard,
+    ``pixels`` [B, n] draw indices in [0, H*W) of the histogram sampler,
+    ``counts`` [B, H*W] of the multinomial one, ``gumbel`` (medium/hard,
     random) noise, each [C].  None fields are drawn from a generator."""
 
     pixels: Optional[torch.Tensor] = None
     gumbel: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    counts: Optional[torch.Tensor] = None
 
 
 def class_balance(labels: torch.Tensor, valid: torch.Tensor,
@@ -113,9 +128,16 @@ def compute_hybrid_loss(
 
     text_loss = zero
     if cfg.w_text > 0:
-        valid, labels = sample_pixel_multiplicities(
-            target_indices, cfg.percent_image_sampling, slots=s,
-            draws=draws.pixels, generator=generator)
+        if cfg.pixel_sampler == "multinomial":
+            # one binomial call per tree level; nothing to hoist out of a
+            # loop, which JAX does only for XLA's while_loop
+            valid, labels = sample_pixel_multiplicities_multinomial(
+                target_indices, cfg.percent_image_sampling, slots=s,
+                counts=draws.counts, generator=generator)
+        else:
+            valid, labels = sample_pixel_multiplicities(
+                target_indices, cfg.percent_image_sampling, slots=s,
+                draws=draws.pixels, generator=generator)
         if sample_weight is not None:
             S, N = valid.shape
             valid = (valid.reshape(S, B, N // B)

@@ -8,9 +8,10 @@ CPU tensors.
 
 ``jax.random`` cannot be reproduced in torch: every draw (pixel indices,
 Gumbel noise) can be passed in, so tests feed both sides the same arrays;
-without them the draws come from a ``torch.Generator``.  Not ported:
-``sample_pixels`` (the multiplicity form replaces it) and the opt-in
-multinomial sampler (a measured negative on the TPU).
+without them the draws come from a ``torch.Generator``.  The opt-in
+multinomial sampler (``multinomial_counts``: the same law as the histogram,
+drawn by binomial splitting) holds to JAX in law and in its slot layout.
+Not ported: ``sample_pixels`` (the multiplicity form replaces it).
 """
 
 from __future__ import annotations
@@ -88,6 +89,80 @@ def sample_pixel_multiplicities(
         return weights, labels.contiguous()
     labels = target.reshape(B * n_total)
     return counts.reshape(B * n_total) * (labels > 0), labels
+
+
+def multinomial_counts(n: int, n_bins: int, batch: int = 1,
+                       generator: Optional[torch.Generator] = None,
+                       device=None) -> torch.Tensor:
+    """Exact Multinomial(n, uniform over n_bins) counts without a scatter
+    (infonce.py:145-182): binary binomial splitting.  The root holds n
+    balls; at each of ceil(log2(n_bins)) levels every node splits its count
+    Binomial(count, w_left / w) between its children, where w counts the
+    real (non-padding) leaves below, so bin counts that are not a power of
+    two stay exact.  One ``torch.binomial`` call per level, drawn from
+    ``generator``.
+
+    Returns [batch, n_bins] float32 counts; each row sums to exactly n."""
+    levels = max((n_bins - 1).bit_length(), 0)
+    padded = 1 << levels
+    # real-leaf weight under each node, per level (computed bottom-up)
+    leaf = np.zeros((padded,), np.float64)
+    leaf[:n_bins] = 1.0
+    weights_per_level = []
+    w = leaf
+    for _ in range(levels):
+        w = w.reshape(-1, 2).sum(axis=1)
+        weights_per_level.append(w)
+    counts = torch.full((batch, 1), float(n), dtype=torch.float32,
+                        device=device)
+    for lev in range(levels - 1, -1, -1):
+        w_pair = (weights_per_level[lev - 1] if lev > 0 else leaf
+                  ).reshape(-1, 2)
+        p = w_pair[:, 0] / np.maximum(w_pair.sum(axis=1), 1.0)
+        prob = torch.from_numpy(p.astype(np.float32)).to(device)
+        left = torch.binomial(counts, prob.expand_as(counts),
+                              generator=generator)
+        counts = torch.stack([left, counts - left], dim=-1).reshape(batch, -1)
+    return counts[:, :n_bins]
+
+
+def sample_pixel_multiplicities_multinomial(
+    target: torch.Tensor,
+    percent: float = 0.7,
+    slots: int = 1,
+    counts: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scatter-free sampler (infonce.py:184-231): per-image counts
+    drawn from the Multinomial law of with-replacement sampling
+    (:func:`multinomial_counts`), the same estimator in distribution as
+    :func:`sample_pixel_multiplicities`.
+
+    Args:
+      target: [B, H, W] int labels (H, W divisible by ``slots``).
+      counts: [B, H * W] counts (default: drawn from ``generator`` on the
+        target's device).  Bin b of an image is, slot-major, slot (a, c) of
+        native pixel (i, j): multinomial bins are exchangeable, so that
+        assignment is free and no full-resolution transpose is needed.
+
+    Returns the contract of :func:`sample_pixel_multiplicities`."""
+    B, H, W = target.shape
+    n_total = H * W
+    if counts is None:
+        counts = multinomial_counts(n_draws(H, W, percent), n_total, B,
+                                    generator, target.device)
+    counts = counts.to(device=target.device, dtype=torch.float32)
+    target = target.to(torch.int32)
+    s = slots
+    if s == 1:
+        labels = target.reshape(B * n_total)
+        return counts.reshape(B * n_total) * (labels > 0), labels
+    h, w = H // s, W // s
+    labels = target.reshape(B, h, s, w, s).permute(2, 4, 0, 1, 3).reshape(
+        s * s, B * h * w)
+    weights = counts.reshape(B, s * s, h * w).transpose(0, 1).reshape(
+        s * s, B * h * w) * (labels > 0)
+    return weights, labels.contiguous()
 
 
 def sample_gumbel(num_classes: int,

@@ -15,7 +15,7 @@ conv HWIO -> OIHW, conv-transpose (k, k, I, O) -> IOHW, dense [in, out] ->
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Tuple, Union
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -174,6 +174,39 @@ def clip_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
             v = np.transpose(v, (3, 2, 0, 1))
         elif v.ndim == 2 and path[-1] == "kernel":
             v = v.T
+        out[key] = torch.tensor(np.ascontiguousarray(v))
+    return out
+
+
+def block_state_dict_from_jax(params: Mapping,
+                              batch_stats: Optional[Mapping] = None
+                              ) -> Dict[str, torch.Tensor]:
+    """A JAX block's (``rangeclip_tpu/ops/blocks.py``) (params,
+    batch_stats) trees of numpy arrays -> the port block's
+    ``state_dict()`` (``ops/blocks.py``, the JAX modules' names): the
+    ``norm_act`` level dropped, conv kernels HWIO -> OIHW (a depthwise
+    (k, k, 1, C) kernel becomes [C, 1, k, k]), TransposeConv2d's own
+    (k, k, I, O) kernel -> ``conv_transpose.weight`` IOHW, dense [in, out]
+    -> [out, in], BatchNorm scale/bias/mean/var under torch's names with
+    ``num_batches_tracked`` 0."""
+    flat = _flatten(params)
+    flat.update(_flatten(batch_stats or {}))
+    out: Dict[str, torch.Tensor] = {}
+    for path, v in flat.items():
+        *mods, leaf = path
+        mods = [m for m in mods if m != "norm_act"]
+        if leaf == "kernel" and not mods:  # TransposeConv2d's own kernel
+            key, v = "conv_transpose.weight", np.transpose(v, (2, 3, 0, 1))
+        elif leaf == "kernel":
+            key = ".".join(mods + ["weight"])
+            v = np.transpose(v, (3, 2, 0, 1)) if v.ndim == 4 else v.T
+        elif mods and mods[-1] == "batch_norm":
+            key = ".".join(mods + [_BN_LEAF[leaf]])
+            if leaf == "mean":
+                out[".".join(mods + ["num_batches_tracked"])] = torch.tensor(
+                    0, dtype=torch.int64)
+        else:
+            key = ".".join(mods + [leaf])
         out[key] = torch.tensor(np.ascontiguousarray(v))
     return out
 

@@ -12,10 +12,15 @@ the averaged gradients).  One device; BatchNorm over the microbatch.
 
 Random state: microbatch ``i`` of the step keyed (seed, step) draws from a
 ``torch.Generator`` seeded by (seed, step, i) on the batch's device, in the
-JAX order: pixel draws, then the medium/hard Gumbel noise, then the random
-one (``fold_in(rng, i)``, ``split`` into pixel and contrast keys, ``split``
-again).  Every draw can be passed in instead (``draws``), which is how the
-tests feed the JAX draws.
+JAX order: pixel draws (``loss_config.pixel_sampler``: the histogram's
+uniform draws, or the multinomial counts), then the medium/hard Gumbel
+noise, then the random one (``fold_in(rng, i)``, ``split`` into pixel and
+contrast keys, ``split`` again).  Every draw can be passed in instead
+(``draws``), which is how the tests feed the JAX draws.  JAX hoists the
+multinomial sampler out of its scan and gradient
+(train_step.py:172-180,236-270) only because XLA re-runs
+``jax.random.binomial``'s rejection loops there; this loop is eager, so the
+sampler runs where the loss calls it.
 """
 
 from __future__ import annotations

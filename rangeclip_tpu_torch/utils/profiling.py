@@ -375,14 +375,15 @@ def kernel_call(config: str) -> Callable[[], torch.Tensor]:
 def train_setup(device: torch.device, batch: int = 32, bf16: bool = True,
                 present: int = 40, seed: int = 0, accum: int = 1,
                 res: int = RES, num_classes: int = NUM_CLASSES,
-                unet_type: str = "resnet"):
+                unet_type: str = "resnet", pixel_sampler: str = "auto"):
     """The flagship train configuration at full width (accumulation 1 at
     256^2, C = 512; ``accum``, ``res``, ``num_classes`` and ``unet_type``
     change it) with random weights and data from ``seed``: (state, batch
     dict with a leading accumulation axis, text table, medium matrix, hard
     matrix, step function).  The segmentation holds ``present`` labels: up
     to 78 (128 contrast members with the 50 distractors) the packed CE
-    branch runs, beyond it the full-table one."""
+    branch runs, beyond it the full-table one.  ``pixel_sampler`` is the
+    loss's (``HybridLossConfig.pixel_sampler``)."""
     import numpy as np
 
     from rangeclip_tpu_torch.losses.hybrid import HybridLossConfig
@@ -423,7 +424,8 @@ def train_setup(device: torch.device, batch: int = 32, bf16: bool = True,
     medium, hard = (torch.from_numpy(rng.random((num_classes, num_classes))
                                      < 3 / num_classes).to(device)
                     for _ in range(2))
-    step = make_train_step(HybridLossConfig(), accum)
+    step = make_train_step(HybridLossConfig(pixel_sampler=pixel_sampler),
+                           accum)
     return state, data, text, medium, hard, step
 
 

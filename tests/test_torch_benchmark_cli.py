@@ -4,9 +4,12 @@ documented keys and aborts on a rate above the card's peak; ``profile``'s
 intervals add up to its window; ``robustness --subject depth`` gives the
 same finite rows at every brightness (the depth model never sees the
 RGB, and a batch's candidate draw is keyed by the seed and the batch);
-``loader`` prints its numpy row."""
+``loader`` prints its native-c++ row, then its numpy row; ``throughput
+--pixel_sampler auto multinomial`` times a train config with each
+sampler."""
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -58,10 +61,20 @@ def test_throughput_aborts_above_the_peak(monkeypatch):
                         "--train_configs", "--iters", "1", "--rounds", "1"])
 
 
-def test_throughput_refuses_the_multinomial_sampler():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        benchmark.main(["throughput", *TINY, "--pixel_sampler",
-                        "multinomial"])
+def test_throughput_runs_the_multinomial_sampler(capsys):
+    """The train row with the multinomial sampler (``auto``'s is
+    test_throughput_rows'); the flag takes both, a row each."""
+    rows = benchmark.main(["throughput", *TINY, "--batch_sizes",
+                           "--train_configs", "1x1", "--iters", "1",
+                           "--rounds", "1", "--pixel_sampler",
+                           "multinomial"])
+    assert [(r["mode"], r["pixel_sampler"]) for r in rows] == [
+        ("train_step", "multinomial")]
+    assert set(rows[0]) == TRAIN_KEYS and rows[0]["s_per_step"] > 0
+    assert rows[0]["gflop_per_map"] > 0 and rows[0]["pct_peak"] is None
+    args = benchmark.build_parser().parse_args(
+        ["throughput", "--pixel_sampler", "auto", "multinomial"])
+    assert args.pixel_sampler == ["auto", "multinomial"]
 
 
 @pytest.mark.parametrize("mode", ["predict", "train"])
@@ -102,10 +115,18 @@ def test_robustness_depth_rows(data, tmp_path, capsys):
         benchmark.main(argv + ["--embedding_dim", "64"])
 
 
-def test_loader_row(data, capsys):
-    row = benchmark.main(["loader", "--labeled_metadata_path",
-                          data["metadata"], "--labels_path", data["labels"],
-                          "--batch_size", "2", "--n_height", "32",
-                          "--n_width", "32", "--num_workers", "2"])
-    assert json.loads(capsys.readouterr().out) == row
-    assert row["path"] == "numpy" and row["maps_per_sec"] > 0
+def test_loader_row(data, capsys, monkeypatch):
+    """The native-c++ row (no PNG of the synthetic set takes PIL), then the
+    numpy row, which leaves RANGECLIP_NATIVE as it found it."""
+    monkeypatch.delenv("RANGECLIP_NATIVE", raising=False)
+    rows = benchmark.main(["loader", "--labeled_metadata_path",
+                           data["metadata"], "--labels_path", data["labels"],
+                           "--batch_size", "2", "--n_height", "32",
+                           "--n_width", "32", "--num_workers", "2"])
+    printed = [json.loads(line) for line in
+               capsys.readouterr().out.strip().splitlines()]
+    assert printed == rows
+    assert [r["path"] for r in rows] == ["native-c++", "numpy"]
+    assert rows[0]["pil_files"] == 0 and "pil_files" not in rows[1]
+    assert all(r["maps_per_sec"] > 0 for r in rows)
+    assert "RANGECLIP_NATIVE" not in os.environ

@@ -2,10 +2,13 @@
 predict paths, a CPU train step, the opt-in kernel functions, a validation
 step, tiny CLIP towers (one converted from a ``.safetensors`` file), a
 tiny MiT UNet, the robustness sweep, the CLIPSeg mapping, the weighted
-losses, the numpy evaluation helpers, the monitors and the FLOP counter
-loads no JAX, flax, pandas, PIL, transformers, safetensors, matplotlib or
-h5py, and asking for a CUDA device that is absent raises instead of
-running on the CPU (the benchmark and convert CLIs included)."""
+losses, the numpy evaluation helpers, the monitors, the FLOP counter, the
+multinomial pixel sampler, the native depth transform and the setup CLI's
+CSV-only subcommands (combine-metadata, remove-small, pseudo-gt over
+detection files) loads no JAX, flax, pandas, PIL, transformers,
+safetensors, matplotlib, h5py, scipy or ultralytics, and asking for a CUDA
+device that is absent raises instead of running on the CPU (the benchmark,
+convert and setup CLIs included)."""
 
 import os
 import subprocess
@@ -130,9 +133,30 @@ assert monitoring.validate_tensor(torch.ones(3))["nan"] == 0
 with roofline.flop_counter() as counter:
     model(depth)
 assert counter.get_total_flops() > 0
+from rangeclip_tpu_torch.losses.infonce import multinomial_counts
+assert multinomial_counts(50, 12, 2, gen).sum() == 100
+from rangeclip_tpu_torch.data.transforms import depth_transform
+from rangeclip_tpu_torch.native import lib
+assert lib() is not None
+assert depth_transform(np.ones((6, 6), np.float32), (3, 3)).sum() == 9
+from rangeclip_tpu_torch.cli import setup
+with tempfile.TemporaryDirectory() as tmp:
+    meta = os.path.join(tmp, "meta.csv")
+    with open(meta, "w") as f:
+        f.write("image,depth,object_id\na.png,a_d.png,1\nb.png,b_d.png,2\n")
+    assert len(setup.main(["remove-small", "--metadata_csv", meta,
+                           "--output_csv", os.path.join(tmp, "kept.csv"),
+                           "--min_count", "1"])) == 2
+    setup.main(["combine-metadata", "--inputs", meta, meta, "--output_csv",
+                os.path.join(tmp, "all.csv")])
+    with open(os.path.join(tmp, "dets.txt"), "w") as f:
+        f.write("1 0.5 0.5 0.4 0.4 0.9\n2 0.52 0.52 0.4 0.4 0.8\n")
+    assert len(setup.main(["pseudo-gt", "--detections_glob",
+                           os.path.join(tmp, "*.txt"), "--output_dir",
+                           os.path.join(tmp, "nms")])) == 1
 loaded = sorted(m for m in ("jax", "flax", "pandas", "PIL", "rangeclip_tpu",
                             "transformers", "safetensors", "matplotlib",
-                            "h5py")
+                            "h5py", "scipy", "ultralytics")
                 if m in sys.modules)
 assert not loaded, loaded
 print("OK")
@@ -141,7 +165,8 @@ print("OK")
 _NO_CUDA = r"""
 import sys
 import torch
-from rangeclip_tpu_torch.cli import benchmark, convert, serve, train, validate
+from rangeclip_tpu_torch.cli import (
+    benchmark, convert, serve, setup, train, validate)
 from rangeclip_tpu_torch.utils.device import resolve_device
 
 assert not torch.cuda.is_available()
@@ -152,6 +177,8 @@ for call in (lambda: resolve_device("cuda"),
                  "robustness", "--labeled_metadata_path", "absent.csv",
                  "--labels_path", "absent.csv", "--equivalence_dict_path",
                  "absent.csv", "--checkpoint_dir", "absent"]),
+             lambda: setup.main(["similarity-sets", "--labels_path",
+                                 "absent.csv", "--output_csv", "absent.csv"]),
              lambda: convert.main(["--from_pth", "absent.pth",
                                    "--checkpoint_path", "absent"]),
              lambda: serve.main(["--checkpoint_path", "absent.pth",
