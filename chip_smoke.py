@@ -175,10 +175,26 @@ Phases (any failure raises; nothing is caught):
    beside the histogram sampler's; (f) the ten library blocks in f32 on
    the card against the CPU at the UNet's widths, eval and train mode.
 
-Each path of phases 3-8, of phase 11's (a)-(d), of phase 12 and of phase
-13's (e) runs with the launch counts set to 0 just before it and read just
-after (phases 9-10 compare, and count nothing); each must launch the
-kernels it is built on, and every kernel must be launched by some path.
+14. Multi-GPU on this one card (``parallel/``): (a) the class-sharded,
+   data-parallel predict on grids naming the card several times, bf16 at
+   the bench configuration over C = 512 (batch 256 on 2 x 2 and 128 on 1 x
+   2 folded: the fused conv_score_topk in every cell; 128 on 2 x 2 folded:
+   conv + score_topk[packed]; 256 on 2 x 2 default: pixel_text_topk[bf16])
+   and f32 folded at the serve batch 8 on 2 x 1, each against
+   single-device predict (f32 labels equal; bf16 labels equal or
+   near-ties) with maps/s of both by the host clock; (b) two spawned gloo
+   ranks on the card, each a full-width ddp_parity step in bf16 and f32,
+   against the per-rank simulation in this process with the same draws,
+   the ranks bit-equal; (c) cli/train --distributed --ddp_parity over NCCL
+   at world 1 (torchrun's environment), 2 steps, bit-equal to --ddp_parity
+   alone; (d) dryrun_multichip(4, backend="gloo").
+
+Each path of phases 3-8, of phase 11's (a)-(d), of phase 12, of phase 13's
+(e) and of phase 14 runs with the launch counts set to 0 just before it and
+read just after (phases 9-10 compare, and count nothing; phase 14's
+spawned ranks each set and read their own, summed here); each must launch
+the kernels it is built on, and every kernel must be launched by some
+path.
 
 The second-to-last line is a JSON object with each kernel's launches, error
 against its plain version, times and device time; the last line names the
@@ -3824,6 +3840,254 @@ def phase_data_prep(tmp: str, data, device, card: str, totals) -> None:
     log(f"  phase 13 (a)-(f) ended at {marks} s")
 
 
+# phase 14's sharded predicts: (precision, predict path, batch, grid, top-k,
+# the kernel each cell's scoring takes)
+SHARDED_RUNS = (
+    ("bf16", "folded", 2 * BENCH_BATCH, (2, 2), BENCH_TOP_K,
+     "conv_score_topk"),
+    ("bf16", "folded", BENCH_BATCH, (1, 2), BENCH_TOP_K, "conv_score_topk"),
+    ("bf16", "folded", BENCH_BATCH, (2, 2), BENCH_TOP_K,
+     "score_topk[packed]"),
+    ("bf16", "default", 2 * BENCH_BATCH, (2, 2), BENCH_TOP_K,
+     "pixel_text_topk[bf16]"),
+    ("fp32", "folded", SERVE_BATCH, (2, 1), 1, "score_topk[knockout]"),
+)
+# Where a grid splits the batch, a bf16 cell's UNet runs at another batch
+# than the single device's, cuDNN may pick another algorithm, and the bf16
+# field rounds otherwise: a label that then differs must be a near-tie,
+# within this gap of cosine scores (two bf16 ulps at 0.5).  bf16 scores
+# tie often (8 bits of mantissa, 512 classes, top-5), so the agreement is
+# only a floor
+SHARD_TIE_TOL = 4e-3
+SHARD_MIN_AGREEMENT = 0.95
+DDP_RANK_BATCH = 8  # rows a rank per microbatch in phase 14 (b)
+DDP_TOLERANCE = {True: dict(loss=1e-3, grads=3e-2, stats=1e-2,
+                            params_close=0.99),
+                 False: dict(loss=1e-5, grads=1e-3, stats=1e-4,
+                             params_close=0.999)}
+
+
+def host_maps_per_s(fn, batch: int, iters: int = 3) -> float:
+    """maps/s of ``fn()`` by the host clock, the device synchronised."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return batch * iters / (time.perf_counter() - t0)
+
+
+def phase_sharded_predict(device, card: str, totals) -> None:
+    """14 (a): the class-sharded, data-parallel predict on grids that name
+    this card several times: each run's labels against single-device
+    predict of the same path, and maps/s of both by the host clock (on one
+    card: the cost of the grid's loop and merge, not a speed-up)."""
+    from rangeclip_tpu_torch.models.depth_unet import (
+        DepthUNet,
+        DepthUNetConfig,
+        predict_folded,
+    )
+    from rangeclip_tpu_torch.parallel import (
+        make_mesh,
+        make_sharded_predict,
+        pad_class_table,
+        shard_predict_inputs,
+    )
+    from rangeclip_tpu_torch.utils.math import l2_normalize
+
+    models = {p: DepthUNet(DepthUNetConfig(
+        dtype=torch.bfloat16 if p == "bf16" else None), device=device,
+        generator=torch.Generator().manual_seed(SEED)).eval()
+        for p in ("bf16", "fp32")}
+    gen = torch.Generator(device=device).manual_seed(SEED + 30)
+    text = torch.randn(NUM_CLASSES, 512, device=device, generator=gen)
+    depth = torch.randn(2 * BENCH_BATCH, RES, RES, 1, device=device,
+                        generator=gen)
+    # on CUDA the table pads to the kernels' 128-slot quantum: 61 classes
+    # over 3 columns take 3 x 128 rows, 323 of them pad rows with id -1
+    padded, ids = pad_class_table(text[:61], 3)
+    require(padded.shape[0] == 384 and int((ids < 0).sum()) == 323
+            and not padded[61:].any(),
+            f"pad_class_table on {device}: {padded.shape[0]} rows, "
+            f"{int((ids < 0).sum())} pad ids")
+    for precision, path, batch, (n_data, n_model), k, kernel in SHARDED_RUNS:
+        model, x = models[precision], depth[:batch]
+        mesh = make_mesh(n_data, n_model, [device] * (n_data * n_model))
+        shards = shard_predict_inputs(mesh, *pad_class_table(text, n_model))
+        fn = make_sharded_predict(model, mesh, k, path)
+        name = (f"sharded predict {precision} {path} batch {batch} on "
+                f"{n_data} x {n_model}")
+        with torch.inference_mode():
+            got, counts = run_path(name, [kernel],
+                                   lambda: fn(x, shards), totals)
+            if path == "folded":
+                single = lambda: predict_folded(  # noqa: E731
+                    model, x, text, top_k=k)
+            else:
+                single = lambda: model.predict(  # noqa: E731
+                    x, text, None, k, return_embeddings=False)[0]
+            want = single()
+            torch.cuda.synchronize()
+            require(got.shape == want.shape == (batch, RES, RES, k),
+                    f"{name}: shape {tuple(got.shape)}")
+            differ = int((got != want).sum())
+            if differ:
+                # f32, and bf16 whose cells take the whole batch (only the
+                # table split; the fold is blocked), are bit-equal
+                require(precision == "bf16" and n_data > 1,
+                        f"{name}: {differ} labels differ from single-device "
+                        "predict")
+                field = model.native_field(x, normalize=False)
+                near_tie_check(
+                    name, (got[:, ::2, ::2].reshape(-1, k), None),
+                    (want[:, ::2, ::2].reshape(-1, k), None),
+                    field.reshape(-1, field.shape[-1]),
+                    l2_normalize(text, dim=-1), tol=SHARD_TIE_TOL,
+                    min_rate=SHARD_MIN_AGREEMENT)
+            sharded_rate = host_maps_per_s(lambda: fn(x, shards), batch, 2)
+            single_rate = host_maps_per_s(single, batch, 2)
+        log(f"  {name}: {differ} of {got.numel()} labels differ from "
+            f"single-device predict; "
+            f"{counts[kernel]} {kernel} launches; {sharded_rate:.1f} maps/s "
+            f"against {single_rate:.1f} single-device (host clock) on {card}")
+
+
+def phase_ddp_ranks(device, card: str, totals) -> None:
+    """14 (b): two gloo ranks on this card, spawned, each a full-width
+    ddp_parity step (ResNet-18, D = 512, 256^2, 2 x 8 rows a rank, 40
+    labels present) in bf16 and in f32, against the per-rank simulation in
+    this process with the same draws; both ranks end bit-equal."""
+    from rangeclip_tpu_torch.parallel.dryrun import (
+        StepSpec,
+        Tolerance,
+        check_ddp_step,
+        run_ranks,
+        simulate_ddp_step,
+    )
+
+    specs = [StepSpec(filters=(32, 64, 128, 256, 512), dim=512, res=RES,
+                      batch=DDP_RANK_BATCH, accum=2, classes=NUM_CLASSES,
+                      present=TRAIN_PRESENT, bf16=bf16, seed=SEED + 20,
+                      lr=1e-4) for bf16 in (True, False)]
+    t0 = time.perf_counter()
+    results = run_ranks(2, specs, device.type, "gloo")
+    spawned = time.perf_counter() - t0
+    for i, spec in enumerate(specs):
+        ranks = [r[i] for r in results]
+        sim = simulate_ddp_step(spec, 2, device)
+        errors = check_ddp_step(ranks, sim, spec,
+                                Tolerance(**DDP_TOLERANCE[spec.bf16]))
+        counts = {}
+        for res in ranks:
+            for kernel, n in res["launches"].items():
+                counts[kernel] = counts.get(kernel, 0) + n
+                totals[kernel] += n
+        expect = (["histogram", "class_presence", "l2_normalize[fwd]",
+                   "l2_normalize[bwd]", "tv_rowtile[fwd]", "tv_rowtile[bwd]"]
+                  if spec.bf16 else ["histogram", "class_presence",
+                                     "live_rows", "pixel_text_ce[fwd]",
+                                     "pixel_text_ce[bwd]"])
+        for kernel in expect:
+            require(counts[kernel] > 0,
+                    f"ddp_parity ranks: {kernel} was not launched")
+        log(f"  ddp_parity, 2 gloo ranks on one card, "
+            f"{'bf16' if spec.bf16 else 'fp32'}: loss "
+            f"{ranks[0]['info']['total_loss']:.6f}, both ranks bit-equal; "
+            f"against the simulation {errors}; launches "
+            f"{ {k: n for k, n in counts.items() if n} }")
+    log(f"  the two ranks' processes took {spawned:.1f} s on {card}")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_nccl_world_one(tmp: str, data, totals) -> None:
+    """14 (c): cli/train --distributed --ddp_parity over NCCL at world 1
+    (torchrun's environment: RANK=0, WORLD_SIZE=1) on phase 8's data, 2
+    steps, bit-equal to --ddp_parity alone; both with deterministic
+    algorithms, so that the comparison sees the collectives only."""
+    from rangeclip_tpu_torch.cli import train
+    from rangeclip_tpu_torch.models.interop import load_reference_pth
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    saved_env = {k: os.environ.get(k) for k in env}
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    argv = lambda ckpt, *extra: train_argv(  # noqa: E731
+        data, os.path.join(tmp, ckpt), "--unet_architecture", "resnet",
+        "--batch_size", "8", "--accumulation_steps", "2",
+        "--learning_rates", "1e-4", "--learning_schedule", "1",
+        "--max_steps", "2", "--ddp_parity", *extra)
+    expect = ["histogram", "class_presence", "l2_normalize[fwd]",
+              "tv_rowtile[fwd]"]
+    try:
+        os.environ.update(env)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        run_path("cli/train --distributed --ddp_parity (NCCL, world 1)",
+                 expect, lambda: train.main(argv("nccl1", "--distributed")),
+                 totals)
+        run_path("cli/train --ddp_parity", expect,
+                 lambda: train.main(argv("ddp1")), totals)
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.deterministic = saved[1]
+        torch.backends.cudnn.benchmark = saved[2]
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    require(not torch.distributed.is_initialized(),
+            "cli/train left its process group open")
+    for step in (1, 2):
+        got, want = (load_reference_pth(os.path.join(
+            tmp, run, "checkpoints", f"depth_segmentation_model-{step}.pth"))
+            for run in ("nccl1", "ddp1"))
+        bad = [k for k in want if not torch.equal(got[k], want[k])]
+        require(not bad, f"NCCL world 1 differs from --ddp_parity at step "
+                f"{step}: {bad[:5]}")
+    log(f"  cli/train --distributed --ddp_parity over NCCL at world 1: "
+        f"weights, BatchNorm statistics and temperatures bit-equal to "
+        f"--ddp_parity alone at steps 1 and 2 (losses "
+        f"{train_losses(os.path.join(tmp, 'nccl1'))})")
+
+
+def phase_multigpu(tmp: str, data, device, card: str, totals) -> None:
+    """14. Multi-GPU on one card: (a) sharded predict, (b) two gloo ranks
+    of ddp_parity, (c) NCCL at world 1, (d) the dry run of four ranks."""
+    from rangeclip_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    marks = []
+    phase_sharded_predict(device, card, totals)
+    log(f"  phase 14 (a) ended at {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    marks.append(round(time.perf_counter() - t0, 1))
+    phase_ddp_ranks(device, card, totals)
+    torch.cuda.empty_cache()
+    marks.append(round(time.perf_counter() - t0, 1))
+    phase_nccl_world_one(tmp, data, totals)
+    marks.append(round(time.perf_counter() - t0, 1))
+    summary = dryrun_multichip(4, device.type, backend="gloo")
+    for kernel, n in summary["launches"].items():
+        totals[kernel] += n
+    require(summary["launches"].get("histogram", 0) > 0,
+            "the dry run's ranks launched no kernel")
+    log(f"  dryrun_multichip(4, backend='gloo'): {summary}")
+    marks.append(round(time.perf_counter() - t0, 1))
+    log(f"  phase 14 (a)-(d) ended at {marks} s")
+
+
 def run_path(name: str, expect, fn, totals):
     """Run one path with the launch counts set to 0 just before it; require
     the kernels it is built on; add its counts to ``totals``."""
@@ -4000,8 +4264,14 @@ def main(argv=None) -> int:
             "sampler, the block library")
         phase_data_prep(tmp, data, device, card, totals)
         log(f"  phase 13 done at {time.perf_counter() - t_start:.1f} s")
+        torch.cuda.empty_cache()
 
-    log(f"launches over phases 3-8 and 11-13: {totals} "
+        log("phase 14: multi-GPU on one card (sharded predict, ddp_parity "
+            "ranks over gloo, NCCL at world 1, the dry run)")
+        phase_multigpu(tmp, data, device, card, totals)
+        log(f"  phase 14 done at {time.perf_counter() - t_start:.1f} s")
+
+    log(f"launches over phases 3-8 and 11-14: {totals} "
         f"({time.perf_counter() - t_start:.1f} s since the start)")
     for name in KERNEL_ROWS:
         require(totals[name] > 0, f"{name} was not launched by a main path")

@@ -22,7 +22,18 @@ the unfolded path, as the JAX server does.
 
 Labels are embedded by the CLIP text tower when the three ``--clip_*``
 flags are given, as in the JAX server, by the deterministic hash stub
-otherwise.  Not ported yet: multi-device serving (``--data_parallel``).
+otherwise.
+
+``--data_parallel`` on more than one GPU shards each request batch over
+the devices (``parallel/predict.py``): batch rows over the grid's data
+rows, the candidate table over ``--model_parallel`` columns, the columns'
+top-k merged exactly; ``--predict_path`` then applies per table slice.
+f32 labels, and bf16 labels of a grid with one data row (only the table
+split), are bit-equal to those of the single-device path of the same
+scoring.  A bf16 grid with more than one data row may differ at
+near-ties, because each cell's UNet runs at a smaller batch and rounds
+its bf16 field otherwise (measured in ``PERF.md``, section 6).  On one
+device the single-device path runs unchanged.
 """
 
 from __future__ import annotations
@@ -41,35 +52,79 @@ import torch
 from rangeclip_tpu_torch.cli import common
 from rangeclip_tpu_torch.data.labels import load_candidate_labels
 from rangeclip_tpu_torch.data.transforms import depth_transform
+from rangeclip_tpu_torch.parallel.mesh import local_devices, make_mesh
+from rangeclip_tpu_torch.parallel.predict import (
+    make_sharded_predict,
+    pad_class_table,
+    shard_predict_inputs,
+)
 from rangeclip_tpu_torch.utils.device import describe_device, resolve_device
 
 
-def build_engine(args, config_overrides=None):
+def sharded_engine(args, model, text_table, devices):
+    """``predict(batch)`` over a grid of ``devices`` (JAX
+    ``cli/serve.py:72-120``): ``--model_parallel`` columns, the rest of the
+    devices as data rows; the padded table placed once."""
+    n_model = max(1, args.model_parallel)
+    if n_model > len(devices):
+        raise SystemExit(
+            f"--model_parallel {n_model} exceeds the device count "
+            f"{len(devices)}"
+        )
+    n_data = len(devices) // n_model
+    if args.batch_size % n_data:
+        raise SystemExit(
+            f"--batch_size {args.batch_size} must divide by the data-"
+            f"parallel degree {n_data} (devices={len(devices)}, "
+            f"--model_parallel {n_model})"
+        )
+    mesh = make_mesh(n_data=n_data, n_model=n_model, devices=devices)
+    shards = shard_predict_inputs(mesh, *pad_class_table(text_table,
+                                                         n_model))
+    sharded = make_sharded_predict(model, mesh, top_k=args.top_k,
+                                   predict_path=args.predict_path)
+
+    def predict(batch: np.ndarray) -> torch.Tensor:
+        with torch.inference_mode():
+            return sharded(torch.from_numpy(batch), shards)
+
+    return predict
+
+
+def build_engine(args, config_overrides=None, devices=None):
     """-> (predict, model, labels, device): ``predict(batch)`` maps a
     [B, H, W, 1] float32 numpy batch to [B, H, W, k] int32 ids on the
     device.  ``config_overrides`` adjusts DepthUNetConfig fields beyond
-    the flags (a test's narrow widths)."""
+    the flags (a test's narrow widths); ``devices`` replaces the local
+    CUDA devices that ``--data_parallel`` shards over (a list may repeat a
+    device)."""
     device = resolve_device(args.device)
     labels = load_candidate_labels(args.labels_path)
     model = common.load_model(args, device, config_overrides)
     text_table = common.label_table(args, labels, device)
-    folded = common.use_folded(args.predict_path, len(labels),
-                               args.embedding_dim, args.batch_size,
-                               model.compute_dtype, device)
-    predict_ids = common.make_predict(model, args.top_k, folded)
+    if getattr(args, "data_parallel", False) and devices is None:
+        devices = local_devices() if device.type == "cuda" else [device]
+    if getattr(args, "data_parallel", False) and len(devices) > 1:
+        predict = sharded_engine(args, model, text_table, devices)
+    else:
+        folded = common.use_folded(args.predict_path, len(labels),
+                                   args.embedding_dim, args.batch_size,
+                                   model.compute_dtype, device)
+        predict_ids = common.make_predict(model, args.top_k, folded)
 
-    def predict(batch: np.ndarray) -> torch.Tensor:
-        # grad mode is per thread: the worker thread sets its own
-        with torch.inference_mode():
-            depth = torch.from_numpy(batch).to(device)
-            return predict_ids(depth, text_table)
+        def predict(batch: np.ndarray) -> torch.Tensor:
+            # grad mode is per thread: the worker thread sets its own
+            with torch.inference_mode():
+                depth = torch.from_numpy(batch).to(device)
+                return predict_ids(depth, text_table)
 
     # warm up once so the first request pays no one-time cost
     # (kernel build, cuDNN algorithm choice)
     predict(np.zeros((args.batch_size, args.height, args.width, 1),
                      np.float32))
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    for d in {device, *(devices or ())}:
+        if torch.device(d).type == "cuda":
+            torch.cuda.synchronize(d)
     return predict, model, labels, device
 
 
@@ -243,6 +298,14 @@ def parse_args(argv=None):
     # /segment exposes only the top-1 map, and top-1 of a top-k is the
     # argmax, so k=1 by default.
     parser.add_argument("--top_k", type=int, default=1)
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="shard request batches over all devices "
+                        "(parallel/predict.py); requires batch_size "
+                        "divisible by devices/model_parallel")
+    parser.add_argument("--model_parallel", type=int, default=1,
+                        help="with --data_parallel: shard the candidate "
+                        "table over this many devices per batch shard "
+                        "(exact cross-shard top-k merge)")
     parser.add_argument("--predict_path", choices=common.PREDICT_PATHS,
                         default="auto", help=common.PREDICT_PATH_HELP)
     parser.add_argument("--embedding_dim", type=int, default=512)

@@ -12,8 +12,20 @@ Checkpoints are reference ``.pth`` files (``checkpoints/checkpoints/
 depth_segmentation_model-{step}.pth``) that ``cli/serve`` and ``cli/infer``
 load as they are; validation runs from ``--validation_start_step`` on.
 ``--profile_dir`` writes a Chrome trace (``torch.profiler``) of optimizer
-steps 2-4 of the run.  Multi-GPU (``--ddp_parity``, ``--distributed``)
-raises NotImplementedError.
+steps 2-4 of the run.
+
+Multi-GPU: one process per GPU, each joining a process group, with the
+reference's DDP step (per-rank BatchNorm and losses, gradients averaged):
+
+  torchrun --nproc_per_node 8 -m rangeclip_tpu_torch.cli.train \
+    --distributed --ddp_parity ...
+
+``--distributed`` reads torchrun's environment, or, outside torchrun,
+``--coordinator_address host:port --num_processes N --process_id i`` in
+each process (NCCL on CUDA, gloo with ``--device cpu``).  ``--ddp_parity``
+alone is that step on one device.  Over more than one rank
+``--distributed`` needs ``--ddp_parity``: JAX's global-batch step is
+ROADMAP item 10b.
 """
 
 from __future__ import annotations
@@ -107,9 +119,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--ddp_parity", action="store_true",
                         help="reference-exact multi-device semantics: "
                              "per-replica BN statistics and per-rank losses "
-                             "over local batch shards, gradients pmean'd "
+                             "over local batch shards, gradients averaged "
                              "(torch DDP, train_util.py:338) instead of the "
-                             "default global-batch sync-BN formulation")
+                             "global-batch sync-BN formulation (ROADMAP "
+                             "item 10b)")
     parser.add_argument("--max_steps", type=int, default=None,
                         help="stop after N optimizer steps (smoke runs)")
     parser.add_argument("--seed", type=int, default=0)
@@ -117,11 +130,13 @@ def build_parser() -> argparse.ArgumentParser:
                         help="write a torch.profiler Chrome trace of train "
                              "steps 2-4 into this directory")
     parser.add_argument("--distributed", action="store_true",
-                        help="call jax.distributed.initialize() (multi-host)")
+                        help="join a torch.distributed process group (one "
+                             "process per GPU; torchrun's environment, or "
+                             "the three flags below)")
     parser.add_argument("--coordinator_address", type=str, default=None,
-                        help="host:port of process 0's coordinator for "
-                             "--distributed outside a managed cluster "
-                             "(where initialize() auto-detects)")
+                        help="host:port of rank 0's store for "
+                             "--distributed outside torchrun (where the "
+                             "environment names it)")
     parser.add_argument("--num_processes", type=int, default=None)
     parser.add_argument("--process_id", type=int, default=None)
     parser.add_argument("--encoder_filters", nargs="+", type=int, default=None,

@@ -1,13 +1,17 @@
-"""Deterministic splits and a prefetching batch loader
-(``rangeclip_tpu/data/loader.py``), single shard, worker threads.
+"""Deterministic splits and a sharded, prefetching batch loader
+(``rangeclip_tpu/data/loader.py``), worker threads.
 
 The 60/20/20 split is the reference's (python's ``random.Random(42)``
 shuffle); the per-epoch order is a numpy permutation of (0 + epoch); each
-sample draws from ``np.random.default_rng((0, epoch, 0, position))`` (seed,
-epoch, shard, position: the JAX loader's key at its defaults),
-so thread count and completion order never change the data, and batches
-equal the JAX loader's on the same files.  Batches are fixed-shape: a final
-ragged batch repeats its first sample with ``sample_valid = 0``.
+sample draws from ``np.random.default_rng((0, epoch, shard, position))``
+(seed, epoch, shard, position: the JAX loader's key), so thread count and
+completion order never change the data, and batches equal the JAX loader's
+on the same files.  ``num_shards > 1`` gives each rank of a distributed run
+its shard as torch's DistributedSampler does (the order padded to a
+multiple of the shard count by wrapping, then every ``num_shards``-th
+index from ``shard_id``), so every rank takes the same number of batches.
+Batches are fixed-shape: a final ragged batch repeats its first sample with
+``sample_valid = 0``.
 """
 
 from __future__ import annotations
@@ -22,7 +26,6 @@ from typing import Dict, Iterator, List, Sequence, Tuple
 import numpy as np
 
 _SEED = 0  # with the epoch, keys the order and the per-sample draws
-_SHARD = 0  # the one shard: its id keys the per-sample draws, as in JAX
 _PREFETCH = 2  # batches built ahead of the consumer
 # the dtypes the train and val steps take each batch key in
 BATCH_DTYPES = {"depth": np.float32, "segmentation": np.int32,
@@ -38,11 +41,16 @@ def deterministic_split(n: int) -> Tuple[List[int], List[int], List[int]]:
     return indices[:split1], indices[split1:split2], indices[split2:]
 
 
-def _order(indices: Sequence[int], epoch: int, shuffle: bool) -> List[int]:
+def _order(indices: Sequence[int], epoch: int, shuffle: bool,
+           shard_id: int = 0, num_shards: int = 1) -> List[int]:
+    """This shard's indices in the epoch's order (``_shard_indices``)."""
     idx = list(indices)
     if shuffle:
         g = np.random.default_rng(_SEED + epoch)
         idx = [idx[i] for i in g.permutation(len(idx))]
+    if num_shards > 1 and idx:
+        total = -(-len(idx) // num_shards) * num_shards
+        idx = [idx[i % len(idx)] for i in range(total)][shard_id::num_shards]
     return idx
 
 
@@ -53,10 +61,15 @@ class ShardedBatchLoader:
 
     def __init__(self, dataset, indices: Sequence[int], batch_size: int,
                  shuffle: bool = False, drop_last: bool = False,
-                 num_workers: int = 4):
+                 num_workers: int = 4, shard_id: int = 0,
+                 num_shards: int = 1):
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard {shard_id} of {num_shards}")
         self.dataset = dataset
         self.indices = list(indices)
         self.batch_size = batch_size
+        self.shard_id = shard_id
+        self.num_shards = num_shards
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
@@ -72,14 +85,15 @@ class ShardedBatchLoader:
         self.epoch = epoch
 
     def __len__(self) -> int:
-        n = len(self.indices)
+        n = len(_order(self.indices, 0, False, self.shard_id,
+                       self.num_shards))
         return n // self.batch_size if self.drop_last else \
             -(-n // self.batch_size)
 
     def _fetch(self, args) -> Dict[str, np.ndarray]:
         i, position = args
         if self._takes_rng:
-            rng = np.random.default_rng((_SEED, self.epoch, _SHARD,
+            rng = np.random.default_rng((_SEED, self.epoch, self.shard_id,
                                          position))
             return self.dataset.__getitem__(i, rng=rng)
         return self.dataset[i]
@@ -99,7 +113,8 @@ class ShardedBatchLoader:
         return batch
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        idx = _order(self.indices, self.epoch, self.shuffle)
+        idx = _order(self.indices, self.epoch, self.shuffle, self.shard_id,
+                     self.num_shards)
         batches = [idx[i:i + self.batch_size]
                    for i in range(0, len(idx), self.batch_size)]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
@@ -148,15 +163,18 @@ class ShardedBatchLoader:
 
 def setup_dataloaders(metadata_file: str, labels_file: str,
                       resize_shape: Tuple[int, int], batch_size: int,
-                      n_epoch: int):
+                      n_epoch: int, shard_id: int = 0, num_shards: int = 1):
     """Train/val/test loaders and labels (dataloader.py:11-140): returns
-    (train_loader, val_loader, test_loader, n_train_steps, labels)."""
+    (train_loader, val_loader, test_loader, n_train_steps, labels).  Only
+    the train loader is sharded (``shard_id`` of ``num_shards``): a
+    distributed run validates on rank 0 over the whole split."""
     from rangeclip_tpu_torch.data.dataset import ImageDepthTextDataset
 
     dataset = ImageDepthTextDataset(metadata_file, labels_file, resize_shape)
     train_idx, val_idx, test_idx = deterministic_split(len(dataset))
     train = ShardedBatchLoader(dataset, train_idx, batch_size, shuffle=True,
-                               drop_last=True)
+                               drop_last=True, shard_id=shard_id,
+                               num_shards=num_shards)
     val = ShardedBatchLoader(dataset, val_idx, batch_size)
     test = ShardedBatchLoader(dataset, test_idx, batch_size)
     n_train_steps = -(-len(train_idx) // batch_size) * n_epoch

@@ -359,7 +359,7 @@ def predict_folded(
     H/2 resolution.
 
     Dispatch: on CUDA the slot count is padded to a multiple of 128 with
-    dead (-1) slots; bf16 features that pass ``fused_conv_topk_applicable``
+    dead (-1) slots, folded 128 slots at a time; bf16 features that pass ``fused_conv_topk_applicable``
     and whose width the kernel takes (``conv_kernel_fits``: C_in <= 136)
     take the fused conv+select kernel, everything else a plain conv to
     scores and the ``score_topk`` kernel.  On the CPU the same steps run
@@ -398,7 +398,14 @@ def predict_folded(
         table = F.pad(table, (0, 0, 0, pad))
         ids = F.pad(ids, (0, pad), value=-1)
     text = l2_normalize(table.float(), dim=-1)
-    folded = torch.einsum("diyx,sd->siyx", W.float(), text).to(features.dtype)
+    # on CUDA the slots fold in blocks of SLOT_MULTIPLE, each one product of
+    # the same shape, so that a slot's weights round alike at any slot count
+    # (cuBLAS picks its algorithm by shape; a class-sharded predict folds
+    # slices of the table)
+    folded = torch.cat([
+        torch.einsum("diyx,sd->siyx", W.float(), block)
+        for block in (text.split(SLOT_MULTIPLE) if kernels else (text,))
+    ]).to(features.dtype)
     S = folded.shape[0]
 
     if (kernels and features.dtype == torch.bfloat16

@@ -1,0 +1,359 @@
+"""The multi-rank dry run (``__graft_entry__.dryrun_multichip``):
+
+    python -m rangeclip_tpu_torch.parallel.dryrun N [--device cuda|cpu]
+        [--backend gloo|nccl]
+
+builds the kernels (on CUDA), spawns N ranks that each take one
+``ddp_parity`` train step on their rows of one seeded batch at tiny shapes,
+and holds them against the same step simulated rank by rank in this process
+(:func:`simulate_ddp_step`: the same weights, rows and generators, the
+BatchNorm statistics averaged after each microbatch, the gradients after
+the window); then runs a sharded predict on a ``2 x N/2`` grid against
+single-device predict.  Any difference raises.  On CUDA the ranks take
+``cuda:(rank % device count)``, so on one card every rank shares it (over
+gloo: NCCL refuses two ranks on one GPU).
+
+:func:`run_ranks` and :func:`check_ddp_step` are also what ``chip_smoke.py``
+holds the full-width step with.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import tempfile
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from rangeclip_tpu_torch.cli.common import set_precision
+from rangeclip_tpu_torch.losses.hybrid import HybridLossConfig
+from rangeclip_tpu_torch.models.depth_unet import DepthUNetConfig
+from rangeclip_tpu_torch.parallel.mesh import (
+    init_distributed,
+    replicate,
+    shutdown_distributed,
+)
+from rangeclip_tpu_torch.training.optim import set_learning_rate
+from rangeclip_tpu_torch.training.state import TrainState, create_train_state
+from rangeclip_tpu_torch.training.train_step import (
+    INFO_KEYS,
+    make_train_step,
+    microbatch_generator,
+    microbatch_loss,
+    running_statistics,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class StepSpec:
+    """One ``ddp_parity`` step: the model's widths, ``batch`` rows a rank
+    per microbatch, ``accum`` microbatches, ``present`` labels of
+    ``classes`` in the segmentation, weights and data from ``seed``."""
+
+    filters: Tuple[int, ...] = (8, 16, 16, 16, 32)
+    dim: int = 32
+    res: int = 32
+    batch: int = 2
+    accum: int = 2
+    classes: int = 24
+    present: int = 8
+    bf16: bool = False
+    seed: int = 0
+    lr: float = 1e-3
+    weight_decay: float = 1e-4
+
+    @property
+    def config(self) -> DepthUNetConfig:
+        return DepthUNetConfig(encoder_filters=tuple(self.filters),
+                               embedding_dim=self.dim,
+                               dtype=torch.bfloat16 if self.bf16 else None)
+
+
+def step_inputs(spec: StepSpec, world: int, device: torch.device):
+    """The global batch of ``world`` ranks' rows (rank r's are rows
+    ``r * batch .. (r+1) * batch`` of every microbatch), the text table and
+    the two similarity matrices, from numpy's generator: the same numbers
+    on every device."""
+    rng = np.random.default_rng(spec.seed + 1)
+    shape = (spec.accum, world * spec.batch, spec.res, spec.res)
+    seg = rng.integers(0, spec.present, shape).astype(np.int32)
+    batch = {
+        "depth": rng.standard_normal(shape + (1,)).astype(np.float32),
+        "segmentation": seg,
+        "object_label": seg[:, :, spec.res // 2, spec.res // 2].copy(),
+        "image_embeddings": rng.standard_normal(
+            shape[:2] + (spec.dim,)).astype(np.float32),
+        "sample_valid": np.ones(shape[:2], np.float32),
+    }
+    text = rng.standard_normal((spec.classes, spec.dim)).astype(np.float32)
+    medium = rng.random((spec.classes, spec.classes)) < 3 / spec.classes
+    hard = rng.random((spec.classes, spec.classes)) < 3 / spec.classes
+    put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return ({k: put(v) for k, v in batch.items()}, put(text), put(medium),
+            put(hard))
+
+
+def rows(batch: Dict[str, torch.Tensor], rank: int, per: int
+         ) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s rows of every microbatch."""
+    return {k: v[:, rank * per:(rank + 1) * per].contiguous()
+            for k, v in batch.items()}
+
+
+def _snapshot(state: TrainState, info: Dict[str, torch.Tensor]) -> Dict:
+    model = state.model
+    return {
+        "params": {n: p.detach().cpu().clone()
+                   for n, p in model.named_parameters()},
+        "grads": {n: p.grad.detach().cpu().clone()
+                  for n, p in model.named_parameters() if p.grad is not None},
+        "stats": {n: b.detach().cpu().clone()
+                  for n, b in model.named_buffers()},
+        "info": {k: float(v) for k, v in info.items()},
+    }
+
+
+def _rank_main(rank_id: int, world_size: int, init_method: str,
+               specs: Sequence[StepSpec], device: str,
+               backend: Optional[str], out_dir: str) -> None:
+    """One rank: join the group, then one ``ddp_parity`` step per spec on
+    this rank's rows; write what it ended with, and its kernel launches."""
+    import torch.distributed as dist
+
+    from rangeclip_tpu_torch.ops.kernels import _lib
+
+    dev = init_distributed(init_method, world_size, rank_id, backend=backend,
+                           device=device)
+    try:
+        out = []
+        for spec in specs:
+            set_precision(spec.bf16)  # f32 keeps cuDNN and cuBLAS off TF32
+            state = create_train_state(spec.config, dev, spec.weight_decay,
+                                       spec.seed)
+            replicate(state.model, dist.group.WORLD)
+            batch, text, medium, hard = step_inputs(spec, world_size, dev)
+            step = make_train_step(HybridLossConfig(), spec.accum,
+                                   ddp_parity=True, group=dist.group.WORLD)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            _lib.reset_launch_counts()
+            state, info = step(state, rows(batch, rank_id, spec.batch),
+                               (spec.seed, 0), spec.lr, 0.3, 0.5, text,
+                               medium, hard)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            result = _snapshot(state, info)
+            result["launches"] = dict(_lib.launch_counts)
+            out.append(result)
+        torch.save(out, os.path.join(out_dir, f"rank{rank_id}.pt"))
+    finally:
+        shutdown_distributed()
+
+
+def run_ranks(n: int, specs: Sequence[StepSpec], device: str = "cuda",
+              backend: Optional[str] = None) -> List[List[Dict]]:
+    """Spawn ``n`` ranks, each taking one ``ddp_parity`` step per spec;
+    returns ``results[rank][spec]`` (parameters, gradients, buffers and
+    info after the step, and the rank's kernel launches).  On CUDA the
+    kernels are built here first, not by every rank at once.  Every
+    process is joined before it returns."""
+    import torch.multiprocessing as mp
+
+    if device == "cuda":
+        from rangeclip_tpu_torch.ops.kernels import _lib
+
+        _lib.build()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_rank_main, args=(n, f"file://{tmp}/store", list(specs),
+                                   device, backend, tmp), nprocs=n,
+                 join=True)
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                for r in range(n)]
+
+
+def simulate_ddp_step(spec: StepSpec, world_size: int,
+                      device: torch.device) -> Dict:
+    """The ``ddp_parity`` step of ``world_size`` ranks, one replica per
+    rank in this process (JAX's per-shard oracle,
+    ``tests/test_parallel.py:229-307``): each replica's microbatch loss on
+    its rows with that rank's generator, the replicas' BatchNorm running
+    statistics averaged after each microbatch, the gradients (each rank's
+    sum over the window over A) averaged after it, then Adam on replica
+    0."""
+    set_precision(spec.bf16)
+    replicas = [create_train_state(spec.config, device, spec.weight_decay,
+                                   spec.seed) for _ in range(world_size)]
+    batch, text, medium, hard = step_inputs(spec, world_size, device)
+    loss_config = HybridLossConfig()
+    sums = [None] * world_size
+    for state in replicas:
+        state.model.train()
+        state.model.zero_grad(set_to_none=True)
+    for idx in range(spec.accum):
+        for r, state in enumerate(replicas):
+            mb = {k: v[idx] for k, v in rows(batch, r, spec.batch).items()}
+            total, info = microbatch_loss(
+                state.model, mb, 0.3, 0.5, text, medium, hard, loss_config,
+                generator=microbatch_generator(spec.seed, 0, idx, device, r))
+            total.backward()
+            info = torch.stack([info[k].detach().float() for k in INFO_KEYS])
+            sums[r] = info if sums[r] is None else sums[r] + info
+        with torch.no_grad():
+            stats = [running_statistics(s.model) for s in replicas]
+            for tensors in zip(*stats):
+                mean = sum(t for t in tensors) / world_size
+                for t in tensors:
+                    t.copy_(mean)
+    lead = replicas[0]
+    params = [list(s.model.parameters()) for s in replicas]
+    for ps in zip(*params):
+        if ps[0].grad is not None:
+            ps[0].grad = sum(p.grad / spec.accum for p in ps) / world_size
+    info = sum(s / spec.accum for s in sums) / world_size
+    info = dict(zip(INFO_KEYS, info.unbind()))
+    set_learning_rate(lead.optimizer, spec.lr)
+    lead.optimizer.step()
+    return _snapshot(lead, info)
+
+
+@dataclasses.dataclass(frozen=True)
+class Tolerance:
+    """Ranks against the simulation: the loss (relative), each gradient
+    and running statistic (of the tensor's largest magnitude); parameters
+    move by about lr * sign(g) in Adam's first step, so an entry whose
+    gradient is rounding noise may step the other way: all within
+    2 lr, and ``params_close`` of them within 1e-3 lr."""
+
+    loss: float = 1e-5
+    grads: float = 1e-4
+    stats: float = 1e-5
+    params_close: float = 0.999
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    scale = float(b.double().abs().max()) or 1.0
+    return float((a.double() - b.double()).abs().max()) / scale
+
+
+def check_ddp_step(results: Sequence[Dict], sim: Dict, spec: StepSpec,
+                   tol: Tolerance = Tolerance()) -> Dict:
+    """Raise unless every rank ended with rank 0's bits (parameters,
+    gradients, running statistics, info) and rank 0 agrees with the
+    simulation within ``tol``; returns the largest errors."""
+    lead = results[0]
+    for r, res in enumerate(results[1:], 1):
+        for part in ("params", "grads", "stats"):
+            for name, t in lead[part].items():
+                if not torch.equal(res[part][name], t):
+                    raise AssertionError(f"rank {r}'s {part} {name} differ "
+                                         "from rank 0's")
+        if res["info"] != lead["info"]:
+            raise AssertionError(f"rank {r}'s info differs from rank 0's")
+    if sorted(lead["grads"]) != sorted(sim["grads"]):
+        raise AssertionError("the ranks and the simulation have gradients "
+                             "for different parameters")
+    errors = {
+        "loss": abs(lead["info"]["total_loss"] - sim["info"]["total_loss"])
+        / max(abs(sim["info"]["total_loss"]), 1e-30),
+        "grads": max(_rel(lead["grads"][n], g)
+                     for n, g in sim["grads"].items()),
+        "stats": max(_rel(lead["stats"][n], s)
+                     for n, s in sim["stats"].items()
+                     if s.is_floating_point()),
+    }
+    for key in ("loss", "grads", "stats"):
+        if not errors[key] <= getattr(tol, key):
+            raise AssertionError(f"{key} differ from the simulation: "
+                                 f"{errors[key]:.3g} > {getattr(tol, key)}")
+    close = total = 0
+    for name, want in sim["params"].items():
+        diff = (lead["params"][name].double() - want.double()).abs()
+        if not bool((diff <= 2 * spec.lr).all()):
+            raise AssertionError(f"parameter {name} moved apart from the "
+                                 "simulation by more than 2 lr")
+        close += int((diff <= 1e-3 * spec.lr).sum())
+        total += diff.numel()
+    errors["params_close"] = close / total
+    if errors["params_close"] < tol.params_close:
+        raise AssertionError(f"only {close} of {total} parameters within "
+                             "1e-3 lr of the simulation")
+    return errors
+
+
+def check_sharded_predict(n: int, device: str = "cuda") -> Dict:
+    """A sharded predict on a ``2 x n/2`` grid (``cuda:(i % device
+    count)`` or the CPU, repeated) against single-device predict, folded
+    and default, in f32: the labels must be equal."""
+    from rangeclip_tpu_torch.models.depth_unet import DepthUNet, predict_folded
+    from rangeclip_tpu_torch.parallel.mesh import make_mesh
+    from rangeclip_tpu_torch.parallel.predict import (
+        make_sharded_predict,
+        pad_class_table,
+    )
+
+    if n % 2:
+        raise ValueError(f"the predict grid is 2 x n/2: n={n} is odd")
+    count = torch.cuda.device_count() if device == "cuda" else 1
+    devices = [torch.device(device, i % count) if device == "cuda"
+               else torch.device("cpu") for i in range(n)]
+    home = devices[0]
+    spec = StepSpec()
+    model = DepthUNet(spec.config, device=home,
+                      generator=torch.Generator().manual_seed(spec.seed)
+                      ).eval()
+    gen = torch.Generator().manual_seed(spec.seed + 2)
+    depth = torch.randn(4, spec.res, spec.res, 1, generator=gen).to(home)
+    table = torch.randn(61, spec.dim, generator=gen).to(home)
+    mesh = make_mesh(2, n // 2, devices)
+    padded, ids = pad_class_table(table, n // 2)
+    want = {"folded": predict_folded(model, depth, table, top_k=3),
+            "default": model.predict(depth, table, None, 3,
+                                     return_embeddings=False)[0]}
+    for path, labels in want.items():
+        got = make_sharded_predict(model, mesh, 3, path)(depth, padded, ids)
+        differ = int((got != labels).sum())
+        if differ:
+            raise AssertionError(f"sharded predict ({path}, 2 x {n // 2}): "
+                                 f"{differ} labels differ")
+    return {"grid": [2, n // 2], "labels": int(depth[..., 0].numel()) * 3}
+
+
+def dryrun_multichip(n: int, device: str = "cuda",
+                     backend: Optional[str] = None) -> Dict:
+    """Build the kernels (CUDA), run ``n`` ranks of one ``ddp_parity``
+    step against the simulation, then the ``2 x n/2`` predict; raises on
+    any difference, returns a summary."""
+    spec = StepSpec()
+    results = [r[0] for r in run_ranks(n, [spec], device, backend)]
+    home = torch.device("cuda", 0) if device == "cuda" else torch.device(
+        "cpu")
+    errors = check_ddp_step(results, simulate_ddp_step(spec, n, home), spec)
+    launches: Dict[str, int] = {}
+    for res in results:
+        for k, v in res["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"ranks": n, "backend": backend or ("nccl" if device == "cuda"
+                                               else "gloo"),
+            "loss": results[0]["info"]["total_loss"], "errors": errors,
+            "predict": check_sharded_predict(n, device),
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def main(argv=None) -> Dict:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("n", type=int, help="ranks (even)")
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    parser.add_argument("--backend", default=None, choices=("gloo", "nccl"))
+    args = parser.parse_args(argv)
+    summary = dryrun_multichip(args.n, args.device, args.backend)
+    print(json.dumps(summary))
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -11,8 +11,9 @@ mean over A plus ``learning_rate`` and ``grad_norm`` (the global norm of
 the averaged gradients).  One device; BatchNorm over the microbatch.
 
 Random state: microbatch ``i`` of the step keyed (seed, step) draws from a
-``torch.Generator`` seeded by (seed, step, i) on the batch's device, in the
-JAX order: pixel draws (``loss_config.pixel_sampler``: the histogram's
+``torch.Generator`` seeded by (seed, step, i) on the batch's device (under
+``ddp_parity``, rank r > 0 by (seed, step, i, r), as JAX folds the rank
+into the key; rank 0 keeps the single-device stream), in the JAX order: pixel draws (``loss_config.pixel_sampler``: the histogram's
 uniform draws, or the multinomial counts), then the medium/hard Gumbel
 noise, then the random one (``fold_in(rng, i)``, ``split`` into pixel and
 contrast keys, ``split`` again).  Every draw can be passed in instead
@@ -21,6 +22,24 @@ multinomial sampler out of its scan and gradient
 (train_step.py:172-180,236-270) only because XLA re-runs
 ``jax.random.binomial``'s rejection loops there; this loop is eager, so the
 sampler runs where the loss calls it.
+
+``ddp_parity`` (JAX ``train_step.py:32-44,186-218``) is the reference's
+torch DDP: each rank of ``group`` runs the step above on its own rows (its
+BatchNorm normalises with its local statistics, its losses normalise over
+its rows), then, by explicit collectives in flattened buckets
+(``parallel/mesh.all_reduce_mean``): after each microbatch the BatchNorm
+running statistics are averaged over the ranks (JAX's pmean merge of
+``new_stats``, where torch DDP broadcasts rank 0's), and after the window
+the gradients (once a window, not once a microbatch: the sum over
+microbatches and the mean over ranks commute, so only the f32 rounding
+order differs, within JAX's own test tolerances) and the info.  Every rank
+then holds the same gradients, and Adam moves every replica alike.  The
+``DistributedDataParallel`` wrapper is not used: the step calls
+``forward_native``, which its reducer never sees, and it broadcasts
+buffers where JAX averages them.  JAX's default over a mesh, one global
+batch (sync-BatchNorm, the contrast set and the losses over every rank's
+rows), is ROADMAP item 10b: a group of more than one rank without
+``ddp_parity`` raises.
 """
 
 from __future__ import annotations
@@ -37,6 +56,9 @@ from rangeclip_tpu_torch.losses.hybrid import (
 )
 from rangeclip_tpu_torch.losses.pooling import per_item_masked_pooling
 from rangeclip_tpu_torch.models.depth_unet import DepthUNet
+from rangeclip_tpu_torch.parallel.mesh import ITEM_10B, all_reduce_mean
+from rangeclip_tpu_torch.parallel.mesh import rank as group_rank
+from rangeclip_tpu_torch.parallel.mesh import world as group_world
 from rangeclip_tpu_torch.training.optim import set_learning_rate
 from rangeclip_tpu_torch.training.state import TrainState
 
@@ -46,11 +68,13 @@ INFO_KEYS = ("total_loss", "text_contrastive_loss", "image_contrastive_loss",
 
 
 def microbatch_generator(seed: int, step: int, index: int,
-                         device: torch.device) -> torch.Generator:
-    """The generator of microbatch ``index`` of step ``step``: positional,
+                         device: torch.device, rank: Optional[int] = None
+                         ) -> torch.Generator:
+    """The generator of microbatch ``index`` of step ``step`` (of ``rank``
+    under ``ddp_parity``; rank 0 draws what one device draws): positional,
     so a resumed run draws what a straight run draws."""
-    state = np.random.SeedSequence((seed, step, index)).generate_state(
-        1, np.uint64)
+    key = (seed, step, index) + ((rank,) if rank else ())
+    state = np.random.SeedSequence(key).generate_state(1, np.uint64)
     return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
@@ -89,8 +113,17 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
 
 
+def running_statistics(model: torch.nn.Module) -> List[torch.Tensor]:
+    """The floating buffers of the modules in train mode: the BatchNorm
+    running statistics a train-mode forward updates (a frozen encoder's
+    stay out)."""
+    return [b for m in model.modules() if m.training
+            for b in m.buffers(recurse=False) if b.is_floating_point()]
+
+
 def make_train_step(loss_config: HybridLossConfig = HybridLossConfig(),
-                    accum_steps: int = 8):
+                    accum_steps: int = 8, ddp_parity: bool = False,
+                    group=None):
     """The step function
 
       step(state, batch, rng, lr, pct_medium, pct_hard, text_table,
@@ -103,7 +136,20 @@ def make_train_step(loss_config: HybridLossConfig = HybridLossConfig(),
     keys the microbatch generators; ``draws`` (a list of A
     :class:`Draws`) replaces them.  The state is updated in place and
     returned; the info values are f32 scalar tensors (no host sync).
+
+    ``ddp_parity`` with ``group`` (a ``torch.distributed`` process group,
+    or ``torch.distributed.group.WORLD``): ``batch`` is this rank's rows,
+    and the step is the module docstring's DDP; without ``group`` it is
+    the single-device step.
     """
+    reduce = group is not None and ddp_parity
+    if group is not None and not ddp_parity and group_world(group) > 1:
+        raise NotImplementedError(
+            "the global-batch step over a process group (sync-BatchNorm, "
+            "one contrast set and the losses' partial sums all-reduced over "
+            f"the ranks) is not ported yet: {ITEM_10B}; pass ddp_parity")
+    rank = (group_rank(group) if group is not None else 0) \
+        if ddp_parity else None
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    rng: Tuple[int, int], lr: float, pct_medium: float,
@@ -124,12 +170,15 @@ def make_train_step(loss_config: HybridLossConfig = HybridLossConfig(),
         for idx in range(A):
             mb = {k: v[idx] for k, v in batch.items()}
             generator = (None if draws is not None else microbatch_generator(
-                rng[0], rng[1], idx, batch["depth"].device))
+                rng[0], rng[1], idx, batch["depth"].device, rank))
             total, info = microbatch_loss(
                 model, mb, pct_medium, pct_hard, text_table, medium_matrix,
                 hard_matrix, loss_config,
                 draws[idx] if draws is not None else None, generator)
             total.backward()
+            if reduce:
+                with torch.no_grad():
+                    all_reduce_mean(running_statistics(model), group)
             info = {k: info[k].detach().float() for k in INFO_KEYS}
             info_sum = info if info_sum is None else {
                 k: info_sum[k] + info[k] for k in INFO_KEYS}
@@ -137,6 +186,11 @@ def make_train_step(loss_config: HybridLossConfig = HybridLossConfig(),
         for g in grads:
             g.div_(A)
         info = {k: v / A for k, v in info_sum.items()}
+        if reduce:
+            all_reduce_mean(grads, group)
+            mean = torch.stack([info[k] for k in INFO_KEYS])
+            all_reduce_mean([mean], group)
+            info = dict(zip(INFO_KEYS, mean.unbind()))
         info["grad_norm"] = global_norm(grads)
         info["learning_rate"] = info["grad_norm"].new_tensor(lr)
         set_learning_rate(optimizer, lr)

@@ -1,5 +1,6 @@
 """End-to-end training (``rangeclip_tpu/training/trainer.py``:
-``TrainerConfig``, ``train_depth_clip_model``) on one device.
+``TrainerConfig``, ``train_depth_clip_model``) on one device, or on one
+device per rank of a process group.
 
 Data and label structures, the frozen text table (computed once, by the CLIP
 text tower or the hash stub), the image provider (the CLIP vision tower,
@@ -33,8 +34,20 @@ synchronised before the trace closes; a run that ends sooner closes it at
 its end.  The trace reads no random stream, so the steps are those of a
 run without it.
 
-Multi-GPU (``ddp_parity``, ``distributed``: ROADMAP item 10) raises
-``NotImplementedError`` at start-up.
+``distributed`` joins a process group before anything touches a device
+(``parallel/mesh.init_distributed``: the coordinator fields, or torchrun's
+environment) and trains on the rank's device.  Each rank reads its shard of
+the train split (the loader's ``shard_id``/``num_shards``), runs the image
+tower on its own rows, and takes the ``ddp_parity`` step over the group
+(``training/train_step.py``); every rank restores the same checkpoint, then
+rank 0's parameters and buffers are broadcast.  Rank 0 alone logs, writes
+``results.txt``, the summaries and the checkpoints (a barrier after each
+save), and validates over the whole split while the others wait; the best
+results, the plateau schedule's metric among them, are then broadcast, so
+every rank keeps the same learning rate.  ``ddp_parity`` without
+``distributed`` is that step on one rank: the single-device step.  Over
+more than one rank, ``distributed`` without ``ddp_parity`` (JAX's
+global-batch step) is ROADMAP item 10b and raises.
 """
 
 from __future__ import annotations
@@ -65,6 +78,16 @@ from rangeclip_tpu_torch.models.clip.provider import (
     get_text_provider,
 )
 from rangeclip_tpu_torch.models.depth_unet import DepthUNetConfig
+from rangeclip_tpu_torch.parallel.mesh import (
+    ITEM_10B,
+    barrier,
+    init_distributed,
+    is_main,
+    rank,
+    replicate,
+    shutdown_distributed,
+    world,
+)
 from rangeclip_tpu_torch.training.checkpoint import CheckpointManager
 from rangeclip_tpu_torch.training.curriculum import get_curriculum_schedule
 from rangeclip_tpu_torch.training.optim import make_lr_schedule
@@ -82,7 +105,8 @@ from rangeclip_tpu_torch.utils.monitoring import device_trace
 
 @dataclasses.dataclass
 class TrainerConfig:
-    """The JAX TrainerConfig's fields, plus ``device``."""
+    """The JAX TrainerConfig's fields, plus ``device`` and the process
+    group's coordinator (``cli/train``'s flags)."""
 
     labeled_metadata_path: str = ""
     labels_path: str = ""
@@ -119,6 +143,9 @@ class TrainerConfig:
     bf16: bool = False
     ddp_parity: bool = False
     distributed: bool = False
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
     max_steps: Optional[int] = None
     auto_resume: bool = False
     profile_dir: Optional[str] = None
@@ -126,23 +153,25 @@ class TrainerConfig:
     device: str = "cuda"
 
 
-def check_supported(cfg: TrainerConfig) -> None:
-    """Refuse the options of later slices, naming their ROADMAP item."""
-    if cfg.ddp_parity or cfg.distributed:
-        raise NotImplementedError(
-            "--ddp_parity and --distributed (multi-GPU) are not ported yet "
-            "(ROADMAP slice 18, item 10)")
-
-
 def _close_trace(trace: contextlib.ExitStack, written: list,
-                 device: torch.device, log_path: str) -> None:
+                 device: torch.device, say) -> None:
     """End the profile_dir trace once the device has finished its steps,
     and log where it went."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     trace.close()
     for path in written:
-        log(f"Profiler trace written to {path}", log_path)
+        say(f"Profiler trace written to {path}")
+
+
+def _broadcast_results(results: Dict, group) -> Dict:
+    """Rank 0's best results on every rank of ``group``."""
+    import torch.distributed as dist
+
+    box = [results]
+    dist.broadcast_object_list(box, dist.get_global_rank(group, 0),
+                               group=group)
+    return box[0]
 
 
 def _window(microbatches, keys, device):
@@ -153,19 +182,42 @@ def _window(microbatches, keys, device):
 
 def train_depth_clip_model(cfg: TrainerConfig) -> Dict:
     """Run the training job; returns the best validation results
-    ({"step": -1, "loss": inf} while no validation has run)."""
-    device = resolve_device(cfg.device)
+    ({"step": -1, "loss": inf} while no validation has run), on every
+    rank."""
+    if not cfg.distributed:
+        return _train(cfg, resolve_device(cfg.device), None)
+    import torch.distributed as dist
+
+    device = init_distributed(cfg.coordinator_address, cfg.num_processes,
+                              cfg.process_id, device=cfg.device)
+    try:
+        return _train(cfg, device, dist.group.WORLD)
+    finally:
+        shutdown_distributed()
+
+
+def _train(cfg: TrainerConfig, device: torch.device, group) -> Dict:
+    if group is not None and world(group) > 1 and not cfg.ddp_parity:
+        raise NotImplementedError(
+            f"--distributed over {world(group)} ranks without --ddp_parity "
+            "(JAX's global-batch step: sync-BatchNorm, one contrast set, "
+            f"the losses all-reduced) is not ported yet: {ITEM_10B}")
+    main = is_main()
     set_precision(cfg.bf16)  # fp32 keeps cuDNN and matmuls off TF32
     time_start = time.time()
     ckpt_root = os.path.abspath(cfg.checkpoint_path)
     log_path = os.path.join(ckpt_root, "results.txt")
     n_epoch = cfg.learning_schedule[-1]
 
-    check_supported(cfg)
+    def say(message: str) -> None:
+        if main:
+            log(message, log_path)
+
     (train_loader, val_loader, _test_loader, n_train_steps,
      candidate_labels) = setup_dataloaders(
         cfg.labeled_metadata_path, cfg.labels_path,
-        (cfg.n_height, cfg.n_width), cfg.batch_size, n_epoch)
+        (cfg.n_height, cfg.n_width), cfg.batch_size, n_epoch,
+        shard_id=rank(group), num_shards=world(group))
     opt_steps_per_epoch = max(1, len(train_loader) // cfg.accumulation_steps)
     num_classes = len(candidate_labels)
 
@@ -187,8 +239,8 @@ def train_depth_clip_model(cfg: TrainerConfig) -> Dict:
                                       dim=cfg.embedding_dim, device=device)
     image_provider = get_image_provider(cfg.clip_checkpoint_path,
                                         dim=cfg.embedding_dim, device=device)
-    log(f"Precomputing text embeddings for {num_classes} candidate "
-        "labels...", log_path)
+    say(f"Precomputing text embeddings for {num_classes} candidate "
+        "labels...")
     text_table = torch.from_numpy(text_provider(candidate_labels)).to(device)
 
     freeze_encoder = (cfg.freeze_encoder if cfg.freeze_encoder is not None
@@ -206,27 +258,28 @@ def train_depth_clip_model(cfg: TrainerConfig) -> Dict:
     ckpt = CheckpointManager(os.path.join(ckpt_root, "checkpoints"))
     if cfg.auto_resume and ckpt.latest_step() is not None:
         ckpt.restore(state)
-        log(f"Auto-resumed from step {state.step} (preemption recovery).",
-            log_path)
+        say(f"Auto-resumed from step {state.step} (preemption recovery).")
     elif cfg.restore_path_encoder:
         CheckpointManager(cfg.restore_path_encoder).restore_encoder(state)
-        log("Restored encoder weights"
-            + (" (frozen-encoder finetune)." if freeze_encoder else "."),
-            log_path)
+        say("Restored encoder weights"
+            + (" (frozen-encoder finetune)." if freeze_encoder else "."))
     elif cfg.restore_path_model:
         CheckpointManager(cfg.restore_path_model).restore(state)
-        log(f"Restored checkpoint at step {state.step}.", log_path)
+        say(f"Restored checkpoint at step {state.step}.")
+    if group is not None:
+        replicate(state.model, group)
     start_step = state.step
 
     loss_cfg = HybridLossConfig(
         w_text=cfg.w_text, w_image=cfg.w_image, w_smooth=cfg.w_smooth,
         contrast_capacity=cfg.contrast_capacity or None,
         class_balanced=cfg.class_balanced)
-    train_step = make_train_step(loss_cfg, cfg.accumulation_steps)
+    train_step = make_train_step(loss_cfg, cfg.accumulation_steps,
+                                 ddp_parity=cfg.ddp_parity, group=group)
     schedule = make_lr_schedule(cfg.scheduler_type, cfg.learning_rates,
                                 cfg.learning_schedule)
     n_opt_steps_total = opt_steps_per_epoch * n_epoch
-    log_configuration(log_path, {
+    config_lines = {
         "metadata": cfg.labeled_metadata_path,
         "batch_size": cfg.batch_size,
         "resolution": f"{cfg.n_height}x{cfg.n_width}",
@@ -241,21 +294,26 @@ def train_depth_clip_model(cfg: TrainerConfig) -> Dict:
         "accumulation_steps": cfg.accumulation_steps,
         "loss_weights": (cfg.w_text, cfg.w_image, cfg.w_smooth),
         "device": describe_device(device),
+        "ranks": world(group),
+        "step": "ddp_parity" if cfg.ddp_parity else "single device",
         "precision": "bf16" if cfg.bf16 else "fp32",
         "checkpoint_path": ckpt_root,
-    })
-    event_path = os.path.join(ckpt_root, "tensorboard")
-    train_writer = ScalarWriter(event_path + "-train")
-    val_writer = ScalarWriter(event_path + "-val")
+    }
+    train_writer = val_writer = None
+    if main:
+        log_configuration(log_path, config_lines)
+        event_path = os.path.join(ckpt_root, "tensorboard")
+        train_writer = ScalarWriter(event_path + "-train")
+        val_writer = ScalarWriter(event_path + "-val")
 
     best_results: Dict = {"step": -1, "loss": float("inf")}
     epoch_start = min(start_step // opt_steps_per_epoch, n_epoch - 1) + 1
     skip_windows = start_step - (epoch_start - 1) * opt_steps_per_epoch
     if start_step and (epoch_start > 1 or skip_windows):
-        log(f"Resuming at epoch {epoch_start}/{n_epoch} (step {start_step}; "
+        say(f"Resuming at epoch {epoch_start}/{n_epoch} (step {start_step}; "
             f"skipping {skip_windows} consumed window(s) of epoch "
-            f"{epoch_start}).", log_path)
-    log("Begin training...", log_path)
+            f"{epoch_start}).")
+    say("Begin training...")
 
     keys = ("depth", "segmentation", "object_label", "sample_valid")
     step_count = start_step
@@ -303,13 +361,13 @@ def train_depth_clip_model(cfg: TrainerConfig) -> Dict:
                     text_table, medium_matrix, hard_matrix)
                 step_count += 1
                 if written is not None and step_count == start_step + 4:
-                    _close_trace(trace, written, device, log_path)
+                    _close_trace(trace, written, device, say)
                     written = None
                 loss_sum = (info["total_loss"] if loss_sum is None
                             else loss_sum + info["total_loss"])
                 loss_count += 1
 
-                if step_count % cfg.n_step_per_summary == 0:
+                if main and step_count % cfg.n_step_per_summary == 0:
                     for tag, key in (("Loss/train_step", "total_loss"),
                                      ("Loss/text_contrast",
                                       "text_contrastive_loss"),
@@ -329,37 +387,46 @@ def train_depth_clip_model(cfg: TrainerConfig) -> Dict:
                 if (step_count >= cfg.validation_start_step
                         and step_count % (cfg.n_step_per_validation
                                           or cfg.n_step_per_summary) == 0):
-                    best_results = validate_model(
-                        state.model, val_loader, text_table, medium_matrix,
-                        hard_matrix, equivalence_tensor, equiv_class_map,
-                        curriculum, image_provider, step_count, best_results,
-                        seed=VAL_SEED, loss_config=loss_cfg,
-                        log_path=log_path,
-                        summary_writer=val_writer,
-                        candidate_labels=candidate_labels,
-                        n_sample_per_summary=cfg.n_sample_per_summary)
+                    if main:
+                        best_results = validate_model(
+                            state.model, val_loader, text_table,
+                            medium_matrix, hard_matrix, equivalence_tensor,
+                            equiv_class_map, curriculum, image_provider,
+                            step_count, best_results, seed=VAL_SEED,
+                            loss_config=loss_cfg, log_path=log_path,
+                            summary_writer=val_writer,
+                            candidate_labels=candidate_labels,
+                            n_sample_per_summary=cfg.n_sample_per_summary)
+                    if group is not None:  # the others wait here
+                        best_results = _broadcast_results(best_results,
+                                                          group)
                 if step_count % cfg.n_step_per_checkpoint == 0:
                     avg = float(loss_sum) / loss_count if loss_count else 0.0
-                    log_training_summary(log_path, step_count,
-                                         n_opt_steps_total, start_step, avg,
-                                         time_start)
-                    ckpt.save(state)
+                    if main:
+                        log_training_summary(log_path, step_count,
+                                             n_opt_steps_total, start_step,
+                                             avg, time_start)
+                        ckpt.save(state)
+                    barrier(group)
                 if cfg.max_steps is not None and step_count >= cfg.max_steps:
                     done = True
                     break
             avg_epoch = float(loss_sum) / loss_count if loss_count else 0.0
-            log(f"Epoch {epoch} END | Step {step_count} | Avg Loss: "
-                f"{avg_epoch:.7f} | LR: {lr}", log_path)
-            train_writer.add_scalar("Loss/train_epoch", avg_epoch, epoch)
+            say(f"Epoch {epoch} END | Step {step_count} | Avg Loss: "
+                f"{avg_epoch:.7f} | LR: {lr}")
+            if main:
+                train_writer.add_scalar("Loss/train_epoch", avg_epoch, epoch)
             # plateau scheduling keys on the latest validation loss once one
             # has run, on the epoch's train loss before
             schedule.step_metric(best_results.get("latest_val_loss",
                                                   avg_epoch))
         if written is not None:  # a run shorter than the profiled steps
-            _close_trace(trace, written, device, log_path)
+            _close_trace(trace, written, device, say)
 
-    ckpt.save(state)
-    log("Training finished.", log_path)
-    train_writer.close()
-    val_writer.close()
+    if main:
+        ckpt.save(state)
+        say("Training finished.")
+        train_writer.close()
+        val_writer.close()
+    barrier(group)
     return best_results

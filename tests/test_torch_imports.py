@@ -3,9 +3,10 @@ predict paths, a CPU train step, the opt-in kernel functions, a validation
 step, tiny CLIP towers (one converted from a ``.safetensors`` file), a
 tiny MiT UNet, the robustness sweep, the CLIPSeg mapping, the weighted
 losses, the numpy evaluation helpers, the monitors, the FLOP counter, the
-multinomial pixel sampler, the native depth transform and the setup CLI's
+multinomial pixel sampler, the native depth transform, the setup CLI's
 CSV-only subcommands (combine-metadata, remove-small, pseudo-gt over
-detection files) loads no JAX, flax, pandas, PIL, transformers,
+detection files), the sharded predict and the multi-rank dry run's inputs
+(``parallel/``) loads no JAX, flax, pandas, PIL, transformers,
 safetensors, matplotlib, h5py, scipy or ultralytics, and asking for a CUDA
 device that is absent raises instead of running on the CPU (the benchmark,
 convert and setup CLIs included)."""
@@ -154,6 +155,16 @@ with tempfile.TemporaryDirectory() as tmp:
     assert len(setup.main(["pseudo-gt", "--detections_glob",
                            os.path.join(tmp, "*.txt"), "--output_dir",
                            os.path.join(tmp, "nms")])) == 1
+from rangeclip_tpu_torch.parallel import (
+    make_mesh, make_sharded_predict, pad_class_table)
+from rangeclip_tpu_torch.parallel.dryrun import StepSpec, step_inputs
+cpu = torch.device("cpu")
+table, ids = pad_class_table(text, 2)
+assert table.shape[0] == 32 and int(ids[-1]) == -1
+sharded = make_sharded_predict(model.eval(), make_mesh(1, 2, [cpu] * 2), 2)
+assert torch.equal(sharded(depth, table, ids),
+                   predict_folded(model, depth, text, top_k=2))
+assert step_inputs(StepSpec(), 2, cpu)[0]["depth"].shape[1] == 4
 loaded = sorted(m for m in ("jax", "flax", "pandas", "PIL", "rangeclip_tpu",
                             "transformers", "safetensors", "matplotlib",
                             "h5py", "scipy", "ultralytics")

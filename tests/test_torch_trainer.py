@@ -3,7 +3,7 @@ loader's batches on the same files, ``cli/train --device cpu`` takes four
 steps and writes reference ``.pth`` files that both packages read, a run
 killed after step 1 and resumed is bitwise equal to the straight run, a run
 that validates at steps 2 and 4 trains bitwise as the straight run does,
-the train CLI refuses multi-GPU (a later slice) and traces steps 2-4
+the multi-GPU flags run at world 1, the train CLI traces steps 2-4
 under ``--profile_dir`` without moving training, and the host modules
 copied from the JAX package are pinned to their originals."""
 
@@ -184,14 +184,29 @@ def test_cli_train_validation_leaves_training_unchanged(dataset_dir,
             assert torch.equal(got[k], want[k]), (step, k)
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--ddp_parity"], "item 10"),
-    (["--distributed"], "item 10"),
-])
-def test_cli_train_refuses_later_slices(dataset_dir, tmp_path, extra, item):
+@pytest.mark.parametrize("flags", [
+    ["--ddp_parity"], ["--distributed"], ["--distributed", "--ddp_parity"]],
+    ids=["ddp_parity", "distributed", "distributed_ddp_parity"])
+def test_cli_train_multi_gpu_flags_at_world_one(dataset_dir, straight_run,
+                                                tmp_path, flags):
+    """The multi-GPU flags on one process, 2 steps, each bit-equal to the
+    straight run at steps 1 and 2 (so the three are bit-equal to each
+    other): --ddp_parity alone is the DDP step of one rank, whose draws
+    are rank 0's, the single-device stream; --distributed at world 1
+    (gloo, a file store), with or without --ddp_parity, is that step over
+    a group of one, which is closed after the run."""
     _, paths = dataset_dir
-    with pytest.raises(NotImplementedError, match=item):
-        train.main(_train_argv(paths, tmp_path, *extra))
+    extra = list(flags)
+    if "--distributed" in flags:
+        extra += ["--coordinator_address", f"file://{tmp_path}/store",
+                  "--num_processes", "1", "--process_id", "0"]
+    train.main(_train_argv(paths, tmp_path, "--max_steps", "2", *extra))
+    for step in (1, 2):
+        got, want = _weights(tmp_path, step), _weights(straight_run, step)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (step, k)
+    assert not torch.distributed.is_initialized()
 
 
 def test_cli_train_profile_dir_traces_and_leaves_training_unchanged(
