@@ -14,18 +14,21 @@ load as they are; validation runs from ``--validation_start_step`` on.
 ``--profile_dir`` writes a Chrome trace (``torch.profiler``) of optimizer
 steps 2-4 of the run.
 
-Multi-GPU: one process per GPU, each joining a process group, with the
-reference's DDP step (per-rank BatchNorm and losses, gradients averaged):
+Multi-GPU: one process per GPU, each joining a process group and reading
+its shard of the data.  By default the step is JAX's global-batch step: one
+batch of ``--batch_size`` rows a rank times the ranks, with BatchNorm's
+statistics, the contrast set and every loss taken over all of it, so the
+run trains as one device would on the whole batch:
 
   torchrun --nproc_per_node 8 -m rangeclip_tpu_torch.cli.train \
-    --distributed --ddp_parity ...
+    --distributed ...
 
-``--distributed`` reads torchrun's environment, or, outside torchrun,
-``--coordinator_address host:port --num_processes N --process_id i`` in
-each process (NCCL on CUDA, gloo with ``--device cpu``).  ``--ddp_parity``
-alone is that step on one device.  Over more than one rank
-``--distributed`` needs ``--ddp_parity``: JAX's global-batch step is
-ROADMAP item 10b.
+``--ddp_parity`` takes the reference's DDP step instead (per-rank
+BatchNorm and losses, gradients averaged).  ``--distributed`` reads
+torchrun's environment, or, outside torchrun, ``--coordinator_address
+host:port --num_processes N --process_id i`` in each process (NCCL on
+CUDA, gloo with ``--device cpu``).  ``--ddp_parity`` alone is the DDP step
+on one device.  Validation runs over every rank's shard of the val split.
 """
 
 from __future__ import annotations
@@ -121,8 +124,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "per-replica BN statistics and per-rank losses "
                              "over local batch shards, gradients averaged "
                              "(torch DDP, train_util.py:338) instead of the "
-                             "global-batch sync-BN formulation (ROADMAP "
-                             "item 10b)")
+                             "default global-batch step (sync-BN, one "
+                             "contrast set and the losses over every rank's "
+                             "rows)")
     parser.add_argument("--max_steps", type=int, default=None,
                         help="stop after N optimizer steps (smoke runs)")
     parser.add_argument("--seed", type=int, default=0)
@@ -132,7 +136,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--distributed", action="store_true",
                         help="join a torch.distributed process group (one "
                              "process per GPU; torchrun's environment, or "
-                             "the three flags below)")
+                             "the three flags below) and take the "
+                             "global-batch step over batch_size x ranks "
+                             "rows (--ddp_parity: the DDP step)")
     parser.add_argument("--coordinator_address", type=str, default=None,
                         help="host:port of rank 0's store for "
                              "--distributed outside torchrun (where the "

@@ -165,9 +165,10 @@ def setup_dataloaders(metadata_file: str, labels_file: str,
                       resize_shape: Tuple[int, int], batch_size: int,
                       n_epoch: int, shard_id: int = 0, num_shards: int = 1):
     """Train/val/test loaders and labels (dataloader.py:11-140): returns
-    (train_loader, val_loader, test_loader, n_train_steps, labels).  Only
-    the train loader is sharded (``shard_id`` of ``num_shards``): a
-    distributed run validates on rank 0 over the whole split."""
+    (train_loader, val_loader, test_loader, n_train_steps, labels).  Each
+    loader yields shard ``shard_id`` of ``num_shards`` (JAX's
+    ``setup_dataloaders``): a distributed run validates over every rank's
+    shard."""
     from rangeclip_tpu_torch.data.dataset import ImageDepthTextDataset
 
     dataset = ImageDepthTextDataset(metadata_file, labels_file, resize_shape)
@@ -175,7 +176,9 @@ def setup_dataloaders(metadata_file: str, labels_file: str,
     train = ShardedBatchLoader(dataset, train_idx, batch_size, shuffle=True,
                                drop_last=True, shard_id=shard_id,
                                num_shards=num_shards)
-    val = ShardedBatchLoader(dataset, val_idx, batch_size)
-    test = ShardedBatchLoader(dataset, test_idx, batch_size)
+    val = ShardedBatchLoader(dataset, val_idx, batch_size,
+                             shard_id=shard_id, num_shards=num_shards)
+    test = ShardedBatchLoader(dataset, test_idx, batch_size,
+                              shard_id=shard_id, num_shards=num_shards)
     n_train_steps = -(-len(train_idx) // batch_size) * n_epoch
     return train, val, test, n_train_steps, dataset.labels

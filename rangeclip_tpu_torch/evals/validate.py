@@ -16,6 +16,15 @@ from the training generators, so a validation changes nothing a later
 train step sees.  Every draw can be passed in instead (the candidate mask's
 Gumbel noise and the loss's :class:`Draws`), which is how the tests feed
 JAX's draws.
+
+Over a process group (``group``; JAX's ``validate_model(mesh=...)``,
+validate.py:159-205) each rank feeds its val-loader shard, and batch ``i``
+is the global batch of every rank's batch ``i`` in rank order: the
+candidate set is the classes present in any rank's rows plus negatives
+drawn from the same noise on every rank, the loss is the global batch's
+(its draws made for the whole batch, each rank keeping its rows), and the
+metric accumulators and loss sums are SUM all-reduced at the end.  Every
+rank returns the same results; only rank 0 prints.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from rangeclip_tpu_torch.models.depth_unet import (
     DepthUNet,
     build_candidate_mask,
 )
+from rangeclip_tpu_torch.parallel.mesh import all_reduce_sum, rank, world
 from rangeclip_tpu_torch.training.train_step import microbatch_generator
 from rangeclip_tpu_torch.utils.logging import log
 
@@ -50,7 +60,8 @@ VAL_SEED = 999  # the trainer's validation key (JAX: jax.random.key(999))
 
 
 def make_val_step(loss_config: HybridLossConfig = HybridLossConfig(),
-                  top_k: int = 5, num_negatives: int = 50) -> Callable:
+                  top_k: int = 5, num_negatives: int = 50,
+                  group=None) -> Callable:
     """The per-batch validation step
 
       step(model, batch, rng, pct_medium, pct_hard, text_table,
@@ -64,7 +75,10 @@ def make_val_step(loss_config: HybridLossConfig = HybridLossConfig(),
     mask draws from a CPU generator keyed (seed, index, 0), the loss from a
     device generator keyed (seed, index, 1), unless ``candidate_gumbel``
     ([C]) and ``draws`` are given.  ``loss_parts`` are the total, text,
-    image and smoothness losses."""
+    image and smoothness losses.  With ``group`` (more than one rank) the
+    batch is this rank's rows of the global batch, ``draws`` the global
+    batch's, ``acc`` and ``pred_topk`` this rank's rows' and ``loss_parts``
+    this rank's shares."""
 
     @torch.inference_mode()
     def val_step(model: DepthUNet, batch: Dict[str, torch.Tensor],
@@ -88,7 +102,7 @@ def make_val_step(loss_config: HybridLossConfig = HybridLossConfig(),
         seg = batch["segmentation"]
         cand_mask = build_candidate_mask(seg, num_classes, num_negatives,
                                          gumbel=candidate_gumbel,
-                                         generator=cand_gen)
+                                         generator=cand_gen, group=group)
         # the loss consumes the native-resolution normalised field through
         # the exact upsample identities (hybrid.py label_upsample)
         pred_topk, pixel_emb, temp_text = model.predict(
@@ -105,7 +119,7 @@ def make_val_step(loss_config: HybridLossConfig = HybridLossConfig(),
             temp_text, model.log_temperature_image.exp(), pct_medium,
             pct_hard, area, image_embeddings, area_valid=valid,
             sample_weight=valid, config=loss_config, label_upsample=ups,
-            draws=draws, generator=loss_gen)
+            draws=draws, generator=loss_gen, group=group)
         loss_parts = torch.stack([info[k].float() for k in (
             "total_loss", "text_contrastive_loss", "image_contrastive_loss",
             "smoothness_loss")])
@@ -141,16 +155,22 @@ def validate_model(
     summary_writer=None,
     candidate_labels: Optional[Sequence[str]] = None,
     n_sample_per_summary: int = 0,
+    group=None,
 ) -> Dict:
     """Run the validation loop on the model's device; returns the updated
-    ``best_results``.  With ``candidate_labels`` and
-    ``n_sample_per_summary`` set, the first batch's samples are rendered as
-    [depth | image | GT | prediction] grids through the summary writer
-    (reference validate.py:140-146); without matplotlib they are skipped,
-    with a line in the log.  Batch ``i`` is keyed (seed, i)."""
+    ``best_results``.  With ``group`` every rank of it calls this on its
+    shard of the val split, with as many batches on every rank (the module
+    docstring); the results are the global batches', on every rank.  With
+    ``candidate_labels`` and ``n_sample_per_summary`` set, the first
+    batch's samples are rendered as [depth | image | GT | prediction] grids
+    through the summary writer (reference validate.py:140-146); without
+    matplotlib they are skipped, with a line in the log.  Batch ``i`` is
+    keyed (seed, i)."""
     device = text_table.device
     num_classes = text_table.shape[0]
-    val_step = make_val_step(loss_config, top_k, num_negatives)
+    if group is not None and world(group) == 1:
+        group = None  # one rank: the single-device pass
+    val_step = make_val_step(loss_config, top_k, num_negatives, group)
     eq =equivalence_tensor.to(device)
     ecm = equiv_class_map.to(device)
     acc = metrics_init(num_classes, device)
@@ -181,6 +201,13 @@ def validate_model(
     finally:
         model.train(was_training)
 
+    if group is not None:
+        with torch.inference_mode():
+            present = acc["gt_present"].float()
+            all_reduce_sum([v for k, v in acc.items() if k != "gt_present"]
+                           + [loss_sums, present], group)
+            acc["gt_present"] = present > 0
+    console = group is None or rank(group) == 0
     results = metrics_finalize(acc)
     avg = loss_sums.cpu().numpy() / max(n_batches, 1)
     results.update(
@@ -190,17 +217,18 @@ def validate_model(
         avg_smoothness_loss=float(avg[3]),
     )
     log(f"[Val] [Step {step}] Top-1 pixel accuracy (equiv): "
-        f"{results['pixel_accuracy_t1']:.4f}", log_path)
+        f"{results['pixel_accuracy_t1']:.4f}", log_path, console)
     log(f"[Val] [Step {step}] Top-k pixel accuracy (equiv): "
-        f"{results['pixel_accuracy_tk']:.4f}", log_path)
+        f"{results['pixel_accuracy_tk']:.4f}", log_path, console)
     log(f"[Val] [Step {step}] Top-1 mIoU (equiv): {results['mIoU_t1']:.4f}",
-        log_path)
+        log_path, console)
     log(f"[Val] [Step {step}] Top-k mIoU (equiv): {results['mIoU_tk']:.4f}",
-        log_path)
+        log_path, console)
     log(f"[Val] Step {step} | Loss: {results['avg_loss']:.4f}, "
         f"Text Contrastive: {results['avg_text_contrastive_loss']:.4f}, "
         f"Image Contrastive: {results['avg_image_contrastive_loss']:.4f}, "
-        f"Smoothness: {results['avg_smoothness_loss']:.4f}", log_path)
+        f"Smoothness: {results['avg_smoothness_loss']:.4f}", log_path,
+        console)
 
     # the latest (not best) validation loss: the plateau schedule's metric
     best_results["latest_val_loss"] = results["avg_loss"]
@@ -218,7 +246,7 @@ def validate_model(
         )
     if "loss" in best_results and best_results.get("step", -1) >= 0:
         log(f"Best validation loss: {best_results['loss']:.4f} at step "
-            f"{best_results['step']}", log_path)
+            f"{best_results['step']}", log_path, console)
     if summary_writer is not None:
         summary_writer.add_scalars("val", results, step)
     return best_results

@@ -5,7 +5,13 @@ full-resolution labels, every term commuting exactly with the nearest xs
 upsample.  The pixel sampling is the histogram of uniform draws in slot
 order, as on the JAX package's kernel path (``pixel_sampler="auto"``), or
 multinomial counts drawn by binomial splitting (``"multinomial"``, opt-in:
-the same law, another realisation of it)."""
+the same law, another realisation of it).
+
+Over a process group (``group``: the global-batch step and sharded
+validation) the field and labels are this rank's row block of the global
+batch, the draws are the global batch's (:class:`Draws`), and every term
+comes back as this rank's share: the ranks' totals add up to the loss of
+the global batch (``losses/infonce.py``)."""
 
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from rangeclip_tpu_torch.losses.infonce import (
     sample_pixel_multiplicities_multinomial,
 )
 from rangeclip_tpu_torch.losses.smoothness import total_variation_loss
+from rangeclip_tpu_torch.parallel.kernel_shard import global_sum
 
 
 PIXEL_SAMPLERS = ("auto", "histogram", "multinomial")
@@ -53,7 +60,9 @@ class Draws:
     """The random inputs of one loss call (the JAX key's draws, injectable):
     ``pixels`` [B, n] draw indices in [0, H*W) of the histogram sampler,
     ``counts`` [B, H*W] of the multinomial one, ``gumbel`` (medium/hard,
-    random) noise, each [C].  None fields are drawn from a generator."""
+    random) noise, each [C].  None fields are drawn from a generator.
+    Under a process group ``pixels`` and ``counts`` hold the global
+    batch's rows, of which each rank keeps its own."""
 
     pixels: Optional[torch.Tensor] = None
     gumbel: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
@@ -61,10 +70,11 @@ class Draws:
 
 
 def class_balance(labels: torch.Tensor, valid: torch.Tensor,
-                  num_classes: int) -> torch.Tensor:
+                  num_classes: int, group=None) -> torch.Tensor:
     """Rescale ``valid`` so every present class carries equal total weight,
     sum preserved (hybrid.py:215-227).  Labels outside [0, C) get weight 0
-    here, where JAX's gather fills them with NaN."""
+    here, where JAX's gather fills them with NaN.  Under ``group`` the [C]
+    counts are every rank's."""
     flat_l = labels.reshape(-1).long()
     flat_v = valid.reshape(-1).float()
     inside = (flat_l >= 0) & (flat_l < num_classes)
@@ -72,6 +82,8 @@ def class_balance(labels: torch.Tensor, valid: torch.Tensor,
     counts = torch.zeros(num_classes, dtype=torch.float32,
                          device=valid.device)
     counts.index_add_(0, safe, torch.where(inside, flat_v, 0.0))
+    if group is not None:
+        counts = global_sum(counts, group)
     present = counts > 0
     n_present = present.float().sum().clamp_min(1.0)
     mult = torch.where(present,
@@ -99,6 +111,7 @@ def compute_hybrid_loss(
     label_upsample: int = 1,
     draws: Optional[Draws] = None,
     generator: Optional[torch.Generator] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full hybrid loss (hybrid.py:77-264).
 
@@ -113,6 +126,9 @@ def compute_hybrid_loss(
         for the area-image term (None disables it).
       sample_weight: optional [B] 0/1 mask of padded batch items.
       draws / generator: the random inputs (see :class:`Draws`).
+      group: a process group of more than one rank, whose ranks hold equal
+        row blocks of the global batch; the losses in the result are this
+        rank's shares (the temperatures and weights are not).
 
     Returns (total, info dict of f32 scalars).
     """
@@ -133,24 +149,25 @@ def compute_hybrid_loss(
             # loop, which JAX does only for XLA's while_loop
             valid, labels = sample_pixel_multiplicities_multinomial(
                 target_indices, cfg.percent_image_sampling, slots=s,
-                counts=draws.counts, generator=generator)
+                counts=draws.counts, generator=generator, group=group)
         else:
             valid, labels = sample_pixel_multiplicities(
                 target_indices, cfg.percent_image_sampling, slots=s,
-                draws=draws.pixels, generator=generator)
+                draws=draws.pixels, generator=generator, group=group)
         if sample_weight is not None:
             S, N = valid.shape
             valid = (valid.reshape(S, B, N // B)
                      * sample_weight.float()[None, :, None]).reshape(S, N)
         contrast_mask = build_contrast_mask(
             labels, valid, num_classes, medium_matrix, hard_matrix,
-            cfg.k_distractors, pct_medium, pct_hard, draws.gumbel, generator)
+            cfg.k_distractors, pct_medium, pct_hard, draws.gumbel, generator,
+            group)
         if cfg.class_balanced:
-            valid = class_balance(labels, valid, num_classes)
+            valid = class_balance(labels, valid, num_classes, group)
         text_loss = pixel_text_infonce(
             pixel_embeddings, labels, valid,
             candidate_text_embeddings.to(pixel_embeddings.device),
-            contrast_mask, temperature_text, cfg.contrast_capacity)
+            contrast_mask, temperature_text, cfg.contrast_capacity, group)
 
     image_loss = zero
     if (cfg.w_image > 0 and area_embeddings is not None
@@ -159,12 +176,13 @@ def compute_hybrid_loss(
             area_valid = torch.ones(area_embeddings.shape[0],
                                     device=area_embeddings.device)
         image_loss = area_image_infonce(area_embeddings, image_embeddings,
-                                        area_valid, temperature_image)
+                                        area_valid, temperature_image, group)
 
     smooth_loss = zero
     if cfg.w_smooth > 0:
         smooth_loss = total_variation_loss(pixel_embeddings, upsample=s,
-                                           sample_weight=sample_weight)
+                                           sample_weight=sample_weight,
+                                           group=group)
 
     total = (cfg.w_text * text_loss + cfg.w_image * image_loss
              + cfg.w_smooth * smooth_loss)

@@ -12,6 +12,14 @@ without them the draws come from a ``torch.Generator``.  The opt-in
 multinomial sampler (``multinomial_counts``: the same law as the histogram,
 drawn by binomial splitting) holds to JAX in law and in its slot layout.
 Not ported: ``sample_pixels`` (the multiplicity form replaces it).
+
+Over a process group (``group``, the global-batch step) each rank holds its
+row block of the global batch: the draws are made for the whole global
+batch, the same on every rank, and each keeps its rows; presence and the
+valid counts are taken over every rank (``parallel/kernel_shard.py``), and
+the losses come back as this rank's share, its rows' partial sum over the
+global denominator, so that the ranks' shares add up to the loss of the
+global batch.
 """
 
 from __future__ import annotations
@@ -22,9 +30,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from rangeclip_tpu_torch.ops.kernels.class_presence import class_presence
-from rangeclip_tpu_torch.ops.kernels.histogram import histogram
-from rangeclip_tpu_torch.ops.kernels.pixel_text_ce import fused_pixel_text_ce
+from rangeclip_tpu_torch.parallel.kernel_shard import (
+    sharded_ce_sum,
+    sharded_class_presence,
+    sharded_histogram,
+)
+from rangeclip_tpu_torch.parallel.mesh import gather_rows, rank, row_block
+from rangeclip_tpu_torch.parallel.mesh import world as group_world
 from rangeclip_tpu_torch.utils.math import l2_normalize
 
 NEG_INF = -1e30
@@ -53,6 +65,7 @@ def sample_pixel_multiplicities(
     slots: int = 1,
     draws: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Multiplicity-weighted uniform pixel sampling (infonce.py:74-142).
 
@@ -62,6 +75,9 @@ def sample_pixel_multiplicities(
         ``generator`` on the target's device).
       slots: s; the draws are remapped to slot-major positions before the
         histogram (infonce.py:109-114), as the TPU path does.
+      group: ``target`` is this rank's rows and ``draws`` [world * B, n]
+        the global batch's (drawn so when None); each rank histograms its
+        own images.
 
     Returns:
       slots == 1: (weights [B*H*W] f32 = multiplicity * (label > 0),
@@ -72,14 +88,15 @@ def sample_pixel_multiplicities(
     B, H, W = target.shape
     n_total = H * W
     if draws is None:
-        draws = draw_pixels(B, H, W, percent, generator, target.device)
+        rows = B * (1 if group is None else group_world(group))
+        draws = draw_pixels(rows, H, W, percent, generator, target.device)
     idx = draws.to(device=target.device, dtype=torch.int64)
     s = slots
     if s > 1:
         h, w = H // s, W // s
         y, x = idx // W, idx % W
         idx = ((y % s) * s + (x % s)) * (h * w) + (y // s) * w + (x // s)
-    counts = histogram(idx.to(torch.int32).contiguous(), n_total)
+    counts = sharded_histogram(idx.to(torch.int32), n_total, group)
     target = target.to(torch.int32)
     if s > 1:
         labels = target.reshape(B, h, s, w, s).permute(2, 4, 0, 1, 3)
@@ -132,6 +149,7 @@ def sample_pixel_multiplicities_multinomial(
     slots: int = 1,
     counts: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The scatter-free sampler (infonce.py:184-231): per-image counts
     drawn from the Multinomial law of with-replacement sampling
@@ -144,13 +162,19 @@ def sample_pixel_multiplicities_multinomial(
         target's device).  Bin b of an image is, slot-major, slot (a, c) of
         native pixel (i, j): multinomial bins are exchangeable, so that
         assignment is free and no full-resolution transpose is needed.
+      group: ``target`` is this rank's rows and ``counts`` [world * B,
+        H * W] the global batch's (drawn so when None); each rank keeps its
+        rows.
 
     Returns the contract of :func:`sample_pixel_multiplicities`."""
     B, H, W = target.shape
     n_total = H * W
     if counts is None:
-        counts = multinomial_counts(n_draws(H, W, percent), n_total, B,
+        rows = B * (1 if group is None else group_world(group))
+        counts = multinomial_counts(n_draws(H, W, percent), n_total, rows,
                                     generator, target.device)
+    if group is not None:
+        counts = row_block(counts, group)
     counts = counts.to(device=target.device, dtype=torch.float32)
     target = target.to(torch.int32)
     s = slots
@@ -206,6 +230,7 @@ def build_contrast_mask(
     pct_hard: float = 0.75,
     gumbel: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     generator: Optional[torch.Generator] = None,
+    group=None,
 ) -> torch.Tensor:
     """[C] bool contrast-set mask (infonce.py:233-308): present labels, plus
     n_medium + n_hard distractors drawn from the pooled similarity sets of
@@ -213,12 +238,11 @@ def build_contrast_mask(
 
     ``gumbel``: (noise of the medium/hard draw, noise of the random draw),
     each [C]; default drawn from ``generator``.  Presence runs through the
-    ``class_presence`` kernel on CUDA tensors."""
+    ``class_presence`` kernel on CUDA tensors, over every rank's rows under
+    ``group`` (the noise is then the same on every rank)."""
     C = num_classes
     device = labels.device
-    present = class_presence(labels.reshape(-1).to(torch.int32).contiguous(),
-                             valid.reshape(-1).to(torch.float32).contiguous(),
-                             C)
+    present = sharded_class_presence(labels, valid, C, group)
     present_f = present.float()
     n_medium, n_hard, n_rand = distractor_counts(k_distractors, pct_medium,
                                                  pct_hard)
@@ -270,6 +294,7 @@ def pixel_text_infonce(
     contrast_mask: torch.Tensor,
     temperature: torch.Tensor,
     contrast_capacity: Optional[int] = None,
+    group=None,
 ) -> torch.Tensor:
     """Masked cross-entropy over pixel x text similarities (infonce.py:335-
     438, the kernel branch): ``samples`` [N, D] or the [B, h, w, D] field,
@@ -280,10 +305,10 @@ def pixel_text_infonce(
     samples with a capacity K < C score the packed member table when the
     live set fits (n_contrast <= K) and the full table otherwise, the choice
     read on the device.  PRECONDITION of the packed branch: every valid
-    label is a member (``build_contrast_mask`` guarantees it)."""
+    label is a member (``build_contrast_mask`` guarantees it).  Under
+    ``group`` the CE sum is this rank's rows' and the valid count every
+    rank's: the loss is this rank's share."""
     n_contrast = contrast_mask.sum(dtype=torch.int32)
-    n_valid = valid.sum()
-    ok = (n_contrast > 1) & (n_valid > 0)
     text_n = l2_normalize(text_embeddings.float(), dim=-1)
     C = text_n.shape[0]
     K = capacity_of(contrast_capacity)
@@ -291,25 +316,36 @@ def pixel_text_infonce(
     if K is not None and K < C and samples.dtype == torch.bfloat16:
         ids, ptable, pmask = pack_contrast_set(contrast_mask, text_n, K)
         packed = (ptable.to(samples.dtype), pmask, ids, n_contrast <= K)
-    ce_sum = fused_pixel_text_ce(samples, temperature, labels, valid,
-                                 text_n.to(samples.dtype), contrast_mask,
-                                 packed)
+    ce_sum, n_valid = sharded_ce_sum(samples, temperature, labels, valid,
+                                     text_n.to(samples.dtype), contrast_mask,
+                                     packed, group)
+    ok = (n_contrast > 1) & (n_valid > 0)
     loss = ce_sum / n_valid.clamp_min(1.0)
     return torch.where(ok, loss, torch.zeros_like(loss))
 
 
 def area_image_infonce(area_embeddings: torch.Tensor,
                        image_embeddings: torch.Tensor, valid: torch.Tensor,
-                       temperature: torch.Tensor) -> torch.Tensor:
+                       temperature: torch.Tensor, group=None) -> torch.Tensor:
     """Diagonal-label InfoNCE between area and image embeddings with a
     validity mask over instances (infonce.py:463-490); 0 with fewer than 2
-    valid instances."""
+    valid instances.  Under ``group`` this rank's area rows are scored
+    against every rank's image embeddings and validity (gathered, not
+    differentiated: they are frozen inputs), over the global valid count:
+    the loss is this rank's share."""
     area_n = l2_normalize(area_embeddings.float(), dim=-1)
-    img_n = l2_normalize(image_embeddings.float(), dim=-1)
+    if group is None:
+        img_all, valid_all, offset = image_embeddings, valid, 0
+    else:
+        both = gather_rows(torch.cat([image_embeddings.float(),
+                                      valid.float()[:, None]], 1), group)
+        img_all, valid_all = both[:, :-1], both[:, -1]
+        offset = rank(group) * area_n.shape[0]
+    img_n = l2_normalize(img_all.float(), dim=-1)
     logits = (area_n @ img_n.T) / temperature
-    logits = torch.where(valid[None, :] > 0, logits,
+    logits = torch.where(valid_all[None, :] > 0, logits,
                          torch.full_like(logits, NEG_INF))
-    ce = torch.logsumexp(logits, dim=-1) - torch.diagonal(logits)
-    n_valid = valid.sum()
+    ce = torch.logsumexp(logits, dim=-1) - torch.diagonal(logits, offset)
+    n_valid = valid_all.sum()
     loss = (ce * valid).sum() / n_valid.clamp_min(1.0)
     return torch.where(n_valid > 1, loss, torch.zeros_like(loss))

@@ -10,15 +10,16 @@ from __future__ import annotations
 import torch
 
 from rangeclip_tpu_torch.ops.kernels.masked_pooling import (
-    fused_masked_pooling,
     masked_pooling_plain,
 )
+from rangeclip_tpu_torch.parallel.kernel_shard import sharded_masked_pooling
 
 
 def masked_average_pooling(pixel_embeddings: torch.Tensor,
                            segmentation_map: torch.Tensor,
                            object_indices: torch.Tensor,
-                           use_pallas: str = "auto") -> torch.Tensor:
+                           use_pallas: str = "auto",
+                           group=None) -> torch.Tensor:
     """For each object id, the mean of the pixel embeddings labelled with it
     across the whole batch.
 
@@ -30,16 +31,26 @@ def masked_average_pooling(pixel_embeddings: torch.Tensor,
         ``masked_pooling`` kernel for CUDA tensors and its plain version for
         CPU tensors; 'never' is the JAX package's XLA path, the dense
         [N, B*H*W] match product, on either device.
+      group: a process group over whose ranks' rows (each rank's
+        ``pixel_embeddings`` and ``segmentation_map`` its block of the
+        global batch) the means are taken (JAX ``pooling.py:46-48``: the
+        sums and counts all-reduced, ``parallel/kernel_shard.py``); the
+        kernel route only.
 
     Returns [N, D] f32; zero rows for objects absent from the batch."""
     if use_pallas not in ("auto", "always", "never"):
         raise ValueError(f"unknown use_pallas {use_pallas!r}")
-    B, H, W, D = pixel_embeddings.shape
-    emb = pixel_embeddings.reshape(B * H * W, D)
-    seg = segmentation_map.reshape(B * H * W)
-    pool = masked_pooling_plain if use_pallas == "never" else \
-        fused_masked_pooling
-    sums, counts = pool(emb, seg, object_indices)
+    if use_pallas == "never":
+        if group is not None:
+            raise ValueError("masked_average_pooling over a group takes "
+                             "the kernel route, not use_pallas='never'")
+        B, H, W, D = pixel_embeddings.shape
+        sums, counts = masked_pooling_plain(
+            pixel_embeddings.reshape(B * H * W, D),
+            segmentation_map.reshape(B * H * W), object_indices)
+    else:
+        sums, counts = sharded_masked_pooling(
+            pixel_embeddings, segmentation_map, object_indices, group)
     counts = counts[:, None]
     return torch.where(counts > 0, sums / counts.clamp_min(1.0),
                        torch.zeros_like(sums))

@@ -463,18 +463,29 @@ def sample_gumbel(num_classes: int,
 def build_candidate_mask(segmentation: torch.Tensor, num_classes: int,
                          num_negatives: int,
                          gumbel: Optional[torch.Tensor] = None,
-                         generator: Optional[torch.Generator] = None
-                         ) -> torch.Tensor:
+                         generator: Optional[torch.Generator] = None,
+                         group=None) -> torch.Tensor:
     """[C] bool mask: the classes present in ``segmentation`` plus
     ``num_negatives`` others drawn without replacement (Gumbel top-k over
     the complement).  ``gumbel`` ([C]) is the noise; without it, noise is
     drawn from ``generator``.  JAX draws its noise inside the function from
-    a key; passing the same draw here gives the same mask."""
+    a key; passing the same draw here gives the same mask.  Under a process
+    ``group`` presence is taken over every rank's rows
+    (``parallel/kernel_shard.sharded_class_presence``), and the noise must
+    be the same on every rank."""
     device = segmentation.device
     # every label counts: JAX's all-ones validity vector
-    gt_mask = class_presence(
-        segmentation.reshape(-1).to(torch.int32).contiguous(), None,
-        num_classes)
+    if group is None:
+        gt_mask = class_presence(
+            segmentation.reshape(-1).to(torch.int32).contiguous(), None,
+            num_classes)
+    else:  # imported here: the parallel package imports this module
+        from rangeclip_tpu_torch.parallel.kernel_shard import (
+            sharded_class_presence,
+        )
+
+        gt_mask = sharded_class_presence(segmentation, None, num_classes,
+                                         group)
     if gumbel is None:
         gumbel = sample_gumbel(num_classes, generator)
     scores = torch.where(gt_mask, -math.inf,

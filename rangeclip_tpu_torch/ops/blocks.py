@@ -14,11 +14,14 @@ Every conv block ends in BatchNorm or InstanceNorm (torch's defaults: eps
 Parameters stay float32.  A block computes in the dtype of its input: conv
 weights are cast to it, and BatchNorm normalises in float32 and casts back,
 as the JAX blocks do with a bf16 compute dtype.  In train mode BatchNorm
-updates its running statistics as flax does (:class:`BatchNorm2d`).
+updates its running statistics as flax does (:class:`BatchNorm2d`), and
+inside :func:`sync_batch_norm` takes its statistics over the global batch
+of a process group, as flax's ``BatchNorm`` does under a mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
@@ -42,20 +45,96 @@ def conv2d(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
                     conv.padding, conv.dilation, conv.groups)
 
 
+_SYNC_GROUP = None  # the process group of sync_batch_norm, while entered
+
+
+@contextlib.contextmanager
+def sync_batch_norm(group):
+    """While entered, every :class:`BatchNorm2d` in train mode normalises
+    with the statistics of the global batch over ``group``'s ranks (the
+    global-batch train step enters it).  ``None`` changes nothing."""
+    global _SYNC_GROUP
+    saved, _SYNC_GROUP = _SYNC_GROUP, group
+    try:
+        yield
+    finally:
+        _SYNC_GROUP = saved
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm of NCHW ``x`` over every rank's rows, in f32
+    (f64 for an f64 ``x``).  The forward gathers each rank's per-channel
+    [n, mean, centred sum of squares] in one all-reduce and combines them
+    in rank order (Chan et al.'s pairwise update), so every rank holds the
+    same biased variance.  flax takes ``E[x^2] - E[x]^2`` instead, which
+    loses the variance of a channel whose mean is large against its
+    spread: against ``F.batch_norm`` on one device (the CPU, ResNet-18 at
+    full width on 32^2 maps) that form moved the step's gradients by up
+    to 19% of a tensor's largest entry, the combination by 0.1%.  The backward all-reduces [sum dy,
+    sum dy * xhat] for the input's gradient.  The weight and bias
+    gradients are the local sums: the step adds the ranks' gradients up
+    once a window.  Returns (y, mean, biased var)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        from rangeclip_tpu_torch.parallel.mesh import gather_rows
+
+        C = x.shape[1]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        var_r, mean_r = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+        n_r = xf.new_full((1,), x.numel() // C)
+        parts = gather_rows(torch.cat([n_r, mean_r, var_r * n_r])[None],
+                            group)
+        counts, means, m2s = parts[:, :1], parts[:, 1:C + 1], parts[:, C + 1:]
+        n = counts.sum()
+        mean = (counts * means).sum(dim=0) / n
+        var = (m2s + counts * (means - mean).square()).sum(dim=0) / n
+        invstd = torch.rsqrt(var + eps)
+        shape = (1, -1, 1, 1)
+        xhat = (xf - mean.reshape(shape)) * invstd.reshape(shape)
+        y = xhat * weight.reshape(shape) + bias.reshape(shape)
+        ctx.save_for_backward(xhat, invstd, weight, n)
+        ctx.group, ctx.dtype = group, x.dtype
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        from rangeclip_tpu_torch.parallel.mesh import all_reduce_sum
+
+        xhat, invstd, weight, n = ctx.saved_tensors
+        C = xhat.shape[1]
+        dy = dy.to(xhat.dtype)
+        local = torch.cat([dy.sum(dim=(0, 2, 3)),
+                           (dy * xhat).sum(dim=(0, 2, 3))])
+        sums = local.clone()
+        all_reduce_sum([sums], ctx.group)
+        shape = (1, -1, 1, 1)
+        dx = (weight * invstd).reshape(shape) * (
+            dy - (sums[:C] / n).reshape(shape)
+            - xhat * (sums[C:] / n).reshape(shape))
+        return dx.to(ctx.dtype), local[C:], local[:C], None, None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train-mode running statistics follow flax's
     ``BatchNorm(momentum=0.9)`` (blocks.py:89-96): 0.9 * old + 0.1 * batch,
     with the BIASED batch variance in f32, where torch's module takes the
     unbiased one.  Normalisation (batch statistics in train mode, running
     ones in eval mode) is torch's own; ``num_batches_tracked`` counts as
-    before."""
+    before.  Inside :func:`sync_batch_norm` a train-mode forward takes the
+    global batch's statistics (:class:`_SyncBatchNorm`), so every rank
+    ends with the same running statistics."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         C = x.shape[1]
         n = x.numel() // C
-        if n == 1:
+        if _SYNC_GROUP is not None:
+            y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias,
+                                                self.eps, _SYNC_GROUP)
+        elif n == 1:
             # one value per channel, which F.batch_norm refuses and flax
             # normalises to exactly the bias: x - mean is 0
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
@@ -69,8 +148,9 @@ class BatchNorm2d(nn.BatchNorm2d):
             # momentum 1 into fresh buffers: the kernel hands back the
             # batch mean and the unbiased variance it normalised with, so
             # no second pass over x is needed for the statistics
-            mean = torch.zeros(C, dtype=torch.float32, device=x.device)
-            var = torch.zeros(C, dtype=torch.float32, device=x.device)
+            dtype = torch.promote_types(x.dtype, torch.float32)
+            mean = torch.zeros(C, dtype=dtype, device=x.device)
+            var = torch.zeros(C, dtype=dtype, device=x.device)
             y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
                              1.0, self.eps)
             var = var * ((n - 1) / n)

@@ -1,9 +1,9 @@
 """Parallelism (``rangeclip_tpu/parallel/``): a grid of devices for
 data-parallel, class-sharded predict in one process, and a process group for
-``--distributed`` training (one process per GPU; gradients and BatchNorm
-statistics mean-all-reduced by explicit collectives).  JAX's global-batch
-partitioning of the kernels (``kernel_shard.py``) and its 'spatial' axis are
-ROADMAP item 10b."""
+``--distributed`` training (one process per GPU, by explicit collectives):
+JAX's global-batch step, whose kernels combine their per-rank results in
+``kernel_shard.py``, or the ``ddp_parity`` step.  JAX's 'spatial' axis and
+model-sharded training tables are ROADMAP item 10b."""
 
 from rangeclip_tpu_torch.parallel.mesh import (
     Mesh,
@@ -12,6 +12,7 @@ from rangeclip_tpu_torch.parallel.mesh import (
     make_mesh,
     rank,
     replicate,
+    shard_class_tables,
     world,
 )
 from rangeclip_tpu_torch.parallel.predict import (
@@ -29,6 +30,7 @@ __all__ = [
     "pad_class_table",
     "rank",
     "replicate",
+    "shard_class_tables",
     "shard_predict_inputs",
     "world",
 ]

@@ -13,15 +13,19 @@ port keeps the two things that mesh is used for, each in its own form:
   ``--distributed`` training runs over, one process per GPU as ``torchrun``
   starts them (JAX runs one process over all of a host's devices).  The
   batch is sharded by the loader (``data/loader.py`` ``shard_id``,
-  ``num_shards``), so JAX's ``shard_batch`` has no counterpart;
-  ``replicate`` broadcasts rank 0's parameters and buffers once, and the
-  class tables are built by every rank alike (JAX's ``shard_class_tables``
-  without ``shard_classes``; model-sharded tables are item 10b).
+  ``num_shards``); the global batch is the ranks' rows concatenated in rank
+  order (JAX's process-major ``shard_batch``), :func:`row_block` is this
+  rank's block of an array over the global batch and :func:`gather_rows`
+  the global array from every rank's block.  ``replicate`` broadcasts rank
+  0's parameters and buffers once, and the class tables are built by every
+  rank alike (JAX's ``shard_class_tables`` without ``shard_classes``;
+  model-sharded tables are item 10b).
 
-Collectives are explicit (:func:`all_reduce_mean`, :func:`broadcast`), in
-one flattened bucket per dtype, and use only ``all_reduce``, ``broadcast``
-and ``barrier``: the three that gloo also takes on CUDA tensors, so that
-several ranks can share one card over gloo where NCCL refuses them.
+Collectives are explicit (:func:`all_reduce_sum`, :func:`all_reduce_mean`,
+:func:`broadcast`), in one flattened bucket per dtype, and use only
+``all_reduce``, ``broadcast`` and ``barrier``: the three that gloo also
+takes on CUDA tensors, so that several ranks can share one card over gloo
+where NCCL refuses them.
 """
 
 from __future__ import annotations
@@ -193,8 +197,8 @@ def world(group=None) -> int:
 
 
 def is_main() -> bool:
-    """Rank 0 of the world: the rank that logs, writes summaries and
-    checkpoints, and validates."""
+    """Rank 0 of the world: the rank that logs and writes summaries and
+    checkpoints."""
     return rank() == 0
 
 
@@ -222,6 +226,18 @@ def _collective(tensors: Iterable[torch.Tensor], op) -> None:
             t.copy_(piece.view(t.shape))
 
 
+def all_reduce_sum(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Replace each tensor, in place, by its sum over the ranks of
+    ``group``; every rank ends with the same bits.  A group of one is left
+    alone."""
+    import torch.distributed as dist
+
+    if world(group) == 1 or not tensors:
+        return
+    _collective(tensors, lambda flat: dist.all_reduce(
+        flat, op=dist.ReduceOp.SUM, group=group))
+
+
 def all_reduce_mean(tensors: Sequence[torch.Tensor], group=None) -> None:
     """Replace each tensor, in place, by its mean over the ranks of
     ``group`` (a sum, then a division by the world size: gloo has no
@@ -239,6 +255,30 @@ def all_reduce_mean(tensors: Sequence[torch.Tensor], group=None) -> None:
     _collective(tensors, op)
 
 
+def row_block(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """This rank's block of ``x`` over the global batch along ``dim``:
+    rows ``rank * n .. (rank + 1) * n`` of its ``world * n``."""
+    n = world(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"{x.shape[dim]} global rows do not split over "
+                         f"{n} ranks")
+    per = x.shape[dim] // n
+    return x.narrow(dim, rank(group) * per, per)
+
+
+def gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The ``[world * n, ...]`` concatenation of every rank's ``[n, ...]``
+    block in rank order (an all-gather as the all-reduce of a zero buffer
+    in which each rank fills its own block).  Not differentiated."""
+    n = world(group)
+    if n == 1:
+        return x
+    out = x.new_zeros((n * x.shape[0],) + tuple(x.shape[1:]))
+    row_block(out, group).copy_(x)
+    all_reduce_sum([out], group)
+    return out
+
+
 def broadcast(tensors: Sequence[torch.Tensor], group=None) -> None:
     """Overwrite each tensor, in place, with group rank 0's."""
     import torch.distributed as dist
@@ -247,6 +287,19 @@ def broadcast(tensors: Sequence[torch.Tensor], group=None) -> None:
         return
     src = dist.get_global_rank(group, 0) if group is not None else 0
     _collective(tensors, lambda flat: dist.broadcast(flat, src, group=group))
+
+
+def shard_class_tables(text_table: torch.Tensor, medium_matrix: torch.Tensor,
+                       hard_matrix: torch.Tensor,
+                       shard_classes: bool = False):
+    """The train step's frozen class tables: held whole by every rank, as
+    JAX replicates them.  ``shard_classes`` (the class axis split over a
+    'model' axis of a 2-D grid of process groups) is refused."""
+    if shard_classes:
+        raise NotImplementedError(
+            "model-sharded class tables in training (a 2-D grid of process "
+            f"groups) are not ported yet: {ITEM_10B}")
+    return text_table, medium_matrix, hard_matrix
 
 
 def replicate(module: torch.nn.Module, group=None) -> torch.nn.Module:

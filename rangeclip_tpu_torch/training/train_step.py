@@ -23,23 +23,39 @@ multinomial sampler out of its scan and gradient
 ``jax.random.binomial``'s rejection loops there; this loop is eager, so the
 sampler runs where the loss calls it.
 
-``ddp_parity`` (JAX ``train_step.py:32-44,186-218``) is the reference's
-torch DDP: each rank of ``group`` runs the step above on its own rows (its
-BatchNorm normalises with its local statistics, its losses normalise over
-its rows), then, by explicit collectives in flattened buckets
-(``parallel/mesh.all_reduce_mean``): after each microbatch the BatchNorm
-running statistics are averaged over the ranks (JAX's pmean merge of
-``new_stats``, where torch DDP broadcasts rank 0's), and after the window
-the gradients (once a window, not once a microbatch: the sum over
-microbatches and the mean over ranks commute, so only the f32 rounding
-order differs, within JAX's own test tolerances) and the info.  Every rank
-then holds the same gradients, and Adam moves every replica alike.  The
-``DistributedDataParallel`` wrapper is not used: the step calls
-``forward_native``, which its reducer never sees, and it broadcasts
-buffers where JAX averages them.  JAX's default over a mesh, one global
-batch (sync-BatchNorm, the contrast set and the losses over every rank's
-rows), is ROADMAP item 10b: a group of more than one rank without
-``ddp_parity`` raises.
+Over a process group (``group``, a ``torch.distributed`` group of more
+than one rank, each holding B rows of every microbatch) there are two
+steps:
+
+* The global-batch step (the default; JAX's step jitted over a 'data'
+  mesh, train_step.py:22-30).  Every rank ends with what the single-device
+  step gives on the ``world * B``-row batch formed by the ranks' rows in
+  rank order: the same loss, info, gradients, BatchNorm running statistics
+  and parameters, up to the rounding of the sums' order.  BatchNorm takes
+  the global batch's statistics (``ops/blocks.sync_batch_norm``, entered
+  for the step's duration); the microbatch generators are the rank-less
+  ones, so the pixel draws are made for the whole global batch and each
+  rank keeps its rows, and the Gumbel noise is the same on every rank; the
+  contrast set is taken over every rank's rows, and each loss term is this
+  rank's share, its rows' partial sums over the global denominators
+  (``losses/``, ``parallel/kernel_shard.py``).  The gradients (summed over
+  the window, over A) and the info's loss terms are SUM all-reduced once a
+  window; ``grad_norm`` is taken on the reduced gradients, and Adam moves
+  every replica alike.  ``draws`` then hold the global batch's draws.  A
+  group of one rank is the single-device step, bit for bit.
+* ``ddp_parity`` (JAX ``train_step.py:32-44,186-218``) is the reference's
+  torch DDP: each rank runs the single-device step on its own rows (its
+  BatchNorm normalises with its local statistics, its losses normalise
+  over its rows), then, by explicit collectives in flattened buckets
+  (``parallel/mesh.all_reduce_mean``): after each microbatch the BatchNorm
+  running statistics are averaged over the ranks (JAX's pmean merge of
+  ``new_stats``, where torch DDP broadcasts rank 0's), and after the window
+  the gradients (once a window, not once a microbatch: the sum over
+  microbatches and the mean over ranks commute, so only the f32 rounding
+  order differs, within JAX's own test tolerances) and the info.  The
+  ``DistributedDataParallel`` wrapper is not used: the step calls
+  ``forward_native``, which its reducer never sees, and it broadcasts
+  buffers where JAX averages them.
 """
 
 from __future__ import annotations
@@ -56,23 +72,26 @@ from rangeclip_tpu_torch.losses.hybrid import (
 )
 from rangeclip_tpu_torch.losses.pooling import per_item_masked_pooling
 from rangeclip_tpu_torch.models.depth_unet import DepthUNet
-from rangeclip_tpu_torch.parallel.mesh import ITEM_10B, all_reduce_mean
+from rangeclip_tpu_torch.ops.blocks import sync_batch_norm
+from rangeclip_tpu_torch.parallel.mesh import all_reduce_mean, all_reduce_sum
 from rangeclip_tpu_torch.parallel.mesh import rank as group_rank
 from rangeclip_tpu_torch.parallel.mesh import world as group_world
 from rangeclip_tpu_torch.training.optim import set_learning_rate
 from rangeclip_tpu_torch.training.state import TrainState
 
-INFO_KEYS = ("total_loss", "text_contrastive_loss", "image_contrastive_loss",
-             "smoothness_loss", "temperature_text", "temperature_image",
-             "W_text", "W_image", "W_smooth")
+LOSS_KEYS = ("total_loss", "text_contrastive_loss", "image_contrastive_loss",
+             "smoothness_loss")
+INFO_KEYS = LOSS_KEYS + ("temperature_text", "temperature_image", "W_text",
+                         "W_image", "W_smooth")
 
 
 def microbatch_generator(seed: int, step: int, index: int,
                          device: torch.device, rank: Optional[int] = None
                          ) -> torch.Generator:
     """The generator of microbatch ``index`` of step ``step`` (of ``rank``
-    under ``ddp_parity``; rank 0 draws what one device draws): positional,
-    so a resumed run draws what a straight run draws."""
+    under ``ddp_parity``; rank 0 draws what one device draws, and so does
+    every rank of the global-batch step): positional, so a resumed run draws
+    what a straight run draws."""
     key = (seed, step, index) + ((rank,) if rank else ())
     state = np.random.SeedSequence(key).generate_state(1, np.uint64)
     return torch.Generator(device=device).manual_seed(int(state[0]))
@@ -84,11 +103,13 @@ def microbatch_loss(model: DepthUNet, mb: Dict[str, torch.Tensor],
                     hard_matrix: torch.Tensor,
                     loss_config: HybridLossConfig = HybridLossConfig(),
                     draws: Optional[Draws] = None,
-                    generator: Optional[torch.Generator] = None
+                    generator: Optional[torch.Generator] = None,
+                    group=None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One microbatch's hybrid loss (train_step.py:69-130): ``mb`` holds
     depth [B, H, W, 1], segmentation [B, H, W], object_label [B],
-    image_embeddings [B, D] and sample_valid [B]."""
+    image_embeddings [B, D] and sample_valid [B]; under ``group`` these are
+    this rank's rows of the global batch and the losses its shares."""
     field, temp_t, temp_i = model.forward_native(mb["depth"])
     H = mb["depth"].shape[1]
     ups = H // field.shape[1]
@@ -105,7 +126,7 @@ def microbatch_loss(model: DepthUNet, mb: Dict[str, torch.Tensor],
         temp_t, temp_i, pct_medium, pct_hard, area, image,
         area_valid=mb["sample_valid"] if use_image else None,
         sample_weight=mb["sample_valid"], config=loss_config,
-        label_upsample=ups, draws=draws, generator=generator)
+        label_upsample=ups, draws=draws, generator=generator, group=group)
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -137,17 +158,15 @@ def make_train_step(loss_config: HybridLossConfig = HybridLossConfig(),
     :class:`Draws`) replaces them.  The state is updated in place and
     returned; the info values are f32 scalar tensors (no host sync).
 
-    ``ddp_parity`` with ``group`` (a ``torch.distributed`` process group,
-    or ``torch.distributed.group.WORLD``): ``batch`` is this rank's rows,
-    and the step is the module docstring's DDP; without ``group`` it is
-    the single-device step.
+    With ``group`` (a ``torch.distributed`` process group, or
+    ``torch.distributed.group.WORLD``) ``batch`` is this rank's rows, and
+    the step is the module docstring's global-batch step, or its DDP with
+    ``ddp_parity``; without ``group`` it is the single-device step.
     """
     reduce = group is not None and ddp_parity
-    if group is not None and not ddp_parity and group_world(group) > 1:
-        raise NotImplementedError(
-            "the global-batch step over a process group (sync-BatchNorm, "
-            "one contrast set and the losses' partial sums all-reduced over "
-            f"the ranks) is not ported yet: {ITEM_10B}; pass ddp_parity")
+    # the global-batch step's group; one rank is the single-device step
+    glob = (group if group is not None and not ddp_parity
+            and group_world(group) > 1 else None)
     rank = (group_rank(group) if group is not None else 0) \
         if ddp_parity else None
 
@@ -167,25 +186,34 @@ def make_train_step(loss_config: HybridLossConfig = HybridLossConfig(),
         # gradients count in grad_norm and must not add up over steps
         model.zero_grad(set_to_none=True)
         info_sum = None
-        for idx in range(A):
-            mb = {k: v[idx] for k, v in batch.items()}
-            generator = (None if draws is not None else microbatch_generator(
-                rng[0], rng[1], idx, batch["depth"].device, rank))
-            total, info = microbatch_loss(
-                model, mb, pct_medium, pct_hard, text_table, medium_matrix,
-                hard_matrix, loss_config,
-                draws[idx] if draws is not None else None, generator)
-            total.backward()
-            if reduce:
-                with torch.no_grad():
-                    all_reduce_mean(running_statistics(model), group)
-            info = {k: info[k].detach().float() for k in INFO_KEYS}
-            info_sum = info if info_sum is None else {
-                k: info_sum[k] + info[k] for k in INFO_KEYS}
+        with sync_batch_norm(glob):
+            for idx in range(A):
+                mb = {k: v[idx] for k, v in batch.items()}
+                generator = (None if draws is not None
+                             else microbatch_generator(
+                                 rng[0], rng[1], idx, batch["depth"].device,
+                                 rank))
+                total, info = microbatch_loss(
+                    model, mb, pct_medium, pct_hard, text_table,
+                    medium_matrix, hard_matrix, loss_config,
+                    draws[idx] if draws is not None else None, generator,
+                    glob)
+                total.backward()
+                if reduce:
+                    with torch.no_grad():
+                        all_reduce_mean(running_statistics(model), group)
+                info = {k: info[k].detach().float() for k in INFO_KEYS}
+                info_sum = info if info_sum is None else {
+                    k: info_sum[k] + info[k] for k in INFO_KEYS}
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         for g in grads:
             g.div_(A)
         info = {k: v / A for k, v in info_sum.items()}
+        if glob is not None:
+            # the shares add up to the global batch's gradients and losses
+            losses = torch.stack([info[k] for k in LOSS_KEYS])
+            all_reduce_sum(grads + [losses], glob)
+            info.update(zip(LOSS_KEYS, losses.unbind()))
         if reduce:
             all_reduce_mean(grads, group)
             mean = torch.stack([info[k] for k in INFO_KEYS])

@@ -20,7 +20,10 @@ and ``step % (n_step_per_validation or n_step_per_summary) == 0``, in eval
 mode on its own generators (``evals/validate``), so the training steps,
 their draws, the BatchNorm statistics and the loader order are those of a
 run without it; the best results are logged and returned, and the latest
-val loss is the plateau schedule's metric.
+val loss is the plateau schedule's metric.  Over a process group every rank
+validates its shard of the val split, the global batches' metrics reduced
+over the ranks (JAX validates over the mesh in both modes), so every rank
+holds the same results.
 
 The frozen-encoder finetune (trainer.py:252-295): ``freeze_encoder=None``
 freezes exactly when ``restore_path_encoder`` is given; the encoder then
@@ -37,17 +40,16 @@ run without it.
 ``distributed`` joins a process group before anything touches a device
 (``parallel/mesh.init_distributed``: the coordinator fields, or torchrun's
 environment) and trains on the rank's device.  Each rank reads its shard of
-the train split (the loader's ``shard_id``/``num_shards``), runs the image
-tower on its own rows, and takes the ``ddp_parity`` step over the group
-(``training/train_step.py``); every rank restores the same checkpoint, then
-rank 0's parameters and buffers are broadcast.  Rank 0 alone logs, writes
-``results.txt``, the summaries and the checkpoints (a barrier after each
-save), and validates over the whole split while the others wait; the best
-results, the plateau schedule's metric among them, are then broadcast, so
-every rank keeps the same learning rate.  ``ddp_parity`` without
-``distributed`` is that step on one rank: the single-device step.  Over
-more than one rank, ``distributed`` without ``ddp_parity`` (JAX's
-global-batch step) is ROADMAP item 10b and raises.
+the train and val splits (the loader's ``shard_id``/``num_shards``), runs
+the image tower on its own rows, and takes the step over the group
+(``training/train_step.py``): JAX's global-batch step, the single-device
+step on the ``batch_size * world`` rows of every rank (trainer.py:298-323),
+or with ``ddp_parity`` the reference's DDP step.  Every rank restores the
+same checkpoint, then rank 0's parameters and buffers are broadcast.  Rank
+0 alone logs, writes ``results.txt``, the summaries, the prediction grids
+(from its own rows) and the checkpoints (a barrier after each save).
+``ddp_parity`` without ``distributed`` is the DDP step on one rank, and
+``distributed`` at world 1 the single-device step.
 """
 
 from __future__ import annotations
@@ -79,7 +81,6 @@ from rangeclip_tpu_torch.models.clip.provider import (
 )
 from rangeclip_tpu_torch.models.depth_unet import DepthUNetConfig
 from rangeclip_tpu_torch.parallel.mesh import (
-    ITEM_10B,
     barrier,
     init_distributed,
     is_main,
@@ -164,16 +165,6 @@ def _close_trace(trace: contextlib.ExitStack, written: list,
         say(f"Profiler trace written to {path}")
 
 
-def _broadcast_results(results: Dict, group) -> Dict:
-    """Rank 0's best results on every rank of ``group``."""
-    import torch.distributed as dist
-
-    box = [results]
-    dist.broadcast_object_list(box, dist.get_global_rank(group, 0),
-                               group=group)
-    return box[0]
-
-
 def _window(microbatches, keys, device):
     return {k: torch.from_numpy(np.stack([mb[k] for mb in microbatches])
                                 .astype(BATCH_DTYPES[k])).to(device)
@@ -197,11 +188,6 @@ def train_depth_clip_model(cfg: TrainerConfig) -> Dict:
 
 
 def _train(cfg: TrainerConfig, device: torch.device, group) -> Dict:
-    if group is not None and world(group) > 1 and not cfg.ddp_parity:
-        raise NotImplementedError(
-            f"--distributed over {world(group)} ranks without --ddp_parity "
-            "(JAX's global-batch step: sync-BatchNorm, one contrast set, "
-            f"the losses all-reduced) is not ported yet: {ITEM_10B}")
     main = is_main()
     set_precision(cfg.bf16)  # fp32 keeps cuDNN and matmuls off TF32
     time_start = time.time()
@@ -295,7 +281,9 @@ def _train(cfg: TrainerConfig, device: torch.device, group) -> Dict:
         "loss_weights": (cfg.w_text, cfg.w_image, cfg.w_smooth),
         "device": describe_device(device),
         "ranks": world(group),
-        "step": "ddp_parity" if cfg.ddp_parity else "single device",
+        "step": ("ddp_parity" if cfg.ddp_parity else
+                 f"global batch of {cfg.batch_size * world(group)} rows"
+                 if world(group) > 1 else "single device"),
         "precision": "bf16" if cfg.bf16 else "fp32",
         "checkpoint_path": ckpt_root,
     }
@@ -387,19 +375,16 @@ def _train(cfg: TrainerConfig, device: torch.device, group) -> Dict:
                 if (step_count >= cfg.validation_start_step
                         and step_count % (cfg.n_step_per_validation
                                           or cfg.n_step_per_summary) == 0):
-                    if main:
-                        best_results = validate_model(
-                            state.model, val_loader, text_table,
-                            medium_matrix, hard_matrix, equivalence_tensor,
-                            equiv_class_map, curriculum, image_provider,
-                            step_count, best_results, seed=VAL_SEED,
-                            loss_config=loss_cfg, log_path=log_path,
-                            summary_writer=val_writer,
-                            candidate_labels=candidate_labels,
-                            n_sample_per_summary=cfg.n_sample_per_summary)
-                    if group is not None:  # the others wait here
-                        best_results = _broadcast_results(best_results,
-                                                          group)
+                    best_results = validate_model(
+                        state.model, val_loader, text_table, medium_matrix,
+                        hard_matrix, equivalence_tensor, equiv_class_map,
+                        curriculum, image_provider, step_count,
+                        best_results, seed=VAL_SEED, loss_config=loss_cfg,
+                        log_path=log_path if main else None,
+                        summary_writer=val_writer,
+                        candidate_labels=candidate_labels,
+                        n_sample_per_summary=cfg.n_sample_per_summary,
+                        group=group)
                 if step_count % cfg.n_step_per_checkpoint == 0:
                     avg = float(loss_sum) / loss_count if loss_count else 0.0
                     if main:

@@ -4,9 +4,9 @@ weights (carried by the JAX package's reference-checkpoint converter), the
 same batch, each rank's draws rebuilt from JAX's keys (``fold_in(fold_in(key,
 i), rank)``, then the loss's splits), SGD as JAX's own DDP test takes it.
 Held to that test's tolerances (``tests/test_parallel.py:300-307``); the
-two ranks end bit-equal, and the step without ``ddp_parity`` over a group of
-two refuses, naming ROADMAP item 10b.  Also: the train loader's shards equal
-the JAX loader's, and the multi-rank dry run on the CPU."""
+two ranks end bit-equal.  The step without ``ddp_parity``, the global-batch
+step, is ``test_torch_global_batch.py``'s.  Also: the train loader's shards
+equal the JAX loader's, and the multi-rank dry run on the CPU."""
 
 import jax
 import jax.numpy as jnp
@@ -158,13 +158,6 @@ def test_ddp_parity_ranks_end_bit_equal(ddp_run):
     assert ranks[0]["info"] == ranks[1]["info"]
 
 
-def test_global_batch_step_over_two_ranks_refuses(ddp_run):
-    """make_train_step without ddp_parity over a group of two raises
-    NotImplementedError naming ROADMAP item 10b, on every rank."""
-    for res in ddp_run[0]:
-        assert "ROADMAP item 10b" in res["refusal"], res["refusal"]
-
-
 def test_train_loader_shards_match_jax(tmp_path, monkeypatch):
     """shard_id / num_shards: each of 4 shards of the 9 train indices
     yields the JAX loader's batches for that shard (DistributedSampler
@@ -196,9 +189,10 @@ def test_train_loader_shards_match_jax(tmp_path, monkeypatch):
 
 
 def test_dryrun_multichip_on_the_cpu(monkeypatch):
-    """dryrun_multichip(2) on the CPU: two gloo ranks against the in-process
-    simulation (bit-equal here: two summands), and a 2 x 1 predict grid
-    against single-device predict.  The ranks and this process run 2
+    """dryrun_multichip(2) on the CPU: two gloo ranks of the ddp_parity step
+    against the in-process simulation (bit-equal here: two summands), the
+    global-batch step against the single-device step, and a 2 x 1 predict
+    grid against single-device predict.  The ranks and this process run 2
     threads each, so that their CPU kernels sum in the same order."""
     monkeypatch.setenv("OMP_NUM_THREADS", "2")  # the spawned ranks'
     threads = torch.get_num_threads()

@@ -2,8 +2,9 @@
 coordinator flags (a file store), ``--ddp_parity``, 2 steps validating at
 step 2: one checkpoint set and one ``results.txt`` (rank 0's), both ranks
 with the same learning rates, the same best results and the same weights
-after every step.  Over two ranks, ``--distributed`` without
-``--ddp_parity`` refuses, naming ROADMAP item 10b.  The world-1 runs
+after every step.  ``--distributed`` without ``--ddp_parity`` (the
+global-batch step) over two ranks is ``test_torch_global_cli.py``'s.  The
+world-1 runs
 (``--ddp_parity``, ``--distributed`` and both, each bit-equal to the
 single-device run) are in ``test_torch_trainer.py``."""
 
@@ -69,10 +70,3 @@ def test_two_ranks_write_once_and_agree(dataset, tmp_path):
     assert log.count("Training finished.") == 1
     events = (ckpt / "tensorboard-train" / "events.csv").read_text()
     assert events.count("Loss/train_step") == 2
-
-
-def test_distributed_without_ddp_parity_refuses_over_two_ranks(dataset,
-                                                               tmp_path):
-    _, results = _run_ranks("cli_refuse", dataset, tmp_path)
-    for res in results:
-        assert "ROADMAP item 10b" in res["refusal"], res
