@@ -187,7 +187,21 @@ Phases (any failure raises; nothing is caught):
    against the per-rank simulation in this process with the same draws,
    the ranks bit-equal; (c) cli/train --distributed --ddp_parity over NCCL
    at world 1 (torchrun's environment), 2 steps, bit-equal to --ddp_parity
-   alone; (d) dryrun_multichip(4, backend="gloo").
+   alone; (d) dryrun_multichip(4, backend="gloo") on JAX's dry-run layout
+   of four devices, a 1 x 2 x 2 data x spatial x model grid (the global
+   step with model-sharded class tables, the grid's predict against the
+   data x model predict, the C = 2048 packed-CE step against its
+   data-only run); (h) one spawn of four gloo ranks on the card for the
+   'spatial' axis at full width: the grid predict ('default', top-5, C =
+   512, batch 8 at 256^2) in f32 and bf16 on 1 x 2 x 1 and 1 x 2 x 2
+   grids, each rank its block of rows (halo rows from its neighbour),
+   against single-device predict (f32 labels equal but for near-ties
+   within 1e-5 of the cosine; bf16 held as (a)), and the global-batch step
+   on a 1 x 2 x 1 grid, each rank 128 of the 256 rows of a 32-image batch,
+   in bf16 and f32 against the single-device step, held as (e), the two
+   ranks bit-equal; the ranks must launch pixel_text_topk and the step's
+   CE, class_presence, histogram and (bf16) l2_normalize kernels, and not
+   tv_rowtile (the plain TV with a halo row, as in JAX).
 
 Each path of phases 3-8, of phase 11's (a)-(d), of phase 12, of phase 13's
 (e) and of phase 14 runs with the launch counts set to 0 just before it and
@@ -3978,7 +3992,8 @@ def phase_sharded_predict(device, card: str, totals) -> None:
                         "predict")
                 field = model.native_field(x, normalize=False)
                 near_tie_check(
-                    name, (got[:, ::2, ::2].reshape(-1, k), None),
+                    f"{name} on {card}",
+                    (got[:, ::2, ::2].reshape(-1, k), None),
                     (want[:, ::2, ::2].reshape(-1, k), None),
                     field.reshape(-1, field.shape[-1]),
                     l2_normalize(text, dim=-1), tol=SHARD_TIE_TOL,
@@ -4082,6 +4097,117 @@ def phase_rank_steps(device, card: str, totals) -> None:
         f"{ {k: n for k, n in counts.items() if n} }")
 
 
+# phase 14 (h): the 'spatial' axis at full width, in one spawn of four
+# ranks: the grid predicts (f32 and bf16 on 1 x 2 x 1 and 1 x 2 x 2), then
+# the global-batch step on 1 x 2 x 1 (ranks 2 and 3 sit out)
+GRID_PREDICT_BATCH = SERVE_BATCH
+GRID_KERNELS = {True: ["histogram", "class_presence", "l2_normalize[fwd]",
+                       "l2_normalize[bwd]", "pixel_text_ce_tc[fwd]",
+                       "pixel_text_ce_tc[bwd]"],
+                False: ["histogram", "class_presence", "live_rows",
+                        "pixel_text_ce[fwd]", "pixel_text_ce[bwd]"]}
+
+
+def grid_specs():
+    """Phase 14 (h)'s specs: the four grid predicts, then the two steps."""
+    from rangeclip_tpu_torch.parallel.dryrun import PredictSpec, StepSpec
+
+    full = dict(filters=(32, 64, 128, 256, 512), dim=512, res=RES)
+    predicts = [PredictSpec(**full, grid=grid, batch=GRID_PREDICT_BATCH,
+                            classes=NUM_CLASSES, top_k=BENCH_TOP_K,
+                            bf16=bf16, seed=SEED + 40)
+                for grid in ((1, 2, 1), (1, 2, 2)) for bf16 in (False, True)]
+    steps = [StepSpec(**full, batch=TRAIN_BATCH, accum=1,
+                      classes=NUM_CLASSES, present=TRAIN_PRESENT, lr=1e-4,
+                      bf16=bf16, seed=SEED + 41, mode="global",
+                      grid=(1, 2, 1))
+             for bf16 in (True, False)]
+    return predicts, steps
+
+
+def phase_grid(device, card: str, totals) -> None:
+    """14 (h): the module docstring's 'spatial' axis at full width."""
+    from rangeclip_tpu_torch.parallel.dryrun import (
+        PredictSpec,
+        Tolerance,
+        check_step,
+        oracle_step,
+        predict_inputs,
+        run_ranks,
+    )
+    from rangeclip_tpu_torch.utils.math import l2_normalize
+
+    predicts, steps = grid_specs()
+    t0 = time.perf_counter()
+    results = run_ranks(4, predicts + steps, device.type, "gloo")
+    log(f"  (h) the four ranks' processes took "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
+    for i, spec in enumerate(predicts + steps):
+        ranks = [r[i] for r in results]
+        members = [r for r in ranks if r is not None]
+        counts = {}
+        for res in members:
+            for kernel, n in res["launches"].items():
+                counts[kernel] = counts.get(kernel, 0) + n
+                totals[kernel] += n
+        precision = "bf16" if spec.bf16 else "fp32"
+        if isinstance(spec, PredictSpec):
+            name = (f"grid predict {precision} on "
+                    f"{' x '.join(map(str, spec.grid))}")
+            kernel = f"pixel_text_topk[{precision}]"
+            require(counts.get(kernel, 0) >= len(members),
+                    f"{name}: {kernel} launched {counts.get(kernel, 0)} "
+                    f"times by {len(members)} ranks")
+            got = members[0]["labels"]
+            require(all(torch.equal(r["labels"], got) for r in members),
+                    f"{name}: the ranks gathered different maps")
+            model, depth, table = predict_inputs(spec, device)
+            with torch.inference_mode():
+                want = model.predict(depth, table, None, spec.top_k,
+                                     return_embeddings=False)[0].cpu()
+                field = model.native_field(depth, normalize=False)
+            require(got.shape == want.shape == (spec.batch, RES, RES,
+                                                spec.top_k),
+                    f"{name}: shape {tuple(got.shape)}")
+            differ = int((got != want).sum())
+            if differ:
+                native = lambda t: (  # noqa: E731
+                    t[:, ::2, ::2].reshape(-1, spec.top_k).to(device), None)
+                near_tie_check(
+                    f"{name} on {card}", native(got), native(want),
+                    field.reshape(-1, field.shape[-1]),
+                    l2_normalize(table, dim=-1),
+                    **(dict(tol=SHARD_TIE_TOL, min_rate=SHARD_MIN_AGREEMENT)
+                       if spec.bf16 else {}))
+            log(f"  {name}, batch {spec.batch} at {RES}^2, C = "
+                f"{spec.classes}, top-{spec.top_k}: {differ} of "
+                f"{got.numel()} labels differ from single-device predict; "
+                f"{counts.get(kernel, 0)} {kernel} launches by "
+                f"{len(members)} ranks on {card}")
+            del model, field
+            continue
+        t1 = time.perf_counter()
+        want = oracle_step(spec, 2, device)
+        oracle_s = time.perf_counter() - t1
+        errors = check_step(ranks, want, spec,
+                            Tolerance(**GLOBAL_TOLERANCE[spec.bf16]))
+        for kernel in GRID_KERNELS[spec.bf16]:
+            require(counts.get(kernel, 0) > 0,
+                    f"grid step {precision}: {kernel} was not launched")
+        for kernel in ("tv_rowtile[fwd]", "tv_rowtile[bwd]"):
+            require(not counts.get(kernel, 0),
+                    f"grid step {precision}: {kernel} launched under the "
+                    "'spatial' axis")
+        log(f"  global step on 1 x 2 x 1, {spec.batch} images with "
+            f"{RES // 2} of {RES} rows a rank, {precision}: loss "
+            f"{members[0]['info']['total_loss']:.6f} against "
+            f"{want['info']['total_loss']:.6f} on one device ({oracle_s:.1f}"
+            f" s in this process), both ranks bit-equal; errors {errors}; "
+            f"launches { {k: n for k, n in counts.items() if n} } on {card}")
+        del want
+        torch.cuda.empty_cache()
+
+
 def free_port() -> int:
     import socket
 
@@ -4157,8 +4283,9 @@ def phase_nccl_world_one(tmp: str, data, totals) -> None:
 def phase_multigpu(tmp: str, data, device, card: str, totals) -> None:
     """14. Multi-GPU on one card: (a) sharded predict; two gloo ranks of
     (b) the ddp_parity step, (e) the global-batch step and (f) sharded
-    validation; (c) and (g) NCCL at world 1; (d) the dry run of four ranks
-    (the global-batch step, ddp_parity, sharded predict)."""
+    validation; (h) four gloo ranks of the 'spatial' axis (grid predicts,
+    the grid step); (c) and (g) NCCL at world 1; (d) the dry run of four
+    ranks on JAX's 1 x 2 x 2 layout."""
     from rangeclip_tpu_torch.parallel.dryrun import dryrun_multichip
 
     t0 = time.perf_counter()
@@ -4170,6 +4297,9 @@ def phase_multigpu(tmp: str, data, device, card: str, totals) -> None:
     phase_rank_steps(device, card, totals)
     torch.cuda.empty_cache()
     marks.append(round(time.perf_counter() - t0, 1))
+    phase_grid(device, card, totals)
+    torch.cuda.empty_cache()
+    marks.append(round(time.perf_counter() - t0, 1))
     phase_nccl_world_one(tmp, data, totals)
     marks.append(round(time.perf_counter() - t0, 1))
     summary = dryrun_multichip(4, device.type, backend="gloo")
@@ -4177,9 +4307,13 @@ def phase_multigpu(tmp: str, data, device, card: str, totals) -> None:
         totals[kernel] += n
     require(summary["launches"].get("histogram", 0) > 0,
             "the dry run's ranks launched no kernel")
-    log(f"  dryrun_multichip(4, backend='gloo'): {summary}")
+    require(summary["layout"] == [1, 2, 2]
+            and "grid_predict" in summary and "large_c" in summary,
+            f"the dry run's layout: {summary}")
+    log(f"  dryrun_multichip(4, backend='gloo') on {card}: {summary}")
     marks.append(round(time.perf_counter() - t0, 1))
-    log(f"  phase 14 (a), (b)+(e)+(f), (c)+(g), (d) ended at {marks} s")
+    log(f"  phase 14 (a), (b)+(e)+(f), (h), (c)+(g), (d) ended at {marks} "
+        f"s on {card}")
 
 
 def run_path(name: str, expect, fn, totals):
@@ -4361,8 +4495,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
         log("phase 14: multi-GPU on one card (sharded predict, ddp_parity "
-            "and global-batch ranks over gloo, sharded validation, NCCL at "
-            "world 1, the dry run)")
+            "and global-batch ranks over gloo, sharded validation, the "
+            "'spatial' axis's grid predicts and step, NCCL at world 1, the "
+            "dry run)")
         phase_multigpu(tmp, data, device, card, totals)
         log(f"  phase 14 done at {time.perf_counter() - t_start:.1f} s")
 

@@ -52,7 +52,13 @@ from rangeclip_tpu_torch.models.depth_unet import (
     DepthUNet,
     build_candidate_mask,
 )
-from rangeclip_tpu_torch.parallel.mesh import all_reduce_sum, rank, world
+from rangeclip_tpu_torch.parallel.mesh import (
+    ITEM_10C,
+    Grid,
+    all_reduce_sum,
+    rank,
+    world,
+)
 from rangeclip_tpu_torch.training.train_step import microbatch_generator
 from rangeclip_tpu_torch.utils.logging import log
 
@@ -165,7 +171,15 @@ def validate_model(
     batch's samples are rendered as [depth | image | GT | prediction] grids
     through the summary writer (reference validate.py:140-146); without
     matplotlib they are skipped, with a line in the log.  Batch ``i`` is
-    keyed (seed, i)."""
+    keyed (seed, i).  A grid with a 'spatial' axis is refused (no JAX entry
+    point validates over one; ROADMAP item 10c)."""
+    if isinstance(group, Grid):
+        if group.n_spatial > 1:
+            raise NotImplementedError(
+                "validation over a grid's 'spatial' axis is not ported "
+                f"yet: {ITEM_10C}")
+        raise ValueError("validate_model runs over a process group: pass "
+                         "the grid's 'data' group")
     device = text_table.device
     num_classes = text_table.shape[0]
     if group is not None and world(group) == 1:

@@ -7,11 +7,12 @@ order, as on the JAX package's kernel path (``pixel_sampler="auto"``), or
 multinomial counts drawn by binomial splitting (``"multinomial"``, opt-in:
 the same law, another realisation of it).
 
-Over a process group (``group``: the global-batch step and sharded
-validation) the field and labels are this rank's row block of the global
-batch, the draws are the global batch's (:class:`Draws`), and every term
-comes back as this rank's share: the ranks' totals add up to the loss of
-the global batch (``losses/infonce.py``)."""
+Over a process group or a grid (``group``: the global-batch step and
+sharded validation) the field and labels are this rank's block of the
+global batch (its images and, under a 'spatial' axis, their rows), the
+draws are the global batch's (:class:`Draws`), and every term comes back
+as this rank's share: the totals of the ranks holding pixels (the 'batch'
+group) add up to the loss of the global batch (``losses/infonce.py``)."""
 
 from __future__ import annotations
 
@@ -127,8 +128,9 @@ def compute_hybrid_loss(
       sample_weight: optional [B] 0/1 mask of padded batch items.
       draws / generator: the random inputs (see :class:`Draws`).
       group: a process group of more than one rank, whose ranks hold equal
-        row blocks of the global batch; the losses in the result are this
-        rank's shares (the temperatures and weights are not).
+        blocks of the global batch's images, or a ``parallel/mesh.Grid``;
+        the losses in the result are this rank's shares (the temperatures
+        and weights are not).
 
     Returns (total, info dict of f32 scalars).
     """

@@ -13,13 +13,15 @@ multinomial sampler (``multinomial_counts``: the same law as the histogram,
 drawn by binomial splitting) holds to JAX in law and in its slot layout.
 Not ported: ``sample_pixels`` (the multiplicity form replaces it).
 
-Over a process group (``group``, the global-batch step) each rank holds its
-row block of the global batch: the draws are made for the whole global
-batch, the same on every rank, and each keeps its rows; presence and the
-valid counts are taken over every rank (``parallel/kernel_shard.py``), and
-the losses come back as this rank's share, its rows' partial sum over the
-global denominator, so that the ranks' shares add up to the loss of the
-global batch.
+Over a process group or a grid (``group``, the global-batch step) each rank
+holds its block of the global batch: its data block of the images and, on
+a grid with a 'spatial' axis, its block of their rows.  The draws are made
+for the whole global batch, the same on every rank, and each keeps its
+images and rows; presence and the valid counts are taken over every rank
+holding pixels (``parallel/kernel_shard.py``), and the losses come back as
+this rank's share, its rows' partial sum over the global denominator, so
+that the ranks' shares add up to the loss of the global batch.  The image
+contrast is image-level: one share per data block.
 """
 
 from __future__ import annotations
@@ -35,8 +37,8 @@ from rangeclip_tpu_torch.parallel.kernel_shard import (
     sharded_class_presence,
     sharded_histogram,
 )
-from rangeclip_tpu_torch.parallel.mesh import gather_rows, rank, row_block
-from rangeclip_tpu_torch.parallel.mesh import world as group_world
+from rangeclip_tpu_torch.parallel.halo import active_shards
+from rangeclip_tpu_torch.parallel.mesh import as_grid
 from rangeclip_tpu_torch.utils.math import l2_normalize
 
 NEG_INF = -1e30
@@ -75,9 +77,10 @@ def sample_pixel_multiplicities(
         ``generator`` on the target's device).
       slots: s; the draws are remapped to slot-major positions before the
         histogram (infonce.py:109-114), as the TPU path does.
-      group: ``target`` is this rank's rows and ``draws`` [world * B, n]
-        the global batch's (drawn so when None); each rank histograms its
-        own images.
+      group: ``target`` is this rank's block and ``draws`` [n_data * B,
+        n] the global batch's images (drawn so when None); each rank
+        histograms its own images over their whole H * W pixels and, on a
+        spatial grid, keeps its rows of the counts.
 
     Returns:
       slots == 1: (weights [B*H*W] f32 = multiplicity * (label > 0),
@@ -85,10 +88,14 @@ def sample_pixel_multiplicities(
       slots == s: (weights [s*s, B*h*w], labels [s*s, B*h*w]), slot (a, c)
                   = full-res pixel (s*i+a, s*j+c) of native pixel (i, j).
     """
+    grid = as_grid(group)
+    shards = active_shards(grid)
     B, H, W = target.shape
+    if shards is not None:
+        H = shards.height(W)  # the whole image's; target holds a block
     n_total = H * W
     if draws is None:
-        rows = B * (1 if group is None else group_world(group))
+        rows = B * (1 if grid is None else grid.n_data)
         draws = draw_pixels(rows, H, W, percent, generator, target.device)
     idx = draws.to(device=target.device, dtype=torch.int64)
     s = slots
@@ -96,16 +103,31 @@ def sample_pixel_multiplicities(
         h, w = H // s, W // s
         y, x = idx // W, idx % W
         idx = ((y % s) * s + (x % s)) * (h * w) + (y // s) * w + (x // s)
-    counts = sharded_histogram(idx.to(torch.int32), n_total, group)
+    counts = sharded_histogram(idx.to(torch.int32), n_total, grid)
+    return _slot_layout(target, counts, s, shards)
+
+
+def _slot_layout(target: torch.Tensor, counts: torch.Tensor, s: int,
+                 shards) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(weights, labels) of the samplers from per-image counts [B, H * W]
+    over the whole images (slot-major when s > 1): a spatial rank keeps
+    the counts of its rows, those of ``target``."""
+    B, H_local, W = target.shape
+    w = W // s
+    if shards is not None:
+        H = shards.height(W)
+        lo, hi = shards.owned(H // s)
+        counts = counts.reshape(B, s * s, H // s, w)[:, :, lo:hi]
     target = target.to(torch.int32)
+    h = H_local // s
     if s > 1:
         labels = target.reshape(B, h, s, w, s).permute(2, 4, 0, 1, 3)
         labels = labels.reshape(s * s, B * h * w)
         counts = counts.reshape(B, s * s, h * w).transpose(0, 1)
         weights = counts.reshape(s * s, B * h * w) * (labels > 0)
         return weights, labels.contiguous()
-    labels = target.reshape(B * n_total)
-    return counts.reshape(B * n_total) * (labels > 0), labels
+    labels = target.reshape(B * H_local * W)
+    return counts.reshape(B * H_local * W) * (labels > 0), labels
 
 
 def multinomial_counts(n: int, n_bins: int, batch: int = 1,
@@ -162,31 +184,25 @@ def sample_pixel_multiplicities_multinomial(
         target's device).  Bin b of an image is, slot-major, slot (a, c) of
         native pixel (i, j): multinomial bins are exchangeable, so that
         assignment is free and no full-resolution transpose is needed.
-      group: ``target`` is this rank's rows and ``counts`` [world * B,
-        H * W] the global batch's (drawn so when None); each rank keeps its
-        rows.
+      group: ``target`` is this rank's block and ``counts`` [n_data * B,
+        H * W] the global batch's images (drawn so when None); each rank
+        keeps its images and, on a spatial grid, their rows.
 
     Returns the contract of :func:`sample_pixel_multiplicities`."""
+    grid = as_grid(group)
+    shards = active_shards(grid)
     B, H, W = target.shape
+    if shards is not None:
+        H = shards.height(W)
     n_total = H * W
     if counts is None:
-        rows = B * (1 if group is None else group_world(group))
+        rows = B * (1 if grid is None else grid.n_data)
         counts = multinomial_counts(n_draws(H, W, percent), n_total, rows,
                                     generator, target.device)
-    if group is not None:
-        counts = row_block(counts, group)
+    if grid is not None:
+        counts = grid.image_block(counts)
     counts = counts.to(device=target.device, dtype=torch.float32)
-    target = target.to(torch.int32)
-    s = slots
-    if s == 1:
-        labels = target.reshape(B * n_total)
-        return counts.reshape(B * n_total) * (labels > 0), labels
-    h, w = H // s, W // s
-    labels = target.reshape(B, h, s, w, s).permute(2, 4, 0, 1, 3).reshape(
-        s * s, B * h * w)
-    weights = counts.reshape(B, s * s, h * w).transpose(0, 1).reshape(
-        s * s, B * h * w) * (labels > 0)
-    return weights, labels.contiguous()
+    return _slot_layout(target, counts, slots, shards)
 
 
 def sample_gumbel(num_classes: int,
@@ -330,17 +346,21 @@ def area_image_infonce(area_embeddings: torch.Tensor,
     """Diagonal-label InfoNCE between area and image embeddings with a
     validity mask over instances (infonce.py:463-490); 0 with fewer than 2
     valid instances.  Under ``group`` this rank's area rows are scored
-    against every rank's image embeddings and validity (gathered, not
-    differentiated: they are frozen inputs), over the global valid count:
-    the loss is this rank's share."""
+    against every data block's image embeddings and validity (gathered
+    over 'data', not differentiated: they are frozen inputs), over the
+    global valid count: the loss is this data block's share.  The term is
+    image-level: the spatial ranks of a data block hold the same area
+    embeddings, and only the first returns the share (the others a zero
+    that keeps their graph, and its collectives, the same)."""
     area_n = l2_normalize(area_embeddings.float(), dim=-1)
-    if group is None:
+    grid = as_grid(group)
+    if grid is None:
         img_all, valid_all, offset = image_embeddings, valid, 0
     else:
-        both = gather_rows(torch.cat([image_embeddings.float(),
-                                      valid.float()[:, None]], 1), group)
+        both = grid.gather(torch.cat([image_embeddings.float(),
+                                      valid.float()[:, None]], 1), "data")
         img_all, valid_all = both[:, :-1], both[:, -1]
-        offset = rank(group) * area_n.shape[0]
+        offset = grid.d * area_n.shape[0]
     img_n = l2_normalize(img_all.float(), dim=-1)
     logits = (area_n @ img_n.T) / temperature
     logits = torch.where(valid_all[None, :] > 0, logits,
@@ -348,4 +368,5 @@ def area_image_infonce(area_embeddings: torch.Tensor,
     ce = torch.logsumexp(logits, dim=-1) - torch.diagonal(logits, offset)
     n_valid = valid_all.sum()
     loss = (ce * valid).sum() / n_valid.clamp_min(1.0)
-    return torch.where(n_valid > 1, loss, torch.zeros_like(loss))
+    loss = torch.where(n_valid > 1, loss, torch.zeros_like(loss))
+    return loss * 0.0 if grid is not None and grid.s else loss

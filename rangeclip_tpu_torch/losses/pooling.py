@@ -12,7 +12,9 @@ import torch
 from rangeclip_tpu_torch.ops.kernels.masked_pooling import (
     masked_pooling_plain,
 )
+from rangeclip_tpu_torch.parallel.halo import active_shards
 from rangeclip_tpu_torch.parallel.kernel_shard import sharded_masked_pooling
+from rangeclip_tpu_torch.parallel.mesh import as_grid
 
 
 def masked_average_pooling(pixel_embeddings: torch.Tensor,
@@ -59,7 +61,7 @@ def masked_average_pooling(pixel_embeddings: torch.Tensor,
 def per_item_masked_pooling(pixel_embeddings: torch.Tensor,
                             segmentation_map: torch.Tensor,
                             labels: torch.Tensor,
-                            upsample: int = 1) -> torch.Tensor:
+                            upsample: int = 1, group=None) -> torch.Tensor:
     """Item b's area embedding averages its pixels where
     ``segmentation[b] == labels[b]``.
 
@@ -69,6 +71,10 @@ def per_item_masked_pooling(pixel_embeddings: torch.Tensor,
         pooling the nearest xs upsampled field over the full-res mask equals
         pooling the native field weighted by each pixel's child count.
       labels: [B] int.
+      group: a grid with a 'spatial' axis: the field and map are this
+        rank's rows, and each item's sums and counts are summed over the
+        spatial ranks (differentiably), so every spatial rank of a data
+        block holds the same area embeddings.
 
     Returns [B, D] f32; zero rows where the label covers no pixel."""
     mask = (segmentation_map == labels[:, None, None]).float()
@@ -78,5 +84,9 @@ def per_item_masked_pooling(pixel_embeddings: torch.Tensor,
                             upsample).sum(dim=(2, 4))
     sums = torch.einsum("bhw,bhwd->bd", mask, pixel_embeddings.float())
     counts = mask.sum(dim=(1, 2))[:, None]
+    shards = active_shards(as_grid(group))
+    if shards is not None:
+        both = shards.sum(torch.cat([sums, counts], 1))
+        sums, counts = both[:, :-1], both[:, -1:]
     return torch.where(counts > 0, sums / counts.clamp_min(1.0),
                        torch.zeros_like(sums))

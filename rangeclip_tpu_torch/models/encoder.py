@@ -22,6 +22,8 @@ from rangeclip_tpu_torch.ops.blocks import (
     Conv2d,
     ResNetBlock,
     ResNetBottleneckBlock,
+    max_pool2d,
+    spatial_mean,
 )
 from rangeclip_tpu_torch.ops.initializers import init_bias_, init_weight_
 from rangeclip_tpu_torch.utils.math import l2_normalize
@@ -73,17 +75,19 @@ class DepthEncoder(nn.Module):
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor]:
         """x: [B, C_in, H, W].  Returns (embedding [B, D], the skip list
-        [conv1@H/2, g1@H/4, g2@H/8, g3@H/16, g4@H/32], ASPP map @H/32)."""
+        [conv1@H/2, g1@H/4, g2@H/8, g3@H/16, g4@H/32], ASPP map @H/32).
+        Inside ``ops/blocks.spatial_rows`` ``x`` and the maps are this
+        rank's rows and the embedding pools every rank's."""
         features = []
         x = self.conv1(x)
         features.append(x)
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        x = max_pool2d(x, 3, 2, 1)
         for group in self.blocks:
             for block in group:
                 x = block(x)
             features.append(x)
         fc1, fc2 = self.projection_head[0], self.projection_head[2]
-        h = x.mean(dim=(2, 3))
+        h = spatial_mean(x)
         h = F.relu(F.linear(h, fc1.weight.to(h.dtype), fc1.bias.to(h.dtype)))
         h = F.linear(h, fc2.weight.to(h.dtype), fc2.bias.to(h.dtype))
         return l2_normalize(h, dim=-1), features, self.aspp(x)

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rangeclip_tpu_torch.ops import blocks as block_lib
 from rangeclip_tpu_torch.ops.aspp import ASPP
 from rangeclip_tpu_torch.ops.transformer import (
     attention,
@@ -169,7 +170,16 @@ class MiTDepthEncoder(nn.Module):
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor]:
         """x: [B, C_in, H, W].  Returns (embedding [B, D], the stage
-        features [H/4, H/8, H/16, H/32] NCHW, ASPP map @H/32)."""
+        features [H/4, H/8, H/16, H/32] NCHW, ASPP map @H/32).  Not under
+        a grid's 'spatial' axis: attention reads every token of the image,
+        so K and V would be gathered over the axis (ROADMAP item 10c)."""
+        if block_lib._SPATIAL is not None:
+            from rangeclip_tpu_torch.parallel.mesh import ITEM_10C
+
+            raise NotImplementedError(
+                "the MiT encoder under a 'spatial' axis (its attention's "
+                f"K and V gathered over the axis) is not ported yet: "
+                f"{ITEM_10C}")
         x = x.permute(0, 2, 3, 1)
         features = []
         for embed, blocks, norm in zip(self.patch_embed, self.blocks,

@@ -8,6 +8,11 @@ a 1x1 map is a broadcast); concat -> 1x1 projection -> GN -> ReLU -> L2
 normalisation over channels.  The ``nn.Sequential`` indices reproduce the
 reference's state-dict keys: ``branches.{k}.{0,1}``, ``global_pool.{1,2}``
 (index 0 is the pooling) and ``project.{0,1}``.
+
+Inside ``ops/blocks.spatial_rows`` the map is this rank's rows: the
+dilated branches fetch their halo (at H/32 it may span several ranks or
+be all padding), GroupNorm's sums and the pooled mean run over every
+rank's rows, and the pooled branch, the same on every rank, stays local.
 """
 
 from __future__ import annotations
@@ -18,7 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rangeclip_tpu_torch.ops.blocks import conv2d
+from rangeclip_tpu_torch.ops import blocks
+from rangeclip_tpu_torch.ops.blocks import conv2d, spatial_mean
 from rangeclip_tpu_torch.ops.initializers import init_weight_
 from rangeclip_tpu_torch.utils.math import l2_normalize
 
@@ -33,18 +39,29 @@ def _conv_gn_relu(in_channels: int, features: int, kernel_size: int,
             nn.ReLU()]
 
 
-def group_norm(y: torch.Tensor, gn: nn.GroupNorm) -> torch.Tensor:
+def group_norm(y: torch.Tensor, gn: nn.GroupNorm,
+               rows_sharded: bool = True) -> torch.Tensor:
     """flax's GroupNorm on NCHW f32: per group mean and E[x^2] - mean^2
     (clamped at 0), then (x - mean) * (rsqrt(var + eps) * scale) + bias.
     The order matters for groups of one value (a 1x1 map with one channel
     per group): x - mean is exactly 0 there and the output exactly the
     bias, where ``torch.group_norm``'s x * a + b leaves rounding noise
-    that a later L2 normalisation blows up."""
+    that a later L2 normalisation blows up.  Inside ``blocks.spatial_rows``
+    a ``rows_sharded`` map's sums of x and x^2 are taken over every rank's
+    rows, over the global count, in the same order of operations."""
     N, C, H, W = y.shape
     g = y.reshape(N, gn.num_groups, C // gn.num_groups, H, W)
-    mean = g.mean(dim=(2, 3, 4), keepdim=True)
-    var = ((g * g).mean(dim=(2, 3, 4), keepdim=True)
-           - mean * mean).clamp_min(0.0)
+    shards = blocks._SPATIAL if rows_sharded else None
+    if shards is None:
+        mean = g.mean(dim=(2, 3, 4), keepdim=True)
+        mean_sq = (g * g).mean(dim=(2, 3, 4), keepdim=True)
+    else:
+        count = C // gn.num_groups * shards.height(W) * W
+        sums = shards.sum(torch.stack([g.sum(dim=(2, 3, 4), keepdim=True),
+                                       (g * g).sum(dim=(2, 3, 4),
+                                                   keepdim=True)]))
+        mean, mean_sq = sums[0] / count, sums[1] / count
+    var = (mean_sq - mean * mean).clamp_min(0.0)
     mul = torch.rsqrt(var + gn.eps) * gn.weight.reshape(
         1, gn.num_groups, C // gn.num_groups, 1, 1)
     out = (g - mean) * mul + gn.bias.reshape(1, gn.num_groups,
@@ -52,11 +69,12 @@ def group_norm(y: torch.Tensor, gn: nn.GroupNorm) -> torch.Tensor:
     return out.reshape(N, C, H, W)
 
 
-def _apply(conv: nn.Conv2d, gn: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
+def _apply(conv: nn.Conv2d, gn: nn.GroupNorm, x: torch.Tensor,
+           rows_sharded: bool = True) -> torch.Tensor:
     """conv in ``x``'s dtype, GroupNorm in float32 (:func:`group_norm`),
     ReLU."""
     y = conv2d(conv, x)
-    return F.relu(group_norm(y.float(), gn).to(x.dtype))
+    return F.relu(group_norm(y.float(), gn, rows_sharded).to(x.dtype))
 
 
 class ASPP(nn.Module):
@@ -81,8 +99,10 @@ class ASPP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         outs = [_apply(branch[0], branch[1], x) for branch in self.branches]
-        pooled = x.mean(dim=(2, 3), keepdim=True)
-        pooled = _apply(self.global_pool[1], self.global_pool[2], pooled)
+        pooled = spatial_mean(x)[:, :, None, None]
+        # a 1x1 map, the same on every spatial rank: its norm stays local
+        pooled = _apply(self.global_pool[1], self.global_pool[2], pooled,
+                        rows_sharded=False)
         outs.append(pooled.expand(-1, -1, *x.shape[2:]))
         out = _apply(self.project[0], self.project[1], torch.cat(outs, dim=1))
         return l2_normalize(out, dim=1)

@@ -17,6 +17,13 @@ as the JAX blocks do with a bf16 compute dtype.  In train mode BatchNorm
 updates its running statistics as flax does (:class:`BatchNorm2d`), and
 inside :func:`sync_batch_norm` takes its statistics over the global batch
 of a process group, as flax's ``BatchNorm`` does under a mesh.
+
+Inside :func:`spatial_rows` a tensor holds this rank's rows of each
+feature map (a grid's 'spatial' axis): the convolutions, the max pool,
+the transposed convolutions, the decoder's resize, InstanceNorm and the
+means run through the entered ``parallel/halo.RowShards``, which fetches
+the halo rows a layer reads from the neighbouring ranks.  Outside it
+nothing changes, bit for bit.
 """
 
 from __future__ import annotations
@@ -39,10 +46,70 @@ from rangeclip_tpu_torch.ops.resize import (
 )
 
 
+_SPATIAL = None  # the RowShards of spatial_rows, while entered
+
+
+@contextlib.contextmanager
+def spatial_rows(shards):
+    """While entered, every layer below runs on this rank's rows of a
+    spatially sharded forward: ``shards`` is a ``parallel/halo.RowShards``
+    (entered by ``halo.sharded_rows``); ``None`` changes nothing."""
+    global _SPATIAL
+    saved, _SPATIAL = _SPATIAL, shards
+    try:
+        yield
+    finally:
+        _SPATIAL = saved
+
+
+def refuse_spatial(what: str) -> None:
+    """Raise inside :func:`spatial_rows` for a layer with no row-sharded
+    form."""
+    if _SPATIAL is not None:
+        raise ValueError(f"{what} has no row-sharded form: it cannot run "
+                         "under a grid's 'spatial' axis")
+
+
 def conv2d(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """``conv`` applied in ``x``'s dtype (bias-free)."""
+    if _SPATIAL is not None:
+        return _SPATIAL.conv2d(x, conv.weight.to(x.dtype), None, conv.stride,
+                               conv.padding, conv.dilation, conv.groups)
     return F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride,
                     conv.padding, conv.dilation, conv.groups)
+
+
+def max_pool2d(x: torch.Tensor, kernel: int, stride: int,
+               padding: int) -> torch.Tensor:
+    """``F.max_pool2d`` of NCHW ``x`` (on this rank's rows inside
+    :func:`spatial_rows`)."""
+    if _SPATIAL is not None:
+        return _SPATIAL.max_pool2d(x, kernel, stride, padding)
+    return F.max_pool2d(x, kernel, stride=stride, padding=padding)
+
+
+def spatial_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of NCHW ``x`` over its rows and columns, [N, C] (over every
+    rank's rows inside :func:`spatial_rows`)."""
+    if _SPATIAL is not None:
+        return _SPATIAL.mean(x)
+    return x.mean(dim=(2, 3))
+
+
+def map_size(x: torch.Tensor):
+    """(height, width) of NCHW ``x``'s whole map (the global height inside
+    :func:`spatial_rows`)."""
+    if _SPATIAL is not None:
+        return _SPATIAL.shape(x)
+    return tuple(x.shape[2:])
+
+
+def resize_to(x: torch.Tensor, size) -> torch.Tensor:
+    """:func:`resize_bilinear_align_corners_nchw` of the whole map to
+    ``size`` (this rank's rows of it inside :func:`spatial_rows`)."""
+    if _SPATIAL is not None:
+        return _SPATIAL.resize_bilinear_align_corners(x, size)
+    return resize_bilinear_align_corners_nchw(x, size)
 
 
 _SYNC_GROUP = None  # the process group of sync_batch_norm, while entered
@@ -66,8 +133,9 @@ class _SyncBatchNorm(torch.autograd.Function):
     (f64 for an f64 ``x``).  The forward gathers each rank's per-channel
     [n, mean, centred sum of squares] in one all-reduce and combines them
     in rank order (Chan et al.'s pairwise update), so every rank holds the
-    same biased variance.  flax takes ``E[x^2] - E[x]^2`` instead, which
-    loses the variance of a channel whose mean is large against its
+    same biased variance; the counts may differ, or be 0 (a spatial
+    rank's block of a deep level).  flax takes ``E[x^2] - E[x]^2``
+    instead, which loses the variance of a channel whose mean is large against its
     spread: against ``F.batch_norm`` on one device (the CPU, ResNet-18 at
     full width on 32^2 maps) that form moved the step's gradients by up
     to 19% of a tensor's largest entry, the combination by 0.1%.  The backward all-reduces [sum dy,
@@ -81,7 +149,11 @@ class _SyncBatchNorm(torch.autograd.Function):
 
         C = x.shape[1]
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        var_r, mean_r = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+        if x.numel():
+            var_r, mean_r = torch.var_mean(xf, dim=(0, 2, 3),
+                                           unbiased=False)
+        else:  # a spatial rank that owns no row of this level
+            var_r = mean_r = xf.new_zeros(C)
         n_r = xf.new_full((1,), x.numel() // C)
         parts = gather_rows(torch.cat([n_r, mean_r, var_r * n_r])[None],
                             group)
@@ -186,7 +258,8 @@ class NormAct(nn.Module):
         if self.batch_norm is not None:
             x = self.batch_norm(x.float()).to(x.dtype)
         elif self.use_instance_norm:
-            x = F.instance_norm(x.float(), eps=1e-5).to(x.dtype)
+            x = (F.instance_norm(x.float(), eps=1e-5) if _SPATIAL is None
+                 else _SPATIAL.instance_norm(x.float(), 1e-5)).to(x.dtype)
         return self.act(x) if self.act is not None else x
 
 
@@ -269,7 +342,12 @@ def conv_transpose_2d(x: torch.Tensor, weight: torch.Tensor, stride: int,
                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """torch's ConvTranspose2d of NCHW ``x`` with an IOHW ``weight``, in
     ``x``'s dtype (blocks.py:244-272, which reaches it as a convolution of
-    the stride-dilated input with the flipped kernel)."""
+    the stride-dilated input with the flipped kernel); on this rank's rows
+    inside :func:`spatial_rows`."""
+    if _SPATIAL is not None:
+        return _SPATIAL.conv_transpose2d(
+            x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype),
+            stride, padding, output_padding)
     return F.conv_transpose2d(
         x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype),
         stride=stride, padding=padding, output_padding=output_padding)
@@ -322,6 +400,7 @@ class UpConv2d(nn.Module):
                            device, generator, use_instance_norm)
 
     def forward(self, x: torch.Tensor, shape) -> torch.Tensor:
+        refuse_spatial("UpConv2d's nearest resize")
         x = resize_nearest(x.permute(0, 2, 3, 1), shape).permute(0, 3, 1, 2)
         return self.conv(x)
 
@@ -549,6 +628,9 @@ class AtrousSpatialPyramidPooling(nn.Module):
                                 device=device, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # its pooled branch's norm would count each image's copy once per
+        # spatial rank; the model's ASPP is ops/aspp.py
+        refuse_spatial("the library's AtrousSpatialPyramidPooling")
         size = x.shape[2:]
         branches = [self.conv1(x)]
         branches += [getattr(self, name)(x) for name in self.atrous_convs]
@@ -590,6 +672,7 @@ class SpatialPyramidPooling(nn.Module):
                                  device=device, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        refuse_spatial("SpatialPyramidPooling's k x k pools")
         size = x.shape[2:]
         branches = [x]
         for i, k in enumerate(self.kernel_sizes):
@@ -626,7 +709,7 @@ class DecoderBlock(nn.Module):
         x = conv_transpose_2d(x, self.upsample.weight, 2, 0, 0,
                               self.upsample.bias)
         if skip is not None:
-            if x.shape[2:] != skip.shape[2:]:
-                x = resize_bilinear_align_corners_nchw(x, skip.shape[2:])
+            if map_size(x) != map_size(skip):
+                x = resize_to(x, map_size(skip))
             x = torch.cat([x, skip], dim=1)
         return self.conv2(self.conv1(x))

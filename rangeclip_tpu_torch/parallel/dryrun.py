@@ -3,29 +3,35 @@
     python -m rangeclip_tpu_torch.parallel.dryrun N [--device cuda|cpu]
         [--backend gloo|nccl]
 
-builds the kernels (on CUDA), spawns N ranks that each take two train
-steps on their rows of one seeded batch at tiny shapes, and holds each
-against its oracle in this process (:func:`oracle_step`): first the
-global-batch step (JAX's default over a mesh, as ``__graft_entry__``
-checks it first), against the single-device step on the ranks' rows
-concatenated, with the same (rank-less) draws; then the ``ddp_parity``
-step, against the same step simulated rank by rank
-(:func:`simulate_ddp_step`: the same weights, rows and generators, the
-BatchNorm statistics averaged after each microbatch, the gradients after
-the window); then runs a sharded predict on a ``2 x N/2`` grid against
-single-device predict.  Any difference raises.  On CUDA the ranks take
-``cuda:(rank % device count)``, so on one card every rank shares it (over
-gloo: NCCL refuses two ranks on one GPU).
+builds the kernels (on CUDA) and spawns N ranks at tiny shapes, laid out as
+JAX's dry run lays its mesh (``__graft_entry__.py:164-170``): a ``data x
+spatial x model`` grid with ``n_model`` 2 when N is even and ``n_spatial``
+2 when 4 divides N.  In one spawn the ranks take (1) the global-batch step
+on the grid, the class tables split over 'model' when it has two ranks,
+against the single-device step on the whole batch with the same (rank-less)
+draws (:func:`oracle_step`); (2) the ``ddp_parity`` step over the world,
+against the same step simulated rank by rank (:func:`simulate_ddp_step`:
+the same weights, rows and generators, the BatchNorm statistics averaged
+after each microbatch, the gradients after the window); (3) with a
+'spatial' axis, the grid's predict (:func:`check_grid_predict`), whose
+labels must equal the ``data x model`` predict of one process; (4) with a
+'model' axis, the bf16 packed-CE step at C = 2048 with model-sharded
+tables, finite and against the same step over a data-only grid of the
+world (``__graft_entry__.py:350-410``).  Then a sharded predict on a ``2 x
+N/2`` device grid against single-device predict.  Any difference raises.
+On CUDA the ranks take ``cuda:(rank % device count)``, so on one card
+every rank shares it (over gloo: NCCL refuses two ranks on one GPU).
 
 :func:`run_ranks`, :func:`oracle_step` and :func:`check_step` are also
-what ``chip_smoke.py`` holds the full-width steps with, and
-:func:`single_device_validation` what it holds the ranks' sharded
+what ``chip_smoke.py`` holds the full-width steps and grid predicts with,
+and :func:`single_device_validation` what it holds the ranks' sharded
 validation with (a spec's ``val_batches``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -41,7 +47,9 @@ from rangeclip_tpu_torch.losses.hybrid import HybridLossConfig
 from rangeclip_tpu_torch.models.depth_unet import DepthUNetConfig
 from rangeclip_tpu_torch.parallel.mesh import (
     init_distributed,
+    make_grid,
     replicate,
+    shard_class_tables,
     shutdown_distributed,
 )
 from rangeclip_tpu_torch.training.optim import set_learning_rate
@@ -61,12 +69,16 @@ MODES = ("global", "ddp_parity")
 @dataclasses.dataclass(frozen=True)
 class StepSpec:
     """One train step over the ranks: ``mode`` the global-batch step or
-    ``ddp_parity``, the model's widths, ``batch`` rows a rank per
-    microbatch, ``accum`` microbatches, ``present`` labels of ``classes``
-    in the segmentation, weights and data from ``seed``.  With
-    ``val_batches`` each rank first validates its rows of that many
-    global batches (``evals/validate.validate_model`` over the group) on
-    the initial weights."""
+    ``ddp_parity``, the model's widths, ``batch`` rows a rank (a data
+    block, on a grid) per microbatch, ``accum`` microbatches, ``present``
+    labels of ``classes`` in the segmentation, weights and data from
+    ``seed``.  ``grid`` (data, spatial, model) runs the global-batch step
+    on the world's first ranks as that grid (``mesh.make_grid``), the class
+    tables split over 'model' with ``shard_classes``; without it the step
+    runs over the world's group.  With ``val_batches`` each rank first
+    validates its rows of that many global batches
+    (``evals/validate.validate_model`` over the group) on the initial
+    weights."""
 
     filters: Tuple[int, ...] = (8, 16, 16, 16, 32)
     dim: int = 32
@@ -81,16 +93,40 @@ class StepSpec:
     weight_decay: float = 1e-4
     mode: str = "global"
     val_batches: int = 0
+    grid: Optional[Tuple[int, int, int]] = None
+    shard_classes: bool = False
 
     def __post_init__(self):
         if self.mode not in MODES:
             raise ValueError(f"mode {self.mode!r}, expected one of {MODES}")
+        if self.grid is not None and self.mode != "global":
+            raise ValueError("a grid runs the global-batch step")
+
+    def blocks(self, world: int) -> int:
+        """Data blocks of the global batch over ``world`` ranks."""
+        return world if self.grid is None else self.grid[0]
 
     @property
     def config(self) -> DepthUNetConfig:
         return DepthUNetConfig(encoder_filters=tuple(self.filters),
                                embedding_dim=self.dim,
                                dtype=torch.bfloat16 if self.bf16 else None)
+
+
+@contextlib.contextmanager
+def native_cpu_convolutions(bf16: bool, device):
+    """A bf16 step on the CPU runs without oneDNN: its bf16 convolutions'
+    weight gradients differ from run to run there (some entries come back
+    NaN once in a few runs), where the native ones are deterministic."""
+    if not (bf16 and torch.device(device).type == "cpu"):
+        yield
+        return
+    saved = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = saved
 
 
 def step_inputs(spec: StepSpec, world: int, device: torch.device):
@@ -191,25 +227,106 @@ def _snapshot(state: TrainState, info: Dict[str, torch.Tensor]) -> Dict:
     }
 
 
+@dataclasses.dataclass(frozen=True)
+class PredictSpec:
+    """A predict on a process grid (``predict.make_grid_predict``) of the
+    world's first ranks: ``grid`` (data, spatial, model), the model's
+    widths, ``batch`` images of ``res``^2, a table of ``classes`` rows,
+    ``top_k``, bf16 or f32, weights and inputs from ``seed``."""
+
+    grid: Tuple[int, int, int] = (1, 2, 1)
+    filters: Tuple[int, ...] = (8, 16, 16, 16, 32)
+    dim: int = 32
+    res: int = 32
+    batch: int = 4
+    classes: int = 61
+    top_k: int = 3
+    bf16: bool = False
+    seed: int = 0
+
+    @property
+    def config(self) -> DepthUNetConfig:
+        return DepthUNetConfig(encoder_filters=tuple(self.filters),
+                               embedding_dim=self.dim,
+                               dtype=torch.bfloat16 if self.bf16 else None)
+
+
+def predict_inputs(spec: PredictSpec, device: torch.device):
+    """(the eval-mode model, depth [B, res, res, 1], table [C, D]) of a
+    :class:`PredictSpec`, from CPU generators: the same on every device."""
+    from rangeclip_tpu_torch.models.depth_unet import DepthUNet
+
+    model = DepthUNet(spec.config, device=device,
+                      generator=torch.Generator().manual_seed(spec.seed)
+                      ).eval()
+    gen = torch.Generator().manual_seed(spec.seed + 2)
+    depth = torch.randn(spec.batch, spec.res, spec.res, 1, generator=gen)
+    table = torch.randn(spec.classes, spec.dim, generator=gen)
+    return model, depth.to(device), table.to(device)
+
+
+def _grid_predict(spec: PredictSpec, grid, dev: torch.device) -> Dict:
+    """This rank's part of a grid predict: the whole map of labels
+    (gathered) and the launches of its predict call."""
+    from rangeclip_tpu_torch.ops.kernels import _lib
+    from rangeclip_tpu_torch.parallel.predict import (
+        gather_label_blocks,
+        make_grid_predict,
+        pad_class_table,
+    )
+
+    set_precision(spec.bf16)
+    model, depth, table = predict_inputs(spec, dev)
+    padded, ids = pad_class_table(table, grid.n_model)
+    fn = make_grid_predict(model, grid, spec.top_k)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    _lib.reset_launch_counts()
+    labels = fn(depth, padded, ids)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    launches = dict(_lib.launch_counts)
+    return {"labels": gather_label_blocks(labels, grid).cpu(),
+            "launches": launches}
+
+
 def _rank_main(rank_id: int, world_size: int, init_method: str,
-               specs: Sequence[StepSpec], device: str,
+               specs: Sequence, device: str,
                backend: Optional[str], out_dir: str) -> None:
-    """One rank: join the group, then one step per spec on this rank's
-    rows (after the spec's validation, if any); write what it ended with,
-    and its kernel launches."""
+    """One rank: join the group, then one step per :class:`StepSpec` on
+    this rank's rows (after the spec's validation, if any) or one predict
+    per :class:`PredictSpec`; write what it ended with, and its kernel
+    launches (None for a spec whose grid leaves this rank out).  Every
+    rank creates every spec's grid, in spec order."""
     import torch.distributed as dist
 
     from rangeclip_tpu_torch.ops.kernels import _lib
 
     dev = init_distributed(init_method, world_size, rank_id, backend=backend,
                            device=device)
+    grids: Dict[Tuple[int, int, int], object] = {}
+
+    def grid_of(shape):
+        if shape not in grids:
+            grids[shape] = make_grid(*shape)
+        return grids[shape]
+
     try:
         out = []
         for spec in specs:
+            if isinstance(spec, PredictSpec):
+                grid = grid_of(spec.grid)
+                out.append(None if grid is None
+                           else _grid_predict(spec, grid, dev))
+                continue
             set_precision(spec.bf16)  # f32 keeps cuDNN and cuBLAS off TF32
             state = create_train_state(spec.config, dev, spec.weight_decay,
                                        spec.seed)
             replicate(state.model, dist.group.WORLD)
+            grid = None if spec.grid is None else grid_of(spec.grid)
+            if spec.grid is not None and grid is None:
+                out.append(None)
+                continue
             val = None
             if spec.val_batches:
                 _lib.reset_launch_counts()
@@ -219,16 +336,25 @@ def _rank_main(rank_id: int, world_size: int, init_method: str,
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 val["launches"] = dict(_lib.launch_counts)
-            batch, text, medium, hard = step_inputs(spec, world_size, dev)
+            batch, text, medium, hard = step_inputs(
+                spec, spec.blocks(world_size), dev)
+            if grid is None:
+                batch = rows(batch, rank_id, spec.batch)
+                group = dist.group.WORLD
+            else:
+                batch = grid.local_batch(batch, batch_axis=1)
+                text, medium, hard = shard_class_tables(
+                    text, medium, hard, spec.shard_classes, grid)
+                group = grid
             step = make_train_step(HybridLossConfig(), spec.accum,
                                    ddp_parity=spec.mode == "ddp_parity",
-                                   group=dist.group.WORLD)
+                                   group=group)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             _lib.reset_launch_counts()
-            state, info = step(state, rows(batch, rank_id, spec.batch),
-                               (spec.seed, 0), spec.lr, 0.3, 0.5, text,
-                               medium, hard)
+            with native_cpu_convolutions(spec.bf16, dev):
+                state, info = step(state, batch, (spec.seed, 0), spec.lr,
+                                   0.3, 0.5, text, medium, hard)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             result = _snapshot(state, info)
@@ -240,11 +366,13 @@ def _rank_main(rank_id: int, world_size: int, init_method: str,
         shutdown_distributed()
 
 
-def run_ranks(n: int, specs: Sequence[StepSpec], device: str = "cuda",
+def run_ranks(n: int, specs: Sequence, device: str = "cuda",
               backend: Optional[str] = None) -> List[List[Dict]]:
-    """Spawn ``n`` ranks, each taking one step per spec (in the spec's
-    mode); returns ``results[rank][spec]`` (parameters, gradients, buffers and
-    info after the step, and the rank's kernel launches).  On CUDA the
+    """Spawn ``n`` ranks, each taking one step per :class:`StepSpec` (in
+    the spec's mode) or one predict per :class:`PredictSpec`; returns
+    ``results[rank][spec]`` (parameters, gradients, buffers and info after
+    the step, or the predict's whole labels, and the rank's kernel
+    launches; None where a spec's grid leaves the rank out).  On CUDA the
     kernels are built here first, not by every rank at once.  Every
     process is joined before it returns."""
     import torch.multiprocessing as mp
@@ -316,10 +444,12 @@ def single_device_step(spec: StepSpec, world_size: int,
     set_precision(spec.bf16)
     state = create_train_state(spec.config, device, spec.weight_decay,
                                spec.seed)
-    batch, text, medium, hard = step_inputs(spec, world_size, device)
+    batch, text, medium, hard = step_inputs(spec, spec.blocks(world_size),
+                                            device)
     step = make_train_step(HybridLossConfig(), spec.accum)
-    state, info = step(state, batch, (spec.seed, 0), spec.lr, 0.3, 0.5,
-                       text, medium, hard)
+    with native_cpu_convolutions(spec.bf16, device):
+        state, info = step(state, batch, (spec.seed, 0), spec.lr, 0.3, 0.5,
+                           text, medium, hard)
     return _snapshot(state, info)
 
 
@@ -375,6 +505,7 @@ def check_step(results: Sequence[Dict], sim: Dict, spec: StepSpec,
     gradients, running statistics, info) and rank 0 agrees with the
     oracle ``sim`` (:func:`oracle_step`) within ``tol``; returns the
     largest errors."""
+    results = [res for res in results if res is not None]
     lead = results[0]
     for r, res in enumerate(results[1:], 1):
         for part in ("params", "grads", "stats"):
@@ -468,33 +599,140 @@ def check_sharded_predict(n: int, device: str = "cuda") -> Dict:
     return {"grid": [2, n // 2], "labels": int(depth[..., 0].numel()) * 3}
 
 
+def near_ties(got: torch.Tensor, want: torch.Tensor, model, depth,
+              table: torch.Tensor, tol: float) -> int:
+    """The entries in which two predicts' labels [B, H, W, k] of ``model``
+    on ``depth`` over ``table`` differ, each required to be a near-tie:
+    its two ids' cosine scores on the single-device native field within
+    ``tol`` (a convolution over a block of rows may round otherwise than
+    over the whole map); raises otherwise."""
+    from rangeclip_tpu_torch.utils.math import l2_normalize
+
+    differ = int((got != want).sum())
+    if not differ:
+        return 0
+    with torch.no_grad():
+        field = l2_normalize(model.native_field(depth, normalize=False)
+                             .float(), dim=-1)
+    up = got.shape[1] // field.shape[1]
+    scores = (field @ l2_normalize(table.float(), dim=-1).T).cpu()
+    g = got[:, ::up, ::up].long().cpu()
+    w = want[:, ::up, ::up].long().cpu()
+    gap = (scores.gather(-1, g.clamp_min(0))
+           - scores.gather(-1, w.clamp_min(0))).abs()
+    far = int(((g != w) & ((gap > tol) | (g < 0) | (w < 0))).sum())
+    if far:
+        raise AssertionError(f"{differ} labels differ, {far} of them by "
+                             f"more than {tol} of the cosine")
+    return differ
+
+
+def check_grid_predict(ranks: Sequence[Optional[Dict]], spec: PredictSpec,
+                       device: torch.device, tol: float = 1e-5) -> Dict:
+    """A grid predict's ranks (:func:`run_ranks`) against the ``data x
+    model`` predict of one process (``make_sharded_predict`` on a
+    ``(data * spatial) x model`` device grid, JAX's check of its spatial
+    layout): every rank gathered the same map, and the labels are equal
+    but for near-ties (:func:`near_ties`, counted)."""
+    from rangeclip_tpu_torch.parallel.mesh import make_mesh
+    from rangeclip_tpu_torch.parallel.predict import (
+        make_sharded_predict,
+        pad_class_table,
+    )
+
+    got = [r["labels"] for r in ranks if r is not None]
+    if any(not torch.equal(g, got[0]) for g in got[1:]):
+        raise AssertionError("the grid's ranks gathered different maps")
+    set_precision(spec.bf16)
+    model, depth, table = predict_inputs(spec, device)
+    n_data, n_spatial, n_model = spec.grid
+    mesh = make_mesh(n_data * n_spatial, n_model,
+                     [device] * (n_data * n_spatial * n_model))
+    padded, ids = pad_class_table(table, n_model)
+    with torch.no_grad():
+        want = make_sharded_predict(model, mesh, spec.top_k, "default")(
+            depth, padded, ids).cpu()
+    if got[0].shape != want.shape:
+        raise AssertionError(f"grid predict {tuple(got[0].shape)} against "
+                             f"{tuple(want.shape)}")
+    return {"grid": list(spec.grid), "labels": want.numel(),
+            "near_ties": near_ties(got[0], want, model, depth, table, tol)}
+
+
+# the bf16 packed-CE step at C = 2048 (tests/test_parallel.py:538): the
+# model-sharded grid against a data-only grid of the same global batch
+LARGE_C = dict(bf16=True, classes=2048, present=16)
+LARGE_C_TOLERANCE = Tolerance(loss=5e-3, grads=math.inf, stats=math.inf,
+                              params_close=0.0, grads_norm=0.1)
+
+
+def layout(n: int) -> Tuple[int, int, int]:
+    """JAX's dry-run mesh for ``n`` devices (``__graft_entry__.py:
+    164-170``): (data, spatial, model), 'model' 2 when n is even, 'spatial'
+    2 when 4 divides n."""
+    n_model = 2 if n % 2 == 0 else 1
+    n_spatial = 2 if n % 4 == 0 else 1
+    return n // (n_model * n_spatial), n_spatial, n_model
+
+
 def dryrun_multichip(n: int, device: str = "cuda",
                      backend: Optional[str] = None) -> Dict:
     """Build the kernels (CUDA), run ``n`` ranks of the global-batch step
-    and of the ``ddp_parity`` step against their oracles, then the
-    ``2 x n/2`` predict; raises on any difference, returns a summary
-    (``loss`` and ``errors`` of the ``ddp_parity`` step, ``global`` of
-    the global-batch step)."""
-    specs = [StepSpec(mode=mode) for mode in MODES]
+    on JAX's layout, of the ``ddp_parity`` step, of the grid's predict
+    (with a 'spatial' axis) and of the model-sharded packed-CE step (with
+    a 'model' axis) against their oracles, then the ``2 x n/2`` device-grid
+    predict; raises on any difference, returns a summary (``loss`` and
+    ``errors`` of the ``ddp_parity`` step, ``global``, ``grid_predict`` and
+    ``large_c``)."""
+    n_data, n_spatial, n_model = grid = layout(n)
+    # a global batch of 8 rows whatever the layout: at 2 rows the deepest
+    # BatchNorm (1 x 1 maps) rounds its statistics apart by 3e-4
+    specs: List = [StepSpec(mode="global", grid=grid,
+                            shard_classes=n_model > 1,
+                            batch=max(1, 8 // n_data)),
+                   StepSpec(mode="ddp_parity")]
+    if n_spatial > 1:
+        specs.append(PredictSpec(grid=grid, batch=2 * n_data * n_spatial))
+    if n_model > 1:
+        specs += [StepSpec(**LARGE_C, grid=(n // n_model, 1, n_model),
+                           shard_classes=True, batch=n_model),
+                  StepSpec(**LARGE_C, grid=(n, 1, 1), batch=1)]
     results = run_ranks(n, specs, device, backend)
     home = torch.device("cuda", 0) if device == "cuda" else torch.device(
         "cpu")
-    summary: Dict = {"ranks": n, "backend": backend or (
+    summary: Dict = {"ranks": n, "layout": list(grid), "backend": backend or (
         "nccl" if device == "cuda" else "gloo")}
     launches: Dict[str, int] = {}
     for i, spec in enumerate(specs):
         ranks = [r[i] for r in results]
+        for res in ranks:
+            for k, v in (res or {}).get("launches", {}).items():
+                launches[k] = launches.get(k, 0) + v
+        if isinstance(spec, PredictSpec):
+            summary["grid_predict"] = check_grid_predict(ranks, spec, home)
+            continue
+        if spec.classes == LARGE_C["classes"]:
+            continue
         errors = check_step(ranks, oracle_step(spec, n, home), spec,
                             GLOBAL_TOLERANCE if spec.mode == "global"
                             else Tolerance())
-        part = {"loss": ranks[0]["info"]["total_loss"], "errors": errors}
+        part = {"loss": next(r for r in ranks if r)["info"]["total_loss"],
+                "errors": errors}
         if spec.mode == "global":
             summary["global"] = part
         else:
             summary.update(part)
-        for res in ranks:
-            for k, v in res["launches"].items():
-                launches[k] = launches.get(k, 0) + v
+    if n_model > 1:
+        sharded, data_only = ([r[i] for r in results]
+                              for i in (len(specs) - 2, len(specs) - 1))
+        lead = data_only[0]
+        loss = next(r for r in sharded if r)["info"]["total_loss"]
+        if not math.isfinite(loss):
+            raise AssertionError(f"non-finite C=2048 packed-CE loss {loss}")
+        summary["large_c"] = {
+            "loss": loss, "data_only_loss": lead["info"]["total_loss"],
+            "errors": check_step(sharded, lead, specs[-2],
+                                 LARGE_C_TOLERANCE)}
     summary["predict"] = check_sharded_predict(n, device)
     summary["launches"] = {k: v for k, v in launches.items() if v}
     return summary

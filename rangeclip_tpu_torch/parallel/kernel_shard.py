@@ -5,10 +5,15 @@ JAX jits the step over a mesh and wraps every kernel call in a
 ``shard_map``: each device runs the kernel on its local shard, and the
 body adds the collective that combines the shards.  In the port each rank's
 kernel already sees its local rows, so this module holds only what those
-bodies add on top of the kernel call: the combination over ``group`` (a
-``torch.distributed`` process group of more than one rank, whose ranks hold
-equal row blocks of the global batch, rank-major).  With ``group=None``
-every function is the single kernel call.
+bodies add on top of the kernel call: the combination over ``group``, a
+``parallel/mesh.Grid`` or a ``torch.distributed`` process group (the grid
+``(world, 1, 1)``: equal blocks of the global batch's images, rank-major).
+On a grid a rank's pixel rows are its data block of the images and its
+spatial block of their rows (JAX's ``P("data", "spatial")``): pixel sums
+run over the 'batch' group (data x spatial of its model column), never
+over 'model', whose ranks hold the same rows; image-level terms over
+'data' only.  With ``group=None`` every function is the single kernel
+call.
 
 Applicability gates read the local shape, as JAX's ``local_field_shape``
 does: here that is simply the shape the rank holds.  The collectives are
@@ -36,15 +41,19 @@ from rangeclip_tpu_torch.ops.kernels.masked_pooling import (
 )
 from rangeclip_tpu_torch.ops.kernels.pixel_text_ce import fused_pixel_text_ce
 from rangeclip_tpu_torch.ops.kernels.tv_rowtile import tv_rowtile
-from rangeclip_tpu_torch.parallel.mesh import all_reduce_sum, row_block, world
+from rangeclip_tpu_torch.parallel.mesh import as_grid
 
 
-def global_sum(x: torch.Tensor, group=None) -> torch.Tensor:
-    """``x`` (not differentiated) summed over the ranks of ``group``: a new
-    tensor, the same bits on every rank."""
+def global_sum(x: torch.Tensor, group=None, axis: str = "batch"
+               ) -> torch.Tensor:
+    """``x`` (not differentiated) summed over ``axis`` of ``group``'s grid
+    ('batch': every rank holding pixels of the global batch; 'data': one
+    rank per data block, for an image-level sum): a new tensor, the same
+    bits on every rank of the axis."""
     out = x.detach().clone()
-    if group is not None:
-        all_reduce_sum([out], group)
+    grid = as_grid(group)
+    if grid is not None:
+        grid.sum([out], axis)
     return out
 
 
@@ -78,23 +87,30 @@ def sharded_class_presence(labels: torch.Tensor,
 
 def sharded_histogram(idx: torch.Tensor, n_bins: int,
                       group=None) -> torch.Tensor:
-    """The ``histogram`` kernel over this rank's images of the global draws
-    ``idx`` [world * B, n]: [B, n_bins].  Each image's histogram is its
-    own, so there is no collective."""
-    if group is not None:
-        idx = row_block(idx, group)
+    """The ``histogram`` kernel over this rank's data block of the global
+    draws ``idx`` [n_data * B, n]: [B, n_bins].  Each image's histogram is
+    its own, so there is no collective (a spatial rank keeps its rows of
+    it: ``losses/infonce.py``)."""
+    grid = as_grid(group)
+    if grid is not None:
+        idx = grid.image_block(idx)
     return histogram(idx.contiguous(), n_bins)
 
 
 def sharded_tv_rowtile(x: torch.Tensor,
                        sample_weight: Optional[torch.Tensor], upsample: int,
-                       group=None) -> torch.Tensor:
+                       group=None) -> Optional[torch.Tensor]:
     """This rank's share of the ``tv_rowtile`` TV of the global batch: the
-    kernel's mean over the local rows over the number of ranks (the shards
-    are equal, so the shares add up to the global mean; JAX's ``psum / nd``).
-    The caller scales by the global ``B / sum(w)``."""
+    kernel's mean over the local images over the number of data blocks
+    (the blocks are equal, so the shares add up to the global mean; JAX's
+    ``psum / nd``).  The caller scales by the global ``B / sum(w)``.  None
+    under a 'spatial' axis, as in JAX: vertical pairs cross the blocks'
+    edges, and the caller takes the plain formulation with a halo row."""
+    grid = as_grid(group)
+    if grid is not None and grid.n_spatial > 1:
+        return None
     loss = tv_rowtile(x, sample_weight, upsample)
-    return loss if group is None else loss / world(group)
+    return loss if grid is None else loss / grid.n_data
 
 
 def sharded_l2_normalize_field(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -111,14 +127,15 @@ def sharded_masked_pooling(emb: torch.Tensor, seg: torch.Tensor,
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sums [N, D], counts [N]) of ``masked_pooling`` over every rank's
     pixels: the kernel on the local [B, H, W, D] field, both all-reduced
-    in one bucket.  Under a group the result is not differentiated (the
-    kernel has no backward)."""
+    in one bucket over the 'batch' group.  Under a group the result is not
+    differentiated (the kernel has no backward)."""
     B, H, W, D = emb.shape
     sums, counts = fused_masked_pooling(emb.reshape(B * H * W, D),
                                         seg.reshape(B * H * W),
                                         object_indices)
-    if group is None:
+    grid = as_grid(group)
+    if grid is None:
         return sums, counts
     sums, counts = sums.detach().clone(), counts.detach().clone()
-    all_reduce_sum([sums, counts], group)
+    grid.sum([sums, counts], "batch")
     return sums, counts

@@ -1,14 +1,15 @@
 """Device grids and the process group (``rangeclip_tpu/parallel/mesh.py``).
 
 JAX names one mesh of devices and lets XLA insert the collectives.  The
-port keeps the two things that mesh is used for, each in its own form:
+port keeps the things that mesh is used for, each in its own form:
 
 * :func:`make_mesh`: an ``[n_data][n_model]`` grid of ``torch.device``s
   that one process drives (``parallel/predict.py``, ``cli/serve
   --data_parallel``).  A device may stand in the grid more than once: four
   CPU cells stand in for JAX's virtual CPU devices in the tests, and
-  ``[cuda:0] * 4`` runs the grid on one card.  No 'spatial' axis yet
-  (ROADMAP item 10b).
+  ``[cuda:0] * 4`` runs the grid on one card.  It takes no 'spatial' axis:
+  one process has no transport for the convolutions' halo rows, so a
+  spatial axis is a process grid (:func:`make_grid`).
 * :func:`init_distributed` and the helpers after it: the process group that
   ``--distributed`` training runs over, one process per GPU as ``torchrun``
   starts them (JAX runs one process over all of a host's devices).  The
@@ -17,9 +18,15 @@ port keeps the two things that mesh is used for, each in its own form:
   order (JAX's process-major ``shard_batch``), :func:`row_block` is this
   rank's block of an array over the global batch and :func:`gather_rows`
   the global array from every rank's block.  ``replicate`` broadcasts rank
-  0's parameters and buffers once, and the class tables are built by every
-  rank alike (JAX's ``shard_class_tables`` without ``shard_classes``;
-  model-sharded tables are item 10b).
+  0's parameters and buffers once.
+* :func:`make_grid`: JAX's three-axis mesh ``("data", "spatial",
+  "model")`` over the ranks of the process group, rank-major as JAX
+  reshapes its mesh: rank ``(d * n_spatial + s) * n_model + m``.  A rank
+  holds data block ``d`` of the images, spatial block ``s`` of their rows
+  (``parallel/halo.py``: the halo rows the convolutions read are exchanged
+  between the ranks of a 'spatial' group) and model slice ``m`` of the
+  class tables (:func:`shard_class_tables`).  A plain process group is the
+  grid ``(world, 1, 1)`` (:func:`as_grid`).
 
 Collectives are explicit (:func:`all_reduce_sum`, :func:`all_reduce_mean`,
 :func:`broadcast`), in one flattened bucket per dtype, and use only
@@ -39,6 +46,7 @@ import torch
 from rangeclip_tpu_torch.utils.device import resolve_device
 
 ITEM_10B = "ROADMAP item 10b"
+ITEM_10C = "ROADMAP item 10c"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,11 +93,15 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
               n_spatial: int = 1) -> Mesh:
     """The first ``n_data * n_model`` of ``devices`` (default: every local
     CUDA device) as an ``[n_data][n_model]`` grid, row-major as JAX lays
-    its mesh out; ``n_data`` defaults to as many rows as fit."""
+    its mesh out; ``n_data`` defaults to as many rows as fit.  A 'spatial'
+    axis is refused: its halo rows travel between processes, so it is a
+    process grid (:func:`make_grid`)."""
     if n_spatial != 1:
-        raise NotImplementedError(
-            "a 'spatial' mesh axis (the image height sharded, conv halos "
-            f"exchanged) is not ported yet: {ITEM_10B}")
+        raise ValueError(
+            "a 'spatial' axis exchanges the convolutions' halo rows between "
+            "processes, which a grid driven by one process cannot: build it "
+            "with parallel.mesh.make_grid over a process group (one rank a "
+            "cell)")
     devices = [_canonical(d) for d in (local_devices() if devices is None
                                        else devices)]
     if n_data is None:
@@ -289,17 +301,236 @@ def broadcast(tensors: Sequence[torch.Tensor], group=None) -> None:
     _collective(tensors, lambda flat: dist.broadcast(flat, src, group=group))
 
 
+def owned_rows(height: int, n: int, index: int) -> Tuple[int, int]:
+    """Rows ``[lo, hi)`` of a ``height``-row axis that block ``index`` of
+    ``n`` owns: GSPMD's tiles of ``ceil(height / n)`` rows, so the last
+    blocks may be shorter or empty.  The one ownership rule of every split
+    of rows or classes in the port's grids."""
+    tile = -(-height // n)
+    return min(index * tile, height), min((index + 1) * tile, height)
+
+
+def all_reduce_exact(buf: torch.Tensor, group) -> torch.Tensor:
+    """``buf`` summed over ``group`` where every byte has at most one rank
+    that holds it non-zero (each rank fills its own cells of a zero
+    buffer): the sum of int32 views, so the bits travel exactly (-0.0,
+    NaN payloads and any dtype).  Returns the reduced tensor."""
+    import torch.distributed as dist
+
+    if world(group) == 1:
+        return buf
+    raw = buf.contiguous().reshape(-1).view(torch.uint8)
+    nbytes = raw.numel()
+    pad = -nbytes % 4
+    if pad:
+        raw = torch.cat([raw, raw.new_zeros(pad)])
+    ints = raw.view(torch.int32)
+    dist.all_reduce(ints, op=dist.ReduceOp.SUM, group=group)
+    return ints.view(torch.uint8)[:nbytes].view(buf.dtype).view(buf.shape)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Grid:
+    """This rank's cell of a ``data x spatial x model`` process grid
+    (:func:`make_grid`): the axes' sizes, its coordinates ``(d, s, m)``
+    and the process groups of its axes, ``None`` for an axis of one rank.
+    ``batch`` is the ``data x spatial`` group of its model column: the
+    ranks over whose pixels a loss's sums and BatchNorm's statistics are
+    taken.  Every collective of the grid goes through :meth:`sum` and
+    :meth:`gather`, which leave an axis of one rank alone."""
+
+    n_data: int
+    n_spatial: int
+    n_model: int
+    d: int
+    s: int
+    m: int
+    groups: Dict[str, object]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": self.n_data, "spatial": self.n_spatial,
+                "model": self.n_model}
+
+    def size(self, axis: str) -> int:
+        if axis == "batch":
+            return self.n_data * self.n_spatial
+        return self.shape[axis]
+
+    def index(self, axis: str) -> int:
+        """This rank's place along ``axis`` (``batch``: data-major)."""
+        if axis == "batch":
+            return self.d * self.n_spatial + self.s
+        return {"data": self.d, "spatial": self.s, "model": self.m}[axis]
+
+    def group(self, axis: str):
+        return self.groups[axis]
+
+    def sum(self, tensors: Sequence[torch.Tensor], axis: str) -> None:
+        """:func:`all_reduce_sum` of ``tensors`` over ``axis``, in place."""
+        if self.size(axis) > 1:
+            all_reduce_sum(tensors, self.groups[axis])
+
+    def gather(self, x: torch.Tensor, axis: str, dim: int = 0
+               ) -> torch.Tensor:
+        """The concatenation along ``dim`` of the ``axis`` ranks' equal
+        blocks ``x``, in their order along the axis, the bits exact
+        (:func:`all_reduce_exact`).  Not differentiated."""
+        n = self.size(axis)
+        if n == 1:
+            return x
+        shape = list(x.shape)
+        per = shape[dim]
+        shape[dim] = n * per
+        out = x.new_zeros(shape)
+        out.narrow(dim, self.index(axis) * per, per).copy_(x)
+        return all_reduce_exact(out, self.groups[axis])
+
+    def image_block(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's data block of ``x``'s images along ``dim``."""
+        if x.shape[dim] % self.n_data:
+            raise ValueError(f"{x.shape[dim]} images do not split over "
+                             f"{self.n_data} data blocks")
+        per = x.shape[dim] // self.n_data
+        return x.narrow(dim, self.d * per, per)
+
+    def row_block(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's spatial block of ``x``'s rows along ``dim``
+        (:func:`owned_rows`)."""
+        lo, hi = owned_rows(x.shape[dim], self.n_spatial, self.s)
+        return x.narrow(dim, lo, hi - lo)
+
+    def local_batch(self, batch: Dict[str, torch.Tensor],
+                    batch_axis: int = 0) -> Dict[str, torch.Tensor]:
+        """This rank's block of a global batch: its data block of every
+        array, and its spatial block of the image rows of those with a
+        height (depth [.., B, H, W, 1], segmentation [.., B, H, W]), as
+        JAX's ``shard_batch`` places them.  Under a 'spatial' axis the
+        height must divide by 2 x its size, so every block holds the same
+        even count of rows."""
+        out = {}
+        for k, v in batch.items():
+            v = self.image_block(v, batch_axis)
+            if v.dim() >= batch_axis + 3:
+                height = v.shape[batch_axis + 1]
+                if self.n_spatial > 1 and height % (2 * self.n_spatial):
+                    raise ValueError(f"height {height} must divide by 2x "
+                                     f"the 'spatial' size {self.n_spatial}")
+                v = self.row_block(v, batch_axis + 1)
+            out[k] = v.contiguous()
+        return out
+
+
+def as_grid(group) -> Optional[Grid]:
+    """``group`` as a grid: a :class:`Grid` as it is, a process group as
+    the grid ``(world, 1, 1)`` over it (the global-batch step of one data
+    axis), ``None`` as ``None``."""
+    if group is None or isinstance(group, Grid):
+        return group
+    n = world(group)
+    many = group if n > 1 else None
+    return Grid(n, 1, 1, rank(group), 0, 0,
+                {"data": many, "spatial": None, "model": None,
+                 "batch": many})
+
+
+def make_grid(n_data: Optional[int] = None, n_spatial: int = 1,
+              n_model: int = 1) -> Optional[Grid]:
+    """JAX's ``make_mesh`` over the process group: the world's first
+    ``n_data * n_spatial * n_model`` ranks as a ``(data, spatial, model)``
+    grid, rank ``(d * n_spatial + s) * n_model + m`` (JAX's reshape of its
+    device list); ``n_data`` defaults to as many as fit.  Every rank must
+    call it, in the same order as any other group it creates: it creates
+    the groups of every axis (each set of ranks once; the world's own
+    group where a set is the world).  A rank outside the grid gets None.
+    Outside a process group the grid is the one cell ``(1, 1, 1)``."""
+    import torch.distributed as dist
+
+    size = world()
+    if n_data is None:
+        n_data = size // (n_model * n_spatial)
+    total = n_data * n_model * n_spatial
+    assert 0 < total <= size, (
+        f"mesh data={n_data} x spatial={n_spatial} x model={n_model} does "
+        f"not fit {size} devices (model*spatial alone may exceed "
+        "the device count)"
+    )
+    cell = lambda d, s, m: (d * n_spatial + s) * n_model + m  # noqa: E731
+    D, S, M = range(n_data), range(n_spatial), range(n_model)
+    members = {
+        "data": {(s, m): tuple(cell(d, s, m) for d in D) for s in S
+                 for m in M},
+        "spatial": {(d, m): tuple(cell(d, s, m) for s in S) for d in D
+                    for m in M},
+        "model": {(d, s): tuple(cell(d, s, m) for m in M) for d in D
+                  for s in S},
+        "batch": {m: tuple(cell(d, s, m) for d in D for s in S) for m in M},
+    }
+    made: Dict[Tuple[int, ...], object] = {}
+    for axis in ("data", "spatial", "model", "batch"):
+        for ranks in members[axis].values():
+            if len(ranks) > 1 and ranks not in made:
+                made[ranks] = (dist.group.WORLD
+                               if ranks == tuple(range(size))
+                               else dist.new_group(list(ranks)))
+    me = rank()
+    if me >= total:
+        return None
+    d, rest = divmod(me, n_spatial * n_model)
+    s, m = divmod(rest, n_model)
+    keys = {"data": (s, m), "spatial": (d, m), "model": (d, s), "batch": m}
+    groups = {axis: made.get(members[axis][key])
+              for axis, key in keys.items()}
+    return Grid(n_data, n_spatial, n_model, d, s, m, groups)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClassSlice:
+    """Model rank ``m``'s slice of a class table: entries ``[lo, lo +
+    local.shape[axis])`` of the ``total`` classes along ``axis`` (rows of
+    the text table, columns of a [C, C] matrix)."""
+
+    local: torch.Tensor
+    total: int
+    lo: int
+    axis: int
+
+
 def shard_class_tables(text_table: torch.Tensor, medium_matrix: torch.Tensor,
                        hard_matrix: torch.Tensor,
-                       shard_classes: bool = False):
-    """The train step's frozen class tables: held whole by every rank, as
-    JAX replicates them.  ``shard_classes`` (the class axis split over a
-    'model' axis of a 2-D grid of process groups) is refused."""
-    if shard_classes:
-        raise NotImplementedError(
-            "model-sharded class tables in training (a 2-D grid of process "
-            f"groups) are not ported yet: {ITEM_10B}")
-    return text_table, medium_matrix, hard_matrix
+                       shard_classes: bool = False,
+                       grid: Optional[Grid] = None):
+    """Place the train step's frozen class tables (JAX's
+    ``shard_class_tables``).  With ``shard_classes`` on a grid of more than
+    one model rank, model rank ``m`` keeps its :func:`owned_rows` slice of
+    the classes (rows of the [C, D] text table, the same columns of both
+    [C, C] matrices) as :class:`ClassSlice`s, which the step gathers whole
+    over the 'model' group before the loss (:func:`gather_class_table`);
+    otherwise every rank holds them whole, as JAX replicates them."""
+    if not shard_classes or grid is None or grid.n_model == 1:
+        return text_table, medium_matrix, hard_matrix
+    C = text_table.shape[0]
+    lo, hi = owned_rows(C, grid.n_model, grid.m)
+    return (ClassSlice(text_table[lo:hi].clone(), C, lo, 0),
+            ClassSlice(medium_matrix[:, lo:hi].clone(), C, lo, 1),
+            ClassSlice(hard_matrix[:, lo:hi].clone(), C, lo, 1))
+
+
+def gather_class_table(table, grid: Optional[Grid]) -> torch.Tensor:
+    """A :class:`ClassSlice` gathered whole over the grid's 'model' group
+    (each rank writes its slice into a zero table: the bits exact); a
+    tensor as it is.  The tables are frozen: not differentiated."""
+    if not isinstance(table, ClassSlice):
+        return table
+    if grid is None or grid.n_model == 1:
+        raise ValueError("a model-sharded class table needs the grid it "
+                         "was sharded over")
+    shape = list(table.local.shape)
+    shape[table.axis] = table.total
+    out = table.local.new_zeros(shape)
+    out.narrow(table.axis, table.lo, table.local.shape[table.axis]).copy_(
+        table.local)
+    return all_reduce_exact(out, grid.group("model"))
 
 
 def replicate(module: torch.nn.Module, group=None) -> torch.nn.Module:

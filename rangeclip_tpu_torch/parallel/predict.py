@@ -23,8 +23,16 @@ GPUs run at once.  On one card the grid names ``cuda:0`` several times
 (the cells then run one after another): the result is the same, and the
 time is the merge's cost, not a speed-up.  The UNet is run again in each
 column (the parameters are replicated), as in JAX: where sharding the
-table matters, scoring outweighs the forward.  JAX's 'spatial' axis is
-ROADMAP item 10b.
+table matters, scoring outweighs the forward.
+
+JAX's 'spatial' axis (``_make_spatial_sharded_predict``) runs over a process
+grid (:func:`make_grid_predict`, ``parallel/mesh.make_grid``): each rank
+runs ``native_field`` on its data block's images and its spatial block of
+their rows (the convolutions' halo rows fetched from its spatial
+neighbours, ``parallel/halo.py``), scores its model slice of the table with
+``pixel_text_topk``, joins the exact merge over its 'model' group and
+upsamples its own label rows; :func:`gather_label_blocks` puts the ranks'
+blocks together for a caller that wants the whole map.
 """
 
 from __future__ import annotations
@@ -49,7 +57,13 @@ from rangeclip_tpu_torch.ops.kernels.pixel_text_topk import (
     select_topk,
 )
 from rangeclip_tpu_torch.ops.resize import resize_nearest
-from rangeclip_tpu_torch.parallel.mesh import Mesh
+from rangeclip_tpu_torch.parallel import halo
+from rangeclip_tpu_torch.parallel.mesh import (
+    Grid,
+    Mesh,
+    all_reduce_exact,
+    owned_rows,
+)
 from rangeclip_tpu_torch.utils.math import l2_normalize
 
 
@@ -132,6 +146,26 @@ def merge_topk(picks: List[Tuple[torch.Tensor, torch.Tensor]],
     return idx.gather(-1, order)[..., :top_k]
 
 
+def _local_topk(model: DepthUNet, depth: torch.Tensor,
+                table_slice: torch.Tensor, ids_slice: torch.Tensor,
+                top_k: int, predict_path: str, n_model: int):
+    """One cell's native-resolution (ids, values) [B, h, w, k] over its
+    table slice: ``predict_folded`` or ``native_field`` and
+    :func:`_score_field_topk`, by ``predict_path`` ('auto': the CLIs'
+    rule on the slice's slot count and the cell's batch, as JAX decides it
+    from the slice's static shape)."""
+    S, D = table_slice.shape
+    if use_folded(predict_path, S, D, depth.shape[0], model.compute_dtype,
+                  depth.device):
+        return predict_folded(
+            model, depth, table_slice, top_k=top_k,
+            candidate_ids=ids_slice, want_values=True, upsample=False,
+            # the slices are an even split of the padded global table
+            max_candidate_id=S * n_model - 1)
+    field = model.native_field(depth, normalize=False)
+    return _score_field_topk(field, table_slice, ids_slice, top_k)
+
+
 def _on(device: torch.device):
     return (torch.cuda.device(device) if device.type == "cuda"
             else contextlib.nullcontext())
@@ -165,19 +199,6 @@ def make_sharded_predict(model: DepthUNet, mesh: Mesh, top_k: int = 5,
         d: model if d == home else copy.deepcopy(model).to(d).eval()
         for d in mesh.distinct_devices()}
 
-    def local_topk(replica: DepthUNet, depth: torch.Tensor,
-                   table_slice: torch.Tensor, ids_slice: torch.Tensor):
-        S, D = table_slice.shape
-        if use_folded(predict_path, S, D, depth.shape[0],
-                      replica.compute_dtype, depth.device):
-            return predict_folded(
-                replica, depth, table_slice, top_k=top_k,
-                candidate_ids=ids_slice, want_values=True, upsample=False,
-                # the slices are an even split of the padded global table
-                max_candidate_id=S * n_model - 1)
-        field = replica.native_field(depth, normalize=False)
-        return _score_field_topk(field, table_slice, ids_slice, top_k)
-
     @torch.no_grad()
     def fn(depth: torch.Tensor, table, ids: Optional[torch.Tensor] = None
            ) -> torch.Tensor:
@@ -202,9 +223,9 @@ def make_sharded_predict(model: DepthUNet, mesh: Mesh, top_k: int = 5,
             picks = []
             for c, d in enumerate(row):
                 with _on(d):
-                    picks.append(local_topk(replicas[d], inputs[r, d],
-                                            shards.tables[r][c],
-                                            shards.ids[r][c]))
+                    picks.append(_local_topk(
+                        replicas[d], inputs[r, d], shards.tables[r][c],
+                        shards.ids[r][c], top_k, predict_path, n_model))
             with _on(row[0]):
                 idx = (merge_topk(picks, row[0], top_k) if n_model > 1
                        else picks[0][0])
@@ -213,3 +234,82 @@ def make_sharded_predict(model: DepthUNet, mesh: Mesh, top_k: int = 5,
         return torch.cat([r.to(out) for r in rows])
 
     return fn
+
+
+def make_grid_predict(model: DepthUNet, grid: Grid, top_k: int = 5,
+                      predict_path: str = "default"
+                      ) -> Callable[..., torch.Tensor]:
+    """JAX's spatially sharded ``make_sharded_predict`` over a ``data x
+    spatial x model`` process grid: ``fn(depth, table, ids) -> this rank's
+    labels`` [B / n_data, its rows of H, W, top_k] on the model's device,
+    every rank of the grid calling it with the same arguments.
+
+    ``depth`` is the whole [B, H, W(, 1)] batch (each rank cuts its block:
+    ``Grid.local_batch``); ``table`` and ``ids`` the padded table
+    (:func:`pad_class_table` over the 'model' size), of which each rank
+    scores its slice.  A rank runs ``native_field`` on its block inside
+    ``halo.sharded_rows`` (its halo rows from its spatial neighbours),
+    scores its slice with ``pixel_text_topk`` (the plain version on the
+    CPU), merges the 'model' group's (value, id) pairs exactly
+    (:func:`merge_topk`) and upsamples its own label rows.  The formulation
+    is 'default' ('auto' picks it); JAX's refusals: 'folded' cannot
+    spatially shard, and H must divide by 2 x the 'spatial' size.  A grid
+    without a 'spatial' axis is :func:`make_sharded_predict`'s.  The model
+    must be in eval mode."""
+    if predict_path not in PREDICT_PATHS:
+        raise ValueError(f"unknown predict path {predict_path!r}")
+    n_spatial, n_model = grid.n_spatial, grid.n_model
+    if predict_path == "folded":
+        raise ValueError(
+            "predict_path='folded' cannot spatially shard (the folded "
+            "conv would need halo exchange inside shard_map); use "
+            "'default' or 'auto'")
+    if n_spatial == 1:
+        raise ValueError("a grid without a 'spatial' axis predicts with "
+                         "make_sharded_predict")
+
+    @torch.no_grad()
+    def fn(depth: torch.Tensor, table: torch.Tensor,
+           ids: torch.Tensor) -> torch.Tensor:
+        if depth.dim() == 3:
+            depth = depth[..., None]
+        B, H, W = depth.shape[:3]
+        if B % grid.n_data:
+            raise ValueError(f"batch {B} does not split over "
+                             f"{grid.n_data} data blocks")
+        if H % (2 * n_spatial):
+            raise ValueError(f"height {H} must divide by 2x the 'spatial' "
+                             f"size {n_spatial}")
+        if table.shape[0] % n_model or ids.shape != table.shape[:1]:
+            raise ValueError(f"a table of {table.shape[0]} rows (ids "
+                             f"{tuple(ids.shape)}) does not split into "
+                             f"{n_model} slices: pad it with "
+                             "pad_class_table")
+        device = next(model.parameters()).device
+        local = grid.local_batch({"depth": depth})["depth"].to(device)
+        table_slice = table.chunk(n_model)[grid.m].to(device)
+        ids_slice = ids.to(torch.int32).chunk(n_model)[grid.m].to(device)
+        with halo.sharded_rows(grid, (H, W)):
+            idx, val = _local_topk(model, local, table_slice, ids_slice,
+                                   top_k, "default", n_model)
+        if n_model > 1:
+            idx = grid.gather(idx[None], "model")
+            val = grid.gather(val[None], "model")
+            idx = merge_topk(list(zip(idx.unbind(), val.unbind())), device,
+                             top_k)
+        return resize_nearest(idx, local.shape[1:3])
+
+    return fn
+
+
+def gather_label_blocks(labels: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """The whole [B, H, W, k] map from every rank's block of
+    :func:`make_grid_predict` (the 'batch' group's blocks, each rank
+    writing its own into a zero map: the ids exact); the same on every
+    rank."""
+    b, rows, W, k = labels.shape
+    H = rows * grid.n_spatial
+    out = labels.new_zeros((b * grid.n_data, H, W, k))
+    lo, hi = owned_rows(H, grid.n_spatial, grid.s)
+    out[grid.d * b:(grid.d + 1) * b, lo:hi] = labels
+    return all_reduce_exact(out, grid.group("batch"))

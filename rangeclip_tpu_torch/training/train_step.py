@@ -56,6 +56,22 @@ steps:
   ``DistributedDataParallel`` wrapper is not used: the step calls
   ``forward_native``, which its reducer never sees, and it broadcasts
   buffers where JAX averages them.
+
+On a grid (``group`` a ``parallel/mesh.Grid``: JAX's step jitted over a
+``data x spatial x model`` mesh, ``tests/test_parallel.py:77-113``) the
+global-batch step holds its data block of the images and its spatial block
+of their rows (``Grid.local_batch``).  The forward and the loss run inside
+``parallel/halo.sharded_rows``: the convolutions fetch their halo rows from
+the neighbouring spatial ranks, forward and backward.  BatchNorm's
+statistics, the loss's pixel sums and the gradients are summed over the
+'batch' group (data x spatial of the rank's model column, never over
+'model', whose ranks compute the same rows; model rank 0's gradients,
+losses and statistics are broadcast over the 'model' group, so that the
+replicas end bit-equal even where a kernel rounds otherwise from run to
+run, as oneDNN's bf16 convolutions do on the CPU); image-level terms per
+data block.  Class tables sharded over 'model'
+(``mesh.shard_class_tables(shard_classes=True)``) are gathered whole once
+a step before the loss; they are frozen.
 """
 
 from __future__ import annotations
@@ -73,7 +89,14 @@ from rangeclip_tpu_torch.losses.hybrid import (
 from rangeclip_tpu_torch.losses.pooling import per_item_masked_pooling
 from rangeclip_tpu_torch.models.depth_unet import DepthUNet
 from rangeclip_tpu_torch.ops.blocks import sync_batch_norm
-from rangeclip_tpu_torch.parallel.mesh import all_reduce_mean, all_reduce_sum
+from rangeclip_tpu_torch.parallel.halo import sharded_rows
+from rangeclip_tpu_torch.parallel.mesh import (
+    Grid,
+    all_reduce_mean,
+    as_grid,
+    broadcast,
+    gather_class_table,
+)
 from rangeclip_tpu_torch.parallel.mesh import rank as group_rank
 from rangeclip_tpu_torch.parallel.mesh import world as group_world
 from rangeclip_tpu_torch.training.optim import set_learning_rate
@@ -109,7 +132,8 @@ def microbatch_loss(model: DepthUNet, mb: Dict[str, torch.Tensor],
     """One microbatch's hybrid loss (train_step.py:69-130): ``mb`` holds
     depth [B, H, W, 1], segmentation [B, H, W], object_label [B],
     image_embeddings [B, D] and sample_valid [B]; under ``group`` these are
-    this rank's rows of the global batch and the losses its shares."""
+    this rank's block of the global batch and the losses its shares (under
+    a 'spatial' axis, inside ``halo.sharded_rows``)."""
     field, temp_t, temp_i = model.forward_native(mb["depth"])
     H = mb["depth"].shape[1]
     ups = H // field.shape[1]
@@ -119,7 +143,8 @@ def microbatch_loss(model: DepthUNet, mb: Dict[str, torch.Tensor],
     area = image = None
     if use_image:
         area = per_item_masked_pooling(field, mb["segmentation"],
-                                       mb["object_label"], upsample=ups)
+                                       mb["object_label"], upsample=ups,
+                                       group=group)
         image = mb["image_embeddings"]
     return compute_hybrid_loss(
         field, mb["segmentation"], text_table, medium_matrix, hard_matrix,
@@ -161,19 +186,26 @@ def make_train_step(loss_config: HybridLossConfig = HybridLossConfig(),
     With ``group`` (a ``torch.distributed`` process group, or
     ``torch.distributed.group.WORLD``) ``batch`` is this rank's rows, and
     the step is the module docstring's global-batch step, or its DDP with
-    ``ddp_parity``; without ``group`` it is the single-device step.
+    ``ddp_parity``; with a grid (``parallel/mesh.make_grid``) it is this
+    rank's block (``Grid.local_batch``: its images, and under a 'spatial'
+    axis an even count of rows, the same on every spatial rank), and the
+    tables may be ``shard_class_tables``' model slices.  Without ``group``
+    it is the single-device step.
     """
+    if ddp_parity and isinstance(group, Grid):
+        raise ValueError("ddp_parity takes a process group (each rank the "
+                         "single-device step on its rows), not a grid")
     reduce = group is not None and ddp_parity
-    # the global-batch step's group; one rank is the single-device step
-    glob = (group if group is not None and not ddp_parity
-            and group_world(group) > 1 else None)
+    # the global-batch step's grid; one rank is the single-device step
+    grid = None if ddp_parity else as_grid(group)
+    if grid is not None and grid.size("batch") * grid.n_model == 1:
+        grid = None
     rank = (group_rank(group) if group is not None else 0) \
         if ddp_parity else None
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    rng: Tuple[int, int], lr: float, pct_medium: float,
-                   pct_hard: float, text_table: torch.Tensor,
-                   medium_matrix: torch.Tensor, hard_matrix: torch.Tensor,
+                   pct_hard: float, text_table, medium_matrix, hard_matrix,
                    draws: Optional[List[Draws]] = None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         model, optimizer = state.model, state.optimizer
@@ -181,12 +213,27 @@ def make_train_step(loss_config: HybridLossConfig = HybridLossConfig(),
         if A != accum_steps:
             raise ValueError(f"batch has {A} microbatches, the step "
                              f"accumulates {accum_steps}")
+        text_table, medium_matrix, hard_matrix = (
+            gather_class_table(t, grid)
+            for t in (text_table, medium_matrix, hard_matrix))
+        rows, width = batch["depth"].shape[2:4]
+        if grid is not None and grid.n_spatial > 1:
+            # every spatial rank must see the same global height: the same
+            # even count of rows on each (a collective, so all raise)
+            blocks = grid.gather(torch.tensor(
+                [rows], device=batch["depth"].device), "spatial").tolist()
+            if len(set(blocks)) > 1 or rows % 2:
+                raise ValueError(f"spatial blocks of {blocks} rows: the "
+                                 f"height must divide by 2 x the 'spatial' "
+                                 f"size {grid.n_spatial}")
+        shape = (rows * (1 if grid is None else grid.n_spatial), width)
         model.train()
         # every parameter's, not only the optimizer's: a frozen encoder's
         # gradients count in grad_norm and must not add up over steps
         model.zero_grad(set_to_none=True)
         info_sum = None
-        with sync_batch_norm(glob):
+        with sync_batch_norm(None if grid is None else grid.group("batch")), \
+                sharded_rows(grid, shape):
             for idx in range(A):
                 mb = {k: v[idx] for k, v in batch.items()}
                 generator = (None if draws is not None
@@ -197,7 +244,7 @@ def make_train_step(loss_config: HybridLossConfig = HybridLossConfig(),
                     model, mb, pct_medium, pct_hard, text_table,
                     medium_matrix, hard_matrix, loss_config,
                     draws[idx] if draws is not None else None, generator,
-                    glob)
+                    grid)
                 total.backward()
                 if reduce:
                     with torch.no_grad():
@@ -209,10 +256,15 @@ def make_train_step(loss_config: HybridLossConfig = HybridLossConfig(),
         for g in grads:
             g.div_(A)
         info = {k: v / A for k, v in info_sum.items()}
-        if glob is not None:
+        if grid is not None:
             # the shares add up to the global batch's gradients and losses
             losses = torch.stack([info[k] for k in LOSS_KEYS])
-            all_reduce_sum(grads + [losses], glob)
+            grid.sum(grads + [losses], "batch")
+            if grid.n_model > 1:
+                # the model replicas computed the same rows, but a kernel
+                # may round otherwise from run to run: one set of bits
+                broadcast(grads + [losses] + running_statistics(model),
+                          grid.group("model"))
             info.update(zip(LOSS_KEYS, losses.unbind()))
         if reduce:
             all_reduce_mean(grads, group)

@@ -3,9 +3,9 @@
 one ``results.txt`` (rank 0's), a run header naming the global batch, both
 ranks with the same learning rates, best results and weights after every
 step, and one sharded validation.  A group of one rank is the
-single-device step and the single-device validation, bit for bit; the
-'spatial' axis and model-sharded training tables still refuse, naming
-ROADMAP item 10b."""
+single-device step and the single-device validation, bit for bit; what a
+'spatial' axis still refuses (the MiT encoder under it, validation over
+it) names ROADMAP item 10c."""
 
 import json
 import os
@@ -19,7 +19,10 @@ from rangeclip_tpu_torch.data import synthetic
 from rangeclip_tpu_torch.evals.validate import validate_model
 from rangeclip_tpu_torch.losses.hybrid import HybridLossConfig
 from rangeclip_tpu_torch.parallel import dryrun
+from rangeclip_tpu_torch.models.depth_unet import DepthUNet, DepthUNetConfig
+from rangeclip_tpu_torch.parallel.halo import sharded_rows
 from rangeclip_tpu_torch.parallel.mesh import (
+    Grid,
     init_distributed,
     make_mesh,
     shard_class_tables,
@@ -134,11 +137,28 @@ def test_validation_over_a_group_of_one_is_single_device(group_of_one):
 
 
 def test_spatial_axis_and_model_sharded_tables_refuse():
-    """The two parts of ROADMAP item 10b still to port raise, naming it."""
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
+    """ROADMAP item 10b's two parts are ported: make_mesh refuses a
+    'spatial' axis, naming the process grid that carries it, and
+    shard_class_tables keeps the tables whole without a 'model' axis.
+    What a spatial axis still refuses names ROADMAP item 10c: the MiT
+    encoder under it (its attention reads every row) and validation over
+    it."""
+    with pytest.raises(ValueError, match="make_grid"):
         make_mesh(1, 1, [CPU] * 2, n_spatial=2)
     tables = (torch.zeros(4, 8), torch.zeros(4, 4, dtype=torch.bool),
               torch.zeros(4, 4, dtype=torch.bool))
     assert shard_class_tables(*tables) == tables
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
-        shard_class_tables(*tables, shard_classes=True)
+    assert shard_class_tables(*tables, shard_classes=True) == tables
+    # a spatial grid's cell (its groups are never reached: both refuse
+    # before any collective)
+    grid = Grid(1, 2, 1, 0, 0, 0, {"data": None, "spatial": None,
+                                   "model": None, "batch": None})
+    mit = DepthUNet(DepthUNetConfig(unet_type="mit",
+                                    encoder_filters=(8, 16, 16, 16, 32),
+                                    embedding_dim=32)).eval()
+    with sharded_rows(grid, (32, 32)), \
+            pytest.raises(NotImplementedError, match="ROADMAP item 10c"):
+        mit.native_field(torch.zeros(1, 16, 32, 1))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 10c"):
+        validate_model(mit, [], *tables, None, None, {}, None, 1, {},
+                       group=grid)

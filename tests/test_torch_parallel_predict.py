@@ -205,8 +205,8 @@ def test_serve_sharded_route_refuses(served, kw, message):
 def test_make_mesh_layout_and_refusals():
     """Row-major cells as JAX lays its mesh out, a repeated device counted
     once; JAX's assertion text for a grid that does not fit; a 'spatial'
-    axis refused, naming ROADMAP item 10b; torchrun's flags without a
-    coordinator refused with JAX's assertion text."""
+    axis refused, naming the process grid that carries it; torchrun's
+    flags without a coordinator refused with JAX's assertion text."""
     from rangeclip_tpu_torch.parallel import init_distributed
 
     mesh = make_mesh(2, 2, [CPU] * 5)
@@ -216,7 +216,7 @@ def test_make_mesh_layout_and_refusals():
     with pytest.raises(AssertionError, match="mesh data=3 x spatial=1 x "
                        "model=2 does not fit 4 devices"):
         make_mesh(3, 2, [CPU] * 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
+    with pytest.raises(ValueError, match="parallel.mesh.make_grid"):
         make_mesh(1, 1, [CPU] * 4, n_spatial=2)
     with pytest.raises(AssertionError, match="have no effect without "
                        "--coordinator_address"):
