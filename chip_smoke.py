@@ -192,16 +192,22 @@ Phases (any failure raises; nothing is caught):
    step with model-sharded class tables, the grid's predict against the
    data x model predict, the C = 2048 packed-CE step against its
    data-only run); (h) one spawn of four gloo ranks on the card for the
-   'spatial' axis at full width: the grid predict ('default', top-5, C =
-   512, batch 8 at 256^2) in f32 and bf16 on 1 x 2 x 1 and 1 x 2 x 2
-   grids, each rank its block of rows (halo rows from its neighbour),
-   against single-device predict (f32 labels equal but for near-ties
-   within 1e-5 of the cosine; bf16 held as (a)), and the global-batch step
-   on a 1 x 2 x 1 grid, each rank 128 of the 256 rows of a 32-image batch,
-   in bf16 and f32 against the single-device step, held as (e), the two
-   ranks bit-equal; the ranks must launch pixel_text_topk and the step's
-   CE, class_presence, histogram and (bf16) l2_normalize kernels, and not
-   tv_rowtile (the plain TV with a halo row, as in JAX).
+   'spatial' axis at full width, for the ResNet-18 UNet and the MiT
+   (stage widths 64-512; its attention's K and V gathered over the row
+   shards): the grid predict ('default', top-5, C = 512, batch 8 at
+   256^2) in f32 and bf16 on 1 x 2 x 1 and 1 x 2 x 2 grids, each rank its
+   block of rows (halo rows from its neighbour), against single-device
+   predict (f32 labels equal but for near-ties within 1e-5 of the cosine;
+   bf16 held as (a)); grid validation on 1 x 2 x 1 in f32 (two batches of
+   8 images, 50 negatives) against single-device validate_model (held as
+   (f)), the ranks' results equal; and the global-batch step on a 1 x 2 x
+   1 grid, each rank 128 of the 256 rows of a 32-image batch, in bf16 and
+   f32 against the single-device step, held as (e), the two ranks
+   bit-equal.  Each rank must launch pixel_text_topk, validation's
+   pixel_text_topk[fp32] and class_presence[labels], and the step's CE
+   (the MiT's: the member-only 16-slot instances), class_presence,
+   histogram and (bf16) l2_normalize kernels, and not tv_rowtile (the
+   plain TV with a halo row, as in JAX).
 
 Each path of phases 3-8, of phase 11's (a)-(d), of phase 12, of phase 13's
 (e) and of phase 14 runs with the launch counts set to 0 just before it and
@@ -4098,31 +4104,92 @@ def phase_rank_steps(device, card: str, totals) -> None:
 
 
 # phase 14 (h): the 'spatial' axis at full width, in one spawn of four
-# ranks: the grid predicts (f32 and bf16 on 1 x 2 x 1 and 1 x 2 x 2), then
-# the global-batch step on 1 x 2 x 1 (ranks 2 and 3 sit out)
+# ranks: the grid predicts of the ResNet UNet and the MiT (f32 and bf16 on
+# 1 x 2 x 1 and 1 x 2 x 2), then the global-batch steps of both on 1 x 2 x
+# 1 (ranks 2 and 3 sit out), the f32 ones after validating over the grid
 GRID_PREDICT_BATCH = SERVE_BATCH
-GRID_KERNELS = {True: ["histogram", "class_presence", "l2_normalize[fwd]",
+GRID_VAL_BATCH = 8  # images of a val batch (phase 8's, cli/train's)
+GRID_VAL_BATCHES = 2
+# the steps' kernels by (architecture, bf16): the ResNet's field at H/2
+# packs 4 label slots (bf16: the tensor-core CE), the MiT's at H/4 16
+# (the member-only CE's 16-slot instances)
+GRID_KERNELS = {
+    ("resnet", True): ["histogram", "class_presence", "l2_normalize[fwd]",
                        "l2_normalize[bwd]", "pixel_text_ce_tc[fwd]",
                        "pixel_text_ce_tc[bwd]"],
-                False: ["histogram", "class_presence", "live_rows",
-                        "pixel_text_ce[fwd]", "pixel_text_ce[bwd]"]}
+    ("resnet", False): ["histogram", "class_presence", "live_rows",
+                        "pixel_text_ce[fwd]", "pixel_text_ce[bwd]"],
+    ("mit", True): ["histogram", "class_presence", "l2_normalize[fwd]",
+                    "l2_normalize[bwd]", "live_rows", "pixel_text_ce[fwd]",
+                    "pixel_text_ce[bwd]"],
+    ("mit", False): ["histogram", "class_presence", "live_rows",
+                     "pixel_text_ce[fwd]", "pixel_text_ce[bwd]"]}
+GRID_VAL_KERNELS = ["pixel_text_topk[fp32]", "class_presence[labels]"]
+ARCH_NAMES = {"resnet": "ResNet-18", "mit": "MiT (stage widths 64-512)"}
 
 
 def grid_specs():
-    """Phase 14 (h)'s specs: the four grid predicts, then the two steps."""
+    """Phase 14 (h)'s specs: the eight grid predicts, then the four steps
+    (the two f32 ones validating first)."""
     from rangeclip_tpu_torch.parallel.dryrun import PredictSpec, StepSpec
 
     full = dict(filters=(32, 64, 128, 256, 512), dim=512, res=RES)
-    predicts = [PredictSpec(**full, grid=grid, batch=GRID_PREDICT_BATCH,
-                            classes=NUM_CLASSES, top_k=BENCH_TOP_K,
-                            bf16=bf16, seed=SEED + 40)
+    predicts = [PredictSpec(**full, unet_type=arch, grid=grid,
+                            batch=GRID_PREDICT_BATCH, classes=NUM_CLASSES,
+                            top_k=BENCH_TOP_K, bf16=bf16, seed=SEED + 40)
+                for arch in ("resnet", "mit")
                 for grid in ((1, 2, 1), (1, 2, 2)) for bf16 in (False, True)]
-    steps = [StepSpec(**full, batch=TRAIN_BATCH, accum=1,
+    steps = [StepSpec(**full, unet_type=arch, batch=TRAIN_BATCH, accum=1,
                       classes=NUM_CLASSES, present=TRAIN_PRESENT, lr=1e-4,
                       bf16=bf16, seed=SEED + 41, mode="global",
-                      grid=(1, 2, 1))
-             for bf16 in (True, False)]
+                      grid=(1, 2, 1),
+                      val_batches=0 if bf16 else GRID_VAL_BATCHES,
+                      val_batch=GRID_VAL_BATCH)
+             for arch in ("resnet", "mit") for bf16 in (True, False)]
     return predicts, steps
+
+
+def member_launches(members, part: str, kernels, what: str) -> None:
+    """Require that every rank launched each of ``kernels`` in ``part`` of
+    its run (its step, or ``val``)."""
+    for r, res in enumerate(members):
+        counts = res["val"]["launches"] if part == "val" else res["launches"]
+        for kernel in kernels:
+            require(counts.get(kernel, 0) > 0,
+                    f"{what}: rank {r} did not launch {kernel}")
+
+
+def check_grid_validation(spec, members, device, card: str, totals) -> None:
+    """A grid step's validation (``spec.val_batches``): every rank's
+    results equal, against single-device ``validate_model`` on the whole
+    batches (metrics within VAL_METRIC_ATOL, losses within
+    VAL_LOSS_RTOL), each rank launching GRID_VAL_KERNELS."""
+    from rangeclip_tpu_torch.parallel.dryrun import single_device_validation
+
+    name = f"grid validation of the {ARCH_NAMES[spec.unet_type]} on 1 x 2 x 1"
+    got = [res["val"]["results"] for res in members]
+    require(all(g == got[0] for g in got[1:]),
+            f"{name}: the ranks' results differ: {got}")
+    want = single_device_validation(spec, 2, device)
+    metrics = ("mIoU_t1", "mIoU_tk", "pixel_accuracy_t1", "pixel_accuracy_tk")
+    metric_err = max(abs(got[0][k] - want[k]) for k in metrics)
+    loss_err = max(abs(got[0][k] - want[k]) / max(abs(want[k]), 1e-30)
+                   for k in ("loss", "avg_text_contrastive_loss",
+                             "avg_image_contrastive_loss",
+                             "avg_smoothness_loss"))
+    require(metric_err <= VAL_METRIC_ATOL and loss_err <= VAL_LOSS_RTOL,
+            f"{name} against one device: metrics {metric_err} (<= "
+            f"{VAL_METRIC_ATOL}), losses {loss_err} (<= {VAL_LOSS_RTOL}): "
+            f"{got[0]} against {want}")
+    member_launches(members, "val", GRID_VAL_KERNELS, name)
+    counts = rank_launches(members, "val", totals)
+    log(f"  {name}, f32, {GRID_VAL_BATCHES} batches of {GRID_VAL_BATCH} "
+        f"images with {RES // 2} of {RES} rows a rank, 50 negatives, top-5: "
+        f"metrics {'equal to' if metric_err == 0 else 'within'} "
+        f"single-device validation's (largest difference {metric_err!r}; "
+        f"mIoU_tk {got[0]['mIoU_tk']!r} against {want['mIoU_tk']!r}), "
+        f"losses relative {loss_err:.3g}; launches "
+        f"{ {k: n for k, n in counts.items() if n} } on {card}")
 
 
 def phase_grid(device, card: str, totals) -> None:
@@ -4145,19 +4212,14 @@ def phase_grid(device, card: str, totals) -> None:
     for i, spec in enumerate(predicts + steps):
         ranks = [r[i] for r in results]
         members = [r for r in ranks if r is not None]
-        counts = {}
-        for res in members:
-            for kernel, n in res["launches"].items():
-                counts[kernel] = counts.get(kernel, 0) + n
-                totals[kernel] += n
+        arch = ARCH_NAMES[spec.unet_type]
         precision = "bf16" if spec.bf16 else "fp32"
         if isinstance(spec, PredictSpec):
-            name = (f"grid predict {precision} on "
+            counts = rank_launches(members, "step", totals)
+            name = (f"grid predict of the {arch}, {precision}, on "
                     f"{' x '.join(map(str, spec.grid))}")
             kernel = f"pixel_text_topk[{precision}]"
-            require(counts.get(kernel, 0) >= len(members),
-                    f"{name}: {kernel} launched {counts.get(kernel, 0)} "
-                    f"times by {len(members)} ranks")
+            member_launches(members, "step", [kernel], name)
             got = members[0]["labels"]
             require(all(torch.equal(r["labels"], got) for r in members),
                     f"{name}: the ranks gathered different maps")
@@ -4171,8 +4233,10 @@ def phase_grid(device, card: str, totals) -> None:
                     f"{name}: shape {tuple(got.shape)}")
             differ = int((got != want).sum())
             if differ:
+                up = model.field_scale
                 native = lambda t: (  # noqa: E731
-                    t[:, ::2, ::2].reshape(-1, spec.top_k).to(device), None)
+                    t[:, ::up, ::up].reshape(-1, spec.top_k).to(device),
+                    None)
                 near_tie_check(
                     f"{name} on {card}", native(got), native(want),
                     field.reshape(-1, field.shape[-1]),
@@ -4186,21 +4250,23 @@ def phase_grid(device, card: str, totals) -> None:
                 f"{len(members)} ranks on {card}")
             del model, field
             continue
+        if spec.val_batches:
+            check_grid_validation(spec, members, device, card, totals)
+        counts = rank_launches(members, "step", totals)
         t1 = time.perf_counter()
         want = oracle_step(spec, 2, device)
         oracle_s = time.perf_counter() - t1
         errors = check_step(ranks, want, spec,
                             Tolerance(**GLOBAL_TOLERANCE[spec.bf16]))
-        for kernel in GRID_KERNELS[spec.bf16]:
-            require(counts.get(kernel, 0) > 0,
-                    f"grid step {precision}: {kernel} was not launched")
+        name = f"grid step of the {arch}, {precision}"
+        member_launches(members, "step",
+                        GRID_KERNELS[spec.unet_type, spec.bf16], name)
         for kernel in ("tv_rowtile[fwd]", "tv_rowtile[bwd]"):
             require(not counts.get(kernel, 0),
-                    f"grid step {precision}: {kernel} launched under the "
-                    "'spatial' axis")
-        log(f"  global step on 1 x 2 x 1, {spec.batch} images with "
-            f"{RES // 2} of {RES} rows a rank, {precision}: loss "
-            f"{members[0]['info']['total_loss']:.6f} against "
+                    f"{name}: {kernel} launched under the 'spatial' axis")
+        log(f"  global step of the {arch} on 1 x 2 x 1, {spec.batch} "
+            f"images with {RES // 2} of {RES} rows a rank, {precision}: "
+            f"loss {members[0]['info']['total_loss']:.6f} against "
             f"{want['info']['total_loss']:.6f} on one device ({oracle_s:.1f}"
             f" s in this process), both ranks bit-equal; errors {errors}; "
             f"launches { {k: n for k, n in counts.items() if n} } on {card}")
@@ -4284,7 +4350,7 @@ def phase_multigpu(tmp: str, data, device, card: str, totals) -> None:
     """14. Multi-GPU on one card: (a) sharded predict; two gloo ranks of
     (b) the ddp_parity step, (e) the global-batch step and (f) sharded
     validation; (h) four gloo ranks of the 'spatial' axis (grid predicts,
-    the grid step); (c) and (g) NCCL at world 1; (d) the dry run of four
+    grid validation and the grid step of the ResNet UNet and the MiT); (c) and (g) NCCL at world 1; (d) the dry run of four
     ranks on JAX's 1 x 2 x 2 layout."""
     from rangeclip_tpu_torch.parallel.dryrun import dryrun_multichip
 

@@ -25,6 +25,24 @@ drawn from the same noise on every rank, the loss is the global batch's
 (its draws made for the whole batch, each rank keeping its rows), and the
 metric accumulators and loss sums are SUM all-reduced at the end.  Every
 rank returns the same results; only rank 0 prints.
+
+Over a ``data x spatial x model`` grid (``group`` a ``parallel/mesh.Grid``:
+JAX's ``validate_model(mesh=...)`` on a mesh with a 'spatial' axis, whose
+``shard_batch`` shards H) every rank of a data block is fed that block's
+val-loader shard and keeps its spatial block of the rows
+(``Grid.row_block``); the model ranks compute the same rows with the whole
+class tables (``mesh.gather_class_table``).  The candidate mask is taken
+over the grid's 'batch' group (data x spatial), from the same noise on
+every rank; the predict (``DepthUNet.predict``: ``pixel_text_topk`` on the
+rank's field, its labels upsampled by the field's scale) and the val loss
+(the grid step's loss path: the area pooling summed over the spatial
+ranks, the plain TV with its halo row, the image-level term once per data
+block) run inside ``parallel/halo.sharded_rows``; the metrics update on the
+rank's own rows.  The accumulators and loss sums are summed over the
+'batch' group only (never over 'model'), then model rank 0's are broadcast
+over the 'model' group, so that every rank returns the same results.
+Rank 0 renders the summary grids from the gathered label blocks
+(``parallel/predict.gather_label_blocks``).
 """
 
 from __future__ import annotations
@@ -52,12 +70,12 @@ from rangeclip_tpu_torch.models.depth_unet import (
     DepthUNet,
     build_candidate_mask,
 )
+from rangeclip_tpu_torch.parallel.halo import sharded_rows
 from rangeclip_tpu_torch.parallel.mesh import (
-    ITEM_10C,
     Grid,
-    all_reduce_sum,
-    rank,
-    world,
+    as_grid,
+    broadcast,
+    gather_class_table,
 )
 from rangeclip_tpu_torch.training.train_step import microbatch_generator
 from rangeclip_tpu_torch.utils.logging import log
@@ -84,7 +102,11 @@ def make_val_step(loss_config: HybridLossConfig = HybridLossConfig(),
     image and smoothness losses.  With ``group`` (more than one rank) the
     batch is this rank's rows of the global batch, ``draws`` the global
     batch's, ``acc`` and ``pred_topk`` this rank's rows' and ``loss_parts``
-    this rank's shares."""
+    this rank's shares.  On a grid with a 'spatial' axis the depth and
+    segmentation are the rank's spatial block of its data block's images
+    (of a height that divides by the model's ``field_scale`` x the
+    'spatial' size), the rest its data block's."""
+    grid = _grid(group)
 
     @torch.inference_mode()
     def val_step(model: DepthUNet, batch: Dict[str, torch.Tensor],
@@ -108,30 +130,43 @@ def make_val_step(loss_config: HybridLossConfig = HybridLossConfig(),
         seg = batch["segmentation"]
         cand_mask = build_candidate_mask(seg, num_classes, num_negatives,
                                          gumbel=candidate_gumbel,
-                                         generator=cand_gen, group=group)
-        # the loss consumes the native-resolution normalised field through
-        # the exact upsample identities (hybrid.py label_upsample)
-        pred_topk, pixel_emb, temp_text = model.predict(
-            batch["depth"], text_table, cand_mask, top_k,
-            return_embeddings="native")
-        ups = batch["depth"].shape[1] // pixel_emb.shape[1]
-        valid = batch["sample_valid"]
-        acc = metrics_update(acc, pred_topk, seg, equivalence_tensor,
-                             equiv_class_map, pixel_weight=valid)
-        area = per_item_masked_pooling(pixel_emb, seg, batch["object_label"],
-                                       upsample=ups)
-        _, info = compute_hybrid_loss(
-            pixel_emb, seg, text_table, medium_matrix, hard_matrix,
-            temp_text, model.log_temperature_image.exp(), pct_medium,
-            pct_hard, area, image_embeddings, area_valid=valid,
-            sample_weight=valid, config=loss_config, label_upsample=ups,
-            draws=draws, generator=loss_gen, group=group)
+                                         generator=cand_gen, group=grid)
+        rows, width = seg.shape[1:]
+        shape = (rows * (1 if grid is None else grid.n_spatial), width)
+        with sharded_rows(grid, shape):
+            # the loss consumes the native-resolution normalised field
+            # through the exact upsample identities (hybrid.py
+            # label_upsample)
+            pred_topk, pixel_emb, temp_text = model.predict(
+                batch["depth"], text_table, cand_mask, top_k,
+                return_embeddings="native")
+            ups = rows // pixel_emb.shape[1]
+            valid = batch["sample_valid"]
+            acc = metrics_update(acc, pred_topk, seg, equivalence_tensor,
+                                 equiv_class_map, pixel_weight=valid)
+            area = per_item_masked_pooling(pixel_emb, seg,
+                                           batch["object_label"],
+                                           upsample=ups, group=grid)
+            _, info = compute_hybrid_loss(
+                pixel_emb, seg, text_table, medium_matrix, hard_matrix,
+                temp_text, model.log_temperature_image.exp(), pct_medium,
+                pct_hard, area, image_embeddings, area_valid=valid,
+                sample_weight=valid, config=loss_config, label_upsample=ups,
+                draws=draws, generator=loss_gen, group=grid)
         loss_parts = torch.stack([info[k].float() for k in (
             "total_loss", "text_contrastive_loss", "image_contrastive_loss",
             "smoothness_loss")])
         return acc, loss_parts, pred_topk
 
     return val_step
+
+
+def _grid(group) -> Optional[Grid]:
+    """``group`` as a grid (``mesh.as_grid``); one rank is no grid."""
+    grid = as_grid(group)
+    if grid is not None and grid.size("batch") * grid.n_model == 1:
+        return None
+    return grid
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device,
@@ -164,32 +199,30 @@ def validate_model(
     group=None,
 ) -> Dict:
     """Run the validation loop on the model's device; returns the updated
-    ``best_results``.  With ``group`` every rank of it calls this on its
-    shard of the val split, with as many batches on every rank (the module
-    docstring); the results are the global batches', on every rank.  With
-    ``candidate_labels`` and ``n_sample_per_summary`` set, the first
+    ``best_results``.  With ``group`` (a process group, or a
+    ``parallel/mesh.Grid``) every rank of it calls this on its data
+    block's shard of the val split, with as many batches on every rank
+    (the module docstring); the results are the global batches', on every
+    rank.  The tables may be ``mesh.shard_class_tables``' model slices.
+    With ``candidate_labels`` and ``n_sample_per_summary`` set, the first
     batch's samples are rendered as [depth | image | GT | prediction] grids
     through the summary writer (reference validate.py:140-146); without
     matplotlib they are skipped, with a line in the log.  Batch ``i`` is
-    keyed (seed, i).  A grid with a 'spatial' axis is refused (no JAX entry
-    point validates over one; ROADMAP item 10c)."""
-    if isinstance(group, Grid):
-        if group.n_spatial > 1:
-            raise NotImplementedError(
-                "validation over a grid's 'spatial' axis is not ported "
-                f"yet: {ITEM_10C}")
-        raise ValueError("validate_model runs over a process group: pass "
-                         "the grid's 'data' group")
+    keyed (seed, i)."""
+    grid = _grid(group)
+    spatial = grid is not None and grid.n_spatial > 1
+    text_table, medium_matrix, hard_matrix = (
+        gather_class_table(t, grid)
+        for t in (text_table, medium_matrix, hard_matrix))
     device = text_table.device
     num_classes = text_table.shape[0]
-    if group is not None and world(group) == 1:
-        group = None  # one rank: the single-device pass
-    val_step = make_val_step(loss_config, top_k, num_negatives, group)
-    eq =equivalence_tensor.to(device)
+    val_step = make_val_step(loss_config, top_k, num_negatives, grid)
+    eq = equivalence_tensor.to(device)
     ecm = equiv_class_map.to(device)
     acc = metrics_init(num_classes, device)
     loss_sums = torch.zeros(4, dtype=torch.float32, device=device)
     n_batches = 0
+    grids = candidate_labels is not None and n_sample_per_summary > 0
     was_training = model.training
     model.eval()
     try:
@@ -200,28 +233,48 @@ def validate_model(
             with torch.inference_mode():
                 image_embeddings = image_provider(prepare_image_crops(
                     tensors.pop("image"), tensors.pop("object_bbox")))
+            if spatial:
+                # every rank checks the same global height before any
+                # collective, so all raise together
+                height, scale = tensors["depth"].shape[1], model.field_scale
+                if height % (scale * grid.n_spatial):
+                    raise ValueError(
+                        f"height {height} must divide by {scale}x the "
+                        f"'spatial' size {grid.n_spatial} (the field is at "
+                        f"H/{scale})")
+                for k in ("depth", "segmentation"):
+                    tensors[k] = grid.row_block(tensors[k], 1).contiguous()
             acc, loss_parts, pred_topk = val_step(
                 model, tensors, (seed, i), curriculum["pct_medium"],
                 curriculum["pct_hard"], text_table, medium_matrix,
                 hard_matrix, eq, ecm, image_embeddings, acc)
             loss_sums = loss_sums + loss_parts
             n_batches += 1
-            if (i == 0 and summary_writer is not None
-                    and candidate_labels is not None
-                    and n_sample_per_summary > 0):
+            if i == 0 and grids and spatial:
+                from rangeclip_tpu_torch.parallel.predict import (
+                    gather_label_blocks,
+                )
+
+                b = pred_topk.shape[0]
+                pred_topk = gather_label_blocks(pred_topk, grid)[
+                    grid.d * b:(grid.d + 1) * b]
+            if i == 0 and grids and summary_writer is not None:
                 _write_grids(summary_writer, batch, pred_topk,
                              candidate_labels, n_sample_per_summary, step,
                              log_path)
     finally:
         model.train(was_training)
 
-    if group is not None:
+    if grid is not None:
         with torch.inference_mode():
             present = acc["gt_present"].float()
-            all_reduce_sum([v for k, v in acc.items() if k != "gt_present"]
-                           + [loss_sums, present], group)
+            sums = ([v for k, v in acc.items() if k != "gt_present"]
+                    + [loss_sums, present])
+            grid.sum(sums, "batch")
+            if grid.n_model > 1:
+                broadcast(sums, grid.group("model"))
             acc["gt_present"] = present > 0
-    console = group is None or rank(group) == 0
+    console = grid is None or (grid.d, grid.s, grid.m) == (0, 0, 0)
     results = metrics_finalize(acc)
     avg = loss_sums.cpu().numpy() / max(n_batches, 1)
     results.update(

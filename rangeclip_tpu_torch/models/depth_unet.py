@@ -122,6 +122,12 @@ class DepthUNet(nn.Module):
         return self
 
     @property
+    def field_scale(self) -> int:
+        """Input rows to one row of the native field: 2 for the ResNet's
+        H/2 field, 4 for the MiT's H/4."""
+        return 4 if self.config.unet_type == "mit" else 2
+
+    @property
     def compute_dtype(self) -> torch.dtype:
         return self.config.dtype or torch.float32
 

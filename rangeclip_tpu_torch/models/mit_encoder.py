@@ -13,7 +13,19 @@ dense).  Every LayerNorm has eps 1e-6.  Then a global-pool MLP projection
 head (L2-normalised) and ASPP on the last stage.
 
 Inside a stage the tokens stay NHWC, so dense layers and LayerNorms act on
-the last axis; the convolutions see the NCHW view.  State-dict names follow
+the last axis; the convolutions see the NCHW view.
+
+Under a grid's 'spatial' axis (inside ``ops/blocks.spatial_rows``; JAX's
+GSPMD partitions the same flax module when its mesh shards H) each rank
+holds its rows of every stage.  The patch embeddings, the Mix-FFN's
+depthwise conv and ``sr`` run through the entered ``parallel/halo.
+RowShards`` (their halo rows from the neighbours); LayerNorms and dense
+layers act per token.  Attention keeps its queries local and gathers the
+map K and V are made from (after ``sr`` and ``sr_norm``, or the block's
+normed input where the ratio is 1) whole, in global row order, once a
+block (``RowShards.whole``: its backward returns each row's gradient to
+its owner), then applies ``k`` and ``v`` to every token.  The global pool
+sums over the spatial ranks.  State-dict names follow
 this module tree (``patch_embed.{s}``, ``blocks.{s}.{i}``, ``norm.{s}``,
 ``projection_head.{0,2}``, ``aspp``); the reference ``.pth`` layout has no
 MiT, and ``models/interop.state_dict_from_jax`` carries the JAX names here.
@@ -60,11 +72,27 @@ def _fit_heads(dim: int, heads: int) -> int:
 
 
 def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """``conv`` (with its bias) on NHWC ``x`` in ``x``'s dtype -> NHWC."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype),
-                 conv.bias.to(x.dtype), conv.stride, conv.padding,
-                 groups=conv.groups)
+    """``conv`` (with its bias) on NHWC ``x`` in ``x``'s dtype -> NHWC (on
+    this rank's rows inside ``blocks.spatial_rows``)."""
+    x = x.permute(0, 3, 1, 2)
+    weight, bias = conv.weight.to(x.dtype), conv.bias.to(x.dtype)
+    shards = block_lib._SPATIAL
+    if shards is not None:
+        y = shards.conv2d(x, weight, bias, conv.stride, conv.padding,
+                          conv.dilation, conv.groups)
+    else:
+        y = F.conv2d(x, weight, bias, conv.stride, conv.padding,
+                     groups=conv.groups)
     return y.permute(0, 2, 3, 1)
+
+
+def whole_map(x: torch.Tensor) -> torch.Tensor:
+    """NHWC ``x`` itself, or inside ``blocks.spatial_rows`` every rank's
+    rows of its map in global order (``RowShards.whole``)."""
+    shards = block_lib._SPATIAL
+    if shards is None:
+        return x
+    return shards.whole(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 class OverlapPatchEmbed(nn.Module):
@@ -99,6 +127,7 @@ class EfficientAttention(nn.Module):
         kv = x
         if self.sr is not None:
             kv = layer_norm(self.sr_norm, conv_nhwc(self.sr, x))
+        kv = whole_map(kv)  # K and V over every token of the image
         n_kv = kv.shape[1] * kv.shape[2]
         k = linear(self.k, kv).reshape(B, n_kv, self.heads, Dh)
         v = linear(self.v, kv).reshape(B, n_kv, self.heads, Dh)
@@ -170,16 +199,8 @@ class MiTDepthEncoder(nn.Module):
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor]:
         """x: [B, C_in, H, W].  Returns (embedding [B, D], the stage
-        features [H/4, H/8, H/16, H/32] NCHW, ASPP map @H/32).  Not under
-        a grid's 'spatial' axis: attention reads every token of the image,
-        so K and V would be gathered over the axis (ROADMAP item 10c)."""
-        if block_lib._SPATIAL is not None:
-            from rangeclip_tpu_torch.parallel.mesh import ITEM_10C
-
-            raise NotImplementedError(
-                "the MiT encoder under a 'spatial' axis (its attention's "
-                f"K and V gathered over the axis) is not ported yet: "
-                f"{ITEM_10C}")
+        features [H/4, H/8, H/16, H/32] NCHW, ASPP map @H/32); this rank's
+        rows of each inside ``blocks.spatial_rows``."""
         x = x.permute(0, 2, 3, 1)
         features = []
         for embed, blocks, norm in zip(self.patch_embed, self.blocks,
@@ -189,7 +210,7 @@ class MiTDepthEncoder(nn.Module):
                 x = block(x)
             x = layer_norm(norm, x)
             features.append(x.permute(0, 3, 1, 2))
-        h = x.mean(dim=(1, 2))
+        h = block_lib.spatial_mean(x.permute(0, 3, 1, 2))
         h = linear(self.projection_head[2],
                    F.relu(linear(self.projection_head[0], h)))
         return l2_normalize(h, dim=-1), features, self.aspp(features[-1])

@@ -69,17 +69,21 @@ MODES = ("global", "ddp_parity")
 @dataclasses.dataclass(frozen=True)
 class StepSpec:
     """One train step over the ranks: ``mode`` the global-batch step or
-    ``ddp_parity``, the model's widths, ``batch`` rows a rank (a data
-    block, on a grid) per microbatch, ``accum`` microbatches, ``present``
-    labels of ``classes`` in the segmentation, weights and data from
-    ``seed``.  ``grid`` (data, spatial, model) runs the global-batch step
-    on the world's first ranks as that grid (``mesh.make_grid``), the class
-    tables split over 'model' with ``shard_classes``; without it the step
-    runs over the world's group.  With ``val_batches`` each rank first
-    validates its rows of that many global batches
-    (``evals/validate.validate_model`` over the group) on the initial
-    weights."""
+    ``ddp_parity``, the model's architecture (``unet_type``: 'resnet', or
+    'mit' with the last four ``filters`` as its stage widths) and widths,
+    ``batch`` rows a rank (a data block, on a grid) per microbatch,
+    ``accum`` microbatches, ``present`` labels of ``classes`` in the
+    segmentation, weights and data from ``seed``.  ``grid`` (data,
+    spatial, model) runs the global-batch step on the world's first ranks
+    as that grid (``mesh.make_grid``), the class tables split over 'model'
+    with ``shard_classes``; without it the step runs over the world's
+    group.  With ``val_batches`` each rank first validates its rows of
+    that many global batches of ``val_batch`` images a rank or data block
+    (default ``batch``; ``evals/validate.validate_model`` over the group,
+    or over the grid: its data block's images, its spatial block of their
+    rows) on the initial weights."""
 
+    unet_type: str = "resnet"
     filters: Tuple[int, ...] = (8, 16, 16, 16, 32)
     dim: int = 32
     res: int = 32
@@ -93,6 +97,7 @@ class StepSpec:
     weight_decay: float = 1e-4
     mode: str = "global"
     val_batches: int = 0
+    val_batch: Optional[int] = None
     grid: Optional[Tuple[int, int, int]] = None
     shard_classes: bool = False
 
@@ -108,9 +113,15 @@ class StepSpec:
 
     @property
     def config(self) -> DepthUNetConfig:
-        return DepthUNetConfig(encoder_filters=tuple(self.filters),
-                               embedding_dim=self.dim,
-                               dtype=torch.bfloat16 if self.bf16 else None)
+        return _config(self)
+
+
+def _config(spec) -> DepthUNetConfig:
+    """The model of a :class:`StepSpec` or :class:`PredictSpec`."""
+    return DepthUNetConfig(unet_type=spec.unet_type,
+                           encoder_filters=tuple(spec.filters),
+                           embedding_dim=spec.dim,
+                           dtype=torch.bfloat16 if spec.bf16 else None)
 
 
 @contextlib.contextmanager
@@ -154,10 +165,10 @@ def step_inputs(spec: StepSpec, world: int, device: torch.device):
 
 
 def val_inputs(spec: StepSpec, world: int) -> List[Dict[str, np.ndarray]]:
-    """``val_batches`` global val batches of ``world * batch`` rows (numpy,
-    the loader's layout), the last row of each a padded one."""
+    """``val_batches`` global val batches of ``world * val_batch`` rows
+    (numpy, the loader's layout), the last row of each a padded one."""
     rng = np.random.default_rng(spec.seed + 2)
-    rows_, res = world * spec.batch, spec.res
+    rows_, res = world * (spec.val_batch or spec.batch), spec.res
     out = []
     for _ in range(spec.val_batches):
         seg = rng.integers(0, spec.present, (rows_, res, res)).astype(
@@ -179,13 +190,16 @@ def val_inputs(spec: StepSpec, world: int) -> List[Dict[str, np.ndarray]]:
 
 def validate_rows(model, spec: StepSpec, world: int, rank_id: int,
                   device: torch.device, group=None) -> Dict:
-    """``validate_model`` on rows ``rank_id * batch ..`` of each of
-    :func:`val_inputs`' batches (every row with ``world`` 1), with the
-    spec's tables, identity equivalences and the hash image stub."""
+    """``validate_model`` over ``group`` (a process group of ``world``
+    ranks, or a grid of ``world`` data blocks) on rows ``rank_id * batch
+    ..`` of each of :func:`val_inputs`' batches (every row without
+    ``group``; on a grid, ``rank_id`` is the data block, whose rows every
+    rank of it is fed), with the spec's tables, identity equivalences and
+    the hash image stub."""
     from rangeclip_tpu_torch.evals.validate import validate_model
     from rangeclip_tpu_torch.models.clip.provider import HashImageEmbedder
 
-    per = spec.batch * (world if group is None else 1)
+    per = (spec.val_batch or spec.batch) * (world if group is None else 1)
     batches = [{k: v[rank_id * per:(rank_id + 1) * per] for k, v in b.items()}
                for b in val_inputs(spec, world)]
     _, text, medium, hard = step_inputs(spec, world, device)
@@ -200,11 +214,12 @@ def validate_rows(model, spec: StepSpec, world: int, rank_id: int,
 def single_device_validation(spec: StepSpec, world: int,
                              device: torch.device) -> Dict:
     """Sharded validation's oracle: ``validate_model`` on one device over
-    the whole global batches, with the ranks' initial weights."""
+    the whole global batches of ``world`` ranks (of the spec's data blocks
+    on a grid), with the ranks' initial weights."""
     set_precision(spec.bf16)
     model = create_train_state(spec.config, device, spec.weight_decay,
                                spec.seed).model
-    return validate_rows(model, spec, world, 0, device)
+    return validate_rows(model, spec, spec.blocks(world), 0, device)
 
 
 def rows(batch: Dict[str, torch.Tensor], rank: int, per: int
@@ -231,10 +246,12 @@ def _snapshot(state: TrainState, info: Dict[str, torch.Tensor]) -> Dict:
 class PredictSpec:
     """A predict on a process grid (``predict.make_grid_predict``) of the
     world's first ranks: ``grid`` (data, spatial, model), the model's
-    widths, ``batch`` images of ``res``^2, a table of ``classes`` rows,
-    ``top_k``, bf16 or f32, weights and inputs from ``seed``."""
+    architecture (as :class:`StepSpec`'s) and widths, ``batch`` images of
+    ``res``^2, a table of ``classes`` rows, ``top_k``, bf16 or f32,
+    weights and inputs from ``seed``."""
 
     grid: Tuple[int, int, int] = (1, 2, 1)
+    unet_type: str = "resnet"
     filters: Tuple[int, ...] = (8, 16, 16, 16, 32)
     dim: int = 32
     res: int = 32
@@ -246,9 +263,7 @@ class PredictSpec:
 
     @property
     def config(self) -> DepthUNetConfig:
-        return DepthUNetConfig(encoder_filters=tuple(self.filters),
-                               embedding_dim=self.dim,
-                               dtype=torch.bfloat16 if self.bf16 else None)
+        return _config(self)
 
 
 def predict_inputs(spec: PredictSpec, device: torch.device):
@@ -331,8 +346,9 @@ def _rank_main(rank_id: int, world_size: int, init_method: str,
             if spec.val_batches:
                 _lib.reset_launch_counts()
                 val = {"results": validate_rows(
-                    state.model, spec, world_size, rank_id, dev,
-                    dist.group.WORLD)}
+                    state.model, spec, spec.blocks(world_size),
+                    rank_id if grid is None else grid.d, dev,
+                    dist.group.WORLD if grid is None else grid)}
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 val["launches"] = dict(_lib.launch_counts)

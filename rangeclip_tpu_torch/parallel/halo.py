@@ -25,8 +25,9 @@ rank runs no collective.
 :class:`RowShards` holds a forward's levels (the global height of each
 width) and is what ``ops/blocks.spatial_rows`` routes the model's
 convolutions, max pool, transposed convolutions, bilinear resizes,
-normalisation statistics and means through; :func:`sharded_rows` enters it
-for the step and predict.  A statistic over rows is a differentiable sum
+normalisation statistics and means through, and what gathers the MiT's
+attention map whole (:meth:`RowShards.whole`); :func:`sharded_rows` enters
+it for the step, predict and validation.  A statistic over rows is a differentiable sum
 over the 'spatial' group (:class:`_SpatialSum`: its backward is the same
 sum of the readers' gradients).
 """
@@ -247,6 +248,14 @@ class RowShards:
         N, C, _, W = x.shape
         return _like(torch.cat([x.new_full((N, C, top, W), fill), x_mid,
                                 x.new_full((N, C, bottom, W), fill)], 2), x)
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        """Every row of NCHW ``x``'s level on every rank, in global order
+        (its owners' rows through :class:`_Fetch`: each row's gradient,
+        summed over the ranks that read it, returns to its owner).  A rank
+        that owns no row still takes part."""
+        height, _ = self.shape(x)
+        return self.fetch(x, height, [(0, height)] * self.n)
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the spatial ranks, differentiably."""

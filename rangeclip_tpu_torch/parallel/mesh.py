@@ -45,9 +45,6 @@ import torch
 
 from rangeclip_tpu_torch.utils.device import resolve_device
 
-ITEM_10B = "ROADMAP item 10b"
-ITEM_10C = "ROADMAP item 10c"
-
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:

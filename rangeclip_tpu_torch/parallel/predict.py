@@ -253,7 +253,9 @@ def make_grid_predict(model: DepthUNet, grid: Grid, top_k: int = 5,
     CPU), merges the 'model' group's (value, id) pairs exactly
     (:func:`merge_topk`) and upsamples its own label rows.  The formulation
     is 'default' ('auto' picks it); JAX's refusals: 'folded' cannot
-    spatially shard, and H must divide by 2 x the 'spatial' size.  A grid
+    spatially shard, and H must divide by the model's ``field_scale`` (2
+    for the ResNet, 4 for the MiT) x the 'spatial' size, so that every
+    rank holds whole rows of the field.  A grid
     without a 'spatial' axis is :func:`make_sharded_predict`'s.  The model
     must be in eval mode."""
     if predict_path not in PREDICT_PATHS:
@@ -277,9 +279,11 @@ def make_grid_predict(model: DepthUNet, grid: Grid, top_k: int = 5,
         if B % grid.n_data:
             raise ValueError(f"batch {B} does not split over "
                              f"{grid.n_data} data blocks")
-        if H % (2 * n_spatial):
-            raise ValueError(f"height {H} must divide by 2x the 'spatial' "
-                             f"size {n_spatial}")
+        scale = model.field_scale
+        if H % (scale * n_spatial):
+            raise ValueError(f"height {H} must divide by {scale}x the "
+                             f"'spatial' size {n_spatial} (the field is at "
+                             f"H/{scale})")
         if table.shape[0] % n_model or ids.shape != table.shape[:1]:
             raise ValueError(f"a table of {table.shape[0]} rows (ids "
                              f"{tuple(ids.shape)}) does not split into "

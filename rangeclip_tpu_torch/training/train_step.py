@@ -188,7 +188,8 @@ def make_train_step(loss_config: HybridLossConfig = HybridLossConfig(),
     the step is the module docstring's global-batch step, or its DDP with
     ``ddp_parity``; with a grid (``parallel/mesh.make_grid``) it is this
     rank's block (``Grid.local_batch``: its images, and under a 'spatial'
-    axis an even count of rows, the same on every spatial rank), and the
+    axis a count of rows that divides by the model's ``field_scale``, the
+    same on every spatial rank), and the
     tables may be ``shard_class_tables``' model slices.  Without ``group``
     it is the single-device step.
     """
@@ -218,14 +219,18 @@ def make_train_step(loss_config: HybridLossConfig = HybridLossConfig(),
             for t in (text_table, medium_matrix, hard_matrix))
         rows, width = batch["depth"].shape[2:4]
         if grid is not None and grid.n_spatial > 1:
-            # every spatial rank must see the same global height: the same
-            # even count of rows on each (a collective, so all raise)
+            # every spatial rank must see the same global height and hold
+            # whole rows of the native field: the same count of rows on
+            # each, a multiple of the field's scale (a collective, so all
+            # raise)
+            scale = model.field_scale
             blocks = grid.gather(torch.tensor(
                 [rows], device=batch["depth"].device), "spatial").tolist()
-            if len(set(blocks)) > 1 or rows % 2:
+            if len(set(blocks)) > 1 or rows % scale:
                 raise ValueError(f"spatial blocks of {blocks} rows: the "
-                                 f"height must divide by 2 x the 'spatial' "
-                                 f"size {grid.n_spatial}")
+                                 f"height must divide by {scale} x the "
+                                 f"'spatial' size {grid.n_spatial} (the "
+                                 f"field is at H/{scale})")
         shape = (rows * (1 if grid is None else grid.n_spatial), width)
         model.train()
         # every parameter's, not only the optimizer's: a frozen encoder's

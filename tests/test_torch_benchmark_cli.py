@@ -30,6 +30,18 @@ TRAIN_KEYS = {"mode", "precision", "pixel_sampler", "image_tower", "accum",
 TINY = ["--device", "cpu", "--resolution", "32", "--num_classes", "64"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The module's runs on one intra-op thread: at these sizes a single
+    thread is the fastest, and a test worker beside others loses most of
+    its time to thread contention otherwise.  Every run a test compares
+    is made under it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
     root = tmp_path_factory.mktemp("synthetic")

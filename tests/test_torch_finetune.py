@@ -54,6 +54,18 @@ CPU = torch.device("cpu")
 t = torch.from_numpy
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The module's runs on one intra-op thread: at these sizes a single
+    thread is the fastest, and a test worker beside others loses most of
+    its time to thread contention otherwise.  Every run a test compares
+    is made under it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _randomise_bn(model, seed):
     """BatchNorm affine parameters and running statistics drawn at random:
     a frozen encoder normalises with them."""

@@ -3,9 +3,10 @@
 one ``results.txt`` (rank 0's), a run header naming the global batch, both
 ranks with the same learning rates, best results and weights after every
 step, and one sharded validation.  A group of one rank is the
-single-device step and the single-device validation, bit for bit; what a
-'spatial' axis still refuses (the MiT encoder under it, validation over
-it) names ROADMAP item 10c."""
+single-device step and the single-device validation, bit for bit; the MiT
+encoder and validation run on a 'spatial' grid's cell (ROADMAP item 10c,
+held against JAX by ``test_torch_spatial_mit.py`` and
+``test_torch_spatial_validate.py``)."""
 
 import json
 import os
@@ -140,25 +141,27 @@ def test_spatial_axis_and_model_sharded_tables_refuse():
     """ROADMAP item 10b's two parts are ported: make_mesh refuses a
     'spatial' axis, naming the process grid that carries it, and
     shard_class_tables keeps the tables whole without a 'model' axis.
-    What a spatial axis still refuses names ROADMAP item 10c: the MiT
-    encoder under it (its attention reads every row) and validation over
-    it."""
+    Item 10c is ported too: on a spatial grid's cell the MiT encoder runs
+    on the cell's rows (its attention's K and V gathered over the axis)
+    and validate_model runs over the grid."""
     with pytest.raises(ValueError, match="make_grid"):
         make_mesh(1, 1, [CPU] * 2, n_spatial=2)
     tables = (torch.zeros(4, 8), torch.zeros(4, 4, dtype=torch.bool),
               torch.zeros(4, 4, dtype=torch.bool))
     assert shard_class_tables(*tables) == tables
     assert shard_class_tables(*tables, shard_classes=True) == tables
-    # a spatial grid's cell (its groups are never reached: both refuse
-    # before any collective)
+    # a spatial grid's cell with no process group behind it: its
+    # collectives leave every buffer as this cell wrote it
     grid = Grid(1, 2, 1, 0, 0, 0, {"data": None, "spatial": None,
                                    "model": None, "batch": None})
     mit = DepthUNet(DepthUNetConfig(unet_type="mit",
                                     encoder_filters=(8, 16, 16, 16, 32),
                                     embedding_dim=32)).eval()
-    with sharded_rows(grid, (32, 32)), \
-            pytest.raises(NotImplementedError, match="ROADMAP item 10c"):
-        mit.native_field(torch.zeros(1, 16, 32, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10c"):
-        validate_model(mit, [], *tables, None, None, {}, None, 1, {},
-                       group=grid)
+    with sharded_rows(grid, (32, 32)):
+        field = mit.native_field(torch.zeros(1, 16, 32, 1))
+    # the cell's 16 of 32 rows: 4 of the H/4 field's 8
+    assert field.shape == (1, 4, 8, 32) and torch.isfinite(field).all()
+    results = validate_model(mit, [], *tables,
+                             torch.eye(4, dtype=torch.bool), torch.arange(4),
+                             {}, None, 1, {}, group=grid)
+    assert results == {"latest_val_loss": 0.0}  # no batch: nothing best

@@ -182,14 +182,9 @@ def _draws(key, A, B, H):
     return out
 
 
-def test_mit_native_loss_step_matches_jax():
-    """One accumulation window of the MiT UNet (native-resolution losses
-    under its x4 upsample) against JAX's step with the same weights, batch
-    and draws: the info within rtol 1e-4 (the train-step tests' bound),
-    every parameter the losses reach moved, all finite
-    (test_mit.py:64-104)."""
-    model, v, _ = _models("mit")
-    A, B, H = 2, 2, 32
+def mit_step_inputs(A=2, B=2, H=32):
+    """The MiT step's batch [A, B, ...], table and matrices (numpy,
+    seeded)."""
     rng = np.random.default_rng(5)
     seg = rng.integers(0, 6, (A, B, H, H)).astype(np.int32)
     batch = {"depth": rng.standard_normal((A, B, H, H, 1)).astype(np.float32),
@@ -200,6 +195,18 @@ def test_mit_native_loss_step_matches_jax():
     text = rng.standard_normal((C, D)).astype(np.float32)
     medium = rng.random((C, C)) < 0.15
     hard = rng.random((C, C)) < 0.15
+    return batch, text, medium, hard
+
+
+def test_mit_native_loss_step_matches_jax():
+    """One accumulation window of the MiT UNet (native-resolution losses
+    under its x4 upsample) against JAX's step with the same weights, batch
+    and draws: the info within rtol 1e-4 (the train-step tests' bound),
+    every parameter the losses reach moved, all finite
+    (test_mit.py:64-104)."""
+    model, v, _ = _models("mit")
+    A, B, H = 2, 2, 32
+    batch, text, medium, hard = mit_step_inputs(A, B, H)
     opt = jax_optimizer(1e-4)
     jstate = JaxTrainState(step=jnp.int32(0), params=v["params"],
                            batch_stats={}, opt_state=opt.init(v["params"]))

@@ -50,6 +50,18 @@ from rangeclip_tpu_torch.utils import logging as port_logging
 FILTERS = ["8", "16", "16", "16", "32"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The module's runs on one intra-op thread: at these sizes a single
+    thread is the fastest, and a test worker beside others loses most of
+    its time to thread contention otherwise.  Every run a test compares
+    is made under it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def dataset_dir(tmp_path_factory):
     root = tmp_path_factory.mktemp("synthetic")
@@ -210,22 +222,16 @@ def test_cli_train_multi_gpu_flags_at_world_one(dataset_dir, straight_run,
 
 
 def test_cli_train_profile_dir_traces_and_leaves_training_unchanged(
-        dataset_dir, tmp_path):
-    """--profile_dir over 5 steps (validating at step 3, inside the traced
-    steps 2-4): a Chrome trace is written and logged, and the step-5
-    weights are bit-equal to the same run's without the flag; a 3-step run
-    closes its trace at its end."""
+        dataset_dir, straight_run, tmp_path):
+    """--profile_dir over 4 steps (validating at step 3, inside the traced
+    steps 2-4): a Chrome trace is written and logged, and the step-4
+    weights are bit-equal to the straight run's, without the flag; a
+    3-step run closes its trace at its end."""
     _, paths = dataset_dir
-    runs = {}
-    for name, extra in (("plain", []),
-                        ("traced", ["--profile_dir",
-                                    str(tmp_path / "trace")])):
-        ckpt = tmp_path / name
-        train.main(_train_argv(paths, ckpt, "--learning_schedule", "3",
-                               "--max_steps", "5",
-                               "--validation_start_step", "3",
-                               "--n_step_per_validation", "3", *extra))
-        runs[name] = _weights(ckpt, 5)
+    train.main(_train_argv(paths, tmp_path / "traced", "--max_steps", "4",
+                           "--validation_start_step", "3",
+                           "--n_step_per_validation", "3",
+                           "--profile_dir", str(tmp_path / "trace")))
     traces = os.listdir(tmp_path / "trace")
     assert len(traces) == 1 and traces[0].endswith(".json")
     trace = json.load(open(tmp_path / "trace" / traces[0]))
@@ -233,9 +239,10 @@ def test_cli_train_profile_dir_traces_and_leaves_training_unchanged(
     log = open(tmp_path / "traced" / "results.txt").read()
     assert f"Profiler trace written to {tmp_path / 'trace'}" in log
     assert "[Val] [Step 3]" in log
-    assert sorted(runs["plain"]) == sorted(runs["traced"])
-    for k, v in runs["plain"].items():
-        assert torch.equal(runs["traced"][k], v), k
+    got, want = _weights(tmp_path / "traced", 4), _weights(straight_run, 4)
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
 
     train.main(_train_argv(paths, tmp_path / "short", "--max_steps", "3",
                            "--profile_dir", str(tmp_path / "short_trace")))

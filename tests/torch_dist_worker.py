@@ -26,6 +26,15 @@ under xdist), and writes what the test holds it to into ``OUTPUT``:
   weights and inputs; the grid predicts, or the grid steps, of
   ``grid_predict`` / ``grid_step`` on this rank's block, for every grid
   shape the ``.npz`` names.
+* ``grid_mit``: both of those on the MiT UNet, the ``.npz``'s
+  ``predict.`` and ``step.`` keys their inputs, and what the grid step
+  raises on the 18-row blocks of a 36-row batch on (1, 2, 1) (a height
+  of 2 x, not 4 x, the 'spatial' size).
+* ``grid_validate``: for each architecture the ``.npz`` names (``resnet.``
+  and ``mit.`` keys), on every grid it names: the grid's val step on this
+  rank's block of each val batch, with the batch's candidate-mask noise
+  and loss draws, and ``validate_model`` over the grid on its data block's
+  shard of the batches.
 
 The tests start and join the ranks with :func:`start_ranks` and
 :func:`join_ranks`.
@@ -403,23 +412,28 @@ def _halo(rank, world, store, out):
             "dp": {} if module is None else {
                 n: p.grad for n, p in module.named_parameters()
                 if p.grad is not None}}
-    result["step refusal"] = _step_refusal(grid, 30)
+    from rangeclip_tpu_torch.models.depth_unet import (
+        DepthUNet,
+        DepthUNetConfig,
+    )
+
+    result["step refusal"] = _step_refusal(grid, 30, DepthUNet(
+        DepthUNetConfig(encoder_filters=(8, 16, 16, 16, 32),
+                        embedding_dim=32)))
     torch.save(result, out)
     dist.destroy_process_group()
 
 
-def _step_refusal(grid, height):
-    """What the grid's train step raises on this rank's block of a batch
-    ``height`` rows high, cut by ``owned_rows`` alone (None if it steps)."""
+def _step_refusal(grid, height, model):
+    """What the grid's train step of ``model`` (D = 32) raises on this
+    rank's block of a batch ``height`` rows high, cut by ``owned_rows``
+    alone (None if it steps)."""
     from rangeclip_tpu_torch.losses.hybrid import HybridLossConfig
-    from rangeclip_tpu_torch.models.depth_unet import DepthUNetConfig
     from rangeclip_tpu_torch.parallel.mesh import owned_rows
-    from rangeclip_tpu_torch.training.state import create_train_state
+    from rangeclip_tpu_torch.training.state import TrainState
     from rangeclip_tpu_torch.training.train_step import make_train_step
 
-    state = create_train_state(
-        DepthUNetConfig(encoder_filters=(8, 16, 16, 16, 32),
-                        embedding_dim=32), torch.device("cpu"), 1e-4, 0)
+    state = TrainState(model, torch.optim.SGD(model.parameters(), lr=0.0))
     lo, hi = owned_rows(height, grid.n_spatial, grid.s)
     batch = {"depth": torch.zeros(1, 1, hi - lo, 32, 1),
              "segmentation": torch.zeros(1, 1, hi - lo, 32,
@@ -438,12 +452,16 @@ def _step_refusal(grid, height):
 
 
 def _grid_model(data):
+    """The ``.npz``'s model (``unet_type`` and ``use_batch_norm`` where it
+    names them) with its weights."""
     from rangeclip_tpu_torch.models.depth_unet import (
         DepthUNet,
         DepthUNetConfig,
     )
 
     model = DepthUNet(DepthUNetConfig(
+        unet_type=str(data.get("unet_type", "resnet")),
+        use_batch_norm=bool(data.get("use_batch_norm", True)),
         encoder_filters=tuple(int(f) for f in data["filters"]),
         embedding_dim=int(data["dim"])))
     model.load_state_dict({k[3:]: torch.from_numpy(v)
@@ -463,20 +481,16 @@ def big_config():
                            embedding_dim=128, dtype=torch.bfloat16)
 
 
-def _grid_predict(rank, world, store, path, out):
-    """Each grid of ``grids`` predicting the batch: rank 0 of each grid
-    writes the gathered map, and every member its launches."""
-    import torch.distributed as dist
-
-    from rangeclip_tpu_torch.parallel.mesh import init_distributed, make_grid
+def _grid_predicts(data):
+    """Each grid of ``grids`` predicting the batch: the gathered map of
+    every member."""
+    from rangeclip_tpu_torch.parallel.mesh import make_grid
     from rangeclip_tpu_torch.parallel.predict import (
         gather_label_blocks,
         make_grid_predict,
         pad_class_table,
     )
 
-    data = dict(np.load(path))
-    init_distributed(f"file://{store}", world, rank, device="cpu")
     t = torch.from_numpy
     result = {}
     for shape in data["grids"]:
@@ -488,24 +502,20 @@ def _grid_predict(rank, world, store, path, out):
         fn = make_grid_predict(model, grid, int(data["top_k"]))
         labels = gather_label_blocks(fn(t(data["depth"]), padded, ids), grid)
         result[tuple(int(v) for v in shape)] = labels
-    torch.save(result, out)
-    dist.destroy_process_group()
+    return result
 
 
-def _grid_step(rank, world, store, path, out):
+def _grid_steps(data):
     """The global-batch step on each grid of ``grids`` (the class tables
     split over 'model' where it has more than one rank, the draws of the
     whole batch), and, where the ``.npz`` names a grid ``big.grid``, the
     bf16 packed-CE step at C = 2048 on it with model-sharded tables."""
-    import torch.distributed as dist
-
     from rangeclip_tpu_torch.losses.hybrid import Draws, HybridLossConfig
     from rangeclip_tpu_torch.parallel.dryrun import (
         _snapshot,
         native_cpu_convolutions,
     )
     from rangeclip_tpu_torch.parallel.mesh import (
-        init_distributed,
         make_grid,
         shard_class_tables,
     )
@@ -515,8 +525,6 @@ def _grid_step(rank, world, store, path, out):
     )
     from rangeclip_tpu_torch.training.train_step import make_train_step
 
-    data = dict(np.load(path))
-    init_distributed(f"file://{store}", world, rank, device="cpu")
     t = torch.from_numpy
     keys = ("depth", "segmentation", "object_label", "image_embeddings",
             "sample_valid")
@@ -559,8 +567,104 @@ def _grid_step(rank, world, store, path, out):
             state, info = step(state, batch, (3, 0), 1e-3, 0.25, 0.5,
                                *tables)
         result["big"] = _snapshot(state, info)
+    return result
+
+
+def _grid_run(rank, world, store, path, out, mode):
+    """One rank of ``grid_predict``, ``grid_step``, ``grid_mit`` or
+    ``grid_validate``."""
+    import torch.distributed as dist
+
+    from rangeclip_tpu_torch.parallel.mesh import init_distributed, make_grid
+
+    data = dict(np.load(path))
+    init_distributed(f"file://{store}", world, rank, device="cpu")
+    if mode == "grid_predict":
+        result = _grid_predicts(data)
+    elif mode == "grid_step":
+        result = _grid_steps(data)
+    elif mode == "grid_validate":
+        result = _grid_validations(data)
+    else:
+        grid = make_grid(1, 2, 1)
+        result = {"predict": _grid_predicts(_part(data, "predict.")),
+                  "step": _grid_steps(_part(data, "step.")),
+                  "refusal": None if grid is None else _step_refusal(
+                      grid, 36, _grid_model(_part(data, "step.")))}
     torch.save(result, out)
     dist.destroy_process_group()
+
+
+def _part(data, prefix):
+    """The ``prefix`` keys of ``data`` without it, beside the model's
+    (``sd.``, ``filters``, ``dim``, ``unet_type``, ``use_batch_norm``)."""
+    out = {k[len(prefix):]: v for k, v in data.items()
+           if k.startswith(prefix)}
+    out.update({k: v for k, v in data.items() if k.startswith("sd.")
+                or k in ("filters", "dim", "unet_type", "use_batch_norm")})
+    return out
+
+
+def _grid_validations(data):
+    """For each architecture of ``archs`` and each grid of ``grids``: the
+    grid's val step on this rank's block of every val batch (JAX's noise
+    and draws fed; its accumulators, loss shares and the gathered top-k
+    map) and ``validate_model`` over the grid on its data block's shard."""
+    from rangeclip_tpu_torch.evals.metrics import metrics_init
+    from rangeclip_tpu_torch.evals.validate import (
+        make_val_step,
+        validate_model,
+    )
+    from rangeclip_tpu_torch.losses.hybrid import Draws
+    from rangeclip_tpu_torch.models.clip.provider import HashImageEmbedder
+    from rangeclip_tpu_torch.parallel.mesh import make_grid
+    from rangeclip_tpu_torch.parallel.predict import gather_label_blocks
+
+    t = torch.from_numpy
+    result = {}
+    for arch in (str(a) for a in data["archs"]):
+        part = _part(data, f"{arch}.")
+        n_val = part["depth"].shape[0]
+        kw = dict(num_negatives=int(part["negatives"]))
+        for shape in data["grids"]:
+            grid = make_grid(*(int(v) for v in shape))
+            if grid is None:
+                continue
+            model = _grid_model(part).eval()
+            C = part["text"].shape[0]
+            tables = [t(part[k]) for k in ("text", "medium", "hard")]
+            eq, cmap = t(part["eq"]), t(part["cmap"])
+            step = make_val_step(top_k=int(part["top_k"]), group=grid, **kw)
+            batches, steps = [], []
+            for i in range(n_val):
+                whole = {k: t(part[k][i]) for k in (
+                    "depth", "segmentation", "object_label", "sample_valid",
+                    "images")}
+                local = grid.local_batch(whole)
+                images = local.pop("images")
+                acc, parts, pred = step(
+                    model, local, (0, i), 0.3, 0.5, *tables, eq, cmap,
+                    images, metrics_init(C),
+                    candidate_gumbel=t(part["cand"][i]),
+                    draws=Draws(t(part["pixels"][i]),
+                                (t(part["gumbel0"][i]),
+                                 t(part["gumbel1"][i]))))
+                steps.append({"acc": acc, "parts": parts,
+                              "pred": gather_label_blocks(pred, grid)})
+                b = part["depth"].shape[1] // grid.n_data
+                batches.append({k: part[k][i][grid.d * b:(grid.d + 1) * b]
+                                for k in ("depth", "segmentation",
+                                          "object_label", "sample_valid",
+                                          "image", "object_bbox")})
+            results = validate_model(
+                model, batches, *tables, eq, cmap,
+                {"pct_medium": 0.3, "pct_hard": 0.5},
+                HashImageEmbedder(dim=int(part["dim"])), 1,
+                {"step": -1, "loss": float("inf"), "mIoU_tk": -1.0},
+                top_k=int(part["top_k"]), group=grid, **kw)
+            result[(arch,) + tuple(int(v) for v in shape)] = {
+                "steps": steps, "results": results}
+    return result
 
 
 def main():
@@ -573,9 +677,8 @@ def main():
     if mode == "halo":
         _halo(rank, world, store, out)
         return
-    if mode in ("grid_predict", "grid_step"):
-        (_grid_predict if mode == "grid_predict" else _grid_step)(
-            rank, world, store, path, out)
+    if mode.startswith("grid_"):
+        _grid_run(rank, world, store, path, out, mode)
         return
     with open(path) as f:
         argv = json.load(f) + ["--coordinator_address", f"file://{store}",
