@@ -13,9 +13,8 @@ Phases (any failure raises; nothing is caught):
 1. Build the CUDA kernels from ``rangeclip_tpu_torch/csrc/``; print the
    registers, shared memory and spills (``ptxas -v``) of the sources with
    tensor-core kernels (pixel_text_topk's bf16 path, conv_score_topk,
-   pixel_text_ce and head_topk's bf16 path) and with the redesigned
-   CUDA-core ones
-   (pixel_text_topk's fp32 path, pixel_text_ce's member-only forward and
+   pixel_text_ce, pixel_text_ce_slots and head_topk's bf16 path) and with
+   the redesigned CUDA-core ones (pixel_text_topk's fp32 path, pixel_text_ce's member-only forward and
    backward, the live_rows gather, tv_rowtile, head_topk's CUDA-core
    route, masked_pooling, tv_loss); require that the fp32 kernel's SASS
    holds no tensor-core instruction.
@@ -34,7 +33,9 @@ Phases (any failure raises; nothing is caught):
    pixel_text_ce runs bf16 packed (its tensor-core kernels, also timed
    alone) at D = 512 and 768, bf16 over the full table (overflow, 200
    members) and fp32 with 90 and with all 512 classes members (its
-   member-only kernels).  live_rows, the gather of those kernels' table,
+   member-only kernels), then bf16 with 16 label slots at the MiT step's
+   shape ([16, 64, 64, 512], 138 of 512 members, the flag at 0: the
+   tensor-core pair past 4 slots, pixel_text_ce_slots.cu).  live_rows, the gather of those kernels' table,
    bit-equal to its plain version at the overflow branch's shape.
    tv_rowtile's forward is timed as the operator call and, read with
    torch.profiler, as its kernels alone, which must be its only device
@@ -132,8 +133,10 @@ Phases (any failure raises; nothing is caught):
    ones, the decoder moved.  (c) cli/train --bf16 --unet_architecture mit,
    2 steps; the first step's CE operands (16 label slots on the H/4 field)
    recorded, and pixel_text_ce held on them, packed as the step passed
-   them and over the full table, against its plain versions at phase 2's
-   tolerances and timed; its checkpoint through predict_folded at the
+   them, with the flag set and over the full table, against its plain
+   versions at phase 2's tolerances and timed, each form on the
+   tensor-core pair past 4 slots alone (the step too: never the
+   member-only kernels); its checkpoint through predict_folded at the
    bench configuration twice (identical checksums, maps/s),
    conv_score_topk on its features and folded head against its plain
    version, and its fp32 labels at batch 8 against the same model on the
@@ -205,7 +208,9 @@ Phases (any failure raises; nothing is caught):
    f32 against the single-device step, held as (e), the two ranks
    bit-equal.  Each rank must launch pixel_text_topk, validation's
    pixel_text_topk[fp32] and class_presence[labels], and the step's CE
-   (the MiT's: the member-only 16-slot instances), class_presence,
+   (the MiT's: in bf16 the tensor-core pair past 4 slots and never the
+   member-only kernels, in f32 the member-only 16-slot instances),
+   class_presence,
    histogram and (bf16) l2_normalize kernels, and not tv_rowtile (the
    plain TV with a halo row, as in JAX).
 
@@ -244,6 +249,8 @@ from http.server import ThreadingHTTPServer
 
 import numpy as np
 import torch
+
+from rangeclip_tpu_torch.utils.ce_rounding import bf16_ulp, within_bf16_ulp
 
 SEED = 0
 RES = 256
@@ -290,6 +297,12 @@ KERNEL_ROWS = {
                               "rangeclip_tpu/ops/pallas/pixel_text_ce.py:96"),
     "pixel_text_ce_tc[bwd]": ("rangeclip_tpu_torch/csrc/pixel_text_ce.cu",
                               "rangeclip_tpu/ops/pallas/pixel_text_ce.py:124"),
+    "pixel_text_ce_slots[fwd]": (
+        "rangeclip_tpu_torch/csrc/pixel_text_ce_slots.cu",
+        "rangeclip_tpu/ops/pallas/pixel_text_ce.py:96"),
+    "pixel_text_ce_slots[bwd]": (
+        "rangeclip_tpu_torch/csrc/pixel_text_ce_slots.cu",
+        "rangeclip_tpu/ops/pallas/pixel_text_ce.py:124"),
     "tv_rowtile[fwd]": ("rangeclip_tpu_torch/csrc/tv_rowtile.cu",
                         "rangeclip_tpu/ops/pallas/tv_rowtile.py:100"),
     "tv_rowtile[bwd]": ("rangeclip_tpu_torch/csrc/tv_rowtile.cu",
@@ -690,21 +703,6 @@ def near_tie_check(name, got, want, field, table, slot_ids=None,
     require(rate >= min_rate, f"{name}: id agreement {rate} < {min_rate}")
     require(gap <= tol, f"{name}: a mismatch beyond a near-tie ({gap})")
     return rate
-
-
-def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
-    """One bf16 ulp of each |x| (the spacing of bf16 values in its binade:
-    2^(e - 8) for |x| in [2^(e-1), 2^e)), in f64, exact on any device:
-    exp2(floor(log2(x))) is not on the card, whose f64 log2 can fall just
-    below an integer at a power of two and halve the ulp."""
-    _, e = torch.frexp(x.double().abs().clamp_min(1e-30))
-    return torch.ldexp(torch.ones_like(e, dtype=torch.float64), e - 8)
-
-
-def within_bf16_ulp(got: torch.Tensor, want: torch.Tensor,
-                    slack=0.0) -> bool:
-    got, want = got.double(), want.double()
-    return bool(((got - want).abs() <= bf16_ulp(want) + slack).all())
 
 
 def vjp_scale(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -1555,6 +1553,108 @@ def phase_train_kernels(device, stats):
         **bound(2 * x.numel() * 2, 0, "bf16"),
         **device_fields(lambda: tv_rowtile_backward_op(x, w, g, 2)))
     del x, xk, xp, xw
+    torch.cuda.empty_cache()
+
+
+MIT_CE_MEMBERS = 138  # the contrast set of phase 11's MiT step
+
+
+def mit_slot_labels(gen, device, member_ids, batch: int, res: int):
+    """[16, batch * (res/4)^2] labels as the MiT step slots them: a
+    segmentation at res^2 of 16 x 16-pixel regions of member classes, each
+    H/4 pixel's 4 x 4 block its 16 slots."""
+    coarse = member_ids[torch.randint(
+        0, member_ids.numel(), (batch, res // 16, res // 16), device=device,
+        generator=gen)]
+    seg = coarse.repeat_interleave(16, 1).repeat_interleave(16, 2)
+    blocks = seg.reshape(batch, res // 4, 4, res // 4, 4)
+    return blocks.permute(2, 4, 0, 1, 3).reshape(16, -1).int().contiguous()
+
+
+def phase_slot_ce_kernels(device, stats) -> None:
+    """pixel_text_ce past 4 slots (the tensor-core pair) at the MiT step's
+    shape: bf16 [16, 64, 64, 512], N = 65,536, 16 slots, 138 of C = 512
+    members, the packed table of 128 with the flag at 0 (the contrast set
+    overflows it, as in phase 11's MiT step), against its plain versions at
+    the flagship check's tolerances, each direction timed in alternation
+    with its plain version."""
+    from rangeclip_tpu_torch.losses.infonce import pack_contrast_set
+    from rangeclip_tpu_torch.ops.kernels.pixel_text_ce import (
+        ce_operands,
+        pixel_text_ce_backward_plain,
+        pixel_text_ce_plain,
+        pixel_text_ce_slots_backward_op,
+        pixel_text_ce_slots_op,
+        slots_route,
+    )
+    from rangeclip_tpu_torch.utils.math import l2_normalize
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 23)
+    B, h, D = CLI_TRAIN_BATCH, RES // 4, 512
+    N = B * h * h
+    text = l2_normalize(torch.randn(NUM_CLASSES, D, device=device,
+                                    generator=gen), dim=-1)
+    mask, members = contrast_set(gen, device, MIT_CE_MEMBERS)
+    labels = mit_slot_labels(gen, device, members, B, RES)
+    valid = torch.randint(0, 3, (16, N), device=device, generator=gen).float()
+    samples = torch.randn(N, D, device=device, generator=gen).bfloat16()
+    temp = torch.tensor(0.07, device=device)
+    ids, ptable, pmask = pack_contrast_set(mask, text, CAPACITY)
+    packed = (ptable.bfloat16(), pmask, ids, mask.sum() <= CAPACITY)
+    flat, lab, val, msk, pt, pm, pi, flag = ce_operands(
+        samples, temp, labels, valid, text.bfloat16(), mask, packed)
+    require(slots_route(flat, 16) and not bool(flag),
+            "pixel_text_ce_slots: the MiT case's route or flag")
+    op_args = (flat, temp, lab, val, text.bfloat16(), msk, pt, pm, pi, flag)
+    plain_args = (flat, temp, lab, val, text.bfloat16(), msk)
+    plain_packed = (pt, pm, pi, flag)
+    g = torch.tensor(1.0 / N, device=device)
+    got, row_stats = pixel_text_ce_slots_op(*op_args)
+    want = pixel_text_ce_plain(*plain_args, packed=plain_packed)
+    dx, dt = pixel_text_ce_slots_backward_op(g, row_stats, *op_args)
+    dx_p, dt_p = pixel_text_ce_backward_plain(g, *plain_args,
+                                              packed=plain_packed)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=0.0)
+    torch.testing.assert_close(dt, dt_p, rtol=2e-5, atol=1e-6)
+    scale = dx_p.double().abs().amax(dim=-1, keepdim=True)
+    require(within_bf16_ulp(dx, dx_p, scale * 2.0 ** -10),
+            "pixel_text_ce_slots[bwd] beyond one bf16 ulp")
+    fwd = time_pair(lambda: pixel_text_ce_slots_op(*op_args),
+                    lambda: pixel_text_ce_plain(*plain_args,
+                                                packed=plain_packed), 10, 3)
+    bwd = time_pair(lambda: pixel_text_ce_slots_backward_op(g, row_stats,
+                                                            *op_args),
+                    lambda: pixel_text_ce_backward_plain(
+                        g, *plain_args, packed=plain_packed), 10, 3)
+    # the bound over the selected table's members (a non-member's exp term
+    # is 0): the field, labels and weights, the members read once; d
+    # samples written once; 2 N D members operations forward, twice that
+    # backward
+    members_n = int(mask.sum())
+    io = flat.numel() * 2 + lab.numel() * 8 + members_n * D * 2
+    flops = 2.0 * N * members_n * D
+    stats["pixel_text_ce_slots[fwd]"] = dict(
+        max_abs_err=max_abs_err(got, want), ms=fwd[0], plain_ms=fwd[1],
+        library_ms=None, **bound(io, flops, "bf16"),
+        **device_fields(lambda: pixel_text_ce_slots_op(*op_args)))
+    stats["pixel_text_ce_slots[bwd]"] = dict(
+        max_abs_err=max_abs_err(dx, dx_p), ms=bwd[0], plain_ms=bwd[1],
+        library_ms=None, **bound(io + flat.numel() * 2, 2 * flops, "bf16"),
+        **device_fields(lambda: pixel_text_ce_slots_backward_op(
+            g, row_stats, *op_args)))
+    f, b = stats["pixel_text_ce_slots[fwd]"], stats["pixel_text_ce_slots[bwd]"]
+    log(f"  pixel_text_ce past 4 slots (tensor cores), bf16 N={N} D={D} "
+        f"S=16 ({members_n} members of {NUM_CLASSES}, flag 0): CE "
+        f"{float(got):.6g} vs plain {float(want):.6g}, d tau {float(dt):.6g} "
+        f"vs {float(dt_p):.6g}, max |d samples diff| "
+        f"{b['max_abs_err']:.3g}; fwd kernel {fwd[0]:.4f} ms (plain "
+        f"{fwd[1]:.4f}), device {f['device_ms']:.4f} ms in "
+        f"{f['device_events']:g} events; bwd kernel {bwd[0]:.4f} ms (plain "
+        f"{bwd[1]:.4f}), device {b['device_ms']:.4f} ms in "
+        f"{b['device_events']:g} events; bound fwd {f['bound_ms']:.4f} ms, "
+        f"bwd {b['bound_ms']:.4f} ms")
+    del samples, flat, dx, dx_p
     torch.cuda.empty_cache()
 
 
@@ -2812,6 +2912,12 @@ def phase_padded_widths(device) -> None:
 CLIP_TRAIN_KERNELS = ["histogram", "class_presence", "pixel_text_ce[fwd]",
                       "pixel_text_ce[bwd]", "tv_rowtile[fwd]",
                       "tv_rowtile[bwd]"]
+# the bf16 MiT step: its field at H/4 gives 16 label slots, the tensor-core
+# CE pair past 4 slots in both directions and never the member-only kernels
+SLOTS_CE = ["pixel_text_ce_slots[fwd]", "pixel_text_ce_slots[bwd]"]
+MEMBER_CE = ["pixel_text_ce[fwd]", "pixel_text_ce[bwd]"]
+MIT_TRAIN_KERNELS = ["histogram", "class_presence", "live_rows", *SLOTS_CE,
+                     "tv_rowtile[fwd]", "tv_rowtile[bwd]"]
 BENCH_PREDICT_KERNELS = ["class_presence[labels]", "conv_score_topk"]
 CLIP_LABELS = NUM_CLASSES  # the synthetic dataset's label table
 
@@ -3019,10 +3125,14 @@ def hold_step_ce(name: str, args, card: str) -> None:
     gradients against pixel_text_ce_reference at the flagship check's
     tolerances (rtol 2e-5 on the value and d tau, d samples within one
     bf16 ulp plus 2^-10 of the row's largest entry, or 1e-4 of it in f32);
-    then forward and backward timed against the plain versions."""
+    then forward and backward timed against the plain versions.  A bf16
+    step past 4 slots must run the tensor-core pair past 4 slots in both
+    directions in every form, and no other CE kernel."""
+    from rangeclip_tpu_torch.ops.kernels import _lib
     from rangeclip_tpu_torch.ops.kernels.pixel_text_ce import (
         fused_pixel_text_ce,
         pixel_text_ce_reference,
+        slots_route,
         tc_route,
     )
 
@@ -3043,10 +3153,22 @@ def hold_step_ce(name: str, args, card: str) -> None:
         if not bool(packed[3]):  # the step's contrast set overflowed K
             forms.insert(1, ("packed with the flag set", (
                 *packed[:3], torch.ones_like(packed[3]))))
+    ce_kernels = [k for k in _lib.launch_counts if k.startswith(
+        "pixel_text_ce")]
+    slots = slots_route(samples.reshape(-1, D), S)
     for form, pk in forms:
-        got, want = run(fused_pixel_text_ce, pk), run(
-            pixel_text_ce_reference, pk)
         torch.cuda.synchronize()
+        before = dict(_lib.launch_counts)
+        got = run(fused_pixel_text_ce, pk)
+        torch.cuda.synchronize()
+        ran = {k: _lib.launch_counts[k] - before[k] for k in ce_kernels}
+        want = run(pixel_text_ce_reference, pk)
+        torch.cuda.synchronize()
+        if samples.dtype == torch.bfloat16 and S > 4:
+            require(slots and ran == {k: int(k in SLOTS_CE)
+                                      for k in ce_kernels},
+                    f"{name} CE ({form}): not the tensor-core pair past 4 "
+                    f"slots alone: {ran}")
         torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=0.0)
         torch.testing.assert_close(got[2], want[2], rtol=2e-5, atol=1e-6)
         scale = want[1].double().abs().amax(dim=-1, keepdim=True)
@@ -3063,11 +3185,14 @@ def hold_step_ce(name: str, args, card: str) -> None:
         dev = device_fields(lambda: run(fused_pixel_text_ce, pk), calls=5)
         flag = None if pk is None else int(pk[3])
         tc = bool(flag and tc_route(samples.reshape(-1, D), pk[0], S))
-        route = "tensor cores" if tc else "member-only"
+        route = ("tensor cores past 4 slots" if slots else
+                 "tensor cores" if tc else "member-only")
         # phase 2's CE bound: the field, labels and validity, the scored
-        # rows (the packed table, else the members) read once, d samples
-        # written once; 2 N C D operations forward, twice that backward
-        classes = pk[0].shape[0] if tc else int(mask.sum())
+        # rows (the packed table, else the selected table's members) read
+        # once, d samples written once; 2 N C D operations forward, twice
+        # that backward
+        classes = (pk[0].shape[0] if tc else int(pk[1].sum()) if flag
+                   else int(mask.sum()))
         esize = samples.element_size()
         io = (samples.numel() * esize + labels.numel() * 8
               + classes * D * esize)
@@ -3249,8 +3374,11 @@ def phase_mit(tmp: str, data, device, card: str, totals) -> None:
     t0 = time.perf_counter()
     ce_calls = []
     with recorded_ce(ce_calls):
-        run_path("cli/train --bf16 --unet_architecture mit",
-                 CLIP_TRAIN_KERNELS, lambda: train.main(argv), totals)
+        _, counts = run_path("cli/train --bf16 --unet_architecture mit",
+                             MIT_TRAIN_KERNELS, lambda: train.main(argv),
+                             totals)
+    require(not any(counts[k] for k in MEMBER_CE),
+            f"MiT cli/train: the member-only CE ran: {counts}")
     losses = train_losses(ckpt)
     require(len(losses) == 2 and np.isfinite(losses).all(),
             f"MiT cli/train losses {losses}")
@@ -4112,7 +4240,8 @@ GRID_VAL_BATCH = 8  # images of a val batch (phase 8's, cli/train's)
 GRID_VAL_BATCHES = 2
 # the steps' kernels by (architecture, bf16): the ResNet's field at H/2
 # packs 4 label slots (bf16: the tensor-core CE), the MiT's at H/4 16
-# (the member-only CE's 16-slot instances)
+# (bf16: the tensor-core pair past 4 slots; f32: the member-only CE's
+# 16-slot instances)
 GRID_KERNELS = {
     ("resnet", True): ["histogram", "class_presence", "l2_normalize[fwd]",
                        "l2_normalize[bwd]", "pixel_text_ce_tc[fwd]",
@@ -4120,8 +4249,7 @@ GRID_KERNELS = {
     ("resnet", False): ["histogram", "class_presence", "live_rows",
                         "pixel_text_ce[fwd]", "pixel_text_ce[bwd]"],
     ("mit", True): ["histogram", "class_presence", "l2_normalize[fwd]",
-                    "l2_normalize[bwd]", "live_rows", "pixel_text_ce[fwd]",
-                    "pixel_text_ce[bwd]"],
+                    "l2_normalize[bwd]", "live_rows", *SLOTS_CE],
     ("mit", False): ["histogram", "class_presence", "live_rows",
                      "pixel_text_ce[fwd]", "pixel_text_ce[bwd]"]}
 GRID_VAL_KERNELS = ["pixel_text_topk[fp32]", "class_presence[labels]"]
@@ -4261,6 +4389,9 @@ def phase_grid(device, card: str, totals) -> None:
         name = f"grid step of the {arch}, {precision}"
         member_launches(members, "step",
                         GRID_KERNELS[spec.unet_type, spec.bf16], name)
+        if spec.unet_type == "mit" and spec.bf16:
+            require(not any(counts.get(k, 0) for k in MEMBER_CE),
+                    f"{name}: the member-only CE ran past 4 slots")
         for kernel in ("tv_rowtile[fwd]", "tv_rowtile[bwd]"):
             require(not counts.get(kernel, 0),
                     f"{name}: {kernel} launched under the 'spatial' axis")
@@ -4469,6 +4600,7 @@ def main(argv=None) -> int:
     phase_unfolded_kernels(device, bench_model, serve_model, depths, text,
                            cand, stats)
     phase_train_kernels(device, stats)
+    phase_slot_ce_kernels(device, stats)
     phase_eval_kernels(device, bench_model, serve_model, depths, text, seg,
                        stats)
     torch.cuda.synchronize()

@@ -1,6 +1,9 @@
 // The live rows of a score table, gathered and transposed on the device in
 // one launch for the CUDA-core scoring kernels (pixel_text_topk.cu's fp32
-// kernel, pixel_text_ce.cu's member-only forward and backward).
+// kernel, pixel_text_ce.cu's member-only forward and backward), or in bf16
+// for the tensor-core CE past 4 label slots (pixel_text_ce_slots.cu), which
+// takes them both row-major (the logits' B operand) and transposed (the
+// backward's second product), each through TMA.
 //
 // No TPU kernel of its own: the JAX package scores whole tables and
 // gathers the contrast members in XLA (rangeclip_tpu/losses/infonce.py:311,
@@ -13,7 +16,9 @@
 // use_packed, only the segment it selects (B where it is non-zero, else A)
 // has live rows, and that segment comes first.  Out: the live rows in that
 // order, then the others in that order, as the columns of a [d, ldt] f32
-// matrix (columns past ca + cb zero), their ids, and the live count.
+// matrix (columns past ca + cb zero), their ids, and the live count.  The
+// bf16 form (rc_live_rows_bf16) writes that matrix in bf16 and the rows in
+// the same order to a [ca + cb, d] matrix too, in the same launch.
 //
 // Bound on the card: bytes, each row read once and each column written
 // once (1.3 MB at 640 rows of 512 dims: 0.4 us); the launch and one scan
@@ -45,11 +50,24 @@ __device__ __forceinline__ bool seg_live(const Segment& s, int i) {
   return s.mask != nullptr ? __ldg(s.mask + i) != 0 : __ldg(s.ids + i) >= 0;
 }
 
-template <typename T>
+// An output element from a row's element: f32 widens exactly, bf16 copies.
+__device__ __forceinline__ float out_of(float v, float*) { return v; }
+__device__ __forceinline__ float out_of(__nv_bfloat16 v, float*) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ __nv_bfloat16 out_of(__nv_bfloat16 v,
+                                                __nv_bfloat16*) {
+  return v;
+}
+
+// O: the transposed output's type (f32, or bf16 for bf16 rows); rows_out,
+// when not NULL, gets the rows too ([a.count + b.count, d], bf16).
+template <typename T, typename O>
 __global__ void __launch_bounds__(kThreads)
     live_rows_kernel(Segment a, Segment b, const int* use_packed, int d,
-                     float* __restrict__ table_t, int ldt,
-                     int* __restrict__ ids, int* __restrict__ count) {
+                     O* __restrict__ table_t, int ldt,
+                     O* __restrict__ rows_out, int* __restrict__ ids,
+                     int* __restrict__ count) {
   __shared__ int src[kTile];  // the concatenated row of each column, or -1
   __shared__ int warp_live[kThreads / 32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -99,8 +117,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int k = warp; k < kTile; k += kThreads / 32) {
     const int dim = blockIdx.y * kTile + k;
     if (dim >= d || col >= ldt) continue;
-    table_t[(long long)dim * ldt + col] =
-        row != nullptr ? rc::to_float(row[dim]) : 0.f;
+    const O v = row != nullptr ? out_of(row[dim], table_t) : O(0.f);
+    table_t[(long long)dim * ldt + col] = v;
+    if (rows_out != nullptr && row != nullptr)
+      rows_out[(long long)col * d + dim] = v;
   }
   if (blockIdx.y == 0 && warp == 0 && r >= 0) ids[col] = seg_id(s, i);
   if (blockIdx.x == 0 && blockIdx.y == 0 && tid == 0) *count = total;
@@ -130,10 +150,35 @@ extern "C" int rc_live_rows(const void* a, const int* a_ids,
                   (unsigned)((d + kTile - 1) / kTile));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    live_rows_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        sa, sb, use_packed, d, table_t, ldt, ids, count);
+    live_rows_kernel<__nv_bfloat16, float><<<grid, kThreads, 0, st>>>(
+        sa, sb, use_packed, d, table_t, ldt, nullptr, ids, count);
   else
-    live_rows_kernel<float><<<grid, kThreads, 0, st>>>(
-        sa, sb, use_packed, d, table_t, ldt, ids, count);
+    live_rows_kernel<float, float><<<grid, kThreads, 0, st>>>(
+        sa, sb, use_packed, d, table_t, ldt, nullptr, ids, count);
+  return cudaGetLastError();
+}
+
+// The bf16 form: bf16 segments, the live rows first as above into rows
+// [ca + cb, d] and, transposed, into rows_t [d, ldt] (ldt >= ca + cb,
+// columns past ca + cb zero), both bf16 and bit-equal to the rows; ids and
+// count as rc_live_rows writes them.
+extern "C" int rc_live_rows_bf16(const void* a, const int* a_ids,
+                                 const int* a_mask, int ca, const void* b,
+                                 const int* b_ids, const int* b_mask, int cb,
+                                 const int* use_packed, int d, void* rows,
+                                 void* rows_t, int ldt, int* ids, int* count,
+                                 void* stream) {
+  if (ca <= 0 || d <= 0 || ldt < ca + cb || cb < 0 || rows == nullptr ||
+      (a_ids == nullptr && a_mask == nullptr) ||
+      (cb > 0 && (b == nullptr || b_ids == nullptr || b_mask == nullptr)))
+    return cudaErrorInvalidValue;
+  const Segment sa{a, a_ids, a_mask, ca};
+  const Segment sb{b, b_ids, b_mask, cb};
+  const dim3 grid((unsigned)((ldt + kTile - 1) / kTile),
+                  (unsigned)((d + kTile - 1) / kTile));
+  live_rows_kernel<__nv_bfloat16, __nv_bfloat16>
+      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          sa, sb, use_packed, d, static_cast<__nv_bfloat16*>(rows_t), ldt,
+          static_cast<__nv_bfloat16*>(rows), ids, count);
   return cudaGetLastError();
 }

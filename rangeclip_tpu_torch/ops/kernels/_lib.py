@@ -47,7 +47,8 @@ NVCC_FLAGS = (
 # build keeps: the tensor-core kernels and the redesigned CUDA-core ones.
 PTXAS_VERBOSE = ("class_presence.cu", "conv_score_topk.cu", "head_topk.cu",
                  "histogram.cu", "live_rows.cu", "masked_pooling.cu",
-                 "pixel_text_ce.cu", "pixel_text_topk.cu", "tv_loss.cu",
+                 "pixel_text_ce.cu", "pixel_text_ce_slots.cu",
+                 "pixel_text_topk.cu", "tv_loss.cu",
                  "tv_rowtile.cu")
 
 # Launches per kernel (and selector), counted by each wrapper right after a
@@ -69,6 +70,9 @@ launch_counts = {
     "pixel_text_ce[bwd]": 0,
     "pixel_text_ce_tc[fwd]": 0,  # tensor cores: the bf16 packed branch
     "pixel_text_ce_tc[bwd]": 0,
+    # tensor cores: bf16 past 4 label slots, every contrast member
+    "pixel_text_ce_slots[fwd]": 0,
+    "pixel_text_ce_slots[bwd]": 0,
     "tv_rowtile[fwd]": 0,
     "tv_rowtile[bwd]": 0,
     "masked_pooling": 0,
@@ -94,6 +98,8 @@ _SIGNATURES = {
     "rc_histogram": (_P, _I, _L, _I, _P, _P),
     "rc_live_rows": (_P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P, _I,
                      _P, _P, _P),
+    "rc_live_rows_bf16": (_P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P, _P,
+                          _I, _P, _P, _P),
     "rc_pixel_text_ce_members_fwd": (_P, _I, _P, _P, _P, _I, _L, _I, _P, _I,
                                      _P, _P, _P, _I, _P, _P, _I, _P, _I,
                                      _P, _P, _P),
@@ -104,6 +110,11 @@ _SIGNATURES = {
                                 _P, _P, _P, _P),
     "rc_pixel_text_ce_tc_bwd": (_P, _P, _P, _P, _P, _I, _L, _I, _P, _P, _P,
                                 _P, _I, _P, _P, _P, _P),
+    "rc_pixel_text_ce_slots_fwd": (_P, _P, _P, _P, _L, _I, _P, _P, _P, _I,
+                                   _P, _I, _P, _P, _I, _P, _P, _P, _P),
+    "rc_pixel_text_ce_slots_bwd": (_P, _P, _P, _P, _P, _L, _I, _P, _P, _I,
+                                   _P, _P, _I, _P, _P, _I, _P, _P, _P, _I,
+                                   _P, _P, _P, _I, _P, _P, _P, _P, _P),
     "rc_tv_rowtile_fwd": (_P, _I, _I, _I, _I, _P, _P, _F, _F, _F, _F, _P,
                           _P),
     "rc_tv_rowtile_bwd": (_P, _I, _I, _I, _I, _P, _P, _F, _F, _F, _F, _P,

@@ -6,11 +6,13 @@ a ``jax.custom_vjp``): ``sum_i sum_s valid[s, i] * CE_i(labels[s, i])`` over
 the caller divides by n_valid and gates.  Gradients flow to the samples and
 the temperature; the text table is frozen.
 
-The CUDA kernels are ``csrc/pixel_text_ce.cu``; the pair is the operator
+The CUDA kernels are ``csrc/pixel_text_ce.cu`` and, past 4 label slots in
+bf16, ``csrc/pixel_text_ce_slots.cu``; each pair is an operator,
 ``rangeclip::pixel_text_ce`` with ``rangeclip::pixel_text_ce_backward``
-registered as its gradient.  The forward operator also returns each row's
-max logit and sum-exp ([2, N] f32, not differentiable), which the
-member-only backward reads instead of scoring the members once more.  CPU
+registered as its gradient, and ``rangeclip::pixel_text_ce_slots`` with
+``rangeclip::pixel_text_ce_slots_backward``.  The forward operators also
+return each row's max logit and sum-exp ([2, N] f32, not differentiable),
+which the backwards read instead of scoring the members once more.  CPU
 tensors run the plain versions, :func:`pixel_text_ce_plain` and
 :func:`pixel_text_ce_backward_plain`, as a ``torch.autograd.Function``; the
 operators have no CPU implementation.
@@ -31,19 +33,23 @@ is a device flag, n_contrast <= K: the kernels read it and score either the
 packed or the full table, so choosing the branch needs no host sync (the
 plain versions read it on the host).
 
-Routes on the card (:func:`tc_route`, by shape on the host, one for both
-directions): bf16 with a packed table, D <= 1280 and K <= 128, launches
-the tensor-core kernel and the member-only CUDA-core kernel together; the
-first runs where the flag selects the packed table, the second (told to
-skip that branch) where it selects the full one, with at most 4 label
-slots.  Everything else, fp32, wider or larger packed tables and more
-slots, takes the member-only kernels alone.  Those take 1-4 slots or 16 (a
-field at H/4 upsampled x4) in one pass; the wrapper pads 5-15 to 16 with
-slots of weight 0, which add exactly nothing.  Both
-member-only kernels score only the contrast members of the table the flag
-selects (:func:`member_table`, gathered on the device in one launch); no
-route scores a full table.  The kernels take D % 8 == 0; the wrapper
-zero-pads any other D (``_lib.pad_dim8``).
+Routes on the card (by shape on the host, one for both directions): bf16
+with 5-16 label slots (a field at H/4 upsampled x4 has 16; the wrapper pads
+5-15 to 16 with slots of weight 0, which add exactly nothing) and D <=
+1280 takes the tensor-core pair past 4 slots (:func:`slots_route`: one
+pass over the 16 slots and every contrast member of the table the flag
+selects, gathered in bf16 by :func:`member_rows`), whatever the flag and
+the member count.  bf16 with a packed table, D <= 1280, K <= 128 and at
+most 4 slots (:func:`tc_route`) launches the tensor-core kernel and the
+member-only CUDA-core kernel together; the first runs where the flag
+selects the packed table, the second (told to skip that branch) where it
+selects the full one.  Everything else, fp32 at any slot count and wider
+or larger packed tables, takes the member-only kernels alone, which take
+1-4 slots or 16 in one pass.  The member-only kernels score only the
+contrast members of the table the flag selects (:func:`member_table`,
+gathered on the device in one launch); no route scores a full table.  The
+kernels take D % 8 == 0; the wrapper zero-pads any other D
+(``_lib.pad_dim8``).
 """
 
 from __future__ import annotations
@@ -53,7 +59,10 @@ from typing import Optional, Tuple
 import torch
 
 from rangeclip_tpu_torch.ops.kernels import _lib
-from rangeclip_tpu_torch.ops.kernels.live_rows import live_rows
+from rangeclip_tpu_torch.ops.kernels.live_rows import (
+    live_rows,
+    live_rows_bf16,
+)
 
 NEG_INF = -1e30
 MAX_SLOTS = 16  # csrc/pixel_text_ce.cu: member::dispatch
@@ -258,9 +267,10 @@ def fused_pixel_text_ce(samples: torch.Tensor, temperature: torch.Tensor,
     flat, table, ptable = (_lib.pad_dim8(flat),
                            _lib.pad_dim8(table.contiguous()),
                            _lib.pad_dim8(ptable))
-    return pixel_text_ce_op(flat, temperature.reshape(()).contiguous(),
-                            labels, valid, table, mask, ptable, pmask, pids,
-                            flag)[0]
+    op = (pixel_text_ce_slots_op if slots_route(flat, labels.shape[0])
+          else pixel_text_ce_op)
+    return op(flat, temperature.reshape(()).contiguous(), labels, valid,
+              table, mask, ptable, pmask, pids, flag)[0]
 
 
 def padded_slots(labels: torch.Tensor, valid: torch.Tensor):
@@ -294,6 +304,17 @@ def tc_route(samples: torch.Tensor, ptable: Optional[torch.Tensor],
             and slots <= TC_MAX_SLOTS)
 
 
+def slots_route(samples: torch.Tensor, slots: int) -> bool:
+    """Whether the call runs on the tensor-core pair past 4 slots
+    (``csrc/pixel_text_ce_slots.cu``), in both directions: bf16 samples
+    [N, D] with D <= TC_MAX_DIM (after the wrapper's padding to a multiple
+    of 8) and 5-16 label slots, with or without a packed table, whatever
+    the device flag and the member count."""
+    return (samples.dtype == torch.bfloat16
+            and samples.shape[-1] <= TC_MAX_DIM
+            and TC_MAX_SLOTS < slots <= MAX_SLOTS)
+
+
 def transposed_table(ptable: torch.Tensor) -> torch.Tensor:
     """The packed table [K, D] as the backward's B operand: [D, K8], K8 = K
     rounded up to a multiple of 8, zero columns past K."""
@@ -313,11 +334,88 @@ def member_table(table, mask, ptable=None, pmask=None, pids=None,
     one first, each row live only where its branch is selected: with no
     member, the selected table's rows lead in table order.  CUDA tensors
     take one launch (:func:`live_rows.live_rows`)."""
-    second = None
-    if ptable is not None:
-        second = (ptable, pids.to(torch.int32), pmask.to(torch.int32),
-                  use_packed.to(torch.int32).reshape(1))
-    return live_rows(table, None, mask, second)
+    return live_rows(table, None, mask,
+                     _second(ptable, pmask, pids, use_packed))
+
+
+def _second(ptable, pmask, pids, use_packed):
+    """The gathers' second table, the packed one, or None."""
+    if ptable is None:
+        return None
+    return (ptable, pids.to(torch.int32), pmask.to(torch.int32),
+            use_packed.to(torch.int32).reshape(1))
+
+
+def member_rows(table, mask, ptable=None, pmask=None, pids=None,
+                use_packed=None):
+    """The tensor-core kernels' member operands past 4 slots: the rows of
+    :func:`member_table` in bf16, row-major [R, D] and transposed [D, Rt]
+    (Rt = R rounded up to a multiple of 8), with their global ids and a [1]
+    device count; no host sync.  CUDA tensors take one launch
+    (:func:`live_rows.live_rows_bf16`)."""
+    return live_rows_bf16(table, None, mask,
+                          _second(ptable, pmask, pids, use_packed))
+
+
+def delta_pitch(rows: int) -> int:
+    """The row pitch of the backward's delta workspace past 4 slots: the
+    gathered rows rounded up to whole 128-class tiles."""
+    return -(-rows // 128) * 128
+
+
+def _slots_fwd_cuda(samples, temperature, labels, valid, table, mask, ptable,
+                    pmask, pids, use_packed):
+    _aligned(samples, table, ptable)
+    _lib.require(labels.shape[0] == MAX_SLOTS,
+                 f"pixel_text_ce_slots: {MAX_SLOTS} label slots expected")
+    N, D = samples.shape
+    stats = samples.new_empty((2, N), dtype=torch.float32)
+    if N == 0:
+        return samples.new_zeros((), dtype=torch.float32), stats
+    ce = samples.new_empty(N, dtype=torch.float32)
+    rows, _, ids, count = member_rows(table, mask, ptable, pmask, pids,
+                                      use_packed)
+    K = 0 if ptable is None else ptable.shape[0]
+    _lib.check(_lib.library().rc_pixel_text_ce_slots_fwd(
+        samples.data_ptr(), temperature.data_ptr(), labels.data_ptr(),
+        valid.data_ptr(), N, D, rows.data_ptr(), ids.data_ptr(),
+        count.data_ptr(), rows.shape[0], mask.data_ptr(), table.shape[0],
+        _ptr(pmask), _ptr(pids), K, _ptr(use_packed), ce.data_ptr(),
+        stats.data_ptr(), _lib.stream_of(samples)),
+        "pixel_text_ce_slots[fwd]")
+    return ce.sum(), stats
+
+
+def _slots_bwd_cuda(grad, stats, samples, temperature, labels, valid, table,
+                    mask, ptable, pmask, pids, use_packed):
+    _aligned(samples, table, ptable)
+    _lib.require(labels.shape[0] == MAX_SLOTS,
+                 f"pixel_text_ce_slots: {MAX_SLOTS} label slots expected")
+    N, D = samples.shape
+    dx = torch.empty_like(samples)
+    if N == 0:
+        return dx, torch.zeros_like(temperature)
+    coeff = grad.float().reshape(()).contiguous()
+    dtau = samples.new_empty(N, dtype=torch.float32)
+    rows, rows_t, ids, count = member_rows(table, mask, ptable, pmask, pids,
+                                           use_packed)
+    R = rows.shape[0]
+    # workspaces: delta [N, whole class tiles] in bf16, the row scales and
+    # each slot's coefficient of a non-member label's row
+    delta = samples.new_empty((N, delta_pitch(R)))
+    rs = samples.new_empty(N, dtype=torch.float32)
+    coef = samples.new_empty((MAX_SLOTS, N), dtype=torch.float32)
+    K = 0 if ptable is None else ptable.shape[0]
+    _lib.check(_lib.library().rc_pixel_text_ce_slots_bwd(
+        samples.data_ptr(), temperature.data_ptr(), coeff.data_ptr(),
+        labels.data_ptr(), valid.data_ptr(), N, D, rows.data_ptr(),
+        rows_t.data_ptr(), rows_t.shape[1], ids.data_ptr(), count.data_ptr(),
+        R, table.data_ptr(), mask.data_ptr(), table.shape[0], _ptr(ptable),
+        _ptr(pmask), _ptr(pids), K, _ptr(use_packed), stats.data_ptr(),
+        delta.data_ptr(), delta.shape[1], rs.data_ptr(), coef.data_ptr(),
+        dx.data_ptr(), dtau.data_ptr(), _lib.stream_of(samples)),
+        "pixel_text_ce_slots[bwd]")
+    return dx, dtau.sum() / temperature
 
 
 def _fwd_cuda(samples, temperature, labels, valid, table, mask, ptable,
@@ -395,17 +493,15 @@ def _bwd_cuda(grad, stats, samples, temperature, labels, valid, table, mask,
 _ARGS = ("Tensor samples, Tensor temperature, Tensor labels, Tensor valid, "
          "Tensor table, Tensor mask, Tensor? packed_table, "
          "Tensor? packed_mask, Tensor? packed_ids, Tensor? use_packed")
-pixel_text_ce_op = _lib.define_op(
-    f"pixel_text_ce({_ARGS}) -> (Tensor, Tensor)", _fwd_cuda, None,
-    lambda samples, *rest: (
-        samples.new_empty((), dtype=torch.float32),
-        samples.new_empty((2, samples.shape[0]), dtype=torch.float32)))
-pixel_text_ce_backward_op = _lib.define_op(
-    f"pixel_text_ce_backward(Tensor grad, Tensor stats, {_ARGS}) -> "
-    "(Tensor, Tensor)",
-    _bwd_cuda, None,
-    lambda grad, stats, samples, temperature, *rest: (
-        torch.empty_like(samples), torch.empty_like(temperature)))
+
+
+def _fake_forward(samples, *rest):
+    return (samples.new_empty((), dtype=torch.float32),
+            samples.new_empty((2, samples.shape[0]), dtype=torch.float32))
+
+
+def _fake_backward(grad, stats, samples, temperature, *rest):
+    return torch.empty_like(samples), torch.empty_like(temperature)
 
 
 def _setup_context(ctx, inputs, output):
@@ -416,13 +512,29 @@ def _setup_context(ctx, inputs, output):
     ctx.present = [t is not None for t in inputs]
 
 
-def _backward(ctx, grad, _grad_stats):
-    stats, *saved = ctx.saved_tensors
-    saved = iter(saved)
-    inputs = [next(saved) if p else None for p in ctx.present]
-    dx, dt = pixel_text_ce_backward_op(grad, stats, *inputs)
-    return (dx, dt) + (None,) * 8
+def _define_pair(name: str, forward, backward):
+    """``rangeclip::<name>`` and ``rangeclip::<name>_backward``, the second
+    registered as the first's gradient."""
+    fwd_op = _lib.define_op(f"{name}({_ARGS}) -> (Tensor, Tensor)", forward,
+                            None, _fake_forward)
+    bwd_op = _lib.define_op(
+        f"{name}_backward(Tensor grad, Tensor stats, {_ARGS}) -> "
+        "(Tensor, Tensor)", backward, None, _fake_backward)
+
+    def _backward(ctx, grad, _grad_stats):
+        stats, *saved = ctx.saved_tensors
+        saved = iter(saved)
+        inputs = [next(saved) if p else None for p in ctx.present]
+        dx, dt = bwd_op(grad, stats, *inputs)
+        return (dx, dt) + (None,) * 8
+
+    torch.library.register_autograd(f"rangeclip::{name}", _backward,
+                                    setup_context=_setup_context,
+                                    lib=_lib.OPS)
+    return fwd_op, bwd_op
 
 
-torch.library.register_autograd("rangeclip::pixel_text_ce", _backward,
-                                setup_context=_setup_context, lib=_lib.OPS)
+pixel_text_ce_op, pixel_text_ce_backward_op = _define_pair(
+    "pixel_text_ce", _fwd_cuda, _bwd_cuda)
+pixel_text_ce_slots_op, pixel_text_ce_slots_backward_op = _define_pair(
+    "pixel_text_ce_slots", _slots_fwd_cuda, _slots_bwd_cuda)

@@ -18,9 +18,14 @@ the largest ratio of error to bound and the rows past 1 and 0.5 of it:
   the exact sums rounded to bf16, a rounding fault the check must see.
 
 ``--dim`` sets D; the kernels then get the operands zero-padded to a
-multiple of 8, as the wrapper gives them.
+multiple of 8, as the wrapper gives them.  The bound takes one bf16 ulp
+from :func:`bf16_ulp` (``frexp``: exact on any device); the line after the
+kernels counts the entries where ``exp2(floor(log2(|x|)) - 7)``, the form
+the check once took, gives another ulp on the card, and each line gives
+the ratio under that form too.
 
-Needs a CUDA device.
+Needs a CUDA device (:func:`bf16_ulp` and :func:`within_bf16_ulp`, which
+the card checks share, run anywhere).
 """
 
 from __future__ import annotations
@@ -28,6 +33,22 @@ from __future__ import annotations
 import argparse
 
 import torch
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each |x| (the spacing of bf16 values in its binade:
+    2^(e - 8) for |x| in [2^(e-1), 2^e)), in f64, exact on any device:
+    exp2(floor(log2(x))) is not on the card, whose f64 log2 can fall just
+    below an integer at a power of two and halve the ulp."""
+    _, e = torch.frexp(x.double().abs().clamp_min(1e-30))
+    return torch.ldexp(torch.ones_like(e, dtype=torch.float64), e - 8)
+
+
+def within_bf16_ulp(got: torch.Tensor, want: torch.Tensor,
+                    slack=0.0) -> bool:
+    """Every |got - want| within one bf16 ulp of want plus ``slack``."""
+    got, want = got.double(), want.double()
+    return bool(((got - want).abs() <= bf16_ulp(want) + slack).all())
 
 
 def main(argv=None) -> None:
@@ -73,14 +94,23 @@ def main(argv=None) -> None:
                                            text.bfloat16(), msk,
                                            packed=(pt, pm, pi, flag))
     want = want.double()
-    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+    ulp = bf16_ulp(want)
     bound = ulp + want.abs().amax(dim=-1, keepdim=True) * 2.0 ** -10
+    # the form the checks took before bf16_ulp, for comparison
+    log2_ulp = torch.exp2(torch.floor(torch.log2(
+        want.abs().clamp_min(1e-30))) - 7)
+
+    log2_bound = log2_ulp + want.abs().amax(dim=-1, keepdim=True) * 2.0 ** -10
 
     def report(name, dx):
-        ratio = ((dx.double() - want).abs() / bound).amax(dim=1)
+        err = (dx.double() - want).abs()
+        ratio = (err / bound).amax(dim=1)
+        log2_ratio = (err / log2_bound).amax(dim=1)
         print(f"{name}: largest error / bound {float(ratio.max()):.6f}, rows "
               f"past 1: {int((ratio > 1).sum())}, past 0.5: "
-              f"{int((ratio > 0.5).sum())}", flush=True)
+              f"{int((ratio > 0.5).sum())} (with the log2 form's ulp: "
+              f"{float(log2_ratio.max()):.6f}, rows past 1: "
+              f"{int((log2_ratio > 1).sum())})", flush=True)
 
     # the kernels' operands, D zero-padded as the wrapper pads it
     xk, table_bf16, ptk = (_lib.pad_dim8(x), _lib.pad_dim8(text.bfloat16()),
@@ -117,6 +147,9 @@ def main(argv=None) -> None:
         work.data_ptr(), stream), "pixel_text_ce[bwd]")
     torch.cuda.synchronize()
     report("CUDA-core kernel", dx[:, :D])
+    print(f"the log2 form of the ulp differs from frexp's in "
+          f"{int((log2_ulp != ulp).sum())} of {ulp.numel()} entries",
+          flush=True)
 
     report("plain formula, exactly rounded logits",
            plain_dx(x, temp, g, lab, val, pt, pm, pi, "exact"))

@@ -12,7 +12,11 @@ present, contrast capacity 128, the full hybrid loss.  ``train_step_fp32``
 is ``cli/train``'s default precision at its microbatch (fp32, batch 16, 40
 labels present: 90 contrast members), ``train_step_overflow`` the bf16
 step whose contrast set overflows the capacity (150 labels present: 200
-members, the full-table branch).  ``serve_fp32_fused`` is
+members, the full-table branch); ``train_step_mit`` the bf16 MiT step
+(stage widths 64-512) at ``cli/train``'s batch 16, whose field at H/4
+gives the CE 16 label slots.  Each train configuration's line also gives
+the CE's device time and share (its kernels and their tables' gather,
+:data:`CE_EVENTS`).  ``serve_fp32_fused`` is
 ``predict_topk_fused`` on the fp32 serve model (batch 8, all 512 classes
 live, top-1: ``head_topk``'s CUDA-core route).  ``ce_forward``,
 ``ce_forward_all``, ``ce_backward``, ``tv_forward``, ``tv_loss``,
@@ -48,18 +52,23 @@ from __future__ import annotations
 
 import argparse
 import collections
+import re
 import time
 from typing import Callable, Dict, List, Tuple
 
 import torch
 from torch.autograd import DeviceType
 
-# (batch, bf16, labels present) of the train steps
+# (batch, bf16, labels present, UNet) of the train steps
 TRAIN_CONFIGS = {
-    "train_step": (32, True, 40),
-    "train_step_fp32": (16, False, 40),
-    "train_step_overflow": (32, True, 150),
+    "train_step": (32, True, 40, "resnet"),
+    "train_step_fp32": (16, False, 40, "resnet"),
+    "train_step_overflow": (32, True, 150, "resnet"),
+    "train_step_mit": (16, True, 40, "mit"),
 }
+# The CE's kernels and the gather of their tables: the share of a train
+# step's device time that a train configuration's line reports.
+CE_EVENTS = r"\bce_\w*kernel|live_rows_kernel"
 # (batch, bf16, folded, top_k, candidate slots or None for the full table);
 # folded "fused": predict_topk_fused over the full table, all classes live
 CONFIGS = {
@@ -434,10 +443,11 @@ def train_call(config: str) -> Callable[[], object]:
     GPU."""
     from rangeclip_tpu_torch.cli.common import set_precision
 
-    batch, bf16, present = TRAIN_CONFIGS[config]
+    batch, bf16, present, unet_type = TRAIN_CONFIGS[config]
     set_precision(bf16)
     state, data, text, medium, hard, step = train_setup(
-        torch.device("cuda"), batch=batch, bf16=bf16, present=present)
+        torch.device("cuda"), batch=batch, bf16=bf16, present=present,
+        unet_type=unet_type)
 
     def call():
         return step(state, data, (0, state.step), 1e-4, 0.0, 0.75, text,
@@ -472,6 +482,12 @@ def main(argv=None) -> None:
               f"{result['busy_ms']:.3f} ms/call, busy share "
               f"{result['busy_share']:.3f}, {result['traces']} trace(s)",
               flush=True)
+        if config in TRAIN_CONFIGS:
+            ce_ms = sum(ms for name, ms in result["events"]
+                        if re.search(CE_EVENTS, name))
+            print(f"  CE kernels {ce_ms:.4f} ms/call, "
+                  f"{ce_ms / result['device_ms']:.1%} of the device events",
+                  flush=True)
         for name, ms in result["events"][:25]:
             print(f"  {ms:9.4f} ms  {ms / result['device_ms']:6.1%}  "
                   f"{name[:110]}", flush=True)

@@ -177,6 +177,8 @@ OP_COSTS: Dict[str, Callable[..., Tuple[int, int]]] = {
     "rangeclip::histogram": _histogram,
     "rangeclip::pixel_text_ce": _pixel_text_ce,
     "rangeclip::pixel_text_ce_backward": _pixel_text_ce_backward,
+    "rangeclip::pixel_text_ce_slots": _pixel_text_ce,
+    "rangeclip::pixel_text_ce_slots_backward": _pixel_text_ce_backward,
     "rangeclip::tv_rowtile": _field_read,
     "rangeclip::tv_rowtile_backward": _field_read_write,
     "rangeclip::masked_pooling": _masked_pooling,

@@ -541,9 +541,7 @@ def test_l2_normalize_matches_plain(cuda_device, dtype, shape):
                                     _vjp_scale(x, g) * 2.0 ** -16)):
         got, want = got.detach().double(), want.detach().double()
         if dtype == torch.bfloat16:
-            ulp = torch.exp2(torch.floor(torch.log2(
-                want.abs().clamp_min(1e-30))) - 7)
-            assert bool(((got - want).abs() <= ulp + scale).all())
+            assert _within_bf16(got, want, scale)
         else:
             torch.testing.assert_close(got, want, rtol=rtol, atol=1e-6)
 
@@ -660,9 +658,11 @@ def _ce_inputs(gen, dtype, n, d, c, slots, members, capacity=None):
 
 
 def _within_bf16(got, want, slack):
-    got, want = got.double(), want.double()
-    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
-    return bool(((got - want).abs() <= ulp + slack).all())
+    """Every |got - want| within one bf16 ulp of want (``frexp``: exact on
+    the card, ``ce_rounding.bf16_ulp``) plus ``slack``."""
+    from rangeclip_tpu_torch.utils.ce_rounding import within_bf16_ulp
+
+    return within_bf16_ulp(got, want, slack)
 
 
 def _hold_ce(loss, xs_grad, ts_grad, args, packed, dtype, device):
@@ -1546,10 +1546,10 @@ def test_mit_and_resnet50_on_cuda_match_cpu(cuda_device, kind):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("form", ["full", "packed"])
 def test_pixel_text_ce_more_than_four_slots(cuda_device, dtype, form):
-    """16 label slots (a MiT field at H/4, upsampled x4): one pass of the
-    member-only kernels in each direction, on the tensor-core route's
-    packed shape too, held to the plain versions at 4 slots' tolerances
-    (_hold_ce)."""
+    """16 label slots (a MiT field at H/4, upsampled x4): one pass in each
+    direction, bf16 on the tensor-core pair past 4 slots, f32 on the
+    member-only kernels, over the full and the packed table, held to the
+    plain versions at 4 slots' tolerances (_hold_ce)."""
     _hold_many_slots(cuda_device, dtype, form, 16)
 
 
@@ -1557,12 +1557,16 @@ def test_pixel_text_ce_more_than_four_slots(cuda_device, dtype, form):
 @pytest.mark.parametrize("slots", [5, 9, 15])
 @pytest.mark.parametrize("form", ["full", "packed"])
 def test_pixel_text_ce_padded_slot_counts(cuda_device, slots, form):
-    """5-15 slots run on the 16-slot kernels, padded with weightless slots:
-    bf16 held to the plain version on the unpadded slots (_hold_ce)."""
+    """5-15 slots run on the 16-slot kernels (bf16: the tensor-core pair
+    past 4 slots), padded with weightless slots: held to the plain version
+    on the unpadded slots (_hold_ce)."""
     _hold_many_slots(cuda_device, torch.bfloat16, form, slots)
 
 
 def _hold_many_slots(cuda_device, dtype, form, slots):
+    """bf16 takes the tensor-core pair past 4 slots (test_pixel_text_ce_
+    slots_match_plain holds it at every member count), f32 the member-only
+    kernels' 16-slot instances."""
     gen = torch.Generator().manual_seed(23)
     capacity = None if form == "full" else 128
     samples, temperature, labels, valid, table, mask, packed = _ce_inputs(
@@ -1576,14 +1580,173 @@ def _hold_many_slots(cuda_device, dtype, form, slots):
                                dev(mask), packed_d)
     loss.backward()
     torch.cuda.synchronize()
-    for name in ("pixel_text_ce[fwd]", "pixel_text_ce[bwd]"):
-        assert _lib.launch_counts[name] == before[name] + 1, name
-    for name in ("pixel_text_ce_tc[fwd]", "pixel_text_ce_tc[bwd]"):
-        assert _lib.launch_counts[name] == before[name], name
+    slots_tc = int(dtype == torch.bfloat16)
+    for name, launches in (("pixel_text_ce[fwd]", 1 - slots_tc),
+                           ("pixel_text_ce[bwd]", 1 - slots_tc),
+                           ("pixel_text_ce_slots[fwd]", slots_tc),
+                           ("pixel_text_ce_slots[bwd]", slots_tc),
+                           ("pixel_text_ce_tc[fwd]", 0),
+                           ("pixel_text_ce_tc[bwd]", 0)):
+        assert _lib.launch_counts[name] == before[name] + launches, name
     args = tuple(map(dev, (samples, temperature, labels, valid, table,
                            mask)))
     _hold_ce(loss.detach(), xs.grad, ts.grad, args, packed_d, dtype,
              cuda_device)
+
+
+def _slot_inputs(gen, n, d, c, slots, members, form, capacity):
+    """bf16 inputs past 4 slots over C = ``c``: labels of any class (the
+    contrast members, classes in [0, C) outside the set, labels outside [0,
+    C) and -2), every slot of each second row carrying the first slot's
+    label (a MiT row's 4 x 4 block of one class), the weights with the
+    non-member labels' and with them zeroed, and a packed table of
+    ``capacity`` for the packed (flag set) and overflow (flag at 0)
+    forms."""
+    samples = torch.randn(n, d, generator=gen).bfloat16()
+    table = torch.nn.functional.normalize(torch.randn(c, d, generator=gen),
+                                          dim=-1).bfloat16()
+    member_ids = torch.randperm(c, generator=gen)[:members].sort().values
+    mask = torch.zeros(c, dtype=torch.int32)
+    mask[member_ids] = 1
+    labels = torch.randint(0, c, (slots, n), generator=gen, dtype=torch.int32)
+    if members:
+        labels[:, ::3] = member_ids[torch.randint(
+            0, members, labels[:, ::3].shape, generator=gen)].int()
+    labels[:, ::17] = c + 3
+    labels[:, 5::19] = -2
+    labels[:, ::2] = labels[0, ::2]
+    valid = torch.randint(0, 3, (slots, n), generator=gen).float()
+    nonmember = (labels >= 0) & (labels < c) & (
+        mask[labels.clamp(0, c - 1).long()] == 0)
+    packed = None
+    if form != "full":
+        ids = torch.full((capacity,), c, dtype=torch.int32)
+        ids[:min(members, capacity)] = member_ids[:capacity].int()
+        packed = (table[ids.clamp_max(c - 1).long()], (ids < c).int(), ids,
+                  torch.tensor(int(form == "packed")))
+    return (samples, torch.tensor(0.07), labels, valid,
+            torch.where(nonmember, 0.0, valid), table, mask, packed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots,members,form,d,n,capacity", [
+    (16, 138, "overflow", 512, 1111, 128),
+    (16, 138, "packed", 512, 1111, 256),
+    (16, 138, "full", 512, 1111, 128),
+    (16, 0, "full", 64, 1111, 128),
+    (16, 0, "packed", 512, 130, 128),
+    (16, 0, "overflow", 64, 130, 128),
+    (16, 1, "full", 64, 1111, 128),
+    (16, 1, "packed", 768, 333, 128),
+    (16, 200, "packed", 768, 1111, 256),
+    (16, 200, "overflow", 1280, 1111, 256),
+    (16, 512, "full", 512, 1111, 128),
+    (11, 512, "full", 768, 77, 128),
+    (11, 60, "packed", 100, 1000, 128),
+    (5, 138, "full", 512, 333, 128),
+    (5, 90, "packed", 1276, 500, 128)])
+def test_pixel_text_ce_slots_match_plain(cuda_device, slots, members, form,
+                                        d, n, capacity):
+    """The tensor-core pair past 4 slots (bf16, 5-16 slots, padded to 16)
+    against the plain versions over C = 600 at the tolerances of
+    test_pixel_text_ce_matches_plain, unloosened (value and d tau rtol
+    2e-5, d samples within one bf16 ulp plus 2^-10 of the row's largest
+    entry): with the non-member labels weighted
+    (each picks -1e30 and adds its row to d samples) and at weight 0.
+    0 to 512 members (none: every row of the selected table scored at
+    -1e30; one to four class tiles), the packed table with the flag set and
+    at 0 and the full table, D = 64 to 1280 (100 and 1276 padded to a
+    multiple of 8), N ragged.  Each direction is one launch of its operator
+    and one of the bf16 gather, none of the other CE kernels; a second
+    backward is bit-equal."""
+    from rangeclip_tpu_torch.ops.kernels.pixel_text_ce import (
+        ce_operands,
+        padded_slots,
+        pixel_text_ce_slots_backward_op,
+        pixel_text_ce_slots_op,
+    )
+
+    gen = torch.Generator().manual_seed(31)
+    (samples, temperature, labels, valid, valid_members, table, mask,
+     packed) = _slot_inputs(gen, n, d, 600, slots, members, form, capacity)
+    dev = lambda t: t.to(cuda_device)
+    packed_d = None if packed is None else tuple(map(dev, packed))
+    for weights in (valid, valid_members):
+        args = tuple(map(dev, (samples, temperature, labels, weights, table,
+                               mask)))
+        xs = args[0].clone().requires_grad_()
+        ts = args[1].clone().requires_grad_()
+        before = dict(_lib.launch_counts)
+        loss = fused_pixel_text_ce(xs, ts, *args[2:], packed_d)
+        loss.backward()
+        torch.cuda.synchronize()
+        for name, launches in (("pixel_text_ce_slots[fwd]", 1),
+                               ("pixel_text_ce_slots[bwd]", 1),
+                               ("live_rows", 2), ("pixel_text_ce[fwd]", 0),
+                               ("pixel_text_ce[bwd]", 0),
+                               ("pixel_text_ce_tc[fwd]", 0),
+                               ("pixel_text_ce_tc[bwd]", 0)):
+            assert _lib.launch_counts[name] == before[name] + launches, name
+        want = pixel_text_ce_plain(*args, packed=packed_d)
+        dx, dt = pixel_text_ce_backward_plain(
+            torch.tensor(1.0, device=cuda_device), *args, packed=packed_d)
+        torch.testing.assert_close(loss.detach(), want, rtol=2e-5,
+                                   atol=1e-4)
+        torch.testing.assert_close(ts.grad, dt, rtol=2e-5, atol=1e-4)
+        scale = dx.double().abs().amax(dim=-1, keepdim=True)
+        assert _within_bf16(xs.grad, dx, scale * 2.0 ** -10)
+    flat, lab, val, msk, pt, pm, pi, flag = ce_operands(*args, packed_d)
+    lab, val = padded_slots(lab, val)
+    op_args = (torch.nn.functional.pad(flat, (0, -d % 8)), args[1], lab, val,
+               torch.nn.functional.pad(args[4], (0, -d % 8)), msk,
+               None if pt is None else torch.nn.functional.pad(
+                   pt, (0, -d % 8)), pm, pi, flag)
+    g = torch.tensor(0.37, device=cuda_device)
+    stats = pixel_text_ce_slots_op(*op_args)[1]
+    first = pixel_text_ce_slots_backward_op(g, stats, *op_args)
+    second = pixel_text_ce_slots_backward_op(g, stats, *op_args)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1],
+                                                            second[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,d,live", [(1, 8, "all"), (7, 24, "none"),
+                                      (130, 136, "some"), (600, 512, "some")])
+def test_live_rows_bf16_matches_plain(cuda_device, c, d, live):
+    """The gather's bf16 form (the tensor-core CE's operands past 4 slots)
+    bit-equal to its plain version, one launch, for one table and for the
+    CE's two tables with the device flag either way."""
+    from rangeclip_tpu_torch.ops.kernels.live_rows import (
+        live_rows_bf16,
+        live_table_bf16,
+    )
+    from rangeclip_tpu_torch.ops.kernels.pixel_text_ce import member_rows
+
+    gen = torch.Generator().manual_seed(32)
+    table = torch.randn(c, d, generator=gen).bfloat16()
+    keep = {"none": torch.zeros(c, dtype=torch.bool),
+            "all": torch.ones(c, dtype=torch.bool),
+            "some": torch.rand(c, generator=gen) < 0.4}[live]
+    dev = lambda t: t.to(cuda_device)
+    cases = [(lambda: live_rows_bf16(dev(table), None, dev(keep.int())),
+              live_table_bf16(table, torch.arange(c, dtype=torch.int32),
+                              keep))]
+    K = 32
+    pids = torch.full((K,), c, dtype=torch.int32)
+    members = keep.nonzero()[:, 0].int()[:K]
+    pids[:members.numel()] = members
+    ptable = table[pids.clamp_max(c - 1).long()]
+    for flag in (0, 1):
+        fl = torch.tensor([flag], dtype=torch.int32)
+        cases.append((lambda fl=fl: member_rows(
+            dev(table), dev(keep.int()), dev(ptable), dev((pids < c).int()),
+            dev(pids), dev(fl)), member_rows(
+            table, keep.int(), ptable, (pids < c).int(), pids, fl)))
+    for run, want in cases:
+        got, launches = _counted("live_rows", run)
+        assert launches == 1
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), (g.shape, w.shape)
 
 
 @pytest.mark.cuda

@@ -373,6 +373,9 @@ def _operator_args():
     valid = torch.ones(4, 12)
     ce = (field, torch.tensor(0.07), labels, valid, field[:16].clone(),
           mask, None, None, None, None)
+    # past 4 slots: 16 label slots
+    ce16 = (field, torch.tensor(0.07), labels.repeat(4, 1), valid.repeat(4, 1),
+            field[:16].clone(), mask, None, None, None, None)
     return {
         "rangeclip::score_topk": (torch.randn(12, 16, generator=gen), ids,
                                   3, False, False),
@@ -388,6 +391,10 @@ def _operator_args():
         "rangeclip::pixel_text_ce": ce,
         "rangeclip::pixel_text_ce_backward": (torch.tensor(1.0),
                                               torch.zeros(2, 12)) + ce,
+        "rangeclip::pixel_text_ce_slots": ce16,
+        "rangeclip::pixel_text_ce_slots_backward": (torch.tensor(1.0),
+                                                    torch.zeros(2, 12))
+        + ce16,
         "rangeclip::tv_rowtile": (feats, None, 2),
         "rangeclip::tv_rowtile_backward": (feats, None, torch.tensor(1.0),
                                            2),
@@ -416,6 +423,9 @@ def test_flop_formula_is_the_cost_tables(name):
                 "rangeclip::pixel_text_topk": 2 * 12 * 16 * live,
                 "rangeclip::pixel_text_ce": 2 * 12 * live * 16,
                 "rangeclip::pixel_text_ce_backward": 4 * 12 * live * 16,
+                "rangeclip::pixel_text_ce_slots": 2 * 12 * live * 16,
+                "rangeclip::pixel_text_ce_slots_backward": (
+                    4 * 12 * live * 16),
                 "rangeclip::masked_pooling": 12 * 16,
                 "rangeclip::head_topk": 2 * 32 * (72 * 16 + 16 * live)}
     assert flops == expected.get(name, 0)
@@ -431,6 +441,10 @@ def test_flop_formula_is_the_cost_tables(name):
               "rangeclip::pixel_text_ce": 768 + 48 * 8 + live * 16 * 4,
               "rangeclip::pixel_text_ce_backward": (2 * 768 + 48 * 8
                                                     + live * 16 * 4),
+              "rangeclip::pixel_text_ce_slots": (768 + 192 * 8
+                                                 + live * 16 * 4),
+              "rangeclip::pixel_text_ce_slots_backward": (
+                  2 * 768 + 192 * 8 + live * 16 * 4),
               "rangeclip::tv_rowtile": 1024,
               "rangeclip::tv_rowtile_backward": 2048,
               "rangeclip::masked_pooling": 768 + 12 * 4 + 6 * 4 + 6 * 17 * 4,

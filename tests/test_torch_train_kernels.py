@@ -87,6 +87,8 @@ def _ce_case(rng, dtype, shape, C, slots, packed, n_members=40,
     ("bf16", (300, 32), 4, True, 40, True),
     ("f32", (300, 32), 1, False, 1, True),
     ("f32", (2, 8, 8, 128), 4, False, 1, True),
+    ("bf16", (2, 8, 8, 128), 16, True, 40, True),
+    ("bf16", (300, 32), 11, False, 40, True),
 ])
 def test_pixel_text_ce_plain_matches_pallas(dtype, shape, slots, packed,
                                             n_members, nonmember):
@@ -102,10 +104,12 @@ def test_pixel_text_ce_plain_matches_pallas(dtype, shape, slots, packed,
     [0, C) outside the contrast set picks that class's -1e30 over the full
     table (the row's CE near 1e30) and nothing from a packed one, and a
     contrast set of one member leaves C - 1 terms of exp(-1e30 - m) in the
-    sum-exp.  With one member, a row whose every slot is that member has a
-    CE and a gradient of exactly 0 here and f32 rounding noise in the JAX
-    kernel, so those cases also hold non-member labels (a nonzero value)
-    and are f32 (the gradient held to the array's largest entry)."""
+    sum-exp.  bf16 at 16 and 11 slots is the route of the tensor-core pair
+    past 4 slots on the card (11 padded to 16).  With one member, a row
+    whose every slot is that member has a CE and a gradient of exactly 0
+    here and f32 rounding noise in the JAX kernel, so those cases also
+    hold non-member labels (a nonzero value) and are f32 (the gradient
+    held to the array's largest entry)."""
     rng = np.random.default_rng(1)
     C = 200
     samples, labels, valid, text, mask, ids = _ce_case(
@@ -175,6 +179,8 @@ def test_pixel_text_ce_packed_overflow_reads_the_flag():
 
 TC_FWD, TC_BWD = "pixel_text_ce_tc[fwd]", "pixel_text_ce_tc[bwd]"
 MEM_FWD, MEM_BWD = "pixel_text_ce[fwd]", "pixel_text_ce[bwd]"
+SLOTS_FWD, SLOTS_BWD = ("pixel_text_ce_slots[fwd]",
+                        "pixel_text_ce_slots[bwd]")
 
 
 @pytest.mark.parametrize("dtype,D,K,flag,fwd,bwd", [
@@ -187,24 +193,41 @@ MEM_FWD, MEM_BWD = "pixel_text_ce[fwd]", "pixel_text_ce[bwd]"
     (torch.bfloat16, 512, 256, False, MEM_FWD, MEM_BWD),
     (torch.float32, 512, 128, True, MEM_FWD, MEM_BWD),
     (torch.float32, 512, 128, False, MEM_FWD, MEM_BWD),
+    # (K, label slots) past 4 slots
+    (torch.bfloat16, 512, (128, 16), True, SLOTS_FWD, SLOTS_BWD),
+    (torch.bfloat16, 512, (128, 16), False, SLOTS_FWD, SLOTS_BWD),
+    (torch.bfloat16, 512, (256, 16), True, SLOTS_FWD, SLOTS_BWD),
+    (torch.bfloat16, 512, (256, 16), False, SLOTS_FWD, SLOTS_BWD),
+    (torch.bfloat16, 1280, (40, 5), True, SLOTS_FWD, SLOTS_BWD),
+    (torch.bfloat16, 1288, (128, 16), True, MEM_FWD, MEM_BWD),
+    (torch.float32, 512, (128, 16), True, MEM_FWD, MEM_BWD),
+    (torch.float32, 512, (256, 16), False, MEM_FWD, MEM_BWD),
 ])
 def test_pixel_text_ce_tc_route_by_shape(dtype, D, K, flag, fwd, bwd):
-    """The kernel that writes for each (dtype, D, K, device flag): the
+    """The kernel that writes for each (dtype, D, K, device flag, label
+    slots; K a pair where the slots are not 1): past 4 slots, bf16 up to D
+    = 1280 takes the tensor-core pair past 4 slots in both directions,
+    whatever the flag and K (and without a packed table); else the
     tensor-core kernels take bf16 packed tables up to D = 1280 and K =
     128, in both directions (the member-only backward reads row statistics
     that only the member-only forward writes), where the flag selects the
     packed table; the member-only kernels (launched beside them, or alone)
-    take the rest: fp32, a full table, wider or larger packed tables, and
-    the flag at 0 (a contrast set over the capacity).  No route scores a
-    full table.  The tensor-core backward's transposed table is the packed
-    table exactly, zero-padded to a multiple of 8 classes."""
+    take the rest: fp32 at any slot count, a full table, wider or larger
+    packed tables, and the flag at 0 (a contrast set over the capacity).
+    No route scores a full table.  The tensor-core backward's transposed
+    table is the packed table exactly, zero-padded to a multiple of 8
+    classes."""
+    K, slots = K if isinstance(K, tuple) else (K, 1)
     samples = torch.zeros(3, D, dtype=dtype)
     ptable = torch.randn(K, D).to(dtype)
 
     def writer(backward):
-        names = (TC_BWD, MEM_BWD) if backward else (TC_FWD, MEM_FWD)
-        return names[0] if ce_k.tc_route(samples, ptable) and flag else (
-            names[1])
+        names = ((SLOTS_BWD, TC_BWD, MEM_BWD) if backward else
+                 (SLOTS_FWD, TC_FWD, MEM_FWD))
+        if ce_k.slots_route(samples, slots):
+            return names[0]
+        return names[1] if ce_k.tc_route(samples, ptable, slots) and flag \
+            else names[2]
 
     assert writer(False) == fwd
     assert writer(True) == bwd
@@ -249,12 +272,45 @@ def test_pixel_text_ce_member_table(packed, flag):
     assert torch.equal(row_ids[n:n + rest.numel()], rest)
 
 
+@pytest.mark.parametrize("packed,flag", [(False, None), (True, True),
+                                         (True, False)])
+@pytest.mark.parametrize("members", [0, 9, 70])
+def test_pixel_text_ce_member_rows(packed, flag, members):
+    """The tensor-core pair past 4 slots' operands: :func:`member_table`'s
+    rows, ids and count, in bf16 exactly, row-major and transposed (zero
+    columns up to a multiple of 8), from no member to every class."""
+    rng = np.random.default_rng(6)
+    C, D, K = 70, 24, 32
+    text = t(rng.standard_normal((C, D)).astype(np.float32)).bfloat16()
+    mask = torch.zeros(C, dtype=torch.int32)
+    mask[t(rng.permutation(C)[:members]).long()] = 1
+    member_ids = mask.nonzero()[:, 0].int()
+    args = ()
+    if packed:
+        ids = torch.full((K,), C, dtype=torch.int32)
+        ids[:min(members, K)] = member_ids[:K]
+        args = (text[ids.clamp_max(C - 1).long()], (ids < C).int(), ids,
+                torch.tensor([int(flag)], dtype=torch.int32))
+    rows, rows_t, row_ids, count = ce_k.member_rows(text, mask, *args)
+    table_t, want_ids, want_count = ce_k.member_table(text, mask, *args)
+    R = C + (K if packed else 0)
+    assert rows.dtype == rows_t.dtype == torch.bfloat16
+    assert rows.shape == (R, D) and rows_t.shape == (D, -(-R // 8) * 8)
+    assert torch.equal(rows.float(), table_t[:, :R].T)
+    assert torch.equal(rows_t[:, :R], rows.T)
+    assert not rows_t[:, R:].any()
+    assert torch.equal(row_ids, want_ids)
+    assert torch.equal(count, want_count)
+    assert ce_k.delta_pitch(R) % 128 == 0 and ce_k.delta_pitch(R) >= R
+
+
 @pytest.mark.parametrize("slots", [5, 11])
 def test_pixel_text_ce_padded_slots_add_nothing(slots):
-    """5-15 slots run on the kernels' 16-slot instances, on the member-only
-    route: ``padded_slots`` appends slots of label -1 and weight 0, and the
-    plain forward and backward on the padded operands are bit-equal to
-    those on the slots given, over the full and the packed table."""
+    """5-15 slots run on the kernels' 16-slot instances (bf16: the
+    tensor-core pair past 4 slots): ``padded_slots`` appends slots of
+    label -1 and weight 0, and the plain forward and backward on the
+    padded operands are bit-equal to those on the slots given, over the
+    full and the packed table."""
     rng = np.random.default_rng(5)
     C = 200
     samples, labels, valid, text, mask, ids = _ce_case(
@@ -266,7 +322,7 @@ def test_pixel_text_ce_padded_slots_add_nothing(slots):
     lab, val = ce_k.padded_slots(t(labels), t(valid))
     assert lab.shape == val.shape == (ce_k.MAX_SLOTS, 300)
     assert bool((lab[slots:] == -1).all()) and not val[slots:].any()
-    assert not ce_k.tc_route(args[0], packed[0], slots)
+    assert ce_k.slots_route(args[0], slots)
     assert ce_k.tc_route(args[0], packed[0], ce_k.TC_MAX_SLOTS)
     for pk in (None, packed):
         want = ce_k.pixel_text_ce_plain(*args, t(labels), t(valid), table,
@@ -520,4 +576,13 @@ def test_fake_implementations_give_the_output_metadata():
         assert stats.shape == (2, 64) and stats.dtype == torch.float32
         ds, dt = ce_k.pixel_text_ce_backward_op(torch.empty(()), stats,
                                                 *args)
+        assert ds.shape == s.shape and ds.dtype == s.dtype and dt.shape == ()
+        slot_args = (s, torch.empty(()),
+                     torch.empty(16, 64, dtype=torch.int32),
+                     torch.empty(16, 64), *args[4:])
+        out, stats = ce_k.pixel_text_ce_slots_op(*slot_args)
+        assert out.shape == () and out.dtype == torch.float32
+        assert stats.shape == (2, 64) and stats.dtype == torch.float32
+        ds, dt = ce_k.pixel_text_ce_slots_backward_op(torch.empty(()), stats,
+                                                      *slot_args)
         assert ds.shape == s.shape and ds.dtype == s.dtype and dt.shape == ()
