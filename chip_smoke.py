@@ -96,7 +96,15 @@ Phases (any failure raises; nothing is caught):
    3 steps each, ms/step and their pixel_text_ce[bwd] launches.  Then the
    kernel step against the same step through the plain versions with the
    same draws, in fp32 at batch 8, in bf16 at batch 32, and in bf16 at
-   batch 32 overflowing.
+   batch 32 overflowing.  (7b) The instance-norm ResNet-18 UNet
+   (``use_instance_norm``, random weights from a seed): the flagship step,
+   3 steps, its device time, events and busy share beside the BatchNorm
+   flagship's (torch.profiler, both); its kernel step against the plain
+   one in fp32 at batch 8 and bf16 at batch 32; its bench-configuration
+   folded predict as phase 11's (d) runs one (checksums, maps/s,
+   conv_score_topk against its plain version, fp32 labels against the
+   CPU); and its fp32 unfolded predict at batch 8, labels against the
+   same model on the plain versions up to near-ties, maps/s.
 8. cli/train --bf16 on a synthetic 256^2 dataset: 2 optimizer steps of
    accumulation 8 x batch 4, validating at step 2 ([Val] lines and best
    results in its log); its checkpoint loads strictly and predicts.  Then
@@ -175,8 +183,11 @@ Phases (any failure raises; nothing is caught):
    ``pixel_sampler="multinomial"``, 3 steps, finite, launching the CE, TV,
    l2_normalize and class_presence kernels and not the histogram, each
    image's counts summing to its draws, and the sampler's device time
-   beside the histogram sampler's; (f) the ten library blocks in f32 on
-   the card against the CPU at the UNet's widths, eval and train mode.
+   beside the histogram sampler's; (f) the library blocks in f32 on the
+   card against the CPU at the UNet's widths, eval and train mode: the
+   ten outside the model, the ResNet blocks with InstanceNorm and with
+   depthwise-separable convolutions, and the decoder block with
+   InstanceNorm.
 
 14. Multi-GPU on this one card (``parallel/``): (a) the class-sharded,
    data-parallel predict on grids naming the card several times, bf16 at
@@ -212,14 +223,16 @@ Phases (any failure raises; nothing is caught):
    member-only kernels, in f32 the member-only 16-slot instances),
    class_presence,
    histogram and (bf16) l2_normalize kernels, and not tv_rowtile (the
-   plain TV with a halo row, as in JAX).
+   plain TV with a halo row, as in JAX).  The instance-norm ResNet-18
+   UNet takes an f32 grid predict and an f32 grid step on 1 x 2 x 1 there,
+   held as the ResNet's (its statistics summed over 'spatial' only).
 
-Each path of phases 3-8, of phase 11's (a)-(d), of phase 12, of phase 13's
-(e) and of phase 14 runs with the launch counts set to 0 just before it and
-read just after (phases 9-10 compare, and count nothing; phase 14's
-spawned ranks each set and read their own, summed here); each must launch
-the kernels it is built on, and every kernel must be launched by some
-path.
+Each path of phases 3-8 (7b included), of phase 11's (a)-(d), of phase
+12, of phase 13's (e) and of phase 14 runs with the launch counts set to
+0 just before it and read just after (phases 9-10 compare, and count
+nothing; phase 14's spawned ranks each set and read their own, summed
+here); each must launch the kernels it is built on, and every kernel must
+be launched by some path.
 
 The second-to-last line is a JSON object with each kernel's launches, error
 against its plain version, times and device time; the last line names the
@@ -2212,9 +2225,10 @@ class plain_versions:
 
 
 def compare_train_step(device, batch: int, bf16: bool,
-                       present: int = TRAIN_PRESENT):
-    """One kernel step and one plain step from the same weights, data and
-    draws; returns the (kernel, plain) infos."""
+                       present: int = TRAIN_PRESENT, norm: str = "batch"):
+    """One kernel step and one plain step of the ResNet-18 UNet with
+    ``norm`` from the same weights, data and draws; returns the (kernel,
+    plain) infos."""
     from rangeclip_tpu_torch.losses.hybrid import Draws
     from rangeclip_tpu_torch.losses.infonce import draw_pixels, sample_gumbel
     from rangeclip_tpu_torch.ops.kernels import _lib
@@ -2222,7 +2236,8 @@ def compare_train_step(device, batch: int, bf16: bool,
     from rangeclip_tpu_torch.utils.profiling import train_setup
 
     state, data, text, medium, hard, step = train_setup(
-        device, batch=batch, bf16=bf16, present=present, seed=SEED + 10)
+        device, batch=batch, bf16=bf16, present=present, seed=SEED + 10,
+        norm=norm)
     gen = torch.Generator(device=device).manual_seed(SEED + 11)
     draws = [Draws(draw_pixels(batch, RES, RES, 0.7, gen, device),
                    (sample_gumbel(NUM_CLASSES, gen, device),
@@ -2243,16 +2258,49 @@ def compare_train_step(device, batch: int, bf16: bool,
     return info, plain_info
 
 
-def phase_train(device, card: str, totals):
-    """The flagship train step, 3 steps; cli/train's fp32 microbatch and a
-    bf16 step overflowing the contrast capacity, 3 steps each; then kernel
-    vs plain steps.  Returns the flagship step's device time (ms a step,
-    torch.profiler)."""
+def step_profile(name: str, step_fn, host_s: float, card: str) -> dict:
+    """torch.profiler over 3 more steps of ``step_fn``: logs the device
+    time, events, busy share and the heaviest device events a step beside
+    ``host_s``, the synchronised host clock of the driven steps; returns
+    {device_ms, device_events, busy_share, host_ms, events}."""
+    from rangeclip_tpu_torch.utils.profiling import profile
+
+    result = profile(step_fn, calls=3)
+    out = {k: result[k] for k in ("device_ms", "device_events",
+                                  "busy_share", "events")}
+    out["host_ms"] = 1e3 * host_s
+    top = ", ".join(f"{n[:60]} {ms:.3f}" for n, ms in result["events"][:12])
+    log(f"  {name}: {out['device_ms']:.4f} ms of device time a step in "
+        f"{out['device_events']:g} events, busy share "
+        f"{out['busy_share']:.3f} under the profiler, host clock "
+        f"{out['host_ms']:.2f} ms (torch.profiler, 3 steps, "
+        f"{result['traces']} trace(s)) on {card}; heaviest events (ms a "
+        f"step): {top}")
+    return out
+
+
+# kernel step vs the same step through the plain versions, by precision:
+# fp32 (TF32 off; f32 summation orders: loss rtol 1e-4, grad_norm 1e-3) and
+# bf16 (the kernels round the bf16 pixel and the CE delta where the plain
+# versions do, but sum in other orders: loss rtol 2e-3, grad_norm 2e-2)
+STEP_RTOLS = {False: (1e-4, 1e-3), True: (2e-3, 2e-2)}
+
+
+def flagship_step(device, card: str, totals, norm: str, seed: int,
+                  compare) -> dict:
+    """The flagship train step (bf16, 1 x 32 at 256^2) of the ResNet-18
+    UNet with ``norm``, 3 steps through the kernels' path, then its
+    :func:`step_profile`; then a kernel step against a plain one at each
+    (batch, bf16, labels present) of ``compare``.  Returns the profile."""
     from rangeclip_tpu_torch.utils.profiling import train_setup
 
+    what = "train step" if norm == "batch" else f"{norm}-norm train step"
     state, data, text, medium, hard, step = train_setup(
         device, batch=TRAIN_BATCH, bf16=True, present=TRAIN_PRESENT,
-        seed=SEED + 12)
+        seed=seed, norm=norm)
+    if norm == "instance":
+        require(not list(state.model.buffers()),
+                "the instance-norm UNet holds buffers")
     before = {k: v.detach().clone() for k, v in
               state.model.state_dict().items() if v.is_floating_point()}
     times, losses = [], []
@@ -2267,26 +2315,60 @@ def phase_train(device, card: str, totals):
             times.append(time.perf_counter() - t0)
             losses.append({k: float(v) for k, v in info.items()})
 
-    run_path("train step (bf16, 1 x 32 at 256^2)", TRAIN_KERNELS, drive,
-             totals)
+    run_path(f"{what} (bf16, 1 x 32 at 256^2)", TRAIN_KERNELS, drive, totals)
     after = state.model.state_dict()
     changed = sum(not torch.equal(before[k], after[k]) for k in before)
     require(all(np.isfinite(list(l.values())).all() for l in losses),
-            f"non-finite train info: {losses}")
-    require(changed > 0, "no parameter changed")
+            f"non-finite {what} info: {losses}")
+    require(changed > 0, f"{what}: no parameter changed")
     step_s = sum(times[1:]) / len(times[1:])
-    flagship_ms = device_fields(lambda: step(
+    profile = step_profile(f"{what} (flagship)", lambda: step(
         state, data, (SEED, 3), 1e-4, 0.0, 0.75, text, medium, hard),
-        calls=3)["device_ms"]
-    log(f"  train: losses {[round(l['total_loss'], 4) for l in losses]}, "
+        step_s, card)
+    log(f"  {what}: losses {[round(l['total_loss'], 4) for l in losses]}, "
         f"grad_norm {[round(l['grad_norm'], 4) for l in losses]}; "
         f"{changed} of {len(before)} float tensors changed; "
         f"{1e3 * step_s:.2f} ms/step (steps 2-3, host clock, synchronised; "
         f"first step {1e3 * times[0]:.1f} ms), {TRAIN_BATCH / step_s:.1f} "
-        f"maps/s; {flagship_ms:.2f} ms of device time a step "
+        f"maps/s; {profile['device_ms']:.2f} ms of device time a step "
         f"(torch.profiler, 3 more steps) on {card}")
     del state, data
     torch.cuda.empty_cache()
+
+    for batch, bf16, present in compare:
+        rtol_loss, rtol_norm = STEP_RTOLS[bf16]
+        info, plain = compare_train_step(device, batch, bf16, present,
+                                         norm=norm)
+        for key, rtol in (("total_loss", rtol_loss),
+                          ("text_contrastive_loss", rtol_loss),
+                          ("smoothness_loss", rtol_loss),
+                          ("grad_norm", rtol_norm)):
+            got, want = float(info[key]), float(plain[key])
+            require(abs(got - want) <= rtol * abs(want),
+                    f"{what} {'bf16' if bf16 else 'fp32'} {key}: kernel "
+                    f"{got} vs plain {want} (rtol {rtol})")
+        log(f"  {what} {'bf16' if bf16 else 'fp32'} batch {batch}, "
+            f"{present} labels present, "
+            f"kernels vs plain versions, same draws: loss "
+            f"{float(info['total_loss']):.6f} vs "
+            f"{float(plain['total_loss']):.6f}, grad_norm "
+            f"{float(info['grad_norm']):.6f} vs {float(plain['grad_norm']):.6f}")
+        torch.cuda.empty_cache()
+    return profile
+
+
+def phase_train(device, card: str, totals):
+    """The flagship train step, 3 steps; cli/train's fp32 microbatch and a
+    bf16 step overflowing the contrast capacity, 3 steps each; then kernel
+    vs plain steps (fp32 batch 8, bf16 batch 32, bf16 batch 32 overflowing
+    the contrast capacity).  Returns the flagship step's
+    :func:`step_profile`."""
+    from rangeclip_tpu_torch.utils.profiling import train_setup
+
+    flagship = flagship_step(
+        device, card, totals, "batch", SEED + 12,
+        ((8, False, TRAIN_PRESENT), (TRAIN_BATCH, True, TRAIN_PRESENT),
+         (TRAIN_BATCH, True, OVERFLOW_PRESENT)))
 
     # cli/train's default precision at its microbatch (fp32, batch 16: the
     # member-only CE kernels over 90 members), and a bf16 step whose
@@ -2330,33 +2412,86 @@ def phase_train(device, card: str, totals):
         del state, data
         torch.cuda.empty_cache()
 
-    # kernel step vs the same step through the plain versions: fp32 at
-    # batch 8 (TF32 off; f32 summation orders: loss rtol 1e-4, grad_norm
-    # 1e-3), bf16 at batch 32 and bf16 at batch 32 overflowing the contrast
-    # capacity (the kernels round the bf16 pixel and the CE delta where the
-    # plain versions do, but sum in other orders: loss rtol 2e-3, grad_norm
-    # 2e-2)
-    for batch, bf16, present, rtol_loss, rtol_norm in (
-            (8, False, TRAIN_PRESENT, 1e-4, 1e-3),
-            (TRAIN_BATCH, True, TRAIN_PRESENT, 2e-3, 2e-2),
-            (TRAIN_BATCH, True, OVERFLOW_PRESENT, 2e-3, 2e-2)):
-        info, plain = compare_train_step(device, batch, bf16, present)
-        for key, rtol in (("total_loss", rtol_loss),
-                          ("text_contrastive_loss", rtol_loss),
-                          ("smoothness_loss", rtol_loss),
-                          ("grad_norm", rtol_norm)):
-            got, want = float(info[key]), float(plain[key])
-            require(abs(got - want) <= rtol * abs(want),
-                    f"train step {'bf16' if bf16 else 'fp32'} {key}: kernel "
-                    f"{got} vs plain {want} (rtol {rtol})")
-        log(f"  train step {'bf16' if bf16 else 'fp32'} batch {batch}, "
-            f"{present} labels present, "
-            f"kernels vs plain versions, same draws: loss "
-            f"{float(info['total_loss']):.6f} vs "
-            f"{float(plain['total_loss']):.6f}, grad_norm "
-            f"{float(info['grad_norm']):.6f} vs {float(plain['grad_norm']):.6f}")
-        torch.cuda.empty_cache()
-    return flagship_ms
+    return flagship
+
+
+def phase_instance_norm(device, card: str, totals, flagship: dict) -> None:
+    """7b. The instance-norm ResNet-18 UNet (``use_instance_norm``) at the
+    flagship configuration: 3 bf16 train steps (their device time beside
+    the BatchNorm flagship's), kernel vs plain steps (fp32 batch 8, bf16
+    batch 32); the bench configuration's folded predict and the fp32
+    unfolded predict, labels against the same model on the plain
+    versions."""
+    from rangeclip_tpu_torch.models.depth_unet import (
+        DepthUNet,
+        DepthUNetConfig,
+    )
+    from rangeclip_tpu_torch.ops.kernels import _lib
+    from rangeclip_tpu_torch.utils.math import l2_normalize
+
+    inorm = flagship_step(
+        device, card, totals, "instance", SEED + 50,
+        ((8, False, TRAIN_PRESENT), (TRAIN_BATCH, True, TRAIN_PRESENT)))
+    log(f"  instance-norm train step against the BatchNorm flagship's: "
+        f"host clock {inorm['host_ms']:.2f} against "
+        f"{flagship['host_ms']:.2f} ms/step; device "
+        f"{inorm['device_ms']:.4f} ms in {inorm['device_events']:g} events "
+        f"against {flagship['device_ms']:.4f} in "
+        f"{flagship['device_events']:g}; busy {inorm['busy_share']:.3f} "
+        f"against {flagship['busy_share']:.3f} on {card}")
+
+    config = DepthUNetConfig(use_batch_norm=False, use_instance_norm=True)
+    model = DepthUNet(dataclasses.replace(config, dtype=torch.bfloat16),
+                      device=device,
+                      generator=torch.Generator().manual_seed(SEED + 51))
+    bench_model("instance-norm ResNet-18 UNet", model.eval(),
+                model.state_dict(), device, card, totals)
+    fp32 = DepthUNet(config, device=device)
+    fp32.load_state_dict(model.state_dict(), strict=True)
+    fp32.eval()
+    del model
+    dgen = torch.Generator(device=device).manual_seed(SEED + 52)
+    depths = [torch.randn(SERVE_BATCH, RES, RES, 1, device=device,
+                          generator=dgen) for _ in range(2)]
+    table = torch.randn(NUM_CLASSES, 512, device=device, generator=dgen)
+
+    def unfolded(depth):
+        with torch.inference_mode():
+            return fp32.predict(depth, table, None, BENCH_TOP_K,
+                                return_embeddings=False)[0]
+
+    got, _ = run_path("instance-norm fp32 unfolded predict",
+                      ["pixel_text_topk[fp32]", "live_rows"],
+                      lambda: unfolded(depths[0]), totals)
+    _lib.reset_launch_counts()
+    with plain_versions():
+        want = unfolded(depths[0])
+    torch.cuda.synchronize()
+    require(not sum(_lib.launch_counts.values()),
+            "the plain fp32 predict launched a kernel")
+    require(got.shape == want.shape == (SERVE_BATCH, RES, RES, BENCH_TOP_K),
+            f"instance-norm fp32 predict shape {tuple(got.shape)}")
+    with torch.inference_mode():
+        field = fp32.native_field(depths[0], normalize=False)
+    k = BENCH_TOP_K
+    native = lambda t: t[:, ::2, ::2].reshape(-1, k)  # noqa: E731
+    near_tie_check("instance-norm fp32 unfolded predict, kernels vs plain",
+                   (native(got),), (native(want),),
+                   field.reshape(-1, field.shape[-1]),
+                   l2_normalize(table, dim=-1))
+    iters = 6
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        unfolded(depths[i % 2])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    log(f"  instance-norm fp32 unfolded predict, batch {SERVE_BATCH} at "
+        f"{RES}^2, C = {NUM_CLASSES}, top-{k}: "
+        f"{SERVE_BATCH * iters / seconds:.1f} maps/s "
+        f"({1e3 * seconds / iters:.2f} ms/batch, host clock) on {card}")
+    del fp32, field, depths
+    torch.cuda.empty_cache()
 
 
 def compare_val_step(device) -> None:
@@ -3946,11 +4081,28 @@ def block_cases():
                                        generator=g), (8, 512, 16, 16), ()),
         ("SpatialPyramidPooling", lambda d, g: b.SpatialPyramidPooling(
             128, 64, (2, 4, 8), use_batch_norm=True, device=d, generator=g),
-         (8, 128, 64, 64), ())]
+         (8, 128, 64, 64), ()),
+        ("ResNetBlock[instance norm]", lambda d, g: b.ResNetBlock(
+            128, 256, 2, activation="relu", use_instance_norm=True,
+            device=d, generator=g), (8, 128, 64, 64), ()),
+        ("ResNetBlock[depthwise]", lambda d, g: b.ResNetBlock(
+            128, 128, 1, activation="relu", use_batch_norm=True,
+            use_depthwise_separable=True, device=d, generator=g),
+         (8, 128, 64, 64), ()),
+        ("ResNetBottleneckBlock[instance norm, depthwise]", lambda d, g:
+         b.ResNetBottleneckBlock(256, 128, 2, activation="relu",
+                                 use_instance_norm=True,
+                                 use_depthwise_separable=True, device=d,
+                                 generator=g), (8, 256, 32, 32), ()),
+        ("DecoderBlock[instance norm]", lambda d, g: b.DecoderBlock(
+            256, 128, 128, activation="relu", use_instance_norm=True,
+            device=d, generator=g), (8, 256, 32, 32),
+         (torch.randn(8, 128, 64, 64,
+                      generator=torch.Generator().manual_seed(9)),))]
 
 
 def phase_blocks(device, card: str) -> None:
-    """(f) the ten library blocks in f32 on the card against the CPU, same
+    """(f) the library blocks in f32 on the card against the CPU, same
     weights and inputs, in eval and train mode."""
     worst = {}
     for name, make, shape, args in block_cases():
@@ -3963,14 +4115,17 @@ def phase_blocks(device, card: str) -> None:
             card_block.train(train_mode)
             with torch.no_grad():
                 want = cpu(x, *args)
-                got = card_block(x.to(device), *args).cpu()
+                got = card_block(x.to(device), *(
+                    a.to(device) if torch.is_tensor(a) else a
+                    for a in args)).cpu()
             scale = float(want.abs().max())
             errs.append(max_abs_err(got, want) / scale)
             require(got.shape == want.shape and errs[-1] <= BLOCK_RTOL,
                     f"{name} ({'train' if train_mode else 'eval'}): card "
                     f"against CPU {errs[-1]:.3g} of the max |output|")
         worst[name] = float(f"{max(errs):.3g}")
-    log(f"  the ten library blocks, f32 (TF32 off), card against CPU, "
+    log(f"  the {len(worst)} library blocks, f32 (TF32 off), card against "
+        f"CPU, "
         f"eval and train mode, error over the max |output| (limit "
         f"{BLOCK_RTOL:g}): {worst}")
 
@@ -4234,7 +4389,8 @@ def phase_rank_steps(device, card: str, totals) -> None:
 # phase 14 (h): the 'spatial' axis at full width, in one spawn of four
 # ranks: the grid predicts of the ResNet UNet and the MiT (f32 and bf16 on
 # 1 x 2 x 1 and 1 x 2 x 2), then the global-batch steps of both on 1 x 2 x
-# 1 (ranks 2 and 3 sit out), the f32 ones after validating over the grid
+# 1 (ranks 2 and 3 sit out), the f32 ones after validating over the grid;
+# and the instance-norm ResNet UNet's f32 predict and step on 1 x 2 x 1
 GRID_PREDICT_BATCH = SERVE_BATCH
 GRID_VAL_BATCH = 8  # images of a val batch (phase 8's, cli/train's)
 GRID_VAL_BATCHES = 2
@@ -4257,8 +4413,9 @@ ARCH_NAMES = {"resnet": "ResNet-18", "mit": "MiT (stage widths 64-512)"}
 
 
 def grid_specs():
-    """Phase 14 (h)'s specs: the eight grid predicts, then the four steps
-    (the two f32 ones validating first)."""
+    """Phase 14 (h)'s specs: the eight grid predicts and the instance-norm
+    ResNet's f32 one on 1 x 2 x 1, then the four steps (the two f32 ones
+    validating first) and the instance-norm ResNet's f32 step."""
     from rangeclip_tpu_torch.parallel.dryrun import PredictSpec, StepSpec
 
     full = dict(filters=(32, 64, 128, 256, 512), dim=512, res=RES)
@@ -4267,6 +4424,10 @@ def grid_specs():
                             top_k=BENCH_TOP_K, bf16=bf16, seed=SEED + 40)
                 for arch in ("resnet", "mit")
                 for grid in ((1, 2, 1), (1, 2, 2)) for bf16 in (False, True)]
+    predicts.append(PredictSpec(**full, grid=(1, 2, 1),
+                                batch=GRID_PREDICT_BATCH,
+                                classes=NUM_CLASSES, top_k=BENCH_TOP_K,
+                                seed=SEED + 42, norm="instance"))
     steps = [StepSpec(**full, unet_type=arch, batch=TRAIN_BATCH, accum=1,
                       classes=NUM_CLASSES, present=TRAIN_PRESENT, lr=1e-4,
                       bf16=bf16, seed=SEED + 41, mode="global",
@@ -4274,7 +4435,17 @@ def grid_specs():
                       val_batches=0 if bf16 else GRID_VAL_BATCHES,
                       val_batch=GRID_VAL_BATCH)
              for arch in ("resnet", "mit") for bf16 in (True, False)]
+    steps.append(StepSpec(**full, batch=TRAIN_BATCH, accum=1,
+                          classes=NUM_CLASSES, present=TRAIN_PRESENT, lr=1e-4,
+                          seed=SEED + 43, mode="global", grid=(1, 2, 1),
+                          norm="instance"))
     return predicts, steps
+
+
+def spec_name(spec) -> str:
+    """The architecture of a grid spec, with its norm if not BatchNorm."""
+    return ARCH_NAMES[spec.unet_type] + (
+        " with instance norm" if spec.norm == "instance" else "")
 
 
 def member_launches(members, part: str, kernels, what: str) -> None:
@@ -4294,7 +4465,7 @@ def check_grid_validation(spec, members, device, card: str, totals) -> None:
     VAL_LOSS_RTOL), each rank launching GRID_VAL_KERNELS."""
     from rangeclip_tpu_torch.parallel.dryrun import single_device_validation
 
-    name = f"grid validation of the {ARCH_NAMES[spec.unet_type]} on 1 x 2 x 1"
+    name = f"grid validation of the {spec_name(spec)} on 1 x 2 x 1"
     got = [res["val"]["results"] for res in members]
     require(all(g == got[0] for g in got[1:]),
             f"{name}: the ranks' results differ: {got}")
@@ -4340,7 +4511,7 @@ def phase_grid(device, card: str, totals) -> None:
     for i, spec in enumerate(predicts + steps):
         ranks = [r[i] for r in results]
         members = [r for r in ranks if r is not None]
-        arch = ARCH_NAMES[spec.unet_type]
+        arch = spec_name(spec)
         precision = "bf16" if spec.bf16 else "fp32"
         if isinstance(spec, PredictSpec):
             counts = rank_launches(members, "step", totals)
@@ -4653,7 +4824,11 @@ def main(argv=None) -> int:
     phase_pool_tv(device, totals)
 
     log("phase 7: train")
-    step_ms = phase_train(device, card, totals)
+    flagship = phase_train(device, card, totals)
+    step_ms = flagship["device_ms"]
+    log("phase 7b: the instance-norm ResNet-18 UNet (train step, bench "
+        "predict, fp32 predict)")
+    phase_instance_norm(device, card, totals, flagship)
     log(f"  phase 7 done at {time.perf_counter() - t_start:.1f} s")
 
     with tempfile.TemporaryDirectory() as tmp:

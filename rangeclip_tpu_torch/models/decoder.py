@@ -2,7 +2,9 @@
 
 One DecoderBlock per decoder filter count; the first has no skip, later ones
 concatenate the reversed encoder features without the deepest.  Then the
-bias-free 3x3 ``output_conv`` to the embedding dim, with no activation.
+bias-free 3x3 ``output_conv`` to the embedding dim, with no activation and
+no norm.  The blocks take BatchNorm, InstanceNorm (``use_instance_norm``)
+or neither.
 The final nearest upsample and L2 normalisation are per-pixel and live in
 ``DepthUNet``.  State-dict keys follow the reference: ``up_blocks.{i}``,
 ``output_conv``.
@@ -25,7 +27,8 @@ class DepthDecoder(nn.Module):
                  weight_initializer: str = "kaiming_uniform",
                  activation: str = "relu", use_batch_norm: bool = False,
                  device: Optional[torch.device] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 use_instance_norm: bool = False):
         super().__init__()
         if len(skip_channels) != len(n_filters) - 1:
             raise ValueError(
@@ -33,7 +36,8 @@ class DepthDecoder(nn.Module):
                 f"{len(skip_channels)} vs {len(n_filters) - 1}")
         common = dict(weight_initializer=weight_initializer,
                       activation=activation, use_batch_norm=use_batch_norm,
-                      device=device, generator=generator)
+                      use_instance_norm=use_instance_norm, device=device,
+                      generator=generator)
         self.up_blocks = nn.ModuleList()
         for i, n_filter in enumerate(n_filters):
             skip = skip_channels[i - 1] if i > 0 else 0

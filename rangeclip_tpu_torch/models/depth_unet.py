@@ -63,6 +63,10 @@ class DepthUNetConfig:
     weight_initializer: str = "kaiming_uniform"
     activation: str = "relu"
     use_batch_norm: bool = True
+    # InstanceNorm in the ResNet encoder's blocks and in the decoder (of
+    # either encoder), JAX's field; it takes use_batch_norm=False.  No
+    # parameter, no running statistic: the state dict is that of no norm
+    use_instance_norm: bool = False
     temperature_text: float = 0.07
     temperature_image: float = 0.1
     dtype: Optional[torch.dtype] = None
@@ -71,6 +75,18 @@ class DepthUNetConfig:
     # keeps, its running statistics; the optimizer side of the freeze
     # leaves the encoder's parameters out (training/optim.py).
     freeze_encoder: bool = False
+
+
+NORMS = ("batch", "instance")
+
+
+def norm_fields(norm: str) -> dict:
+    """The :class:`DepthUNetConfig` fields of a model's norm: 'batch'
+    (BatchNorm) or 'instance' (``use_instance_norm``)."""
+    if norm not in NORMS:
+        raise ValueError(f"norm {norm!r}, expected one of {NORMS}")
+    return dict(use_batch_norm=norm == "batch",
+                use_instance_norm=norm == "instance")
 
 
 class DepthUNet(nn.Module):
@@ -88,8 +104,9 @@ class DepthUNet(nn.Module):
         self.config = config
         common = dict(weight_initializer=config.weight_initializer,
                       activation=config.activation,
-                      use_batch_norm=config.use_batch_norm, device=device,
-                      generator=generator)
+                      use_batch_norm=config.use_batch_norm,
+                      use_instance_norm=config.use_instance_norm,
+                      device=device, generator=generator)
         filters = tuple(config.encoder_filters)
         if config.unet_type == "resnet":
             self.encoder = DepthEncoder(config.n_layer, filters,

@@ -4,9 +4,11 @@
 blocks (groups 2-4 stride 2 on their first block): basic blocks for
 ResNet-18 and 34, bottleneck blocks with 4x expansion for ResNet-50; a
 global-pool MLP projection head giving an L2-normalised embedding, and ASPP
-on the last feature map.  State-dict keys follow the reference: ``conv1``,
-``blocks.{g}.{b}`` (with ``conv3`` in a bottleneck), ``projection_head.
-{0,2}``, ``aspp``.
+on the last feature map.  Every conv block takes BatchNorm, InstanceNorm
+(``use_instance_norm``, JAX's ``DepthEncoder`` field) or neither; the ASPP
+keeps its GroupNorm either way, as in JAX.  State-dict keys follow the
+reference: ``conv1``, ``blocks.{g}.{b}`` (with ``conv3`` in a
+bottleneck), ``projection_head.{0,2}``, ``aspp``.
 """
 
 from __future__ import annotations
@@ -40,14 +42,16 @@ class DepthEncoder(nn.Module):
                  weight_initializer: str = "kaiming_uniform",
                  activation: str = "relu", use_batch_norm: bool = False,
                  device: Optional[torch.device] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 use_instance_norm: bool = False):
         super().__init__()
         if n_layer not in _BLOCKS:
             raise ValueError("Only supports 18, 34, 50 layer architecture")
         n_blocks, block_cls, expansion = _BLOCKS[n_layer]
         common = dict(weight_initializer=weight_initializer,
                       activation=activation, use_batch_norm=use_batch_norm,
-                      device=device, generator=generator)
+                      use_instance_norm=use_instance_norm, device=device,
+                      generator=generator)
         self.conv1 = Conv2d(input_channels, n_filters[0], 7, 2, **common)
         self.blocks = nn.ModuleList()
         in_ch = n_filters[0]

@@ -186,7 +186,8 @@ def block_state_dict_from_jax(params: Mapping,
     ``state_dict()`` (``ops/blocks.py``, the JAX modules' names): the
     ``norm_act`` level dropped, conv kernels HWIO -> OIHW (a depthwise
     (k, k, 1, C) kernel becomes [C, 1, k, k]), TransposeConv2d's own
-    (k, k, I, O) kernel -> ``conv_transpose.weight`` IOHW, dense [in, out]
+    (k, k, I, O) kernel -> ``conv_transpose.weight`` IOHW and
+    DecoderBlock's -> ``upsample.weight``, dense [in, out]
     -> [out, in], BatchNorm scale/bias/mean/var under torch's names with
     ``num_batches_tracked`` 0."""
     flat = _flatten(params)
@@ -197,6 +198,10 @@ def block_state_dict_from_jax(params: Mapping,
         mods = [m for m in mods if m != "norm_act"]
         if leaf == "kernel" and not mods:  # TransposeConv2d's own kernel
             key, v = "conv_transpose.weight", np.transpose(v, (2, 3, 0, 1))
+        elif leaf == "upsample_kernel":  # DecoderBlock's (k, k, I, O)
+            key, v = "upsample.weight", np.transpose(v, (2, 3, 0, 1))
+        elif leaf == "upsample_bias":
+            key = "upsample.bias"
         elif leaf == "kernel":
             key = ".".join(mods + ["weight"])
             v = np.transpose(v, (3, 2, 0, 1)) if v.ndim == 4 else v.T
@@ -232,7 +237,11 @@ def widths_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict:
     ``encoder_filters`` (a ResNet's stem and stage widths, read from their
     first convs, or a MiT's four stage widths); a ResNet's ``n_layer``
     (its blocks per stage and whether they are bottlenecks);
-    ``embedding_dim`` (the output conv's channels) and ``use_batch_norm``."""
+    ``embedding_dim`` (the output conv's channels) and ``use_batch_norm``.
+    Not ``use_instance_norm``: InstanceNorm writes no key, so its weights
+    are those of a model with no norm, and neither package's checkpoint
+    records which of the two it was (``use_batch_norm`` False stands for
+    both)."""
     out = {"embedding_dim": int(sd["decoder.output_conv.conv.weight"]
                                 .shape[0]),
            "use_batch_norm": any(".batch_norm." in k for k in sd)}

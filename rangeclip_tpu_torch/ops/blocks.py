@@ -19,11 +19,12 @@ inside :func:`sync_batch_norm` takes its statistics over the global batch
 of a process group, as flax's ``BatchNorm`` does under a mesh.
 
 Inside :func:`spatial_rows` a tensor holds this rank's rows of each
-feature map (a grid's 'spatial' axis): the convolutions, the max pool,
-the transposed convolutions, the decoder's resize, InstanceNorm and the
-means run through the entered ``parallel/halo.RowShards``, which fetches
-the halo rows a layer reads from the neighbouring ranks.  Outside it
-nothing changes, bit for bit.
+feature map (a grid's 'spatial' axis): the convolutions, the max and
+average pools, the transposed convolutions, the bilinear and nearest
+resizes, InstanceNorm and the means run through the entered
+``parallel/halo.RowShards``, which fetches the halo rows a layer reads
+from the neighbouring ranks.  Every block of the library runs there.
+Outside it nothing changes, bit for bit.
 """
 
 from __future__ import annotations
@@ -62,14 +63,6 @@ def spatial_rows(shards):
         _SPATIAL = saved
 
 
-def refuse_spatial(what: str) -> None:
-    """Raise inside :func:`spatial_rows` for a layer with no row-sharded
-    form."""
-    if _SPATIAL is not None:
-        raise ValueError(f"{what} has no row-sharded form: it cannot run "
-                         "under a grid's 'spatial' axis")
-
-
 def conv2d(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """``conv`` applied in ``x``'s dtype (bias-free)."""
     if _SPATIAL is not None:
@@ -88,12 +81,39 @@ def max_pool2d(x: torch.Tensor, kernel: int, stride: int,
     return F.max_pool2d(x, kernel, stride=stride, padding=padding)
 
 
+def avg_pool2d(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """``F.avg_pool2d`` of NCHW ``x`` without padding (on this rank's rows
+    inside :func:`spatial_rows`)."""
+    if _SPATIAL is not None:
+        return _SPATIAL.avg_pool2d(x, kernel, stride)
+    return F.avg_pool2d(x, kernel, stride=stride)
+
+
 def spatial_mean(x: torch.Tensor) -> torch.Tensor:
     """The mean of NCHW ``x`` over its rows and columns, [N, C] (over every
     rank's rows inside :func:`spatial_rows`)."""
     if _SPATIAL is not None:
         return _SPATIAL.mean(x)
     return x.mean(dim=(2, 3))
+
+
+def channels_last(x: torch.Tensor) -> bool:
+    """Whether NCHW ``x`` is laid out channels_last (and not also
+    contiguous)."""
+    return (x.dim() == 4 and not x.is_contiguous()
+            and x.is_contiguous(memory_format=torch.channels_last))
+
+
+def instance_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """InstanceNorm of NCHW ``x`` (no affine, biased variance) over each
+    image's whole map (its global rows inside :func:`spatial_rows`).  A
+    map of one pixel normalises to 0, as the JAX formula does, where
+    ``F.instance_norm`` refuses it."""
+    if _SPATIAL is not None:
+        return _SPATIAL.instance_norm(x, eps)
+    if x.shape[2] * x.shape[3] == 1:
+        return x - x
+    return F.instance_norm(x, eps=eps)
 
 
 def map_size(x: torch.Tensor):
@@ -110,6 +130,14 @@ def resize_to(x: torch.Tensor, size) -> torch.Tensor:
     if _SPATIAL is not None:
         return _SPATIAL.resize_bilinear_align_corners(x, size)
     return resize_bilinear_align_corners_nchw(x, size)
+
+
+def resize_nearest_to(x: torch.Tensor, size) -> torch.Tensor:
+    """``ops/resize.resize_nearest`` of NCHW ``x``'s whole map to ``size``
+    (this rank's rows of it inside :func:`spatial_rows`)."""
+    if _SPATIAL is not None:
+        return _SPATIAL.resize_nearest(x, size)
+    return resize_nearest(x.permute(0, 2, 3, 1), size).permute(0, 3, 1, 2)
 
 
 _SYNC_GROUP = None  # the process group of sync_batch_norm, while entered
@@ -236,9 +264,16 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 class NormAct(nn.Module):
     """The epilogue of every conv block (blocks.py:70-105): BatchNorm or
-    InstanceNorm, then the activation.  Norms run in f32 and cast back.  A
-    block calls :meth:`init_norm_act` after creating its convolutions, so
-    its parameters keep the order conv, then norm."""
+    InstanceNorm, then the activation.  Norms run in f32 (f64 for an f64
+    input) and cast back.  A block calls :meth:`init_norm_act` after
+    creating its convolutions, so its parameters keep the order conv, then
+    norm.
+
+    InstanceNorm rounds a bf16 input once, after normalising in f32; the
+    JAX block takes the mean and variance back to bf16 and normalises in
+    bf16 (blocks.py:97-101).  The CPU tests hold the bf16 model to JAX's
+    at a stated field error and label agreement
+    (``tests/test_torch_instance_norm.py``)."""
 
     def init_norm_act(self, features: int, activation=DEFAULT_ACTIVATION,
                       use_batch_norm: bool = False,
@@ -255,11 +290,17 @@ class NormAct(nn.Module):
         self.act = resolve_activation(activation)
 
     def norm_act(self, x: torch.Tensor) -> torch.Tensor:
+        acc = torch.promote_types(x.dtype, torch.float32)
         if self.batch_norm is not None:
-            x = self.batch_norm(x.float()).to(x.dtype)
+            x = self.batch_norm(x.to(acc)).to(x.dtype)
         elif self.use_instance_norm:
-            x = (F.instance_norm(x.float(), eps=1e-5) if _SPATIAL is None
-                 else _SPATIAL.instance_norm(x.float(), 1e-5)).to(x.dtype)
+            # F.instance_norm views the map as [1, N * C, H, W], which a
+            # channels_last tensor must first be copied into: that copy is
+            # the cast's, and the cast back restores the layout
+            layout = (torch.channels_last if channels_last(x)
+                      else torch.contiguous_format)
+            x = instance_norm(x.to(acc, memory_format=torch.contiguous_format),
+                              1e-5).to(x.dtype, memory_format=layout)
         return self.act(x) if self.act is not None else x
 
 
@@ -400,9 +441,7 @@ class UpConv2d(nn.Module):
                            device, generator, use_instance_norm)
 
     def forward(self, x: torch.Tensor, shape) -> torch.Tensor:
-        refuse_spatial("UpConv2d's nearest resize")
-        x = resize_nearest(x.permute(0, 2, 3, 1), shape).permute(0, 3, 1, 2)
-        return self.conv(x)
+        return self.conv(resize_nearest_to(x, shape))
 
 
 class FullyConnected(nn.Module):
@@ -431,8 +470,13 @@ class FullyConnected(nn.Module):
         return x
 
 
+def _conv_class(use_depthwise_separable: bool):
+    return DepthwiseSeparableConv2d if use_depthwise_separable else Conv2d
+
+
 class ResNetBlock(nn.Module):
-    """act(conv2(conv1(x)) + proj?(x)) (blocks.py:382-429).
+    """act(conv2(conv1(x)) + proj?(x)) (blocks.py:382-429); ``conv2`` a
+    :class:`DepthwiseSeparableConv2d` with ``use_depthwise_separable``.
 
     The reference instantiates the 1x1 ``projection`` in every block but
     applies it only when the stride or the channel count changes; the
@@ -442,13 +486,17 @@ class ResNetBlock(nn.Module):
                  weight_initializer: str = "kaiming_uniform",
                  activation=DEFAULT_ACTIVATION, use_batch_norm: bool = False,
                  device: Optional[torch.device] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 use_instance_norm: bool = False,
+                 use_depthwise_separable: bool = False):
         super().__init__()
         common = dict(weight_initializer=weight_initializer,
                       activation=activation, use_batch_norm=use_batch_norm,
-                      device=device, generator=generator)
+                      use_instance_norm=use_instance_norm, device=device,
+                      generator=generator)
         self.conv1 = Conv2d(in_channels, features, 3, stride, **common)
-        self.conv2 = Conv2d(features, features, 3, 1, **common)
+        self.conv2 = _conv_class(use_depthwise_separable)(
+            features, features, 3, 1, **common)
         self.projection = Conv2d(in_channels, features, 1, stride,
                                  weight_initializer, activation=None,
                                  device=device, generator=generator)
@@ -468,7 +516,9 @@ class ResNetBottleneckBlock(nn.Module):
     conv2's).  An unused projection is kept, as in the basic block, at the
     [features, features] shape that the JAX package's reference export
     (``torch_interop.export_reference_checkpoint``) writes for it, so that
-    its ``.pth`` files load strictly."""
+    its ``.pth`` files load strictly.  With ``use_depthwise_separable``
+    ``conv2`` and ``conv3`` are :class:`DepthwiseSeparableConv2d`, ``conv3``
+    a 1x1 one, as in the JAX block."""
 
     expansion = 4
 
@@ -476,15 +526,19 @@ class ResNetBottleneckBlock(nn.Module):
                  weight_initializer: str = "kaiming_uniform",
                  activation=DEFAULT_ACTIVATION, use_batch_norm: bool = False,
                  device: Optional[torch.device] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 use_instance_norm: bool = False,
+                 use_depthwise_separable: bool = False):
         super().__init__()
         common = dict(weight_initializer=weight_initializer,
                       activation=activation, use_batch_norm=use_batch_norm,
-                      device=device, generator=generator)
+                      use_instance_norm=use_instance_norm, device=device,
+                      generator=generator)
         out = self.expansion * features
+        conv_cls = _conv_class(use_depthwise_separable)
         self.conv1 = Conv2d(in_channels, features, 1, 1, **common)
-        self.conv2 = Conv2d(features, features, 3, stride, **common)
-        self.conv3 = Conv2d(features, out, 1, 1, **common)
+        self.conv2 = conv_cls(features, features, 3, stride, **common)
+        self.conv3 = conv_cls(features, out, 1, 1, **common)
         self.use_projection = stride != 1 or in_channels != out
         proj = (in_channels, out) if self.use_projection else (features,
                                                                features)
@@ -497,10 +551,6 @@ class ResNetBottleneckBlock(nn.Module):
         out = self.conv3(self.conv2(self.conv1(x)))
         out = out + (self.projection(x) if self.use_projection else x)
         return self.act(out) if self.act is not None else out
-
-
-def _conv_class(use_depthwise_separable: bool):
-    return DepthwiseSeparableConv2d if use_depthwise_separable else Conv2d
 
 
 class AtrousResNetBlock(nn.Module):
@@ -628,14 +678,21 @@ class AtrousSpatialPyramidPooling(nn.Module):
                                 device=device, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # its pooled branch's norm would count each image's copy once per
-        # spatial rank; the model's ASPP is ops/aspp.py
-        refuse_spatial("the library's AtrousSpatialPyramidPooling")
-        size = x.shape[2:]
         branches = [self.conv1(x)]
         branches += [getattr(self, name)(x) for name in self.atrous_convs]
-        pooled = self.global_pool_conv(x.mean(dim=(2, 3), keepdim=True))
-        branches.append(resize_bilinear_align_corners_nchw(pooled, size))
+        # inside spatial_rows every rank holds the whole [N, C, 1, 1]
+        # pooled map and runs its branch on it alone: each image's copy
+        # counts n times evenly in a synced BatchNorm, which leaves the
+        # mean and the biased variance as they are, and the gradient of a
+        # rank's copy is that of its own rows only, so the copies'
+        # gradients (linear in it) add up to the whole map's in the
+        # spatial sum of the mean.  The resize of a 1 x 1 map is a
+        # broadcast, rounded to f32 as the resize rounds it
+        pooled = spatial_mean(x)[:, :, None, None]
+        with spatial_rows(None):
+            pooled = self.global_pool_conv(pooled)
+        branches.append(pooled.float().to(pooled.dtype).expand(
+            -1, -1, *x.shape[2:]))
         return self.conv_fuse(torch.cat(branches, dim=1))
 
 
@@ -661,7 +718,7 @@ class SpatialPyramidPooling(nn.Module):
                       use_instance_norm=use_instance_norm, device=device,
                       generator=generator)
         self.kernel_sizes = tuple(kernel_sizes)
-        self.pool = F.max_pool2d if pool_func == "max" else F.avg_pool2d
+        self.max_pool = pool_func == "max"
         for i in range(len(self.kernel_sizes)):
             self.add_module(f"conv{i + 1}", Conv2d(in_channels, features, 1,
                                                    1, **common))
@@ -672,12 +729,12 @@ class SpatialPyramidPooling(nn.Module):
                                  device=device, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        refuse_spatial("SpatialPyramidPooling's k x k pools")
-        size = x.shape[2:]
+        size = map_size(x)
         branches = [x]
         for i, k in enumerate(self.kernel_sizes):
-            pooled = resize_bilinear_align_corners_nchw(self.pool(x, k, k),
-                                                        size)
+            pooled = (max_pool2d(x, k, k, 0) if self.max_pool
+                      else avg_pool2d(x, k, k))
+            pooled = resize_to(pooled, size)
             branches.append(getattr(self, f"conv{i + 1}")(pooled))
         return self.conv_fuse2(self.conv_fuse1(torch.cat(branches, dim=1)))
 
@@ -691,7 +748,8 @@ class DecoderBlock(nn.Module):
                  weight_initializer: str = "kaiming_uniform",
                  activation=DEFAULT_ACTIVATION, use_batch_norm: bool = False,
                  device: Optional[torch.device] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 use_instance_norm: bool = False):
         super().__init__()
         self.upsample = nn.ConvTranspose2d(in_channels, features, 2, stride=2,
                                            bias=True, device=device)
@@ -699,7 +757,8 @@ class DecoderBlock(nn.Module):
         init_bias_(self.upsample.bias, features * 4, generator)
         common = dict(weight_initializer=weight_initializer,
                       activation=activation, use_batch_norm=use_batch_norm,
-                      device=device, generator=generator)
+                      use_instance_norm=use_instance_norm, device=device,
+                      generator=generator)
         self.conv1 = Conv2d(features + skip_channels, features, 3, 1,
                             **common)
         self.conv2 = Conv2d(features, features, 3, 1, **common)

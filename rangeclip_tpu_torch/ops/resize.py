@@ -21,18 +21,38 @@ def nearest_indices(out_size: int, in_size: int,
     return idx.clamp_(0, in_size - 1)
 
 
-def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """Nearest-neighbour resize of NHWC ``x`` [B, H, W, C] to ``size``;
-    integer upscales are k-fold repetition, any dtype (label ids too)."""
-    H_out, W_out = size
-    _, H_in, W_in, _ = x.shape
-    if (H_in, W_in) == (H_out, W_out):
-        return x
+def upscale_factors(size_in: Tuple[int, int], size_out: Tuple[int, int]):
+    """(k_h, k_w) where ``size_out`` is a whole multiple of ``size_in`` on
+    both axes (a nearest resize is then k-fold repetition), else None."""
+    (H_in, W_in), (H_out, W_out) = size_in, size_out
     if H_out % H_in == 0 and W_out % W_in == 0:
-        return x.repeat_interleave(H_out // H_in, dim=1).repeat_interleave(
-            W_out // W_in, dim=2)
-    rows = nearest_indices(H_out, H_in, x.device)
-    cols = nearest_indices(W_out, W_in, x.device)
+        return H_out // H_in, W_out // W_in
+    return None
+
+
+def nearest_rows_cols(size_in: Tuple[int, int], size_out: Tuple[int, int],
+                      device: torch.device):
+    """The input row of each output row and the input column of each
+    output column of :func:`resize_nearest`."""
+    k = upscale_factors(size_in, size_out)
+    if k is not None:
+        return (torch.arange(size_out[0], device=device) // k[0],
+                torch.arange(size_out[1], device=device) // k[1])
+    return (nearest_indices(size_out[0], size_in[0], device),
+            nearest_indices(size_out[1], size_in[1], device))
+
+
+def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Nearest-neighbour resize of NHWC ``x`` [B, H, W, C] to ``size``
+    (the rows and columns of :func:`nearest_rows_cols`), any dtype (label
+    ids too)."""
+    size_in = tuple(x.shape[1:3])
+    if size_in == tuple(size):
+        return x
+    k = upscale_factors(size_in, size)
+    if k is not None:  # the same rows and columns, repeated without a gather
+        return x.repeat_interleave(k[0], dim=1).repeat_interleave(k[1], dim=2)
+    rows, cols = nearest_rows_cols(size_in, size, x.device)
     return x[:, rows][:, :, cols]
 
 

@@ -44,7 +44,7 @@ import torch
 
 from rangeclip_tpu_torch.cli.common import set_precision
 from rangeclip_tpu_torch.losses.hybrid import HybridLossConfig
-from rangeclip_tpu_torch.models.depth_unet import DepthUNetConfig
+from rangeclip_tpu_torch.models.depth_unet import DepthUNetConfig, norm_fields
 from rangeclip_tpu_torch.parallel.mesh import (
     init_distributed,
     make_grid,
@@ -81,7 +81,8 @@ class StepSpec:
     that many global batches of ``val_batch`` images a rank or data block
     (default ``batch``; ``evals/validate.validate_model`` over the group,
     or over the grid: its data block's images, its spatial block of their
-    rows) on the initial weights."""
+    rows) on the initial weights.  ``norm`` is the model's: 'batch'
+    (BatchNorm, the default) or 'instance' (``use_instance_norm``)."""
 
     unet_type: str = "resnet"
     filters: Tuple[int, ...] = (8, 16, 16, 16, 32)
@@ -100,10 +101,12 @@ class StepSpec:
     val_batch: Optional[int] = None
     grid: Optional[Tuple[int, int, int]] = None
     shard_classes: bool = False
+    norm: str = "batch"
 
     def __post_init__(self):
         if self.mode not in MODES:
             raise ValueError(f"mode {self.mode!r}, expected one of {MODES}")
+        norm_fields(self.norm)
         if self.grid is not None and self.mode != "global":
             raise ValueError("a grid runs the global-batch step")
 
@@ -121,6 +124,7 @@ def _config(spec) -> DepthUNetConfig:
     return DepthUNetConfig(unet_type=spec.unet_type,
                            encoder_filters=tuple(spec.filters),
                            embedding_dim=spec.dim,
+                           **norm_fields(spec.norm),
                            dtype=torch.bfloat16 if spec.bf16 else None)
 
 
@@ -248,7 +252,8 @@ class PredictSpec:
     world's first ranks: ``grid`` (data, spatial, model), the model's
     architecture (as :class:`StepSpec`'s) and widths, ``batch`` images of
     ``res``^2, a table of ``classes`` rows, ``top_k``, bf16 or f32,
-    weights and inputs from ``seed``."""
+    the model's ``norm`` (as :class:`StepSpec`'s), weights and inputs from
+    ``seed``."""
 
     grid: Tuple[int, int, int] = (1, 2, 1)
     unet_type: str = "resnet"
@@ -260,6 +265,10 @@ class PredictSpec:
     top_k: int = 3
     bf16: bool = False
     seed: int = 0
+    norm: str = "batch"
+
+    def __post_init__(self):
+        norm_fields(self.norm)
 
     @property
     def config(self) -> DepthUNetConfig:
@@ -539,9 +548,10 @@ def check_step(results: Sequence[Dict], sim: Dict, spec: StepSpec,
         / max(abs(sim["info"]["total_loss"]), 1e-30),
         "grads": max(_rel(lead["grads"][n], g)
                      for n, g in sim["grads"].items()),
-        "stats": max(_rel(lead["stats"][n], s)
-                     for n, s in sim["stats"].items()
-                     if s.is_floating_point()),
+        # 0 for a model without running statistics (InstanceNorm)
+        "stats": max((_rel(lead["stats"][n], s)
+                      for n, s in sim["stats"].items()
+                      if s.is_floating_point()), default=0.0),
         "grads_norm": math.sqrt(
             sum(float((lead["grads"][n].double() - g.double()).square().sum())
                 for n, g in sim["grads"].items())

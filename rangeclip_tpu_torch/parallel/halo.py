@@ -23,11 +23,12 @@ from the global shapes, so a layer whose rows all lie at home on every
 rank runs no collective.
 
 :class:`RowShards` holds a forward's levels (the global height of each
-width) and is what ``ops/blocks.spatial_rows`` routes the model's
-convolutions, max pool, transposed convolutions, bilinear resizes,
-normalisation statistics and means through, and what gathers the MiT's
-attention map whole (:meth:`RowShards.whole`); :func:`sharded_rows` enters
-it for the step, predict and validation.  A statistic over rows is a differentiable sum
+width) and is what ``ops/blocks.spatial_rows`` routes the model's and the
+block library's convolutions, max and average pools, transposed
+convolutions, bilinear and nearest resizes, normalisation statistics and
+means through, and what gathers the MiT's attention map whole
+(:meth:`RowShards.whole`); :func:`sharded_rows` enters it for the step,
+predict and validation.  A statistic over rows is a differentiable sum
 over the 'spatial' group (:class:`_SpatialSum`: its backward is the same
 sum of the readers' gradients).
 """
@@ -42,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from rangeclip_tpu_torch.ops import blocks
+from rangeclip_tpu_torch.ops.resize import nearest_rows_cols
 from rangeclip_tpu_torch.parallel.mesh import (
     Grid,
     all_reduce_exact,
@@ -107,8 +109,7 @@ def remote_rows(height: int, n: int, windows: Sequence[Window]) -> List[int]:
 
 def _like(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``t`` in ``x``'s memory format (channels_last stays so)."""
-    if (x.dim() == 4 and not x.is_contiguous()
-            and x.is_contiguous(memory_format=torch.channels_last)):
+    if blocks.channels_last(x):
         return t.contiguous(memory_format=torch.channels_last)
     return t
 
@@ -312,6 +313,22 @@ class RowShards:
             return self._empty(window, kernel, layer)
         return layer(window)
 
+    def avg_pool2d(self, x: torch.Tensor, kernel: int,
+                   stride: int) -> torch.Tensor:
+        """``F.avg_pool2d`` without padding on this rank's output rows: the
+        rows past the last whole window are dropped, as JAX's ``VALID``
+        window and torch's floor mode drop them."""
+        h_in, W = self.shape(x)
+        h_out = (h_in - kernel) // stride + 1
+        self.record((W - kernel) // stride + 1, h_out)
+        window = self.fetch(x, h_in, self._windows(
+            h_out, lambda o0, o1: input_rows(o0, o1, kernel, stride)))
+        layer = lambda t: F.avg_pool2d(t, kernel, stride)  # noqa: E731
+        o0, o1 = self.owned(h_out)
+        if o1 <= o0:
+            return self._empty(window, kernel, layer)
+        return layer(window)
+
     def conv_transpose2d(self, x: torch.Tensor, weight: torch.Tensor,
                          bias: Optional[torch.Tensor], stride: int,
                          padding: int, output_padding: int) -> torch.Tensor:
@@ -373,6 +390,29 @@ class RowShards:
         o0, o1 = self.owned(h_out)
         return out[:, :, o0:o1].to(x.dtype)
 
+    def resize_nearest(self, x: torch.Tensor, size) -> torch.Tensor:
+        """``ops/resize.resize_nearest`` of NCHW ``x`` to the global
+        ``size``: output row ``o`` reads input row ``floor(o * h_in /
+        h_out)`` (``nearest_rows_cols``, the whole map's rule), fetched
+        from its owner; the columns by the same rule."""
+        h_in, W = self.shape(x)
+        h_out, w_out = int(size[0]), int(size[1])
+        if (h_in, W) == (h_out, w_out):
+            return x
+        self.record(w_out, h_out)
+        idx, cols = nearest_rows_cols((h_in, W), (h_out, w_out),
+                                      torch.device("cpu"))
+        idx = idx.tolist()
+        windows = self._windows(h_out, lambda o0, o1: (
+            (idx[o0], idx[o1 - 1] + 1) if o1 > o0 else (0, 0)))
+        window = self.fetch(x, h_in, windows)
+        a = windows[self.index][0]
+        o0, o1 = self.owned(h_out)
+        rows = torch.tensor([i - a for i in idx[o0:o1]], dtype=torch.long,
+                            device=x.device)
+        return _like(window.index_select(2, rows).index_select(
+            3, cols.to(x.device)), x)
+
     def mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of NCHW ``x`` over its global rows and columns, [N, C]
         in ``x``'s dtype: the local sums in f32 (f64 for f64) summed over
@@ -382,9 +422,10 @@ class RowShards:
         return (self.sum(x.to(acc).sum(dim=(2, 3))) / (h * W)).to(x.dtype)
 
     def instance_norm(self, x: torch.Tensor, eps: float) -> torch.Tensor:
-        """``F.instance_norm`` (no affine, biased variance) of f32 NCHW
-        ``x`` over each image's global rows: the mean, then the centred
-        sum of squares, each summed over the spatial ranks."""
+        """``F.instance_norm`` (no affine, biased variance) of f32 (or f64)
+        NCHW ``x`` over each image's global rows: the mean, then the
+        centred sum of squares, each summed over the spatial ranks (never
+        over 'batch' or 'model')."""
         h, W = self.shape(x)
         count = h * W
         mean = self.sum(x.sum(dim=(2, 3), keepdim=True)) / count

@@ -384,10 +384,12 @@ def kernel_call(config: str) -> Callable[[], torch.Tensor]:
 def train_setup(device: torch.device, batch: int = 32, bf16: bool = True,
                 present: int = 40, seed: int = 0, accum: int = 1,
                 res: int = RES, num_classes: int = NUM_CLASSES,
-                unet_type: str = "resnet", pixel_sampler: str = "auto"):
+                unet_type: str = "resnet", pixel_sampler: str = "auto",
+                norm: str = "batch"):
     """The flagship train configuration at full width (accumulation 1 at
-    256^2, C = 512; ``accum``, ``res``, ``num_classes`` and ``unet_type``
-    change it) with random weights and data from ``seed``: (state, batch
+    256^2, C = 512; ``accum``, ``res``, ``num_classes``, ``unet_type`` and
+    ``norm``, 'batch' or 'instance' (``use_instance_norm``), change it)
+    with random weights and data from ``seed``: (state, batch
     dict with a leading accumulation axis, text table, medium matrix, hard
     matrix, step function).  The segmentation holds ``present`` labels: up
     to 78 (128 contrast members with the 50 distractors) the packed CE
@@ -401,11 +403,14 @@ def train_setup(device: torch.device, batch: int = 32, bf16: bool = True,
         HashImageEmbedder,
         HashTextEmbedder,
     )
-    from rangeclip_tpu_torch.models.depth_unet import DepthUNetConfig
+    from rangeclip_tpu_torch.models.depth_unet import (
+        DepthUNetConfig,
+        norm_fields,
+    )
     from rangeclip_tpu_torch.training.state import create_train_state
     from rangeclip_tpu_torch.training.train_step import make_train_step
 
-    cfg = DepthUNetConfig(unet_type=unet_type,
+    cfg = DepthUNetConfig(unet_type=unet_type, **norm_fields(norm),
                           dtype=torch.bfloat16 if bf16 else None)
     state = create_train_state(cfg, device, 1e-4, seed)
     gen = torch.Generator(device=device).manual_seed(seed + 1)

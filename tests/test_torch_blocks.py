@@ -10,6 +10,8 @@ float64 result on the SPP case, where the port's f32 is within 4e-7; the
 BatchNorm running statistics the two leave must agree too.  Tolerance:
 1e-5 of the output's largest magnitude, elementwise."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +25,8 @@ from rangeclip_tpu_torch.ops import blocks as tb
 RTOL = 1e-5
 
 # (id, JAX module, port module factory (in_channels) -> module, input
-# shape NHWC, extra call arguments (JAX, port))
+# shape NHWC, an extra call argument: a target shape, or an NHWC skip map
+# (NCHW for the port))
 CASES = [
     ("depthwise_separable_bn",
      jb.DepthwiseSeparableConv2d(12, 3, 2, use_batch_norm=True),
@@ -82,6 +85,33 @@ CASES = [
      jb.SpatialPyramidPooling(6, (2, 3), "average"),
      lambda c: tb.SpatialPyramidPooling(c, 6, (2, 3), "average"),
      (2, 12, 13, 3), None),
+    ("resnet_projection_instance_norm",
+     jb.ResNetBlock(8, 2, use_instance_norm=True),
+     lambda c: tb.ResNetBlock(c, 8, 2, use_instance_norm=True),
+     (2, 9, 10, 4), None),
+    ("resnet_identity_depthwise_bn",
+     jb.ResNetBlock(6, 1, use_batch_norm=True, use_depthwise_separable=True),
+     lambda c: tb.ResNetBlock(c, 6, 1, use_batch_norm=True,
+                              use_depthwise_separable=True),
+     (2, 8, 9, 6), None),
+    ("bottleneck_projection_depthwise_instance_norm",
+     jb.ResNetBottleneckBlock(4, 2, use_instance_norm=True,
+                              use_depthwise_separable=True),
+     lambda c: tb.ResNetBottleneckBlock(c, 4, 2, use_instance_norm=True,
+                                        use_depthwise_separable=True),
+     (2, 10, 9, 6), None),
+    ("bottleneck_identity_depthwise_bn",
+     jb.ResNetBottleneckBlock(3, 1, use_batch_norm=True,
+                              use_depthwise_separable=True),
+     lambda c: tb.ResNetBottleneckBlock(c, 3, 1, use_batch_norm=True,
+                                        use_depthwise_separable=True),
+     (2, 8, 8, 12), None),
+    ("decoder_instance_norm_resized_skip",
+     jb.DecoderBlock(6, use_instance_norm=True, activation="relu"),
+     lambda c: tb.DecoderBlock(c, 6, 5, use_instance_norm=True,
+                               activation="relu"),
+     (2, 5, 6, 4), np.random.default_rng(5).standard_normal(
+         (2, 11, 12, 5)).astype(np.float32)),
 ]
 
 
@@ -101,14 +131,25 @@ def _close(got: np.ndarray, want: np.ndarray) -> None:
                                atol=RTOL * float(np.abs(want).max()))
 
 
-@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
-@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
-def test_block_matches_jax(case, train):
-    _, jax_mod, make, shape, extra = case
+def _input(case):
+    """(x, JAX call arguments, port call arguments) of a case."""
+    _, _, _, shape, extra = case
     x = np.random.default_rng(len(shape) + shape[-1]).standard_normal(
         shape).astype(np.float32)
     args = () if extra is None else (extra,)
-    variables = jax_mod.init(jax.random.key(3), jnp.asarray(x), *args)
+    if isinstance(extra, np.ndarray):  # a skip map
+        return x, (jnp.asarray(extra),), (_nchw(extra),)
+    return x, args, args
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_init(i):
+    """The JAX block of ``CASES[i]`` initialised from key 3 (one program,
+    shared by the eval and train cases): numpy params and statistics."""
+    jax_mod = CASES[i][1]
+    x, args, _ = _input(CASES[i])
+    variables = jax.jit(lambda k, x: jax_mod.init(k, x, *args))(
+        jax.random.key(3), jnp.asarray(x))
     params = jax.tree_util.tree_map(np.asarray, variables["params"])
     stats = jax.tree_util.tree_map(np.asarray,
                                    variables.get("batch_stats", {}))
@@ -116,9 +157,22 @@ def test_block_matches_jax(case, train):
         rng = np.random.default_rng(7)
         stats = jax.tree_util.tree_map(
             lambda v: (v + rng.random(v.shape)).astype(np.float32), stats)
+    return params, stats
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("case", range(len(CASES)),
+                         ids=[c[0] for c in CASES])
+def test_block_matches_jax(case, train):
+    _, jax_mod, make, shape, _ = CASES[case]
+    x, args, port_args = _input(CASES[case])
+    params, stats = _jax_init(case)
     port = make(shape[-1])
-    port.load_state_dict(block_state_dict_from_jax(params, stats),
-                         strict=True)
+    sd = block_state_dict_from_jax(params, stats)
+    if not getattr(port, "use_projection", True):
+        # the unused projection the port keeps and the JAX tree lacks
+        sd["projection.conv.weight"] = port.projection.conv.weight.detach()
+    port.load_state_dict(sd, strict=True)
     port.train(train)
 
     jax_vars = {"params": params, **({"batch_stats": stats} if stats
@@ -128,16 +182,17 @@ def test_block_matches_jax(case, train):
         with jax.enable_x64(True):
             f64 = jax.tree_util.tree_map(
                 lambda v: jnp.asarray(v, jnp.float64), jax_vars)
-            want, updated = jax_mod.apply(
-                f64, jnp.asarray(x, jnp.float64), *args, train=True,
-                mutable=["batch_stats"])
+            want, updated = jax.jit(lambda v, x: jax_mod.apply(
+                v, x, *args, train=True, mutable=["batch_stats"]))(
+                    f64, jnp.asarray(x, jnp.float64))
             want = np.asarray(want)
             updated = jax.tree_util.tree_map(
                 lambda v: np.asarray(v, np.float32),
                 updated.get("batch_stats", {}))
     else:
-        want = np.asarray(jax_mod.apply(jax_vars, jnp.asarray(x), *args))
-    got = port(_nchw(x), *args)
+        want = np.asarray(jax.jit(lambda v, x: jax_mod.apply(v, x, *args))(
+            jax_vars, jnp.asarray(x)))
+    got = port(_nchw(x), *port_args)
     _close(_nhwc(got), want)
     if updated:
         new_sd = block_state_dict_from_jax(params, updated)
@@ -164,5 +219,9 @@ def test_conv_transpose_2d_matches_torch_module():
 def test_batch_and_instance_norm_exclusive():
     with pytest.raises(ValueError, match="both batch and instance"):
         tb.Conv2d(3, 4, use_batch_norm=True, use_instance_norm=True)
+    for block in (tb.ResNetBlock, tb.ResNetBottleneckBlock,
+                  tb.DecoderBlock):
+        with pytest.raises(ValueError, match="both batch and instance"):
+            block(3, 4, use_batch_norm=True, use_instance_norm=True)
     with pytest.raises(ValueError, match="pooling function"):
         tb.SpatialPyramidPooling(3, 4, pool_func="median")

@@ -48,6 +48,18 @@ FILTERS = (8, 16, 16, 16, 32)
 C, D = 24, 32
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The module's runs on one intra-op thread: at these sizes a single
+    thread is the fastest, and a test worker beside others loses most of
+    its time to thread contention otherwise.  Every run a test compares
+    is made under it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _equivalences(rng, num_classes):
     """A symmetric equivalence tensor with a few merged classes, and its
     class map (the label module's own builders)."""

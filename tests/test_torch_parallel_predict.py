@@ -42,6 +42,18 @@ B, H, C, D, K = 4, 32, 61, 32, 3
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The module's runs on one intra-op thread: at these sizes a single
+    thread is the fastest, and a test worker beside others loses most of
+    its time to thread contention otherwise.  Every run a test compares
+    is made under it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def models():
     """(JAX model, its variables, the port model with the same weights,

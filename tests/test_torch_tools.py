@@ -46,6 +46,18 @@ STEP = 3
 FILTER_ARGS = [str(f) for f in FILTERS]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The module's runs on one intra-op thread: at these sizes a single
+    thread is the fastest, and a test worker beside others loses most of
+    its time to thread contention otherwise.  Every run a test compares
+    is made under it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def jax_pth(tmp_path_factory):
     """A tiny JAX model's reference .pth at train step 3, its JAX model and

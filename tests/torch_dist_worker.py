@@ -324,13 +324,36 @@ def halo_cases():
             x, layer.weight, stride, padding, out_pad, layer.bias), layer)
 
     def norm_act_instance():
+        # NormAct normalises an f64 input in f64
         layer = blocks.Conv2d(3, 4, 3, use_instance_norm=True,
                               activation=None).double()
-        # NormAct normalises in f32; the f64 case takes the statistics
-        layer.norm_act = lambda y: (
-            F.instance_norm(y, eps=1e-5) if blocks._SPATIAL is None
-            else blocks._SPATIAL.instance_norm(y, 1e-5))
         return layer, layer
+
+    def library(layer, train):
+        """A library block in f64, its BatchNorms' running statistics
+        drawn away from 0 / 1 (eval mode reads them)."""
+        layer = layer.double().train(train)
+        with torch.no_grad():
+            for m in layer.modules():
+                if isinstance(m, nn.BatchNorm2d):
+                    m.running_mean.normal_(0.0, 0.3)
+                    m.running_var.uniform_(0.5, 1.5)
+                    m.weight.uniform_(0.5, 1.5)
+                    m.bias.uniform_(-0.5, 0.5)
+        return layer, layer
+
+    def library_aspp(train, **norm):
+        return library(blocks.AtrousSpatialPyramidPooling(
+            3, 4, (1, 3), activation="relu", **norm), train)
+
+    def up_conv():
+        layer, _ = library(blocks.UpConv2d(3, 4, 3, use_instance_norm=True),
+                           True)
+        return lambda x: layer(x, (11, 9)), layer
+
+    def spp(pool, kernels, train, **norm):
+        return library(blocks.SpatialPyramidPooling(
+            3, 4, kernels, pool, activation="relu", **norm), train)
 
     def gn():
         layer = nn.GroupNorm(4, 8).double()
@@ -372,7 +395,38 @@ def halo_cases():
                  lambda: transposed(3, 2, 1, 1, False)),
             case(f"instance norm h{height}", height, 6, norm_act_instance),
         ]
+    for height in (8, 5, 3):
+        cases += [
+            case(f"avg pool k2 h{height}", height, 6, lambda: (
+                lambda x: blocks.avg_pool2d(x, 2, 2), None)),
+            case(f"avg pool k3 h{height}", height, 7, lambda: (
+                lambda x: blocks.avg_pool2d(x, 3, 3), None)),
+        ]
+    for height in (8, 5, 1):
+        cases += [
+            case(f"library aspp eval h{height}", height, 6,
+                 lambda: library_aspp(False, use_batch_norm=True)),
+            case(f"library aspp train h{height}", height, 6,
+                 lambda: library_aspp(True, use_batch_norm=True)),
+            case(f"library aspp instance norm h{height}", height, 6,
+                 lambda: library_aspp(True, use_instance_norm=True)),
+        ]
     cases += [
+        case("spp max eval h8", 8, 12,
+             lambda: spp("max", (2, 4), False, use_batch_norm=True)),
+        case("spp max train h8", 8, 12,
+             lambda: spp("max", (2, 4), True, use_batch_norm=True)),
+        case("spp average h12", 12, 7,
+             lambda: spp("average", (2, 3), True, use_instance_norm=True)),
+        case("spp average train h5", 5, 9,
+             lambda: spp("average", (2, 4), True, use_batch_norm=True)),
+        case("nearest 5 to 13", 5, 6, lambda: (
+            lambda x: blocks.resize_nearest_to(x, (13, 7)), None)),
+        case("nearest 3 to 9", 3, 6, lambda: (
+            lambda x: blocks.resize_nearest_to(x, (9, 18)), None)),
+        case("nearest 16 to 6", 16, 8, lambda: (
+            lambda x: blocks.resize_nearest_to(x, (6, 5)), None)),
+        case("up conv 4 to 11", 4, 6, up_conv),
         case("aspp h8", 8, 6, aspp),
         case("aspp h1", 1, 6, aspp),
         case("resize 16 to 8", 16, 16, lambda: resize((8, 8))),
@@ -386,6 +440,7 @@ def _halo(rank, world, store, out):
     """Every halo case on this rank's rows of a (1, world, 1) grid."""
     import torch.distributed as dist
 
+    from rangeclip_tpu_torch.ops import blocks
     from rangeclip_tpu_torch.parallel.halo import sharded_rows
     from rangeclip_tpu_torch.parallel.mesh import (
         init_distributed,
@@ -399,7 +454,10 @@ def _halo(rank, world, store, out):
     for name, height, width, make in halo_cases():
         f, x, g, module = make()
         x = grid.row_block(x, 2).clone().requires_grad_(True)
-        with sharded_rows(grid, (height, width)):
+        # a train-mode BatchNorm takes the statistics of every rank's rows
+        sync = grid.group("spatial") if " train" in name else None
+        with sharded_rows(grid, (height, width)), \
+                blocks.sync_batch_norm(sync):
             y = f(x)
         if y.dim() == 4:
             lo, hi = owned_rows(g.shape[2], world, rank)
@@ -452,8 +510,8 @@ def _step_refusal(grid, height, model):
 
 
 def _grid_model(data):
-    """The ``.npz``'s model (``unet_type`` and ``use_batch_norm`` where it
-    names them) with its weights."""
+    """The ``.npz``'s model (``unet_type``, ``use_batch_norm`` and
+    ``use_instance_norm`` where it names them) with its weights."""
     from rangeclip_tpu_torch.models.depth_unet import (
         DepthUNet,
         DepthUNetConfig,
@@ -462,6 +520,7 @@ def _grid_model(data):
     model = DepthUNet(DepthUNetConfig(
         unet_type=str(data.get("unet_type", "resnet")),
         use_batch_norm=bool(data.get("use_batch_norm", True)),
+        use_instance_norm=bool(data.get("use_instance_norm", False)),
         encoder_filters=tuple(int(f) for f in data["filters"]),
         embedding_dim=int(data["dim"])))
     model.load_state_dict({k[3:]: torch.from_numpy(v)
@@ -508,9 +567,11 @@ def _grid_predicts(data):
 def _grid_steps(data):
     """The global-batch step on each grid of ``grids`` (the class tables
     split over 'model' where it has more than one rank, the draws of the
-    whole batch), and, where the ``.npz`` names a grid ``big.grid``, the
-    bf16 packed-CE step at C = 2048 on it with model-sharded tables."""
-    from rangeclip_tpu_torch.losses.hybrid import Draws, HybridLossConfig
+    whole batch); where the ``.npz`` names ``inorm.grids``, the same step
+    of its ``inorm.`` model (keyed ``("inorm",) + shape``); and, where it
+    names a grid ``big.grid``, the bf16 packed-CE step at C = 2048 on it
+    with model-sharded tables."""
+    from rangeclip_tpu_torch.losses.hybrid import HybridLossConfig
     from rangeclip_tpu_torch.parallel.dryrun import (
         _snapshot,
         native_cpu_convolutions,
@@ -519,39 +580,25 @@ def _grid_steps(data):
         make_grid,
         shard_class_tables,
     )
-    from rangeclip_tpu_torch.training.state import (
-        TrainState,
-        create_train_state,
-    )
+    from rangeclip_tpu_torch.training.state import create_train_state
     from rangeclip_tpu_torch.training.train_step import make_train_step
 
     t = torch.from_numpy
     keys = ("depth", "segmentation", "object_label", "image_embeddings",
             "sample_valid")
     result = {}
-    for shape in data["grids"]:
-        A = data["depth"].shape[0]
-        grid = make_grid(*(int(v) for v in shape))
-        if grid is None:
-            continue
-        model = _grid_model(data)
-        state = TrainState(model, torch.optim.SGD(model.parameters(),
-                                                  lr=0.0))
-        batch = grid.local_batch({k: t(data[k]) for k in keys}, 1)
-        tables = shard_class_tables(
-            t(data["text"]), t(data["medium"]), t(data["hard"]),
-            grid.n_model > 1, grid)
-        draws = [Draws(t(data[f"pixels.{i}"]),
-                       (t(data[f"gumbel0.{i}"]), t(data[f"gumbel1.{i}"])))
-                 for i in range(A)]
-        step = make_train_step(HybridLossConfig(), A, group=grid)
-        state, info = step(state, batch, (0, 0), float(data["lr"]), 0.25,
-                           0.5, *tables, draws=draws)
-        result[tuple(int(v) for v in shape)] = {
-            "state": model.state_dict(),
-            "grads": {n: p.grad for n, p in model.named_parameters()
-                      if p.grad is not None},
-            "info": {k: float(v) for k, v in info.items()}}
+    runs = [((), data)]
+    if "inorm.grids" in data:  # the instance-norm model on its grids
+        runs.append((("inorm",), {
+            **{k: v for k, v in data.items() if not k.startswith("sd.")},
+            **{k[6:]: v for k, v in data.items()
+               if k.startswith("inorm.")}}))
+    for tag, part in runs:
+        for shape in part["grids"]:
+            grid = make_grid(*(int(v) for v in shape))
+            if grid is not None:
+                result[tag + tuple(int(v) for v in shape)] = _grid_step(
+                    part, grid)
     grid = (make_grid(*(int(v) for v in data["big.grid"]))
             if "big.grid" in data else None)
     if grid is not None:
@@ -568,6 +615,38 @@ def _grid_steps(data):
                                *tables)
         result["big"] = _snapshot(state, info)
     return result
+
+
+def _grid_step(data, grid):
+    """The global-batch step of the ``.npz``'s model on ``grid``, with
+    the draws of the whole batch: its state, gradients and info."""
+    from rangeclip_tpu_torch.losses.hybrid import Draws, HybridLossConfig
+    from rangeclip_tpu_torch.parallel.mesh import shard_class_tables
+    from rangeclip_tpu_torch.training.state import TrainState
+    from rangeclip_tpu_torch.training.train_step import make_train_step
+
+    t = torch.from_numpy
+    keys = ("depth", "segmentation", "object_label", "image_embeddings",
+            "sample_valid")
+    A = data["depth"].shape[0]
+    model = _grid_model(data)
+    state = TrainState(model, torch.optim.SGD(model.parameters(),
+                                              lr=0.0))
+    batch = grid.local_batch({k: t(data[k]) for k in keys}, 1)
+    tables = shard_class_tables(
+        t(data["text"]), t(data["medium"]), t(data["hard"]),
+        grid.n_model > 1, grid)
+    draws = [Draws(t(data[f"pixels.{i}"]),
+                   (t(data[f"gumbel0.{i}"]), t(data[f"gumbel1.{i}"])))
+             for i in range(A)]
+    step = make_train_step(HybridLossConfig(), A, group=grid)
+    state, info = step(state, batch, (0, 0), float(data["lr"]), 0.25,
+                       0.5, *tables, draws=draws)
+    return {
+        "state": model.state_dict(),
+        "grads": {n: p.grad for n, p in model.named_parameters()
+                  if p.grad is not None},
+        "info": {k: float(v) for k, v in info.items()}}
 
 
 def _grid_run(rank, world, store, path, out, mode):
