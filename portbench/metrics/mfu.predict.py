@@ -1,0 +1,12 @@
+"""Per cent of the card's bf16 peak (989 TFLOP/s, at its full 700 W)
+that the measured window's rate reaches: maps/s times the FLOPs of one
+map as the reference counts them (the unfolded forward and the scoring
+of the live candidates)."""
+
+from portbench.yardstick import PEAK_FLOPS
+
+
+def read(run):
+    if run.kind != "predict" or run.rate <= 0:
+        return None
+    return 100.0 * run.rate * run.flops_per_map / PEAK_FLOPS["bf16"]
